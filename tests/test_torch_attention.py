@@ -1,0 +1,119 @@
+"""The port's fused-QKV attention against the JAX package's.
+
+On the CPU the port's `attention_qkv` runs its plain PyTorch version; the
+JAX `attention_qkv` runs its Pallas kernels in interpret mode, as the JAX
+package's own tests run them. Inputs are made with numpy from a seed and
+handed to both. The CUDA kernel itself is held against the plain version
+on the card (the `cuda` test below, and chip_smoke.py).
+
+Tolerances: f32 on both sides, differing only in summation order, so
+2e-5 absolute (outputs are O(1)).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_cpp_tpu.ops.flash_attention import attention_qkv as jax_attention_qkv
+from vit_cpp_tpu_torch.ops import flash_attention as port
+
+ATOL = 2e-5
+
+
+def _qkv(b, t, nh, d, seed):
+    return np.random.default_rng(seed).standard_normal((b, t, 3 * nh * d)).astype(np.float32)
+
+
+def _both(qkv, nh, **kw):
+    sizes = kw.pop("sizes", None)
+    ref = jax_attention_qkv(
+        jnp.asarray(qkv), nh, sizes=None if sizes is None else jnp.asarray(sizes), **kw
+    )
+    got = port.attention_qkv(
+        torch.from_numpy(qkv), nh,
+        sizes=None if sizes is None else torch.from_numpy(sizes), **kw,
+    )
+    return np.asarray(ref), got.numpy()
+
+
+@pytest.mark.parametrize(
+    "b,t,nh,d",
+    [
+        (2, 37, 2, 64),  # d=64: the TPU pair kernel
+        (1, 29, 3, 64),  # odd head count: pair kernel + the _sdpa tail
+        (2, 21, 2, 80),  # d=80 (ViT-H): the full-block carve kernel
+    ],
+)
+@pytest.mark.parametrize("fast", [False, True])
+def test_plain_matches_jax(b, t, nh, d, fast):
+    ref, got = _both(_qkv(b, t, nh, d, seed=t + nh), nh, fast=fast)
+    assert got.shape == (b, t, nh * d)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_key_mask_ignores_garbage_pad_rows(fast):
+    # token-padded input: rows >= kv hold adversarial garbage (scores far
+    # above the real maximum); the real rows must match the unpadded
+    # attention, and the port writes zeros into the pad rows
+    t, kv, nh, d = 24, 19, 2, 64
+    qkv = _qkv(1, t, nh, d, seed=5)
+    qkv[:, kv:] = 1e4
+    ref, got = _both(qkv, nh, fast=fast, kv=kv)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[:, :kv], ref[:, :kv], atol=ATOL, rtol=0)
+    unpadded = port.attention_qkv(torch.from_numpy(qkv[:, :kv].copy()), nh, fast=fast)
+    np.testing.assert_allclose(got[:, :kv], unpadded.numpy(), atol=ATOL, rtol=0)
+    assert not got[:, kv:].any()
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_tome_sizes(fast):
+    b, t, nh, d = 2, 17, 2, 64
+    sizes = np.random.default_rng(9).integers(1, 5, (b, t)).astype(np.float32)
+    ref, got = _both(_qkv(b, t, nh, d, seed=11), nh, fast=fast, sizes=sizes)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+def test_fast_clamp_saturates_like_jax():
+    # scores * log2(e) above 120: the fast softmax ties them at the clamp
+    # instead of overflowing, in both packages
+    qkv = _qkv(1, 9, 2, 64, seed=2) * 6.0
+    ref, got = _both(qkv, 2, fast=True)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def test_cpu_runs_plain_version_and_counts_no_launch():
+    before = port.KERNEL.launches
+    qkv = torch.from_numpy(_qkv(1, 5, 2, 8, seed=0))
+    out = port.attention_qkv(qkv, 2, fast=True)
+    torch.testing.assert_close(
+        out, port.attention_qkv_plain(qkv, 2, fast=True), rtol=0, atol=0
+    )
+    assert port.KERNEL.launches == before == 0
+
+
+def test_rejects_bad_arguments():
+    qkv = torch.zeros(1, 4, 12)
+    with pytest.raises(ValueError):
+        port.attention_qkv(qkv, 3, kv=2, sizes=torch.ones(1, 4))
+    with pytest.raises(ValueError):
+        port.attention_qkv(qkv, 3, kv=5)
+    with pytest.raises(ValueError):
+        port.attention_qkv(torch.zeros(1, 4, 10), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    qkv = torch.from_numpy(_qkv(2, 197, 12, 64, seed=1)).to("cuda", dt)
+    for kw in ({"fast": True}, {"fast": False}, {"fast": False, "kv": 190}):
+        got = port.attention_qkv(qkv, 12, **kw).float()
+        ref = port.attention_qkv_plain(qkv, 12, **kw).float()
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got, ref, atol=tol, rtol=0)

@@ -1,0 +1,21 @@
+"""vit_cpp_tpu_torch — the PyTorch / CUDA port of vit_cpp_tpu for NVIDIA Hopper.
+
+A second package beside the JAX one, which stays the reference. Module
+paths and function names mirror vit_cpp_tpu's, so each counterpart is
+found under the same name:
+
+- ``ops``     — layernorm/linear/attention (``core``), the W8A8 matmul
+                (``int8_matmul``), the fused-QKV attention CUDA kernel and
+                its plain version (``flash_attention``), preprocessing;
+- ``quant``   — channelwise int8 weights (``int8``);
+- ``models``  — parameter loading (``params``), LayerNorm folding
+                (``fold``), the ViT forward (``vit``);
+- ``engine``, ``server``, ``cli.server`` — the serving path;
+- ``csrc``    — CUDA C++ kernels for sm_90a, built by ``_build``.
+
+The package imports torch and never jax. From the JAX package it uses
+only modules that load no JAX: hparams, the gguf reader/writer, the image
+decode and the HTTP handler of server.py.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,151 @@
+"""The ViT forward pass over a parameter tree of torch tensors.
+
+Counterpart of vit_cpp_tpu/models/vit.py, with the same numerics:
+
+- patch embedding is a reshape + one (c*p*p, h) matmul, not a conv;
+- per block: LN -> fused QKV matmul -> attention -> proj -> residual;
+  LN -> fc1 -> GELU -> fc2 -> residual;
+- head: the CLS token (or the mean of the patch tokens for avg-pool
+  models; the mean of two heads for DeiT-distilled ones) -> LN -> linear.
+
+A Python loop over the L stacked blocks takes the place of `lax.scan`.
+`attn_impl` keeps the JAX flag values: "pallas" / "pallas-fast" run the
+fused-QKV attention kernel (ops/flash_attention.py), "xla" the composed
+split-head attention. ToMe, token padding, V-MoE, attention pooling and
+sequence heads are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from vit_cpp_tpu.hparams import VitHParams
+from vit_cpp_tpu_torch.ops.core import attention, layernorm, linear, mlp_act
+from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv
+
+ATTN_IMPLS = ("xla", "pallas", "pallas-fast")
+
+
+def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B, n_patches, C*p*p), row-major over the patch grid
+    with [c, py, px] feature order (the flattened conv weight's order)."""
+    b, c, hh, ww = images.shape
+    gh, gw = hh // patch, ww // patch
+    x = images.reshape(b, c, gh, patch, gw, patch)
+    x = x.permute(0, 2, 4, 1, 3, 5)  # (B, gh, gw, c, p, p)
+    return x.reshape(b, gh * gw, c * patch * patch)
+
+
+def embed(params: Dict[str, Any], images: torch.Tensor, hp: VitHParams) -> torch.Tensor:
+    """Patch-embed + prefix token(s) + positional embeddings -> (B, T, h)."""
+    dtype = params["patch_embed"]["kernel"].dtype
+    patches = patchify(images.to(dtype), hp.patch_size)
+    x = linear(patches, params["patch_embed"]["kernel"], params["patch_embed"]["bias"])
+    b, h = x.shape[0], hp.hidden_size
+    prefix = [
+        params[k].to(dtype).expand(b, 1, h)
+        for k in ("cls_token", "dist_token")
+        if k in params
+    ]
+    if "reg_token" in params:
+        reg = params["reg_token"].to(dtype)
+        prefix.append(reg[None].expand(b, reg.shape[0], h))
+    pos = params["pos_embed"].to(dtype)[None]
+    if hp.no_embed_class:
+        x = torch.cat(prefix + [x + pos], dim=1)
+    else:
+        x = torch.cat(prefix + [x], dim=1) + pos
+    if "norm_pre" in params:
+        x = layernorm(x, params["norm_pre"]["scale"], params["norm_pre"]["bias"], hp.eps)
+    return x
+
+
+def _attn_half(x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str) -> torch.Tensor:
+    """LN1 -> QKV -> attention -> proj -> residual."""
+    b, t, h = x.shape
+    nh, hd = hp.num_attention_heads, hp.head_dim
+    y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
+    qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"])
+    if attn_impl in ("pallas", "pallas-fast"):
+        o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast")
+    elif attn_impl == "xla":
+        q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        o = attention(q, k, v).permute(0, 2, 1, 3).reshape(b, t, h)
+    else:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"])
+
+
+def transformer_block(x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str) -> torch.Tensor:
+    """One encoder block."""
+    x = _attn_half(x, bp, hp, attn_impl=attn_impl)
+    y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
+    y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"])
+    y = mlp_act(hp.hidden_act)(y)
+    y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+    return x + y
+
+
+def slice_block_params(tree, i: int):
+    """Layer i's parameters out of the stacked blocks subtree."""
+    if isinstance(tree, dict):
+        return {k: slice_block_params(v, i) for k, v in tree.items()}
+    return None if tree is None else tree[i]
+
+
+def _head(params: Dict[str, Any], x: torch.Tensor, hp: VitHParams) -> torch.Tensor:
+    """Pooling readout + classifier head."""
+    norm = params["norm"]
+    if "head" not in params:
+        raise NotImplementedError(
+            "headless encoders serve embeddings, which vit_cpp_tpu_torch "
+            "does not port yet (features_batch and the embed route)"
+        )
+    if "head_dist" in params:
+        # DeiT distilled: LN over both prefix tokens, mean of the two heads
+        pooled = layernorm(x[:, :2], norm["scale"], norm["bias"], hp.eps)
+        return (
+            linear(pooled[:, 0], params["head"]["kernel"], params["head"]["bias"])
+            + linear(pooled[:, 1], params["head_dist"]["kernel"], params["head_dist"]["bias"])
+        ) * 0.5
+    if hp.global_pool == "avg":
+        pooled = x[:, hp.n_prefix:].mean(dim=1)
+    else:
+        pooled = x[:, 0]
+    pooled = layernorm(pooled, norm["scale"], norm["bias"], hp.eps)
+    return linear(pooled, params["head"]["kernel"], params["head"]["bias"])
+
+
+def forward(
+    params: Dict[str, Any],
+    images: torch.Tensor,
+    hp: VitHParams,
+    *,
+    attn_impl: str = "xla",
+    pad_tokens: bool = False,
+    tome: int = 0,
+) -> torch.Tensor:
+    """Preprocessed images (B, C, H, W) -> logits (B, num_classes)."""
+    if pad_tokens or tome:
+        raise NotImplementedError(
+            "token padding and ToMe merging are not ported to "
+            "vit_cpp_tpu_torch yet (the attention kernel already takes "
+            "their kv / sizes inputs)"
+        )
+    if hp.seq_len is not None or hp.global_pool == "map" or hp.num_experts:
+        raise NotImplementedError(
+            "sequence heads (ViTSTR), attention pooling and V-MoE are not "
+            "ported to vit_cpp_tpu_torch yet"
+        )
+    x = embed(params, images, hp)
+    for i in range(hp.num_hidden_layers):
+        bp = slice_block_params(params["blocks"], i)
+        x = transformer_block(x, bp, hp, attn_impl=attn_impl)
+    return _head(params, x, hp)
+
+
+def predict_probs(params, images, hp, **kw) -> torch.Tensor:
+    """Forward + f32 softmax over the classes."""
+    return torch.softmax(forward(params, images, hp, **kw).float(), dim=-1)

@@ -1,0 +1,135 @@
+"""Fused-QKV attention: the hand-written CUDA kernel and its plain version.
+
+Counterpart of vit_cpp_tpu/ops/flash_attention.py::attention_qkv, the one
+TPU kernel on the serving path. The (B, T, 3h) output of the fused QKV
+projection goes in, [q | k | v] on the feature axis with heads contiguous
+inside each third (timm order); (B, T, h) comes out, softmax(Q K^T /
+sqrt(d)) V per head.
+
+- On a CUDA tensor, `attention_qkv` launches csrc/attention_qkv.cu (built
+  by _build.py) or raises; it never falls back.
+- On a CPU tensor, it runs `attention_qkv_plain`: the same arithmetic in
+  plain PyTorch (the TPU kernel's `_sdpa` math, batched over heads). The
+  tests hold it against the JAX function; chip_smoke.py holds the kernel
+  against it on the card.
+
+Both keep the TPU kernel's numerics: Q scaled by log2(e)/sqrt(d) in f32
+and rounded to the input dtype, f32 scores, exp2 softmax (fast: scores
+clamped at 120 with no row max; safe: the row max over the real keys is
+subtracted), the key mask and ToMe `sizes` applied to p, an f32 row sum,
+p rounded to the input dtype for P V with f32 accumulation, and the
+division after P V. With `kv`, keys >= kv get zero weight and query rows
+>= kv come out as zeros (the JAX kernels leave them unread garbage).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from vit_cpp_tpu_torch._build import Kernel, check, library
+
+KERNEL = Kernel(
+    "attention_qkv",
+    source="vit_cpp_tpu_torch/csrc/attention_qkv.cu",
+    replaces="vit_cpp_tpu/ops/flash_attention.py:669",
+)
+
+_LOG2E = 1.4426950408889634
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_args(qkv: torch.Tensor, num_heads: int, kv, sizes):
+    if qkv.ndim != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"qkv must be (B, T, 3h), got {tuple(qkv.shape)}")
+    b, t, three_h = qkv.shape
+    h = three_h // 3
+    if num_heads < 1 or h % num_heads:
+        raise ValueError(f"hidden {h} is not a multiple of {num_heads} heads")
+    if sizes is not None and kv is not None:
+        raise ValueError("sizes (tome) and kv (pad_tokens) are exclusive")
+    if kv is not None and not 1 <= kv <= t:
+        raise ValueError(f"kv={kv} must lie in [1, T={t}]")
+    if sizes is not None and tuple(sizes.shape) != (b, t):
+        raise ValueError(f"sizes must be (B, T)={(b, t)}, got {tuple(sizes.shape)}")
+    return b, t, h, h // num_heads
+
+
+def attention_qkv_plain(
+    qkv: torch.Tensor,
+    num_heads: int,
+    *,
+    fast: bool = False,
+    kv: Optional[int] = None,
+    sizes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the kernel (any device)."""
+    b, t, h, d = _check_args(qkv, num_heads, kv, sizes)
+    n = t if kv is None else kv
+    x = qkv[:, :n].reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0], x[1], x[2]  # (B, nh, n, d)
+    scale = _LOG2E / math.sqrt(d)
+    qs = (q.float() * scale).to(qkv.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if fast:
+        s = torch.clamp(s, max=120.0)
+    else:
+        s = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s)
+    if sizes is not None:
+        p = p * sizes.float()[:, None, None, :]
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / l
+    o = o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, h)
+    if n < t:
+        o = torch.cat([o, o.new_zeros(b, t - n, h)], dim=1)
+    return o
+
+
+def attention_qkv(
+    qkv: torch.Tensor,
+    num_heads: int,
+    *,
+    fast: bool = False,
+    kv: Optional[int] = None,
+    sizes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, T, 3h) fused-projection output -> (B, T, h) attention output.
+
+    `fast` clamps the scores at 120 instead of subtracting the row max
+    (attn_impl="pallas-fast"). `kv` is the number of real tokens of a
+    token-padded input. `sizes` (B, T) are ToMe merged-token counts
+    (proportional attention); exclusive with `kv`."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, fast=fast, kv=kv, sizes=sizes)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_qkv: unsupported device {qkv.device}")
+    b, t, h, d = _check_args(qkv, num_heads, kv, sizes)
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(f"attention_qkv kernel takes f32/bf16, got {qkv.dtype}")
+    if d % 8 or d > 128:
+        raise ValueError(f"attention_qkv kernel takes d % 8 == 0, d <= 128; got d={d}")
+    if not qkv.is_contiguous():
+        raise ValueError("attention_qkv kernel needs a contiguous qkv")
+    if sizes is not None:
+        if sizes.device != qkv.device or sizes.dtype != torch.float32:
+            raise ValueError("sizes must be float32 on the qkv's device")
+        if not sizes.is_contiguous():
+            raise ValueError("attention_qkv kernel needs contiguous sizes")
+    out = torch.empty((b, t, h), dtype=qkv.dtype, device=qkv.device)
+    lib = library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.vit_attention_qkv(
+            qkv.data_ptr(),
+            None if sizes is None else sizes.data_ptr(),
+            out.data_ptr(),
+            b, t, num_heads, d, t if kv is None else kv,
+            _LOG2E / math.sqrt(d), int(fast), _DTYPES[qkv.dtype],
+            stream,
+        )
+    check(rc, "attention_qkv kernel launch")
+    KERNEL.counted()
+    return out

@@ -1,25 +1,43 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 1. Device: needs a CUDA card (exits nonzero without one); prints its name,
    compute capability and `nvidia-smi` name/power limit.
 2. Build: compiles the port's CUDA kernels from vit_cpp_tpu_torch/csrc
-   with nvcc (sm_90a) and prints the build time and ptxas's report.
-3. Kernels: runs the fused-QKV attention kernel against its plain PyTorch
-   version on the card at the repo's geometries (ViT-B/16, B/8, H/14,
-   g/14; fast and safe softmax, key mask, ToMe sizes, bf16 and f32),
-   prints each case's largest error and tolerance, and times kernel and
-   plain version with CUDA events at the ViT-B/16 serving shape.
-4. Slice: writes a synthetic ViT-B/16 @224 f16 checkpoint (random weights
-   from a seed), builds the engine with the serving defaults (bf16, W8A8
-   int8 linears, fused-QKV attention with the fast softmax, LayerNorm
-   folded), starts the HTTP daemon (batch 8, warm-up), POSTs the ten
-   images of assets/ concurrently, and checks every answer: status 200, a
-   top-5 whose probabilities agree with an f32 dense engine on the same
-   card, /stats counting every request, and 12 attention-kernel launches
-   per device batch.
+   with nvcc (sm_90a, one nvcc per source, all at once) and prints the
+   build time and ptxas's report.
+3. Kernels, each against its plain PyTorch version on the card, with each
+   case's largest error beside its stated tolerance:
+   - attention_qkv (fused-QKV attention) at the repo's geometries (ViT-B/16,
+     B/8, H/14, g/14; fast and safe softmax, key mask, ToMe sizes, bf16
+     and f32);
+   - dequant_matmul (block-dequantizing matmul) at the ViT-B/16 serving
+     shapes in bf16 over all five block formats, one f32 case, one with
+     leading dims and one with N=1001 (no vector loads on a row);
+   - flash_attention (split-head attention) at (8, 12, 197, 64) in bf16
+     and f32 and at d=80, T=257.
+   Then times kernel and plain version with CUDA events at the ViT-B/16
+   serving shapes.
+4. Paths, each driven through the entry points a user calls, with every
+   kernel's launch count set to 0 just before and read just after:
+   a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
+      (random weights from a seed) served with the defaults (bf16, W8A8
+      int8 linears, fused-QKV attention with the fast softmax, LayerNorm
+      folded), batch 8; 12 attention launches per device batch;
+   b. the block-quantized daemon: the same checkpoint quantized to Q8_0
+      by vit_cpp_tpu_torch.cli.quantize and served with --mm pallas (bf16,
+      fold off); 49 dequant_matmul and 12 attention launches per device
+      batch;
+   c. the flagship configuration on the Q8_0 file (int8, fold on),
+      forward only, against the f32 reference;
+   d. the split-head attention entry point, ops.core.attention(impl=
+      "pallas"), over the 12 layers' worth of ViT-B/16 q, k, v (no model
+      path of the JAX package reaches it).
+   The daemons get the ten images of assets/ concurrently; every answer
+   must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
+   attn=xla) on the same file and card, and /stats must count them all.
 
 Every phase raises on failure, so the script exits nonzero and prints no
 result. On success the last lines are a JSON line with each kernel's
@@ -33,7 +51,9 @@ import sys
 
 sys.modules["jax"] = None  # the port runs without JAX: any import raises
 
+import contextlib
 import glob
+import io
 import json
 import os
 import re
@@ -50,12 +70,35 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# dequant_matmul vs its plain version (the same bf16-rounded weights, then
+# torch.matmul), relative to max|plain|: the two sum in different orders
+# in f32 (~1e-6 relative at K <= 3072), and a bf16 output can then round
+# one step apart, which is at most 2^-7 = 7.8e-3 of max|plain|. f32
+# output: summation order only.
+QMM_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 # Served top-5 probabilities vs the f32 dense engine (dtype=f32, mm=xla,
 # attn=xla) on the same pixels: bf16 activations + W8A8 int8 linears move
 # the probabilities of this synthetic ViT-B/16 (1000 classes, each ~0.01)
 # by at most 0.00142 absolute, measured with the port's plain PyTorch path
 # on the CPU over the ten assets; the limit leaves 3.5x margin.
 PROB_TOL = 5e-3
+# Q8_0 file served with --mm pallas (bf16 activations, the dequantizing
+# kernel, fused attention) vs the f32 engine (mm=xla, attn=xla) on the
+# same file: only bf16 rounding of activations and weights differs. An
+# H100 measured at most 3.97e-4 over the ten assets; the limit leaves
+# 12x margin.
+Q8_PROB_TOL = 5e-3
+# The flagship configuration (int8 W8A8 requantized from Q8_0, LayerNorm
+# folded, bf16) vs the same f32 engine, over all 1000 probabilities of the
+# ten images: W8A8 adds a second int8 rounding of weights and per-token
+# activation codes. An H100 measured at most 1.77e-3; the limit leaves
+# 2.8x margin.
+FLAGSHIP_TOL = 5e-3
+
+VIT_B16 = dict(
+    hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+    num_classes=1000, patch_size=16, img_size=224,
+)
 
 
 def log(msg: str) -> None:
@@ -82,6 +125,15 @@ def cuda_ms(fn, iters: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_pair(what: str, card: str, kern, plain):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain);
+    (mean kernel ms, mean plain ms)."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+    log(f"timing {what} on {card}: kernel {k1:.4f} / {k2:.4f} ms, "
+        f"plain {p1:.4f} / {p2:.4f} ms per call")
+    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def check_kernels(card: str):
@@ -133,22 +185,109 @@ def check_kernels(card: str):
         if main_err is None:
             main_err = err
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     times = {}
     for b in (8, 64):
         qkv = qkv_of(b, 197, 768, bf16)
-
-        def kern():
-            attention_qkv(qkv, 12, fast=True)
-
-        def plain():
-            attention_qkv_plain(qkv, 12, fast=True)
-
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
-        times[b] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        log(f"timing attention_qkv ViT-B/16 B={b} T=197 h=768 bf16 fast on {card}: "
-            f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call")
+        times[b] = time_pair(
+            f"attention_qkv ViT-B/16 B={b} T=197 h=768 bf16 fast", card,
+            lambda: attention_qkv(qkv, 12, fast=True),
+            lambda: attention_qkv_plain(qkv, 12, fast=True),
+        )
     return main_err, times
+
+
+def _quant_linear(rng, k: int, n: int, qtype):
+    """A random (n, k) weight quantized to `qtype` and loaded as the
+    params loader loads it: a QuantLinear on the card."""
+    from vit_cpp_tpu.gguf.reader import TensorRecord
+    from vit_cpp_tpu_torch.quant.blocks import quantize
+    from vit_cpp_tpu_torch.quant.qlinear import quant_linear_from_record
+
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    raw = np.frombuffer(quantize(w, qtype).tobytes(), np.uint8)
+    return quant_linear_from_record(TensorRecord("w", (n, k), qtype, raw), device="cuda")
+
+
+def check_dequant_matmul(card: str):
+    from vit_cpp_tpu.gguf.dtypes import GGMLDType as G
+    from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
+
+    rng = np.random.default_rng(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, x shape, K, N, format, dtype
+        ("qkv", (1576,), 768, 2304, G.Q8_0, bf16),
+        ("proj", (1576,), 768, 768, G.Q5_0, bf16),
+        ("fc1", (1576,), 768, 3072, G.Q4_1, bf16),
+        ("fc2", (1576,), 3072, 768, G.Q4_0, bf16),
+        ("head", (8,), 768, 1000, G.Q5_1, bf16),
+        ("head N=1001 (scalar loads)", (8,), 768, 1001, G.Q8_0, bf16),
+        ("f32 qkv", (1576,), 768, 2304, G.Q4_1, f32),
+        ("leading dims (8, 197)", (8, 197), 768, 768, G.Q8_0, bf16),
+    ]
+    worst = 0.0
+    for name, lead, k, n, qt, dtype in cases:
+        w = _quant_linear(rng, k, n, qt)
+        x = torch.from_numpy(rng.standard_normal((*lead, k)).astype(np.float32)).to("cuda", dtype)
+        got = dequant_matmul(x, w)
+        ref = dequant_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        if got.shape != (*lead, n) or got.dtype != dtype:
+            raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = QMM_TOL[dtype] * scale
+        log(f"kernel case dequant_matmul {name:<22} M={int(np.prod(lead))} K={k} N={n} "
+            f"{qt.name} {str(dtype)[6:]}: max|kernel - plain| = {err:.3e} "
+            f"(tolerance {tol:.3e} = {QMM_TOL[dtype]:.0e} x max|plain|)")
+        if not err <= tol:
+            raise AssertionError(f"dequant_matmul {name}: error {err} > {tol}")
+        worst = max(worst, err)
+
+    times = {}
+    for name, m, k, n in (("qkv", 1576, 768, 2304), ("proj", 1576, 768, 768),
+                          ("fc1", 1576, 768, 3072), ("fc2", 1576, 3072, 768),
+                          ("qkv B=64", 12608, 768, 2304)):
+        w = _quant_linear(rng, k, n, G.Q8_0)
+        x = torch.randn((m, k), device="cuda").to(bf16)
+        times[name] = time_pair(
+            f"dequant_matmul ViT-B/16 {name} M={m} K={k} N={n} Q8_0 bf16", card,
+            lambda: dequant_matmul(x, w), lambda: dequant_matmul_plain(x, w),
+        )
+    return worst, times
+
+
+def check_flash_attention(card: str):
+    from vit_cpp_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for b, nh, t, d, dtype in ((8, 12, 197, 64, torch.bfloat16),
+                               (8, 12, 197, 64, torch.float32),
+                               (4, 16, 257, 80, torch.bfloat16)):
+        q, k, v = (torch.randn((b, nh, t, d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        got = flash_attention(q, k, v)
+        ref = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or got.dtype != dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {(b, nh, t, d)}: bad output")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = TOL[dtype]
+        log(f"kernel case flash_attention B={b} H={nh} T={t} D={d} {str(dtype)[6:]}: "
+            f"max|kernel - plain| = {err:.3e} (tolerance {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {(b, nh, t, d)}: error {err} > {tol}")
+        worst = max(worst, err)
+    q, k, v = (torch.randn((8, 12, 197, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    times = time_pair(
+        "flash_attention ViT-B/16 B=8 H=12 T=197 D=64 bf16", card,
+        lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
+    )
+    return worst, times
 
 
 def post(url: str, body: bytes):
@@ -162,91 +301,180 @@ def post(url: str, body: bytes):
     return status, out, (time.perf_counter() - t0) * 1000.0
 
 
-def run_slice():
-    from vit_cpp_tpu.hparams import VitHParams
-    from vit_cpp_tpu.server import decode_rgb_from_bytes
-    from vit_cpp_tpu.testing.synthetic import write_synthetic_model
-    from vit_cpp_tpu_torch.cli.common import build_engine
-    from vit_cpp_tpu_torch.engine import VitEngine
-    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
-    from vit_cpp_tpu_torch.server import create_server
-
+def asset_bodies():
     paths = sorted(
         p for p in glob.glob(os.path.join(HERE, "assets", "*"))
         if p.lower().endswith((".jpg", ".jpeg", ".png"))
     )
     if len(paths) != 10:
         raise AssertionError(f"expected the 10 images of assets/, found {len(paths)}")
-    bodies = [open(p, "rb").read() for p in paths]
-    hp = VitHParams(
-        hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
-        num_classes=1000, patch_size=16, img_size=224,
-    )
-    with tempfile.TemporaryDirectory() as tmp:
-        model = os.path.join(tmp, "vit-b16-synthetic-f16.gguf")
-        write_synthetic_model(model, hp, ftype=1, seed=0)
-        t0 = time.perf_counter()
-        engine, _ = build_engine(model, device="cuda")
-        log(f"engine: ViT-B/16 @224 synthetic f16, dtype={engine.dtype} "
-            f"mm={engine.mm_impl} attn={engine.attn_impl} on {engine.device}, "
-            f"load {engine.load_ms:.0f} ms")
-        httpd, batcher = create_server(engine, port=0, batch=8, max_wait_ms=5.0)
-        log(f"daemon: warmed up and bound in {time.perf_counter() - t0:.1f} s "
-            f"(port {httpd.server_port}, micro-batch 8)")
-        server = threading.Thread(target=httpd.serve_forever, daemon=True)
-        server.start()
-        base = f"http://127.0.0.1:{httpd.server_port}"
-        try:
-            KERNEL.reset()
-            with ThreadPoolExecutor(len(bodies)) as ex:
-                results = list(ex.map(lambda b: post(base + "/v1/classify?topk=5", b), bodies))
-            torch.cuda.synchronize()
-            launches = KERNEL.launches
-            with urllib.request.urlopen(base + "/stats", timeout=60) as r:
-                stats = json.loads(r.read())
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            batcher.close()
-            server.join(timeout=30)
+    return paths, [open(p, "rb").read() for p in paths]
 
-        ref = VitEngine(
-            model, dtype="f32", mm_impl="xla", attn_impl="xla",
-            device="cuda",
-        )
-        worst = 0.0
-        for path, body, (status, out, ms) in zip(paths, bodies, results):
-            if status != 200:
-                raise AssertionError(f"{os.path.basename(path)}: HTTP {status} {out}")
-            top = out["topk"]
-            if len(top) != 5:
-                raise AssertionError(f"{path}: top-5 has {len(top)} entries")
-            probs = np.array([e["prob"] for e in top])
-            if not (np.isfinite(probs).all() and (np.diff(probs) <= 0).all()):
-                raise AssertionError(f"{path}: bad top-5 {probs}")
-            pixels = ref.preprocess_image(decode_rgb_from_bytes(body))
-            want = ref.predict_probs_batch(pixels[None])[0].cpu().numpy()
-            err = float(np.abs(probs - want[[e["id"] for e in top]]).max())
-            worst = max(worst, err)
-            log(f"request {os.path.basename(path):<14} 200 in {ms:8.1f} ms  "
-                f"top-5 {[e['id'] for e in top]}  max|p - p_f32| = {err:.2e}")
-        log(f"top-5 vs f32 dense engine: worst {worst:.2e} (tolerance {PROB_TOL:.0e})")
-        if worst > PROB_TOL:
-            raise AssertionError(f"served probabilities off by {worst} > {PROB_TOL}")
-        log(f"/stats: {json.dumps(stats)}")
-        if stats["requests"] != len(bodies):
-            raise AssertionError(f"/stats counts {stats['requests']} requests, sent {len(bodies)}")
-        if launches != 12 * stats["batches"] or launches == 0:
+
+def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images):
+    """Serve the ten assets from `model` through the daemon built with
+    build_engine(mm=mm) and its defaults otherwise; check every answer
+    against the f32 engine on the same file (on `images`, the assets
+    decoded once) and each kernel's launches (per_batch: Kernel ->
+    launches per device batch). Returns {name: launches}."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.server import create_server
+
+    paths, bodies = asset_bodies()
+    t0 = time.perf_counter()
+    engine, _ = build_engine(model, mm=mm, device="cuda")
+    log(f"{what}: engine dtype={engine.dtype} mm={engine.mm_impl} "
+        f"attn={engine.attn_impl} fold={engine.params['norm']['scale'] is None} "
+        f"on {engine.device}, load {engine.load_ms:.0f} ms")
+    httpd, batcher = create_server(engine, port=0, batch=8, max_wait_ms=5.0)
+    log(f"{what}: daemon warmed up and bound in {time.perf_counter() - t0:.1f} s "
+        f"(port {httpd.server_port}, micro-batch 8)")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        for kernel in per_batch:
+            kernel.reset()
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            results = list(ex.map(lambda b: post(base + "/v1/classify?topk=5", b), bodies))
+        torch.cuda.synchronize()
+        launches = {kernel.name: kernel.launches for kernel in per_batch}
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        server.join(timeout=30)
+    del engine
+
+    ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda")
+    worst = 0.0
+    for path, img, (status, out, ms) in zip(paths, images, results):
+        if status != 200:
+            raise AssertionError(f"{os.path.basename(path)}: HTTP {status} {out}")
+        top = out["topk"]
+        if len(top) != 5:
+            raise AssertionError(f"{path}: top-5 has {len(top)} entries")
+        probs = np.array([e["prob"] for e in top])
+        if not (np.isfinite(probs).all() and (np.diff(probs) <= 0).all()):
+            raise AssertionError(f"{path}: bad top-5 {probs}")
+        pixels = ref.preprocess_image(img)
+        want = ref.predict_probs_batch(pixels[None])[0].cpu().numpy()
+        err = float(np.abs(probs - want[[e["id"] for e in top]]).max())
+        worst = max(worst, err)
+        log(f"{what}: request {os.path.basename(path):<14} 200 in {ms:8.1f} ms  "
+            f"top-5 {[e['id'] for e in top]}  max|p - p_f32| = {err:.2e}")
+    log(f"{what}: top-5 vs f32 engine on the same file: worst {worst:.2e} "
+        f"(tolerance {tol:.0e})")
+    if worst > tol:
+        raise AssertionError(f"{what}: served probabilities off by {worst} > {tol}")
+    log(f"{what}: /stats: {json.dumps(stats)}")
+    if stats["requests"] != len(bodies):
+        raise AssertionError(f"/stats counts {stats['requests']} requests, sent {len(bodies)}")
+    for kernel, each in per_batch.items():
+        n = launches[kernel.name]
+        if n != each * stats["batches"] or n == 0:
             raise AssertionError(
-                f"attention kernel launched {launches} times for "
-                f"{stats['batches']} device batches (want 12 per batch)"
+                f"{what}: {kernel.name} launched {n} times for "
+                f"{stats['batches']} device batches (want {each} per batch)"
             )
-        log(f"attention_qkv kernel launches in the served run: {launches} "
-            f"= 12 layers x {stats['batches']} device batches")
-        lat = sorted(ms for _, _, ms in results)
-        log(f"request latency ms: min {lat[0]:.1f} median {lat[len(lat) // 2]:.1f} "
-            f"max {lat[-1]:.1f}")
+        log(f"{what}: {kernel.name} launches in the served run: {n} "
+            f"= {each} x {stats['batches']} device batches")
+    lat = sorted(ms for _, _, ms in results)
+    log(f"{what}: request latency ms: min {lat[0]:.1f} median "
+        f"{lat[len(lat) // 2]:.1f} max {lat[-1]:.1f}")
     return launches
+
+
+def flagship_forward(q8: str, images) -> None:
+    """The serving defaults (int8 W8A8 requantized from Q8_0, LayerNorm
+    folded, bf16, fast fused attention) on the Q8_0 file, forward only,
+    against the f32 engine on the same file."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+
+    engine, _ = build_engine(q8, device="cuda")
+    pixels = torch.stack([engine.preprocess_image(img) for img in images])
+    got = engine.predict_probs_batch(pixels).cpu().numpy()
+    del engine
+    ref = VitEngine(q8, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda")
+    want = ref.predict_probs_batch(pixels).cpu().numpy()
+    if got.shape != (10, 1000) or not np.isfinite(got).all():
+        raise AssertionError(f"flagship: bad probabilities {got.shape}")
+    err = float(np.abs(got - want).max())
+    agree = int((got.argmax(1) == want.argmax(1)).sum())
+    log(f"flagship Q8_0 int8+fold forward: max|p - p_f32| over 10 x 1000 = "
+        f"{err:.2e} (tolerance {FLAGSHIP_TOL:.0e}); top-1 agrees on {agree}/10")
+    if err > FLAGSHIP_TOL:
+        raise AssertionError(f"flagship: probabilities off by {err} > {FLAGSHIP_TOL}")
+
+
+def split_head_path() -> int:
+    """ops.core.attention(impl="pallas") over 12 layers' worth of ViT-B/16
+    q, k, v at B=8: the split-head kernel's own entry point."""
+    from vit_cpp_tpu_torch.ops.core import attention
+    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    layers = [
+        [torch.randn((8, 12, 197, 64), generator=gen, device="cuda").to(torch.bfloat16)
+         for _ in range(3)]
+        for _ in range(12)
+    ]
+    FLASH_KERNEL.reset()
+    outs = [attention(q, k, v, impl="pallas") for q, k, v in layers]
+    torch.cuda.synchronize()
+    launches = FLASH_KERNEL.launches
+    for (q, k, v), o in zip(layers, outs):
+        ref = attention(q, k, v)  # the composed path
+        err = (o.float() - ref.float()).abs().max().item()
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"attention(impl='pallas') vs composed: {err}")
+    if launches != 12:
+        raise AssertionError(f"flash_attention launched {launches} times for 12 calls")
+    log(f"split-head attention entry point: 12 calls, {launches} flash_attention "
+        "launches, each within 2e-2 of the composed attention")
+    return launches
+
+
+def run_paths():
+    from vit_cpp_tpu.hparams import VitHParams
+    from vit_cpp_tpu.testing.synthetic import write_synthetic_model
+    from vit_cpp_tpu_torch.cli import quantize
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+
+    from vit_cpp_tpu.server import decode_rgb_from_bytes
+
+    images = [decode_rgb_from_bytes(b) for b in asset_bodies()[1]]
+    with tempfile.TemporaryDirectory() as tmp:
+        f16 = os.path.join(tmp, "vit-b16-synthetic-f16.gguf")
+        q8 = os.path.join(tmp, "vit-b16-synthetic-q8_0.gguf")
+        t0 = time.perf_counter()
+        write_synthetic_model(f16, VitHParams(**VIT_B16), ftype=1, seed=0)
+        log(f"checkpoint: ViT-B/16 @224 synthetic f16 written in {time.perf_counter() - t0:.1f} s")
+        f16_launches = serve(
+            "f16 W8A8 daemon", f16, "int8", {KERNEL: 12}, PROB_TOL, images
+        )
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = quantize.main([f16, q8, "8"])
+        lines = out.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError("cli.quantize failed:\n" + "\n".join(lines))
+        for line in lines:
+            if re.match(r"quantize_model_file: (model|quant) size|main: +quantize time", line):
+                log(f"cli.quantize: {line.strip()}")
+        q8_launches = serve(
+            "Q8_0 --mm pallas daemon", q8, "pallas", {QMM_KERNEL: 49, KERNEL: 12},
+            Q8_PROB_TOL, images,
+        )
+        flagship_forward(q8, images)
+    flash_launches = split_head_path()
+    return f16_launches, q8_launches, flash_launches
 
 
 def main() -> int:
@@ -255,10 +483,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from vit_cpp_tpu_torch import _build
-    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' bf16 products accumulate in f32 throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = nvidia_smi()
@@ -269,28 +500,34 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.library_path()
     _build.library()
-    log(f"build: {os.path.relpath(lib, HERE)} in {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
+    log(f"build: {os.path.relpath(lib, HERE)} from {len(_build.sources())} sources in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f} s)")
     regs = [int(w) for w in re.findall(r"Used (\d+) registers", _build.build_log)]
     spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", _build.build_log))
     if regs:
         log(f"  ptxas: {len(regs)} kernel instantiations, {min(regs)}-{max(regs)} "
             f"registers per thread, {spills} bytes of spills")
 
-    main_err, times = check_kernels(f"{kind} ({smi})")
-    launches = run_slice()
+    card = f"{kind} ({smi})"
+    k1_err, k1_times = check_kernels(card)
+    k4_err, k4_times = check_dequant_matmul(card)
+    k3_err, k3_times = check_flash_attention(card)
+    _, q8_launches, flash_launches = run_paths()
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
 
-    log(json.dumps({"kernels": [{
-        "name": KERNEL.name,
-        "route": "cuda",
-        "source": KERNEL.source,
-        "replaces": KERNEL.replaces,
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": times[8][0],
-        "plain_ms": times[8][1],
-    }]}))
+    def entry(kernel, launches, err, times):
+        return {
+            "name": kernel.name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": launches,
+            "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+        }
+
+    log(json.dumps({"kernels": [
+        entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[8]),
+        entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"]),
+        entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
+    ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

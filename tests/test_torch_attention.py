@@ -117,3 +117,63 @@ def test_kernel_matches_plain_on_card(dtype):
         ref = port.attention_qkv_plain(qkv, 12, **kw).float()
         tol = 1e-4 if dt == torch.float32 else 2e-2
         torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+
+
+def _bhtd(b, h, t, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize(
+    "b,h,t,d,dtype,atol",
+    [
+        (2, 3, 37, 64, "float32", ATOL),  # d=64
+        (1, 2, 29, 80, "float32", ATOL),  # d=80 (ViT-H)
+        # bf16 on both sides: Q, p and the output round to bf16 at the
+        # same places; one output step is 2^-8 of values up to ~2
+        (2, 2, 33, 64, "bfloat16", 2e-2),
+    ],
+    ids=["f32-d64", "f32-d80", "bf16-d64"],
+)
+def test_flash_attention_plain_matches_jax(b, h, t, d, dtype, atol):
+    from vit_cpp_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+    q, k, v = _bhtd(b, h, t, d, seed=t)
+    ref = jax_flash_attention(*(jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in (q, k, v)))
+    got = port.flash_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v))
+    )
+    assert got.shape == (b, h, t, d) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(ref.astype(jnp.float32)), atol=atol, rtol=0
+    )
+
+
+def test_core_attention_pallas_runs_the_split_head_path():
+    from vit_cpp_tpu_torch.ops.core import attention
+
+    q, k, v = (torch.from_numpy(a) for a in _bhtd(1, 2, 11, 64, seed=4))
+    before = port.FLASH_KERNEL.launches
+    got = attention(q, k, v, impl="pallas")
+    torch.testing.assert_close(got, port.flash_attention_plain(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(got, attention(q, k, v), atol=ATOL, rtol=0)
+    assert port.FLASH_KERNEL.launches == before == 0
+    with pytest.raises(ValueError):
+        port.flash_attention(q, k[:, :, :5], v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    before = port.FLASH_KERNEL.launches
+    for shape in ((2, 12, 197, 64), (1, 16, 257, 80)):
+        q, k, v = (torch.from_numpy(a).to("cuda", dt) for a in _bhtd(*shape, seed=7))
+        got = port.flash_attention(q, k, v).float()
+        ref = port.flash_attention_plain(q, k, v).float()
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+    assert port.FLASH_KERNEL.launches == before + 2

@@ -5,17 +5,22 @@ paths and function names mirror vit_cpp_tpu's, so each counterpart is
 found under the same name:
 
 - ``ops``     — layernorm/linear/attention (``core``), the W8A8 matmul
-                (``int8_matmul``), the fused-QKV attention CUDA kernel and
-                its plain version (``flash_attention``), preprocessing;
-- ``quant``   — channelwise int8 weights (``int8``);
+                (``int8_matmul``), the attention CUDA kernels and their
+                plain versions (``flash_attention``), the dequantizing
+                matmul kernel and its plain version (``qmatmul``),
+                preprocessing;
+- ``quant``   — the ggml block codec (``blocks``), block-quantized
+                weights (``qlinear``), channelwise int8 weights (``int8``);
 - ``models``  — parameter loading (``params``), LayerNorm folding
                 (``fold``), the ViT forward (``vit``);
 - ``engine``, ``server``, ``cli.server`` — the serving path;
+  ``cli.quantize`` — the quantize tool;
 - ``csrc``    — CUDA C++ kernels for sm_90a, built by ``_build``.
 
 The package imports torch and never jax. From the JAX package it uses
-only modules that load no JAX: hparams, the gguf reader/writer, the image
-decode and the HTTP handler of server.py.
+only modules that load no JAX: hparams, the gguf reader/writer/dtypes
+(never TensorRecord.as_f32 on a quantized record), the image decode and
+the HTTP handler of server.py.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels: the counterpart of
 vit_cpp_tpu/native/build.py for the device code.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (sm_90a) into one
-shared library with a plain C interface, which `ctypes` loads. No
-PyTorch header is included, so a build takes seconds. The library is
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (sm_90a),
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, which `ctypes` loads. No PyTorch header is
+included, so a build takes seconds. The library is
 built on first use, into `_kernels/` beside this file (listed in
 .gitignore), and is cached under the hash of the sources and flags: an
 edited source builds anew, an unchanged one loads the cached file.
@@ -31,7 +32,7 @@ CSRC = os.path.join(_DIR, "csrc")
 BUILD_DIR = os.path.join(_DIR, "_kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -74,16 +75,31 @@ def library_path() -> str:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in (s for s in sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", tmp, *objs]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append((link, proc.stdout, proc.returncode))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"kernel build failed: {' '.join(cmd)}\n{build_log}"
-        )
+    build_log = "".join(out for _, out, _ in logs)
+    for cmd, out, rc in logs:
+        if rc != 0:
+            raise RuntimeError(f"kernel build failed: {' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)  # atomic: a concurrent builder loads a whole file
     return lib
 
@@ -100,6 +116,18 @@ def library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,
+            ]
+            lib.vit_flash_attention.restype = ctypes.c_int
+            lib.vit_flash_attention.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.vit_dequant_matmul.restype = ctypes.c_int
+            lib.vit_dequant_matmul.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.vit_cuda_error_string.restype = ctypes.c_char_p
             lib.vit_cuda_error_string.argtypes = [ctypes.c_int]

@@ -1,9 +1,12 @@
 """Engine construction shared by the command-line tools.
 
 Counterpart of vit_cpp_tpu/cli/common.py::build_engine, for gguf
-checkpoints. The defaults are the serving ones: bf16 activations, W8A8
-int8 linears, the fused-QKV attention kernel with the fast softmax, and
-LayerNorm folded into the matmuls when serving int8.
+checkpoints (f16/f32 or block-quantized). The defaults are the serving
+ones: bf16 activations, W8A8 int8 linears, the fused-QKV attention kernel
+with the fast softmax, and LayerNorm folded into the matmuls when serving
+int8. `mm="pallas"` leaves fold off by default, as the JAX tool does, so
+every linear of a block-quantized file runs the dequantizing-matmul
+kernel.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
 """HTTP inference daemon on the PyTorch port.
 
 Counterpart of `vit-server` (vit_cpp_tpu/cli/server.py), with the same
-flags and defaults plus --device. Flags whose slice is not ported yet
-raise and name that slice.
+flags and defaults plus --device. It serves f16/f32 and block-quantized
+(Q4_0/Q4_1/Q5_0/Q5_1/Q8_0, written by vit_cpp_tpu_torch.cli.quantize)
+checkpoints: `--mm int8` (the default) requantizes the weights to W8A8
+at load, `--mm pallas` runs them through the dequantizing-matmul kernel.
+Flags whose slice is not ported yet raise and name that slice.
 
 Usage:
-  python -m vit_cpp_tpu_torch.cli.server -m model.gguf [--device cuda] --port 8000
+  python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
   curl -s -X POST --data-binary @magpie.jpeg localhost:8000/v1/classify?topk=5
 """
 

@@ -1,17 +1,23 @@
-// Fused-QKV multi-head attention for Hopper (sm_90a), CUDA C++.
+// Multi-head attention for Hopper (sm_90a), CUDA C++: one kernel, two
+// C entry points, each with its own launch counter in Python.
 //
-// Replaces the TPU kernels behind vit_cpp_tpu/ops/flash_attention.py::
-// attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel + _sdpa (any d, odd
-// head tails) and _qkv_lane_kernel (large T x h, via _attention_qkv_lane).
-// One kernel covers all of their shapes: T >= 1, d a multiple of 8 up to
-// 128, bf16 or f32, fast (clamped) and safe (max-subtracted) softmax, the
-// `kv` key mask and the ToMe `sizes` key weights.
+// vit_attention_qkv replaces the TPU kernels behind vit_cpp_tpu/ops/
+// flash_attention.py::attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel
+// + _sdpa (any d, odd head tails) and _qkv_lane_kernel (large T x h, via
+// _attention_qkv_lane). It covers all of their shapes: T >= 1, d a
+// multiple of 8 up to 128, bf16 or f32, fast (clamped) and safe
+// (max-subtracted) softmax, the `kv` key mask and the ToMe `sizes` key
+// weights. Its input qkv is the (B, T, 3h) output of the fused
+// projection, [q | k | v] on the feature axis with heads contiguous inside
+// each third (timm order); its output is (B, T, h).
 //
-// Input qkv is the (B, T, 3h) output of the fused projection, [q | k | v]
-// on the feature axis with heads contiguous inside each third (timm
-// order). Output is (B, T, h). Q, K and V are read by stride straight from
-// that layout and the output is written straight into (B, T, h): no head
-// split or merge transposes exist in device memory.
+// vit_flash_attention replaces flash_attention.py::flash_attention
+// (_bhtd_kernel -> _sdpa in safe mode): q, k, v and the output are
+// separate (B, H, T, D) tensors.
+//
+// The kernel reads Q, K and V through a (batch, head, token) stride set and
+// writes the output through another, so both layouts are read in place:
+// no head split or merge transposes exist in device memory.
 //
 // What bounds it on this card. At ViT-B/16 (T=197, h=768) attention is
 // about 4 T^2 h = 0.12 GFLOP per image per layer against ~1.2 MB of qkv
@@ -87,13 +93,19 @@ __host__ __device__ constexpr size_t smem_floats(int d, int dc) {
          (size_t)kBQ * kPStride;
 }
 
+// Element strides of a (batch, head, token, feature) view; feature stride 1.
+struct Strides {
+  long long batch, head, token;
+};
+
 // DC = ceil(d / 16): output columns per thread.
 template <typename T, int DC>
 __global__ void __launch_bounds__(kThreads)
-    attention_qkv_kernel(const T* __restrict__ qkv,
-                         const float* __restrict__ sizes, T* __restrict__ out,
-                         int seq, int nh, int d, int kv, float qscale,
-                         int fast) {
+    attention_kernel(const T* __restrict__ qg, const T* __restrict__ kg,
+                     const T* __restrict__ vg, Strides in,
+                     const float* __restrict__ sizes, T* __restrict__ out,
+                     Strides os, int seq, int d, int kv, float qscale,
+                     int fast) {
   extern __shared__ float smem[];
   const int dq = d + 1;       // Q and K row stride (odd: no bank conflicts)
   const int dv = 16 * DC;     // V row stride (zero-filled past d)
@@ -108,15 +120,16 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int head = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const int h = nh * d;
-  const size_t row_stride = 3 * (size_t)h;
-  const T* base = qkv + (size_t)b * seq * row_stride;
-  T* obase = out + (size_t)b * seq * h + (size_t)head * d;
+  const long long in_off = b * in.batch + head * in.head;
+  const T* qb = qg + in_off;
+  const T* kb = kg + in_off;
+  const T* vb = vg + in_off;
+  T* ob = out + b * os.batch + head * os.head;
 
   if (q0 >= kv) {  // every row of this tile is token padding
     for (int idx = tid; idx < kBQ * d; idx += kThreads) {
       const int r = idx / d, c = idx - (idx / d) * d;
-      if (q0 + r < seq) obase[(size_t)(q0 + r) * h + c] = Conv<T>::store(0.f);
+      if (q0 + r < seq) ob[(q0 + r) * os.token + c] = Conv<T>::store(0.f);
     }
     return;
   }
@@ -126,8 +139,7 @@ __global__ void __launch_bounds__(kThreads)
     const int t = q0 + r;
     float v = 0.f;
     if (t < seq) {
-      v = Conv<T>::round(
-          Conv<T>::load(base[(size_t)t * row_stride + head * d + c]) * qscale);
+      v = Conv<T>::round(Conv<T>::load(qb[t * in.token + c]) * qscale);
     }
     sQ[r * dq + c] = v;
   }
@@ -158,9 +170,8 @@ __global__ void __launch_bounds__(kThreads)
         const int t = k0 + r;
         float kval = 0.f, vval = 0.f;
         if (t < kv) {
-          const T* row = base + (size_t)t * row_stride + head * d + c;
-          kval = Conv<T>::load(row[h]);
-          if (pass == 1) vval = Conv<T>::load(row[2 * h]);
+          kval = Conv<T>::load(kb[t * in.token + c]);
+          if (pass == 1) vval = Conv<T>::load(vb[t * in.token + c]);
         }
         sK[r * dq + c] = kval;
         if (pass == 1) sV[r * dv + c] = vval;
@@ -248,48 +259,90 @@ __global__ void __launch_bounds__(kThreads)
       const int c = tx + 16 * j;
       if (c < d) {
         const float v = t < kv ? o[i][j] / l[i] : 0.f;
-        obase[(size_t)t * h + c] = Conv<T>::store(v);
+        ob[t * os.token + c] = Conv<T>::store(v);
       }
     }
   }
 }
 
+// The operands of one launch: Q, K, V and output pointers with their
+// strides, the ToMe sizes (or null) and the geometry.
+template <typename T>
+struct Args {
+  const T* q;
+  const T* k;
+  const T* v;
+  Strides in;
+  const float* sizes;
+  T* out;
+  Strides os;
+  int batch, seq, nh, d, kv;
+  float qscale;
+  int fast;
+};
+
 template <typename T, int DC>
-cudaError_t launch(const void* qkv, const void* sizes, void* out, int batch,
-                   int seq, int nh, int d, int kv, float qscale, int fast,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   static bool configured = false;
   const size_t max_bytes = smem_floats(16 * DC, DC) * sizeof(float);
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attention_qkv_kernel<T, DC>,
+        attention_kernel<T, DC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((seq + kBQ - 1) / kBQ, nh, batch);
-  const size_t bytes = smem_floats(d, DC) * sizeof(float);
-  attention_qkv_kernel<T, DC><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(sizes),
-      static_cast<T*>(out), seq, nh, d, kv, qscale, fast);
+  const dim3 grid((a.seq + kBQ - 1) / kBQ, a.nh, a.batch);
+  const size_t bytes = smem_floats(a.d, DC) * sizeof(float);
+  attention_kernel<T, DC><<<grid, kThreads, bytes, stream>>>(
+      a.q, a.k, a.v, a.in, a.sizes, a.out, a.os, a.seq, a.d, a.kv, a.qscale,
+      a.fast);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* qkv, const void* sizes, void* out, int batch,
-                     int seq, int nh, int d, int kv, float qscale, int fast,
-                     cudaStream_t stream) {
-  switch ((d + 15) / 16) {
-    case 1: return launch<T, 1>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 2: return launch<T, 2>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 3: return launch<T, 3>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 4: return launch<T, 4>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 5: return launch<T, 5>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 6: return launch<T, 6>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 7: return launch<T, 7>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
-    case 8: return launch<T, 8>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, stream);
+cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
+  switch ((a.d + 15) / 16) {
+    case 1: return launch<T, 1>(a, stream);
+    case 2: return launch<T, 2>(a, stream);
+    case 3: return launch<T, 3>(a, stream);
+    case 4: return launch<T, 4>(a, stream);
+    case 5: return launch<T, 5>(a, stream);
+    case 6: return launch<T, 6>(a, stream);
+    case 7: return launch<T, 7>(a, stream);
+    case 8: return launch<T, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+bool bad_geometry(int batch, int seq, int nh, int d) {
+  return batch < 1 || seq < 1 || nh < 1 || d < 8 || d > 128 || d % 8 != 0 ||
+         batch > 65535 || nh > 65535;
+}
+
+// Fused QKV: q | k | v thirds of (B, T, 3h) rows; output (B, T, h).
+template <typename T>
+cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
+                    int seq, int nh, int d, int kv, float qscale, int fast,
+                    cudaStream_t stream) {
+  const long long h = (long long)nh * d;
+  const T* base = static_cast<const T*>(qkv);
+  const Args<T> a{base, base + h, base + 2 * h, Strides{seq * 3 * h, d, 3 * h},
+                  static_cast<const float*>(sizes), static_cast<T*>(out),
+                  Strides{seq * h, d, h}, batch, seq, nh, d, kv, qscale, fast};
+  return dispatch<T>(a, stream);
+}
+
+// Split heads: q, k, v and output each (B, H, T, D); safe softmax.
+template <typename T>
+cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
+                     int batch, int nh, int seq, int d, float qscale,
+                     cudaStream_t stream) {
+  const Strides st{(long long)nh * seq * d, (long long)seq * d, d};
+  const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), st, nullptr, static_cast<T*>(out),
+                  st, batch, seq, nh, d, seq, qscale, 0};
+  return dispatch<T>(a, stream);
 }
 
 }  // namespace
@@ -301,15 +354,27 @@ extern "C" int vit_attention_qkv(const void* qkv, const void* sizes, void* out,
                                  int batch, int seq, int nh, int d, int kv,
                                  float qscale, int fast, int dtype,
                                  void* stream) {
-  if (batch < 1 || seq < 1 || nh < 1 || d < 8 || d > 128 || d % 8 != 0 ||
-      kv < 1 || kv > seq || batch > 65535 || nh > 65535) {
+  if (bad_geometry(batch, seq, nh, d) || kv < 1 || kv > seq) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
+    return (int)run_qkv<float>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
+    return (int)run_qkv<__nv_bfloat16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k, v, out: contiguous (B, H, T, D). dtype as above. Safe softmax.
+extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
+                                   void* out, int batch, int nh, int seq, int d,
+                                   float qscale, int dtype, void* stream) {
+  if (bad_geometry(batch, seq, nh, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_bhtd<float>(q, k, v, out, batch, nh, seq, d, qscale, s);
+  if (dtype == 1)
+    return (int)run_bhtd<__nv_bfloat16>(q, k, v, out, batch, nh, seq, d, qscale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,15 +1,18 @@
 """Inference engine: load once, classify many.
 
 Counterpart of vit_cpp_tpu/engine.py::VitEngine. The engine reads a gguf
-checkpoint onto one `device`, applies the serving rewrites the flags
-select (W8A8 int8 linears, LayerNorm folding), and runs the forward pass
-eagerly under `torch.inference_mode`. The flag values are the JAX
-package's, so a command line carries over:
+checkpoint (f32, f16, or block-quantized Q4_0/Q4_1/Q5_0/Q5_1/Q8_0) onto
+one `device`, applies the serving rewrites the flags select (W8A8 int8
+linears, LayerNorm folding), and runs the forward pass eagerly under
+`torch.inference_mode`. The flag values are the JAX package's, so a
+command line carries over:
 
     attn_impl  "xla" (composed attention) | "pallas" | "pallas-fast"
                (the fused-QKV kernel, safe or fast softmax)
-    mm_impl    "xla" (dense) | "int8" (W8A8); "pallas" (block dequant)
-               is not ported yet
+    mm_impl    "xla" (dense; block-quantized weights dequantized before
+               each matmul) | "int8" (W8A8, block-quantized weights
+               requantized channelwise at load) | "pallas" (block-quantized
+               weights through the dequantizing-matmul kernel)
     act_quant  "dynamic" (per-token scales); "static" is not ported yet
 """
 
@@ -56,7 +59,8 @@ def detect_hparams(mf) -> VitHParams:
     if hp.in_chans == 1:
         raise NotImplementedError(
             "ViTSTR (1-channel, sequence-head) checkpoints are not ported "
-            "to vit_cpp_tpu_torch yet"
+            "to vit_cpp_tpu_torch yet; they come with the model-families "
+            "slice (models/vitstr.py)"
         )
     return infer_family_hparams(hp, mf.tensors)
 
@@ -78,13 +82,8 @@ class VitEngine:
             raise ValueError(f"dtype must be f32|bf16, got {dtype!r}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-        if mm_impl == "pallas":
-            raise NotImplementedError(
-                "mm_impl='pallas' (block-dequant matmul) is not ported yet: "
-                "it comes with the block-quant reader (QuantLinear)"
-            )
-        if mm_impl not in ("xla", "int8"):
-            raise ValueError(f"mm_impl must be xla|int8, got {mm_impl!r}")
+        if mm_impl not in ("xla", "int8", "pallas"):
+            raise ValueError(f"mm_impl must be xla|int8|pallas, got {mm_impl!r}")
         if act_quant == "static":
             raise NotImplementedError(
                 "act_quant='static' is not ported yet: it comes with the "
@@ -98,7 +97,8 @@ class VitEngine:
         if hp.num_classes == 0:
             raise NotImplementedError(
                 "headless encoders serve embeddings, which vit_cpp_tpu_torch "
-                "does not port yet (features_batch and the embed route)"
+                "does not port yet; they come with the features/embed slice "
+                "(features_batch and the /v1/embed route)"
             )
         self.hp = hp
         self.id2label = mf.id2label
@@ -111,7 +111,7 @@ class VitEngine:
         if fold_ln:
             from vit_cpp_tpu_torch.models.fold import fold_layernorms
 
-            params = fold_layernorms(params)
+            params = fold_layernorms(params, mm_impl=mm_impl)
         self.params = params
         self.attn_impl = attn_impl
         self.mm_impl = mm_impl
@@ -131,7 +131,7 @@ class VitEngine:
         with torch.inference_mode():
             return predict_probs(
                 self.params, images.to(self.device), self.hp,
-                attn_impl=self.attn_impl,
+                attn_impl=self.attn_impl, mm_impl=self.mm_impl,
             )
 
     def classify_file(self, path: str, topk: int = 5) -> List[Tuple[int, float, str]]:

@@ -5,12 +5,15 @@ Counterpart of vit_cpp_tpu/models/params.py, in the same layout:
 - linear kernels are (in, out), so the forward computes `x @ kernel`;
 - the L transformer blocks are stacked on a leading axis: blocks.qkv.kernel
   is (L, h, 3h), blocks.ln1.scale is (L, h), and so on;
-- the patch embedding is the flattened (c*p*p, h) conv kernel.
+- the patch embedding is the flattened (c*p*p, h) conv kernel;
+- a block-quantized 2-D linear weight stays packed as a QuantLinear
+  (codes + per-block scales), stacked field by field across the blocks.
 
-Only f16/f32 records are read: block-quantized files wait for the port's
-block codec. `params_from_jax` turns the JAX package's tree (dense arrays
-and Int8Linear leaves) into this one, so the tests can run both packages
-on the same weights.
+Quantized records are decoded by the port's own codec (quant/blocks.py):
+TensorRecord.as_f32 would import the JAX package's. `params_from_jax`
+turns the JAX package's tree (dense arrays, QuantLinear and Int8Linear
+leaves) into this one, so the tests can run both packages on the same
+weights.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ import torch
 
 from vit_cpp_tpu.gguf.reader import ModelFile, TensorRecord
 from vit_cpp_tpu.hparams import VitHParams
-from vit_cpp_tpu_torch.quant.int8 import Int8Linear, quant_linear_unsupported
+from vit_cpp_tpu_torch.quant import qlinear
+from vit_cpp_tpu_torch.quant.blocks import dequantize
+from vit_cpp_tpu_torch.quant.int8 import Int8Linear
+from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 
 def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
@@ -35,12 +41,14 @@ def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
     h = hp.hidden_size
     if any(re.fullmatch(r"blocks\.\d+\.moe\.router\.weight", n) for n in tensors):
         raise NotImplementedError(
-            "V-MoE checkpoints are not ported to vit_cpp_tpu_torch yet"
+            "V-MoE checkpoints are not ported to vit_cpp_tpu_torch yet; "
+            "they come with the V-MoE slice (ops/moe.py)"
         )
     if "attn_pool.probe" in tensors:
         raise NotImplementedError(
             "attention-pooled (SigLIP, global_pool='map') checkpoints are "
-            "not ported to vit_cpp_tpu_torch yet"
+            "not ported to vit_cpp_tpu_torch yet; they come with the "
+            "model-families slice (attention_pool)"
         )
     fc1 = tensors.get("blocks.0.mlp.fc1.weight")
     if (
@@ -107,26 +115,32 @@ class _RecordSet:
     def rec(self, name: str) -> TensorRecord:
         if name not in self.tensors:
             raise ValueError(f"checkpoint missing tensor '{name}'")
-        r = self.tensors[name]
-        if r.dtype.is_quantized:
-            raise quant_linear_unsupported(f"tensor '{name}' ({r.dtype.name})")
         self.used.add(name)
-        return r
+        return self.tensors[name]
+
+    def f32(self, name: str) -> np.ndarray:
+        """A record as f32 in torch order, dequantized by this package."""
+        r = self.rec(name)
+        if r.dtype.is_quantized:
+            return dequantize(r.data, r.n_elements, r.dtype).reshape(r.shape)
+        return r.as_f32()
 
     def tensor(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
         return t.to(device=self.device, dtype=dtype or self.dtype)
 
     def dense(self, name: str, shape: tuple, dtype=None) -> torch.Tensor:
-        return self.tensor(self.rec(name).as_f32().reshape(shape), dtype)
+        return self.tensor(self.f32(name).reshape(shape), dtype)
 
-    def kernel(self, name: str, out_f: int, in_f: int) -> torch.Tensor:
-        """2-D linear weight -> (in, out) kernel."""
+    def kernel(self, name: str, out_f: int, in_f: int):
+        """2-D linear weight -> (in, out) dense kernel or QuantLinear."""
         r = self.rec(name)
         if r.shape != (out_f, in_f):
             raise ValueError(
                 f"tensor '{name}': shape {r.shape} != expected {(out_f, in_f)}"
             )
+        if r.dtype.is_quantized:
+            return qlinear.quant_linear_from_record(r, device=self.device)
         return self.tensor(r.as_f32().T)
 
     def check_all_used(self):
@@ -157,7 +171,7 @@ def load_params(
     params: Dict[str, Any] = {
         "pos_embed": rs.dense("pos_embed", (hp.n_pos_tokens, h)),
         "patch_embed": {
-            "kernel": rs.tensor(pe.as_f32().reshape(h, -1).T),
+            "kernel": rs.tensor(rs.f32(pe.name).reshape(h, -1).T),
             "bias": rs.dense("patch_embed.proj.bias", (h,)),
         },
     }
@@ -174,7 +188,10 @@ def load_params(
         }
 
     def stacked(fn):
-        return torch.stack([fn(f"blocks.{i}.") for i in range(L)])
+        leaves = [fn(f"blocks.{i}.") for i in range(L)]
+        if isinstance(leaves[0], QuantLinear):
+            return qlinear.stack(leaves)
+        return torch.stack(leaves)
 
     m = hp.mlp_dim
     params["blocks"] = {
@@ -226,14 +243,20 @@ def _leaf_tensor(a, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device="cpu"):
-    """The JAX package's parameter tree (arrays, numpy arrays, Int8Linear
-    leaves; dicts and None) -> this package's tree on `device`."""
+    """The JAX package's parameter tree (arrays, numpy arrays, QuantLinear
+    and Int8Linear leaves; dicts and None) -> this package's tree on
+    `device`."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if hasattr(tree, "qtype"):  # QuantLinear
-        raise quant_linear_unsupported("params_from_jax")
+        return QuantLinear(
+            codes=_leaf_tensor(tree.codes, device),
+            scales=_leaf_tensor(tree.scales, device),
+            mins=None if tree.mins is None else _leaf_tensor(tree.mins, device),
+            qtype=int(tree.qtype),
+        )
     if hasattr(tree, "codes") and hasattr(tree, "scale"):  # Int8Linear
         return Int8Linear(
             codes=_leaf_tensor(tree.codes, device),

@@ -11,8 +11,11 @@ Counterpart of vit_cpp_tpu/models/vit.py, with the same numerics:
 A Python loop over the L stacked blocks takes the place of `lax.scan`.
 `attn_impl` keeps the JAX flag values: "pallas" / "pallas-fast" run the
 fused-QKV attention kernel (ops/flash_attention.py), "xla" the composed
-split-head attention. ToMe, token padding, V-MoE, attention pooling and
-sequence heads are not ported yet and raise.
+split-head attention. `mm_impl` goes to every linear of the blocks and
+the head: "pallas" runs block-quantized (QuantLinear) weights through the
+dequantizing-matmul kernel (ops/qmatmul.py); dense and Int8Linear weights
+ignore it. ToMe, token padding, V-MoE, attention pooling and sequence
+heads are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -62,12 +65,14 @@ def embed(params: Dict[str, Any], images: torch.Tensor, hp: VitHParams) -> torch
     return x
 
 
-def _attn_half(x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str) -> torch.Tensor:
+def _attn_half(
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str
+) -> torch.Tensor:
     """LN1 -> QKV -> attention -> proj -> residual."""
     b, t, h = x.shape
     nh, hd = hp.num_attention_heads, hp.head_dim
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
-    qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"])
+    qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"], impl=mm_impl)
     if attn_impl in ("pallas", "pallas-fast"):
         o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast")
     elif attn_impl == "xla":
@@ -75,47 +80,54 @@ def _attn_half(x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl
         o = attention(q, k, v).permute(0, 2, 1, 3).reshape(b, t, h)
     else:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"])
+    return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"], impl=mm_impl)
 
 
-def transformer_block(x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str) -> torch.Tensor:
+def transformer_block(
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str
+) -> torch.Tensor:
     """One encoder block."""
-    x = _attn_half(x, bp, hp, attn_impl=attn_impl)
+    x = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
-    y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"])
+    y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"], impl=mm_impl)
     y = mlp_act(hp.hidden_act)(y)
-    y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+    y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"], impl=mm_impl)
     return x + y
 
 
 def slice_block_params(tree, i: int):
-    """Layer i's parameters out of the stacked blocks subtree."""
+    """Layer i's parameters out of the stacked blocks subtree (tensors,
+    QuantLinear and Int8Linear leaves index the same way)."""
     if isinstance(tree, dict):
         return {k: slice_block_params(v, i) for k, v in tree.items()}
     return None if tree is None else tree[i]
 
 
-def _head(params: Dict[str, Any], x: torch.Tensor, hp: VitHParams) -> torch.Tensor:
+def _head(params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str) -> torch.Tensor:
     """Pooling readout + classifier head."""
     norm = params["norm"]
     if "head" not in params:
         raise NotImplementedError(
             "headless encoders serve embeddings, which vit_cpp_tpu_torch "
-            "does not port yet (features_batch and the embed route)"
+            "does not port yet; they come with the features/embed slice "
+            "(features_batch and the /v1/embed route)"
         )
     if "head_dist" in params:
         # DeiT distilled: LN over both prefix tokens, mean of the two heads
         pooled = layernorm(x[:, :2], norm["scale"], norm["bias"], hp.eps)
         return (
-            linear(pooled[:, 0], params["head"]["kernel"], params["head"]["bias"])
-            + linear(pooled[:, 1], params["head_dist"]["kernel"], params["head_dist"]["bias"])
+            linear(pooled[:, 0], params["head"]["kernel"], params["head"]["bias"], impl=mm_impl)
+            + linear(
+                pooled[:, 1], params["head_dist"]["kernel"], params["head_dist"]["bias"],
+                impl=mm_impl,
+            )
         ) * 0.5
     if hp.global_pool == "avg":
         pooled = x[:, hp.n_prefix:].mean(dim=1)
     else:
         pooled = x[:, 0]
     pooled = layernorm(pooled, norm["scale"], norm["bias"], hp.eps)
-    return linear(pooled, params["head"]["kernel"], params["head"]["bias"])
+    return linear(pooled, params["head"]["kernel"], params["head"]["bias"], impl=mm_impl)
 
 
 def forward(
@@ -124,6 +136,7 @@ def forward(
     hp: VitHParams,
     *,
     attn_impl: str = "xla",
+    mm_impl: str = "xla",
     pad_tokens: bool = False,
     tome: int = 0,
 ) -> torch.Tensor:
@@ -131,19 +144,21 @@ def forward(
     if pad_tokens or tome:
         raise NotImplementedError(
             "token padding and ToMe merging are not ported to "
-            "vit_cpp_tpu_torch yet (the attention kernel already takes "
+            "vit_cpp_tpu_torch yet; they come with the ToMe and "
+            "token-padding slices (the attention kernel already takes "
             "their kv / sizes inputs)"
         )
     if hp.seq_len is not None or hp.global_pool == "map" or hp.num_experts:
         raise NotImplementedError(
             "sequence heads (ViTSTR), attention pooling and V-MoE are not "
-            "ported to vit_cpp_tpu_torch yet"
+            "ported to vit_cpp_tpu_torch yet; they come with the "
+            "model-families and V-MoE slices"
         )
     x = embed(params, images, hp)
     for i in range(hp.num_hidden_layers):
         bp = slice_block_params(params["blocks"], i)
-        x = transformer_block(x, bp, hp, attn_impl=attn_impl)
-    return _head(params, x, hp)
+        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+    return _head(params, x, hp, mm_impl)
 
 
 def predict_probs(params, images, hp, **kw) -> torch.Tensor:

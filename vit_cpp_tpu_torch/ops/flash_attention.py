@@ -1,17 +1,23 @@
-"""Fused-QKV attention: the hand-written CUDA kernel and its plain version.
+"""Attention kernels: the hand-written CUDA kernel and its plain versions.
 
-Counterpart of vit_cpp_tpu/ops/flash_attention.py::attention_qkv, the one
-TPU kernel on the serving path. The (B, T, 3h) output of the fused QKV
-projection goes in, [q | k | v] on the feature axis with heads contiguous
-inside each third (timm order); (B, T, h) comes out, softmax(Q K^T /
-sqrt(d)) V per head.
+Counterpart of two TPU kernels of vit_cpp_tpu/ops/flash_attention.py,
+both served by csrc/attention_qkv.cu (built by _build.py), each through
+its own C entry point and launch counter:
 
-- On a CUDA tensor, `attention_qkv` launches csrc/attention_qkv.cu (built
-  by _build.py) or raises; it never falls back.
-- On a CPU tensor, it runs `attention_qkv_plain`: the same arithmetic in
-  plain PyTorch (the TPU kernel's `_sdpa` math, batched over heads). The
-  tests hold it against the JAX function; chip_smoke.py holds the kernel
-  against it on the card.
+- `attention_qkv` (KERNEL), the one on the serving path: the (B, T, 3h)
+  output of the fused QKV projection goes in, [q | k | v] on the feature
+  axis with heads contiguous inside each third (timm order); (B, T, h)
+  comes out, softmax(Q K^T / sqrt(d)) V per head.
+- `flash_attention` (FLASH_KERNEL): the same attention in safe mode over
+  pre-split (B, H, T, D) q, k, v; reached through
+  ops/core.py::attention(impl="pallas"), as in the JAX package, where no
+  model entry point calls it.
+
+On a CUDA tensor each launches its kernel or raises; it never falls back.
+On a CPU tensor each runs its plain version: the same arithmetic in plain
+PyTorch (the TPU kernel's `_sdpa` math, batched over heads). The tests
+hold the plain versions against the JAX functions; chip_smoke.py holds
+the kernel against them on the card.
 
 Both keep the TPU kernel's numerics: Q scaled by log2(e)/sqrt(d) in f32
 and rounded to the input dtype, f32 scores, exp2 softmax (fast: scores
@@ -37,6 +43,12 @@ KERNEL = Kernel(
     replaces="vit_cpp_tpu/ops/flash_attention.py:669",
 )
 
+FLASH_KERNEL = Kernel(
+    "flash_attention",
+    source="vit_cpp_tpu_torch/csrc/attention_qkv.cu",
+    replaces="vit_cpp_tpu/ops/flash_attention.py:1298",
+)
+
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -57,6 +69,22 @@ def _check_args(qkv: torch.Tensor, num_heads: int, kv, sizes):
     return b, t, h, h // num_heads
 
 
+def _sdpa_plain(q, k, v, *, fast: bool, sizes=None) -> torch.Tensor:
+    """The kernels' arithmetic over (B, nh, n, d) q, k, v in plain PyTorch."""
+    scale = _LOG2E / math.sqrt(q.shape[-1])
+    qs = (q.float() * scale).to(q.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    if fast:
+        s = torch.clamp(s, max=120.0)
+    else:
+        s = s - s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s)
+    if sizes is not None:
+        p = p * sizes.float()[:, None, None, :]
+    l = p.sum(dim=-1, keepdim=True)
+    return (torch.matmul(p.to(q.dtype).float(), v.float()) / l).to(q.dtype)
+
+
 def attention_qkv_plain(
     qkv: torch.Tensor,
     num_heads: int,
@@ -69,20 +97,8 @@ def attention_qkv_plain(
     b, t, h, d = _check_args(qkv, num_heads, kv, sizes)
     n = t if kv is None else kv
     x = qkv[:, :n].reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    q, k, v = x[0], x[1], x[2]  # (B, nh, n, d)
-    scale = _LOG2E / math.sqrt(d)
-    qs = (q.float() * scale).to(qkv.dtype)
-    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    if fast:
-        s = torch.clamp(s, max=120.0)
-    else:
-        s = s - s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s)
-    if sizes is not None:
-        p = p * sizes.float()[:, None, None, :]
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(qkv.dtype).float(), v.float()) / l
-    o = o.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, n, h)
+    o = _sdpa_plain(x[0], x[1], x[2], fast=fast, sizes=sizes)  # (B, nh, n, d)
+    o = o.permute(0, 2, 1, 3).reshape(b, n, h)
     if n < t:
         o = torch.cat([o, o.new_zeros(b, t - n, h)], dim=1)
     return o
@@ -132,4 +148,49 @@ def attention_qkv(
         )
     check(rc, "attention_qkv kernel launch")
     KERNEL.counted()
+    return out
+
+
+def _check_bhtd(q, k, v):
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            "q, k, v must be (B, H, T, D) of one shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k, v must share a dtype")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the split-head kernel (any device)."""
+    _check_bhtd(q, k, v)
+    return _sdpa_plain(q, k, v, fast=False)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full (unmasked) attention over (B, H, T, D) q, k, v -> (B, H, T, D),
+    with the safe (row-max) softmax."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_bhtd(q, k, v)
+    b, nh, t, d = q.shape
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention kernel takes f32/bf16, got {q.dtype}")
+    if d % 8 or d > 128:
+        raise ValueError(f"flash_attention kernel takes d % 8 == 0, d <= 128; got d={d}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k, v must lie on one device")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vit_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, nh, t, d, _LOG2E / math.sqrt(d), _DTYPES[q.dtype], stream,
+        )
+    check(rc, "flash_attention kernel launch")
+    FLASH_KERNEL.counted()
     return out

@@ -7,7 +7,7 @@ requantized once at load to per-output-channel scales,
 
 so each linear runs as one int8 x int8 -> int32 product with a rank-1
 epilogue (ops/int8_matmul.py). Block-quantized (QuantLinear) leaves are
-not read by this package yet.
+requantized the same way, from their dequantized f32 weights.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+
+from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 
 @dataclasses.dataclass
@@ -45,14 +47,6 @@ class Int8Linear:
         )
 
 
-def quant_linear_unsupported(what: str):
-    return NotImplementedError(
-        f"{what}: block-quantized (Q8_0/Q4/Q5) weights are not read by "
-        "vit_cpp_tpu_torch yet; the next slice ports QuantLinear and the "
-        "block codec. Serve an f16/f32 checkpoint with --mm int8."
-    )
-
-
 def channelwise_int8(w: torch.Tensor) -> Int8Linear:
     """Quantize a dense ([L,] in, out) weight to per-output-channel int8."""
     wf = w.float()
@@ -63,17 +57,23 @@ def channelwise_int8(w: torch.Tensor) -> Int8Linear:
     return Int8Linear(codes=codes, scale=scale[..., 0, :])
 
 
+def from_quant_linear(ql: QuantLinear) -> Int8Linear:
+    """Requantize block-scaled codes to channelwise int8 (once, at load)."""
+    return channelwise_int8(ql.dequantize(torch.float32))
+
+
 def _to_int8(k):
     if isinstance(k, Int8Linear):
         return k
-    if not isinstance(k, torch.Tensor):
-        raise quant_linear_unsupported("convert_params_to_int8")
+    if isinstance(k, QuantLinear):
+        return from_quant_linear(k)
     return channelwise_int8(k)
 
 
 def convert_params_to_int8(params: Dict[str, Any]) -> Dict[str, Any]:
     """Rewrite a parameter tree for W8A8 serving: the block linears
-    (qkv, proj, fc1, fc2) and the head(s) become Int8Linear; the patch
+    (qkv, proj, fc1, fc2) and the head(s), dense or QuantLinear, become
+    Int8Linear; the patch
     embedding, biases and norms stay in the float path."""
     out = dict(params)
     blocks = dict(params["blocks"])

@@ -17,9 +17,13 @@
      shapes in bf16 over all five block formats, one f32 case, one with
      leading dims and one with N=1001 (no vector loads on a row);
    - flash_attention (split-head attention) at (8, 12, 197, 64) in bf16
-     and f32 and at d=80, T=257.
+     and f32 and at d=80, T=257;
+   - attention_qkv_grad (the attention backward) at the ViT-B/16 training
+     shape B=32 in f32 (the training path's) and bf16, both with ToMe
+     sizes too, ViT-Ti (3 heads), ViT-H/14 (d=80, T=257) and ViT-B/8
+     (T=785), each error relative to max|plain|.
    Then times kernel and plain version with CUDA events at the ViT-B/16
-   serving shapes.
+   serving and training shapes.
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -34,7 +38,19 @@
       forward only, against the f32 reference;
    d. the split-head attention entry point, ops.core.attention(impl=
       "pallas"), over the 12 layers' worth of ViT-B/16 q, k, v (no model
-      path of the JAX package reaches it).
+      path of the JAX package reaches it);
+   e. slice parity: the ViT-B/16 training loss and every parameter's
+      gradient at B=2 in f32 on the card (attention_qkv forward,
+      attention_qkv_grad backward) against the card machine's CPU (the
+      plain versions);
+   f. fine-tuning through the CLI (vit_cpp_tpu_torch.cli.finetune) on the
+      f16 checkpoint of (a): 2 classes x 32 generated 224 px images (dark
+      vs bright), batch 32, 3 epochs, augmentation, label smoothing, EMA
+      and a checkpoint directory; 12 attention_qkv and 12
+      attention_qkv_grad launches per update, finite and falling losses,
+      ms per update, images/s, peak device memory and the attention
+      kernels' share of device time in one profiled update; the written
+      gguf is then served by VitEngine on the card.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -94,6 +110,15 @@ Q8_PROB_TOL = 5e-3
 # activation codes. An H100 measured at most 1.77e-3; the limit leaves
 # 2.8x margin.
 FLAGSHIP_TOL = 5e-3
+
+# attention_qkv_grad vs its plain version, relative to max|plain|: f32
+# differs in summation order only (an H100 measured <= 3e-7); bf16 can
+# round pn and ds to a neighbouring bf16 value (2^-8 relative) where the
+# two sum in another order (an H100 measured <= 2e-3).
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Slice parity, card vs CPU, f32 with TF32 off: summation order only.
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_TOL = 1e-3  # max|g_card - g_cpu| / max|g_cpu| for every leaf
 
 VIT_B16 = dict(
     hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
@@ -290,6 +315,239 @@ def check_flash_attention(card: str):
     return worst, times
 
 
+def check_attention_grad(card: str):
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_grad, attention_qkv_grad_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, B, T, h, heads, dtype, ToMe sizes
+        ("vit-b16 training f32", 32, 197, 768, 12, f32, False),
+        ("vit-b16 training bf16", 32, 197, 768, 12, bf16, False),
+        ("vit-b16 tome sizes f32", 32, 197, 768, 12, f32, True),
+        ("vit-b16 tome sizes bf16", 32, 197, 768, 12, bf16, True),
+        ("vit-ti nh=3 d=64", 32, 197, 192, 3, f32, False),
+        ("vit-h14 d=80 T=257", 4, 257, 1280, 16, f32, False),
+        ("vit-b8 T=785", 4, 785, 768, 12, f32, False),
+    ]
+    main_err = None
+    for name, b, t, h, nh, dtype, sized in cases:
+        qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, t, h), generator=gen, device="cuda").to(dtype)
+        sizes = (torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
+                 if sized else None)
+        got = attention_qkv_grad(qkv, do, nh, sizes=sizes)
+        ref = attention_qkv_grad_plain(qkv, do, nh, sizes=sizes)
+        torch.cuda.synchronize()
+        if got.shape != (b, t, 3 * h) or got.dtype != dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"attention_qkv_grad {name}: bad output")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = GRAD_TOL[dtype] * ref.float().abs().max().item()
+        log(f"kernel case attention_qkv_grad {name:<24} B={b} T={t} h={h} nh={nh}: "
+            f"max|kernel - plain| = {err:.3e} (tolerance {tol:.3e} = "
+            f"{GRAD_TOL[dtype]:.0e} x max|plain|)")
+        if not err <= tol:
+            raise AssertionError(f"attention_qkv_grad {name}: error {err} > {tol}")
+        if main_err is None:
+            main_err = err
+    times = {}
+    for dtype in (f32, bf16):
+        qkv = torch.randn((32, 197, 2304), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((32, 197, 768), generator=gen, device="cuda").to(dtype)
+        times[dtype] = time_pair(
+            f"attention_qkv_grad ViT-B/16 B=32 T=197 h=768 {str(dtype)[6:]}", card,
+            lambda: attention_qkv_grad(qkv, do, 12),
+            lambda: attention_qkv_grad_plain(qkv, do, 12),
+        )
+    return main_err, times
+
+
+def slice_parity(f32_path: str) -> None:
+    """The training loss and its gradients on the card (the kernels)
+    against the card machine's CPU (the plain versions), full ViT-B/16
+    width, B=2, f32."""
+    from vit_cpp_tpu.gguf.reader import read_model
+    from vit_cpp_tpu.hparams import VitHParams
+    from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.parallel.train import cross_entropy_loss, tree_leaves
+
+    hp = VitHParams(**VIT_B16)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, (2,)))
+    mf = read_model(f32_path)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = load_params(mf, torch.float32, device=dev)
+        names = _named_leaves(params)
+        leaves = tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        KERNEL.reset()
+        GRAD_KERNEL.reset()
+        t0 = time.perf_counter()
+        loss = cross_entropy_loss(params, x.to(dev), y.to(dev), hp)
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (loss.item(), [g.cpu() for g in grads])
+        log(f"slice parity: loss and gradients on {dev} in {time.perf_counter() - t0:.2f} s, "
+            f"{KERNEL.launches} attention_qkv + {GRAD_KERNEL.launches} attention_qkv_grad launches")
+        if dev == "cuda" and (KERNEL.launches, GRAD_KERNEL.launches) != (12, 12):
+            raise AssertionError("slice parity: the card's step did not run the kernels")
+    (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, worst_name = 0.0, None
+    for name, a, b in zip(names, g_card, g_cpu):
+        scale = b.abs().max().item()
+        r = (a - b).abs().max().item() / scale if scale else (a - b).abs().max().item()
+        if not np.isfinite(r) or r > PARITY_GRAD_TOL:
+            raise AssertionError(f"slice parity: {name} gradient off by {r} of max|g_cpu|")
+        if r >= worst:
+            worst, worst_name = r, name
+        log(f"slice parity: grad {name:<24} max|g_card - g_cpu| / max|g_cpu| = {r:.3e}")
+    log(f"slice parity: loss card {l_card:.7f} cpu {l_cpu:.7f} (relative {rel_loss:.2e}, "
+        f"bound {PARITY_LOSS_RTOL:.0e}); worst gradient {worst_name} {worst:.3e} "
+        f"(bound {PARITY_GRAD_TOL:.0e}) over {len(g_cpu)} leaves")
+    if not rel_loss <= PARITY_LOSS_RTOL:
+        raise AssertionError(f"slice parity: loss off by {rel_loss}")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _named_leaves(v, f"{prefix}{k}.")]
+    return [] if tree is None else [prefix[:-1]]
+
+
+def write_dark_bright(root: str, n_per_class: int = 32, size: int = 224) -> str:
+    """Two separable classes of generated images: dark vs bright noise."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for cls, lo, hi in (("aa_dark", 0, 40), ("bb_bright", 210, 255)):
+        os.makedirs(os.path.join(root, cls))
+        for i in range(n_per_class):
+            img = rng.integers(lo, hi, (size, size, 3), dtype=np.uint8)
+            Image.fromarray(img).save(os.path.join(root, cls, f"{i}.png"))
+    return root
+
+
+def profile_update(f16: str, data: str) -> None:
+    """One ViT-B/16 update at B=32 (the CLI's configuration) under
+    torch.profiler: the attention kernels' share of device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu.finetune import load_dataset
+    from vit_cpp_tpu.gguf.reader import read_model
+    from vit_cpp_tpu_torch.finetune import _preprocess_all, _reinit_head
+    from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.parallel.train import create_train_state, train_step
+
+    mf = read_model(f16)
+    params, hp = _reinit_head(load_params(mf, torch.float32, device="cuda"), mf.hparams, 2)
+    state = create_train_state(params)
+    paths, labels, _ = load_dataset(data)
+    x = _preprocess_all(paths[:32], hp, 0, "cuda").cuda()
+    y = torch.from_numpy(labels[:32]).cuda()
+    train_step(state, x, y, hp, smooth=0.1)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, x, y, hp, smooth=0.1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us, fwd_us, bwd_us = 0.0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        dev_us += us
+        if "attention_kernel" in e.key:
+            fwd_us += us
+        elif "grad_rows_kernel" in e.key or "grad_cols_kernel" in e.key:
+            bwd_us += us
+    attn_us = fwd_us + bwd_us
+    if dev_us <= 0:
+        log("profiled update: torch.profiler saw no device time (shares not measured)")
+        return
+    log(f"profiled update (ViT-B/16 f32 B=32, torch.profiler): {dev_us / 1e3:.2f} ms of device "
+        f"time in {wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}); "
+        f"attention_qkv {fwd_us / 1e3:.2f} ms + attention_qkv_grad {bwd_us / 1e3:.2f} ms = "
+        f"{attn_us / dev_us:.3f} of device time")
+    top = sorted(
+        ((getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0), e.key)
+         for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
+        reverse=True,
+    )[:8]
+    for us, key in top:
+        log(f"  device {us / 1e3:8.3f} ms  {key[:100]}")
+
+
+def finetune_path(f16: str, tmp: str, images_per_class: int = 32):
+    """vit_cpp_tpu_torch.cli.finetune on the f16 ViT-B/16 file, then the
+    written gguf served by VitEngine. Returns attention_qkv_grad's
+    launches in the run."""
+    from vit_cpp_tpu_torch.cli import finetune as cli_finetune
+    from vit_cpp_tpu_torch.decode import decode_many
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+
+    data = write_dark_bright(os.path.join(tmp, "train"), images_per_class)
+    out = os.path.join(tmp, "ft.gguf")
+    epochs, batch = 3, 32
+    updates = epochs * (2 * images_per_class // batch)
+    err = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset()
+    GRAD_KERNEL.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_finetune.main([
+            "-m", f16, "-d", data, "-o", out, "-b", str(batch), "--epochs", str(epochs),
+            "--augment", "all", "--label-smooth", "0.1", "--ema", "0.99",
+            "--ckpt-dir", os.path.join(tmp, "ckpt"), "--device", "cuda",
+        ])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = (KERNEL.launches, GRAD_KERNEL.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for line in err.getvalue().splitlines():
+        log(f"cli.finetune: {line}")
+    if rc != 0:
+        raise AssertionError(f"cli.finetune exited {rc}")
+    losses = [float(v) for v in re.findall(r"^epoch \d+/\d+: loss (\S+)", err.getvalue(), re.M)]
+    timing = re.search(r"([\d.]+) ms per update after the first, ([\d.]+) training images/s",
+                       err.getvalue())
+    if len(losses) != epochs or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"cli.finetune losses {losses}: not finite and falling")
+    if launches != (12 * updates, 12 * updates):
+        raise AssertionError(
+            f"cli.finetune: {launches[0]} attention_qkv and {launches[1]} attention_qkv_grad "
+            f"launches for {updates} updates (want 12 each per update)"
+        )
+    log(f"fine-tune ViT-B/16 f32 via cli.finetune: {updates} updates of batch {batch} in "
+        f"{seconds:.1f} s (load, preprocess, checkpoints and export included); "
+        f"{timing.group(1)} ms per update after the first, {timing.group(2)} training "
+        f"images/s; losses per epoch {losses}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches[0]} attention_qkv + {launches[1]} "
+        f"attention_qkv_grad = 12 + 12 per update")
+    profile_update(f16, data)
+
+    engine = VitEngine(out, device="cuda")
+    if engine.id2label != {0: "aa_dark", 1: "bb_bright"}:
+        raise AssertionError(f"ft.gguf labels {engine.id2label}")
+    from vit_cpp_tpu.finetune import load_dataset
+
+    paths, labels, _ = load_dataset(data)
+    pixels = torch.stack([engine.preprocess_image(im) for im in decode_many(paths)])
+    probs = engine.predict_probs_batch(pixels).cpu().numpy()
+    if probs.shape != (len(paths), 2) or not np.isfinite(probs).all():
+        raise AssertionError(f"ft.gguf: bad probabilities {probs.shape}")
+    top1 = float((probs.argmax(1) == labels).mean())
+    log(f"ft.gguf served by VitEngine on the card: labels {engine.id2label}, "
+        f"top-1 over the {len(paths)} training images {top1:.3f}")
+    return launches[1]
+
+
 def post(url: str, body: bytes):
     t0 = time.perf_counter()
     req = urllib.request.Request(url, data=body, method="POST")
@@ -473,8 +731,12 @@ def run_paths():
             Q8_PROB_TOL, images,
         )
         flagship_forward(q8, images)
+        f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
+        write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
+        slice_parity(f32)
+        grad_launches = finetune_path(f16, tmp)
     flash_launches = split_head_path()
-    return f16_launches, q8_launches, flash_launches
+    return f16_launches, q8_launches, flash_launches, grad_launches
 
 
 def main() -> int:
@@ -483,7 +745,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from vit_cpp_tpu_torch import _build
-    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, GRAD_KERNEL, KERNEL
     from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -512,7 +774,8 @@ def main() -> int:
     k1_err, k1_times = check_kernels(card)
     k4_err, k4_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
-    _, q8_launches, flash_launches = run_paths()
+    k2_err, k2_times = check_attention_grad(card)
+    _, q8_launches, flash_launches, grad_launches = run_paths()
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
 
@@ -527,6 +790,7 @@ def main() -> int:
         entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[8]),
         entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"]),
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
+        entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[torch.float32]),
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

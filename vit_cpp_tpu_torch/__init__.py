@@ -5,16 +5,21 @@ paths and function names mirror vit_cpp_tpu's, so each counterpart is
 found under the same name:
 
 - ``ops``     — layernorm/linear/attention (``core``), the W8A8 matmul
-                (``int8_matmul``), the attention CUDA kernels and their
-                plain versions (``flash_attention``), the dequantizing
-                matmul kernel and its plain version (``qmatmul``),
-                preprocessing;
+                (``int8_matmul``), the attention CUDA kernels (forward and
+                backward) and their plain versions (``flash_attention``),
+                the dequantizing matmul kernel and its plain version
+                (``qmatmul``), preprocessing, training augmentation
+                (``augment``);
 - ``quant``   — the ggml block codec (``blocks``), block-quantized
                 weights (``qlinear``), channelwise int8 weights (``int8``);
 - ``models``  — parameter loading (``params``), LayerNorm folding
-                (``fold``), the ViT forward (``vit``);
+                (``fold``), the ViT forward (``vit``), gguf export
+                (``export``);
+- ``parallel`` — the single-device train step and AdamW (``train``),
+                training checkpoints (``checkpoint``);
 - ``engine``, ``server``, ``cli.server`` — the serving path;
-  ``cli.quantize`` — the quantize tool;
+  ``finetune``, ``cli.finetune`` — the fine-tuning path (``decode``: the
+  image decode it uses); ``cli.quantize`` — the quantize tool;
 - ``csrc``    — CUDA C++ kernels for sm_90a, built by ``_build``.
 
 The package imports torch and never jax. From the JAX package it uses

@@ -129,6 +129,13 @@ def library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
+            lib.vit_attention_qkv_grad.restype = ctypes.c_int
+            lib.vit_attention_qkv_grad.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p,
+            ]
             lib.vit_cuda_error_string.restype = ctypes.c_char_p
             lib.vit_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib

@@ -8,13 +8,18 @@ Counterpart of vit_cpp_tpu/models/vit.py, with the same numerics:
 - head: the CLS token (or the mean of the patch tokens for avg-pool
   models; the mean of two heads for DeiT-distilled ones) -> LN -> linear.
 
-A Python loop over the L stacked blocks takes the place of `lax.scan`.
-`attn_impl` keeps the JAX flag values: "pallas" / "pallas-fast" run the
-fused-QKV attention kernel (ops/flash_attention.py), "xla" the composed
-split-head attention. `mm_impl` goes to every linear of the blocks and
-the head: "pallas" runs block-quantized (QuantLinear) weights through the
-dequantizing-matmul kernel (ops/qmatmul.py); dense and Int8Linear weights
-ignore it. ToMe, token padding, V-MoE, attention pooling and sequence
+A Python loop over the L stacked blocks takes the place of `lax.scan`;
+each stacked leaf is taken apart once per forward (`torch.unbind`), so
+the backward of a training step writes each leaf's gradient once instead
+of a full (L, ...) zero tensor per layer (the JAX package unrolls the
+scan for the same reason). `attn_impl` keeps the JAX flag values:
+"pallas" / "pallas-fast" run the fused-QKV attention kernel
+(ops/flash_attention.py), "pallas-train" the differentiable fused
+attention of the training path (safe-softmax kernel forward, the
+backward kernel backward), "xla" the composed split-head attention.
+`mm_impl` goes to every linear of the blocks and the head: "pallas" runs
+block-quantized (QuantLinear) weights through the dequantizing-matmul
+kernel (ops/qmatmul.py); dense and Int8Linear weights ignore it. ToMe, token padding, V-MoE, attention pooling and sequence
 heads are not ported yet and raise.
 """
 
@@ -26,9 +31,9 @@ import torch
 
 from vit_cpp_tpu.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, layernorm, linear, mlp_act
-from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv
+from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
 
-ATTN_IMPLS = ("xla", "pallas", "pallas-fast")
+ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -75,6 +80,8 @@ def _attn_half(
     qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"], impl=mm_impl)
     if attn_impl in ("pallas", "pallas-fast"):
         o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast")
+    elif attn_impl == "pallas-train":
+        o = attention_qkv_train(qkv, nh)
     elif attn_impl == "xla":
         q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
         o = attention(q, k, v).permute(0, 2, 1, 3).reshape(b, t, h)
@@ -95,12 +102,18 @@ def transformer_block(
     return x + y
 
 
-def slice_block_params(tree, i: int):
-    """Layer i's parameters out of the stacked blocks subtree (tensors,
-    QuantLinear and Int8Linear leaves index the same way)."""
+def unstack_blocks(tree, n: int) -> list:
+    """The stacked blocks subtree -> n per-layer subtrees. A tensor leaf is
+    taken apart by one `torch.unbind`; QuantLinear and Int8Linear leaves
+    (never trained) are indexed per layer."""
     if isinstance(tree, dict):
-        return {k: slice_block_params(v, i) for k, v in tree.items()}
-    return None if tree is None else tree[i]
+        per_key = {k: unstack_blocks(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree))
+    return [tree[i] for i in range(n)]
 
 
 def _head(params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str) -> torch.Tensor:
@@ -155,8 +168,7 @@ def forward(
             "model-families and V-MoE slices"
         )
     x = embed(params, images, hp)
-    for i in range(hp.num_hidden_layers):
-        bp = slice_block_params(params["blocks"], i)
+    for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):
         x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
     return _head(params, x, hp, mm_impl)
 

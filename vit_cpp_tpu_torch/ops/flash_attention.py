@@ -13,6 +13,15 @@ its own C entry point and launch counter:
   ops/core.py::attention(impl="pallas"), as in the JAX package, where no
   model entry point calls it.
 
+and of the backward kernel, csrc/attention_qkv_grad.cu:
+
+- `attention_qkv_grad` (GRAD_KERNEL): (B, T, 3h) qkv and the (B, T, h)
+  output cotangent in, the (B, T, 3h) cotangent [dq | dk | dv] out, the
+  softmax recomputed from qkv (no (B, nh, T, T) tensor is stored).
+  `attention_qkv_train` is the differentiable attention of the training
+  path: `attention_qkv` in safe mode forward, `attention_qkv_grad`
+  backward.
+
 On a CUDA tensor each launches its kernel or raises; it never falls back.
 On a CPU tensor each runs its plain version: the same arithmetic in plain
 PyTorch (the TPU kernel's `_sdpa` math, batched over heads). The tests
@@ -49,6 +58,12 @@ FLASH_KERNEL = Kernel(
     replaces="vit_cpp_tpu/ops/flash_attention.py:1298",
 )
 
+GRAD_KERNEL = Kernel(
+    "attention_qkv_grad",
+    source="vit_cpp_tpu_torch/csrc/attention_qkv_grad.cu",
+    replaces="vit_cpp_tpu/ops/flash_attention.py:857",
+)
+
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,20 +84,27 @@ def _check_args(qkv: torch.Tensor, num_heads: int, kv, sizes):
     return b, t, h, h // num_heads
 
 
+def _acc(dtype) -> torch.dtype:
+    """Accumulation type of the plain versions: f32, or f64 for f64 inputs
+    (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _sdpa_plain(q, k, v, *, fast: bool, sizes=None) -> torch.Tensor:
     """The kernels' arithmetic over (B, nh, n, d) q, k, v in plain PyTorch."""
+    acc = _acc(q.dtype)
     scale = _LOG2E / math.sqrt(q.shape[-1])
-    qs = (q.float() * scale).to(q.dtype)
-    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    qs = (q.to(acc) * scale).to(q.dtype)
+    s = torch.matmul(qs.to(acc), k.to(acc).transpose(-1, -2))
     if fast:
         s = torch.clamp(s, max=120.0)
     else:
         s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s)
     if sizes is not None:
-        p = p * sizes.float()[:, None, None, :]
+        p = p * sizes.to(acc)[:, None, None, :]
     l = p.sum(dim=-1, keepdim=True)
-    return (torch.matmul(p.to(q.dtype).float(), v.float()) / l).to(q.dtype)
+    return (torch.matmul(p.to(q.dtype).to(acc), v.to(acc)) / l).to(q.dtype)
 
 
 def attention_qkv_plain(
@@ -194,3 +216,116 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     check(rc, "flash_attention kernel launch")
     FLASH_KERNEL.counted()
     return out
+
+
+def attention_qkv_grad_plain(
+    qkv: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    *,
+    sizes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the backward kernel (any device): the
+    TPU kernel's per-head math (_qkv_grad_head) batched over (B, nh)."""
+    b, t, h, d = _check_args(qkv, num_heads, None, sizes)
+    if tuple(do.shape) != (b, t, h):
+        raise ValueError(f"do must be (B, T, h)={(b, t, h)}, got {tuple(do.shape)}")
+    dt, acc = qkv.dtype, _acc(qkv.dtype)
+    x = qkv.reshape(b, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0].to(acc), x[1].to(acc), x[2].to(acc)  # (B, nh, T, d)
+    g = do.to(dt).reshape(b, t, num_heads, d).permute(0, 2, 1, 3).to(acc)
+    qs = (q * (_LOG2E / math.sqrt(d))).to(dt).to(acc)
+    s = torch.matmul(qs, k.transpose(-1, -2))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    if sizes is not None:
+        p = p * sizes.to(acc)[:, None, None, :]
+    pn = p / p.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(pn.to(dt).to(acc).transpose(-1, -2), g)
+    dp = torch.matmul(g, v.transpose(-1, -2))
+    r = (dp * pn).sum(dim=-1, keepdim=True)
+    ds = (pn * (dp - r)).to(dt).to(acc)
+    nat = 1.0 / math.sqrt(d)
+    dq = torch.matmul(ds, k) * nat
+    dk = torch.matmul(ds.transpose(-1, -2), q) * nat
+    out = torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)])  # (3, B, nh, T, d)
+    return out.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h)
+
+
+def attention_qkv_grad(
+    qkv: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    *,
+    sizes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Backward of `attention_qkv` in safe mode: (B, T, 3h) qkv and the
+    (B, T, h) output cotangent `do` -> (B, T, 3h) [dq | dk | dv]. `sizes`
+    (B, T) are the ToMe key weights of the forward."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_grad_plain(qkv, do, num_heads, sizes=sizes)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_qkv_grad: unsupported device {qkv.device}")
+    b, t, h, d = _check_args(qkv, num_heads, None, sizes)
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(f"attention_qkv_grad kernel takes f32/bf16, got {qkv.dtype}")
+    if d % 8 or d > 128:
+        raise ValueError(f"attention_qkv_grad kernel takes d % 8 == 0, d <= 128; got d={d}")
+    if tuple(do.shape) != (b, t, h) or do.dtype != qkv.dtype or do.device != qkv.device:
+        raise ValueError(
+            f"do must be (B, T, h)={(b, t, h)} {qkv.dtype} on {qkv.device}, got "
+            f"{tuple(do.shape)} {do.dtype} on {do.device}"
+        )
+    if not (qkv.is_contiguous() and do.is_contiguous()):
+        raise ValueError("attention_qkv_grad kernel needs contiguous qkv and do")
+    if qkv.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("attention_qkv_grad kernel needs 16-byte aligned qkv and do")
+    if sizes is not None:
+        if sizes.device != qkv.device or sizes.dtype != torch.float32:
+            raise ValueError("sizes must be float32 on the qkv's device")
+        if not sizes.is_contiguous():
+            raise ValueError("attention_qkv_grad kernel needs contiguous sizes")
+    dqkv = torch.empty_like(qkv)
+    # per query row: max, sum p and r, from the first launch to the second
+    stats = torch.empty((b, num_heads, t, 3), dtype=torch.float32, device=qkv.device)
+    lib = library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.vit_attention_qkv_grad(
+            qkv.data_ptr(), do.data_ptr(),
+            None if sizes is None else sizes.data_ptr(),
+            dqkv.data_ptr(), stats.data_ptr(),
+            b, t, num_heads, d, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
+            _DTYPES[qkv.dtype], stream,
+        )
+    check(rc, "attention_qkv_grad kernel launch")
+    GRAD_KERNEL.counted()
+    return dqkv
+
+
+class _AttentionQKVTrain(torch.autograd.Function):
+    """Forward: `attention_qkv` in safe mode; backward: `attention_qkv_grad`.
+    Only qkv is saved: the backward recomputes the softmax from it."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, sizes):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, sizes)
+        return attention_qkv(qkv, num_heads, fast=False, sizes=sizes)
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, sizes = ctx.saved_tensors
+        dqkv = attention_qkv_grad(qkv, do.contiguous(), ctx.num_heads, sizes=sizes)
+        # sizes come from the stop-gradient ToMe matching: no cotangent
+        return dqkv, None, None
+
+
+def attention_qkv_train(
+    qkv: torch.Tensor, num_heads: int, sizes: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Differentiable fused attention for the training path (the JAX
+    package's custom-VJP `attention_qkv_train`): safe softmax forward
+    through the attention kernel, backward through the backward kernel.
+    Neither direction stores a (B, nh, T, T) tensor. `sizes` (B, T) f32
+    are ToMe key weights and get no gradient."""
+    return _AttentionQKVTrain.apply(qkv, num_heads, sizes)

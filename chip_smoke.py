@@ -23,7 +23,8 @@
      sizes too, ViT-Ti (3 heads), ViT-H/14 (d=80, T=257) and ViT-B/8
      (T=785), each error relative to max|plain|.
    Then times kernel and plain version with CUDA events at the ViT-B/16
-   serving and training shapes.
+   serving and training shapes, and the attention kernels at T=785 too
+   (the shape of the JAX package's lane paths).
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -54,6 +55,17 @@
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
+5. Diagnostics, the card-side tools of vit_cpp_tpu_torch.tools:
+   every variant of attn_anatomy (head-pair form at ViT-B/16 B=128,
+   lane form at B=8 T=785 w=3), of attn_grad_anatomy (B=64) and the
+   probe_int8_dot product (1024^3; int8 exact) against its plain version
+   on the card, each timed; then each tool's entry point, as a user runs
+   it, with the launch counts set to 0 just before and read just after.
+Every kernel's line gives its bound (the larger of its bytes over 3.35
+TB/s and its operations over the data sheet's peak for their type: 989
+TFLOP/s bf16, 67 f32, 1,979 TOP/s int8) and the time of one PyTorch call
+that computes the same function, where there is one (library_ms; the
+port never calls it).
 
 Every phase raises on failure, so the script exits nonzero and prints no
 result. On success the last lines are a JSON line with each kernel's
@@ -66,6 +78,7 @@ from __future__ import annotations
 import sys
 
 sys.modules["jax"] = None  # the port runs without JAX: any import raises
+sys.modules["vit_cpp_tpu"] = None  # and without the JAX package
 
 import contextlib
 import glob
@@ -116,6 +129,16 @@ FLAGSHIP_TOL = 5e-3
 # round pn and ds to a neighbouring bf16 value (2^-8 relative) where the
 # two sum in another order (an H100 measured <= 2e-3).
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The diagnostics' kernels vs their plain versions, relative to
+# max|plain|: bf16 outputs of the same f32 arithmetic summed in another
+# order round up to one bf16 step (2^-8) apart; the products of rounded
+# p can add another. The int8 product must be exact.
+ANATOMY_TOL = 2e-2
+# The probe's bf16 product (exact products, f32 sums in another order).
+PROBE_BF16_TOL = 1e-5
+# The card's data-sheet rates (H100 SXM, dense), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 # Slice parity, card vs CPU, f32 with TF32 off: summation order only.
 PARITY_LOSS_RTOL = 1e-5
 PARITY_GRAD_TOL = 1e-3  # max|g_card - g_cpu| / max|g_cpu| for every leaf
@@ -152,13 +175,50 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_pair(what: str, card: str, kern, plain):
+def time_pair(what: str, card: str, kern, plain, iters: int = 50):
     """Kernel and plain version in turns (plain, kernel, kernel, plain);
     (mean kernel ms, mean plain ms)."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+    p1, k1, k2, p2 = (cuda_ms(plain, iters), cuda_ms(kern, iters), cuda_ms(kern, iters),
+                      cuda_ms(plain, iters))
     log(f"timing {what} on {card}: kernel {k1:.4f} / {k2:.4f} ms, "
         f"plain {p1:.4f} / {p2:.4f} ms per call")
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(ops: float, nbytes: float, kind: str):
+    """(least ms the card could take, what bounds it): each input byte
+    read once and each output byte written once at the memory rate, or
+    the operations at the peak rate for their type, whichever is longer."""
+    t_ops, t_bytes = ops / PEAK_OPS_PER_S[kind], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _split_heads(qkv: torch.Tensor, nh: int):
+    """q, k, v (B, nh, T, d) views of a (B, T, 3h) tensor."""
+    b, t, three_h = qkv.shape
+    return qkv.view(b, t, 3, nh, three_h // 3 // nh).permute(2, 0, 3, 1, 4)
+
+
+def sdpa_ms(qkv: torch.Tensor, nh: int) -> float:
+    """One scaled_dot_product_attention call on the split views (the
+    library yardstick of the attention kernels)."""
+    q, k, v = _split_heads(qkv, nh)
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+
+
+def sdpa_grad_ms(qkv: torch.Tensor, do: torch.Tensor, nh: int) -> float:
+    """The backward of one scaled_dot_product_attention call alone,
+    torch.autograd.grad on a recorded graph."""
+    q, k, v = (x.detach().contiguous().requires_grad_() for x in _split_heads(qkv, nh))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    b, t, h = do.shape
+    g = do.view(b, t, nh, h // nh).permute(0, 2, 1, 3)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+
+
+def attention_bound(b: int, t: int, h: int, esize: int):
+    """K1 / K3: 4 B T^2 h operations; (B, T, 3h) in, (B, T, h) out."""
+    return bound(4.0 * b * t * t * h, (3 + 1) * b * t * h * esize, "bf16" if esize == 2 else "f32")
 
 
 def check_kernels(card: str):
@@ -211,20 +271,27 @@ def check_kernels(card: str):
             main_err = err
 
     times = {}
-    for b in (8, 64):
-        qkv = qkv_of(b, 197, 768, bf16)
-        times[b] = time_pair(
-            f"attention_qkv ViT-B/16 B={b} T=197 h=768 bf16 fast", card,
+    # ViT-B/16 serving at B=8 and 64; T=785 is the shape of the JAX
+    # package's lane path (K1')
+    for b, t in ((8, 197), (64, 197), (8, 785)):
+        qkv = qkv_of(b, t, 768, bf16)
+        k_ms, p_ms = time_pair(
+            f"attention_qkv B={b} T={t} h=768 bf16 fast", card,
             lambda: attention_qkv(qkv, 12, fast=True),
             lambda: attention_qkv_plain(qkv, 12, fast=True),
         )
+        lib = sdpa_ms(qkv, 12)
+        b_ms, b_by = attention_bound(b, t, 768, 2)
+        log(f"attention_qkv B={b} T={t}: bound {b_ms:.4f} ms ({b_by}), library "
+            f"scaled_dot_product_attention {lib:.4f} ms on {card}")
+        times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib)
     return main_err, times
 
 
 def _quant_linear(rng, k: int, n: int, qtype):
     """A random (n, k) weight quantized to `qtype` and loaded as the
     params loader loads it: a QuantLinear on the card."""
-    from vit_cpp_tpu.gguf.reader import TensorRecord
+    from vit_cpp_tpu_torch.gguf.reader import TensorRecord
     from vit_cpp_tpu_torch.quant.blocks import quantize
     from vit_cpp_tpu_torch.quant.qlinear import quant_linear_from_record
 
@@ -234,7 +301,7 @@ def _quant_linear(rng, k: int, n: int, qtype):
 
 
 def check_dequant_matmul(card: str):
-    from vit_cpp_tpu.gguf.dtypes import GGMLDType as G
+    from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType as G
     from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
 
     rng = np.random.default_rng(0)
@@ -277,10 +344,17 @@ def check_dequant_matmul(card: str):
                           ("qkv B=64", 12608, 768, 2304)):
         w = _quant_linear(rng, k, n, G.Q8_0)
         x = torch.randn((m, k), device="cuda").to(bf16)
-        times[name] = time_pair(
+        k_ms, p_ms = time_pair(
             f"dequant_matmul ViT-B/16 {name} M={m} K={k} N={n} Q8_0 bf16", card,
             lambda: dequant_matmul(x, w), lambda: dequant_matmul_plain(x, w),
         )
+        dense = w.dequantize(bf16)  # once, outside the timed loop
+        lib = cuda_ms(lambda: torch.matmul(x, dense))
+        # x and y in bf16, the weight as Q8_0 blocks (34 bytes per 32)
+        b_ms, b_by = bound(2.0 * m * k * n, 2 * m * k + k * n // 32 * 34 + 2 * m * n, "bf16")
+        log(f"dequant_matmul {name}: bound {b_ms:.4f} ms ({b_by}), library torch.matmul on "
+            f"the weight dequantized once {lib:.4f} ms on {card}")
+        times[name] = (k_ms, p_ms, b_ms, b_by, lib)
     return worst, times
 
 
@@ -308,11 +382,15 @@ def check_flash_attention(card: str):
         worst = max(worst, err)
     q, k, v = (torch.randn((8, 12, 197, 64), generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    times = time_pair(
+    k_ms, p_ms = time_pair(
         "flash_attention ViT-B/16 B=8 H=12 T=197 D=64 bf16", card,
         lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
     )
-    return worst, times
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    b_ms, b_by = attention_bound(8, 197, 768, 2)
+    log(f"flash_attention: bound {b_ms:.4f} ms ({b_by}), library "
+        f"scaled_dot_product_attention {lib:.4f} ms on {card}")
+    return worst, (k_ms, p_ms, b_ms, b_by, lib)
 
 
 def check_attention_grad(card: str):
@@ -351,14 +429,24 @@ def check_attention_grad(card: str):
         if main_err is None:
             main_err = err
     times = {}
-    for dtype in (f32, bf16):
-        qkv = torch.randn((32, 197, 2304), generator=gen, device="cuda").to(dtype)
-        do = torch.randn((32, 197, 768), generator=gen, device="cuda").to(dtype)
-        times[dtype] = time_pair(
-            f"attention_qkv_grad ViT-B/16 B=32 T=197 h=768 {str(dtype)[6:]}", card,
+    # ViT-B/16 training at B=32; T=785 is the shape of the JAX package's
+    # lane path (K2')
+    for dtype, b, t in ((f32, 32, 197), (bf16, 32, 197), (f32, 4, 785)):
+        qkv = torch.randn((b, t, 2304), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, t, 768), generator=gen, device="cuda").to(dtype)
+        k_ms, p_ms = time_pair(
+            f"attention_qkv_grad B={b} T={t} h=768 {str(dtype)[6:]}", card,
             lambda: attention_qkv_grad(qkv, do, 12),
             lambda: attention_qkv_grad_plain(qkv, do, 12),
         )
+        lib = sdpa_grad_ms(qkv, do, 12)
+        esize = qkv.element_size()
+        # five T x T x d products per head; qkv and dO in, dqkv out
+        b_ms, b_by = bound(10.0 * b * t * t * 768, (3 + 1 + 3) * b * t * 768 * esize,
+                           "f32" if dtype == f32 else "bf16")
+        log(f"attention_qkv_grad B={b} T={t} {str(dtype)[6:]}: bound {b_ms:.4f} ms ({b_by}), "
+            f"library scaled_dot_product_attention backward {lib:.4f} ms on {card}")
+        times[(dtype, t)] = (k_ms, p_ms, b_ms, b_by, lib)
     return main_err, times
 
 
@@ -366,8 +454,8 @@ def slice_parity(f32_path: str) -> None:
     """The training loss and its gradients on the card (the kernels)
     against the card machine's CPU (the plain versions), full ViT-B/16
     width, B=2, f32."""
-    from vit_cpp_tpu.gguf.reader import read_model
-    from vit_cpp_tpu.hparams import VitHParams
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.models.params import load_params
     from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
     from vit_cpp_tpu_torch.parallel.train import cross_entropy_loss, tree_leaves
@@ -436,8 +524,8 @@ def profile_update(f16: str, data: str) -> None:
     torch.profiler: the attention kernels' share of device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vit_cpp_tpu.finetune import load_dataset
-    from vit_cpp_tpu.gguf.reader import read_model
+    from vit_cpp_tpu_torch.finetune import load_dataset
+    from vit_cpp_tpu_torch.gguf.reader import read_model
     from vit_cpp_tpu_torch.finetune import _preprocess_all, _reinit_head
     from vit_cpp_tpu_torch.models.params import load_params
     from vit_cpp_tpu_torch.parallel.train import create_train_state, train_step
@@ -535,7 +623,7 @@ def finetune_path(f16: str, tmp: str, images_per_class: int = 32):
     engine = VitEngine(out, device="cuda")
     if engine.id2label != {0: "aa_dark", 1: "bb_bright"}:
         raise AssertionError(f"ft.gguf labels {engine.id2label}")
-    from vit_cpp_tpu.finetune import load_dataset
+    from vit_cpp_tpu_torch.finetune import load_dataset
 
     paths, labels, _ = load_dataset(data)
     pixels = torch.stack([engine.preprocess_image(im) for im in decode_many(paths)])
@@ -697,14 +785,152 @@ def split_head_path() -> int:
     return launches
 
 
+def check_diagnostics(card: str) -> dict:
+    """Every variant of the three tools' kernels against its plain version
+    at the tools' flagship shapes, timed. Returns {kernel name: (err of
+    the main variant, kernel ms, plain ms, bound ms, bound by, library ms)}."""
+    from vit_cpp_tpu_torch.tools import attn_anatomy as ta
+    from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
+    from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
+    from vit_cpp_tpu_torch.tools import time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def variants(kernel, shape, names, fn, plain, flops, nbytes, lib):
+        """Check and time each variant; the first is the kernel's line."""
+        for v in names:
+            got, ref = fn(v), plain(v)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or got.dtype != bf16 or not torch.isfinite(got).all():
+                raise AssertionError(f"{kernel.name} {v}: bad output {tuple(got.shape)} {got.dtype}")
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = ANATOMY_TOL * ref.float().abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{kernel.name} {v}: error {err} > {tol}")
+            k_ms, p_ms = time_pair(f"{kernel.name} {v} {shape} bf16", card,
+                                   lambda: fn(v), lambda: plain(v), iters=10)
+            b_ms, b_by = bound(flops(v), nbytes, "bf16")
+            log(f"diagnostic {kernel.name} {v:<9} {shape}: max|kernel - plain| = {err:.3e} "
+                f"(tolerance {tol:.3e} = {ANATOMY_TOL:.0e} x max|plain|); kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if v == names[0]:
+                out[kernel.name] = (err, k_ms, p_ms, b_ms, b_by, lib)
+
+    for kernel, b, t, h, fn in (
+        (ta.PAIR_KERNEL, 128, 197, 768, lambda x, v: ta.pair_variant(x, v, 12)),
+        (ta.LANE_KERNEL, 8, 785, 768, lambda x, v: ta.lane_variant(x, v, 64)),
+    ):
+        qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
+        plain = {ta.PAIR_KERNEL: lambda v: ta.pair_variant_plain(qkv, v, 12),
+                 ta.LANE_KERNEL: lambda v: ta.lane_variant_plain(qkv, v, 64)}[kernel]
+        lib = sdpa_ms(qkv, 12)
+        log(f"{kernel.name} full: library scaled_dot_product_attention {lib:.4f} ms on {card}")
+        variants(kernel, f"B={b} T={t} h={h}", ta.VARIANTS, lambda v: fn(qkv, v), plain,
+                 lambda v: ta.dot_flops(v, b, t, h), 4 * b * t * h * 2, lib)
+        del qkv
+
+    b, t, h = 64, 197, 768
+    qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
+    do = torch.randn((b, t, h), generator=gen, device="cuda").to(bf16)
+    lib = sdpa_grad_ms(qkv, do, 12)
+    log(f"{tg.KERNEL.name} full: library scaled_dot_product_attention backward {lib:.4f} ms "
+        f"on {card}")
+    variants(tg.KERNEL, f"B={b} T={t} h={h}", tg.VARIANTS,
+             lambda v: tg.grad_variant(qkv, do, v, 12),
+             lambda v: tg.grad_variant_plain(qkv, do, v, 12),
+             lambda v: tg.dot_flops(v, b, t, h), 7 * b * t * h * 2, lib)
+    del qkv, do
+
+    n = tp.M
+    a8 = torch.randint(-127, 128, (n, n), generator=gen, device="cuda").to(torch.int8)
+    b8 = torch.randint(-127, 128, (n, n), generator=gen, device="cuda").to(torch.int8)
+    got = tp.dot(a8, b8)
+    if not torch.equal(got, tp.dot_plain(a8, b8)):
+        raise AssertionError("probe_int8_dot: the int8 product is not exact")
+    ab, bb = a8.to(bf16), b8.to(bf16)
+    got, ref = tp.dot(ab, bb), tp.dot_plain(ab, bb)
+    err = (got - ref).abs().max().item()
+    if not err <= PROBE_BF16_TOL * ref.abs().max().item():
+        raise AssertionError(f"probe_int8_dot bf16: error {err}")
+    rows = {}
+    for kind, x, y, lib_fn, nbytes in (
+        ("int8", a8, b8, lambda: torch._int_mm(a8, b8), (1 + 1 + 4) * n * n),
+        ("bf16", ab, bb, lambda: torch.matmul(ab, bb), (2 + 2 + 4) * n * n),
+    ):
+        # a ~30 us call: timed as the tool times it, a CUDA graph of the
+        # chain (an eager chain measures the wrapper's launch cost); in
+        # turns: plain, kernel, kernel, plain
+        p1, k1, k2, p2 = (time_ms(f, 200) for f in (
+            lambda: tp.dot_plain(x, y), lambda: tp.dot(x, y),
+            lambda: tp.dot(x, y), lambda: tp.dot_plain(x, y)))
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        log(f"timing probe_int8_dot {kind} {n}^3 (CUDA graph of 200 calls) on {card}: "
+            f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per call")
+        lib = time_ms(lib_fn, 200)
+        b_ms, b_by = bound(2.0 * n ** 3, nbytes, kind)
+        rate = 2.0 * n ** 3 / (k_ms / 1e3) / 1e12
+        log(f"diagnostic probe_int8_dot {kind} {n}^3: {rate:.1f} T{'OP' if kind == 'int8' else 'FLOP'}/s "
+            f"in the kernel ({k_ms:.4f} ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"library {'torch._int_mm' if kind == 'int8' else 'torch.matmul'} {lib:.4f} ms")
+        rows[kind] = (k_ms, p_ms, b_ms, b_by, lib)
+    log(f"diagnostic probe_int8_dot: int8 exact; bf16 max|kernel - plain| = {err:.3e}; "
+        f"int8 : bf16 kernel rate {rows['bf16'][0] / rows['int8'][0]:.2f}x on {card}")
+    out[tp.KERNEL.name] = (0.0, *rows["int8"])
+    return out
+
+
+def diagnostics_path() -> dict:
+    """The three tools' entry points as a user runs them, at their
+    flagship flags; {kernel name: launches}."""
+    from vit_cpp_tpu_torch.tools import attn_anatomy as ta
+    from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
+    from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
+
+    runs = [
+        ("attn_anatomy --kernel pair", ta.main,
+         ["--kernel", "pair", "--t", "197", "--h", "768", "--b", "128"], ta.VARIANTS),
+        ("attn_anatomy --kernel lane", ta.main,
+         ["--t", "785", "--h", "768", "--b", "8", "--w", "3"], ta.VARIANTS),
+        ("attn_grad_anatomy", tg.main, ["--t", "197", "--h", "768", "--b", "64"], tg.VARIANTS),
+        ("probe_int8_dot", tp.main, [], ("exact=True", "in-kernel rates")),
+    ]
+    kernels = (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL, tp.KERNEL)
+    for kernel in kernels:
+        kernel.reset()
+    for label, tool_main, argv, expect in runs:
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = tool_main(argv)
+        lines = text.getvalue().splitlines()
+        for line in lines:
+            log(f"tool {label}: {line}")
+        log(f"tool {label}: {time.perf_counter() - t0:.1f} s")
+        if rc != 0 or not all(any(e in line for line in lines) for e in expect):
+            raise AssertionError(f"tool {label}: exit {rc}, output {lines}")
+    torch.cuda.synchronize()
+    launches = {kernel.name: kernel.launches for kernel in kernels}
+    chain = ta.ITERS + 3  # each timing: three warm-up calls, then the chain
+    want = {ta.PAIR_KERNEL.name: len(ta.VARIANTS) * chain,
+            ta.LANE_KERNEL.name: len(ta.VARIANTS) * chain,
+            tg.KERNEL.name: len(tg.VARIANTS) * (tg.ITERS + 3),
+            tp.KERNEL.name: 1 + 2 * (tp.ITERS + 3)}
+    if launches != want:
+        raise AssertionError(f"tools: launches {launches}, want {want}")
+    log(f"tools: launches {launches}")
+    return launches
+
+
 def run_paths():
-    from vit_cpp_tpu.hparams import VitHParams
-    from vit_cpp_tpu.testing.synthetic import write_synthetic_model
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
     from vit_cpp_tpu_torch.cli import quantize
     from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
     from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
-    from vit_cpp_tpu.server import decode_rgb_from_bytes
+    from vit_cpp_tpu_torch.server import decode_rgb_from_bytes
 
     images = [decode_rgb_from_bytes(b) for b in asset_bodies()[1]]
     with tempfile.TemporaryDirectory() as tmp:
@@ -776,21 +1002,32 @@ def main() -> int:
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
     _, q8_launches, flash_launches, grad_launches = run_paths()
-    if "jax" in sys.modules and sys.modules["jax"] is not None:
-        raise AssertionError("jax was imported")
+    diag = check_diagnostics(card)
+    tool_launches = diagnostics_path()
+    for name in ("jax", "vit_cpp_tpu"):
+        if sys.modules.get(name) is not None:
+            raise AssertionError(f"{name} was imported")
 
     def entry(kernel, launches, err, times):
+        ms, plain_ms, bound_ms, bound_by, library_ms = times
         return {
             "name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches,
-            "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         }
 
+    from vit_cpp_tpu_torch.tools import attn_anatomy as ta
+    from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
+    from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
+
     log(json.dumps({"kernels": [
-        entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[8]),
+        entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)]),
         entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"]),
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
-        entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[torch.float32]),
+        entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[(torch.float32, 197)]),
+        *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
+          for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL, tp.KERNEL)),
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ and loss for a given mix. Values are O(1) f32: 1e-6 absolute for the
 resample (the same few f32 operations), exact where no arithmetic runs.
 """
 
+import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,6 +73,7 @@ def test_mixup_is_a_convex_combination_and_its_loss_matches_jax():
     from vit_cpp_tpu.models import params_from_state_dict
     from vit_cpp_tpu.parallel.train import _mixed_cross_entropy_loss as jmixed
     from vit_cpp_tpu.testing.synthetic import random_state_dict
+    from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
     from vit_cpp_tpu_torch.models.params import params_from_jax
     from vit_cpp_tpu_torch.parallel.train import _mixed_cross_entropy_loss as tmixed
 
@@ -89,7 +91,7 @@ def test_mixup_is_a_convex_combination_and_its_loss_matches_jax():
     ref = jmixed(jparams, jnp.asarray(mixed.numpy()), jnp.asarray(y), jnp.asarray(y2),
                  jnp.float32(lam), hp, 0.1)
     got = tmixed(params_from_jax(jparams), mixed, torch.from_numpy(y),
-                 torch.from_numpy(y2), lam, hp, 0.1)
+                 torch.from_numpy(y2), lam, PortHParams(**dataclasses.asdict(hp)), 0.1)
     np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
 
 

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 import threading
+import urllib.error
 import urllib.request
 
 import jax.numpy as jnp
@@ -178,6 +179,60 @@ def test_daemon_classifies_like_the_engine(model):
         [e["prob"] for e in body["topk"]], [p for _, p, _ in want], atol=1e-6
     )
     assert stats["requests"] == 1 and stats["batches"] == 1
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _post_status(url, data):
+    try:
+        return _post(url, data)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_daemon_routes_match_the_jax_daemon(model):
+    """The port's own HTTP handler: /healthz, /metrics (the JAX daemon's
+    Prometheus text for the same counters), and its 404 / 400 answers."""
+    from types import SimpleNamespace
+
+    from vit_cpp_tpu.server import _prometheus_metrics as jax_metrics
+
+    engine, _ = build_engine(model, device="cpu")
+    httpd, batcher = create_server(engine, port=0, batch=2, max_wait_ms=5.0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_port}"
+        with open(MAGPIE, "rb") as f:
+            assert _post(base + "/v1/classify", f.read())[0] == 200
+        health = _get(base + "/healthz")
+        metrics = _get(base + "/metrics")
+        missing_get = _get(base + "/nope")
+        missing_post = _post_status(base + "/v1/nope", b"x")
+        garbage = _post_status(base + "/v1/classify", b"not an image")
+        with open(MAGPIE, "rb") as f:
+            bad_query = _post_status(base + "/v1/classify?topk=x", f.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    assert health[0] == 200 and json.loads(health[1]) == {
+        "ok": True, "model": "vit", "hidden_size": HP.hidden_size,
+        "img_size": HP.img_size, "batch": 2,
+    }
+    jax_model = SimpleNamespace(name=None, is_vitstr=False, is_headless=False,
+                                batcher=batcher, embed_batcher=None)
+    assert metrics == (200, jax_metrics([jax_model]).encode())
+    assert b'vit_requests_total{model="default",route="classify"} 1' in metrics[1]
+    assert missing_get[0] == 404 and missing_post[0] == 404
+    assert garbage == (400, {"error": "undecodable image"})
+    assert bad_query[0] == 400
 
 
 def test_daemon_serves_q8_0_with_mm_pallas(q8_model):

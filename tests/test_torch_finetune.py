@@ -170,8 +170,8 @@ def test_cuda_device_without_a_card_raises(model_path, data):
 
 
 def test_native_decoder_build_is_tried_once(data, monkeypatch):
-    import vit_cpp_tpu.native as native
-    import vit_cpp_tpu.native.build as native_build
+    import vit_cpp_tpu_torch.native as native
+    import vit_cpp_tpu_torch.native.build as native_build
 
     calls = []
 
@@ -181,7 +181,7 @@ def test_native_decoder_build_is_tried_once(data, monkeypatch):
 
     monkeypatch.setattr(native_build, "build", failing_build)
     # as on a machine where the build fails: no decoder module loaded yet
-    monkeypatch.delitem(sys.modules, "vit_cpp_tpu.native.decoder", raising=False)
+    monkeypatch.delitem(sys.modules, "vit_cpp_tpu_torch.native.decoder", raising=False)
     monkeypatch.delattr(native, "decoder", raising=False)
     monkeypatch.setattr(decode, "_native", None)
     paths = sorted(

@@ -14,6 +14,7 @@ same gradients, to rtol 1e-6 on parameters of magnitude 0.5 or more
 three train_step losses to rtol 1e-4.
 """
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +26,7 @@ from vit_cpp_tpu.hparams import VitHParams
 from vit_cpp_tpu.models import params_from_state_dict
 from vit_cpp_tpu.parallel import train as jtrain
 from vit_cpp_tpu.testing.synthetic import random_state_dict
+from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
 from vit_cpp_tpu_torch.models.params import params_from_jax
 from vit_cpp_tpu_torch.parallel import train as ttrain
 
@@ -32,6 +34,7 @@ HP = VitHParams(
     hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
     num_classes=5, patch_size=8, img_size=32,
 )
+PORT_HP = PortHParams(**dataclasses.asdict(HP))  # the port's own, same fields
 
 
 def _flat(tree, prefix=""):
@@ -66,7 +69,7 @@ def test_loss_and_grads_match_jax(setup, smooth):
         jparams, jnp.asarray(x), jnp.asarray(y), HP, smooth
     )
     params = _port_params(jparams)
-    loss = ttrain.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y), HP, smooth)
+    loss = ttrain.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y), PORT_HP, smooth)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(l_ref), rtol=1e-5)
     ref, got = _flat(g_ref), {k: v.grad for k, v in _flat(params).items()}
@@ -138,7 +141,7 @@ def test_train_step_losses_match_jax(setup):
     xj, yj, xt, yt = jnp.asarray(x), jnp.asarray(y), torch.from_numpy(x), torch.from_numpy(y)
     for _ in range(3):
         jstate, l_ref = jtrain.train_step(jstate, xj, yj, HP, opt)
-        loss = ttrain.train_step(tstate, xt, yt, HP)
+        loss = ttrain.train_step(tstate, xt, yt, PORT_HP)
         np.testing.assert_allclose(float(loss), float(l_ref), rtol=1e-4)
     assert tstate.step == 3
 
@@ -150,15 +153,15 @@ def test_train_step_accum_equals_big_batch(setup):
     y = torch.from_numpy(rng.integers(0, 5, (4,)))
     big = ttrain.create_train_state(params_from_jax(jparams))
     acc = ttrain.create_train_state(params_from_jax(jparams))
-    l_big = ttrain.train_step(big, x, y, HP, smooth=0.1)
-    l_acc = ttrain.train_step_accum(acc, x, y, HP, 2, smooth=0.1)
+    l_big = ttrain.train_step(big, x, y, PORT_HP, smooth=0.1)
+    l_acc = ttrain.train_step_accum(acc, x, y, PORT_HP, 2, smooth=0.1)
     np.testing.assert_allclose(float(l_acc), float(l_big), rtol=1e-6)
     # the gradients of the update (compared before Adam, where a gradient
     # near zero could flip the sign of an update)
     for a, b in zip(ttrain.tree_leaves(acc.params), ttrain.tree_leaves(big.params)):
         np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6, rtol=1e-5)
     with pytest.raises(ValueError):
-        ttrain.train_step_accum(acc, x[:3], y[:3], HP, 2)
+        ttrain.train_step_accum(acc, x[:3], y[:3], PORT_HP, 2)
 
 
 def test_freeze_backbone_leaves_non_head_bit_equal(setup):
@@ -168,7 +171,7 @@ def test_freeze_backbone_leaves_non_head_bit_equal(setup):
         params_from_jax(jparams), dict(lr=1e-2), trainable=("head",)
     )
     for _ in range(2):
-        ttrain.train_step(state, torch.from_numpy(x), torch.from_numpy(y), HP)
+        ttrain.train_step(state, torch.from_numpy(x), torch.from_numpy(y), PORT_HP)
     for k, v in _flat(state.params).items():
         if k.startswith("head/"):
             assert not torch.equal(v.detach(), _flat(before)[k]), k

@@ -18,14 +18,19 @@ found under the same name:
 - ``parallel`` — the single-device train step and AdamW (``train``),
                 training checkpoints (``checkpoint``);
 - ``engine``, ``server``, ``cli.server`` — the serving path;
-  ``finetune``, ``cli.finetune`` — the fine-tuning path (``decode``: the
-  image decode it uses); ``cli.quantize`` — the quantize tool;
+  ``finetune``, ``cli.finetune`` — the fine-tuning path; ``decode``,
+  ``io.image``, ``native`` — image decode; ``cli.quantize`` — the
+  quantize tool;
+- ``hparams``, ``gguf``, ``testing.synthetic`` — hyperparameters, the
+  model file reader and writer, synthetic checkpoints;
+- ``tools``   — card-side diagnostics: attention stage anatomies and the
+                int8 product-rate probe;
 - ``csrc``    — CUDA C++ kernels for sm_90a, built by ``_build``.
 
-The package imports torch and never jax. From the JAX package it uses
-only modules that load no JAX: hparams, the gguf reader/writer/dtypes
-(never TensorRecord.as_f32 on a quantized record), the image decode and
-the HTTP handler of server.py.
+The package imports torch and never jax, and nothing of vit_cpp_tpu:
+where it needs one of that package's JAX-free modules it keeps its own
+copy under the same path (tests/test_torch_isolation.py holds both rules
+and the copies' results).
 """
 
 __version__ = "0.1.0"

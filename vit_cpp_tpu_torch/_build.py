@@ -136,6 +136,26 @@ def library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p,
             ]
+            lib.vit_attn_anatomy.restype = ctypes.c_int
+            lib.vit_attn_anatomy.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p,
+            ]
+            lib.vit_attn_grad_anatomy.restype = ctypes.c_int
+            lib.vit_attn_grad_anatomy.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_void_p,
+            ]
+            lib.vit_probe_dot.restype = ctypes.c_int
+            lib.vit_probe_dot.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
             lib.vit_cuda_error_string.restype = ctypes.c_char_p
             lib.vit_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib

@@ -11,6 +11,33 @@ kernel.
 
 from __future__ import annotations
 
+from typing import Tuple
+
+# The leading bytes of a .vitx artifact (vit_cpp_tpu/aot.py's MAGIC).
+VITX_MAGIC = b"VITX\x01"
+
+
+def is_vitx(path: str) -> bool:
+    """True when `path` is a .vitx artifact (by magic, not extension);
+    vit_cpp_tpu/aot.py::is_vitx."""
+    try:
+        with open(path, "rb") as f:
+            return f.read(len(VITX_MAGIC)) == VITX_MAGIC
+    except OSError:
+        return False
+
+
+def model_spec(s: str) -> Tuple[str, str] | None:
+    """Parse a multi-model `name=path` spec; None when `s` is a plain
+    path (names must be '/'-free, so an '=' inside a directory name does
+    not hijack a single-model invocation, and `./name=x.gguf` is the
+    escape hatch for a file that genuinely contains '=');
+    vit_cpp_tpu/cli/common.py::model_spec."""
+    name, sep, path = s.partition("=")
+    if sep and name and path and "/" not in name:
+        return name, path
+    return None
+
 
 def _not_ported(flag: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
@@ -34,8 +61,6 @@ def build_engine(
 ):
     """gguf checkpoint -> (engine, is_vitstr). is_vitstr is always False:
     ViTSTR checkpoints raise in detect_hparams."""
-    from vit_cpp_tpu.aot import is_vitx
-
     if is_vitx(path):
         raise ValueError(
             f"{path} is a .vitx artifact: it carries StableHLO for the JAX "

@@ -22,9 +22,9 @@ import time
 
 import numpy as np
 
-from vit_cpp_tpu.gguf.dtypes import FTYPE_NAMES, QUANT_ITYPES, GGMLDType
-from vit_cpp_tpu.gguf.reader import read_model
-from vit_cpp_tpu.gguf.writer import write_header, write_tensor
+from vit_cpp_tpu_torch.gguf.dtypes import FTYPE_NAMES, QUANT_ITYPES, GGMLDType
+from vit_cpp_tpu_torch.gguf.reader import read_model
+from vit_cpp_tpu_torch.gguf.writer import write_header, write_tensor
 from vit_cpp_tpu_torch.quant.blocks import quantize_with_hist
 
 # Tensor-name patterns eligible for quantization.

@@ -58,7 +58,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    from vit_cpp_tpu.cli.common import model_spec
+    from vit_cpp_tpu_torch.cli.common import model_spec
 
     if len(args.model) > 1 or model_spec(args.model[0]) is not None:
         raise NotImplementedError(

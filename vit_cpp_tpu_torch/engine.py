@@ -25,9 +25,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from vit_cpp_tpu.gguf.reader import read_model
-from vit_cpp_tpu.hparams import VitHParams
-from vit_cpp_tpu.io.image import load_image_rgb
+from vit_cpp_tpu_torch.gguf.reader import read_model
+from vit_cpp_tpu_torch.hparams import VitHParams
+from vit_cpp_tpu_torch.io.image import load_image_rgb
 from vit_cpp_tpu_torch.models.params import infer_family_hparams, load_params
 from vit_cpp_tpu_torch.models.vit import ATTN_IMPLS, predict_probs
 from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch

@@ -6,8 +6,8 @@ training forward (parallel/train.py: fused attention forward, the
 hand-written backward kernel) -> torch.save checkpoint / resume
 (parallel/checkpoint.py) -> servable gguf (models/export.py). The dataset
 layout is the JAX package's: one subdirectory per class, any decodable
-image inside (its `load_dataset` and `_prefetch_batches` are reused; they
-load no JAX).
+image inside (`load_dataset` and `_prefetch_batches` are the port's own
+copies of that module's).
 
 Head transfer: when the dataset's class count differs from the
 checkpoint's, the head is zero-initialized for the new count and the
@@ -31,11 +31,82 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vit_cpp_tpu.finetune import _prefetch_batches, load_dataset
 from vit_cpp_tpu_torch.cli.common import _not_ported
 from vit_cpp_tpu_torch.decode import decode_many
+from vit_cpp_tpu_torch.io.image import IMAGE_EXTS
 from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
+
+
+def load_dataset(data_dir: str) -> Tuple[List[str], np.ndarray, List[str]]:
+    """Walk `data_dir/<class>/*` -> (paths, int labels, sorted class names);
+    vit_cpp_tpu/finetune.py::load_dataset."""
+    classes = sorted(
+        d
+        for d in os.listdir(data_dir)
+        if os.path.isdir(os.path.join(data_dir, d))
+    )
+    if not classes:
+        raise ValueError(f"{data_dir}: no class subdirectories")
+    paths: List[str] = []
+    labels: List[int] = []
+    for ci, cls in enumerate(classes):
+        sub = os.path.join(data_dir, cls)
+        for f in sorted(os.listdir(sub)):
+            if os.path.splitext(f)[1] in IMAGE_EXTS:
+                paths.append(os.path.join(sub, f))
+                labels.append(ci)
+    if not paths:
+        raise ValueError(f"{data_dir}: no images under class directories")
+    return paths, np.asarray(labels, np.int32), classes
+
+
+def _prefetch_batches(fetch, idx_seq, depth: int = 2):
+    """Run `fetch(idx)` for each index array on a background thread,
+    `depth` batches ahead of the consumer, so decode + preprocess of batch
+    s+1 overlaps the step on batch s (vit_cpp_tpu/finetune.py::
+    _prefetch_batches). Worker exceptions re-raise at the consuming
+    iteration. If the consumer abandons the generator (a train step
+    raised, KeyboardInterrupt), the finally block signals the worker to
+    stop and drains the queue so it cannot stay blocked in put()."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    _END = object()
+    stop = threading.Event()
+
+    def worker():
+        try:
+            for idx in idx_seq:
+                if stop.is_set():
+                    return
+                q.put(fetch(idx))
+        except BaseException as e:  # surface decode errors to the loop
+            q.put(e)
+            return
+        q.put(_END)
+
+    threading.Thread(
+        target=worker, name="vit-finetune-prefetch", daemon=True
+    ).start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        # unblock a worker waiting in put(); it checks `stop` before the
+        # next fetch and exits (at most one more item lands and is dropped)
+        while True:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
 
 
 def _dense_f32(params):
@@ -170,7 +241,7 @@ def finetune(
     The log's last line before the return gives the updates' host-clock
     time (each update ends with its loss read, which waits for the
     device), the run's first update left out."""
-    from vit_cpp_tpu.gguf.reader import read_model
+    from vit_cpp_tpu_torch.gguf.reader import read_model
     from vit_cpp_tpu_torch.engine import detect_hparams, resolve_device
     from vit_cpp_tpu_torch.models.params import load_params
     from vit_cpp_tpu_torch.ops.augment import augment_batch, augment_flags, mixup_batch, step_generator

@@ -2,10 +2,10 @@
 
 Counterpart of vit_cpp_tpu/models/export.py for this package's trees: the
 (possibly fine-tuned) forward-pass tree goes back to the reference
-tensor-name schema and is written through the shared, JAX-free
-`vit_cpp_tpu.testing.synthetic.state_dict_records` and
-`vit_cpp_tpu.gguf.writer.write_model`, so the same weights give the same
-file bytes as the JAX package's `save_params`. QuantLinear leaves are
+tensor-name schema and is written through the port's copies of
+`testing.synthetic.state_dict_records` and `gguf.writer.write_model`, so
+the same weights give the same file bytes as the JAX package's
+`save_params`. QuantLinear leaves are
 dequantized to f32 by this package's codec (re-quantize the output with
 cli/quantize.py). The families this package loads are covered: plain,
 distilled (dist_token + head_dist), registers, norm_pre, avg pooling and
@@ -19,9 +19,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from vit_cpp_tpu.gguf.writer import write_model
-from vit_cpp_tpu.hparams import VitHParams
-from vit_cpp_tpu.testing.synthetic import state_dict_records
+from vit_cpp_tpu_torch.gguf.writer import write_model
+from vit_cpp_tpu_torch.hparams import VitHParams
+from vit_cpp_tpu_torch.testing.synthetic import state_dict_records
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 

@@ -9,8 +9,8 @@ Counterpart of vit_cpp_tpu/models/params.py, in the same layout:
 - a block-quantized 2-D linear weight stays packed as a QuantLinear
   (codes + per-block scales), stacked field by field across the blocks.
 
-Quantized records are decoded by the port's own codec (quant/blocks.py):
-TensorRecord.as_f32 would import the JAX package's. `params_from_jax`
+Quantized records are decoded by the port's own codec (quant/blocks.py),
+through its TensorRecord.as_f32. `params_from_jax`
 turns the JAX package's tree (dense arrays, QuantLinear and Int8Linear
 leaves) into this one, so the tests can run both packages on the same
 weights.
@@ -25,10 +25,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from vit_cpp_tpu.gguf.reader import ModelFile, TensorRecord
-from vit_cpp_tpu.hparams import VitHParams
+from vit_cpp_tpu_torch.gguf.reader import ModelFile, TensorRecord
+from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.quant import qlinear
-from vit_cpp_tpu_torch.quant.blocks import dequantize
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
@@ -119,11 +118,9 @@ class _RecordSet:
         return self.tensors[name]
 
     def f32(self, name: str) -> np.ndarray:
-        """A record as f32 in torch order, dequantized by this package."""
-        r = self.rec(name)
-        if r.dtype.is_quantized:
-            return dequantize(r.data, r.n_elements, r.dtype).reshape(r.shape)
-        return r.as_f32()
+        """A record as f32 in torch order (a quantized one decoded by the
+        port's codec)."""
+        return self.rec(name).as_f32()
 
     def tensor(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))

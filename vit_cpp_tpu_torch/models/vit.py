@@ -29,7 +29,7 @@ from typing import Any, Dict
 
 import torch
 
-from vit_cpp_tpu.hparams import VitHParams
+from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from vit_cpp_tpu.gguf.dtypes import QK
+from vit_cpp_tpu_torch.gguf.dtypes import QK
 from vit_cpp_tpu_torch._build import Kernel, check, library
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 

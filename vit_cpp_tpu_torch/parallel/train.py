@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from vit_cpp_tpu.hparams import VitHParams
+from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.models.vit import forward
 
 

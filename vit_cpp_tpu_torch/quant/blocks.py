@@ -1,8 +1,7 @@
 """Block-quantization codecs for the ggml Q4_0/Q4_1/Q5_0/Q5_1/Q8_0 formats.
 
-Counterpart of vit_cpp_tpu/quant/blocks.py, which cannot be imported here:
-its package's __init__ loads QuantLinear, and with it JAX. The arithmetic
-is the same numpy, so the encoded bytes, the unpacked codes and the
+Counterpart of vit_cpp_tpu/quant/blocks.py. The arithmetic is the same
+numpy, so the encoded bytes, the unpacked codes and the
 dequantized values are bit-equal to that module's. Each block covers
 QK=32 contiguous elements of the fastest-moving dimension:
 
@@ -30,7 +29,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from vit_cpp_tpu.gguf.dtypes import QK, GGMLDType
+from vit_cpp_tpu_torch.gguf.dtypes import QK, GGMLDType
 
 # Structured numpy dtypes of the on-disk block layouts (packed,
 # little-endian: numpy structured dtypes have no padding by default).

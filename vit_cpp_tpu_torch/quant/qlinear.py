@@ -14,8 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vit_cpp_tpu.gguf.dtypes import QK, GGMLDType
-from vit_cpp_tpu.gguf.reader import TensorRecord
+from vit_cpp_tpu_torch.gguf.dtypes import QK, GGMLDType
+from vit_cpp_tpu_torch.gguf.reader import TensorRecord
 from vit_cpp_tpu_torch.quant.blocks import CODE_OFFSET, unpack_soa
 
 

@@ -12,19 +12,22 @@
    case's largest error beside its stated tolerance:
    - attention_qkv (fused-QKV attention) at the repo's geometries (ViT-B/16,
      B/8, H/14, g/14; fast and safe softmax, key mask, ToMe sizes, bf16
-     and f32);
+     and f32) and at the edges of the bf16 body's tiling (T=1, 65, 128,
+     129; kv at a 64-key tile's edge and one past it; d=72 and 128);
    - dequant_matmul (block-dequantizing matmul) at the ViT-B/16 serving
      shapes in bf16 over all five block formats, one f32 case, one with
-     leading dims and one with N=1001 (no vector loads on a row);
+     leading dims and one with N=1001 (no vector loads on a row), then in
+     every format at the edges of the bf16 body's tiling (M=1, 129, 1577;
+     K=3072 and 800; N=768, 1000, 1001, 3072);
    - flash_attention (split-head attention) at (8, 12, 197, 64) in bf16
-     and f32 and at d=80, T=257;
+     and f32, at d=80, T=257, and at T=1, 65, 128 with d=64, 72, 128;
    - attention_qkv_grad (the attention backward) at the ViT-B/16 training
      shape B=32 in f32 (the training path's) and bf16, both with ToMe
      sizes too, ViT-Ti (3 heads), ViT-H/14 (d=80, T=257) and ViT-B/8
      (T=785), each error relative to max|plain|.
    Then times kernel and plain version with CUDA events at the ViT-B/16
-   serving and training shapes, and the attention kernels at T=785 too
-   (the shape of the JAX package's lane paths).
+   serving shapes (B=8 and 64) and training shape, and the attention
+   kernels at T=785 too (the shape of the JAX package's lane paths).
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -35,7 +38,12 @@
       by vit_cpp_tpu_torch.cli.quantize and served with --mm pallas (bf16,
       fold off); 49 dequant_matmul and 12 attention launches per device
       batch;
-   c. the flagship configuration on the Q8_0 file (int8, fold on),
+   c. the forward of the Q8_0 file's VitEngine (bf16, fast fused
+      attention, fold off) at B=8 and B=64 with --mm pallas and --mm xla:
+      the median of 20 forwards each, in turns, on the host clock, and one
+      profiled --mm pallas forward at B=64 (the two kernels' share of
+      device time);
+      then the flagship configuration on the Q8_0 file (int8, fold on),
       forward only, against the f32 reference;
    d. the split-head attention entry point, ops.core.attention(impl=
       "pallas"), over the 12 layers' worth of ViT-B/16 q, k, v (no model
@@ -243,6 +251,23 @@ def check_kernels(card: str):
         ("vit-g14 d=88 T=257 safe", 4, 257, 1408, 16, bf16, {"fast": False}),
         ("f32 vit-b16 safe", 8, 197, 768, 12, f32, {"fast": False}),
         ("f32 vit-b16 fast", 8, 197, 768, 12, f32, {"fast": True}),
+        # the edges of the bf16 body's tiling: 128-query blocks of 16-row
+        # warps, 64-key tiles of 16-key chunks, d padded to a multiple of 16
+        ("T=1 fast", 4, 1, 768, 12, bf16, {"fast": True}),
+        ("T=1 safe", 4, 1, 768, 12, bf16, {"fast": False}),
+        ("T=65 safe", 4, 65, 768, 12, bf16, {"fast": False}),
+        ("T=65 fast sizes", 4, 65, 768, 12, bf16, {"fast": True, "sizes": True}),
+        ("T=128 fast", 4, 128, 768, 12, bf16, {"fast": True}),
+        ("T=128 safe sizes", 4, 128, 768, 12, bf16, {"fast": False, "sizes": True}),
+        ("T=129 safe (one past a query block)", 4, 129, 768, 12, bf16, {"fast": False}),
+        ("kv=128 T=131 safe (key-tile edge)", 4, 131, 768, 12, bf16, {"fast": False, "kv": 128}),
+        ("kv=129 T=131 fast (one past)", 4, 131, 768, 12, bf16, {"fast": True, "kv": 129}),
+        ("kv=64 T=70 fast (key-tile edge)", 4, 70, 768, 12, bf16, {"fast": True, "kv": 64}),
+        ("kv=65 T=70 safe (one past)", 4, 70, 768, 12, bf16, {"fast": False, "kv": 65}),
+        ("d=72 safe (padded contraction)", 4, 197, 864, 12, bf16, {"fast": False}),
+        ("d=72 fast sizes", 4, 197, 864, 12, bf16, {"fast": True, "sizes": True}),
+        ("d=128 fast", 4, 197, 1536, 12, bf16, {"fast": True}),
+        ("d=128 safe kv=190", 4, 197, 1536, 12, bf16, {"fast": False, "kv": 190}),
     ]
     main_err = None
     for name, b, t, h, nh, dtype, kw in cases:
@@ -317,6 +342,17 @@ def check_dequant_matmul(card: str):
         ("f32 qkv", (1576,), 768, 2304, G.Q4_1, f32),
         ("leading dims (8, 197)", (8, 197), 768, 768, G.Q8_0, bf16),
     ]
+    # the edges of the bf16 body's tiling (256- or 128-row tiles of 128
+    # columns, 64-row K steps) in every block format
+    for qt in (G.Q4_0, G.Q4_1, G.Q5_0, G.Q5_1, G.Q8_0):
+        cases += [
+            ("M=1 N=768", (1,), 768, 768, qt, bf16),
+            ("M=129 fc2 K=3072", (129,), 3072, 768, qt, bf16),
+            ("M=1577 N=3072", (1577,), 768, 3072, qt, bf16),
+            ("M=1577 N=1000", (1577,), 768, 1000, qt, bf16),
+            ("M=129 N=1001", (129,), 768, 1001, qt, bf16),
+            ("M=129 K=800 (K % 64 = 32)", (129,), 800, 768, qt, bf16),
+        ]
     worst = 0.0
     for name, lead, k, n, qt, dtype in cases:
         w = _quant_linear(rng, k, n, qt)
@@ -331,7 +367,7 @@ def check_dequant_matmul(card: str):
         err = (got.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         tol = QMM_TOL[dtype] * scale
-        log(f"kernel case dequant_matmul {name:<22} M={int(np.prod(lead))} K={k} N={n} "
+        log(f"kernel case dequant_matmul {name:<26} M={int(np.prod(lead))} K={k} N={n} "
             f"{qt.name} {str(dtype)[6:]}: max|kernel - plain| = {err:.3e} "
             f"(tolerance {tol:.3e} = {QMM_TOL[dtype]:.0e} x max|plain|)")
         if not err <= tol:
@@ -365,7 +401,10 @@ def check_flash_attention(card: str):
     worst = 0.0
     for b, nh, t, d, dtype in ((8, 12, 197, 64, torch.bfloat16),
                                (8, 12, 197, 64, torch.float32),
-                               (4, 16, 257, 80, torch.bfloat16)):
+                               (4, 16, 257, 80, torch.bfloat16),
+                               (4, 12, 1, 64, torch.bfloat16),
+                               (4, 12, 65, 72, torch.bfloat16),
+                               (4, 12, 128, 128, torch.bfloat16)):
         q, k, v = (torch.randn((b, nh, t, d), generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         got = flash_attention(q, k, v)
@@ -923,7 +962,73 @@ def diagnostics_path() -> dict:
     return launches
 
 
-def run_paths():
+def forward_phase(q8: str, card: str) -> None:
+    """The Q8_0 file's VitEngine (bf16, fused fast attention, fold off) at
+    B=8 and B=64 with --mm pallas (the dequantizing kernel) and --mm xla
+    (dequantize, then cuBLAS): the median of 20 forwards on the host clock,
+    each ended by a synchronize, taken in turns with the other. Then one --mm pallas forward at B=64 under
+    torch.profiler: the two kernels' share of its device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.engine import VitEngine
+
+    engines = {mm: VitEngine(q8, dtype="bf16", attn_impl="pallas-fast", mm_impl=mm,
+                             device="cuda") for mm in ("pallas", "xla")}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batches = {b: torch.randn((b, 3, 224, 224), generator=gen, device="cuda") for b in (8, 64)}
+    for b, pixels in batches.items():
+        probs = {mm: engine.predict_probs_batch(pixels) for mm, engine in engines.items()}
+        times = {mm: [] for mm in engines}
+        # in turns (pallas, xla, xla, pallas), 5 forwards each: the host's
+        # share of a B=8 forward drifts between calls
+        for mm in ("pallas", "xla", "xla", "pallas") * 2:
+            engine = engines[mm]
+            engine.predict_probs_batch(pixels)
+            torch.cuda.synchronize()
+            for _ in range(5):
+                t0 = time.perf_counter()
+                engine.predict_probs_batch(pixels)
+                torch.cuda.synchronize()
+                times[mm].append((time.perf_counter() - t0) * 1e3)
+        ms = {mm: float(np.median(t)) for mm, t in times.items()}
+        err = (probs["pallas"] - probs["xla"]).abs().max().item()
+        log(f"forward Q8_0 ViT-B/16 bf16 fold off B={b} (median of 20 in turns, host clock "
+            f"with sync): --mm pallas {ms['pallas']:.3f} ms ({b / ms['pallas'] * 1e3:.0f} img/s, "
+            f"range {min(times['pallas']):.3f}-{max(times['pallas']):.3f}), --mm xla "
+            f"{ms['xla']:.3f} ms ({b / ms['xla'] * 1e3:.0f} img/s, range "
+            f"{min(times['xla']):.3f}-{max(times['xla']):.3f}); "
+            f"max|p_pallas - p_xla| = {err:.2e} on {card}")
+        if not (torch.isfinite(probs["pallas"]).all() and err <= Q8_PROB_TOL):
+            raise AssertionError(f"forward B={b}: --mm pallas vs xla probabilities off by {err}")
+
+    engine, pixels = engines["pallas"], batches[64]
+    engine.predict_probs_batch(pixels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.predict_probs_batch(pixels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us, k4_us, k1_us = 0.0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        dev_us += us
+        if "dequant_matmul_wgmma" in e.key:
+            k4_us += us
+        elif "attention_mma" in e.key:
+            k1_us += us
+    if dev_us <= 0:
+        log("profiled forward: torch.profiler saw no device time (shares not measured)")
+        return
+    log(f"profiled --mm pallas forward B=64 (torch.profiler): {dev_us / 1e3:.2f} ms of device "
+        f"time in {wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}); "
+        f"dequant_matmul {k4_us / 1e3:.2f} ms ({k4_us / dev_us:.3f}), attention_qkv "
+        f"{k1_us / 1e3:.2f} ms ({k1_us / dev_us:.3f}) of device time")
+
+
+def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
     from vit_cpp_tpu_torch.cli import quantize
@@ -956,6 +1061,7 @@ def run_paths():
             "Q8_0 --mm pallas daemon", q8, "pallas", {QMM_KERNEL: 49, KERNEL: 12},
             Q8_PROB_TOL, images,
         )
+        forward_phase(q8, card)
         flagship_forward(q8, images)
         f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
@@ -1001,29 +1107,34 @@ def main() -> int:
     k4_err, k4_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
-    _, q8_launches, flash_launches, grad_launches = run_paths()
+    _, q8_launches, flash_launches, grad_launches = run_paths(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
         if sys.modules.get(name) is not None:
             raise AssertionError(f"{name} was imported")
 
-    def entry(kernel, launches, err, times):
-        ms, plain_ms, bound_ms, bound_by, library_ms = times
-        return {
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(kernel, launches, err, times, b64=None):
+        out = {
             "name": kernel.name, "route": "cuda", "source": kernel.source,
-            "replaces": kernel.replaces, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "replaces": kernel.replaces, "launches": launches, "max_abs_err": err,
+            **dict(zip(keys, times)),
         }
+        if b64 is not None:  # the same numbers at ViT-B/16 B=64
+            out["b64"] = dict(zip(keys, b64))
+        return out
 
     from vit_cpp_tpu_torch.tools import attn_anatomy as ta
     from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
     from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
 
     log(json.dumps({"kernels": [
-        entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)]),
-        entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"]),
+        entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
+              k1_times[(64, 197)]),
+        entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
+              k4_times["qkv B=64"]),
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
         entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[(torch.float32, 197)]),
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])

@@ -177,3 +177,72 @@ def test_flash_attention_kernel_matches_plain_on_card(dtype):
         tol = 1e-4 if dt == torch.float32 else 2e-2
         torch.testing.assert_close(got, ref, atol=tol, rtol=0)
     assert port.FLASH_KERNEL.launches == before + 2
+
+
+# The edges of the bf16 body's tiling: 128-query blocks of 8 warps x 16
+# rows, 64-key tiles of 16-key chunks, d padded to a multiple of 16.
+TILE_EDGES = [
+    (2, 1, {"fast": True}, 64),
+    (2, 1, {"fast": False}, 64),
+    (2, 65, {"fast": False}, 64),
+    (2, 128, {"fast": True, "sizes": True}, 64),
+    (2, 129, {"fast": False}, 64),
+    (2, 131, {"fast": False, "kv": 128}, 64),
+    (2, 131, {"fast": True, "kv": 129}, 64),
+    (2, 70, {"fast": True, "kv": 64}, 64),
+    (2, 70, {"fast": False, "kv": 65}, 64),
+    (2, 197, {"fast": False}, 72),
+    (2, 197, {"fast": True, "sizes": True}, 72),
+    (2, 197, {"fast": True}, 128),
+    (2, 197, {"fast": False, "kv": 190}, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,kw,d", TILE_EDGES,
+    ids=[f"T{t}-d{d}-" + "-".join(f"{k}{v}" for k, v in kw.items()) for _, t, kw, d in TILE_EDGES],
+)
+def test_bf16_kernel_tile_edges_on_card(b, t, kw, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    nh = 4
+    qkv = torch.from_numpy(_qkv(b, t, nh, d, seed=t + d)).to("cuda", torch.bfloat16)
+    kw = dict(kw)
+    if kw.get("kv"):
+        qkv[:, kw["kv"]:] = 1e4  # adversarial pad rows
+    if kw.get("sizes"):
+        sizes = np.random.default_rng(t).integers(1, 5, (b, t)).astype(np.float32)
+        kw["sizes"] = torch.from_numpy(sizes).cuda()
+    before = port.KERNEL.launches
+    got = port.attention_qkv(qkv, nh, **kw).float()
+    ref = port.attention_qkv_plain(qkv, nh, **kw).float()
+    assert port.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_takes_an_unaligned_qkv_on_card():
+    # a view 2 bytes past a 16-byte boundary: the wrapper copies it first
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    qkv = torch.from_numpy(_qkv(2, 197, 12, 64, seed=3)).to("cuda", torch.bfloat16)
+    flat = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device="cuda")
+    shifted = flat[1:].view(qkv.shape)
+    shifted.copy_(qkv)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    torch.testing.assert_close(
+        port.attention_qkv(shifted, 12, fast=True), port.attention_qkv(qkv, 12, fast=True),
+        rtol=0, atol=0,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 1, 64), (2, 4, 65, 72), (2, 4, 128, 128), (2, 4, 129, 64)])
+def test_flash_attention_bf16_tile_edges_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _bhtd(*shape, seed=8))
+    got = port.flash_attention(q, k, v).float()
+    ref = port.flash_attention_plain(q, k, v).float()
+    torch.testing.assert_close(got, ref, atol=2e-2, rtol=0)

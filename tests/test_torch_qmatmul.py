@@ -142,3 +142,42 @@ def test_kernel_matches_plain_on_card(fmt, dtype, n):
     with pytest.raises(ValueError, match="K % 32"):
         odd = type(w)(w.codes[:48].contiguous(), w.scales[:2].contiguous(), None, w.qtype)
         qmatmul.dequant_matmul(torch.zeros(2, 48, device="cuda", dtype=dt), odd)
+
+
+@pytest.mark.parametrize(
+    "m,n,sms,want",
+    [
+        (1576, 2304, 132, 256),  # ViT-B/16 qkv at B=8: 7 x 18 = 126 blocks of 256 rows
+        (1576, 3072, 132, 256),  # fc1 at B=8
+        (1576, 768, 132, 128),  # proj and fc2 at B=8: 42 blocks of 256 rows, 78 of 128
+        (3152, 768, 132, 256),  # proj and fc2 at B=16: 78 blocks of 256 rows
+        (12608, 768, 132, 256),  # proj and fc2 at B=64
+        (8, 1000, 132, 128),  # the head
+        (1, 768, 132, 128),
+        (1576, 768, 78, 256),  # a card of 78 SMs is half full at 256 rows
+    ],
+    ids=["qkv-b8", "fc1-b8", "proj-b8", "proj-b16", "proj-b64", "head", "m1", "78sms"],
+)
+def test_tile_rows_keeps_the_card_full(m, n, sms, want):
+    assert qmatmul.tile_rows(m, n, sms) == want
+
+
+# The edges of the bf16 body's tiling (256- or 128-row blocks of 128
+# columns, 64-row K steps): ragged M and N, fc2's K, K % 64 == 32, rows of
+# codes that are not 16-byte (N=1000) or 8-byte (N=1001) aligned.
+TILE_EDGES = [(1, 768, 768), (129, 3072, 768), (1577, 768, 3072), (1577, 768, 1000),
+              (129, 768, 1001), (129, 800, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS, ids=IDS)
+@pytest.mark.parametrize("m,k,n", TILE_EDGES, ids=[f"M{m}-K{k}-N{n}" for m, k, n in TILE_EDGES])
+def test_bf16_kernel_tile_edges_on_card(fmt, m, k, n):
+    _card()
+    w = quant_linear_from_record(_record(n, k, fmt, seed=m + n), device="cuda")
+    x = torch.from_numpy(_x((m, k), seed=k)).to("cuda", torch.bfloat16)
+    before = qmatmul.KERNEL.launches
+    got = qmatmul.dequant_matmul(x, w).float()
+    ref = qmatmul.dequant_matmul_plain(x, w).float()
+    assert qmatmul.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=1e-2 * ref.abs().max().item(), rtol=0)

@@ -127,7 +127,8 @@ def library() -> ctypes.CDLL:
             lib.vit_dequant_matmul.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
             ]
             lib.vit_attention_qkv_grad.restype = ctypes.c_int
             lib.vit_attention_qkv_grad.argtypes = [

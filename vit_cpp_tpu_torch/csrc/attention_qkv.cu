@@ -1,5 +1,6 @@
-// Multi-head attention for Hopper (sm_90a), CUDA C++: one kernel, two
-// C entry points, each with its own launch counter in Python.
+// Multi-head attention for Hopper (sm_90a), CUDA C++: two bodies (bf16 on
+// tensor cores, f32 on FMA units), two C entry points, each with its own
+// launch counter in Python.
 //
 // vit_attention_qkv replaces the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel
@@ -15,28 +16,51 @@
 // (_bhtd_kernel -> _sdpa in safe mode): q, k, v and the output are
 // separate (B, H, T, D) tensors.
 //
-// The kernel reads Q, K and V through a (batch, head, token) stride set and
-// writes the output through another, so both layouts are read in place:
-// no head split or merge transposes exist in device memory.
+// Both bodies read Q, K and V through a (batch, head, token) stride set
+// and write the output through another, so both layouts are read in
+// place: no head split or merge transposes exist in device memory. One
+// thread block owns one (batch, head, query tile) of 128 rows (bf16) or 64
+// (f32); keys are tiled 64 at a time through shared memory (K and V of one
+// head at T=785, d=88 would not fit whole), and the (T, T) score matrix
+// never leaves the SM.
 //
 // What bounds it on this card. At ViT-B/16 (T=197, h=768) attention is
 // about 4 T^2 h = 0.12 GFLOP per image per layer against ~1.2 MB of qkv
-// read and 0.3 MB written, i.e. ~80 FLOP per byte: below the H100's
-// bf16 ridge (~295 FLOP/B) but far above what HBM needs, so the limit is
-// on-chip: how fast the SM can feed operands to the multiply-adds. The
-// (T, T) score matrix never leaves the SM.
+// read and 0.3 MB written, i.e. ~80 FLOP per byte: below the H100's bf16
+// ridge (~295 FLOP/B), so an ideal kernel is bound by HBM. A kernel that
+// runs its products outside the tensor cores is not: it is bound by how
+// fast the SM feeds operands to its multiply-adds. The bf16 body below is
+// still not bound by HBM but by issue on the SM: the two mma.sync
+// products, then the exp2 of every score, while its K/V copies hide behind
+// the products.
 //
-// What the design does about it. One thread block per (batch, head,
-// 64-query tile); 256 threads arranged 16 x 16. Key and value tiles of 64
-// rows are staged through shared memory (K and V of one head at T=785,
-// d=88 would not fit whole), converted to f32 once on the way in. Each
-// thread owns a 4 x 4 block of the score tile and a 4 x ceil(d/16) block
-// of the output accumulator in registers; row strides in shared memory
-// are padded so that a half-warp's reads fall in distinct banks. The
-// products run as plain f32 FMAs: a first, simple kernel; mma.sync /
-// wgmma with TMA staging are later work.
+// bf16 body (attention_mma: serving, K1 and K3), in the FlashAttention-2
+// manner. 8 warps, each owning 16 query rows (at ViT-B/16 B=64, 1536 blocks
+// of 128 query rows keep every SM busy, and an H100 ran them faster than
+// 64-row blocks of 4 warps). Q is scaled in f32, rounded to bf16 once and
+// held in registers as mma.sync.m16n8k16 A fragments for the whole key
+// loop. K and V tiles stay bf16 in shared memory; cp.async copies them 16
+// bytes at a time into a ring of three, so the copies of the next two tiles
+// overlap this tile's products. Rows are padded by 16 bytes so that the
+// eight row addresses of every ldmatrix fall in distinct banks. S = Q K^T
+// and O += P V run on the tensor cores with f32 accumulators (K fragments
+// by ldmatrix, V fragments by ldmatrix.trans); the softmax runs on the S
+// accumulators in registers, and P, rounded to bf16, is the A operand of
+// P V straight from them (the m16n8 C layout is the m16n8k16 A layout): no
+// round trip through shared memory. Key chunks of 16 past the last real
+// key and warps whose 16 rows are all padding skip their products, which
+// saves ~20% of the work at T=197. d that is not a multiple of 16 is
+// padded with zero columns in shared memory, which add exactly 0. The
+// output is staged through shared memory and written in 16-byte stores.
 //
-// Numerics, as in the TPU kernel (flash_attention.py _sdpa and
+// f32 body (attention_kernel: training's forward, where the loss must
+// agree with the CPU to 1e-5 relative). 256 threads arranged 16 x 16; K
+// and V tiles staged in shared memory as f32; each thread owns a 4 x 4
+// block of the score tile and a 4 x ceil(d/16) block of the output
+// accumulator in registers; the products run as f32 FMAs, so it is bound
+// by shared-memory operand feed (~13 TFLOP/s). A TF32 body is later work.
+//
+// Numerics of both, as in the TPU kernel (flash_attention.py _sdpa and
 // _qkv_pair_kernel):
 //  1. Q is scaled by log2(e)/sqrt(d) in f32 and rounded to the input type
 //     before Q K^T; scores accumulate in f32.
@@ -48,44 +72,32 @@
 //     times sizes[key] when given.
 //  4. l = sum p in f32 from the f32 p; the PV product uses p rounded to
 //     the input type with f32 accumulation; o / l after PV, then cast.
-// Query rows >= kv (token padding) are written as zeros, as the composed
-// path (_attention_qkv_xla) does.
+// Products of bf16 values are exact in f32, so the bf16 body differs from
+// the plain version only in the order of its f32 sums. Query rows >= kv
+// (token padding) are written as zeros, as the composed path
+// (_attention_qkv_xla) does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kThreads = 256;  // f32 body: 16 x 16
 constexpr int kRows = 4;       // query rows per thread: ty + 16 * i
 constexpr int kCols = 4;       // score columns per thread: tx + 16 * j
 constexpr int kPStride = kBK + 1;
 
-template <typename T>
-struct Conv;
-
-template <>
-struct Conv<float> {
-  static __device__ __forceinline__ float load(float v) { return v; }
-  static __device__ __forceinline__ float store(float v) { return v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
+// Element strides of a (batch, head, token, feature) view; feature stride 1.
+struct Strides {
+  long long batch, head, token;
 };
 
-template <>
-struct Conv<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
+// ------------------------------------------------------------ f32 body
 
 __host__ __device__ constexpr size_t smem_floats(int d, int dc) {
   // Q (64 x d+1) + K (64 x d+1) + V (64 x 16*dc) + P (64 x 65)
@@ -93,17 +105,12 @@ __host__ __device__ constexpr size_t smem_floats(int d, int dc) {
          (size_t)kBQ * kPStride;
 }
 
-// Element strides of a (batch, head, token, feature) view; feature stride 1.
-struct Strides {
-  long long batch, head, token;
-};
-
 // DC = ceil(d / 16): output columns per thread.
-template <typename T, int DC>
+template <int DC>
 __global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ qg, const T* __restrict__ kg,
-                     const T* __restrict__ vg, Strides in,
-                     const float* __restrict__ sizes, T* __restrict__ out,
+    attention_kernel(const float* __restrict__ qg, const float* __restrict__ kg,
+                     const float* __restrict__ vg, Strides in,
+                     const float* __restrict__ sizes, float* __restrict__ out,
                      Strides os, int seq, int d, int kv, float qscale,
                      int fast) {
   extern __shared__ float smem[];
@@ -121,15 +128,15 @@ __global__ void __launch_bounds__(kThreads)
   const int head = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const long long in_off = b * in.batch + head * in.head;
-  const T* qb = qg + in_off;
-  const T* kb = kg + in_off;
-  const T* vb = vg + in_off;
-  T* ob = out + b * os.batch + head * os.head;
+  const float* qb = qg + in_off;
+  const float* kb = kg + in_off;
+  const float* vb = vg + in_off;
+  float* ob = out + b * os.batch + head * os.head;
 
   if (q0 >= kv) {  // every row of this tile is token padding
     for (int idx = tid; idx < kBQ * d; idx += kThreads) {
       const int r = idx / d, c = idx - (idx / d) * d;
-      if (q0 + r < seq) ob[(q0 + r) * os.token + c] = Conv<T>::store(0.f);
+      if (q0 + r < seq) ob[(q0 + r) * os.token + c] = 0.f;
     }
     return;
   }
@@ -137,11 +144,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int idx = tid; idx < kBQ * d; idx += kThreads) {
     const int r = idx / d, c = idx - r * d;
     const int t = q0 + r;
-    float v = 0.f;
-    if (t < seq) {
-      v = Conv<T>::round(Conv<T>::load(qb[t * in.token + c]) * qscale);
-    }
-    sQ[r * dq + c] = v;
+    sQ[r * dq + c] = t < seq ? qb[t * in.token + c] * qscale : 0.f;
   }
 
   for (int idx = tid; idx < kBK * (dv - d); idx += kThreads) {
@@ -170,8 +173,8 @@ __global__ void __launch_bounds__(kThreads)
         const int t = k0 + r;
         float kval = 0.f, vval = 0.f;
         if (t < kv) {
-          kval = Conv<T>::load(kb[t * in.token + c]);
-          if (pass == 1) vval = Conv<T>::load(vb[t * in.token + c]);
+          kval = kb[t * in.token + c];
+          if (pass == 1) vval = vb[t * in.token + c];
         }
         sK[r * dq + c] = kval;
         if (pass == 1) sV[r * dv + c] = vval;
@@ -216,7 +219,7 @@ __global__ void __launch_bounds__(kThreads)
             if (sizes != nullptr) p *= sizes[(size_t)b * seq + key];
           }
           l[i] += p;
-          sP[(ty + 16 * i) * kPStride + tx + 16 * j] = Conv<T>::round(p);
+          sP[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
         }
       }
       __syncthreads();
@@ -257,13 +260,241 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) {
-        const float v = t < kv ? o[i][j] / l[i] : 0.f;
-        ob[t * os.token + c] = Conv<T>::store(v);
-      }
+      if (c < d) ob[t * os.token + c] = t < kv ? o[i][j] / l[i] : 0.f;
     }
   }
 }
+
+// ----------------------------------------------------------- bf16 body
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 8;               // 16 query rows each
+constexpr int kMmaThreads = 32 * kWarps;
+constexpr int kMmaRows = 16 * kWarps;   // query rows per block
+constexpr int kRing = 3;                // K and V tiles in flight
+
+// Shared memory of the bf16 body: the Q tile, then a ring of K and V
+// tiles of 64 rows; rows of 16 NK + 8 bf16.
+__host__ __device__ constexpr size_t mma_smem_bytes(int nk) {
+  return (size_t)(kMmaRows + 2 * kRing * kBK) * (16 * nk + 8) * sizeof(bf16);
+}
+
+// NK = ceil(d / 16): 16-wide slices of the (zero-padded) head dimension.
+template <int NK>
+__global__ void __launch_bounds__(kMmaThreads)
+    attention_mma(const bf16* __restrict__ qg, const bf16* __restrict__ kg,
+                  const bf16* __restrict__ vg, Strides in,
+                  const float* __restrict__ sizes, bf16* __restrict__ out,
+                  Strides os, int seq, int d, int kv, float qscale, int fast) {
+  constexpr int kLd = 16 * NK + 8;  // row stride: +16 B puts ldmatrix rows in distinct banks
+  constexpr int kTile = kBK * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + kMmaRows * kLd;  // kRing tiles
+  bf16* sV = sK + kRing * kTile;   // kRing tiles
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;  // fragment row and column pair
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaRows;
+  const long long in_off = b * in.batch + head * in.head;
+  const bf16* qb = qg + in_off;
+  const bf16* kb = kg + in_off;
+  const bf16* vb = vg + in_off;
+  bf16* ob = out + b * os.batch + head * os.head;
+  const int chunks = d >> 3;  // 16-byte chunks of a row
+
+  if (q0 >= kv) {  // every row of this tile is token padding
+    for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
+      const int r = idx / chunks, c = idx - r * chunks;
+      if (q0 + r < seq)
+        *reinterpret_cast<uint4*>(ob + (q0 + r) * os.token + 8 * c) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  // the padding columns d .. 16 NK of every row: zero once, never copied over
+  if (d < 16 * NK) {
+    for (int r = tid; r < kMmaRows + 2 * kRing * kBK; r += kMmaThreads)
+      *reinterpret_cast<uint4*>(sQ + r * kLd + d) = make_uint4(0, 0, 0, 0);
+  }
+
+  // pass 0 (safe mode only) reads K for the exact row max; pass 1 reads K
+  // and V. Step `it` of the flat loop is tile it % ntiles of its pass, in
+  // ring slot it % kRing; each step's copies are one cp.async group.
+  const int ntiles = (kv + kBK - 1) / kBK;
+  const int first = fast ? 1 : 0;
+  const int nsteps = (2 - first) * ntiles;
+  auto issue = [&](int it) {
+    if (it < nsteps) {
+      const int pass = first + (it >= ntiles);
+      const int k0 = (it - (pass - first) * ntiles) * kBK;
+      bf16* dk = sK + (it % kRing) * kTile;
+      bf16* dv = sV + (it % kRing) * kTile;
+      // rows up to the next multiple of 16 past kv; keys >= kv are zeros
+      const int rows = min(kBK, (kv - k0 + 15) & ~15);
+      for (int idx = tid; idx < rows * chunks; idx += kMmaThreads) {
+        const int r = idx / chunks, c = idx - r * chunks;
+        const bool real = k0 + r < kv;
+        const long long off = (real ? k0 + r : 0) * in.token + 8 * c;
+        tc::cp_async<16>(dk + r * kLd + 8 * c, kb + off, real ? 16 : 0);
+        if (pass == 1) tc::cp_async<16>(dv + r * kLd + 8 * c, vb + off, real ? 16 : 0);
+      }
+    }
+    tc::cp_async_commit();  // possibly empty: the wait counts stay uniform
+  };
+
+  // Q rows (zeros past kv) join the first tile's group; then each thread
+  // scales its own chunks in f32 and rounds them to bf16 once
+  for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
+    const int r = idx / chunks, c = idx - r * chunks;
+    const bool real = q0 + r < kv;
+    tc::cp_async<16>(sQ + r * kLd + 8 * c, qb + (real ? q0 + r : 0) * in.token + 8 * c,
+                     real ? 16 : 0);
+  }
+  for (int it = 0; it < kRing - 1; ++it) issue(it);
+  tc::cp_async_wait<kRing - 2>();
+  for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
+    const int r = idx / chunks, c = idx - r * chunks;
+    uint32_t* w = reinterpret_cast<uint32_t*>(sQ + r * kLd + 8 * c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      w[i] = tc::pack_bf16(f.x * qscale, f.y * qscale);
+    }
+  }
+  __syncthreads();  // Q in shared memory
+
+  const int row0 = warp * 16;                // this warp's query rows
+  const bool active = q0 + row0 < kv;        // ... hold at least one real row
+  uint32_t qf[NK][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+    tc::ldmatrix_x4(qf[kk], sQ + (row0 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
+
+  float o[2 * NK][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NK; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // rows g and g + 8 of the warp's 16: row max (safe) and row sum
+  float m[2] = {fast ? 0.f : -__int_as_float(0x7f800000), fast ? 0.f : -__int_as_float(0x7f800000)};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < nsteps; ++it) {
+    tc::cp_async_wait<kRing - 2>();
+    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
+    issue(it + kRing - 1);
+    if (!active) continue;
+    const int pass = first + (it >= ntiles);
+    const int k0 = (it - (pass - first) * ntiles) * kBK;
+    const int nch = min(4, (kv - k0 + 15) >> 4);  // 16-key chunks with a real key
+    const bf16* tk = sK + (it % kRing) * kTile;
+    const bf16* tv = sV + (it % kRing) * kTile;
+
+    // S = Q K^T: n8 tile j holds keys k0 + 8 j .. + 7
+    float s[8][4];
+#pragma unroll
+    for (int c16 = 0; c16 < 4; ++c16) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * c16][e] = s[2 * c16 + 1][e] = 0.f;
+      if (c16 >= nch) continue;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t kf[4];
+        tc::ldmatrix_x4(kf, tk + (c16 * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                                kk * 16 + ((lane >> 3) & 1) * 8);
+        tc::mma_bf16(s[2 * c16], qf[kk], kf[0], kf[1]);
+        tc::mma_bf16(s[2 * c16 + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    if (pass == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j / 2 >= nch) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * q + (e & 1) < kv) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+      }
+      if (it == ntiles - 1) {  // the four lanes of a row hold its 64 columns
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+        }
+      }
+      continue;
+    }
+
+    // p in place of s: f32 for the row sum, then rounded for P V
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j / 2 >= nch) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * q + (e & 1);
+        float p = 0.f;
+        if (key < kv) {
+          p = exp2f(fast ? fminf(s[j][e], 120.f) : s[j][e] - m[e >> 1]);
+          if (sizes != nullptr) p *= sizes[(size_t)b * seq + key];
+        }
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+
+    // O += P V, P as A fragments straight from the S accumulators
+#pragma unroll
+    for (int c16 = 0; c16 < 4; ++c16) {
+      if (c16 >= nch) continue;
+      const uint32_t pf[4] = {
+          tc::pack_bf16(s[2 * c16][0], s[2 * c16][1]),
+          tc::pack_bf16(s[2 * c16][2], s[2 * c16][3]),
+          tc::pack_bf16(s[2 * c16 + 1][0], s[2 * c16 + 1][1]),
+          tc::pack_bf16(s[2 * c16 + 1][2], s[2 * c16 + 1][3]),
+      };
+#pragma unroll
+      for (int n16 = 0; n16 < NK; ++n16) {
+        uint32_t vf[4];
+        tc::ldmatrix_x4_trans(vf, tv + (c16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
+                                      n16 * 16 + (lane >> 4) * 8);
+        tc::mma_bf16(o[2 * n16], pf, vf[0], vf[1]);
+        tc::mma_bf16(o[2 * n16 + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  // o / l rounded to bf16, staged in this warp's rows of sQ (its Q is in
+  // registers), then written as 16-byte stores
+  bf16* so = sQ + row0 * kLd;
+  const bool real0 = q0 + row0 + g < kv, real1 = q0 + row0 + g + 8 < kv;
+#pragma unroll
+  for (int j = 0; j < 2 * NK; ++j) {
+    const int c = 8 * j + 2 * q;
+    *reinterpret_cast<uint32_t*>(so + g * kLd + c) =
+        real0 ? tc::pack_bf16(o[j][0] / l[0], o[j][1] / l[0]) : 0u;
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * kLd + c) =
+        real1 ? tc::pack_bf16(o[j][2] / l[1], o[j][3] / l[1]) : 0u;
+  }
+  __syncwarp();
+  for (int idx = lane; idx < 16 * chunks; idx += 32) {
+    const int r = idx / chunks, c = idx - r * chunks;
+    const int t = q0 + row0 + r;
+    if (t < seq)
+      *reinterpret_cast<uint4*>(ob + t * os.token + 8 * c) =
+          *reinterpret_cast<const uint4*>(so + r * kLd + 8 * c);
+  }
+}
+
+// ------------------------------------------------------------- launches
 
 // The operands of one launch: Q, K, V and output pointers with their
 // strides, the ToMe sizes (or null) and the geometry.
@@ -281,36 +512,52 @@ struct Args {
   int fast;
 };
 
-template <typename T, int DC>
-cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
+// Opt a kernel into `bytes` of dynamic shared memory, once.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  configured = err == cudaSuccess;
+  return err;
+}
+
+template <int DC>
+cudaError_t launch(const Args<float>& a, cudaStream_t stream) {
   static bool configured = false;
-  const size_t max_bytes = smem_floats(16 * DC, DC) * sizeof(float);
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<T, DC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  cudaError_t err = allow_smem(attention_kernel<DC>, smem_floats(16 * DC, DC) * sizeof(float),
+                               configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.seq + kBQ - 1) / kBQ, a.nh, a.batch);
-  const size_t bytes = smem_floats(a.d, DC) * sizeof(float);
-  attention_kernel<T, DC><<<grid, kThreads, bytes, stream>>>(
-      a.q, a.k, a.v, a.in, a.sizes, a.out, a.os, a.seq, a.d, a.kv, a.qscale,
-      a.fast);
+  attention_kernel<DC><<<grid, kThreads, smem_floats(a.d, DC) * sizeof(float), stream>>>(
+      a.q, a.k, a.v, a.in, a.sizes, a.out, a.os, a.seq, a.d, a.kv, a.qscale, a.fast);
   return cudaGetLastError();
 }
 
+template <int NK>
+cudaError_t launch(const Args<bf16>& a, cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(attention_mma<NK>, mma_smem_bytes(NK), configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq + kMmaRows - 1) / kMmaRows, a.nh, a.batch);
+  attention_mma<NK><<<grid, kMmaThreads, mma_smem_bytes(NK), stream>>>(
+      a.q, a.k, a.v, a.in, a.sizes, a.out, a.os, a.seq, a.d, a.kv, a.qscale, a.fast);
+  return cudaGetLastError();
+}
+
+// f32: DC = ceil(d / 16) output columns per thread; bf16: NK = ceil(d / 16)
+// 16-wide slices of the head dimension.
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
   switch ((a.d + 15) / 16) {
-    case 1: return launch<T, 1>(a, stream);
-    case 2: return launch<T, 2>(a, stream);
-    case 3: return launch<T, 3>(a, stream);
-    case 4: return launch<T, 4>(a, stream);
-    case 5: return launch<T, 5>(a, stream);
-    case 6: return launch<T, 6>(a, stream);
-    case 7: return launch<T, 7>(a, stream);
-    case 8: return launch<T, 8>(a, stream);
+    case 1: return launch<1>(a, stream);
+    case 2: return launch<2>(a, stream);
+    case 3: return launch<3>(a, stream);
+    case 4: return launch<4>(a, stream);
+    case 5: return launch<5>(a, stream);
+    case 6: return launch<6>(a, stream);
+    case 7: return launch<7>(a, stream);
+    case 8: return launch<8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -345,11 +592,14 @@ cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
   return dispatch<T>(a, stream);
 }
 
+// The bf16 body copies and stores 16-byte chunks.
+bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
+
 }  // namespace
 
 // C interface, loaded with ctypes (vit_cpp_tpu_torch/_build.py).
-// dtype: 0 = float32, 1 = bfloat16. sizes: (B, T) float32 or null.
-// Returns cudaGetLastError() after the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (16-byte aligned tensors). sizes: (B, T)
+// float32 or null. Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int vit_attention_qkv(const void* qkv, const void* sizes, void* out,
                                  int batch, int seq, int nh, int d, int kv,
                                  float qscale, int fast, int dtype,
@@ -360,8 +610,8 @@ extern "C" int vit_attention_qkv(const void* qkv, const void* sizes, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)run_qkv<float>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
-  if (dtype == 1)
-    return (int)run_qkv<__nv_bfloat16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
+  if (dtype == 1 && !misaligned(qkv) && !misaligned(out))
+    return (int)run_qkv<bf16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -373,8 +623,8 @@ extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)run_bhtd<float>(q, k, v, out, batch, nh, seq, d, qscale, s);
-  if (dtype == 1)
-    return (int)run_bhtd<__nv_bfloat16>(q, k, v, out, batch, nh, seq, d, qscale, s);
+  if (dtype == 1 && !misaligned(q) && !misaligned(k) && !misaligned(v) && !misaligned(out))
+    return (int)run_bhtd<bf16>(q, k, v, out, batch, nh, seq, d, qscale, s);
   return (int)cudaErrorInvalidValue;
 }
 

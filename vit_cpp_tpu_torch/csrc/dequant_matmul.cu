@@ -21,39 +21,52 @@
 // H100's bf16 ridge (~295 FLOP/B), so the block linears are bound by the
 // multiply-adds, i.e. by how fast the tensor cores are fed. The head
 // (M = B = 8, 768 -> 1000) does 12 MFLOP on 0.8 MB: bound by launch time
-// and the bytes of its codes.
+// and the bytes of its codes. Unlike a plain GEMM, every block also has to
+// dequantize its weight tile, which costs SM issue slots and shared-memory
+// bandwidth beside the tensor cores' operand reads; the design below
+// overlaps the two and dequantizes each weight tile once per 256 rows of x.
 //
-// What the design does about it. Unlike the TPU kernel, whose grid step
-// holds the full K of a column tile in VMEM, a block here owns one
-// (64 x 128) output tile (bf16) or (64 x 64) (f32) and loops over K in
-// steps of one 32-row quant block. Each step stages the x tile and the
-// dequantized weight tile in shared memory, double-buffered: the next
-// step's x, int8 codes (a quarter of the f32 weight bytes, half of bf16's)
-// and its row of scales (and mins) are loaded into registers while the
-// tensor cores work on the current step, so one __syncthreads per step
-// suffices. The weight is dequantized once per step in registers on its
-// way into shared memory, so every multiply reads a ready bf16 operand.
-// bf16 x runs on the tensor cores through wmma (16x16x16 bf16, f32
-// accumulators; 8 warps, 32 x 32 outputs each); f32 x runs f32 FMAs
-// (4 x 4 outputs per thread). Ragged M and N edges are masked on load and
-// store; the head's small M is one row of blocks, where launch time
-// dominates. wgmma with TMA staging is later work.
+// bf16 body (dequant_matmul_wgmma: serving), for Hopper's asynchronous
+// tensor cores. Unlike the TPU kernel, whose grid step holds the full K of
+// a column tile in VMEM, a block owns a BM x 128 output tile (BM = 256, or
+// 128 with two blocks per SM where 256-row blocks would cover less than
+// half of the SMs: the wrapper picks it, ops/qmatmul.py::tile_rows) and
+// loops over K in steps of 64 rows (two quant blocks). Per step, a ring of
+// 4 (BM = 256) or 3 slots stages the x tile by TMA, already in the 128-byte
+// swizzle that wgmma reads, and the raw int8 codes with their scale and min
+// rows by cp.async. The two warpgroups issue step k's wgmma.m64n128k16
+// (bf16, f32 accumulators in registers, both operands read from shared
+// memory) and, while the tensor cores run them, dequantize step k + 1 into
+// the other of two weight tiles and issue the copies of step k + S - 1;
+// then they wait for the wgmmas and meet at one barrier. The dequantize
+// turns each code into a float with a byte permute and one exact
+// subtraction (the 2^23 + 128 + offset trick) instead of the quarter-rate
+// int-to-float conversion, and writes the bf16 weights MN-major in the
+// 128-byte swizzle (wgmma's transposed-B layout), 16 bytes at a time
+// without bank conflicts. The epilogue rounds once to bf16, stages the tile
+// in shared memory and writes 16-byte stores, masking the ragged M and N
+// edges. Rows of codes that are not 16-byte aligned (N = 1000) take 8-byte
+// copies, odd N plain loads.
+//
+// f32 body (dequant_matmul_f32): a block owns a 64 x 64 output tile and
+// loops over K in 32-row quant steps with a one-step register prefetch;
+// each thread runs 4 x 4 f32 FMAs per k, so it is bound by shared-memory
+// operand feed. It serves f32 activations (--mm pallas with dtype f32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kQK = 32;  // rows of K per quant block: the K step
+constexpr int kQK = 32;  // rows of K per quant block
 constexpr int kThreads = 256;
 
 // W consecutive codes of row `row` from column `col`; zero past n.
 template <int W>
-struct __align__(16) Codes {
+struct __align__(8) Codes {
   int8_t c[W];
 };
 
@@ -64,11 +77,7 @@ __device__ __forceinline__ Codes<W> load_codes(const int8_t* __restrict__ codes,
   Codes<W> out;
   const int8_t* p = codes + (size_t)row * n + col;
   if (vec && col + W <= n) {
-    if constexpr (W == 16) {
-      *reinterpret_cast<uint4*>(out.c) = __ldg(reinterpret_cast<const uint4*>(p));
-    } else {
-      *reinterpret_cast<uint2*>(out.c) = __ldg(reinterpret_cast<const uint2*>(p));
-    }
+    *reinterpret_cast<uint2*>(out.c) = __ldg(reinterpret_cast<const uint2*>(p));
   } else {
 #pragma unroll
     for (int w = 0; w < W; ++w) out.c[w] = col + w < n ? p[w] : 0;
@@ -104,117 +113,300 @@ __device__ __forceinline__ float dequant(int8_t c, int offset, float s,
 }
 
 // ---------------------------------------------------------------- bf16 x
-constexpr int kBM = 64;          // output rows per block
-constexpr int kBN = 128;         // output columns per block
-constexpr int kLdx = kQK + 8;    // x tile row stride (bf16)
-constexpr int kLdb = kBN + 8;    // weight tile row stride (bf16)
-constexpr int kLdc = kBN + 4;    // output staging row stride (f32)
-constexpr int kXBytes = kBM * kLdx * 2;
-constexpr int kStage = kXBytes + kQK * kLdb * 2;
-constexpr int kSmemBf16 =
-    2 * kStage > kBM * kLdc * 4 ? 2 * kStage : kBM * kLdc * 4;
+using bf16 = __nv_bfloat16;
 
-__global__ void __launch_bounds__(kThreads)
-    dequant_matmul_bf16(const __nv_bfloat16* __restrict__ x,
-                        const int8_t* __restrict__ codes,
-                        const float* __restrict__ scales,
-                        const float* __restrict__ mins,
-                        __nv_bfloat16* __restrict__ out, int m, int n, int k,
-                        int offset) {
-  __shared__ __align__(128) unsigned char smem[kSmemBf16];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 x 4 warps, 32 x 32 outputs each
-  const int wn = warp & 3;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const bool has_min = mins != nullptr;
-  const bool vec = n % 16 == 0 && (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
-  const bool vec_s = n % 4 == 0 && ((reinterpret_cast<uintptr_t>(scales) |
-                                     reinterpret_cast<uintptr_t>(mins)) & 15) == 0;
+constexpr int kBK = 2 * kQK;       // K rows per pipeline step: two quant blocks
+constexpr int kTN = 128;           // output columns per block
+constexpr int kMmaThreads = 256;   // two warpgroups
+constexpr int kLdo = kTN + 8;      // output staging row stride (bf16)
 
-  // x tile: one 8-element (16-byte) chunk per thread
-  const int xr = tid >> 2, xc = (tid & 3) * 8;
-  const bool x_in = m0 + xr < m;
-  const __nv_bfloat16* xp = x + (size_t)(m0 + xr) * k + xc;
-  // weight tile: 16 columns of one of the 32 rows per thread
-  const int br = tid >> 3, bc = (tid & 7) * 16;
-  const int col = n0 + bc;
+// Shared memory of a block of BM output rows (256, or 128 with two blocks
+// on an SM), from a 1024-aligned base: a ring of kStages x (x tile of BM
+// rows x 64 bf16 in the 128-byte swizzle, as TMA writes it; codes; 2 scale
+// and 2 min rows), then two dequantized weight tiles of 64 x 128 bf16,
+// MN-major in the 128-byte swizzle (atoms of 8 K rows x 64 N; the two N
+// atoms of a K group side by side, lbo 1024 bytes; K groups 2048 bytes
+// apart), then one mbarrier per ring slot for its x tile. The output tile
+// is staged over the ring at the end.
+template <int BM>
+struct Smem {
+  static constexpr int kStages = BM == 256 ? 4 : 3;  // copy ring: K steps in flight
+  static constexpr int kX = BM * 128;
+  static constexpr int kCodes = kBK * kTN;
+  static constexpr int kStage = kX + kCodes + 4 * kTN * 4;
+  static constexpr int kW = kBK * kTN * 2;
+  static constexpr int kBar = kStages * kStage + 2 * kW;
+  static constexpr int kBytes = kBar + kStages * 8;
+  static_assert(kStage % 1024 == 0 && kX % 1024 == 0, "atoms stay 1024-aligned");
+  static_assert(BM * kLdo * 2 <= kStages * kStage, "output tile staging");
+};
 
-  uint4 xv;
-  Codes<16> cv;
-  float sv[16], mv[16] = {};
-  auto fetch = [&](int kb) {
-    xv = x_in ? __ldg(reinterpret_cast<const uint4*>(xp + (size_t)kb * kQK))
-              : make_uint4(0, 0, 0, 0);
-    cv = load_codes<16>(codes, kb * kQK + br, col, n, vec);
-    load_row<16>(scales + (size_t)kb * n + col, col, n, vec_s, sv);
-    if (has_min) load_row<16>(mins + (size_t)kb * n + col, col, n, vec_s, mv);
-  };
-  auto stage_x = [&](int buf) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + buf * kStage);
-  };
-  auto stage_w = [&](int buf) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + buf * kStage + kXBytes);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
+template <int BM, bool kMin>
+__global__ void __launch_bounds__(kMmaThreads, 256 / BM)
+    dequant_matmul_wgmma(const __grid_constant__ CUtensorMap xmap,
+                         const int8_t* __restrict__ codes,
+                         const float* __restrict__ scales,
+                         const float* __restrict__ mins,
+                         bf16* __restrict__ out, int m, int n, int k,
+                         int offset) {
+  using S = Smem<BM>;
+  constexpr int kStages = S::kStages, H = BM / 128;  // H accumulators of 64 x 128
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kTN;
+  const int nsteps = (k + kBK - 1) / kBK;
   const int nkb = k / kQK;
-  fetch(0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int buf = kb & 1;
-    *reinterpret_cast<uint4*>(stage_x(buf) + xr * kLdx + xc) = xv;
-    __align__(16) __nv_bfloat16 wv[16];
-#pragma unroll
-    for (int w = 0; w < 16; ++w)
-      wv[w] = __float2bfloat16_rn(dequant(cv.c[w], offset, sv[w], mv[w], has_min));
-    uint4* dst = reinterpret_cast<uint4*>(stage_w(buf) + br * kLdb + bc);
-    dst[0] = reinterpret_cast<const uint4*>(wv)[0];
-    dst[1] = reinterpret_cast<const uint4*>(wv)[1];
-    // one barrier per step: the buffer written here was last read two
-    // steps ago, before every thread passed the previous step's barrier
-    __syncthreads();
-    if (kb + 1 < nkb) fetch(kb + 1);
+  const uintptr_t ca = reinterpret_cast<uintptr_t>(codes);
+  const int cvec = n % 16 == 0 && ca % 16 == 0 ? 16 : n % 8 == 0 && ca % 8 == 0 ? 8 : 1;
+  const bool svec = n % 4 == 0 && ((reinterpret_cast<uintptr_t>(scales) |
+                                    reinterpret_cast<uintptr_t>(mins)) & 15) == 0;
+  auto stage_x = [&](int s) { return smem + s * S::kStage; };
+  auto stage_c = [&](int s) { return reinterpret_cast<int8_t*>(smem + s * S::kStage + S::kX); };
+  auto stage_s = [&](int s) {  // rows: scale 0, scale 1, min 0, min 1
+    return reinterpret_cast<float*>(smem + s * S::kStage + S::kX + S::kCodes);
+  };
+  auto tile_w = [&](int i) { return smem + kStages * S::kStage + i * S::kW; };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBar);  // x tile s has landed
 
-    const __nv_bfloat16* sx = stage_x(buf);
-    const __nv_bfloat16* sw = stage_w(buf);
+  // The copies of K step `step` into ring slot `s`: the x tile by TMA
+  // (thread 0), the codes, scales and mins as one cp.async group of every
+  // thread. Rows and columns out of range are zeros.
+  auto issue = [&](int step, int s) {
+    const int k0 = step * kBK;
+    if (tid == 0) {
+      tc::mbar_arrive_expect_tx(&full[s], S::kX);
+      tc::tma_load_2d(stage_x(s), &xmap, k0, m0, &full[s]);
+    }
+    int8_t* dc = stage_c(s);
+    if (cvec == 16) {
+      for (int idx = tid; idx < kBK * (kTN / 16); idx += kMmaThreads) {
+        const int r = idx >> 3, c = (idx & 7) * 16;
+        const bool ok = k0 + r < k && n0 + c < n;
+        tc::cp_async<16>(dc + r * kTN + c,
+                         ok ? codes + (size_t)(k0 + r) * n + n0 + c : codes, ok ? 16 : 0);
+      }
+    } else if (cvec == 8) {
+      for (int idx = tid; idx < kBK * (kTN / 8); idx += kMmaThreads) {
+        const int r = idx >> 4, c = (idx & 15) * 8;
+        const bool ok = k0 + r < k && n0 + c < n;
+        tc::cp_async<8>(dc + r * kTN + c,
+                        ok ? codes + (size_t)(k0 + r) * n + n0 + c : codes, ok ? 8 : 0);
+      }
+    } else {  // rows of codes off 8-byte alignment: plain loads
+      for (int idx = tid; idx < kBK * kTN; idx += kMmaThreads) {
+        const int r = idx / kTN, c = idx % kTN;
+        dc[r * kTN + c] = k0 + r < k && n0 + c < n ? codes[(size_t)(k0 + r) * n + n0 + c] : 0;
+      }
+    }
+    float* ds = stage_s(s);
+    for (int idx = tid; idx < (kMin ? 4 : 2) * (kTN / 4); idx += kMmaThreads) {
+      const int row = idx >> 5, c = (idx & 31) * 4;
+      const int kb = k0 / kQK + (row & 1);
+      const float* src = (row < 2 ? scales : mins) + (size_t)kb * n + n0 + c;
+      if (svec) {
+        const bool ok = kb < nkb && n0 + c < n;
+        tc::cp_async<16>(ds + row * kTN + c, ok ? src : scales, ok ? 16 : 0);
+      } else {
 #pragma unroll
-    for (int kk = 0; kk < kQK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = kb < nkb && n0 + c + e < n;
+          tc::cp_async<4>(ds + row * kTN + c + e, ok ? src + e : scales, ok ? 4 : 0);
+        }
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  // The codes of ring slot `s` -> weight tile `w`: 8 columns x 4 rows (2 of
+  // each quant block) per thread, one 16-byte chunk per row at its swizzled
+  // place. A code c (int8) becomes the float 2^23 + 128 + c by one byte
+  // permute of c ^ 0x80 under the exponent byte of 2^23, so c - offset is
+  // one exact subtraction away (no int-to-float conversion).
+  const int dcol = (tid & 15) * 8, drow = tid >> 4;
+  const int watom = (dcol >> 6) * 1024, wchunk = (dcol & 63) >> 3;
+  const float bias = 8388608.f + 128.f + (float)offset;
+  auto dequantize = [&](int s, unsigned char* w) {
+    const int8_t* cs = stage_c(s);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sx + (wm * 32 + i * 16) * kLdx + kk, kLdx);
+    for (int blk = 0; blk < 2; ++blk) {
+      const float* sr = stage_s(s) + blk * kTN + dcol;
+      float sv[8], mv[8];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], sw + kk * kLdb + wn * 32 + j * 16, kLdb);
+      for (int h = 0; h < 2; ++h) {
+        const float4 t = *reinterpret_cast<const float4*>(sr + 4 * h);
+        sv[4 * h] = t.x, sv[4 * h + 1] = t.y, sv[4 * h + 2] = t.z, sv[4 * h + 3] = t.w;
+        if (kMin) {
+          const float4 u = *reinterpret_cast<const float4*>(sr + 2 * kTN + 4 * h);
+          mv[4 * h] = u.x, mv[4 * h + 1] = u.y, mv[4 * h + 2] = u.z, mv[4 * h + 3] = u.w;
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i) {
+        const int r = blk * kQK + drow + 16 * i;
+        const uint2 raw = *reinterpret_cast<const uint2*>(cs + r * kTN + dcol);
+        const uint32_t cw[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
+        uint32_t packed[4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; j += 2) {
+          float v[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = j + h;
+            const float c =
+                __int_as_float(__byte_perm(cw[e >> 2], 0x4B000000u, 0x7650 | (e & 3))) - bias;
+            v[h] = __fmul_rn(c, sv[e]);
+            if (kMin) v[h] = __fadd_rn(v[h], mv[e]);
+          }
+          packed[j >> 1] = tc::pack_bf16(v[0], v[1]);
+        }
+        const int kr = r & 7;
+        *reinterpret_cast<uint4*>(w + (r >> 3) * 2048 + watom + kr * 128 + ((wchunk ^ kr) << 4)) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      }
+    }
+  };
+
+  // warpgroup wg owns rows wg BM / 2 .. + BM / 2 - 1, as H m64n128 accumulators
+  const int wg = warp >> 2;
+  float acc[H][64];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) tc::mbar_init(&full[s], 1);
+    tc::fence_mbarrier_init();
+  }
+  __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) issue(s, s);
+    else tc::cp_async_commit();  // empty group: the wait count stays uniform
+  }
+  tc::cp_async_wait<kStages - 2>();
+  __syncthreads();
+  dequantize(0, tile_w(0));
+  tc::fence_proxy_async();  // the weight tile, for the wgmmas
+  __syncthreads();
+
+  // Step kb: its wgmmas run on the tensor cores while every thread
+  // dequantizes step kb + 1 into the other weight tile and issues the
+  // copies of step kb + kStages - 1 into step kb - 1's ring slot; then one
+  // wait and one barrier.
+  for (int kb = 0; kb < nsteps; ++kb) {
+    const unsigned char* xs = stage_x(kb % kStages) + wg * (BM / 2) * 128;
+    const unsigned char* ws = tile_w(kb & 1);
+    tc::mbar_wait(&full[kb % kStages], (kb / kStages) & 1);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t db = tc::sw128_desc(ws + kk * 4096, 1024, 2048);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        tc::wgmma_m64n128k16(acc[h], tc::sw128_desc(xs + h * 64 * 128 + kk * 32, 16, 1024), db);
+    }
+    tc::wgmma_commit();
+    if (kb + 1 < nsteps) {
+      tc::cp_async_wait<kStages - 3>();
+      __syncthreads();  // every thread's copies of step kb + 1 are in
+      dequantize((kb + 1) % kStages, tile_w((kb + 1) & 1));
+      tc::fence_proxy_async();
+    }
+    // ring slot (kb - 1) % kStages was step kb - 1's, whose wgmmas every
+    // warpgroup waited for before the last barrier
+    const int next = kb + kStages - 1;
+    if (next < nsteps) issue(next, next % kStages);
+    else tc::cp_async_commit();
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < H; ++h) tc::fence_operands(acc[h]);
+    __syncthreads();
+  }
+
+  // round once to bf16, stage the tile over the ring, then 16-byte stores
+  // masked at the edges
+  bf16* so = reinterpret_cast<bf16*>(smem);
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      bf16* p = so + (wg * (BM / 2) + h * 64 + (warp & 3) * 16 + g) * kLdo + 8 * j + 2 * q;
+      *reinterpret_cast<uint32_t*>(p) = tc::pack_bf16(acc[h][4 * j], acc[h][4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(p + 8 * kLdo) = tc::pack_bf16(acc[h][4 * j + 2], acc[h][4 * j + 3]);
+    }
+  __syncthreads();
+  const bool ovec = n % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int idx = tid; idx < BM * (kTN / 8); idx += kMmaThreads) {
+    const int r = idx >> 4, c = (idx & 15) * 8;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= m || col >= n) continue;
+    bf16* dst = out + (size_t)row * n + col;
+    const bf16* src = so + r * kLdo + c;
+    if (ovec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && col + e < n; ++e) dst[e] = src[e];
     }
   }
+}
 
-  // stage the f32 tile in shared memory, then write the ragged edge masked
-  __syncthreads();
-  float* sc = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sc + (wm * 32 + i * 16) * kLdc + wn * 32 + j * 16,
-                              acc[i][j], kLdc, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < kBM * kBN; idx += kThreads) {
-    const int r = idx / kBN, c = idx % kBN;
-    if (m0 + r < m && n0 + c < n)
-      out[(size_t)(m0 + r) * n + n0 + c] = __float2bfloat16_rn(sc[r * kLdc + c]);
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+template <int BM, bool kMin>
+cudaError_t launch_wgmma(const void* x, const int8_t* codes, const float* scales,
+                         const float* mins, void* out, int m, int n, int k, int offset,
+                         cudaStream_t stream) {
+  // x (M, K) bf16 as TMA reads it: boxes of BM rows x 64 columns (128
+  // bytes), written in the 128-byte swizzle
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap xmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t box[2] = {kBK, BM};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  constexpr int bytes = Smem<BM>::kBytes + 1024;  // + alignment of the base
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dequant_matmul_wgmma<BM, kMin>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((n + kTN - 1) / kTN, (m + BM - 1) / BM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  dequant_matmul_wgmma<BM, kMin><<<grid, kMmaThreads, bytes, stream>>>(
+      xmap, codes, scales, mins, static_cast<bf16*>(out), m, n, k, offset);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 x
@@ -322,12 +514,14 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // C interface, loaded with ctypes (vit_cpp_tpu_torch/_build.py).
-// dtype: 0 = float32, 1 = bfloat16 (x and y). mins: (K/32, N) f32 or null.
-// Returns cudaGetLastError() after the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (x and y; x 16-byte aligned). mins:
+// (K/32, N) f32 or null. tile_m: output rows per block of the bf16 body,
+// 256 or 128 (the f32 body's tile is fixed). Returns cudaGetLastError()
+// after the launch (0 = success).
 extern "C" int vit_dequant_matmul(const void* x, const void* codes,
                                   const void* scales, const void* mins,
                                   void* out, int m, int n, int k, int offset,
-                                  int dtype, void* stream) {
+                                  int dtype, int tile_m, void* stream) {
   if (m < 1 || n < 1 || k < kQK || k % kQK != 0 || offset < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -336,19 +530,20 @@ extern "C" int vit_dequant_matmul(const void* x, const void* codes,
   const float* sc = static_cast<const float*>(scales);
   const float* mn = static_cast<const float*>(mins);
   if (dtype == 1) {
-    const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    dequant_matmul_bf16<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), c, sc, mn,
-        static_cast<__nv_bfloat16*>(out), m, n, k, offset);
-  } else if (dtype == 0) {
-    const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    dequant_matmul_f32<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), c, sc, mn, static_cast<float*>(out), m,
-        n, k, offset);
-  } else {
+    if (reinterpret_cast<uintptr_t>(x) & 15) return (int)cudaErrorInvalidValue;
+    if (tile_m == 256)
+      return (int)(mn ? launch_wgmma<256, true>(x, c, sc, mn, out, m, n, k, offset, s)
+                      : launch_wgmma<256, false>(x, c, sc, mn, out, m, n, k, offset, s));
+    if (tile_m == 128)
+      return (int)(mn ? launch_wgmma<128, true>(x, c, sc, mn, out, m, n, k, offset, s)
+                      : launch_wgmma<128, false>(x, c, sc, mn, out, m, n, k, offset, s));
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  dequant_matmul_f32<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(x), c, sc, mn, static_cast<float*>(out), m,
+      n, k, offset);
   return (int)cudaGetLastError();
 }

@@ -151,6 +151,8 @@ def attention_qkv(
         raise ValueError(f"attention_qkv kernel takes d % 8 == 0, d <= 128; got d={d}")
     if not qkv.is_contiguous():
         raise ValueError("attention_qkv kernel needs a contiguous qkv")
+    if qkv.data_ptr() % 16:  # the bf16 kernel copies 16-byte chunks
+        qkv = qkv.clone()
     if sizes is not None:
         if sizes.device != qkv.device or sizes.dtype != torch.float32:
             raise ValueError("sizes must be float32 on the qkv's device")
@@ -204,7 +206,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"flash_attention kernel takes d % 8 == 0, d <= 128; got d={d}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous and 16-byte aligned: the bf16 kernel copies 16-byte chunks
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    q, k, v = (a.clone() if a.data_ptr() % 16 else a for a in (q, k, v))
     out = torch.empty_like(q)
     lib = library()
     with torch.cuda.device(q.device):

@@ -13,7 +13,8 @@ with one scale (and min) per 32 rows of K per output column.
 - `impl="pallas"` calls `dequant_matmul`: on a CUDA tensor it launches
   csrc/dequant_matmul.cu (built by _build.py) or raises; on a CPU tensor
   it runs `dequant_matmul_plain`, which chip_smoke.py also holds the
-  kernel against on the card.
+  kernel against on the card. `tile_rows` picks the bf16 kernel's output
+  rows per block for the shape and the card.
 
 Numerics of both: the weight is dequantized in f32 as (c - offset) *
 scale, then + min, rounded to x's dtype, and multiplied with f32
@@ -22,6 +23,8 @@ accumulation; y is written in x's dtype. The bias is added by the caller
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -36,6 +39,22 @@ KERNEL = Kernel(
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TILE_N = 128  # output columns per block of the bf16 kernel
+
+
+def tile_rows(m: int, n: int, sms: int) -> int:
+    """Output rows per block of the bf16 kernel for an (m, n) output on a
+    card with `sms` SMs: 256 (one block per SM), which dequantizes each
+    weight tile once per 256 rows of x, where that grid still covers half
+    of the SMs; else 128 (two blocks per SM). ViT-B/16 at B=8: 256 for qkv
+    (126 blocks) and fc1, 128 for proj and fc2 (42 blocks of 256 rows)."""
+    blocks = -(-m // 256) * -(-n // _TILE_N)
+    return 256 if 2 * blocks >= sms else 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _flatten(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
@@ -94,7 +113,8 @@ def dequant_matmul(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
         rc = lib.vit_dequant_matmul(
             x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr(),
             None if w.mins is None else w.mins.data_ptr(), out.data_ptr(),
-            m, n, k, w.offset, _DTYPES[x.dtype], stream,
+            m, n, k, w.offset, _DTYPES[x.dtype],
+            tile_rows(m, n, _sm_count(x.device.index)), stream,
         )
     check(rc, "dequant_matmul kernel launch")
     KERNEL.counted()

@@ -12,8 +12,9 @@
    case's largest error beside its stated tolerance:
    - attention_qkv (fused-QKV attention) at the repo's geometries (ViT-B/16,
      B/8, H/14, g/14; fast and safe softmax, key mask, ToMe sizes, bf16
-     and f32) and at the edges of the bf16 body's tiling (T=1, 65, 128,
-     129; kv at a 64-key tile's edge and one past it; d=72 and 128);
+     and f32) and at the edges of both bodies' tiling (T=1, 65, 128, 129;
+     kv at a 64-key tile's edge and one past it; d=72 and 128; bf16 and
+     f32);
    - dequant_matmul (block-dequantizing matmul) at the ViT-B/16 serving
      shapes in bf16 over all five block formats, one f32 case, one with
      leading dims and one with N=1001 (no vector loads on a row), then in
@@ -24,10 +25,13 @@
    - attention_qkv_grad (the attention backward) at the ViT-B/16 training
      shape B=32 in f32 (the training path's) and bf16, both with ToMe
      sizes too, ViT-Ti (3 heads), ViT-H/14 (d=80, T=257) and ViT-B/8
-     (T=785), each error relative to max|plain|.
+     (T=785), and at the edges of its tiling in f32 and bf16 (T=1, 63,
+     64, 65, 129; d=72 and 128; sizes at T=65), each error relative to
+     max|plain|.
    Then times kernel and plain version with CUDA events at the ViT-B/16
-   serving shapes (B=8 and 64) and training shape, and the attention
-   kernels at T=785 too (the shape of the JAX package's lane paths).
+   serving shapes (B=8 and 64) and training shape (B=32, f32 for the
+   forward, f32 and bf16 for the backward), and the attention kernels at
+   T=785 too (the shape of the JAX package's lane paths).
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -71,7 +75,8 @@
    it, with the launch counts set to 0 just before and read just after.
 Every kernel's line gives its bound (the larger of its bytes over 3.35
 TB/s and its operations over the data sheet's peak for their type: 989
-TFLOP/s bf16, 67 f32, 1,979 TOP/s int8) and the time of one PyTorch call
+TFLOP/s bf16, 1,979 TOP/s int8, and f32 at a third of TF32's 494.7
+TFLOP/s, the rate of 3xTF32 products) and the time of one PyTorch call
 that computes the same function, where there is one (library_ms; the
 port never calls it).
 
@@ -106,6 +111,9 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# attention_qkv / flash_attention vs their plain versions, absolute
+# (outputs are O(1)). f32: 3xTF32 products drop ~2^-22 of each product,
+# the size of f32 rounding; an H100 measured <= 6e-6.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # dequant_matmul vs its plain version (the same bf16-rounded weights, then
 # torch.matmul), relative to max|plain|: the two sum in different orders
@@ -133,9 +141,10 @@ Q8_PROB_TOL = 5e-3
 FLAGSHIP_TOL = 5e-3
 
 # attention_qkv_grad vs its plain version, relative to max|plain|: f32
-# differs in summation order only (an H100 measured <= 3e-7); bf16 can
-# round pn and ds to a neighbouring bf16 value (2^-8 relative) where the
-# two sum in another order (an H100 measured <= 2e-3).
+# differs in summation order and by 3xTF32's ~2^-22 per product (an H100
+# measured <= 5e-6); bf16 can round pn and ds to a neighbouring bf16
+# value (2^-8 relative) where the two sum in another order (an H100
+# measured <= 2.4e-3).
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # The diagnostics' kernels vs their plain versions, relative to
 # max|plain|: bf16 outputs of the same f32 arithmetic summed in another
@@ -144,10 +153,13 @@ GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 ANATOMY_TOL = 2e-2
 # The probe's bf16 product (exact products, f32 sums in another order).
 PROBE_BF16_TOL = 1e-5
-# The card's data-sheet rates (H100 SXM, dense), for the bounds.
+# The card's data-sheet rates (H100 SXM, dense), for the bounds. The
+# attention kernels compute f32 products on the tensor cores as 3xTF32,
+# three TF32 products each: their f32 rate is a third of TF32's.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
-# Slice parity, card vs CPU, f32 with TF32 off: summation order only.
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 494.7e12 / 3, "int8": 1979e12}
+# Slice parity, card vs CPU, f32 with TF32 off in cuBLAS: summation order
+# and the attention kernels' 3xTF32 products (~2^-22 each).
 PARITY_LOSS_RTOL = 1e-5
 PARITY_GRAD_TOL = 1e-3  # max|g_card - g_cpu| / max|g_cpu| for every leaf
 
@@ -268,6 +280,17 @@ def check_kernels(card: str):
         ("d=72 fast sizes", 4, 197, 864, 12, bf16, {"fast": True, "sizes": True}),
         ("d=128 fast", 4, 197, 1536, 12, bf16, {"fast": True}),
         ("d=128 safe kv=190", 4, 197, 1536, 12, bf16, {"fast": False, "kv": 190}),
+        # the edges of the f32 (3xTF32) body's tiling: the bf16 body's
+        # blocks and warps, 64-key tiles of 8-key steps
+        ("f32 T=1 fast", 4, 1, 768, 12, f32, {"fast": True}),
+        ("f32 T=1 safe", 4, 1, 768, 12, f32, {"fast": False}),
+        ("f32 T=65 safe", 4, 65, 768, 12, f32, {"fast": False}),
+        ("f32 T=129 safe sizes", 4, 129, 768, 12, f32, {"fast": False, "sizes": True}),
+        ("f32 kv=64 T=70 fast (key-tile edge)", 4, 70, 768, 12, f32, {"fast": True, "kv": 64}),
+        ("f32 kv=65 T=70 safe (one past)", 4, 70, 768, 12, f32, {"fast": False, "kv": 65}),
+        ("f32 d=72 safe (padded contraction)", 4, 197, 864, 12, f32, {"fast": False}),
+        ("f32 d=128 fast sizes", 4, 197, 1536, 12, f32, {"fast": True, "sizes": True}),
+        ("f32 d=128 safe kv=190", 4, 197, 1536, 12, f32, {"fast": False, "kv": 190}),
     ]
     main_err = None
     for name, b, t, h, nh, dtype, kw in cases:
@@ -310,6 +333,17 @@ def check_kernels(card: str):
         log(f"attention_qkv B={b} T={t}: bound {b_ms:.4f} ms ({b_by}), library "
             f"scaled_dot_product_attention {lib:.4f} ms on {card}")
         times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib)
+    # the training forward: f32, safe softmax, ViT-B/16 at B=32
+    qkv = qkv_of(32, 197, 768, f32)
+    k_ms, p_ms = time_pair(
+        "attention_qkv B=32 T=197 h=768 f32 safe", card,
+        lambda: attention_qkv(qkv, 12), lambda: attention_qkv_plain(qkv, 12),
+    )
+    lib = sdpa_ms(qkv, 12)
+    b_ms, b_by = attention_bound(32, 197, 768, 4)
+    log(f"attention_qkv B=32 T=197 f32: bound {b_ms:.4f} ms ({b_by}), library "
+        f"scaled_dot_product_attention {lib:.4f} ms on {card}")
+    times["f32 B=32"] = (k_ms, p_ms, b_ms, b_by, lib)
     return main_err, times
 
 
@@ -447,6 +481,19 @@ def check_attention_grad(card: str):
         ("vit-h14 d=80 T=257", 4, 257, 1280, 16, f32, False),
         ("vit-b8 T=785", 4, 785, 768, 12, f32, False),
     ]
+    # the edges of the tiling (64-row blocks of 16-row warps, chunks of 32
+    # (bf16 16) keys or queries, 8-wide steps, d padded to 16), both dtypes
+    for dtype in (f32, bf16):
+        cases += [
+            (f"T=1 {str(dtype)[6:]}", 4, 1, 256, 4, dtype, False),
+            (f"T=63 {str(dtype)[6:]}", 4, 63, 256, 4, dtype, False),
+            (f"T=64 {str(dtype)[6:]}", 4, 64, 256, 4, dtype, False),
+            (f"T=65 sizes {str(dtype)[6:]}", 4, 65, 256, 4, dtype, True),
+            (f"T=129 {str(dtype)[6:]}", 4, 129, 256, 4, dtype, False),
+            (f"d=72 {str(dtype)[6:]}", 4, 197, 288, 4, dtype, False),
+            (f"d=128 {str(dtype)[6:]}", 4, 197, 512, 4, dtype, False),
+            (f"d=128 T=65 sizes {str(dtype)[6:]}", 4, 65, 512, 4, dtype, True),
+        ]
     main_err = None
     for name, b, t, h, nh, dtype, sized in cases:
         qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(dtype)
@@ -558,6 +605,46 @@ def write_dark_bright(root: str, n_per_class: int = 32, size: int = 224) -> str:
     return root
 
 
+def kernel_functions(kernel) -> tuple:
+    """The names of the __global__ functions in a kernel's source, which
+    the profiler's event names contain: read from the source, so that a
+    renamed function is still found."""
+    with open(os.path.join(HERE, kernel.source)) as f:
+        src = f.read()
+    names = []
+    for m in re.finditer(r"__global__\s+void\s+", src):
+        rest = src[m.end():]
+        if rest.startswith("__launch_bounds__"):  # skip its (nested) parentheses
+            i, depth = rest.index("("), 0
+            while True:
+                depth += {"(": 1, ")": -1}.get(rest[i], 0)
+                i += 1
+                if depth == 0:
+                    break
+            rest = rest[i:]
+        names.append(re.match(r"\s*(\w+)", rest).group(1))
+    if not names:
+        raise AssertionError(f"no __global__ function found in {kernel.source}")
+    return tuple(names)
+
+
+def device_us(prof, *kernels) -> tuple:
+    """(all device us, the device us of each kernel's functions) in a
+    torch.profiler run."""
+    names = [kernel_functions(k) for k in kernels]
+    total, each = 0.0, [0.0] * len(kernels)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        total += us
+        for i, fns in enumerate(names):
+            if any(fn in e.key for fn in fns):
+                each[i] += us
+                break
+    return total, each
+
+
 def profile_update(f16: str, data: str) -> None:
     """One ViT-B/16 update at B=32 (the CLI's configuration) under
     torch.profiler: the attention kernels' share of device time."""
@@ -567,6 +654,7 @@ def profile_update(f16: str, data: str) -> None:
     from vit_cpp_tpu_torch.gguf.reader import read_model
     from vit_cpp_tpu_torch.finetune import _preprocess_all, _reinit_head
     from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
     from vit_cpp_tpu_torch.parallel.train import create_train_state, train_step
 
     mf = read_model(f16)
@@ -582,20 +670,16 @@ def profile_update(f16: str, data: str) -> None:
         train_step(state, x, y, hp, smooth=0.1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us, fwd_us, bwd_us = 0.0, 0.0, 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        dev_us += us
-        if "attention_kernel" in e.key:
-            fwd_us += us
-        elif "grad_rows_kernel" in e.key or "grad_cols_kernel" in e.key:
-            bwd_us += us
+    dev_us, (fwd_us, bwd_us) = device_us(prof, KERNEL, GRAD_KERNEL)
     attn_us = fwd_us + bwd_us
     if dev_us <= 0:
         log("profiled update: torch.profiler saw no device time (shares not measured)")
         return
+    if fwd_us <= 0 or bwd_us <= 0:
+        raise AssertionError(
+            f"profiled update: no device time under {kernel_functions(KERNEL)} "
+            f"({fwd_us} us) or {kernel_functions(GRAD_KERNEL)} ({bwd_us} us)"
+        )
     log(f"profiled update (ViT-B/16 f32 B=32, torch.profiler): {dev_us / 1e3:.2f} ms of device "
         f"time in {wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}); "
         f"attention_qkv {fwd_us / 1e3:.2f} ms + attention_qkv_grad {bwd_us / 1e3:.2f} ms = "
@@ -971,6 +1055,8 @@ def forward_phase(q8: str, card: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
     engines = {mm: VitEngine(q8, dtype="bf16", attn_impl="pallas-fast", mm_impl=mm,
                              device="cuda") for mm in ("pallas", "xla")}
@@ -1009,16 +1095,7 @@ def forward_phase(q8: str, card: str) -> None:
         engine.predict_probs_batch(pixels)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us, k4_us, k1_us = 0.0, 0.0, 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        dev_us += us
-        if "dequant_matmul_wgmma" in e.key:
-            k4_us += us
-        elif "attention_mma" in e.key:
-            k1_us += us
+    dev_us, (k4_us, k1_us) = device_us(prof, QMM_KERNEL, KERNEL)
     if dev_us <= 0:
         log("profiled forward: torch.profiler saw no device time (shares not measured)")
         return
@@ -1116,14 +1193,16 @@ def main() -> int:
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def entry(kernel, launches, err, times, b64=None):
+    def entry(kernel, launches, err, times, **more):
+        """A kernel's numbers; `more`: the same numbers at other shapes or
+        types, each under its own key."""
         out = {
             "name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches, "max_abs_err": err,
             **dict(zip(keys, times)),
         }
-        if b64 is not None:  # the same numbers at ViT-B/16 B=64
-            out["b64"] = dict(zip(keys, b64))
+        for key, other in more.items():
+            out[key] = dict(zip(keys, other))
         return out
 
     from vit_cpp_tpu_torch.tools import attn_anatomy as ta
@@ -1131,12 +1210,17 @@ def main() -> int:
     from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
 
     log(json.dumps({"kernels": [
+        # K1: bf16 fast at ViT-B/16 B=8; B=64 and the training forward
+        # (f32 safe, B=32) beside it
         entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
-              k1_times[(64, 197)]),
+              b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"]),
         entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
-              k4_times["qkv B=64"]),
+              b64=k4_times["qkv B=64"]),
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
-        entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[(torch.float32, 197)]),
+        # K2: f32 at ViT-B/16 B=32 (the training path's); bf16 and T=785
+        # beside it
+        entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[(torch.float32, 197)],
+              bf16=k2_times[(torch.bfloat16, 197)], t785=k2_times[(torch.float32, 785)]),
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL, tp.KERNEL)),
     ]}))

@@ -8,7 +8,14 @@ on the card (the `cuda` test below, and chip_smoke.py).
 
 Tolerances: f32 on both sides, differing only in summation order, so
 2e-5 absolute (outputs are O(1)).
+
+The kernel's f32 body computes its products as 3xTF32 on the tensor
+cores; a test below emulates TF32 rounding on the CPU and holds 3xTF32
+products, and not single TF32 ones, within the card's tolerance (2e-5
+absolute) of the plain version.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -179,8 +186,9 @@ def test_flash_attention_kernel_matches_plain_on_card(dtype):
     assert port.FLASH_KERNEL.launches == before + 2
 
 
-# The edges of the bf16 body's tiling: 128-query blocks of 8 warps x 16
-# rows, 64-key tiles of 16-key chunks, d padded to a multiple of 16.
+# The edges of both bodies' tiling: 128-query blocks of 8 warps x 16
+# rows, 64-key tiles of 16-key (bf16) or 8-key (f32) steps, d padded to a
+# multiple of 16.
 TILE_EDGES = [
     (2, 1, {"fast": True}, 64),
     (2, 1, {"fast": False}, 64),
@@ -199,15 +207,17 @@ TILE_EDGES = [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [("bfloat16", 2e-2), ("float32", ATOL)])
 @pytest.mark.parametrize(
     "b,t,kw,d", TILE_EDGES,
     ids=[f"T{t}-d{d}-" + "-".join(f"{k}{v}" for k, v in kw.items()) for _, t, kw, d in TILE_EDGES],
 )
-def test_bf16_kernel_tile_edges_on_card(b, t, kw, d):
+def test_kernel_tile_edges_on_card(b, t, kw, d, dtype, atol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     nh = 4
-    qkv = torch.from_numpy(_qkv(b, t, nh, d, seed=t + d)).to("cuda", torch.bfloat16)
+    qkv = torch.from_numpy(_qkv(b, t, nh, d, seed=t + d)).to("cuda", getattr(torch, dtype))
     kw = dict(kw)
     if kw.get("kv"):
         qkv[:, kw["kv"]:] = 1e4  # adversarial pad rows
@@ -218,7 +228,52 @@ def test_bf16_kernel_tile_edges_on_card(b, t, kw, d):
     got = port.attention_qkv(qkv, nh, **kw).float()
     ref = port.attention_qkv_plain(qkv, nh, **kw).float()
     assert port.KERNEL.launches == before + 1
-    torch.testing.assert_close(got, ref, atol=2e-2, rtol=0)
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero) by bit masking, in f32: what the card's tensor cores take."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernel's f32 product: hi = tf32(x), lo = tf32(x - hi), and
+    lo*hi + hi*lo + hi*hi in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    return torch.matmul(_tf32(a - ah), bh) + torch.matmul(ah, _tf32(b - bh)) + torch.matmul(ah, bh)
+
+
+def _mm_1xtf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _attention_with(mm, qkv, nh):
+    """attention_qkv_plain's f32 safe-mode math with both products
+    through `mm`."""
+    b, t, three_h = qkv.shape
+    h = three_h // 3
+    d = h // nh
+    x = qkv.reshape(b, t, 3, nh, d).permute(2, 0, 3, 1, 4)
+    s = mm(x[0] * (_LOG2E / math.sqrt(d)), x[1].transpose(-1, -2))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = mm(p, x[2]) / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 2, 1, 3).reshape(b, t, h)
+
+
+def test_3xtf32_products_hold_the_f32_tolerance_and_1xtf32_do_not():
+    # one ViT-B/16 head pair: nh=2, d=64, T=197, B=1
+    qkv = torch.from_numpy(_qkv(1, 197, 2, 64, seed=0))
+    plain = port.attention_qkv_plain(qkv, 2)
+    # the emulation is the plain math: exact with full f32 products
+    torch.testing.assert_close(_attention_with(torch.matmul, qkv, 2), plain, rtol=0, atol=0)
+    err3 = (_attention_with(_mm_3xtf32, qkv, 2) - plain).abs().max().item()
+    err1 = (_attention_with(_mm_1xtf32, qkv, 2) - plain).abs().max().item()
+    assert err3 <= ATOL / 10
+    assert err1 > 2 * ATOL
 
 
 @pytest.mark.cuda

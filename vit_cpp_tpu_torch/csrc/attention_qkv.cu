@@ -1,6 +1,6 @@
-// Multi-head attention for Hopper (sm_90a), CUDA C++: two bodies (bf16 on
-// tensor cores, f32 on FMA units), two C entry points, each with its own
-// launch counter in Python.
+// Multi-head attention for Hopper (sm_90a), CUDA C++: two bodies, both on
+// the tensor cores (bf16 products, and f32 as 3xTF32), two C entry points,
+// each with its own launch counter in Python.
 //
 // vit_attention_qkv replaces the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel
@@ -19,20 +19,20 @@
 // Both bodies read Q, K and V through a (batch, head, token) stride set
 // and write the output through another, so both layouts are read in
 // place: no head split or merge transposes exist in device memory. One
-// thread block owns one (batch, head, query tile) of 128 rows (bf16) or 64
-// (f32); keys are tiled 64 at a time through shared memory (K and V of one
-// head at T=785, d=88 would not fit whole), and the (T, T) score matrix
-// never leaves the SM.
+// thread block owns one (batch, head, query tile) of 128 rows; keys are
+// tiled 64 at a time through shared memory (K and V of one head at T=785,
+// d=88 would not fit whole), and the (T, T) score matrix never leaves the
+// SM.
 //
 // What bounds it on this card. At ViT-B/16 (T=197, h=768) attention is
 // about 4 T^2 h = 0.12 GFLOP per image per layer against ~1.2 MB of qkv
 // read and 0.3 MB written, i.e. ~80 FLOP per byte: below the H100's bf16
 // ridge (~295 FLOP/B), so an ideal kernel is bound by HBM. A kernel that
 // runs its products outside the tensor cores is not: it is bound by how
-// fast the SM feeds operands to its multiply-adds. The bf16 body below is
-// still not bound by HBM but by issue on the SM: the two mma.sync
-// products, then the exp2 of every score, while its K/V copies hide behind
-// the products.
+// fast the SM feeds operands to its multiply-adds. Both bodies below are
+// still not bound by HBM but by issue on the SM: the mma.sync products
+// (three per f32 product), then the exp2 of every score, while their K/V
+// copies hide behind the products.
 //
 // bf16 body (attention_mma: serving, K1 and K3), in the FlashAttention-2
 // manner. 8 warps, each owning 16 query rows (at ViT-B/16 B=64, 1536 blocks
@@ -53,27 +53,44 @@
 // padded with zero columns in shared memory, which add exactly 0. The
 // output is staged through shared memory and written in 16-byte stores.
 //
-// f32 body (attention_kernel: training's forward, where the loss must
-// agree with the CPU to 1e-5 relative). 256 threads arranged 16 x 16; K
-// and V tiles staged in shared memory as f32; each thread owns a 4 x 4
-// block of the score tile and a 4 x ceil(d/16) block of the output
-// accumulator in registers; the products run as f32 FMAs, so it is bound
-// by shared-memory operand feed (~13 TFLOP/s). A TF32 body is later work.
+// f32 body (attention_tf32: training's forward, where the loss must agree
+// with the CPU to 1e-5 relative, and f32 serving), the bf16 body's
+// structure in 3xTF32 (tensor_core.cuh): each f32 operand is split into
+// TF32 hi and lo parts and each product is hi*hi + hi*lo + lo*hi on
+// mma.sync.m16n8k8 with f32 accumulators, which drops ~2^-22 of |x y|, the
+// size of f32's own rounding (one TF32 product would drop ~2^-11). 8 warps
+// of 16 query rows, one pass over the keys (item 2 below); Q, scaled in
+// f32, is loaded once into registers as A fragments; K and V stay f32 in
+// shared memory (rows of 16 NK + 4 floats, a stride of 4 mod 8 words
+// that puts a warp's fragment loads, ldmatrix for K and scalar for V, in
+// distinct banks), copied by cp.async into a ring of three (96 KB of f32
+// tiles at d=64). P comes from the S accumulators in registers: the m16n8
+// C tile holds columns (2q, 2q+1) where the m16n8k8 A fragment holds (q,
+// q+4), so P V numbers its contraction index k = q + 4 e as key 2 q + e
+// and reads V's rows 2 q and 2 q + 1 for B's rows q and q + 4. The output
+// is written from the accumulators in 8-byte stores.
 //
 // Numerics of both, as in the TPU kernel (flash_attention.py _sdpa and
 // _qkv_pair_kernel):
 //  1. Q is scaled by log2(e)/sqrt(d) in f32 and rounded to the input type
 //     before Q K^T; scores accumulate in f32.
 //  2. fast: s = min(s, 120) with no row max. safe: s - max over the real
-//     keys. Safe mode takes the exact row max in a first pass over the
-//     keys (the scores are recomputed in the second pass), so the weights
-//     are exp2(s - max) as in the TPU kernel, not an online rescale.
+//     keys. The bf16 body takes the exact row max in a first pass over the
+//     keys (the scores are recomputed in the second pass), so its weights
+//     are exp2(s - max) as in the TPU kernel before they are rounded to
+//     bf16. The f32 body, whose p is not rounded, keeps an online max in
+//     one pass instead: o and l are rescaled by exp2(m_old - m_new) when
+//     the max grows, which the division o / l cancels up to f32 rounding
+//     (an H100 measured the f32 cases within 6e-6 of the plain version,
+//     against 2e-5, and the safe body 1.41x faster than with the exact
+//     max's first pass).
 //  3. p = exp2(s), times the key mask (keys >= kv are skipped: weight 0),
 //     times sizes[key] when given.
 //  4. l = sum p in f32 from the f32 p; the PV product uses p rounded to
 //     the input type with f32 accumulation; o / l after PV, then cast.
 // Products of bf16 values are exact in f32, so the bf16 body differs from
-// the plain version only in the order of its f32 sums. Query rows >= kv
+// the plain version only in the order of its f32 sums; the f32 body also
+// by 3xTF32's ~2^-22 per product. Query rows >= kv
 // (token padding) are written as zeros, as the composed path
 // (_attention_qkv_xla) does.
 
@@ -85,194 +102,241 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kThreads = 256;  // f32 body: 16 x 16
-constexpr int kRows = 4;       // query rows per thread: ty + 16 * i
-constexpr int kCols = 4;       // score columns per thread: tx + 16 * j
-constexpr int kPStride = kBK + 1;
+constexpr int kBK = 64;  // keys per shared-memory tile
 
 // Element strides of a (batch, head, token, feature) view; feature stride 1.
 struct Strides {
   long long batch, head, token;
 };
 
+constexpr int kWarps = 8;               // 16 query rows each
+constexpr int kMmaThreads = 32 * kWarps;
+constexpr int kMmaRows = 16 * kWarps;   // query rows per block
+constexpr int kRing = 3;                // K and V tiles in flight
+
 // ------------------------------------------------------------ f32 body
 
-__host__ __device__ constexpr size_t smem_floats(int d, int dc) {
-  // Q (64 x d+1) + K (64 x d+1) + V (64 x 16*dc) + P (64 x 65)
-  return (size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) + (size_t)kBK * 16 * dc +
-         (size_t)kBQ * kPStride;
+// Shared memory of the f32 body: a ring of K and V tiles of 64 rows; rows
+// of 16 NK + 4 floats (a stride of 4 mod 8 words: the fragment loads of a
+// warp fall in distinct banks).
+__host__ __device__ constexpr size_t tf32_smem_bytes(int nk) {
+  return (size_t)2 * kRing * kBK * (16 * nk + 4) * sizeof(float);
 }
 
-// DC = ceil(d / 16): output columns per thread.
-template <int DC>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel(const float* __restrict__ qg, const float* __restrict__ kg,
-                     const float* __restrict__ vg, Strides in,
-                     const float* __restrict__ sizes, float* __restrict__ out,
-                     Strides os, int seq, int d, int kv, float qscale,
-                     int fast) {
-  extern __shared__ float smem[];
-  const int dq = d + 1;       // Q and K row stride (odd: no bank conflicts)
-  const int dv = 16 * DC;     // V row stride (zero-filled past d)
-  float* sQ = smem;
-  float* sK = sQ + kBQ * dq;
-  float* sV = sK + kBK * dq;
-  float* sP = sV + kBK * dv;
+// NK = ceil(d / 16): 16-wide slices of the (zero-padded) head dimension,
+// two 8-wide m16n8k8 steps each.
+// Two blocks of 8 warps share an SM up to d = 64 (104 KB of tiles each):
+// at most 128 registers a thread, with S's contraction loop unrolled by 2
+// only (an H100 ran it 1.44x faster so than as one block of 181
+// registers with the loop unrolled).
+template <int NK>
+__global__ void __launch_bounds__(kMmaThreads, NK <= 4 ? 2 : 1)
+    attention_tf32(const float* __restrict__ qg, const float* __restrict__ kg,
+                   const float* __restrict__ vg, Strides in,
+                   const float* __restrict__ sizes, float* __restrict__ out,
+                   Strides os, int seq, int d, int kv, float qscale, int fast) {
+  constexpr int kLd = 16 * NK + 4;
+  constexpr int kTile = kBK * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // kRing tiles
+  float* sV = sK + kRing * kTile;                  // kRing tiles
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;  // fragment row and column
   const int b = blockIdx.z;
   const int head = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kMmaRows;
   const long long in_off = b * in.batch + head * in.head;
   const float* qb = qg + in_off;
   const float* kb = kg + in_off;
   const float* vb = vg + in_off;
   float* ob = out + b * os.batch + head * os.head;
+  const int chunks = d >> 2;  // 16-byte chunks of a row
 
   if (q0 >= kv) {  // every row of this tile is token padding
-    for (int idx = tid; idx < kBQ * d; idx += kThreads) {
-      const int r = idx / d, c = idx - (idx / d) * d;
-      if (q0 + r < seq) ob[(q0 + r) * os.token + c] = 0.f;
+    for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
+      const int r = idx / chunks, c = idx - r * chunks;
+      if (q0 + r < seq)
+        *reinterpret_cast<float4*>(ob + (q0 + r) * os.token + 4 * c) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     return;
   }
 
-  for (int idx = tid; idx < kBQ * d; idx += kThreads) {
-    const int r = idx / d, c = idx - r * d;
-    const int t = q0 + r;
-    sQ[r * dq + c] = t < seq ? qb[t * in.token + c] * qscale : 0.f;
+  // the padding columns d .. 16 NK of every row: zero once, never copied over
+  if (d < 16 * NK) {
+    for (int r = tid; r < 2 * kRing * kBK; r += kMmaThreads)
+      for (int c = d; c < 16 * NK; c += 4)
+        *reinterpret_cast<float4*>(sK + r * kLd + c) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int idx = tid; idx < kBK * (dv - d); idx += kThreads) {
-    // V columns past d: zeros, so the P V loop needs no column guard
-    const int r = idx / (dv - d), c = d + idx % (dv - d);
-    sV[r * dv + c] = 0.f;
-  }
-
-  float m[kRows];
-  float l[kRows];
-  float o[kRows][DC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = fast ? 0.f : -__int_as_float(0x7f800000);  // -inf
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) o[i][j] = 0.f;
-  }
-
-  // pass 0 (safe mode only): exact row max; pass 1: weights and P V
-  for (int pass = fast ? 1 : 0; pass < 2; ++pass) {
-    for (int k0 = 0; k0 < kv; k0 += kBK) {
-      __syncthreads();  // previous tile's readers are done
-      for (int idx = tid; idx < kBK * d; idx += kThreads) {
-        const int r = idx / d, c = idx - r * d;
-        const int t = k0 + r;
-        float kval = 0.f, vval = 0.f;
-        if (t < kv) {
-          kval = kb[t * in.token + c];
-          if (pass == 1) vval = vb[t * in.token + c];
-        }
-        sK[r * dq + c] = kval;
-        if (pass == 1) sV[r * dv + c] = vval;
+  // one pass over the key tiles (safe mode keeps an online row max); tile
+  // `it` in ring slot it % kRing, each tile's copies one cp.async group
+  const int ntiles = (kv + kBK - 1) / kBK;
+  auto issue = [&](int it) {
+    if (it < ntiles) {
+      const int k0 = it * kBK;
+      float* dk = sK + (it % kRing) * kTile;
+      float* dv = sV + (it % kRing) * kTile;
+      // rows up to the next multiple of 8 past kv; keys >= kv are zeros
+      const int rows = min(kBK, (kv - k0 + 7) & ~7);
+      for (int idx = tid; idx < rows * chunks; idx += kMmaThreads) {
+        const int r = idx / chunks, c = idx - r * chunks;
+        const bool real = k0 + r < kv;
+        const long long off = (real ? k0 + r : 0) * in.token + 4 * c;
+        tc::cp_async<16>(dk + r * kLd + 4 * c, kb + off, real ? 16 : 0);
+        tc::cp_async<16>(dv + r * kLd + 4 * c, vb + off, real ? 16 : 0);
       }
-      __syncthreads();
+    }
+    tc::cp_async_commit();  // possibly empty: the wait counts stay uniform
+  };
+  for (int it = 0; it < kRing - 1; ++it) issue(it);
 
-      float s[kRows][kCols];
+  const int row0 = warp * 16;          // this warp's query rows
+  const bool active = q0 + row0 < kv;  // ... hold at least one real row
+  // Q scaled in f32 (q * scale is already of the input type), as the A
+  // fragments of S = Q K^T for the whole key loop: rows g and g + 8,
+  // columns 8 kk + q and + 4; zeros past kv and past d
+  float qf[2 * NK][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+  for (int kk = 0; kk < 2 * NK; ++kk)
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < d; ++c) {
-        float qv[kRows], kvv[kCols];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty + 16 * i) * dq + c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) kvv[j] = sK[(tx + 16 * j) * dq + c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kvv[j], s[i][j]);
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int t = q0 + row0 + g + 8 * (i & 1), c = 8 * kk + q + 4 * (i >> 1);
+      qf[kk][i] = (t < kv && c < d) ? __fmul_rn(qb[t * in.token + c], qscale) : 0.f;
+    }
 
-      if (pass == 0) {
+  float o[2 * NK][4];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            if (k0 + tx + 16 * j < kv) m[i] = fmaxf(m[i], s[i][j]);
-        continue;
-      }
+  for (int n = 0; n < 2 * NK; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // rows g and g + 8 of the warp's 16: running row max (safe) and this
+  // lane's part of the row sum
+  float m[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+  float l[2] = {0.f, 0.f};
 
+  for (int it = 0; it < ntiles; ++it) {
+    tc::cp_async_wait<kRing - 2>();
+    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
+    issue(it + kRing - 1);
+    if (!active) continue;
+    const int k0 = it * kBK;
+    const int live = min(8, (kv - k0 + 7) >> 3);  // 8-key tiles with a real key
+    const float* tk = sK + (it % kRing) * kTile;
+    const float* tv = sV + (it % kRing) * kTile;
+
+    // S = Q K^T in 3xTF32: n8 tile j holds keys k0 + 8 j .. + 7
+    float s[8][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < 2 * NK; ++kk) {
+      const tc::Split af[4] = {tc::split_tf32(qf[kk][0]), tc::split_tf32(qf[kk][1]),
+                               tc::split_tf32(qf[kk][2]), tc::split_tf32(qf[kk][3])};
+      // b0, b1 of key tiles j and j + 1 (tensor_core.cuh) for every pair,
+      // all loaded before the products (1.05x faster on an H100 than
+      // loading each pair as it is used); tiles past `live` are unused
+      uint32_t bf[4][4];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int key = k0 + tx + 16 * j;
-          float p = 0.f;
-          if (key < kv) {
-            p = exp2f(fast ? fminf(s[i][j], 120.f) : s[i][j] - m[i]);
-            if (sizes != nullptr) p *= sizes[(size_t)b * seq + key];
+      for (int j = 0; j < 8; j += 2)
+        tc::ldmatrix_x4(bf[j / 2], tk + (8 * j + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                                       8 * kk + ((lane >> 3) & 1) * 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < live)
+          tc::mma_3xtf32(s[j], af, tc::split_tf32(__uint_as_float(bf[j / 2][2 * (j & 1)])),
+                         tc::split_tf32(__uint_as_float(bf[j / 2][2 * (j & 1) + 1])));
+    }
+
+    if (!fast) {
+      // the running max over the real keys, common to the row's four
+      // lanes; o and l are rescaled to a new max (exp2(-inf) = 0 on the
+      // first tile, where both are still 0)
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j < live && k0 + 8 * j + 2 * q + (e & 1) < kv) mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+        if (mt[i] > m[i]) {
+          const float alpha = exp2f(__fsub_rn(m[i], mt[i]));
+          l[i] = __fmul_rn(l[i], alpha);
+#pragma unroll
+          for (int n = 0; n < 2 * NK; ++n) {
+            o[n][2 * i] = __fmul_rn(o[n][2 * i], alpha);
+            o[n][2 * i + 1] = __fmul_rn(o[n][2 * i + 1], alpha);
           }
-          l[i] += p;
-          sP[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
+          m[i] = mt[i];
         }
       }
-      __syncthreads();
+    }
 
-      const int nk = min(kBK, kv - k0);
-      for (int k = 0; k < nk; ++k) {
-        float pv[kRows], vv[DC];
+    // p in place of s (f32: no rounding for P V)
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) pv[i] = sP[(ty + 16 * i) * kPStride + k];
+    for (int j = 0; j < 8; ++j) {
+      if (j >= live) continue;
 #pragma unroll
-        for (int j = 0; j < DC; ++j) vv[j] = sV[k * dv + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < DC; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * q + (e & 1);
+        float p = 0.f;
+        if (key < kv) {
+          p = exp2f(fast ? fminf(s[j][e], 120.f) : __fsub_rn(s[j][e], m[e >> 1]));
+          if (sizes != nullptr) p = __fmul_rn(p, sizes[(size_t)b * seq + key]);
+        }
+        l[e >> 1] = __fadd_rn(l[e >> 1], p);
+        s[j][e] = p;
       }
     }
-    if (pass == 0) {
-      // the 16 threads of one row group are 16 consecutive lanes
+
+    // O += P V in 3xTF32, P's A fragments straight from the S tiles: the
+    // contraction index k = q + 4 e is key 8 i + 2 q + e (tensor_core.cuh)
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < 8; ++i) {
+      if (i >= live) continue;
+      const tc::Split af[4] = {tc::split_tf32(s[i][0]), tc::split_tf32(s[i][2]),
+                               tc::split_tf32(s[i][1]), tc::split_tf32(s[i][3])};
+      const float* br = tv + (8 * i + 2 * q) * kLd + g;
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], off));
+      for (int n = 0; n < 2 * NK; ++n)
+        tc::mma_3xtf32(o[n], af, tc::split_tf32(br[8 * n]), tc::split_tf32(br[kLd + 8 * n]));
     }
+  }
+  if (!active) {
+    // all 16 rows are token padding: zeros
+    for (int idx = lane; idx < 16 * chunks; idx += 32) {
+      const int r = idx / chunks, c = idx - r * chunks;
+      if (q0 + row0 + r < seq)
+        *reinterpret_cast<float4*>(ob + (q0 + row0 + r) * os.token + 4 * c) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < 2; ++i) {
+    l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 1));
+    l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 2));
+  }
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    const int t = q0 + row0 + g + 8 * i;
     if (t >= seq) continue;
+    const bool real = t < kv;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) ob[t * os.token + c] = t < kv ? o[i][j] / l[i] : 0.f;
-    }
+    for (int n = 0; n < 2 * NK; ++n)
+      if (8 * n < d)
+        *reinterpret_cast<float2*>(ob + t * os.token + 8 * n + 2 * q) =
+            real ? make_float2(__fdiv_rn(o[n][2 * i], l[i]), __fdiv_rn(o[n][2 * i + 1], l[i]))
+                 : make_float2(0.f, 0.f);
   }
 }
 
 // ----------------------------------------------------------- bf16 body
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 8;               // 16 query rows each
-constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kMmaRows = 16 * kWarps;   // query rows per block
-constexpr int kRing = 3;                // K and V tiles in flight
 
 // Shared memory of the bf16 body: the Q tile, then a ring of K and V
 // tiles of 64 rows; rows of 16 NK + 8 bf16.
@@ -522,14 +586,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
   return err;
 }
 
-template <int DC>
+template <int NK>
 cudaError_t launch(const Args<float>& a, cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(attention_kernel<DC>, smem_floats(16 * DC, DC) * sizeof(float),
-                               configured);
+  cudaError_t err = allow_smem(attention_tf32<NK>, tf32_smem_bytes(NK), configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq + kBQ - 1) / kBQ, a.nh, a.batch);
-  attention_kernel<DC><<<grid, kThreads, smem_floats(a.d, DC) * sizeof(float), stream>>>(
+  const dim3 grid((a.seq + kMmaRows - 1) / kMmaRows, a.nh, a.batch);
+  attention_tf32<NK><<<grid, kMmaThreads, tf32_smem_bytes(NK), stream>>>(
       a.q, a.k, a.v, a.in, a.sizes, a.out, a.os, a.seq, a.d, a.kv, a.qscale, a.fast);
   return cudaGetLastError();
 }
@@ -545,8 +608,7 @@ cudaError_t launch(const Args<bf16>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// f32: DC = ceil(d / 16) output columns per thread; bf16: NK = ceil(d / 16)
-// 16-wide slices of the head dimension.
+// NK = ceil(d / 16): 16-wide slices of the head dimension.
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
   switch ((a.d + 15) / 16) {
@@ -592,13 +654,13 @@ cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
   return dispatch<T>(a, stream);
 }
 
-// The bf16 body copies and stores 16-byte chunks.
+// Both bodies copy 16-byte chunks.
 bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
 
 }  // namespace
 
 // C interface, loaded with ctypes (vit_cpp_tpu_torch/_build.py).
-// dtype: 0 = float32, 1 = bfloat16 (16-byte aligned tensors). sizes: (B, T)
+// dtype: 0 = float32, 1 = bfloat16; tensors 16-byte aligned. sizes: (B, T)
 // float32 or null. Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int vit_attention_qkv(const void* qkv, const void* sizes, void* out,
                                  int batch, int seq, int nh, int d, int kv,
@@ -608,9 +670,10 @@ extern "C" int vit_attention_qkv(const void* qkv, const void* sizes, void* out,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (misaligned(qkv) || misaligned(out)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)run_qkv<float>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
-  if (dtype == 1 && !misaligned(qkv) && !misaligned(out))
+  if (dtype == 1)
     return (int)run_qkv<bf16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -621,9 +684,11 @@ extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
                                    float qscale, int dtype, void* stream) {
   if (bad_geometry(batch, seq, nh, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)run_bhtd<float>(q, k, v, out, batch, nh, seq, d, qscale, s);
-  if (dtype == 1 && !misaligned(q) && !misaligned(k) && !misaligned(v) && !misaligned(out))
+  if (dtype == 1)
     return (int)run_bhtd<bf16>(q, k, v, out, batch, nh, seq, d, qscale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@
 // Replaces the TPU kernel of tools/attn_grad_anatomy.py::run_variant
 // (_grad_pair_kernel), a stage-toggled replica of the head-pair attention
 // backward with the safe softmax, timed variant by variant. Here every
-// variant is a replica of the port's backward kernel
+// variant replicates the TPU kernel's design as a port on FMA units, not
+// the tensor-core design of the port's backward kernel
 // (attention_qkv_grad.cu): launch A, one block per (batch, heads, query
 // tile), takes the row max, sum p and r = sum dp * pn and writes dq and
 // the row statistics; launch B, one block per (batch, heads, key tile),
@@ -36,9 +37,9 @@
 // Stages a variant switches off are not computed: nodsoft and dotsonly
 // skip the r pass, nosoftmax and dotsonly the max pass.
 //
-// What bounds it on this card: as attention_qkv_grad.cu, the on-chip
-// operand feed of the f32 FMAs (five T x T x d products per head against
-// ~2 MB of HBM traffic per image and layer at ViT-B/16).
+// What bounds it on this card: the on-chip operand feed of the f32 FMAs
+// (five T x T x d products per head against ~2 MB of HBM traffic per
+// image and layer at ViT-B/16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,8 +1,9 @@
-// Tensor-core and asynchronous-copy building blocks of the bf16 bodies of
-// attention_qkv.cu (K1/K3: cp.async, ldmatrix and the mma.sync.m16n8k16
-// product, PTX ISA sm_80+) and dequant_matmul.cu (K4: cp.async, TMA with
-// mbarriers and the asynchronous wgmma.m64n128k16 product, sm_90a). All
-// products take bf16 operands and accumulate in f32.
+// Tensor-core and asynchronous-copy building blocks of attention_qkv.cu
+// and attention_qkv_grad.cu (K1/K3 and K2: cp.async, ldmatrix, the bf16
+// mma.sync.m16n8k16 product and the f32 3xTF32 product on
+// mma.sync.m16n8k8.tf32, PTX ISA sm_80+) and dequant_matmul.cu (K4:
+// cp.async, TMA with mbarriers and the asynchronous wgmma.m64n128k16
+// product, sm_90a). Every product accumulates in f32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two bf16 each:
@@ -52,7 +53,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Four 8 x 8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
 // matrix i, and register i receives this lane's pair of matrix i (row g,
-// columns 2q, 2q+1; with .trans, column g, rows 2q, 2q+1).
+// columns 2q, 2q+1; with .trans, column g, rows 2q, 2q+1). Without .trans
+// it also loads f32 rows, an 8 x 8 b16 matrix being 8 x 4 f32 whose
+// element (g, q) lane 4g + q receives: the m16n8k8.tf32 A fragment (rows
+// 0-7 and 8-15 at column 0, then at column 4) or the B fragments of two
+// n8 tiles stored n-major (n rows 0-7 at k 0 and at k 4, then rows 8-15).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -79,6 +84,67 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ------------------------------------------ 3xTF32 (f32 on tensor cores)
+//
+// TF32 keeps 10 of f32's 23 mantissa bits, so one TF32 product is off by
+// ~2^-11 of each operand. 3xTF32 splits each f32 operand x into hi =
+// tf32(x) and lo = tf32(x - hi) (x - hi is exact in f32) and sums hi*hi
+// + hi*lo + lo*hi in f32 accumulators: what it drops, lo*lo and the
+// rounding of lo, is ~2^-22 of |x y|, the size of f32's own rounding.
+//
+// Fragment layouts of m16n8k8.tf32 (g = lane / 4, q = lane % 4):
+//   A (16 x 8): a0 = A[g][q]  a1 = A[g+8][q]  a2 = A[g][q+4]  a3 = A[g+8][q+4]
+//   B (8 x 8, k x n): b0 = B[q][g]  b1 = B[q+4][g]
+//   C (16 x 8, f32): c0, c1 = C[g][2q, 2q+1]; c2, c3 = C[g+8][2q, 2q+1]
+// The C layout is not the A layout: a C tile holds columns (2q, 2q+1),
+// an A fragment columns (q, q+4). A product whose A operand is a C tile
+// (P V, dS K) therefore numbers its contraction index k' = 2q + i as
+// k = q + 4 i: A = {c0, c2, c1, c3}, and B's rows 2q and 2q+1 in place of
+// q and q+4 (b0 = B[2q][g], b1 = B[2q+1][g]). A sum over k does not
+// depend on how k is numbered.
+
+// x rounded to TF32 (nearest, ties away from zero), in an f32 register:
+// what cvt.rna.tf32.f32 computes for a finite x, in two integer
+// operations (an H100 ran K2's f32 body 1.3x faster this way than with
+// the cvt): add half of TF32's last place to the magnitude, then clear
+// the 13 bits below it.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// An operand split into its TF32 high and low parts.
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split_tf32(float x) {
+  const uint32_t hi = tf32(x);
+  return Split{hi, tf32(__fsub_rn(x, __uint_as_float(hi)))};
+}
+
+// c += a b on TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the two small cross terms first, then hi * hi.
+// kSwap takes the cross terms in the other order, so that the product of
+// the transposed operands (b^T a^T, a's values as B) adds its terms in
+// the order a b does.
+template <bool kSwap = false>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split (&a)[4], Split b0,
+                                           Split b1) {
+  if (kSwap) mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+  mma_tf32(c, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b0.hi, b1.hi);
+  if (!kSwap) mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.lo, b1.lo);
+  mma_tf32(c, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b0.hi, b1.hi);
 }
 
 // ------------------------------------------------ wgmma (sm_90a only)

@@ -84,6 +84,13 @@ def _check_args(qkv: torch.Tensor, num_heads: int, kv, sizes):
     return b, t, h, h // num_heads
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous at a 16-byte aligned address, copied if it is not:
+    the kernels copy their operands in 16-byte chunks."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _acc(dtype) -> torch.dtype:
     """Accumulation type of the plain versions: f32, or f64 for f64 inputs
     (gradcheck)."""
@@ -149,10 +156,7 @@ def attention_qkv(
         raise ValueError(f"attention_qkv kernel takes f32/bf16, got {qkv.dtype}")
     if d % 8 or d > 128:
         raise ValueError(f"attention_qkv kernel takes d % 8 == 0, d <= 128; got d={d}")
-    if not qkv.is_contiguous():
-        raise ValueError("attention_qkv kernel needs a contiguous qkv")
-    if qkv.data_ptr() % 16:  # the bf16 kernel copies 16-byte chunks
-        qkv = qkv.clone()
+    qkv = _aligned(qkv)
     if sizes is not None:
         if sizes.device != qkv.device or sizes.dtype != torch.float32:
             raise ValueError("sizes must be float32 on the qkv's device")
@@ -206,9 +210,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"flash_attention kernel takes d % 8 == 0, d <= 128; got d={d}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must lie on one device")
-    # contiguous and 16-byte aligned: the bf16 kernel copies 16-byte chunks
-    q, k, v = (a.contiguous() for a in (q, k, v))
-    q, k, v = (a.clone() if a.data_ptr() % 16 else a for a in (q, k, v))
+    q, k, v = (_aligned(a) for a in (q, k, v))
     out = torch.empty_like(q)
     lib = library()
     with torch.cuda.device(q.device):
@@ -279,17 +281,14 @@ def attention_qkv_grad(
             f"do must be (B, T, h)={(b, t, h)} {qkv.dtype} on {qkv.device}, got "
             f"{tuple(do.shape)} {do.dtype} on {do.device}"
         )
-    if not (qkv.is_contiguous() and do.is_contiguous()):
-        raise ValueError("attention_qkv_grad kernel needs contiguous qkv and do")
-    if qkv.data_ptr() % 16 or do.data_ptr() % 16:
-        raise ValueError("attention_qkv_grad kernel needs 16-byte aligned qkv and do")
+    qkv, do = _aligned(qkv), _aligned(do)
     if sizes is not None:
         if sizes.device != qkv.device or sizes.dtype != torch.float32:
             raise ValueError("sizes must be float32 on the qkv's device")
         if not sizes.is_contiguous():
             raise ValueError("attention_qkv_grad kernel needs contiguous sizes")
     dqkv = torch.empty_like(qkv)
-    # per query row: max, sum p and r, from the first launch to the second
+    # per query row: max, 1 / sum p and r, from the first launch to the second
     stats = torch.empty((b, num_heads, t, 3), dtype=torch.float32, device=qkv.device)
     lib = library()
     with torch.cuda.device(qkv.device):

@@ -2,9 +2,10 @@
 
 Counterpart of tools/attn_grad_anatomy.py, whose Pallas kernel replicates
 the TPU's head-pair attention backward (safe softmax) with stages
-switched off one at a time. Here the replica is the port's backward
-kernel (csrc/attn_grad_anatomy.cu, launches A and B of
-csrc/attention_qkv_grad.cu), one variant per call:
+switched off one at a time. Here the replica (csrc/attn_grad_anatomy.cu)
+is that design on the card's FMA units, in two launches as the port's
+backward kernel csrc/attention_qkv_grad.cu has them, whose products run
+on the tensor cores; one variant per call:
 
     full       s dot + softmax + dv/dp dots + dsoftmax + dq/dk dots
     pipe       full, two heads per block, stages interleaved across them

@@ -49,21 +49,38 @@
       device time);
       then the flagship configuration on the Q8_0 file (int8, fold on),
       forward only, against the f32 reference;
-   d. the split-head attention entry point, ops.core.attention(impl=
+   d. the front ends on the files of (a) and (b), each as a user runs
+      it: `python -m vit_cpp_tpu_torch.cli.vit` on magpie.jpeg (f32) in a
+      process whose TF32 flags are switched on first, its console surface
+      and top-5 against the card engine's, the f32 engine's 1000
+      probabilities against the card machine's CPU engine (1e-5) and a
+      TF32 engine as the control; `python -m vit_cpp_tpu_torch.cli.serve`
+      over the ten assets at -b 8, at its defaults (f16) and with --mm
+      pallas (Q8_0), against the f32 engine, with serve_files counting
+      the launches in this process (12 attention_qkv per batch, then 49
+      dequant_matmul + 12) and its images/s at batch 64 over 320 files
+      on one decode thread and on one per core; embed_files at the
+      defaults against the unfolded f32 engine, folded against unfolded
+      f32 features, one POST /v1/embed against embed_file; cli.inspect on
+      both files (text and --json --tensors);
+   e. the split-head attention entry point, ops.core.attention(impl=
       "pallas"), over the 12 layers' worth of ViT-B/16 q, k, v (no model
       path of the JAX package reaches it);
-   e. slice parity: the ViT-B/16 training loss and every parameter's
+   f. slice parity: the ViT-B/16 training loss and every parameter's
       gradient at B=2 in f32 on the card (attention_qkv forward,
       attention_qkv_grad backward) against the card machine's CPU (the
       plain versions);
-   f. fine-tuning through the CLI (vit_cpp_tpu_torch.cli.finetune) on the
+   g. fine-tuning through the CLI (vit_cpp_tpu_torch.cli.finetune) on the
       f16 checkpoint of (a): 2 classes x 32 generated 224 px images (dark
       vs bright), batch 32, 3 epochs, augmentation, label smoothing, EMA
       and a checkpoint directory; 12 attention_qkv and 12
       attention_qkv_grad launches per update, finite and falling losses,
       ms per update, images/s, peak device memory and the attention
       kernels' share of device time in one profiled update; the written
-      gguf is then served by VitEngine on the card.
+      gguf is then served by VitEngine on the card, and
+      vit_cpp_tpu_torch.cli.benchmark.run_eval classifies a dark/bright
+      tree (8 per class) with it on the card and on the CPU: equal CSVs
+      up to near-ties.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -158,6 +175,25 @@ PROBE_BF16_TOL = 1e-5
 # three TF32 products each: their f32 rate is a third of TF32's.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 494.7e12 / 3, "int8": 1979e12}
+# The vit CLI's f32 engine on the card vs the card machine's CPU engine on
+# the same pixels, all 1000 probabilities of this synthetic ViT-B/16
+# (each ~1e-3): summation order only, TF32 off.
+CLI_PROB_TOL = 1e-5
+# embed_files at the serving defaults (bf16, W8A8, fast fused attention,
+# LayerNorm folded) vs the unfolded f32 engine, relative to max|f|. W8A8's
+# int8 rounding of weights and per-token activations dominates: an H100
+# measured 2.93e-2 for W8A8 alone in f32, 1.29e-2 for bf16 alone, and
+# 4.13e-2 for the defaults over the ten assets (1 - cosine <= 9.5e-4); the
+# limit leaves 1.9x margin.
+EMBED_TOL = 8e-2
+# Folded vs unfolded f32 engines' features, absolute (|f| up to ~4): the
+# folded ln1/ln2 affines re-associate f32 products in every block. An H100
+# measured 3.6e-6; the JAX package's folded engine drops the final norm's
+# affine and is off by ~0.1.
+FOLD_FEATURE_TOL = 1e-5
+# vit-benchmark card vs CPU: rows whose CPU top-two probabilities lie this
+# close may differ.
+BENCH_TIE = 1e-5
 # Slice parity, card vs CPU, f32 with TF32 off in cuBLAS: summation order
 # and the attention kernels' 3xTF32 products (~2^-22 each).
 PARITY_LOSS_RTOL = 1e-5
@@ -1105,6 +1141,376 @@ def forward_phase(q8: str, card: str) -> None:
         f"{k1_us / 1e3:.2f} ms ({k1_us / dev_us:.3f}) of device time")
 
 
+# Runs `python -m MODULE ARGS` as a user does, without JAX or the JAX
+# package; `--tf32` first switches the process's TF32 flags on before the
+# module runs, as a caller's setting would be.
+_RUN_MODULE = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["vit_cpp_tpu"] = None
+args = sys.argv[1:]
+if args[0] == "--tf32":
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    args = args[1:]
+sys.argv = args
+runpy.run_module(args[0], run_name="__main__", alter_sys=True)
+"""
+
+
+def run_module(*args: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", _RUN_MODULE, *args], cwd=HERE, capture_output=True,
+        text=True, timeout=timeout, env=dict(os.environ, PYTHONPATH=HERE),
+    )
+
+
+def _flags_tf32(on: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+
+
+def vit_cli(f16: str, card: str) -> None:
+    """`python -m vit_cpp_tpu_torch.cli.vit -m F16 -i assets/magpie.jpeg
+    -k 5` with the process's TF32 flags on: the whole console surface, its
+    top-5 lines equal to the in-process card engine's (made with TF32 on
+    in this process too), and that f32 engine's 1000 probabilities within
+    CLI_PROB_TOL of the card machine's CPU engine on the same pixels. An
+    engine asked for "high" (TF32 on) is the control: it lands further
+    from the CPU, so the f32 engine did turn TF32 off itself."""
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_image_rgb
+
+    magpie = os.path.join(HERE, "assets", "magpie.jpeg")
+    t0 = time.perf_counter()
+    r = run_module("--tf32", "vit_cpp_tpu_torch.cli.vit", "-m", f16, "-i", magpie, "-k", "5")
+    seconds = time.perf_counter() - t0
+    for line in (r.stdout + r.stderr).splitlines():
+        log(f"cli.vit: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"cli.vit exited {r.returncode}")
+    out = r.stdout.splitlines()
+    want = [f"vit_model_load: loading model from '{f16}' - please wait",
+            "vit_model_load: hidden_size            = 768",
+            "vit_model_load: num_hidden_layers      = 12",
+            "vit_model_load: num_attention_heads    = 12",
+            "vit_model_load: patch_size             = 16",
+            "vit_model_load: img_size               = 224",
+            "vit_model_load: num_classes            = 1000",
+            "vit_model_load: ftype                  = 1",
+            "vit_model_load: qntvr                  = 0"]
+    if out[:9] != want or not re.match(r"vit_model_load: model size = +[\d.]+ MB / num tensors = 152$",
+                                       out[9]):
+        raise AssertionError(f"cli.vit: load echo {out[:10]}")
+    if out[10:12] != [f"load_image_from_file: loaded image '{magpie}' (500 x 470)",
+                      "processed, out dims : (224 x 224)"] or len(out) != 17:
+        raise AssertionError(f"cli.vit: image lines {out[10:]}")
+    err = r.stderr
+    for line in ("main: seed = ", "main: n_threads = ", "vit_image_preprocess: scale = 2.232143"):
+        if line not in err:
+            raise AssertionError(f"cli.vit: no {line!r} on stderr")
+    times = {k: float(v) for k, v in re.findall(r"main: +(model load|processing|total) time += +([\d.]+) ms", err)}
+    if len(times) != 3:
+        raise AssertionError(f"cli.vit: timing lines {times}")
+
+    img = load_image_rgb(magpie)
+    _flags_tf32(True)  # the process asks for TF32; the f32 engine must not use it
+    try:
+        engine = VitEngine(f16, device="cuda", verbose=False)
+        top = engine.classify_file(magpie, topk=5, verbose=False)
+        pixels = engine.preprocess_image(img)[None]
+        p_card = engine.predict_probs_batch(pixels)[0].cpu().numpy()
+        f_card = engine.features_batch(pixels)[0].cpu().numpy()
+        del engine
+        tf32 = VitEngine(f16, matmul_precision="high", device="cuda", verbose=False)
+        p_tf32 = tf32.predict_probs_batch(pixels)[0].cpu().numpy()
+        f_tf32 = tf32.features_batch(pixels)[0].cpu().numpy()
+        del tf32
+        flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        _flags_tf32(False)
+    if flags_after != (True, True):
+        raise AssertionError(f"the engines left the process's TF32 flags at {flags_after}")
+    lines = [f" > {label} : {prob:.2f}" for _, prob, label in top]
+    if out[12:] != lines:
+        raise AssertionError(f"cli.vit top-5 {out[12:]} != the card engine's {lines}")
+    cpu = VitEngine(f16, device="cpu", verbose=False)
+    p_cpu = cpu.predict_probs_batch(pixels.cpu())[0].numpy()
+    f_cpu = cpu.features_batch(pixels.cpu())[0].numpy()
+    pix_err = (cpu.preprocess_image(img) - pixels[0].cpu()).abs().max().item()
+    del cpu
+    err, err_tf32 = float(np.abs(p_card - p_cpu).max()), float(np.abs(p_tf32 - p_cpu).max())
+    scale = float(np.abs(f_cpu).max())
+    ferr = float(np.abs(f_card - f_cpu).max()) / scale
+    ferr_tf32 = float(np.abs(f_tf32 - f_cpu).max()) / scale
+    log(f"cli.vit ViT-B/16 f32 with TF32 on in the process: rc 0, 17 stdout lines, top-5 equal to "
+        f"the card engine's; model load {times['model load']:.2f} ms, processing "
+        f"{times['processing']:.2f} ms, total {times['total']:.2f} ms, {seconds:.1f} s with the "
+        f"interpreter's start, on {card}")
+    log(f"cli.vit f32 card engine vs the CPU engine, same pixels: max|p_card - p_cpu| over 1000 = "
+        f"{err:.3e} (tolerance {CLI_PROB_TOL:.0e}); features max|f_card - f_cpu| / max|f| = "
+        f"{ferr:.3e}; the TF32 control (matmul_precision='high'): max|p - p_cpu| = {err_tf32:.3e}, "
+        f"features {ferr_tf32:.3e}; preprocessing card vs CPU max|x| difference {pix_err:.3e}")
+    if not err <= CLI_PROB_TOL:
+        raise AssertionError(f"cli.vit: f32 card probabilities off the CPU's by {err}")
+    if not ferr < ferr_tf32:
+        raise AssertionError("cli.vit: the f32 engine is no closer to the CPU than a TF32 engine")
+
+
+def vit_serve(f16: str, q8: str, card: str) -> dict:
+    """`python -m vit_cpp_tpu_torch.cli.serve` over the ten assets at
+    batch 8: at its defaults on the f16 file, then with --mm pallas on the
+    Q8_0 file. Each top-1 probability within PROB_TOL / Q8_PROB_TOL of the
+    f32 engine (mm=xla, attn=xla) on the same file; labels equal wherever
+    that engine's top-two gap exceeds the tolerance. The same files through
+    serve_files in this process count the launches (12 attention_qkv per
+    batch, then 49 dequant_matmul + 12). Then images/s of serve_files at
+    batch 64 over 320 files, decoding on one thread and on one per core.
+    Returns {path: {kernel name: launches}}."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.serve import serve_files, throughput
+
+    paths, _ = asset_bodies()
+    images = load_images_rgb_batch(paths)
+    out = {}
+    for what, model, flags, per_batch, tol in (
+        ("vit-serve defaults", f16, [], {KERNEL: 12}, PROB_TOL),
+        ("vit-serve --mm pallas", q8, ["--mm", "pallas"], {QMM_KERNEL: 49, KERNEL: 12}, Q8_PROB_TOL),
+    ):
+        r = run_module("vit_cpp_tpu_torch.cli.serve", "-m", model, *paths, "-b", "8", *flags)
+        for line in r.stderr.splitlines():
+            log(f"{what}: {line}")
+        rows = [line.split("\t") for line in r.stdout.splitlines()]
+        if r.returncode != 0 or len(rows) != 10 or [row[0] for row in rows] != paths:
+            raise AssertionError(f"{what}: exit {r.returncode}, stdout {r.stdout!r}")
+        summary = re.search(r"serve: 10/10 images in ([\d.]+)s = ([\d.]+) images/sec", r.stderr)
+        if not summary:
+            raise AssertionError(f"{what}: no summary line")
+
+        ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                        verbose=False)
+        want = ref.predict_probs_batch(ref.preprocess_images(images)).cpu().numpy()
+        del ref
+        engine, _ = build_engine(model, mm="pallas" if flags else "int8", device="cuda")
+        for kernel in per_batch:
+            kernel.reset()
+        got = list(serve_files(engine, paths, batch=8, keep_probs=True))
+        torch.cuda.synchronize()
+        launches = {kernel.name: kernel.launches for kernel in per_batch}
+        for kernel, each in per_batch.items():
+            if launches[kernel.name] != 2 * each:
+                raise AssertionError(f"{what}: {kernel.name} launched {launches[kernel.name]} "
+                                     f"times for 2 batches (want {each} per batch)")
+        worst, checked = 0.0, 0
+        for (path, label, prob), res, p in zip(rows, got, want):
+            err = float(np.abs(res.probs - p).max())
+            worst = max(worst, err)
+            top2 = np.sort(p)[-2:]
+            if top2[1] - top2[0] > tol:  # a clear top-1: the labels must agree
+                checked += 1
+                want_label = engine.id2label.get(int(p.argmax()))
+                if label != want_label or res.top1 != int(p.argmax()):
+                    raise AssertionError(f"{what}: {path} labelled {label}, f32 {want_label}")
+            if abs(float(prob) - p[res.top1]) > tol + 0.005:  # printed to 2 places
+                raise AssertionError(f"{what}: {path} printed {prob}, f32 {p[res.top1]}")
+        log(f"{what}: rc 0, 10 lines; serve_files probabilities vs the f32 engine worst "
+            f"{worst:.2e} over 10 x 1000 (tolerance {tol:.0e}); labels checked where the f32 "
+            f"top-two gap exceeds it: {checked}/10; launches {launches} = "
+            f"{ {k.name: v for k, v in per_batch.items()} } x 2 batches; the CLI's own "
+            f"{summary.group(2)} images/s over 10 files (first batches included) on {card}")
+        if worst > tol:
+            raise AssertionError(f"{what}: probabilities off by {worst} > {tol}")
+        out[what] = launches
+
+        many = paths * 32
+        throughput(engine, paths, batch=64)  # warm: the B=64 shapes
+        rates = {1: [], 0: []}
+        for n in (1, 0, 0, 1):  # in turns: one decode thread, one per core
+            rates[n].append(throughput(engine, many, batch=64, decode_threads=n))
+        log(f"{what}: serve_files throughput at batch 64 over 320 files (host clock, in turns): "
+            f"{np.mean(rates[1]):.1f} img/s decoding on one thread {rates[1]}, "
+            f"{np.mean(rates[0]):.1f} img/s on {os.cpu_count()} {rates[0]} on {card}")
+        stage_ms(what, engine, many[:64], card)
+        del engine
+    return out
+
+
+def stage_ms(what: str, engine, paths, card: str) -> None:
+    """Where one batch's time goes in serve_files: each stage alone on the
+    same 64 files, median of 3 (host clock, each ended by a sync)."""
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+
+    def median_ms(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    images = load_images_rgb_batch(paths)
+    pixels = engine.preprocess_images(images)
+    ms = {
+        "decode, 1 thread": median_ms(lambda: load_images_rgb_batch(paths, n_threads=1)),
+        f"decode, {os.cpu_count()} threads": median_ms(lambda: load_images_rgb_batch(paths)),
+        "preprocess": median_ms(lambda: engine.preprocess_images(images)),
+        "forward": median_ms(lambda: engine.predict_probs_batch(pixels).cpu()),
+    }
+    log(f"{what}: one batch of 64 by stage, ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) + f" on {card}")
+
+
+def embeddings(f16: str, card: str) -> dict:
+    """embed_files at the serving defaults (bf16, int8, fold on) against
+    the unfolded f32 card engine's features_batch; folded and unfolded f32
+    engines' features; one POST /v1/embed to the defaults' daemon against
+    embed_file on the same bytes. Returns {path: {kernel name: launches}}."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.serve import embed_files
+    from vit_cpp_tpu_torch.server import create_server
+
+    paths, bodies = asset_bodies()
+    images = load_images_rgb_batch(paths)
+    engine, _ = build_engine(f16, device="cuda")
+    KERNEL.reset()
+    vecs = [e.vector for e in embed_files(engine, paths, batch=8)]
+    torch.cuda.synchronize()
+    launches = {KERNEL.name: KERNEL.launches}
+    if launches[KERNEL.name] != 24 or any(v is None or v.shape != (768,) for v in vecs):
+        raise AssertionError(f"embed_files: launches {launches}, shapes "
+                             f"{[None if v is None else v.shape for v in vecs]}")
+    unfolded = VitEngine(f16, device="cuda", verbose=False)
+    pixels = unfolded.preprocess_images(images)
+    f_ref = unfolded.features_batch(pixels).cpu().numpy()
+    del unfolded
+    folded = VitEngine(f16, fold_ln=True, device="cuda", verbose=False)
+    f_fold = folded.features_batch(pixels).cpu().numpy()
+    del folded
+    scale = float(np.abs(f_ref).max())
+    got = np.stack(vecs)
+    err = float(np.abs(got - f_ref).max()) / scale
+    cos = (got * f_ref).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(f_ref, axis=1)
+    fold_err = float(np.abs(f_fold - f_ref).max())
+    log(f"embed_files ViT-B/16 serving defaults vs the unfolded f32 engine: max|f - f_f32| / "
+        f"max|f| = {err:.3e} (tolerance {EMBED_TOL:.0e}, max|f| = {scale:.3f}), 1 - cosine at "
+        f"most {1 - cos.min():.3e}; attention_qkv launches {launches[KERNEL.name]} = 12 x 2 "
+        f"batches")
+    log(f"folded vs unfolded f32 engine features: max|f_fold - f| = {fold_err:.3e} "
+        f"(tolerance {FOLD_FEATURE_TOL:.0e})")
+    if not err <= EMBED_TOL:
+        raise AssertionError(f"embed_files: features off by {err} of max|f|")
+    if not fold_err <= FOLD_FEATURE_TOL:
+        raise AssertionError(f"folded features off the unfolded by {fold_err}")
+
+    magpie = paths.index(os.path.join(HERE, "assets", "magpie.jpeg"))
+    httpd, batcher = create_server(engine, port=0, batch=8, max_wait_ms=5.0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        KERNEL.reset()
+        status, body, ms = post(f"http://127.0.0.1:{httpd.server_port}/v1/embed", bodies[magpie])
+        torch.cuda.synchronize()
+        launches_post = KERNEL.launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        server.join(timeout=30)
+    want = engine.embed_file(paths[magpie])
+    if status != 200 or body["shape"] != [768]:
+        raise AssertionError(f"/v1/embed: HTTP {status} {str(body)[:200]}")
+    post_err = float(np.abs(np.array(body["embedding"]) - want).max()) / float(np.abs(want).max())
+    log(f"/v1/embed (the defaults' daemon, micro-batch 8) vs embed_file on the same bytes: "
+        f"max|diff| / max|f| = {post_err:.3e} (tolerance {TOL[torch.bfloat16]:.0e}); "
+        f"200 in {ms:.1f} ms, {launches_post} attention_qkv launches")
+    if not post_err <= TOL[torch.bfloat16] or launches_post != 12:
+        raise AssertionError(f"/v1/embed: off by {post_err}, {launches_post} launches")
+    return {"embed_files": launches}
+
+
+def vit_benchmark(ft: str, tmp: str, card: str) -> None:
+    """vit_cpp_tpu_torch.cli.benchmark.run_eval on a dark/bright tree (8
+    images per class, classnames.json beside it) with the fine-tuned
+    ViT-B/16 (2 classes), f32 on the card and on the card machine's CPU:
+    equal CSVs except where the CPU's top-two probabilities lie within
+    BENCH_TIE of each other."""
+    from unittest import mock
+
+    from vit_cpp_tpu_torch.cli.benchmark import run_eval
+    from vit_cpp_tpu_torch.engine import VitEngine
+
+    rows, predict = [], VitEngine.predict_probs_batch
+
+    def recording(engine, images):  # the probabilities behind the CSV's rows
+        out = predict(engine, images)
+        rows.append(out.cpu().numpy())
+        return out
+
+    root = os.path.join(tmp, "bench")
+    val = write_dark_bright(os.path.join(root, "val"), 8)
+    with open(os.path.join(root, "classnames.json"), "w") as f:
+        json.dump(["aa_dark", "bb_bright"], f)
+    csvs, lines = {}, {}
+    for device in ("cuda", "cpu"):
+        csv = os.path.join(root, f"{device}.csv")
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        rows.clear()
+        with contextlib.redirect_stdout(text), \
+                mock.patch.object(VitEngine, "predict_probs_batch", recording):
+            acc = run_eval(ft, val, 0, csv, ext=".png", verbose=False, device=device)
+        seconds = time.perf_counter() - t0
+        lines[device] = text.getvalue().splitlines()[-1]
+        with open(csv) as f:
+            csvs[device] = f.read().splitlines()
+        log(f"cli.benchmark run_eval on {device}: {lines[device]} ({len(csvs[device])} rows, "
+            f"accuracy {acc:.4f}) in {seconds:.1f} s")
+    probs = np.concatenate(rows)[: len(csvs["cpu"])]  # the CPU run's, in row order
+    if len(csvs["cuda"]) != 16 or len(csvs["cpu"]) != 16:
+        raise AssertionError(f"cli.benchmark: rows {len(csvs['cuda'])} / {len(csvs['cpu'])}")
+    top2 = np.sort(probs, axis=1)[:, -2:]
+    ties = top2[:, 1] - top2[:, 0] <= BENCH_TIE
+    differ = [i for i, (a, b) in enumerate(zip(csvs["cuda"], csvs["cpu"])) if a != b]
+    log(f"cli.benchmark card vs CPU: {len(differ)} of 16 rows differ, {int(ties.sum())} rows "
+        f"with the CPU's top-two within {BENCH_TIE:.0e}; card {lines['cuda']!r} on {card}")
+    if any(not ties[i] for i in differ) or not lines["cuda"].startswith("Top-1 Accuracy: "):
+        raise AssertionError(f"cli.benchmark: rows {differ} differ off the near-ties")
+
+
+def vit_inspect(*files: str) -> None:
+    """vit_cpp_tpu_torch.cli.inspect on each file, as text and as
+    --json --tensors: exit 0, and the JSON's total bytes equal the sum of
+    the reader's record sizes."""
+    from vit_cpp_tpu_torch.cli import inspect as cli_inspect
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+
+    for path in files:
+        texts = []
+        for flags in ([], ["--json", "--tensors"]):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli_inspect.main([path, *flags])
+            if rc != 0:
+                raise AssertionError(f"cli.inspect {path} {flags}: exit {rc}")
+            texts.append(text.getvalue())
+        summary = json.loads(texts[1])
+        records = sum(r.dtype.row_bytes(r.n_elements) for r in read_model(path).tensors.values())
+        if summary["total_bytes"] != records or records != sum(t["bytes"] for t in summary["tensors"]):
+            raise AssertionError(f"cli.inspect {path}: total_bytes {summary['total_bytes']}, "
+                                 f"records {records}")
+        counts = next(line.strip() for line in texts[0].splitlines() if " labels, " in line)
+        log(f"cli.inspect {os.path.basename(path)}: rc 0; {counts}; "
+            f"--json total_bytes {summary['total_bytes']} = the reader's records, "
+            f"bytes by type {summary['bytes_by_dtype']}")
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -1140,12 +1546,17 @@ def run_paths(card: str):
         )
         forward_phase(q8, card)
         flagship_forward(q8, images)
+        vit_cli(f16, card)
+        serve_launches = vit_serve(f16, q8, card)
+        serve_launches.update(embeddings(f16, card))
+        vit_inspect(f16, q8)
         f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
         slice_parity(f32)
         grad_launches = finetune_path(f16, tmp)
+        vit_benchmark(os.path.join(tmp, "ft.gguf"), tmp, card)
     flash_launches = split_head_path()
-    return f16_launches, q8_launches, flash_launches, grad_launches
+    return f16_launches, q8_launches, flash_launches, grad_launches, serve_launches
 
 
 def main() -> int:
@@ -1184,7 +1595,7 @@ def main() -> int:
     k4_err, k4_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
-    _, q8_launches, flash_launches, grad_launches = run_paths(card)
+    _, q8_launches, flash_launches, grad_launches, serve_launches = run_paths(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -1193,14 +1604,17 @@ def main() -> int:
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def entry(kernel, launches, err, times, **more):
-        """A kernel's numbers; `more`: the same numbers at other shapes or
-        types, each under its own key."""
+    def entry(kernel, launches, err, times, by_path=None, **more):
+        """A kernel's numbers; `by_path`: its launches on each path that
+        runs it; `more`: the same numbers at other shapes or types, each
+        under its own key."""
         out = {
             "name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": launches, "max_abs_err": err,
             **dict(zip(keys, times)),
         }
+        if by_path:
+            out["launches_by_path"] = by_path
         for key, other in more.items():
             out[key] = dict(zip(keys, other))
         return out
@@ -1213,8 +1627,13 @@ def main() -> int:
         # K1: bf16 fast at ViT-B/16 B=8; B=64 and the training forward
         # (f32 safe, B=32) beside it
         entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
+              by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
+                       **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
               b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"]),
         entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
+              by_path={"Q8_0 --mm pallas daemon": q8_launches[QMM_KERNEL.name],
+                       **{p: n[QMM_KERNEL.name] for p, n in serve_launches.items()
+                          if QMM_KERNEL.name in n}},
               b64=k4_times["qkv B=64"]),
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
         # K2: f32 at ViT-B/16 B=32 (the training path's); bf16 and T=785

@@ -226,8 +226,10 @@ def test_daemon_routes_match_the_jax_daemon(model):
         "ok": True, "model": "vit", "hidden_size": HP.hidden_size,
         "img_size": HP.img_size, "batch": 2,
     }
+    # a classifier's daemon serves /v1/embed too, on a batcher of its own
     jax_model = SimpleNamespace(name=None, is_vitstr=False, is_headless=False,
-                                batcher=batcher, embed_batcher=None)
+                                batcher=batcher, embed_batcher=batcher.child)
+    assert batcher.child is not None
     assert metrics == (200, jax_metrics([jax_model]).encode())
     assert b'vit_requests_total{model="default",route="classify"} 1' in metrics[1]
     assert missing_get[0] == 404 and missing_post[0] == 404

@@ -178,3 +178,85 @@ def test_is_vitx_agrees(tmp_path, checkpoints):
     for p in (str(art), checkpoints["f16"], str(tmp_path / "missing")):
         assert is_vitx(p) == jax_is_vitx(p)
     assert is_vitx(str(art))
+
+
+def test_bundled_classnames_are_byte_identical():
+    ours = os.path.join(REPO, "vit_cpp_tpu_torch", "data", "classnames.json")
+    theirs = os.path.join(REPO, "vit_cpp_tpu", "data", "classnames.json")
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_quick_example_writer_is_byte_identical(tmp_path):
+    from vit_cpp_tpu.testing.synthetic import write_quick_example_model as jax_quick
+    from vit_cpp_tpu_torch.testing.synthetic import write_quick_example_model
+
+    ours, theirs = str(tmp_path / "port.gguf"), str(tmp_path / "jax.gguf")
+    hp, want = write_quick_example_model(ours), jax_quick(theirs)
+    assert dataclasses.asdict(hp) == dataclasses.asdict(want)
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+
+
+@pytest.mark.parametrize("case", ["ok", "bad-magic", "short-header", "short-meta", "bad-json"])
+def test_read_meta_agrees(tmp_path, case):
+    from vit_cpp_tpu.aot import MAGIC, read_meta as jax_read_meta
+    from vit_cpp_tpu_torch.cli.common import read_meta
+
+    meta = b'{"format": 1, "batch": 8, "platforms": ["cpu"]}'
+    data = {
+        "ok": MAGIC + len(meta).to_bytes(4, "little") + meta + b"\0" * 32,
+        "bad-magic": b"GGUF" + b"\0" * 16,
+        "short-header": MAGIC + b"\x01",
+        "short-meta": MAGIC + (len(meta) + 9).to_bytes(4, "little") + meta,
+        "bad-json": MAGIC + (5).to_bytes(4, "little") + b"{not",
+    }[case]
+    path = tmp_path / "a.vitx"
+    path.write_bytes(data)
+    results = []
+    for fn in (read_meta, jax_read_meta):
+        try:
+            results.append(("ok", fn(str(path))))
+        except ValueError as e:
+            results.append(("ValueError", str(e)))
+    assert results[0] == results[1]
+    assert results[0][0] == ("ok" if case == "ok" else "ValueError")
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "pil-only"])
+def test_batch_image_load_agrees(tmp_path, monkeypatch, native):
+    """The threaded batch decode with its PIL retry: equal pixels on the
+    images of assets/, and None where neither package reads a file. Where
+    the native decoder cannot be built (pil-only), every file takes the
+    threaded PIL path and matches the JAX package's PIL decode."""
+    from vit_cpp_tpu.io.image import load_image_rgb as jax_load_one
+    from vit_cpp_tpu.io.image import load_images_rgb_batch as jax_load
+    from vit_cpp_tpu_torch import decode
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+
+    bad = tmp_path / "broken.jpg"
+    bad.write_bytes(b"\xff\xd8 not a jpeg")
+    paths = [os.path.join(REPO, "assets", a) for a in ASSETS]
+    paths.insert(1, str(bad))
+    theirs = jax_load(paths, n_threads=2)
+    if not native:
+        monkeypatch.setattr(decode, "_native", False)  # as after a failed build
+        theirs = [None if im is None else jax_load_one(p, prefer_native=False)
+                  for p, im in zip(paths, theirs)]
+    ours = load_images_rgb_batch(paths, n_threads=2)
+    assert [im is None for im in ours] == [im is None for im in theirs]
+    assert [im is None for im in ours].count(True) == 1 and ours[1] is None
+    for a, b in zip(ours, theirs):
+        if a is not None:
+            assert a.dtype == np.uint8 and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("asset", ["magpie.jpeg", "image.png"])
+def test_single_image_load_agrees(asset):
+    from vit_cpp_tpu.io.image import load_image_rgb as jax_load
+    from vit_cpp_tpu_torch.io.image import load_image_rgb
+
+    path = os.path.join(REPO, "assets", asset)
+    for prefer_native in (True, False):
+        assert np.array_equal(load_image_rgb(path, prefer_native=prefer_native),
+                              jax_load(path, prefer_native=prefer_native))

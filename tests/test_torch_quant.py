@@ -222,7 +222,11 @@ def test_load_params_matches_jax_on_quantized_files(f16_file, tmp_path, itype, d
 def test_fold_layernorms_with_quant_linear_matches_jax(f16_file, tmp_path, mm):
     jparams = jax_load_params(read_model(_quantized(f16_file, tmp_path, 7)))  # Q5_1
     ref = _flatten(params_from_jax(jax_fold(jparams, mm_impl=mm)))
-    folded = fold_layernorms(params_from_jax(jparams), mm_impl=mm)
+    params = params_from_jax(jparams)
+    folded = fold_layernorms(params, mm_impl=mm)
+    # the port keeps the final norm's affine for the features readout; the
+    # JAX tree drops it (vit_cpp_tpu/models/fold.py:110)
+    assert folded.pop("features_norm") is params["norm"]
     got = _flatten(folded)
     assert got.keys() == ref.keys()
     # int8: the folded qkv/fc1/head become Int8Linear; pallas: dense f32;

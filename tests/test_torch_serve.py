@@ -1,0 +1,282 @@
+"""The port's batch pipeline (serve.py) and `vit-serve` against the JAX
+package's.
+
+Both read the same synthetic checkpoint (h=64, L=2, 10 classes, 32 px)
+and the same files: seven numpy-made PNGs and one file no decoder reads,
+served in batches of 4, so the tail chunk is padded and a failed decode
+sits inside a chunk. The port runs on the CPU (the kernels' plain
+versions), the JAX package with its Pallas kernels in interpret mode.
+"""
+
+import os
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from vit_cpp_tpu import serve as jax_serve
+from vit_cpp_tpu.cli import serve as jax_cli_serve
+from vit_cpp_tpu.engine import VitEngine as JaxVitEngine
+from vit_cpp_tpu.hparams import VitHParams
+from vit_cpp_tpu.testing.synthetic import write_synthetic_model
+from vit_cpp_tpu_torch import serve
+from vit_cpp_tpu_torch.cli import serve as cli_serve
+from vit_cpp_tpu_torch.cli.common import build_engine
+from vit_cpp_tpu_torch.engine import VitEngine
+
+TINY = VitHParams(
+    hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+    num_classes=10, patch_size=8, img_size=32,
+)
+F32_TOL = 1e-5
+# bf16 serving features (W8A8 int8 linears, fast fused attention) vs the
+# JAX package's unfolded engine at the same dtype and paths, relative to
+# max|f|, with the port's LayerNorms unfolded and folded (the serving
+# default): the two packages round bf16 intermediates at different places
+# and an int8 activation code flips where their sums straddle a rounding
+# boundary (measured 1.27e-2 unfolded); folding moves the LN affine into
+# the weights before their int8 rounding (the JAX package's own f32 W8A8
+# engine moves by 2.7e-2 of max|f| when folded; measured 2.08e-2 here).
+BF16_FEATURE_TOL = {False: 2e-2, True: 5e-2}
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch-serve")
+    model = str(d / "m.gguf")
+    write_synthetic_model(model, TINY, ftype=1, seed=0,
+                          id2label={i: f"class_{i}" for i in range(10)})
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(7):
+        p = str(d / "imgs" / f"{i}.png")
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        h, w = rng.integers(16, 80, 2)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(p)
+        paths.append(p)
+    bad = str(d / "imgs" / "broken.png")
+    with open(bad, "wb") as f:
+        f.write(b"not an image")
+    paths.insert(2, bad)
+    return {"model": model, "paths": paths, "dir": str(d / "imgs"), "tmp": d}
+
+
+@pytest.fixture(scope="module")
+def engines(files):
+    return (
+        VitEngine(files["model"], device="cpu", verbose=False),
+        JaxVitEngine(files["model"], verbose=False),
+    )
+
+
+def _record_batches(engine, monkeypatch, name):
+    shapes = []
+    real = getattr(engine, name)
+
+    def fn(pixels):
+        shapes.append(tuple(pixels.shape))
+        return real(pixels)
+
+    monkeypatch.setattr(engine, name, fn)
+    return shapes
+
+
+def test_serve_files_matches_jax(files, engines, monkeypatch):
+    engine, jax_engine = engines
+    shapes = _record_batches(engine, monkeypatch, "predict_probs_batch")
+    got = list(serve.serve_files(engine, files["paths"], batch=4, keep_probs=True))
+    want = list(jax_serve.serve_files(jax_engine, files["paths"], batch=4, keep_probs=True))
+    assert [r.path for r in got] == [r.path for r in want] == files["paths"]
+    assert [r.top1 for r in got] == [r.top1 for r in want]
+    assert got[2].top1 == -1 and got[2].probs is None  # the failed decode, in place
+    for g, w in zip(got, want):
+        if w.top1 >= 0:
+            np.testing.assert_allclose(g.probs, w.probs, atol=F32_TOL, rtol=0)
+            assert abs(g.prob - w.prob) <= F32_TOL
+    # two chunks of 4 files; the failed decode and the tail are padded:
+    # every forward sees the full batch
+    assert shapes == [(4, 3, 32, 32), (4, 3, 32, 32)]
+
+
+def test_embed_files_matches_jax_in_f32(files, engines, monkeypatch):
+    engine, jax_engine = engines
+    shapes = _record_batches(engine, monkeypatch, "features_batch")
+    got = list(serve.embed_files(engine, files["paths"], batch=4))
+    want = list(jax_serve.embed_files(jax_engine, files["paths"], batch=4))
+    assert [e.path for e in got] == [e.path for e in want]
+    assert got[2].vector is None and want[2].vector is None
+    for g, w in zip(got, want):
+        if w.vector is not None:
+            assert g.vector.dtype == np.float32 and g.vector.shape == (64,)
+            np.testing.assert_allclose(g.vector, w.vector, atol=F32_TOL, rtol=0)
+    assert shapes == [(4, 3, 32, 32), (4, 3, 32, 32)]
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_embed_files_at_the_serving_defaults_vs_unfolded_jax(files, fold):
+    engine, _ = build_engine(files["model"], fold_ln=None if fold else False,
+                             device="cpu")  # bf16, int8, fold on by default
+    assert (engine.params["norm"]["scale"] is None) == fold
+    jax_engine = JaxVitEngine(files["model"], dtype=jnp.bfloat16, mm_impl="int8",
+                              attn_impl="pallas-fast", fold_ln=False, verbose=False)
+    got = [e.vector for e in serve.embed_files(engine, files["paths"], batch=4)]
+    want = [e.vector for e in jax_serve.embed_files(jax_engine, files["paths"], batch=4)]
+    got = np.stack([v for v in got if v is not None])
+    want = np.stack([v for v in want if v is not None])
+    assert got.shape == want.shape == (7, 64) and np.isfinite(got).all()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= BF16_FEATURE_TOL[fold], err
+
+
+def test_preprocess_resizes_each_image_at_its_own_size():
+    """A batch of images of many sizes gives each image what it gets
+    alone, in input order, and agrees with the JAX package, which pads
+    the batch onto its largest image's canvas, up to a u8 step where the
+    two sums straddle a half-integer."""
+    from vit_cpp_tpu.ops.preprocess import preprocess_batch as jax_preprocess_batch
+    from vit_cpp_tpu_torch.ops.preprocess import preprocess_batch
+
+    rng = np.random.default_rng(4)
+    images = [rng.integers(0, 256, shape, dtype=np.uint8)
+              for shape in ((40, 57, 3), (300, 23, 3), (90, 200, 3), (700, 20, 3), (10, 10, 3))]
+    images[1].flags.writeable = False  # as np.asarray of a PIL image is
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # torch warns on a read-only array
+        got = preprocess_batch(images, 24)
+    alone = torch.cat([preprocess_batch([im], 24) for im in images])
+    assert torch.equal(got, alone)
+    ref = np.asarray(jax_preprocess_batch(images, 24))
+    diff = np.abs(got.numpy() - ref)
+    assert diff.max() <= 1.0 / 57.0 + 1e-5 and (diff > 1e-5).mean() < 1e-3
+
+
+def test_producer_exception_reaches_the_consumer(files, engines, monkeypatch):
+    engine, _ = engines
+
+    def broken(images):
+        raise RuntimeError("preprocess failed")
+
+    monkeypatch.setattr(engine, "preprocess_images", broken)
+    with pytest.raises(RuntimeError, match="preprocess failed"):
+        list(serve.serve_files(engine, files["paths"], batch=4))
+    with pytest.raises(RuntimeError, match="preprocess failed"):
+        list(serve.embed_files(engine, files["paths"], batch=4))
+
+
+def test_closing_the_stream_early_stops_the_producer(files, engines):
+    import threading
+
+    engine, _ = engines
+    before = set(threading.enumerate())
+    # prefetch 1: the producer blocks on the full queue until it is stopped
+    it = serve.serve_files(engine, files["paths"] * 4, batch=2, prefetch=1)
+    assert next(it).path == files["paths"][0]
+    started = set(threading.enumerate()) - before  # the producer and its decode pool
+    assert any("producer" in t.name for t in started)
+    it.close()
+    assert not any(t.is_alive() for t in started)
+
+
+def test_throughput_counts_the_decoded_images(files, engines, monkeypatch):
+    engine, _ = engines
+    clock = iter([100.0, 102.0])
+    monkeypatch.setattr(serve.time, "perf_counter", lambda: next(clock))
+    assert serve.throughput(engine, files["paths"], batch=4) == pytest.approx(7 / 2.0)
+
+
+def _cli(main, argv, capsys):
+    rc = main(argv)
+    out, err = capsys.readouterr()
+    return rc, out, err
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_cli_serve_prints_the_jax_tools_lines(files, capsys, k):
+    argv = ["-m", files["model"], "-d", files["dir"], "-b", "4", "-k", str(k),
+            "--dtype", "f32", "--mm", "xla", "--attn", "xla"]
+    rc_j, out_j, err_j = _cli(jax_cli_serve.main, argv, capsys)
+    rc_p, out_p, err_p = _cli(cli_serve.main, argv + ["--device", "cpu"], capsys)
+    assert rc_p == rc_j == 0
+    assert out_p.splitlines() == out_j.splitlines() and len(out_p.splitlines()) == 7
+    fails = lambda err: [line for line in err.splitlines() if "<decode failed>" in line]  # noqa: E731
+    assert fails(err_p) == fails(err_j) == [f"{files['paths'][2]}\t<decode failed>"]
+    summary = err_p.splitlines()[-1]
+    assert summary.startswith("serve: 7/8 images in ") and summary.endswith(" images/sec")
+
+
+def test_cli_serve_at_its_defaults(files, capsys):
+    rc, out, err = _cli(cli_serve.main, ["-m", files["model"], *files["paths"], "-b", "4",
+                                         "--device", "cpu"], capsys)
+    assert rc == 0
+    lines = [line.split("\t") for line in out.splitlines()]
+    assert [p for p, _, _ in lines] == [p for p in files["paths"] if "broken" not in p]
+    assert all(label.startswith("class_") and 0 <= float(prob) <= 1 for _, label, prob in lines)
+
+
+def test_cli_serve_embed_writes_the_jax_tools_files(files, capsys):
+    outs = {}
+    for name, main, extra in (("jax", jax_cli_serve.main, []),
+                              ("port", cli_serve.main, ["--device", "cpu"])):
+        out = str(files["tmp"] / f"{name}.npy")
+        rc, _, err = _cli(main, ["-m", files["model"], "-d", files["dir"], "-b", "4",
+                                 "--dtype", "f32", "--mm", "xla", "--attn", "xla",
+                                 "--embed", out, *extra], capsys)
+        assert rc == 0
+        assert "serve: embedded 7/8 images in " in err and f"-> {out} (7 x 64)" in err
+        with open(out[:-4] + ".paths.txt") as f:
+            outs[name] = (np.load(out), f.read())
+    (feats, paths), (jax_feats, jax_paths) = outs["port"], outs["jax"]
+    assert paths == jax_paths and paths.splitlines() == [
+        p for p in files["paths"] if "broken" not in p]
+    assert feats.dtype == np.float32 and feats.shape == (7, 64)
+    np.testing.assert_allclose(feats, jax_feats, atol=F32_TOL, rtol=0)
+
+
+def test_cli_serve_headless_encoder_needs_embed(files, capsys, tmp_path):
+    model = str(tmp_path / "encoder.gguf")
+    write_synthetic_model(model, VitHParams(**{**TINY.__dict__, "num_classes": 0}),
+                          ftype=1, seed=0)
+    rc, _, err = _cli(cli_serve.main, ["-m", model, *files["paths"], "--device", "cpu"], capsys)
+    assert rc == 1 and "headless encoder" in err
+    out = str(tmp_path / "e.npy")
+    rc, _, _ = _cli(cli_serve.main, ["-m", model, *files["paths"], "--embed", out,
+                                     "--device", "cpu"], capsys)
+    assert rc == 0 and np.load(out).shape == (7, 64)
+
+
+@pytest.mark.parametrize(
+    "flags,match",
+    [
+        (["--act", "static"], r"--act static .* static-scale slice"),
+        (["--calib-dir", "d"], r"--calib-dir .* static-scale slice"),
+        (["--act-scales", "s.json"], r"--act-scales .* static-scale slice"),
+        (["--img-size", "64"], r"--img-size .* model-families slice"),
+        (["--patch-size", "4"], r"--patch-size .* model-families slice"),
+        (["--tome", "2"], r"--tome .* ToMe slice"),
+        (["--mesh", "2x1"], r"--mesh .* multi-device slice"),
+        (["--compile-cache"], "XLA compile cache"),
+    ],
+)
+def test_cli_serve_unported_flags_raise_and_name_their_slice(files, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli_serve.main(["-m", files["model"], *files["paths"], "--device", "cpu", *flags])
+
+
+def test_cli_serve_rejects_a_vitx_artifact(files, capsys, tmp_path):
+    from vit_cpp_tpu.aot import MAGIC
+
+    art = tmp_path / "m.vitx"
+    art.write_bytes(MAGIC + b"\x02\0\0\0{}")
+    rc, _, err = _cli(cli_serve.main, ["-m", str(art), *files["paths"], "--device", "cpu"],
+                      capsys)
+    assert rc == 1 and err.startswith(f"serve: {art} is a .vitx artifact")
+
+
+def test_cli_serve_runs_on_the_card_by_default(files):
+    if torch.cuda.is_available():  # decided here, not at import
+        pytest.skip("checks the behaviour without a card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_serve.main(["-m", files["model"], *files["paths"]])

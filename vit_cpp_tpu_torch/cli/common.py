@@ -11,7 +11,9 @@ kernel.
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import struct
+from typing import Any, Dict, Tuple
 
 # The leading bytes of a .vitx artifact (vit_cpp_tpu/aot.py's MAGIC).
 VITX_MAGIC = b"VITX\x01"
@@ -25,6 +27,26 @@ def is_vitx(path: str) -> bool:
             return f.read(len(VITX_MAGIC)) == VITX_MAGIC
     except OSError:
         return False
+
+
+def read_meta(path: str) -> Dict[str, Any]:
+    """A .vitx artifact's metadata header (magic, u32 length, JSON),
+    without reading the rest of the file; vit_cpp_tpu/aot.py::read_meta.
+    The port runs no .vitx, but vit-inspect prints its metadata."""
+    with open(path, "rb") as f:
+        head = f.read(len(VITX_MAGIC) + 4)
+        if head[: len(VITX_MAGIC)] != VITX_MAGIC:
+            raise ValueError("not a VITX artifact (bad magic)")
+        if len(head) < len(VITX_MAGIC) + 4:
+            raise ValueError("truncated VITX artifact (header)")
+        (n,) = struct.unpack("<I", head[len(VITX_MAGIC):])
+        mj = f.read(n)
+    if len(mj) < n:
+        raise ValueError("truncated VITX artifact (metadata)")
+    try:
+        return json.loads(mj)
+    except ValueError as e:
+        raise ValueError(f"corrupt VITX metadata: {e}") from None
 
 
 def model_spec(s: str) -> Tuple[str, str] | None:
@@ -86,6 +108,7 @@ def build_engine(
         mm_impl=mm,
         fold_ln=fold_ln,
         act_quant=act,
+        verbose=False,
         device=device,
     )
     return engine, False

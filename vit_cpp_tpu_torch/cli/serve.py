@@ -1,0 +1,191 @@
+"""`vit-serve` on the PyTorch port: classify a directory or file list at
+throughput, or extract embeddings.
+
+Counterpart of vit_cpp_tpu/cli/serve.py, with its flags and defaults
+(`-b 64 -k 1 --dtype bf16 --mm int8 --attn pallas-fast`, LayerNorm folded
+for int8) plus --device. Drives vit_cpp_tpu_torch.serve: the decode of
+batch k+1 overlaps the forward of batch k on the card. Prints one
+`path<TAB>label<TAB>prob` line per image (`path<TAB>label:prob ...` for
+-k > 1) and an images/sec summary on stderr; `--embed OUT.npy` writes the
+(N, hidden) f32 features and OUT.paths.txt instead. Flags whose slice is
+not ported yet raise and name that slice.
+
+Usage:
+  python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir [-b 64] [--device cuda|cpu]
+  python -m vit_cpp_tpu_torch.cli.serve -m model.gguf img1.jpg img2.png ...
+  python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --embed feats.npy
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+from vit_cpp_tpu_torch.io.image import IMAGE_EXTS
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-m", "--model", required=True)
+    ap.add_argument("-d", "--dir", help="classify every image under this dir")
+    ap.add_argument("files", nargs="*", help="explicit image files")
+    ap.add_argument("-b", "--batch", type=int, default=64)
+    ap.add_argument("-k", "--topk", type=int, default=1)
+    ap.add_argument("--dtype", choices=["f32", "bf16"], default="bf16")
+    ap.add_argument("--mm", choices=["xla", "pallas", "int8"], default="int8",
+                    help="matmul path: int8 = W8A8 (the default), pallas = the "
+                    "dequantizing-matmul kernel on block-quantized files, xla = dense")
+    ap.add_argument("--attn", choices=["xla", "pallas", "pallas-fast"], default="pallas-fast",
+                    help="attention: the fused-QKV kernel with the fast (default) "
+                    "or safe softmax, or composed attention")
+    ap.add_argument("--fold-ln", action=argparse.BooleanOptionalAction, default=None,
+                    help="fold LN affines into adjacent matmuls (default: on for "
+                    "--mm int8, off otherwise)")
+    ap.add_argument("--act", choices=["dynamic", "static"], default="dynamic")
+    ap.add_argument("--calib-dir", metavar="DIR")
+    ap.add_argument("--act-scales", metavar="FILE")
+    ap.add_argument("--embed", metavar="OUT.npy", default=None,
+                    help="extract embeddings instead of classifying: write an "
+                    "(N, hidden) f32 .npy of final-LN pooled features plus "
+                    "OUT.paths.txt (one kept path per line)")
+    ap.add_argument("--decode-threads", type=int, default=0)
+    ap.add_argument("--img-size", type=int, default=None, metavar="PX")
+    ap.add_argument("--patch-size", type=int, default=None, metavar="P")
+    ap.add_argument("--mesh", metavar="DPxTP", default=None)
+    ap.add_argument("--tome", type=int, default=0, metavar="R")
+    ap.add_argument("--compile-cache", nargs="?", const="", default=None, metavar="DIR")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain PyTorch "
+                    "versions of the kernels)")
+    return ap
+
+
+def _check_ported(args) -> None:
+    """Raise for every flag whose slice is not ported yet."""
+    from vit_cpp_tpu_torch.cli.common import _not_ported
+
+    static = "the static-scale slice (quant/calibrate.py)"
+    for given, flag, slice_ in (
+        (args.act == "static", "--act static", static),
+        (args.calib_dir, "--calib-dir", static),
+        (args.act_scales, "--act-scales", static),
+        (args.img_size is not None, "--img-size", "the model-families slice (models/resample.py)"),
+        (args.patch_size is not None, "--patch-size",
+         "the model-families slice (models/resample.py)"),
+        (args.tome, "--tome", "the ToMe slice (ops/tome.py)"),
+        (args.mesh, "--mesh", "the multi-device slice"),
+    ):
+        if given:
+            raise _not_ported(flag, slice_)
+    if args.compile_cache is not None:
+        raise NotImplementedError(
+            "--compile-cache is the XLA compile cache; PyTorch runs eagerly "
+            "and has no such cache"
+        )
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    _check_ported(args)
+    paths = list(args.files)
+    if args.dir:
+        for root, _, files in os.walk(args.dir):
+            paths.extend(
+                os.path.join(root, f)
+                for f in sorted(files)
+                if os.path.splitext(f)[1] in IMAGE_EXTS
+            )
+    if not paths:
+        print("no input images", file=sys.stderr)
+        return 1
+
+    from vit_cpp_tpu_torch.cli.common import build_engine
+
+    try:
+        engine, _ = build_engine(
+            args.model, dtype=args.dtype, mm=args.mm, attn=args.attn,
+            fold_ln=args.fold_ln, device=args.device,
+        )
+    except ValueError as e:  # e.g. a .vitx artifact
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
+    if engine.hp.num_classes == 0 and not args.embed:
+        print(
+            "serve: checkpoint is a headless encoder (no classifier) — "
+            "use --embed OUT.npy for bulk feature extraction, or "
+            "vit-finetune to attach a head",
+            file=sys.stderr,
+        )
+        return 1
+    if args.embed:
+        return _embed_loop(engine, paths, out=args.embed, batch=args.batch,
+                           decode_threads=args.decode_threads)
+    return _serve_loop(engine, paths, batch=args.batch, topk=args.topk,
+                       decode_threads=args.decode_threads)
+
+
+def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int) -> int:
+    """Bulk feature extraction -> OUT.npy (N, hidden) + OUT.paths.txt."""
+    from vit_cpp_tpu_torch.serve import embed_files
+
+    t0 = time.perf_counter()
+    kept, vecs = [], []
+    for e in embed_files(engine, paths, batch=batch, decode_threads=decode_threads):
+        if e.vector is None:
+            print(f"{e.path}\t<decode failed>", file=sys.stderr)
+            continue
+        kept.append(e.path)
+        vecs.append(e.vector)
+    if not vecs:
+        print("no decodable images", file=sys.stderr)
+        return 1
+    np.save(out, np.stack(vecs))
+    paths_txt = out[: -len(".npy")] + ".paths.txt" if out.endswith(".npy") else out + ".paths.txt"
+    with open(paths_txt, "w", encoding="utf-8") as f:
+        f.write("\n".join(kept) + "\n")
+    dt = time.perf_counter() - t0
+    print(
+        f"serve: embedded {len(kept)}/{len(paths)} images in {dt:.2f}s "
+        f"= {len(kept) / max(dt, 1e-9):.1f} images/sec -> {out} "
+        f"({len(kept)} x {vecs[0].shape[-1]}) + {paths_txt}",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _serve_loop(engine, paths, *, batch: int, topk: int, decode_threads: int) -> int:
+    """Stream every path through the serving pipeline and print results."""
+    from vit_cpp_tpu_torch.serve import serve_files
+
+    t0 = time.perf_counter()
+    n_ok = 0
+    for r in serve_files(engine, paths, batch=batch, decode_threads=decode_threads,
+                         keep_probs=topk > 1):
+        if r.top1 < 0:
+            print(f"{r.path}\t<decode failed>", file=sys.stderr)
+            continue
+        n_ok += 1
+        if topk > 1:
+            order = np.argsort(-r.probs, kind="stable")[:topk]
+            tags = " ".join(
+                f"{engine.id2label.get(int(i), f'LABEL_{i}')}:{r.probs[i]:.2f}" for i in order
+            )
+            print(f"{r.path}\t{tags}")
+        else:
+            label = engine.id2label.get(r.top1, f"LABEL_{r.top1}")
+            print(f"{r.path}\t{label}\t{r.prob:.2f}")
+    dt = time.perf_counter() - t0
+    print(
+        f"serve: {n_ok}/{len(paths)} images in {dt:.2f}s "
+        f"= {n_ok / max(dt, 1e-9):.1f} images/sec",
+        file=sys.stderr,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,9 @@ flags and defaults plus --device. It serves f16/f32 and block-quantized
 (Q4_0/Q4_1/Q5_0/Q5_1/Q8_0, written by vit_cpp_tpu_torch.cli.quantize)
 checkpoints: `--mm int8` (the default) requantizes the weights to W8A8
 at load, `--mm pallas` runs them through the dequantizing-matmul kernel.
-Flags whose slice is not ported yet raise and name that slice.
+A headless encoder (num_classes=0) serves POST /v1/embed only; a
+classifier serves /v1/classify and /v1/embed. Flags whose slice is not
+ported yet raise and name that slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
@@ -63,7 +65,7 @@ def main(argv=None) -> int:
     if len(args.model) > 1 or model_spec(args.model[0]) is not None:
         raise NotImplementedError(
             "multi-model daemons (-m name=path) are not ported yet; they "
-            "come with the serve.py / cli/serve.py slice"
+            "come with the multi-model daemon slice"
         )
     if args.mesh:
         raise NotImplementedError(

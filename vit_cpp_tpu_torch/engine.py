@@ -4,8 +4,10 @@ Counterpart of vit_cpp_tpu/engine.py::VitEngine. The engine reads a gguf
 checkpoint (f32, f16, or block-quantized Q4_0/Q4_1/Q5_0/Q5_1/Q8_0) onto
 one `device`, applies the serving rewrites the flags select (W8A8 int8
 linears, LayerNorm folding), and runs the forward pass eagerly under
-`torch.inference_mode`. The flag values are the JAX package's, so a
-command line carries over:
+`torch.inference_mode`, with the f32 matmul precision it was built with
+(ops/precision.py: "highest", TF32 off, for f32 engines; "default" for
+bf16 ones). The flag values are the JAX package's, so a command line
+carries over:
 
     attn_impl  "xla" (composed attention) | "pallas" | "pallas-fast"
                (the fused-QKV kernel, safe or fast softmax)
@@ -14,13 +16,18 @@ command line carries over:
                requantized channelwise at load) | "pallas" (block-quantized
                weights through the dequantizing-matmul kernel)
     act_quant  "dynamic" (per-token scales); "static" is not ported yet
+
+`verbose` prints the JAX engine's `vit_model_load:` echo on stdout.
+Headless encoders (num_classes == 0) load and serve `features_batch`;
+their classifier calls raise ValueError, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +36,8 @@ from vit_cpp_tpu_torch.gguf.reader import read_model
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.io.image import load_image_rgb
 from vit_cpp_tpu_torch.models.params import infer_family_hparams, load_params
-from vit_cpp_tpu_torch.models.vit import ATTN_IMPLS, predict_probs
+from vit_cpp_tpu_torch.models.vit import ATTN_IMPLS, forward
+from vit_cpp_tpu_torch.ops.precision import PRECISIONS, matmul_precision
 from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
 
 _DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -71,10 +79,14 @@ class VitEngine:
         model_path: str,
         *,
         dtype: str = "f32",
+        eps: Optional[float] = None,
+        interpolation: Optional[str] = None,
+        matmul_precision: Optional[str] = None,
         attn_impl: str = "xla",
         mm_impl: str = "xla",
         fold_ln: bool = False,
         act_quant: str = "dynamic",
+        verbose: bool = True,
         device="cuda",
     ):
         t0 = time.perf_counter()
@@ -91,18 +103,40 @@ class VitEngine:
             )
         if act_quant != "dynamic":
             raise ValueError(f"act_quant must be dynamic|static, got {act_quant!r}")
+        if matmul_precision is None:
+            # f32 engines are the parity path: exact f32 products
+            matmul_precision = "highest" if dtype == "f32" else "default"
+        if matmul_precision not in PRECISIONS:
+            raise ValueError(
+                f"matmul_precision must be one of {tuple(PRECISIONS)}, got {matmul_precision!r}"
+            )
         self.device = resolve_device(device)
+        if verbose:
+            print(f"vit_model_load: loading model from '{model_path}' - please wait")
         mf = read_model(model_path)
         hp = detect_hparams(mf)
-        if hp.num_classes == 0:
-            raise NotImplementedError(
-                "headless encoders serve embeddings, which vit_cpp_tpu_torch "
-                "does not port yet; they come with the features/embed slice "
-                "(features_batch and the /v1/embed route)"
+        if eps is not None:
+            hp = dataclasses.replace(hp, eps=eps)
+        if interpolation is not None:
+            hp = dataclasses.replace(hp, interpolation=interpolation)
+        if verbose:
+            print(f"vit_model_load: hidden_size            = {hp.hidden_size}")
+            print(f"vit_model_load: num_hidden_layers      = {hp.num_hidden_layers}")
+            print(f"vit_model_load: num_attention_heads    = {hp.num_attention_heads}")
+            print(f"vit_model_load: patch_size             = {hp.patch_size}")
+            print(f"vit_model_load: img_size               = {hp.img_size}")
+            print(f"vit_model_load: num_classes            = {hp.num_classes}")
+            print(f"vit_model_load: ftype                  = {hp.ftype}")
+            print(f"vit_model_load: qntvr                  = {mf.qntvr}")
+            total_bytes = sum(r.dtype.row_bytes(r.n_elements) for r in mf.tensors.values())
+            print(
+                f"vit_model_load: model size = {total_bytes / 1024 / 1024:8.2f} MB "
+                f"/ num tensors = {len(mf.tensors)}"
             )
         self.hp = hp
         self.id2label = mf.id2label
         self.dtype = _DTYPES[dtype]
+        self.matmul_precision = matmul_precision
         params = load_params(mf, dtype=self.dtype, hparams=hp, device=self.device)
         if mm_impl == "int8":
             from vit_cpp_tpu_torch.quant.int8 import convert_params_to_int8
@@ -119,24 +153,67 @@ class VitEngine:
 
     def preprocess_image(self, img_u8: np.ndarray) -> torch.Tensor:
         """(H, W, 3) u8 host image -> (3, S, S) f32 on the engine's device."""
+        return self.preprocess_images([img_u8])[0]
+
+    def preprocess_images(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+        """(H, W, 3) u8 host images -> (B, 3, S, S) f32 on the engine's
+        device, each resized at its own size (ops/preprocess.py)."""
         mean, std = norm_constants(self.hp.pixel_norm)
         return preprocess_batch(
-            [img_u8], self.hp.img_size, mode=self.hp.interpolation,
+            list(images), self.hp.img_size, mode=self.hp.interpolation,
             mean=mean, std=std, device=self.device,
-        )[0]
+        )
+
+    def _print_preprocess_scale(self, img_u8: np.ndarray) -> None:
+        """The resampler's scale report on stderr: bicubic prints
+        `scale = max(tx, ty)`, bilinear the per-axis scales
+        (vit_cpp_tpu/engine.py:307-325)."""
+        ny, nx = img_u8.shape[:2]
+        t = self.hp.img_size
+        if self.hp.interpolation == "bilinear":
+            print(f"vit_image_preprocess: x_scale = {nx / t:f}, y_scale = {ny / t:f}",
+                  file=sys.stderr)
+        else:
+            print(f"vit_image_preprocess: scale = {max(nx / t, ny / t):f}", file=sys.stderr)
+
+    def _forward(self, images: torch.Tensor, **kw) -> torch.Tensor:
+        with torch.inference_mode(), matmul_precision(self.matmul_precision):
+            return forward(
+                self.params, images.to(self.device), self.hp,
+                attn_impl=self.attn_impl, mm_impl=self.mm_impl, **kw,
+            )
 
     def predict_probs_batch(self, images: torch.Tensor) -> torch.Tensor:
         """images: (B, C, S, S) preprocessed -> (B, classes) f32 probabilities
-        on the engine's device."""
-        with torch.inference_mode():
-            return predict_probs(
-                self.params, images.to(self.device), self.hp,
-                attn_impl=self.attn_impl, mm_impl=self.mm_impl,
-            )
+        on the engine's device. A headless encoder raises ValueError."""
+        return torch.softmax(self._forward(images).float(), dim=-1)
 
-    def classify_file(self, path: str, topk: int = 5) -> List[Tuple[int, float, str]]:
-        """Decode, preprocess, predict, return [(class_id, prob, label)]."""
+    def features_batch(self, images: torch.Tensor) -> torch.Tensor:
+        """images: (B, C, S, S) preprocessed -> (B, hidden) final-LN pooled
+        features on the engine's device, in the engine's dtype: the encoder
+        output without the classifier head. Every serving knob (attention
+        and matmul paths, W8A8, LayerNorm folding) applies."""
+        return self._forward(images, features=True)
+
+    def embed_file(self, path: str) -> np.ndarray:
+        """Decode, preprocess, encode: one image -> (hidden,) f32 feature
+        vector. Callers L2-normalise it if their similarity needs it."""
         pixels = self.preprocess_image(load_image_rgb(path))
+        return self.features_batch(pixels[None])[0].float().cpu().numpy()
+
+    def classify_file(
+        self, path: str, topk: int = 5, verbose: bool = True
+    ) -> List[Tuple[int, float, str]]:
+        """Decode, preprocess, predict, return [(class_id, prob, label)];
+        verbose prints the image lines (stdout) and the resampler's scale
+        (stderr) as the JAX engine does."""
+        img = load_image_rgb(path)
+        if verbose:
+            print(f"load_image_from_file: loaded image '{path}' ({img.shape[1]} x {img.shape[0]})")
+        pixels = self.preprocess_image(img)
+        if verbose:
+            self._print_preprocess_scale(img)
+            print(f"processed, out dims : ({self.hp.img_size} x {self.hp.img_size})")
         probs = self.predict_probs_batch(pixels[None])[0].cpu().numpy()
         order = np.argsort(-probs, kind="stable")[:topk]
         return [

@@ -48,9 +48,11 @@ def fold_layernorms(params: Dict[str, Any], mm_impl: str = "int8") -> Dict[str, 
     """A new parameter tree with the LN affines folded; folded LN nodes
     carry scale=None/bias=None, which ops.core.layernorm runs as pure
     normalization. norm_pre stays a real LN (its output is the residual
-    stream), as does the final norm of a headless encoder. `mm_impl` is
-    the matmul path the caller serves with: it decides how a folded
-    QuantLinear is re-represented."""
+    stream), as does the final norm of a headless encoder. A folded final
+    norm keeps its affine in `features_norm`, which only the features
+    readout applies (models/vit.py::_head). `mm_impl` is the matmul path
+    the caller serves with: it decides how a folded QuantLinear is
+    re-represented."""
     int8 = mm_impl == "int8"
     p = dict(params)
     blocks = dict(params["blocks"])
@@ -71,5 +73,10 @@ def fold_layernorms(params: Dict[str, Any], mm_impl: str = "int8") -> Dict[str, 
                 params["norm"]["scale"], params["norm"]["bias"], int8=int8,
             )
             p[hk] = head
+        # The JAX package drops this affine here (vit_cpp_tpu/models/
+        # fold.py:110), so its folded engines return features without the
+        # final norm's scale and bias. The port keeps it for the features
+        # readout: a folded engine embeds as the unfolded one does.
+        p["features_norm"] = params["norm"]
         p["norm"] = {"scale": None, "bias": None}
     return p

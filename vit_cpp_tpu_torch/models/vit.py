@@ -6,7 +6,8 @@ Counterpart of vit_cpp_tpu/models/vit.py, with the same numerics:
 - per block: LN -> fused QKV matmul -> attention -> proj -> residual;
   LN -> fc1 -> GELU -> fc2 -> residual;
 - head: the CLS token (or the mean of the patch tokens for avg-pool
-  models; the mean of two heads for DeiT-distilled ones) -> LN -> linear.
+  models; the mean of two heads for DeiT-distilled ones) -> LN -> linear;
+  `features=True` stops before the linear (the embedding readout).
 
 A Python loop over the L stacked blocks takes the place of `lax.scan`;
 each stacked leaf is taken apart once per forward (`torch.unbind`), so
@@ -116,18 +117,20 @@ def unstack_blocks(tree, n: int) -> list:
     return [tree[i] for i in range(n)]
 
 
-def _head(params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str) -> torch.Tensor:
-    """Pooling readout + classifier head."""
-    norm = params["norm"]
-    if "head" not in params:
-        raise NotImplementedError(
-            "headless encoders serve embeddings, which vit_cpp_tpu_torch "
-            "does not port yet; they come with the features/embed slice "
-            "(features_batch and the /v1/embed route)"
-        )
+def _head(
+    params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str, features: bool
+) -> torch.Tensor:
+    """Pooling readout + classifier head; features=True returns the
+    final-LN pooled readout (the embedding) instead of the logits. A
+    folded tree (models/fold.py) keeps the final norm's affine for that
+    readout in `features_norm`, since its `norm` carries none."""
+    norm = params["features_norm"] if features and "features_norm" in params else params["norm"]
     if "head_dist" in params:
-        # DeiT distilled: LN over both prefix tokens, mean of the two heads
+        # DeiT distilled: LN over both prefix tokens; the embedding is the
+        # mean of the two normed tokens, the logits the mean of two heads
         pooled = layernorm(x[:, :2], norm["scale"], norm["bias"], hp.eps)
+        if features:
+            return (pooled[:, 0] + pooled[:, 1]) * 0.5
         return (
             linear(pooled[:, 0], params["head"]["kernel"], params["head"]["bias"], impl=mm_impl)
             + linear(
@@ -136,10 +139,19 @@ def _head(params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str)
             )
         ) * 0.5
     if hp.global_pool == "avg":
+        # mean over the patch tokens, prefix and registers excluded
         pooled = x[:, hp.n_prefix:].mean(dim=1)
     else:
         pooled = x[:, 0]
     pooled = layernorm(pooled, norm["scale"], norm["bias"], hp.eps)
+    if features:
+        return pooled
+    if "head" not in params:
+        raise ValueError(
+            "checkpoint is a headless encoder (no classifier head) — "
+            "serve embeddings (features=True / embed surfaces) or "
+            "fine-tune to attach a head"
+        )
     return linear(pooled, params["head"]["kernel"], params["head"]["bias"], impl=mm_impl)
 
 
@@ -150,10 +162,12 @@ def forward(
     *,
     attn_impl: str = "xla",
     mm_impl: str = "xla",
+    features: bool = False,
     pad_tokens: bool = False,
     tome: int = 0,
 ) -> torch.Tensor:
-    """Preprocessed images (B, C, H, W) -> logits (B, num_classes)."""
+    """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
+    with features=True the final-LN pooled readout (B, hidden)."""
     if pad_tokens or tome:
         raise NotImplementedError(
             "token padding and ToMe merging are not ported to "
@@ -170,9 +184,4 @@ def forward(
     x = embed(params, images, hp)
     for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):
         x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
-    return _head(params, x, hp, mm_impl)
-
-
-def predict_probs(params, images, hp, **kw) -> torch.Tensor:
-    """Forward + f32 softmax over the classes."""
-    return torch.softmax(forward(params, images, hp, **kw).float(), dim=-1)
+    return _head(params, x, hp, mm_impl, features)

@@ -1,17 +1,24 @@
-"""Image preprocessing: resize + normalize as one batched einsum.
+"""Image preprocessing: resize + normalize on the engine's device.
 
 Counterpart of vit_cpp_tpu/ops/preprocess.py. Both resamplers are
-separable linear maps of the source pixels, so a batch is resized as
-`W_y @ img @ W_x^T` per image and channel, with the reference's quirks:
+separable linear maps of the source pixels, so an image is resized as
+`W_y @ img @ W_x^T` per channel, with the reference's quirks:
 bilinear uses half-pixel centres with the floor clamped at 0; bicubic a
 truncating source index with taps clipped to the image; the interpolated
 value is rounded back to u8 (half up, clamped to 0..255) before the
 mean/std normalization.
 
-Images are zero-padded onto a square canvas whose side is a multiple of
-256, and the per-image resampling matrices are zero past each
-image's extent, so images of any size share one batched einsum. The numpy
-matrix builders are carried over from the JAX module (which imports JAX).
+The JAX module pads every image of a batch onto one square canvas (a
+multiple of 256 px) with zero-extended matrices, so that XLA compiles
+one program per canvas size. Eager PyTorch compiles nothing: each image
+is resized at its own size with its exact matrices, the same nonzero
+terms, so a large photo does not make every image of its batch fill and
+copy its canvas. The u8 pixels and matrices reach a card through pinned
+memory without waiting for the stream's earlier work (a forward running
+there). The numpy matrix builders are carried over from the JAX module
+(which imports JAX). The einsum runs with TF32 off whatever the process
+has set (ops/precision.py): the u8 re-rounding would turn TF32's errors
+into whole pixel steps.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from vit_cpp_tpu_torch.ops.precision import matmul_precision
 
 IMAGENET_MEAN = (123.675, 116.280, 103.530)
 IMAGENET_STD = (58.395, 57.120, 57.375)
@@ -84,26 +93,23 @@ def bicubic_matrix(n_in: int, n_out: int) -> np.ndarray:
     return w
 
 
-def canvas_bucket(h: int, w: int, step: int = 256) -> int:
-    """Smallest multiple of `step` covering both extents."""
-    m = max(h, w, 1)
-    return (m + step - 1) // step * step
-
-
 @lru_cache(maxsize=512)
-def _padded_resize_matrix(n_in: int, out_size: int, canvas: int, mode: str):
-    """(out, canvas) weights: the true matrix in the first n_in columns,
-    zeros beyond (padded canvas pixels contribute nothing)."""
+def resize_matrix(n_in: int, out_size: int, mode: str) -> torch.Tensor:
+    """(out, n_in) f32 resampling weights on the host, shared by every
+    caller of the cache: read them, never write them."""
     if mode == "bilinear":
-        w = bilinear_matrix(n_in, out_size)
-    elif mode == "bicubic":
-        w = bicubic_matrix(n_in, out_size)
-    else:
-        raise ValueError(f"interpolation mode '{mode}' is not supported")
-    out = np.zeros((out_size, canvas), dtype=np.float32)
-    out[:, :n_in] = w
-    out.flags.writeable = False  # shared by every caller of the cache
-    return out
+        return torch.from_numpy(bilinear_matrix(n_in, out_size))
+    if mode == "bicubic":
+        return torch.from_numpy(bicubic_matrix(n_in, out_size))
+    raise ValueError(f"interpolation mode '{mode}' is not supported")
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device`; to a card through pinned memory, so the
+    copy queues behind the stream's work instead of waiting for it."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def preprocess_batch(
@@ -117,26 +123,20 @@ def preprocess_batch(
     """List of (H, W, 3) u8 host images -> (B, 3, S, S) f32 on `device`."""
     if not images:
         raise ValueError("empty batch")
+    device = torch.device(device)
     for img in images:
         if img.ndim != 3 or img.shape[2] != 3:
             raise ValueError(f"expected (H, W, 3) u8 image, got {img.shape}")
-    canvas = max(canvas_bucket(i.shape[0], i.shape[1]) for i in images)
-    b = len(images)
-    canv = np.zeros((b, canvas, canvas, 3), dtype=np.uint8)
-    wy = np.empty((b, out_size, canvas), dtype=np.float32)
-    wx = np.empty((b, out_size, canvas), dtype=np.float32)
-    for i, img in enumerate(images):
-        h, w = img.shape[:2]
-        canv[i, :h, :w] = img
-        wy[i] = _padded_resize_matrix(h, out_size, canvas, mode)
-        wx[i] = _padded_resize_matrix(w, out_size, canvas, mode)
-    x = torch.from_numpy(canv).to(device).float()
-    y = torch.einsum(
-        "boh,bhwc,bpw->bcop",
-        torch.from_numpy(wy).to(device),
-        x,
-        torch.from_numpy(wx).to(device),
-    )
+    with matmul_precision("highest"):
+        y = torch.stack([
+            torch.einsum(
+                "oh,hwc,pw->cop",
+                _to_device(resize_matrix(img.shape[0], out_size, mode), device),
+                _to_device(torch.from_numpy(np.require(img, requirements="CW")), device).float(),
+                _to_device(resize_matrix(img.shape[1], out_size, mode), device),
+            )
+            for img in images
+        ])
     y = torch.clamp(torch.floor(y + 0.5), 0.0, 255.0)  # u8 re-rounding
     m = torch.tensor(mean, dtype=torch.float32, device=y.device)
     s = torch.tensor(std, dtype=torch.float32, device=y.device)

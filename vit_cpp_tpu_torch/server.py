@@ -8,10 +8,17 @@ text. Request handlers decode and preprocess onto the engine's device,
 and the micro-batcher stacks those tensors with torch. Images decode
 through decode.py, which tries the native decoder once per process.
 
-Endpoints: GET /healthz, /stats, /metrics; POST /v1/classify[?topk=K]
-with the raw image bytes as the body. The embed and recognize routes and
-the multi-model daemon are not served yet (the engine has no
-features_batch and loads no ViTSTR checkpoint).
+Endpoints (the raw image bytes are the body of a POST):
+  GET  /healthz, /stats, /metrics
+  POST /v1/classify[?topk=K]  -> {"topk": [{"id", "label", "prob"}, ...]}
+  POST /v1/embed              -> {"shape": [...], "embedding": [floats]}
+                                 (the final-LN pooled features, through a
+                                 second MicroBatcher over features_batch
+                                 with the same admission bound and
+                                 timeout, closed with the main one)
+A headless encoder (num_classes=0) serves /v1/embed as its only route,
+through the main batcher. The recognize route (ViTSTR) and the
+multi-model daemon are not served yet.
 """
 
 from __future__ import annotations
@@ -29,7 +36,6 @@ import numpy as np
 import torch
 
 from vit_cpp_tpu_torch.decode import decode_bytes
-from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
 
 MAX_BODY_BYTES = 32 * 1024 * 1024  # the JAX daemon's request-body limit
 
@@ -92,6 +98,7 @@ class MicroBatcher:
         self.n_padded_rows = 0  # rows computed but not requested
         self.predict_seconds = 0.0  # wall time inside the device call
         self._closed = False
+        self.child: Optional["MicroBatcher"] = None  # closed with this one
         self._stats_lock = threading.Lock()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -125,6 +132,8 @@ class MicroBatcher:
         self._q.put(self._SENTINEL)
         self._worker.join(timeout=5.0)
         self._drain_failed()  # anything enqueued after the sentinel
+        if self.child is not None:
+            self.child.close()
 
     def _drain_failed(self, preserve_sentinel: bool = False) -> None:
         """Fail every queued Future now, so handler threads get an error
@@ -198,26 +207,38 @@ class MicroBatcher:
             fut.set_result(out[i])
 
 
+def _is_headless(engine) -> bool:
+    """A headless encoder serves embeddings only."""
+    return engine.hp.num_classes == 0
+
+
 class _Model:
-    """The served model: engine + its micro-batcher. Preprocessing runs
-    the port's batched resize on the engine's device."""
+    """The served model: engine + its micro-batcher (the classifier, or
+    the features of a headless encoder) + the embed batcher of a
+    classifier. Preprocessing runs the port's batched resize on the
+    engine's device."""
 
     def __init__(self, engine, batcher: MicroBatcher):
         self.engine = engine
         self.batcher = batcher
+        self.is_headless = _is_headless(engine)
+        self.embed_batcher: Optional[MicroBatcher] = None
+        if not self.is_headless:
+            self.embed_batcher = MicroBatcher(
+                engine.features_batch,
+                batch=batcher.batch,
+                max_wait_ms=batcher.max_wait * 1000.0,
+                max_queue=batcher.max_queue,
+            )
+            batcher.child = self.embed_batcher
 
     def preprocess(self, img):
-        hp = self.engine.hp
-        mean, std = norm_constants(hp.pixel_norm)
-        return preprocess_batch(
-            [img], hp.img_size, mode=hp.interpolation, mean=mean, std=std,
-            device=self.engine.device,
-        )[0]
+        return self.engine.preprocess_image(img)
 
     def health(self):
         hp = self.engine.hp
         h = {
-            "model": "vit",
+            "model": "vit-encoder" if self.is_headless else "vit",
             "hidden_size": hp.hidden_size,
             "img_size": hp.img_size,
             "batch": self.batcher.batch,
@@ -238,9 +259,17 @@ def _counters(b: MicroBatcher) -> dict:
     }
 
 
+def _stats(model: _Model) -> dict:
+    s = _counters(model.batcher)
+    if model.embed_batcher is not None:
+        s["embed"] = _counters(model.embed_batcher)
+    return s
+
+
 def _prometheus_metrics(model: _Model) -> str:
     """The /stats counters in Prometheus text exposition format, labeled
-    by model (the one model is "default", as in the JAX daemon) and route."""
+    by model (the one model is "default", as in the JAX daemon) and route
+    (classify or embed)."""
     metrics = [
         ("vit_requests_total", "counter", "requests served",
          lambda b: b.n_requests),
@@ -257,16 +286,24 @@ def _prometheus_metrics(model: _Model) -> str:
         ("vit_queue_depth", "gauge", "requests waiting for the device",
          lambda b: b._q.qsize()),
     ]
+    rows = [("embed" if model.is_headless else "classify", model.batcher)]
+    if model.embed_batcher is not None:
+        rows.append(("embed", model.embed_batcher))
     out = []
     for metric, typ, help_, get in metrics:
         out.append(f"# HELP {metric} {help_}")
         out.append(f"# TYPE {metric} {typ}")
-        out.append(f'{metric}{{model="default",route="classify"}} {get(model.batcher)}')
+        for route, b in rows:
+            out.append(f'{metric}{{model="default",route="{route}"}} {get(b)}')
     return "\n".join(out) + "\n"
 
 
 def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
-    routes = ("/v1/classify",)
+    # route -> the batcher that serves it
+    if model.is_headless:
+        routes = {"/v1/embed": model.batcher}
+    else:
+        routes = {"/v1/classify": model.batcher, "/v1/embed": model.embed_batcher}
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet
@@ -284,7 +321,7 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
             if self.path == "/healthz":
                 self._json(200, {"ok": True, **model.health()})
             elif self.path == "/stats":
-                self._json(200, _counters(model.batcher))
+                self._json(200, _stats(model))
             elif self.path == "/metrics":
                 body = _prometheus_metrics(model).encode()
                 self.send_response(200)
@@ -297,8 +334,9 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
 
         def do_POST(self):
             path, _, query = self.path.partition("?")
-            if path not in routes:
-                self._json(404, {"error": f"no route {path} (use {' or '.join(routes)})"})
+            batcher = routes.get(path)
+            if batcher is None:
+                self._json(404, {"error": f"no route {path} (use {' or '.join(sorted(routes))})"})
                 return
             n = int(self.headers.get("Content-Length") or 0)
             if n > max_body_bytes:
@@ -319,18 +357,23 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
                         return
             pixels = model.preprocess(img)
             try:
-                probs = model.batcher.submit(pixels).result(timeout=timeout_s)
+                out = batcher.submit(pixels).result(timeout=timeout_s)
             except OverloadedError as e:  # bounded queue: tell clients to back off
                 self._json(503, {"error": f"{type(e).__name__}: {e}"})
                 return
             except Exception as e:  # device failure/timeout -> JSON, not a dropped socket
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            order = np.argsort(-probs, kind="stable")[:topk]
+            if path == "/v1/embed":
+                feat = np.asarray(out, dtype=np.float32)
+                self._json(200, {"shape": list(feat.shape),
+                                 "embedding": [float(v) for v in feat.reshape(-1)]})
+                return
+            order = np.argsort(-out, kind="stable")[:topk]
             id2label = model.engine.id2label
             self._json(200, {"topk": [
                 {"id": int(i), "label": id2label.get(int(i), f"LABEL_{i}"),
-                 "prob": float(probs[i])}
+                 "prob": float(out[i])}
                 for i in order
             ]})
 
@@ -365,10 +408,12 @@ def create_server(
     buckets: bool = False,
 ):
     """Build (ThreadingHTTPServer, MicroBatcher); the caller runs
-    serve_forever() and closes both. warmup=True runs the dummy batch(es)
-    before the port is bound."""
+    serve_forever() and closes both (closing the batcher closes the embed
+    batcher too). warmup=True runs the dummy batch(es) of the main batcher
+    before the port is bound. A headless encoder's batcher runs
+    features_batch."""
     batcher = MicroBatcher(
-        engine.predict_probs_batch,
+        engine.features_batch if _is_headless(engine) else engine.predict_probs_batch,
         batch=batch,
         max_wait_ms=max_wait_ms,
         max_queue=max_queue,

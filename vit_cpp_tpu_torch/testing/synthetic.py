@@ -195,3 +195,30 @@ def write_synthetic_model(
         id2label = {i: f"LABEL_{i}" for i in range(hp.num_classes)}
     write_model(path, hp, id2label, state_dict_records(state, ftype), ftype)
     return state
+
+
+def write_quick_example_model(path: str) -> VitHParams:
+    """The quick-example checkpoint: ViT-tiny/16 @224 f16, seed 42,
+    ImageNet label strings (data/classnames.json). docs/QUICK_EXAMPLE.md
+    holds the `vit` CLI's console output on this file, which the tests
+    compare line for line."""
+    import json
+    from importlib import resources
+
+    hp = VitHParams(
+        hidden_size=192,
+        num_hidden_layers=12,
+        num_attention_heads=3,
+        num_classes=1000,
+        patch_size=16,
+        img_size=224,
+    )
+    names = json.loads(
+        resources.files("vit_cpp_tpu_torch.data").joinpath("classnames.json").read_text()
+    )
+    id2label = {
+        i: (names[i] if i < len(names) else f"LABEL_{i}")
+        for i in range(hp.num_classes)
+    }
+    write_synthetic_model(path, hp, ftype=1, seed=42, id2label=id2label)
+    return hp

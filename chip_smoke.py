@@ -80,7 +80,22 @@
       gguf is then served by VitEngine on the card, and
       vit_cpp_tpu_torch.cli.benchmark.run_eval classifies a dark/bright
       tree (8 per class) with it on the card and on the CPU: equal CSVs
-      up to near-ties.
+      up to near-ties;
+   h. the serving workflow: the synthetic ViT-B/16's f32 tensors saved
+      under their timm names as a .pth and converted by `python -m
+      vit_cpp_tpu_torch.cli.convert` (every record and the hparams equal
+      the f16 file's); static W8A8 scales on the converted file at the
+      serving defaults, calibrated on the ten assets (the guardrail must
+      accept), probabilities within 5e-3 of the f32 engine, the static and
+      dynamic W8A8 forwards at B=64 timed in turns (median of 20) and
+      profiled (device ms, idle share, kernel launches per forward and per
+      linear); then create_multi_server with the converted file and the
+      Q8_0 file, both static: the ten assets to each model, then to both
+      at once, top-5 within 5e-3 of each model's f32 engine, 12
+      attention_qkv launches per device batch, one /v1/<name>/embed each,
+      /stats, /metrics and a 404; then `python -m
+      vit_cpp_tpu_torch.cli.server -m a=... -m b=... --act static
+      --calib-dir assets` as a subprocess, one answer per model.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -116,6 +131,7 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import tempfile
 import threading
@@ -1511,6 +1527,341 @@ def vit_inspect(*files: str) -> None:
             f"bytes by type {summary['bytes_by_dtype']}")
 
 
+def _timm_state(hp) -> dict:
+    """The synthetic f32 checkpoint's tensors under their timm names and
+    shapes (the conv bias back to (C,)), as a user's torch.save writes."""
+    from vit_cpp_tpu_torch.testing.synthetic import random_state_dict
+
+    return {k: torch.from_numpy(v.reshape(-1) if k == "patch_embed.proj.bias" else v)
+            for k, v in random_state_dict(hp, seed=0).items()}
+
+
+def convert_checkpoint(f16: str, tmp: str, hp) -> str:
+    """`python -m vit_cpp_tpu_torch.cli.convert --checkpoint vit.pth
+    --heads 12 OUT` on the synthetic ViT-B/16's (`hp`) f32 tensors: every record
+    (name, shape, dtype, bytes) and the hparams equal those of the f16
+    file write_synthetic_model wrote from the same seed."""
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+
+    pth, out = os.path.join(tmp, "vit-b16.pth"), os.path.join(tmp, "converted")
+    os.makedirs(out)
+    torch.save(_timm_state(hp), pth)
+    t0 = time.perf_counter()
+    r = run_module("vit_cpp_tpu_torch.cli.convert", "--checkpoint", pth, "--heads",
+                   str(hp.num_attention_heads), out)
+    seconds = time.perf_counter() - t0
+    os.remove(pth)
+    if r.returncode != 0:
+        raise AssertionError(f"cli.convert exited {r.returncode}: {r.stderr[-2000:]}")
+    conv = os.path.join(out, "ggml-model-f16.gguf")
+    got, want = read_model(conv), read_model(f16)
+    if got.hparams != want.hparams or got.id2label != want.id2label:
+        raise AssertionError(f"cli.convert: hparams {got.hparams} != {want.hparams}")
+    if list(got.tensors) != list(want.tensors):
+        raise AssertionError("cli.convert: tensor names differ from the synthetic file's")
+    for name, rec in got.tensors.items():
+        other = want.tensors[name]
+        if (rec.shape, rec.dtype) != (other.shape, other.dtype) or \
+                rec.data.tobytes() != other.data.tobytes():
+            raise AssertionError(f"cli.convert: record {name} differs")
+    same = open(conv, "rb").read() == open(f16, "rb").read()
+    log(f"cli.convert ViT-B/16 .pth -> f16 gguf: rc 0 in {seconds:.1f} s (interpreter start "
+        f"included); {len(got.tensors)} records and the hparams equal the synthetic f16 "
+        f"file's; whole file byte-identical: {same}")
+    return conv
+
+
+def _launches(prof) -> tuple:
+    """(host launch calls, device kernels) in a torch.profiler run: the
+    host's kernel-launch calls (cudaLaunchKernel, cuLaunchKernel and their
+    Ex forms), and the kernel events the card reported."""
+    host = dev = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev += e.count
+        elif "LaunchKernel" in e.key:
+            host += e.count
+    return host, dev
+
+
+def static_scales(conv: str, card: str) -> None:
+    """The serving defaults (int8, fold, bf16, K1) with static scales on
+    the converted file: calibrated on the ten assets, accepted by the
+    guardrail, probabilities within FLAGSHIP_TOL of the f32 engine; the
+    static and the dynamic W8A8 forward at B=64 timed in turns and
+    profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.int8_matmul import w8a8_matmul
+    from vit_cpp_tpu_torch.quant.int8 import params_have_static_scales
+
+    paths, _ = asset_bodies()
+    static, _ = build_engine(conv, act="static", device="cuda")
+    t0 = time.perf_counter()
+    KERNEL.reset()
+    ok = calibrate_engine_from_paths(static, os.path.join(HERE, "assets"))
+    torch.cuda.synchronize()
+    cal_s, cal_launches = time.perf_counter() - t0, KERNEL.launches
+    if not ok or not params_have_static_scales(static.params):
+        raise AssertionError("static scales: the guardrail rejected the calibration")
+    blocks = static.params["blocks"]
+    ranges = {n: blocks[n]["kernel"].act_scale.flatten() for n in ("qkv", "proj", "fc1", "fc2")}
+    ranges["head"] = static.params["head"]["kernel"].act_scale.flatten()
+    log(f"static scales: calibrated on the 10 assets in {cal_s:.2f} s ({cal_launches} "
+        f"attention_qkv launches: calibration and guardrail forwards); guardrail agreement "
+        f"{static.calibration_agreement:.3f} (minimum 0.90); scale ranges over the layers: "
+        + ", ".join(f"{n} {v.min().item():.4e}-{v.max().item():.4e}" for n, v in ranges.items()))
+
+    dynamic, _ = build_engine(conv, device="cuda")
+    pixels = static.preprocess_images(load_images_rgb_batch(paths))
+    got = static.predict_probs_batch(pixels).float().cpu().numpy()
+    dyn = dynamic.predict_probs_batch(pixels).float().cpu().numpy()
+    ref = VitEngine(conv, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                    verbose=False)
+    want = ref.predict_probs_batch(pixels).cpu().numpy()
+    del ref
+    hp = static.hp
+    if got.shape != (10, hp.num_classes) or not np.isfinite(got).all():
+        raise AssertionError(f"static scales: bad probabilities {got.shape}")
+    err, dyn_err = float(np.abs(got - want).max()), float(np.abs(dyn - want).max())
+    agree = int((got.argmax(1) == want.argmax(1)).sum())
+    log(f"static W8A8 serving defaults vs the f32 engine on the converted file: max|p - p_f32| "
+        f"over 10 x {hp.num_classes} = {err:.3e} (tolerance {FLAGSHIP_TOL:.0e}); dynamic W8A8 {dyn_err:.3e}; "
+        f"top-1 agrees on {agree}/10")
+    if not err <= FLAGSHIP_TOL:
+        raise AssertionError(f"static scales: probabilities off by {err} > {FLAGSHIP_TOL}")
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    batch = torch.randn((64, 3, hp.img_size, hp.img_size), generator=gen, device="cuda")
+    engines = {"static": static, "dynamic": dynamic}
+    times = {k: [] for k in engines}
+    for k in ("static", "dynamic", "dynamic", "static") * 2:
+        engines[k].predict_probs_batch(batch)
+        torch.cuda.synchronize()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            engines[k].predict_probs_batch(batch)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"forward W8A8 ViT-B/16 bf16 fold on B=64 (converted file; median of 20 in turns, host "
+        f"clock with sync): static {ms['static']:.3f} ms (range {min(times['static']):.3f}-"
+        f"{max(times['static']):.3f}), dynamic {ms['dynamic']:.3f} ms (range "
+        f"{min(times['dynamic']):.3f}-{max(times['dynamic']):.3f}) on {card}")
+    tokens = 64 * (hp.n_patches + hp.n_prefix)
+    x = torch.randn((tokens, hp.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    for k, engine in engines.items():
+        # 10 calls of one linear and 3 forwards per profile, averaged
+        leaf = engine.params["blocks"]["qkv"]["kernel"][0]
+        w8a8_matmul(x, leaf)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                w8a8_matmul(x, leaf)
+            torch.cuda.synchronize()
+        per_linear = [n / 10 for n in _launches(prof)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                engine.predict_probs_batch(batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / 3
+        dev_us, (k1_us,) = device_us(prof, KERNEL)
+        dev_us, k1_us = dev_us / 3, k1_us / 3
+        per_forward = [n / 3 for n in _launches(prof)]
+        if dev_us <= 0:
+            log(f"profiled {k} W8A8 forward: torch.profiler saw no device time (not measured)")
+            continue
+        log(f"profiled {k} W8A8 forward B=64 (torch.profiler, mean of 3): {dev_us / 1e3:.2f} ms "
+            f"of device time in {wall_us / 1e3:.2f} ms wall (idle share "
+            f"{1 - dev_us / wall_us:.3f}); {per_forward[0]:.1f} kernel launches by the host, "
+            f"{per_forward[1]:.1f} kernels on the card; attention_qkv {k1_us / 1e3:.2f} ms; one "
+            f"qkv linear ({tokens} x {hp.hidden_size} x {3 * hp.hidden_size}, mean of 10 calls): "
+            f"{per_linear[0]:.1f} launches by the host, {per_linear[1]:.1f} kernels on the card")
+    del engines, static, dynamic
+
+
+def _read_banner(proc, timeout: float) -> str:
+    """The daemon's 'models on http://' line from its stderr (read on a
+    thread, which keeps draining the pipe), or raise after `timeout` s."""
+    lines, bound = [], threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if "models on http://" in line:
+                bound.set()
+        bound.set()  # EOF: the daemon exited
+
+    threading.Thread(target=read, daemon=True).start()
+    bound.wait(timeout)
+    banner = [ln for ln in lines if "models on http://" in ln]
+    if not banner:
+        raise AssertionError(f"cli.server printed no banner: {lines[-20:]}")
+    return banner[0]
+
+
+def multi_daemon(conv: str, q8: str, tol: float, card: str) -> dict:
+    """create_multi_server with the converted f16 file and the Q8_0 file at
+    the serving defaults with static scales calibrated on the assets: the
+    ten assets POSTed concurrently to each model's classify route (one
+    model, the other, then both at once), top-5 against each model's f32
+    engine, one embed per model, /stats, /metrics and a 404; 12
+    attention_qkv launches per device batch. Then the same daemon through
+    `python -m vit_cpp_tpu_torch.cli.server -m a=... -m b=... --act static
+    --calib-dir assets`, one answer per model. Returns {path: launches}."""
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.server import create_multi_server
+
+    paths, bodies = asset_bodies()
+    images = load_images_rgb_batch(paths)
+    files = {"f16": conv, "q8": q8}
+    refs = {}
+    for name, path in files.items():
+        ref = VitEngine(path, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                        verbose=False)
+        refs[name] = ref.predict_probs_batch(ref.preprocess_images(images)).cpu().numpy()
+        del ref
+    t0 = time.perf_counter()
+    engines = {}
+    for name, path in files.items():
+        engines[name], _ = build_engine(path, act="static", device="cuda")
+        if not calibrate_engine_from_paths(engines[name], os.path.join(HERE, "assets")):
+            raise AssertionError(f"multi-model daemon: {name}: the guardrail rejected the scales")
+    hp = engines["f16"].hp
+    httpd, batchers = create_multi_server(engines, port=0, batch=8, max_wait_ms=5.0)
+    log(f"multi-model daemon (f16 converted + Q8_0, static W8A8): loaded, calibrated, warmed "
+        f"up and bound in {time.perf_counter() - t0:.1f} s (port {httpd.server_port})")
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    rounds = {}
+    try:
+        for label, names in (("f16", ["f16"]), ("q8", ["q8"]), ("both", ["f16", "q8"])):
+            with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                before = json.loads(r.read())
+            KERNEL.reset()
+            jobs = [(n, i) for n in names for i in range(len(bodies))]
+            with ThreadPoolExecutor(len(jobs)) as ex:
+                results = list(ex.map(
+                    lambda job: post(f"{base}/v1/{job[0]}/classify?topk=5", bodies[job[1]]), jobs))
+            torch.cuda.synchronize()
+            launches = KERNEL.launches
+            with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                stats = json.loads(r.read())
+            batches = sum(stats[n]["batches"] - before[n]["batches"] for n in names)
+            rounds[label] = (jobs, results, launches, batches)
+        embeds = {n: post(f"{base}/v1/{n}/embed", bodies[0]) for n in files}
+        missing = post(f"{base}/v1/nope/classify", bodies[0])
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for b in batchers.values():
+            b.close()
+        server.join(timeout=30)
+    worst = {n: 0.0 for n in files}
+    for label, (jobs, results, launches, batches) in rounds.items():
+        for (name, i), (status, out, _) in zip(jobs, results):
+            if status != 200 or len(out["topk"]) != 5:
+                raise AssertionError(f"multi-model daemon: /v1/{name}/classify {paths[i]}: "
+                                     f"HTTP {status} {str(out)[:200]}")
+            probs = np.array([e["prob"] for e in out["topk"]])
+            if not (np.isfinite(probs).all() and (np.diff(probs) <= 0).all()):
+                raise AssertionError(f"multi-model daemon: bad top-5 {probs}")
+            err = float(np.abs(probs - refs[name][i][[e["id"] for e in out["topk"]]]).max())
+            worst[name] = max(worst[name], err)
+        if launches != hp.num_hidden_layers * batches or batches == 0:
+            raise AssertionError(f"multi-model daemon {label}: attention_qkv launched {launches} "
+                                 f"times for {batches} device batches (want one per layer)")
+        lat = sorted(ms for _, _, ms in results)
+        log(f"multi-model daemon, round {label}: {len(jobs)} concurrent requests, all 200; "
+            f"attention_qkv {launches} = {hp.num_hidden_layers} x {batches} device batches; "
+            f"latency ms min "
+            f"{lat[0]:.1f} median {lat[len(lat) // 2]:.1f} max {lat[-1]:.1f}")
+    log(f"multi-model daemon: top-5 vs each model's f32 engine: worst f16 {worst['f16']:.3e}, "
+        f"q8 {worst['q8']:.3e} (tolerance {tol:.0e})")
+    if max(worst.values()) > tol:
+        raise AssertionError(f"multi-model daemon: probabilities off by {worst} > {tol}")
+    for name, (status, body, ms) in embeds.items():
+        vec = np.array(body.get("embedding", []))
+        want = engines[name].embed_file(paths[0])
+        err = float(np.abs(vec - want).max()) / float(np.abs(want).max()) if vec.size else 1.0
+        if status != 200 or body["shape"] != [hp.hidden_size] or not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"multi-model daemon: /v1/{name}/embed HTTP {status}, err {err}")
+        log(f"multi-model daemon: /v1/{name}/embed 200 in {ms:.1f} ms, max|diff| / max|f| vs "
+            f"embed_file {err:.3e} (tolerance {TOL[torch.bfloat16]:.0e})")
+    if missing[0] != 404 or "/v1/q8/classify" not in missing[1]["error"]:
+        raise AssertionError(f"multi-model daemon: unknown model gave {missing[:2]}")
+    for name in files:
+        if stats[name]["requests"] != 2 * len(bodies) or stats[name]["embed"]["requests"] != 1:
+            raise AssertionError(f"multi-model daemon: /stats {name}: {stats[name]}")
+        if f'vit_requests_total{{model="{name}",route="classify"}} {2 * len(bodies)}' not in metrics:
+            raise AssertionError(f"multi-model daemon: /metrics lacks {name}'s counter")
+    log(f"multi-model daemon: /stats {json.dumps(stats)}; /metrics labels both models; "
+        f"/v1/nope/classify 404")
+    del engines
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _RUN_MODULE, "vit_cpp_tpu_torch.cli.server", "-m", f"a={conv}",
+         "-m", f"b={q8}", "--act", "static", "--calib-dir", os.path.join(HERE, "assets"),
+         "--port", "0"],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = _read_banner(proc, 240)
+        up = time.perf_counter() - t0
+        cli_base = line.split(" on ")[1].split()[0]
+        answers = {n: post(f"{cli_base}/v1/{n}/classify?topk=5", bodies[0]) for n in ("a", "b")}
+        proc.send_signal(signal.SIGTERM)  # the daemon's clean stop
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stderr.close()
+    for name, ref_name in (("a", "f16"), ("b", "q8")):
+        status, out, ms = answers[name]
+        if status != 200:
+            raise AssertionError(f"cli.server /v1/{name}/classify: HTTP {status} {out}")
+        probs = np.array([e["prob"] for e in out["topk"]])
+        err = float(np.abs(probs - refs[ref_name][0][[e["id"] for e in out["topk"]]]).max())
+        if not err <= tol:
+            raise AssertionError(f"cli.server /v1/{name}/classify: off by {err}")
+    if rc != 0:
+        raise AssertionError(f"cli.server exited {rc} on SIGTERM")
+    log(f"cli.server -m a=converted -m b=Q8_0 --act static --calib-dir assets: banner after "
+        f"{up:.1f} s (interpreter start, two loads, two calibrations, warm-up), "
+        f"/v1/a/classify and /v1/b/classify 200 within {tol:.0e} of the f32 engines, exit 0 "
+        f"on SIGTERM")
+    return {"serving_workflow daemon": {KERNEL.name: sum(r[2] for r in rounds.values())}}
+
+
+def serving_workflow(f16: str, q8: str, tmp: str, card: str) -> dict:
+    """The user's workflow: .pth -> cli.convert -> static scales -> the
+    multi-model daemon (with the Q8_0 file from cli.quantize)."""
+    t0 = time.perf_counter()
+    from vit_cpp_tpu_torch.hparams import VitHParams
+
+    conv = convert_checkpoint(f16, tmp, VitHParams(**VIT_B16))
+    static_scales(conv, card)
+    launches = multi_daemon(conv, q8, FLAGSHIP_TOL, card)
+    log(f"serving_workflow: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -1549,6 +1900,7 @@ def run_paths(card: str):
         vit_cli(f16, card)
         serve_launches = vit_serve(f16, q8, card)
         serve_launches.update(embeddings(f16, card))
+        serve_launches.update(serving_workflow(f16, q8, tmp, card))
         vit_inspect(f16, q8)
         f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)

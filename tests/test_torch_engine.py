@@ -116,8 +116,9 @@ def test_build_engine_serving_defaults_and_unported_flags(model):
         torch.bfloat16, "int8", "pallas-fast"
     )
     assert engine.params["blocks"]["ln1"]["scale"] is None  # fold_ln on
-    with pytest.raises(NotImplementedError, match="static"):
-        build_engine(model, act="static", device="cpu")
+    # --act static serves since the static-scale slice; --patch-size still raises
+    with pytest.raises(NotImplementedError, match="model-families"):
+        build_engine(model, patch_size=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ToMe"):
         build_engine(model, tome=2, device="cpu")
     with pytest.raises(NotImplementedError, match="model-families"):
@@ -135,9 +136,14 @@ def test_build_engine_serving_defaults_and_unported_flags(model):
 @pytest.mark.parametrize(
     "argv,match",
     [
-        (["-m", "cls=MODEL"], "multi-model"),
+        # multi-model daemons and --act static serve now: these cases point
+        # at flags that still raise, through the same two code paths, and
+        # keep their ids
+        pytest.param(["-m", "cls=MODEL", "-m", "b=MODEL", "--tome", "4", "--device", "cpu"],
+                     "ToMe", id="argv0-multi-model"),
         (["-m", "MODEL", "--mesh", "2x1"], "multi-device"),
-        (["-m", "MODEL", "--act", "static", "--calib-dir", "d"], "static-scale"),
+        pytest.param(["-m", "MODEL", "--act", "static", "--calib-dir", "d", "--patch-size", "4",
+                      "--device", "cpu"], "model-families", id="argv2-static-scale"),
         (["-m", "MODEL", "--compile-cache"], "XLA compile cache"),
         (["-m", "MODEL", "--tome", "4", "--device", "cpu"], "ToMe"),
         (["-m", "MODEL", "--img-size", "64", "--device", "cpu"], "model-families"),

@@ -128,3 +128,22 @@ def test_fold_layernorms_matches_jax(tiny_file, mm):
         else:  # folded biases: beta @ W summed in another order
             np.testing.assert_allclose(got[name], ref[name], rtol=1e-5, atol=1e-6, err_msg=name)
     assert fold_layernorms(params)["norm"]["scale"] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (24, 64, 32), (40, 64, 192), (272, 64, 1000), (24, 96, 256), (272, 96, 48),  # K < 128
+    (2, 64, 5), (34, 64, 192), (12608, 768, 2304),
+])
+def test_int8_mm_on_the_card_is_exact(m, k, n):
+    """torch._int_mm on the card, K zero-padded to at least 128: the
+    narrow products its cuBLASLt int8 path refuses unpadded (K = 64 and
+    96, N >= 32, small M) and the ViT-B/16 qkv product, exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the padding applies to CUDA tensors only")
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    got = int8_matmul.int8_mm(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b.astype(np.int64))

@@ -260,3 +260,56 @@ def test_single_image_load_agrees(asset):
     for prefer_native in (True, False):
         assert np.array_equal(load_image_rgb(path, prefer_native=prefer_native),
                               jax_load(path, prefer_native=prefer_native))
+
+
+def test_import_scan_covers_the_serving_workflow_modules():
+    """The scans above reach the converter, the calibrator, the sidecar
+    and the ViTSTR vocabulary (pkgutil walks them; the AST scan lists
+    them)."""
+    for module in ("cli/convert.py", "quant/calibrate.py", "quant/qat.py", "models/vitstr.py",
+                   "gguf/gguf_real.py", "server.py", "cli/server.py"):
+        assert os.path.join("vit_cpp_tpu_torch", module) in SOURCES
+
+
+@pytest.mark.parametrize("extra", [None, {"general.name": "vit", "n": 3, "x": 0.5, "ok": True}])
+def test_write_gguf_is_byte_identical(tmp_path, extra):
+    from vit_cpp_tpu.gguf.gguf_real import write_gguf as jax_write_gguf
+    from vit_cpp_tpu.testing.synthetic import random_state_dict, state_dict_records
+    from vit_cpp_tpu_torch.gguf.gguf_real import write_gguf
+
+    hp = JaxHParams(**GEOMETRY)
+    state = random_state_dict(hp, seed=9)
+    labels = {i: f"class {i}" for i in range(hp.num_classes)}
+    ours, theirs = str(tmp_path / "port.gguf"), str(tmp_path / "jax.gguf")
+    write_gguf(ours, VitHParams(**GEOMETRY), labels, state_dict_records(state, 1), 1,
+               extra_metadata=extra)
+    jax_write_gguf(theirs, hp, labels, state_dict_records(state, 1), 1, extra_metadata=extra)
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_vitstr_vocabulary_is_the_jax_packages():
+    from vit_cpp_tpu.models.vitstr import VITSTR_VOCAB as JAX_VOCAB
+    from vit_cpp_tpu.models.vitstr import vitstr_id2label as jax_id2label
+    from vit_cpp_tpu_torch.models.vitstr import VITSTR_VOCAB, vitstr_id2label
+
+    assert VITSTR_VOCAB == JAX_VOCAB and len(VITSTR_VOCAB) == 96
+    assert vitstr_id2label() == jax_id2label()
+
+
+def test_act_scales_sidecar_is_byte_identical(tmp_path):
+    import jax.numpy as jnp
+    import torch
+
+    from vit_cpp_tpu.quant.qat import save_act_scales as jax_save
+    from vit_cpp_tpu_torch.quant.qat import save_act_scales
+
+    rng = np.random.default_rng(4)
+    scales = {k: (rng.random((3, 1, 1)) * 0.05).astype(np.float32)
+              for k in ("qkv", "proj", "fc1", "fc2")}
+    scales["head"] = np.array([[0.0271]], np.float32)
+    ours, theirs = str(tmp_path / "port.json"), str(tmp_path / "jax.json")
+    save_act_scales(ours, {k: torch.from_numpy(v) for k, v in scales.items()}, 1.05)
+    jax_save(theirs, {k: jnp.asarray(v) for k, v in scales.items()}, 1.05)
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()

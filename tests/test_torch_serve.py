@@ -250,9 +250,16 @@ def test_cli_serve_headless_encoder_needs_embed(files, capsys, tmp_path):
 @pytest.mark.parametrize(
     "flags,match",
     [
-        (["--act", "static"], r"--act static .* static-scale slice"),
-        (["--calib-dir", "d"], r"--calib-dir .* static-scale slice"),
-        (["--act-scales", "s.json"], r"--act-scales .* static-scale slice"),
+        # --act static, --calib-dir and --act-scales serve since the
+        # static-scale slice: these cases pass each with a flag that still
+        # raises, and keep their ids
+        pytest.param(["--act", "static", "--tome", "2"], r"--tome .* ToMe slice",
+                     id=r"flags0---act static .* static-scale slice"),
+        pytest.param(["--calib-dir", "d", "--mesh", "2x1"], r"--mesh .* multi-device slice",
+                     id=r"flags1---calib-dir .* static-scale slice"),
+        pytest.param(["--act-scales", "s.json", "--img-size", "64"],
+                     r"--img-size .* model-families slice",
+                     id=r"flags2---act-scales .* static-scale slice"),
         (["--img-size", "64"], r"--img-size .* model-families slice"),
         (["--patch-size", "4"], r"--patch-size .* model-families slice"),
         (["--tome", "2"], r"--tome .* ToMe slice"),

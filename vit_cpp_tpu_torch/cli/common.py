@@ -4,9 +4,11 @@ Counterpart of vit_cpp_tpu/cli/common.py::build_engine, for gguf
 checkpoints (f16/f32 or block-quantized). The defaults are the serving
 ones: bf16 activations, W8A8 int8 linears, the fused-QKV attention kernel
 with the fast softmax, and LayerNorm folded into the matmuls when serving
-int8. `mm="pallas"` leaves fold off by default, as the JAX tool does, so
-every linear of a block-quantized file runs the dequantizing-matmul
-kernel.
+int8 without a scales sidecar. `mm="pallas"` leaves fold off by default,
+as the JAX tool does, so every linear of a block-quantized file runs the
+dequantizing-matmul kernel. `act="static"` serves W8A8 with calibrated
+activation scales: from `act_scales` (a sidecar JSON), from
+`calibrate_engine_from_paths`, or from the first served batch.
 """
 
 from __future__ import annotations
@@ -82,16 +84,14 @@ def build_engine(
     device: str = "cuda",
 ):
     """gguf checkpoint -> (engine, is_vitstr). is_vitstr is always False:
-    ViTSTR checkpoints raise in detect_hparams."""
+    ViTSTR checkpoints raise in detect_hparams. A .vitx artifact raises
+    ValueError: the port runs none."""
     if is_vitx(path):
         raise ValueError(
             f"{path} is a .vitx artifact: it carries StableHLO for the JAX "
             "package and cannot run under vit_cpp_tpu_torch; serve the gguf "
             "checkpoint it was exported from"
         )
-    if act == "static" or act_scales is not None:
-        raise _not_ported("--act static / --act-scales",
-                          "the static-scale slice (quant/calibrate.py)")
     if img_size is not None or patch_size is not None:
         raise _not_ported("--img-size / --patch-size",
                           "the model-families slice (models/resample.py)")
@@ -100,7 +100,9 @@ def build_engine(
     from vit_cpp_tpu_torch.engine import VitEngine
 
     if fold_ln is None:
-        fold_ln = mm == "int8"
+        # a sidecar's scales describe the unfolded graph (the engine
+        # refuses the pair): fold stays off for them by default
+        fold_ln = mm == "int8" and act_scales is None
     engine = VitEngine(
         path,
         dtype=dtype,
@@ -108,7 +110,47 @@ def build_engine(
         mm_impl=mm,
         fold_ln=fold_ln,
         act_quant=act,
+        act_scales=act_scales,
         verbose=False,
         device=device,
     )
     return engine, False
+
+
+def calibrate_engine_from_paths(engine, calib: str, n: int = 16) -> bool:
+    """Calibrate static activation scales on up to `n` images from a
+    directory (walked in sorted order) or one file; True when the engine
+    now serves static scales, False when the guardrail rejected them and
+    the engine stays on dynamic ones (vit_cpp_tpu/cli/common.py:83-125).
+    Raises ValueError when the set holds no image or none decodes."""
+    import os
+
+    import torch
+
+    from vit_cpp_tpu_torch.io.image import IMAGE_EXTS, load_image_rgb
+    from vit_cpp_tpu_torch.quant.int8 import params_have_static_scales
+
+    paths = []
+    if os.path.isdir(calib):
+        for root, _, files in os.walk(calib):
+            paths.extend(
+                os.path.join(root, f)
+                for f in sorted(files)
+                if os.path.splitext(f)[1] in IMAGE_EXTS
+            )
+    else:
+        paths = [calib]
+    if not paths:
+        raise ValueError(f"no calibration images under {calib}")
+    pix = []
+    for p in paths:
+        if len(pix) >= n:
+            break
+        try:
+            pix.append(engine.preprocess_image(load_image_rgb(p)))
+        except (OSError, ValueError):  # an undecodable file in the set
+            continue
+    if not pix:
+        raise ValueError(f"no decodable calibration images under {calib}")
+    engine.calibrate(torch.stack(pix))
+    return params_have_static_scales(engine.params)

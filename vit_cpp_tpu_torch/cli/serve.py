@@ -3,8 +3,11 @@ throughput, or extract embeddings.
 
 Counterpart of vit_cpp_tpu/cli/serve.py, with its flags and defaults
 (`-b 64 -k 1 --dtype bf16 --mm int8 --attn pallas-fast`, LayerNorm folded
-for int8) plus --device. Drives vit_cpp_tpu_torch.serve: the decode of
-batch k+1 overlaps the forward of batch k on the card. Prints one
+for int8 without --act-scales) plus --device. `--act static` serves W8A8
+with static activation scales: calibrated on --calib-dir before the run,
+read from --act-scales, or else calibrated on the first batch. Drives
+vit_cpp_tpu_torch.serve: the decode of batch k+1 overlaps the forward of
+batch k on the card. Prints one
 `path<TAB>label<TAB>prob` line per image (`path<TAB>label:prob ...` for
 -k > 1) and an images/sec summary on stderr; `--embed OUT.npy` writes the
 (N, hidden) f32 features and OUT.paths.txt instead. Flags whose slice is
@@ -14,6 +17,7 @@ Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir [-b 64] [--device cuda|cpu]
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf img1.jpg img2.png ...
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --embed feats.npy
+  python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --act static --calib-dir calib/
 """
 
 from __future__ import annotations
@@ -45,9 +49,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fold-ln", action=argparse.BooleanOptionalAction, default=None,
                     help="fold LN affines into adjacent matmuls (default: on for "
                     "--mm int8, off otherwise)")
-    ap.add_argument("--act", choices=["dynamic", "static"], default="dynamic")
-    ap.add_argument("--calib-dir", metavar="DIR")
-    ap.add_argument("--act-scales", metavar="FILE")
+    ap.add_argument("--act", choices=["dynamic", "static"], default="dynamic",
+                    help="int8 activation quantization: 'static' serves with "
+                    "calibrated per-site scales (guardrailed: falls back to "
+                    "dynamic on rejection); calibrates on --calib-dir when "
+                    "given, else on the first served batch")
+    ap.add_argument("--calib-dir", metavar="DIR",
+                    help="representative images for --act static (up to 16 used)")
+    ap.add_argument("--act-scales", metavar="FILE",
+                    help="pre-measured static scales (a sidecar JSON): --act "
+                    "static serves with them, no calibration pass")
     ap.add_argument("--embed", metavar="OUT.npy", default=None,
                     help="extract embeddings instead of classifying: write an "
                     "(N, hidden) f32 .npy of final-LN pooled features plus "
@@ -68,11 +79,7 @@ def _check_ported(args) -> None:
     """Raise for every flag whose slice is not ported yet."""
     from vit_cpp_tpu_torch.cli.common import _not_ported
 
-    static = "the static-scale slice (quant/calibrate.py)"
     for given, flag, slice_ in (
-        (args.act == "static", "--act static", static),
-        (args.calib_dir, "--calib-dir", static),
-        (args.act_scales, "--act-scales", static),
         (args.img_size is not None, "--img-size", "the model-families slice (models/resample.py)"),
         (args.patch_size is not None, "--patch-size",
          "the model-families slice (models/resample.py)"),
@@ -103,12 +110,17 @@ def main(argv=None) -> int:
         print("no input images", file=sys.stderr)
         return 1
 
-    from vit_cpp_tpu_torch.cli.common import build_engine
+    if args.act == "static" and args.mm != "int8":
+        print("--act static requires --mm int8", file=sys.stderr)
+        return 1
+
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
 
     try:
         engine, _ = build_engine(
             args.model, dtype=args.dtype, mm=args.mm, attn=args.attn,
-            fold_ln=args.fold_ln, device=args.device,
+            fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
+            device=args.device,
         )
     except ValueError as e:  # e.g. a .vitx artifact
         print(f"serve: {e}", file=sys.stderr)
@@ -121,6 +133,15 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
+    if args.act == "static" and args.calib_dir:
+        try:
+            ok = calibrate_engine_from_paths(engine, args.calib_dir)
+        except ValueError as e:  # an empty or undecodable --calib-dir
+            print(f"serve: {e}", file=sys.stderr)
+            return 1
+        if not ok:
+            print("serve: static calibration rejected by the guardrail; "
+                  "serving with dynamic activation scales", file=sys.stderr)
     if args.embed:
         return _embed_loop(engine, paths, out=args.embed, batch=args.batch,
                            decode_threads=args.decode_threads)

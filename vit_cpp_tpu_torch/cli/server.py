@@ -4,14 +4,20 @@ Counterpart of `vit-server` (vit_cpp_tpu/cli/server.py), with the same
 flags and defaults plus --device. It serves f16/f32 and block-quantized
 (Q4_0/Q4_1/Q5_0/Q5_1/Q8_0, written by vit_cpp_tpu_torch.cli.quantize)
 checkpoints: `--mm int8` (the default) requantizes the weights to W8A8
-at load, `--mm pallas` runs them through the dequantizing-matmul kernel.
-A headless encoder (num_classes=0) serves POST /v1/embed only; a
-classifier serves /v1/classify and /v1/embed. Flags whose slice is not
-ported yet raise and name that slice.
+at load, `--mm pallas` runs them through the dequantizing-matmul kernel;
+`--act static` serves W8A8 with static activation scales, calibrated on
+--calib-dir or read from --act-scales (the daemon warms up on a dummy
+batch, so one of the two is required). A headless encoder
+(num_classes=0) serves POST /v1/embed only; a classifier serves
+/v1/classify and /v1/embed. `-m name=path`, repeated, serves several
+models from one daemon under /v1/<name>/classify and /v1/<name>/embed.
+Flags whose slice is not ported yet raise and name that slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
   curl -s -X POST --data-binary @magpie.jpeg localhost:8000/v1/classify?topk=5
+  python -m vit_cpp_tpu_torch.cli.server -m a=model-f16.gguf -m b=model-q8_0.gguf --act static --calib-dir calib/
+  curl -s -X POST --data-binary @magpie.jpeg localhost:8000/v1/b/classify
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import sys
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-m", "--model", required=True, action="append",
-                    help="gguf checkpoint (one model per daemon in this port)")
+                    help="gguf checkpoint; repeat with name=path to serve several "
+                    "models from one daemon (routes /v1/<name>/classify|embed)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("-b", "--batch", type=int, default=8,
@@ -36,9 +43,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn", choices=["xla", "pallas", "pallas-fast"],
                     default="pallas-fast")
     ap.add_argument("--fold-ln", action=argparse.BooleanOptionalAction, default=None)
-    ap.add_argument("--act", choices=["dynamic", "static"], default="dynamic")
-    ap.add_argument("--calib-dir", metavar="DIR")
-    ap.add_argument("--act-scales", metavar="FILE")
+    ap.add_argument("--act", choices=["dynamic", "static"], default="dynamic",
+                    help="int8 activation quantization: 'static' serves with "
+                    "calibrated per-site scales and needs --calib-dir or "
+                    "--act-scales; a guardrail rejection falls back to dynamic")
+    ap.add_argument("--calib-dir", metavar="DIR",
+                    help="representative images for --act static (up to 16 used)")
+    ap.add_argument("--act-scales", metavar="FILE",
+                    help="pre-measured static scales (a sidecar JSON) for --act static")
     ap.add_argument("--img-size", type=int, default=None, metavar="PX")
     ap.add_argument("--patch-size", type=int, default=None, metavar="P")
     ap.add_argument("--tome", type=int, default=0, metavar="R")
@@ -58,71 +70,124 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _engine(args, path: str, who: str):
+    """build_engine with the flags, then static calibration on --calib-dir
+    when asked; None after printing the error on a bad model or set."""
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+
+    try:
+        engine, _ = build_engine(
+            path, dtype=args.dtype, mm=args.mm, attn=args.attn,
+            fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
+            img_size=args.img_size, patch_size=args.patch_size,
+            tome=args.tome, device=args.device,
+        )
+        if args.act == "static" and not args.act_scales:
+            if not calibrate_engine_from_paths(engine, args.calib_dir):
+                print(f"{who}static calibration rejected by the guardrail; "
+                      "serving dynamic", file=sys.stderr)
+    except ValueError as e:
+        print(f"{who}{e}", file=sys.stderr)
+        return None
+    return engine
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     from vit_cpp_tpu_torch.cli.common import model_spec
 
-    if len(args.model) > 1 or model_spec(args.model[0]) is not None:
-        raise NotImplementedError(
-            "multi-model daemons (-m name=path) are not ported yet; they "
-            "come with the multi-model daemon slice"
-        )
+    # multi-model when -m repeats or names its model (name=path)
+    multi = len(args.model) > 1 or model_spec(args.model[0]) is not None
+    if args.mesh and multi:
+        print("--mesh is not supported with multiple models", file=sys.stderr)
+        return 1
     if args.mesh:
         raise NotImplementedError(
             "--mesh is not ported yet; it comes with the multi-device slice"
-        )
-    if args.calib_dir:
-        raise NotImplementedError(
-            "--calib-dir is not ported yet; it comes with the static-scale "
-            "slice (quant/calibrate.py)"
         )
     if args.compile_cache is not None:
         raise NotImplementedError(
             "--compile-cache is the XLA compile cache; PyTorch runs eagerly "
             "and has no such cache"
         )
+    if args.act == "static":
+        # the warmup batch is zeros: lazy calibration would fix the scales
+        # on it, so the daemon needs explicit calibration data
+        if args.mm != "int8":
+            print("--act static requires --mm int8", file=sys.stderr)
+            return 1
+        if not args.calib_dir and not args.act_scales:
+            print(
+                "--act static needs --calib-dir DIR (the daemon warms up "
+                "on a dummy batch, which must not become the calibration "
+                "set) or --act-scales FILE (QAT-measured scales)",
+                file=sys.stderr,
+            )
+            return 1
 
-    from vit_cpp_tpu_torch.cli.common import build_engine
-    from vit_cpp_tpu_torch.server import create_server
+    from vit_cpp_tpu_torch.server import create_multi_server, create_server
 
-    try:
-        engine, _ = build_engine(
-            args.model[0], dtype=args.dtype, mm=args.mm, attn=args.attn,
-            fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
-            img_size=args.img_size, patch_size=args.patch_size,
-            tome=args.tome, device=args.device,
+    if multi:
+        engines = {}
+        for spec in args.model:
+            parsed = model_spec(spec)
+            if parsed is None:
+                print(f"bad -m {spec!r}: multi-model mode needs name=path "
+                      "(names must not contain '/')", file=sys.stderr)
+                return 1
+            name, path = parsed
+            if name in engines:
+                print(f"duplicate model name {name!r}", file=sys.stderr)
+                return 1
+            engines[name] = _engine(args, path, f"vit-server: {name}: ")
+            if engines[name] is None:
+                return 1
+        httpd, batchers = create_multi_server(
+            engines,
+            host=args.host,
+            port=args.port,
+            batch=args.batch,
+            max_wait_ms=args.max_wait_ms,
+            warmup=not args.no_warmup,
+            request_timeout_s=args.request_timeout,
+            max_queue=args.max_queue,
+            buckets=args.bucket,
         )
-    except ValueError as e:
-        print(f"vit-server: {e}", file=sys.stderr)
-        return 1
-    httpd, batcher = create_server(
-        engine,
-        host=args.host,
-        port=args.port,
-        batch=args.batch,
-        max_wait_ms=args.max_wait_ms,
-        warmup=not args.no_warmup,
-        request_timeout_s=args.request_timeout,
-        max_queue=args.max_queue,
-        buckets=args.bucket,
-    )
+        banner = (f"vit-server: {len(engines)} models on http://{args.host}:"
+                  f"{httpd.server_port} ({', '.join(sorted(engines))})")
+    else:
+        engine = _engine(args, args.model[0], "vit-server: ")
+        if engine is None:
+            return 1
+        httpd, batcher = create_server(
+            engine,
+            host=args.host,
+            port=args.port,
+            batch=args.batch,
+            max_wait_ms=args.max_wait_ms,
+            warmup=not args.no_warmup,
+            request_timeout_s=args.request_timeout,
+            max_queue=args.max_queue,
+            buckets=args.bucket,
+        )
+        batchers = {None: batcher}
+        banner = (f"vit-server: vit model on http://{args.host}:{httpd.server_port} "
+                  f"(micro-batch {args.batch}, wait {args.max_wait_ms} ms, "
+                  f"device {engine.device})")
+
     def _sigterm(signum, frame):  # docker/systemd stop: the Ctrl-C path
         raise KeyboardInterrupt
 
     signal.signal(signal.SIGTERM, _sigterm)
-    print(
-        f"vit-server: vit model on http://{args.host}:{httpd.server_port} "
-        f"(micro-batch {args.batch}, wait {args.max_wait_ms} ms, "
-        f"device {engine.device})",
-        file=sys.stderr,
-    )
+    print(banner, file=sys.stderr)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         httpd.server_close()
-        batcher.close()
+        for b in batchers.values():
+            b.close()
     return 0
 
 

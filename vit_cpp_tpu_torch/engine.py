@@ -15,7 +15,13 @@ carries over:
                each matmul) | "int8" (W8A8, block-quantized weights
                requantized channelwise at load) | "pallas" (block-quantized
                weights through the dequantizing-matmul kernel)
-    act_quant  "dynamic" (per-token scales); "static" is not ported yet
+    act_quant  "dynamic" (per-token scales) | "static" (calibrated
+               per-site scales, mm_impl="int8" only): from `act_scales`
+               (a sidecar JSON, quant/qat.py; refused with fold_ln, as
+               its scales describe the unfolded graph), from an explicit
+               `calibrate(images)`, or else from the first served batch.
+               A calibration the guardrail rejects (quant/calibrate.py)
+               prints a warning and leaves the engine on dynamic scales.
 
 `verbose` prints the JAX engine's `vit_model_load:` echo on stdout.
 Headless encoders (num_classes == 0) load and serve `features_batch`;
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -86,6 +93,7 @@ class VitEngine:
         mm_impl: str = "xla",
         fold_ln: bool = False,
         act_quant: str = "dynamic",
+        act_scales: Optional[str] = None,
         verbose: bool = True,
         device="cuda",
     ):
@@ -96,13 +104,20 @@ class VitEngine:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         if mm_impl not in ("xla", "int8", "pallas"):
             raise ValueError(f"mm_impl must be xla|int8|pallas, got {mm_impl!r}")
-        if act_quant == "static":
-            raise NotImplementedError(
-                "act_quant='static' is not ported yet: it comes with the "
-                "slice that ports quant/calibrate.py"
-            )
-        if act_quant != "dynamic":
+        if act_quant not in ("dynamic", "static"):
             raise ValueError(f"act_quant must be dynamic|static, got {act_quant!r}")
+        if act_quant == "static" and mm_impl != "int8":
+            raise ValueError("act_quant='static' requires mm_impl='int8'")
+        if act_scales is not None:
+            if act_quant != "static":
+                raise ValueError("act_scales requires act_quant='static'")
+            if fold_ln:
+                # folding changes every pre-GEMM activation distribution:
+                # scales measured on the unfolded graph would mis-clip
+                raise ValueError(
+                    "act_scales (training-measured, unfolded graph) is "
+                    "incompatible with fold_ln — drop one"
+                )
         if matmul_precision is None:
             # f32 engines are the parity path: exact f32 products
             matmul_precision = "highest" if dtype == "f32" else "default"
@@ -115,6 +130,12 @@ class VitEngine:
             print(f"vit_model_load: loading model from '{model_path}' - please wait")
         mf = read_model(model_path)
         hp = detect_hparams(mf)
+        if act_quant == "static" and hp.num_experts:
+            raise ValueError(
+                "static act scales are unsupported for MoE checkpoints "
+                "(the calibrator walks the dense block stack, "
+                "quant/calibrate.py — serve MoE with dynamic W8A8)"
+            )
         if eps is not None:
             hp = dataclasses.replace(hp, eps=eps)
         if interpolation is not None:
@@ -146,9 +167,21 @@ class VitEngine:
             from vit_cpp_tpu_torch.models.fold import fold_layernorms
 
             params = fold_layernorms(params, mm_impl=mm_impl)
+        if act_scales is not None:
+            from vit_cpp_tpu_torch.quant.calibrate import attach_act_scales
+            from vit_cpp_tpu_torch.quant.qat import load_act_scales
+
+            params = attach_act_scales(params, load_act_scales(act_scales))
+            if verbose:
+                print(f"vit_model_load: static act scales      = {act_scales}")
         self.params = params
         self.attn_impl = attn_impl
         self.mm_impl = mm_impl
+        # static scales without a sidecar are measured on the first served
+        # batch unless the caller calls calibrate() with a sample first
+        self._needs_calibration = act_quant == "static" and act_scales is None
+        self._calibration_lock = threading.Lock()  # a daemon's two batchers
+        self.calibration_agreement = None  # the guardrail's, once accepted
         self.load_ms = (time.perf_counter() - t0) * 1000.0
 
     def preprocess_image(self, img_u8: np.ndarray) -> torch.Tensor:
@@ -176,7 +209,49 @@ class VitEngine:
         else:
             print(f"vit_image_preprocess: scale = {max(nx / t, ny / t):f}", file=sys.stderr)
 
+    def calibrate(
+        self,
+        images: torch.Tensor,
+        *,
+        probe: Optional[torch.Tensor] = None,
+        min_agreement: float = 0.90,
+    ) -> None:
+        """Fix static activation scales from a representative batch
+        (quant/calibrate.py); a no-op unless the engine was built with
+        act_quant="static" and has no scales yet.
+
+        The guardrail then checks static against dynamic top-1 agreement
+        on `probe` (default: the calibration batch, which only catches
+        gross saturation). Below `min_agreement` the engine warns on
+        stderr and keeps serving with dynamic scales. Calibration runs
+        the engine's own attention path (the fused kernel at the serving
+        defaults; the JAX engine calibrates through its XLA attention)."""
+        if not self._needs_calibration:
+            return
+        from vit_cpp_tpu_torch.quant.calibrate import calibrate_act_scales, validate_act_scales
+
+        images = images.to(self.device)
+        with torch.inference_mode(), matmul_precision(self.matmul_precision):
+            static = calibrate_act_scales(self.params, images, self.hp,
+                                          attn_impl=self.attn_impl)
+            try:
+                self.calibration_agreement = validate_act_scales(
+                    static, self.params,
+                    images if probe is None else probe.to(self.device), self.hp,
+                    min_agreement=min_agreement, attn_impl=self.attn_impl,
+                )
+            except ValueError as e:
+                print(f"vit: static calibration rejected — {e}", file=sys.stderr)
+                print("vit: serving with dynamic activation scales", file=sys.stderr)
+                self._needs_calibration = False
+                return
+        self.params = static
+        self._needs_calibration = False
+
     def _forward(self, images: torch.Tensor, **kw) -> torch.Tensor:
+        if self._needs_calibration:
+            with self._calibration_lock:
+                self.calibrate(images)
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             return forward(
                 self.params, images.to(self.device), self.hp,

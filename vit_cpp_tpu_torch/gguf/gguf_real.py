@@ -16,19 +16,23 @@ ViT metadata convention (this repo's schema, mirroring §2.3's hparams):
 Tensor names/shapes/dtypes are identical to the legacy records (§2.4);
 GGML dtype ids coincide with GGUF's for F32/F16/Q4_0/Q4_1/Q5_0/Q5_1/Q8_0.
 
-The port's own copy of the reader of vit_cpp_tpu/gguf/gguf_real.py (the
-port writes the legacy layout only).
+The port's own copy of vit_cpp_tpu/gguf/gguf_real.py: the reader, and
+`write_gguf`, which writes the same bytes as the JAX package's (the
+converter's `--gguf`).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterable, List, Tuple, Union
+
+import numpy as np
 
 from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType
 from vit_cpp_tpu_torch.hparams import VitHParams
 
 GGUF_MAGIC = 0x46554747  # 'GGUF' little-endian
+GGUF_VERSION = 3
 DEFAULT_ALIGNMENT = 32
 
 # GGUF metadata value types
@@ -87,6 +91,38 @@ class _Reader:
                 )
             return [self.read_value(etype, depth + 1) for _ in range(count)]
         raise ValueError(f"gguf: unknown metadata value type {vtype}")
+
+
+class _Writer:
+    def __init__(self, f):
+        self.f = f
+
+    def write(self, fmt: str, v):
+        self.f.write(struct.pack(fmt, v))
+
+    def write_str(self, s: str):
+        b = s.encode("utf-8")
+        self.write("<Q", len(b))
+        self.f.write(b)
+
+    def write_kv(self, key: str, vtype: int, value):
+        self.write_str(key)
+        self.write("<I", vtype)
+        self.write_value(vtype, value)
+
+    def write_value(self, vtype: int, value):
+        if vtype in _SCALAR_FMT:
+            self.write(_SCALAR_FMT[vtype], value)
+        elif vtype == _STR:
+            self.write_str(value)
+        elif vtype == _ARR:
+            etype, items = value
+            self.write("<I", etype)
+            self.write("<Q", len(items))
+            for it in items:
+                self.write_value(etype, it)
+        else:
+            raise ValueError(f"gguf: unknown metadata value type {vtype}")
 
 
 def read_gguf_raw(path: str):
@@ -157,3 +193,86 @@ def hparams_from_metadata(meta: Dict[str, Any]) -> VitHParams:
         img_size=need("vit.img_size"),
         ftype=int(meta.get("general.ftype", 1)),
     )
+
+
+def write_gguf(
+    path: str,
+    hparams: VitHParams,
+    id2label: Dict[int, str],
+    tensors: Iterable[Tuple[str, tuple, GGMLDType, Union[np.ndarray, bytes]]],
+    ftype: int,
+    alignment: int = DEFAULT_ALIGNMENT,
+    extra_metadata: Dict[str, Any] | None = None,
+) -> None:
+    """Write a real-GGUF v3 container with the ViT metadata convention."""
+    items = []
+    for name, shape, dtype, payload in tensors:
+        if isinstance(payload, np.ndarray):
+            if dtype == GGMLDType.F32:
+                raw = np.ascontiguousarray(payload, dtype="<f4").tobytes()
+            elif dtype == GGMLDType.F16:
+                raw = np.ascontiguousarray(payload, dtype="<f2").tobytes()
+            else:
+                raw = payload.tobytes()
+        else:
+            raw = payload
+        n = int(np.prod(shape)) if shape else 1
+        if len(raw) != dtype.row_bytes(n):
+            raise ValueError(
+                f"tensor '{name}': payload {len(raw)}B != "
+                f"{dtype.row_bytes(n)}B for {dtype.name} {shape}"
+            )
+        items.append((name, shape, dtype, raw))
+
+    labels = [
+        id2label.get(i, f"LABEL_{i}")
+        for i in range(max(id2label) + 1 if id2label else 0)
+    ]
+    with open(path, "wb") as f:
+        w = _Writer(f)
+        w.write("<I", GGUF_MAGIC)
+        w.write("<I", GGUF_VERSION)
+        w.write("<Q", len(items))
+        kvs = [
+            ("general.architecture", _STR, "vit"),
+            ("general.alignment", _U32, alignment),
+            ("general.ftype", _U32, int(ftype)),
+            ("vit.hidden_size", _U32, hparams.hidden_size),
+            ("vit.num_hidden_layers", _U32, hparams.num_hidden_layers),
+            ("vit.num_attention_heads", _U32, hparams.num_attention_heads),
+            ("vit.num_classes", _U32, hparams.num_classes),
+            ("vit.patch_size", _U32, hparams.patch_size),
+            ("vit.img_size", _U32, hparams.img_size),
+            ("vit.id2label", _ARR, (_STR, labels)),
+        ]
+        for key, value in (extra_metadata or {}).items():
+            if isinstance(value, bool):
+                kvs.append((key, _BOOL, value))
+            elif isinstance(value, int):
+                kvs.append((key, _I64, value))
+            elif isinstance(value, float):
+                kvs.append((key, _F64, value))
+            else:
+                kvs.append((key, _STR, str(value)))
+        w.write("<Q", len(kvs))
+        for key, vtype, value in kvs:
+            w.write_kv(key, vtype, value)
+
+        offset = 0
+        offsets = []
+        for name, shape, dtype, raw in items:
+            w.write_str(name)
+            w.write("<I", len(shape))
+            for dim in reversed(shape):
+                w.write("<Q", int(dim))
+            w.write("<I", int(dtype))
+            w.write("<Q", offset)
+            offsets.append(offset)
+            offset += (len(raw) + alignment - 1) // alignment * alignment
+
+        pos = f.tell()
+        f.write(b"\x00" * ((pos + alignment - 1) // alignment * alignment - pos))
+        for (name, shape, dtype, raw), off in zip(items, offsets):
+            f.write(raw)
+            pad = (len(raw) + alignment - 1) // alignment * alignment - len(raw)
+            f.write(b"\x00" * pad)

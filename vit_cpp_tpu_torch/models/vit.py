@@ -72,12 +72,15 @@ def embed(params: Dict[str, Any], images: torch.Tensor, hp: VitHParams) -> torch
 
 
 def _attn_half(
-    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
+    tap=None,
 ) -> torch.Tensor:
     """LN1 -> QKV -> attention -> proj -> residual."""
     b, t, h = x.shape
     nh, hd = hp.num_attention_heads, hp.head_dim
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
+    if tap is not None:
+        tap("qkv_in", y)
     qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"], impl=mm_impl)
     if attn_impl in ("pallas", "pallas-fast"):
         o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast")
@@ -88,17 +91,26 @@ def _attn_half(
         o = attention(q, k, v).permute(0, 2, 1, 3).reshape(b, t, h)
     else:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    if tap is not None:
+        tap("proj_in", o)
     return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"], impl=mm_impl)
 
 
 def transformer_block(
-    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
+    tap=None,
 ) -> torch.Tensor:
-    """One encoder block."""
-    x = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+    """One encoder block. `tap(name, tensor)`, when given, observes every
+    matmul input ("qkv_in", "proj_in", "fc1_in", "fc2_in"): the static
+    activation-scale calibrator (quant/calibrate.py) reads them."""
+    x = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap)
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
+    if tap is not None:
+        tap("fc1_in", y)
     y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"], impl=mm_impl)
     y = mlp_act(hp.hidden_act)(y)
+    if tap is not None:
+        tap("fc2_in", y)
     y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"], impl=mm_impl)
     return x + y
 
@@ -118,17 +130,22 @@ def unstack_blocks(tree, n: int) -> list:
 
 
 def _head(
-    params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str, features: bool
+    params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str, features: bool,
+    tap=None,
 ) -> torch.Tensor:
     """Pooling readout + classifier head; features=True returns the
     final-LN pooled readout (the embedding) instead of the logits. A
     folded tree (models/fold.py) keeps the final norm's affine for that
-    readout in `features_norm`, since its `norm` carries none."""
+    readout in `features_norm`, since its `norm` carries none. `tap`
+    observes the normed readout as "head_in" (both prefix tokens of a
+    distilled tree)."""
     norm = params["features_norm"] if features and "features_norm" in params else params["norm"]
     if "head_dist" in params:
         # DeiT distilled: LN over both prefix tokens; the embedding is the
         # mean of the two normed tokens, the logits the mean of two heads
         pooled = layernorm(x[:, :2], norm["scale"], norm["bias"], hp.eps)
+        if tap is not None:
+            tap("head_in", pooled)
         if features:
             return (pooled[:, 0] + pooled[:, 1]) * 0.5
         return (
@@ -144,6 +161,8 @@ def _head(
     else:
         pooled = x[:, 0]
     pooled = layernorm(pooled, norm["scale"], norm["bias"], hp.eps)
+    if tap is not None:
+        tap("head_in", pooled)
     if features:
         return pooled
     if "head" not in params:
@@ -165,9 +184,11 @@ def forward(
     features: bool = False,
     pad_tokens: bool = False,
     tome: int = 0,
+    tap=None,
 ) -> torch.Tensor:
     """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
-    with features=True the final-LN pooled readout (B, hidden)."""
+    with features=True the final-LN pooled readout (B, hidden). `tap`
+    observes every GEMM input (transformer_block, _head)."""
     if pad_tokens or tome:
         raise NotImplementedError(
             "token padding and ToMe merging are not ported to "
@@ -183,5 +204,5 @@ def forward(
         )
     x = embed(params, images, hp)
     for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):
-        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
-    return _head(params, x, hp, mm_impl, features)
+        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap)
+    return _head(params, x, hp, mm_impl, features, tap)

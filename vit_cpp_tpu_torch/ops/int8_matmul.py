@@ -46,14 +46,17 @@ def _pad_to(n: int, m: int) -> int:
 def int8_mm(xq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32 through torch._int_mm.
 
-    On CUDA, _int_mm needs M > 16 and K, N multiples of 8: the operands
-    are zero-padded to that (the head linear has M = batch), which leaves
-    the exact int32 result of the real rows and columns unchanged."""
+    On CUDA, _int_mm needs M > 16 and K, N multiples of 8, and its
+    cuBLASLt int8 path on an H100 refuses K < 128 at small M (K = 64 and
+    96 with N >= 32 at M = 24 and 272 raised CUBLAS_STATUS_NOT_SUPPORTED;
+    K >= 128 ran every shape tried): the operands are zero-padded to
+    that (the head linear has M = batch), which leaves the exact int32
+    result of the real rows and columns unchanged."""
     m, k = xq.shape
     n = codes.shape[1]
     if xq.device.type != "cuda":
         return torch._int_mm(xq, codes)
-    mp, kp, np_ = max(_pad_to(m, 8), 24), _pad_to(k, 8), _pad_to(n, 8)
+    mp, kp, np_ = max(_pad_to(m, 8), 24), max(_pad_to(k, 8), 128), _pad_to(n, 8)
     if (mp, kp) != (m, k):
         xq = torch.nn.functional.pad(xq, (0, kp - k, 0, mp - m))
     if (kp, np_) != (k, n):

@@ -24,8 +24,10 @@ from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 class Int8Linear:
     """codes: ([L,] in, out) int8; scale: ([L,] out) f32; w = codes * scale.
 
-    act_scale: a static activation scale from calibration, or None for
-    dynamic per-token scales (the only form this package serves yet)."""
+    act_scale: a static ([L,] 1, 1) f32 activation scale from calibration
+    (quant/calibrate.py) or a sidecar (quant/qat.py::load_act_scales):
+    the input quantizes as round(clip(x / act_scale, -127, 127)) with no
+    per-token absmax. None: dynamic per-token scales."""
 
     codes: torch.Tensor
     scale: torch.Tensor
@@ -88,3 +90,13 @@ def convert_params_to_int8(params: Dict[str, Any]) -> Dict[str, Any]:
             head["kernel"] = _to_int8(head["kernel"])
             out[name] = head
     return out
+
+
+def params_have_static_scales(params: Dict[str, Any]) -> bool:
+    """True when any Int8Linear leaf carries a static activation scale:
+    the tree serves the static W8A8 path (vit_cpp_tpu/quant/int8.py:114)."""
+    if isinstance(params, Int8Linear):
+        return params.act_scale is not None
+    if isinstance(params, dict):
+        return any(params_have_static_scales(v) for v in params.values())
+    return False

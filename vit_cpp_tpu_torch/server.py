@@ -1,14 +1,16 @@
 """HTTP serving daemon with micro-batching, on a PyTorch engine.
 
-Counterpart of vit_cpp_tpu/server.py::create_server, with the port's own
-copy of the single-model parts of that module: the request handler
-(routes /healthz, /stats, /metrics and POST /v1/classify), the image
+Counterpart of vit_cpp_tpu/server.py::create_server and
+create_multi_server, with the port's own copy of that module's HTTP
+parts: the request handler (routes /healthz, /stats, /metrics, POST
+/v1/classify and /v1/embed, per model in a multi-model daemon), the image
 decode, the ThreadingHTTPServer, the admission bound and the Prometheus
 text. Request handlers decode and preprocess onto the engine's device,
 and the micro-batcher stacks those tensors with torch. Images decode
 through decode.py, which tries the native decoder once per process.
 
-Endpoints (the raw image bytes are the body of a POST):
+Endpoints of one model (create_server; the raw image bytes are the body
+of a POST):
   GET  /healthz, /stats, /metrics
   POST /v1/classify[?topk=K]  -> {"topk": [{"id", "label", "prob"}, ...]}
   POST /v1/embed              -> {"shape": [...], "embedding": [floats]}
@@ -17,8 +19,13 @@ Endpoints (the raw image bytes are the body of a POST):
                                  with the same admission bound and
                                  timeout, closed with the main one)
 A headless encoder (num_classes=0) serves /v1/embed as its only route,
-through the main batcher. The recognize route (ViTSTR) and the
-multi-model daemon are not served yet.
+through the main batcher.
+
+Several models (create_multi_server, `vit-server -m name=path` repeated):
+each has its own batchers behind POST /v1/<name>/classify and
+/v1/<name>/embed; /healthz and /stats are keyed by model name and
+/metrics labels every counter with it. The recognize route (ViTSTR) is
+not served yet.
 """
 
 from __future__ import annotations
@@ -213,12 +220,13 @@ def _is_headless(engine) -> bool:
 
 
 class _Model:
-    """The served model: engine + its micro-batcher (the classifier, or
-    the features of a headless encoder) + the embed batcher of a
-    classifier. Preprocessing runs the port's batched resize on the
-    engine's device."""
+    """A served model: its name (None for the single-model daemon), the
+    engine, its micro-batcher (the classifier, or the features of a
+    headless encoder) and the embed batcher of a classifier.
+    Preprocessing runs the port's batched resize on the engine's device."""
 
-    def __init__(self, engine, batcher: MicroBatcher):
+    def __init__(self, name, engine, batcher: MicroBatcher):
+        self.name = name
         self.engine = engine
         self.batcher = batcher
         self.is_headless = _is_headless(engine)
@@ -234,6 +242,13 @@ class _Model:
 
     def preprocess(self, img):
         return self.engine.preprocess_image(img)
+
+    def routes(self, prefix: str) -> dict:
+        """{path: (model, kind)} under `prefix` ("/v1" or "/v1/<name>");
+        kind "embed" reads the features, None the classifier."""
+        if self.is_headless:
+            return {f"{prefix}/embed": (self, "embed")}
+        return {f"{prefix}/classify": (self, None), f"{prefix}/embed": (self, "embed")}
 
     def health(self):
         hp = self.engine.hp
@@ -266,10 +281,10 @@ def _stats(model: _Model) -> dict:
     return s
 
 
-def _prometheus_metrics(model: _Model) -> str:
-    """The /stats counters in Prometheus text exposition format, labeled
-    by model (the one model is "default", as in the JAX daemon) and route
-    (classify or embed)."""
+def _prometheus_metrics(models) -> str:
+    """The /stats counters in Prometheus text exposition format, labelled
+    by model (the single-model daemon's is "default", as in the JAX
+    daemon) and route (classify or embed)."""
     metrics = [
         ("vit_requests_total", "counter", "requests served",
          lambda b: b.n_requests),
@@ -286,24 +301,43 @@ def _prometheus_metrics(model: _Model) -> str:
         ("vit_queue_depth", "gauge", "requests waiting for the device",
          lambda b: b._q.qsize()),
     ]
-    rows = [("embed" if model.is_headless else "classify", model.batcher)]
-    if model.embed_batcher is not None:
-        rows.append(("embed", model.embed_batcher))
+
+    def esc(label: str) -> str:  # label escaping: backslash, quote, newline
+        return label.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+    rows = []
+    for m in models:
+        name = esc(m.name or "default")
+        rows.append((name, "embed" if m.is_headless else "classify", m.batcher))
+        if m.embed_batcher is not None:
+            rows.append((name, "embed", m.embed_batcher))
     out = []
     for metric, typ, help_, get in metrics:
         out.append(f"# HELP {metric} {help_}")
         out.append(f"# TYPE {metric} {typ}")
-        for route, b in rows:
-            out.append(f'{metric}{{model="default",route="{route}"}} {get(b)}')
+        for name, route, b in rows:
+            out.append(f'{metric}{{model="{name}",route="{route}"}} {get(b)}')
     return "\n".join(out) + "\n"
 
 
-def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
-    # route -> the batcher that serves it
-    if model.is_headless:
-        routes = {"/v1/embed": model.batcher}
-    else:
-        routes = {"/v1/classify": model.batcher, "/v1/embed": model.embed_batcher}
+def make_handler(model: _Model, timeout_s: float = 30.0):
+    """The single-model handler: routes /v1/classify and /v1/embed (a
+    headless encoder's /v1/embed only); /healthz and /stats describe the
+    one model."""
+    return _make_handler(model.routes("/v1"), [model], single=True, timeout_s=timeout_s)
+
+
+def make_multi_handler(models, timeout_s: float = 30.0):
+    """The multi-model handler: routes /v1/<name>/classify and
+    /v1/<name>/embed per model; /healthz, /stats and /metrics are keyed
+    by model name."""
+    routes = {}
+    for m in models:
+        routes.update(m.routes(f"/v1/{m.name}"))
+    return _make_handler(routes, list(models), single=False, timeout_s=timeout_s)
+
+
+def _make_handler(routes: dict, models: list, *, single: bool, timeout_s: float):
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet
@@ -319,11 +353,18 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"ok": True, **model.health()})
+                if single:
+                    self._json(200, {"ok": True, **models[0].health()})
+                else:
+                    self._json(200, {"ok": True,
+                                     "models": {m.name: m.health() for m in models}})
             elif self.path == "/stats":
-                self._json(200, _stats(model))
+                if single:
+                    self._json(200, _stats(models[0]))
+                else:
+                    self._json(200, {m.name: _stats(m) for m in models})
             elif self.path == "/metrics":
-                body = _prometheus_metrics(model).encode()
+                body = _prometheus_metrics(models).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "text/plain; version=0.0.4")
                 self.send_header("Content-Length", str(len(body)))
@@ -334,13 +375,13 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
 
         def do_POST(self):
             path, _, query = self.path.partition("?")
-            batcher = routes.get(path)
-            if batcher is None:
+            model, kind = routes.get(path, (None, None))
+            if model is None:
                 self._json(404, {"error": f"no route {path} (use {' or '.join(sorted(routes))})"})
                 return
             n = int(self.headers.get("Content-Length") or 0)
-            if n > max_body_bytes:
-                self._json(413, {"error": f"body {n} bytes > limit {max_body_bytes}"})
+            if n > MAX_BODY_BYTES:
+                self._json(413, {"error": f"body {n} bytes > limit {MAX_BODY_BYTES}"})
                 return
             data = self.rfile.read(n) if n else b""
             img = decode_rgb_from_bytes(data)
@@ -356,6 +397,8 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
                         self._json(400, {"error": f"bad query {kv!r}"})
                         return
             pixels = model.preprocess(img)
+            # a headless encoder embeds through its main batcher
+            batcher = (model.embed_batcher or model.batcher) if kind == "embed" else model.batcher
             try:
                 out = batcher.submit(pixels).result(timeout=timeout_s)
             except OverloadedError as e:  # bounded queue: tell clients to back off
@@ -364,7 +407,7 @@ def _make_handler(model: _Model, timeout_s: float, max_body_bytes: int):
             except Exception as e:  # device failure/timeout -> JSON, not a dropped socket
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            if path == "/v1/embed":
+            if kind == "embed":
                 feat = np.asarray(out, dtype=np.float32)
                 self._json(200, {"shape": list(feat.shape),
                                  "embedding": [float(v) for v in feat.reshape(-1)]})
@@ -396,6 +439,19 @@ def _warm(engine, batcher: MicroBatcher) -> None:
     batcher.predict_seconds = 0.0
 
 
+def _batcher(engine, batch: int, max_wait_ms: float, max_queue: int,
+             buckets: bool) -> MicroBatcher:
+    """The main batcher of a model: its classifier, or a headless
+    encoder's features."""
+    return MicroBatcher(
+        engine.features_batch if _is_headless(engine) else engine.predict_probs_batch,
+        batch=batch,
+        max_wait_ms=max_wait_ms,
+        max_queue=max_queue,
+        buckets=buckets,
+    )
+
+
 def create_server(
     engine,
     host: str = "127.0.0.1",
@@ -412,18 +468,41 @@ def create_server(
     batcher too). warmup=True runs the dummy batch(es) of the main batcher
     before the port is bound. A headless encoder's batcher runs
     features_batch."""
-    batcher = MicroBatcher(
-        engine.features_batch if _is_headless(engine) else engine.predict_probs_batch,
-        batch=batch,
-        max_wait_ms=max_wait_ms,
-        max_queue=max_queue,
-        buckets=buckets,
-    )
+    batcher = _batcher(engine, batch, max_wait_ms, max_queue, buckets)
     if warmup:
         _warm(engine, batcher)
-    handler = _make_handler(
-        _Model(engine, batcher),
-        timeout_s=request_timeout_s,
-        max_body_bytes=MAX_BODY_BYTES,
-    )
+    handler = make_handler(_Model(None, engine, batcher), timeout_s=request_timeout_s)
     return ThreadingHTTPServer((host, port), handler), batcher
+
+
+def create_multi_server(
+    engines,
+    host: str = "127.0.0.1",
+    port: int = 8000,
+    batch=8,
+    max_wait_ms: float = 5.0,
+    warmup: bool = True,
+    request_timeout_s: float = 30.0,
+    max_queue: int = 0,
+    buckets=False,
+):
+    """Serve several models from one daemon (vit_cpp_tpu/server.py:719-770):
+    `engines` is {name: engine}, each with its own MicroBatcher (and
+    embed batcher, closed with it) behind the routes /v1/<name>/classify
+    and /v1/<name>/embed. `batch` and `buckets` are one value or a
+    {name: value} map. Names must be non-empty and '/'-free. Returns
+    (httpd, {name: batcher}); the caller closes every batcher."""
+    if not engines:
+        raise ValueError("create_multi_server needs at least one engine")
+    models = []
+    for name, engine in engines.items():
+        if not name or "/" in name:
+            raise ValueError(f"bad model name {name!r} (non-empty, no '/')")
+        b = batch[name] if isinstance(batch, dict) else batch
+        bk = buckets[name] if isinstance(buckets, dict) else buckets
+        models.append(_Model(name, engine, _batcher(engine, b, max_wait_ms, max_queue, bk)))
+    if warmup:
+        for m in models:
+            _warm(m.engine, m.batcher)
+    handler = make_multi_handler(models, timeout_s=request_timeout_s)
+    return ThreadingHTTPServer((host, port), handler), {m.name: m.batcher for m in models}

@@ -17,7 +17,8 @@
      f32);
    - dequant_matmul (block-dequantizing matmul) at the ViT-B/16 serving
      shapes in bf16 over all five block formats, one f32 case, one with
-     leading dims and one with N=1001 (no vector loads on a row), then in
+     leading dims, one with N=1001 (no vector loads on a row) and
+     ViTSTR-Base's head at B=64 (M=1600, N=96 in Q8_0), then in
      every format at the edges of the bf16 body's tiling (M=1, 129, 1577;
      K=3072 and 800; N=768, 1000, 1001, 3072);
    - flash_attention (split-head attention) at (8, 12, 197, 64) in bf16
@@ -95,7 +96,28 @@
       attention_qkv launches per device batch, one /v1/<name>/embed each,
       /stats, /metrics and a 404; then `python -m
       vit_cpp_tpu_torch.cli.server -m a=... -m b=... --act static
-      --calib-dir assets` as a subprocess, one answer per model.
+      --calib-dir assets` as a subprocess, one answer per model;
+   i. the model families (phase `model_families`), synthetic weights from
+      seed 0 at published widths: ViTSTR-Base (1 channel, 96 tokens, 25
+      positions) written f16 and quantized to Q8_0 by cli.quantize, through
+      `python -m vit_cpp_tpu_torch.cli.vitstr` on assets/vitstr/demo_1.png
+      (the console surface), `cli.serve` over the six assets/vitstr images
+      at the defaults (W8A8 + attention_qkv) and with --mm pallas on the
+      Q8_0 file (dequant_matmul + attention_qkv), recognize_files at both
+      and with static scales calibrated on assets/vitstr, every position's
+      token equal to the f32 engine's but near-ties, 12 attention_qkv and
+      49 dequant_matmul launches per batch; a two-model daemon (cls = the
+      ViT-B/16 f16 file, ocr = ViTSTR) with all images POSTed at once to
+      /v1/cls/classify and /v1/ocr/recognize; the SigLIP-B/16 vision tower
+      (attention pooling, [-1, 1] pixels, headless) through embed_files and
+      one /v1/embed against the unfolded f32 engine; the ViT-B/16 file
+      resampled to 384 px (T=577) and to patch 8 (T=785) through
+      serve_files and `cli.serve --img-size 384 / --patch-size 8` against
+      the f32 engine resampled the same way, each forward at B=64 timed
+      (median of 20) and profiled; `cli.explain` on magpie.jpeg, whose
+      top-5 equals classify_file's, with its heatmap PNG and no kernel
+      launched. The five command lines run as subprocesses beside the
+      in-process checks, and the timings wait for them to exit.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -311,6 +333,11 @@ def check_kernels(card: str):
         ("tome sizes safe", 8, 197, 768, 12, bf16, {"fast": False, "sizes": True}),
         ("tome sizes fast", 8, 197, 768, 12, bf16, {"fast": True, "sizes": True}),
         ("vit-b8 T=785 fast", 4, 785, 768, 12, bf16, {"fast": True}),
+        # the model families' serving shapes: --img-size 384 and
+        # --patch-size 8 at B=8, SigLIP's tower with no prefix token
+        ("vit-b16@384 T=577 fast", 8, 577, 768, 12, bf16, {"fast": True}),
+        ("vit-b8 T=785 fast B=8", 8, 785, 768, 12, bf16, {"fast": True}),
+        ("siglip-b16 T=196 fast", 8, 196, 768, 12, bf16, {"fast": True}),
         ("vit-h14 d=80 T=257 fast", 4, 257, 1280, 16, bf16, {"fast": True}),
         ("vit-g14 d=88 T=257 safe", 4, 257, 1408, 16, bf16, {"fast": False}),
         ("f32 vit-b16 safe", 8, 197, 768, 12, f32, {"fast": False}),
@@ -425,6 +452,9 @@ def check_dequant_matmul(card: str):
         ("fc2", (1576,), 3072, 768, G.Q4_0, bf16),
         ("head", (8,), 768, 1000, G.Q5_1, bf16),
         ("head N=1001 (scalar loads)", (8,), 768, 1001, G.Q8_0, bf16),
+        # ViTSTR-Base's head at B=64: 25 rows per image, 96 columns (a
+        # 128-wide tile covers 96)
+        ("ViTSTR head N=96", (64 * 25,), 768, 96, G.Q8_0, bf16),
         ("f32 qkv", (1576,), 768, 2304, G.Q4_1, f32),
         ("leading dims (8, 197)", (8, 197), 768, 768, G.Q8_0, bf16),
     ]
@@ -1862,6 +1892,595 @@ def serving_workflow(f16: str, q8: str, tmp: str, card: str) -> dict:
     return launches
 
 
+# The model families (ViTSTR, SigLIP, resampled geometry, vit-explain) at
+# ViT-B width. ViTSTR output is checked as served: the probabilities the
+# served path decoded (recorded at its decode call) within
+# VITSTR_PROB_TOL of the f32 engine's at every position; their argmax
+# equal to the f32 engine's at every position 1.. but where the f32
+# top-two lie within TEXT_TIE (PROB_TOL: such a position may decode to
+# the other token); the served text and confidence equal to the host
+# decode (greedy_decode) of those probabilities, the confidence to
+# DECODE_RTOL (an f32 product on the card; F32_TINY absorbs its
+# underflow). A text's confidence is a product of up to 24 probabilities
+# near 1/96, so it is held to the f32 engine's relatively: |log c - log
+# c_f32| within the sum over its positions of log(1 + VITSTR_PROB_TOL /
+# (p - VITSTR_PROB_TOL)), p the f32 probability of the served token there.
+# VITSTR_PROB_TOL is the bf16 limit, TOL[bf16], at which the tests hold
+# the bf16 serving engines to the JAX package's: W8A8 itself moves a
+# ViTSTR position's 96 probabilities further than PROB_TOL from f32 (the
+# JAX package's W8A8 engine with f32 activations by 6.94e-3 at hidden 64,
+# where the port's W8A8 agrees with it to 1.44e-3).
+TEXT_TIE = PROB_TOL
+VITSTR_PROB_TOL = 2e-2
+DECODE_RTOL = 1e-5
+F32_TINY = float(np.finfo(np.float32).tiny)
+# vit-explain's top-5 vs classify_file's (the same f32 engine, the same
+# composed attention): classes whose probabilities lie this close may
+# swap places in the printed order.
+EXPLAIN_TIE = 1e-5
+# ViTSTR-Base (vitstr_base_patch16_224; Atienza, ICDAR 2021): 1 channel,
+# the 96-token vocabulary, 25 positions.
+VITSTR_B = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12, num_classes=96,
+                patch_size=16, img_size=224, in_chans=1, seq_len=25)
+# The vision tower of google/siglip-base-patch16-224, headless: no CLS
+# token, attention pooling, [-1, 1] pixels.
+SIGLIP_B = dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12, num_classes=0,
+                patch_size=16, img_size=224, num_prefix_tokens=0, global_pool="map",
+                pixel_norm="unit")
+
+
+def start_module(*args: str) -> subprocess.Popen:
+    """run_module started in the background (its output read later by
+    communicate)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _RUN_MODULE, *args], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ, PYTHONPATH=HERE),
+    )
+
+
+def vitstr_assets() -> list:
+    paths = sorted(glob.glob(os.path.join(HERE, "assets", "vitstr", "*")))
+    if len(paths) != 6:
+        raise AssertionError(f"expected the 6 images of assets/vitstr, found {len(paths)}")
+    return paths
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Replace module.name for the block by a wrapper that keeps every
+    call's (args, result) in the yielded list. Callers that import the
+    name inside their body (recognize_files, the daemon's decode) see the
+    wrapper."""
+    real, calls = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, out))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def check_texts(what: str, id2label, probs, texts, ref_probs) -> dict:
+    """Served ViTSTR output vs the f32 engine's (see TEXT_TIE above):
+    `probs` (n, seq_len, V) the probabilities the served path decoded,
+    `texts` [(text, confidence)] what it returned, `ref_probs` the f32
+    engine's. Returns the figures for the log."""
+    from vit_cpp_tpu_torch.models.vitstr import EOS_ID, greedy_decode
+
+    err = float(np.abs(probs - ref_probs).max())
+    if not err <= VITSTR_PROB_TOL:
+        raise AssertionError(f"{what}: served probabilities off the f32 engine's by {err}")
+    toks, ref_toks = probs.argmax(-1), ref_probs.argmax(-1)
+    top2 = np.sort(ref_probs, axis=-1)[:, :, -2:]
+    near = top2[..., 1] - top2[..., 0] <= TEXT_TIE
+    flips, log_worst, log_max = 0, 0.0, 0.0
+    for i, (text, conf) in enumerate(texts):
+        apart = (toks[i] != ref_toks[i])[1:]
+        if (apart & ~near[i, 1:]).any():
+            raise AssertionError(f"{what}: image {i} decodes {toks[i, 1:]} where the f32 engine "
+                                 f"decodes {ref_toks[i, 1:]} beyond near-ties")
+        flips += int(apart.sum())
+        want, want_conf = greedy_decode(probs[i], id2label)
+        if text != want or not abs(conf - want_conf) <= DECODE_RTOL * want_conf + F32_TINY:
+            raise AssertionError(f"{what}: image {i} served ({text!r}, {conf}), the host decode "
+                                 f"of its probabilities ({want!r}, {want_conf})")
+        ends = np.flatnonzero(toks[i, 1:] == EOS_ID)
+        pos = np.arange(1, 1 + (ends[0] if len(ends) else toks.shape[1] - 1))
+        p_f = ref_probs[i, pos, toks[i, pos]].astype(np.float64)
+        log_err = abs(np.log(want_conf) - np.log(p_f).sum())
+        bound = float(np.log1p(VITSTR_PROB_TOL / np.maximum(p_f - VITSTR_PROB_TOL, 1e-30)).sum())
+        if not log_err <= bound:
+            raise AssertionError(f"{what}: image {i} |log c - log c_f32| = {log_err} > {bound}")
+        log_worst = max(log_worst, log_err / bound if bound else 0.0)
+        log_max = max(log_max, log_err)
+    return {"err": err, "flips": flips, "near": int(near[:, 1:].sum()),
+            "positions": int(near[:, 1:].size), "log_share": log_worst, "log_err": log_max}
+
+
+def vitstr_paths(ocr: str, ocr_q8: str, f16: str, card: str) -> tuple:
+    """ViTSTR-Base through recognize_files at the serving defaults (f16:
+    W8A8 + K1) and with --mm pallas (Q8_0: K4 + K1), with static scales
+    calibrated on assets/vitstr, then beside a ViT-B/16 classifier in one
+    two-model daemon. Returns ({path: launches}, {"f16" | "q8": the f32
+    engine's probabilities and texts on that file}, {"" | "pallas" |
+    "static": recognize_files' texts})."""
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+    from vit_cpp_tpu_torch.engine import VitEngine, VitstrEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.models import vitstr as vitstr_module
+    from vit_cpp_tpu_torch.models.vitstr import greedy_decode
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.serve import recognize_files
+    from vit_cpp_tpu_torch.server import create_multi_server
+
+    demos = vitstr_assets()
+    images = load_images_rgb_batch(demos)
+    ref, served = {}, {}
+    for name, path in (("f16", ocr), ("q8", ocr_q8)):
+        f32 = VitstrEngine(path, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                           verbose=False)
+        probs = f32.predict_probs_batch(f32.preprocess_images(images)).cpu().numpy()
+        ref[name] = (probs, [greedy_decode(p, f32.id2label) for p in probs])
+        del f32
+    log(f"ViTSTR-B f32 engine (composed attention, TF32 off) texts: "
+        f"{[t for t, _ in ref['f16'][1]]}, confidences {[f'{c:.3e}' for _, c in ref['f16'][1]]}")
+    out = {}
+    for what, path, kw, per_batch in (
+        ("vitstr recognize_files defaults", ocr, {}, {KERNEL: 12}),
+        ("vitstr recognize_files --mm pallas", ocr_q8, {"mm": "pallas"}, {KERNEL: 12, QMM_KERNEL: 49}),
+        ("vitstr recognize_files --act static", ocr, {"act": "static"}, {KERNEL: 12}),
+    ):
+        engine, is_vitstr = build_engine(path, device="cuda", **kw)
+        if not is_vitstr or engine.hp.seq_len != 25 or engine.hp.in_chans != 1:
+            raise AssertionError(f"{what}: build_engine gave {type(engine).__name__} {engine.hp}")
+        if kw.get("act") == "static":
+            if not calibrate_engine_from_paths(engine, os.path.join(HERE, "assets", "vitstr")):
+                raise AssertionError(f"{what}: the guardrail rejected the static scales")
+            log(f"{what}: calibrated on assets/vitstr, guardrail agreement "
+                f"{engine.calibration_agreement:.3f}")
+        for kernel in (KERNEL, QMM_KERNEL):
+            kernel.reset()
+        with recorded(vitstr_module, "greedy_decode_device") as decoded:
+            got = list(recognize_files(engine, demos, batch=8))
+        torch.cuda.synchronize()
+        launches = {kernel.name: kernel.launches for kernel in (KERNEL, QMM_KERNEL)}
+        for kernel in (KERNEL, QMM_KERNEL):
+            if launches[kernel.name] != per_batch.get(kernel, 0):
+                raise AssertionError(f"{what}: {kernel.name} launched {launches[kernel.name]} "
+                                     f"times for one batch (want {per_batch.get(kernel, 0)})")
+        log(f"{what}: {[r.text for r in got]}; launches for one batch of 8: {launches}")
+        if len(decoded) != 1:
+            raise AssertionError(f"{what}: {len(decoded)} decode calls for one batch")
+        ref_probs, ref_texts = ref["q8" if path == ocr_q8 else "f16"]
+        probs = decoded[0][0][0][: len(demos)].float().cpu().numpy()
+        fig = check_texts(what, engine.id2label, probs,
+                          [(r.text, r.confidence) for r in got], ref_probs)
+        log(f"{what}: the decoded probabilities within {fig['err']:.2e} of the f32 engine's "
+            f"(tolerance {VITSTR_PROB_TOL:.0e}); {fig['flips']} of {fig['positions']} positions on a "
+            f"near-tie decoded to the other token ({fig['near']} near-ties in all); texts "
+            f"{sum(r.text == t for r, (t, _) in zip(got, ref_texts))}/{len(got)} equal to the "
+            f"f32 engine's, every text and confidence the host decode of the served "
+            f"probabilities; |log c - log c_f32| at most {fig['log_err']:.3f} "
+            f"({fig['log_share']:.3f} of its bound)")
+        out[what] = {k.name: launches[k.name] for k in per_batch}
+        served[kw.get("mm", "") + kw.get("act", "")] = [r.text for r in got]
+        del engine
+
+    paths, bodies = asset_bodies()
+    cls_ref = VitEngine(f16, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                        verbose=False)
+    cls_probs = cls_ref.predict_probs_batch(
+        cls_ref.preprocess_images(load_images_rgb_batch(paths))).cpu().numpy()
+    del cls_ref
+    engines = {"cls": build_engine(f16, device="cuda")[0], "ocr": build_engine(ocr, device="cuda")[0]}
+    httpd, batchers = create_multi_server(engines, port=0, batch=8, max_wait_ms=5.0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        KERNEL.reset()
+        jobs = [("cls/classify?topk=5", b) for b in bodies] + [
+            ("ocr/recognize", open(d, "rb").read()) for d in demos]
+        with recorded(vitstr_module, "greedy_decode") as decoded, \
+                ThreadPoolExecutor(len(jobs)) as ex:
+            results = list(ex.map(lambda job: post(f"{base}/v1/{job[0]}", job[1]), jobs))
+        torch.cuda.synchronize()
+        launches = KERNEL.launches
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for b in batchers.values():
+            b.close()
+        server.join(timeout=30)
+    id2label = engines["ocr"].id2label
+    del engines
+    worst = 0.0
+    for i, (status, body, _) in enumerate(results[: len(bodies)]):
+        top = body.get("topk", [])
+        if status != 200 or len(top) != 5:
+            raise AssertionError(f"two-model daemon /v1/cls/classify {paths[i]}: HTTP {status}")
+        worst = max(worst, float(np.abs(np.array([e["prob"] for e in top])
+                                        - cls_probs[i][[e["id"] for e in top]]).max()))
+    # each response is matched to the decode call that returned its text
+    # and confidence, and that call's probabilities are held to the f32
+    # engine's on the image the response answers
+    figs = []
+    for i, (status, body, _) in enumerate(results[len(bodies):]):
+        if status != 200:
+            raise AssertionError(f"two-model daemon /v1/ocr/recognize {demos[i]}: HTTP {status} "
+                                 f"{body}")
+        said = (body.get("text"), body.get("confidence"))
+        rows = [args[0] for args, out in decoded if out == said]
+        if not rows:
+            raise AssertionError(f"two-model daemon /v1/ocr/recognize {demos[i]}: {body} is no "
+                                 f"decode call's result")
+        figs.append(check_texts(f"two-model daemon /v1/ocr/recognize {demos[i]}", id2label,
+                                np.asarray(rows[0])[None], [said], ref["f16"][0][i: i + 1]))
+    batches = stats["cls"]["batches"] + stats["ocr"]["batches"]
+    if launches != 12 * batches or worst > PROB_TOL:
+        raise AssertionError(f"two-model daemon: {launches} attention_qkv launches for {batches} "
+                             f"batches; classify off the f32 engine by {worst}")
+    if [health["models"][n]["model"] for n in ("cls", "ocr")] != ["vit", "vitstr"] or \
+            f'vit_requests_total{{model="ocr",route="recognize"}} {len(demos)}' not in metrics:
+        raise AssertionError(f"two-model daemon: /healthz {health}")
+    lat = sorted(ms for _, _, ms in results)
+    log(f"two-model daemon (cls = ViT-B/16 f16, ocr = ViTSTR-B f16, serving defaults): "
+        f"{len(bodies)} classify + {len(demos)} recognize requests at once, all 200; each text "
+        f"the decode of probabilities within {max(f['err'] for f in figs):.2e} of the f32 "
+        f"engine's, {sum(f['flips'] for f in figs)} near-tie positions decoded to the other "
+        f"token; top-5 within {worst:.2e} of the f32 engine "
+        f"(tolerance {PROB_TOL:.0e}); attention_qkv {launches} = 12 x {batches} device batches "
+        f"({stats['cls']['batches']} cls, {stats['ocr']['batches']} ocr); latency ms median "
+        f"{lat[len(lat) // 2]:.1f} max {lat[-1]:.1f}; /metrics labels route=\"recognize\"")
+    out["two-model daemon (cls + ocr)"] = {KERNEL.name: launches}
+    return out, ref, served
+
+
+def siglip_path(siglip: str, card: str) -> dict:
+    """The headless SigLIP-B/16 tower at the serving defaults: embed_files
+    over the ten assets against the unfolded f32 engine (EMBED_TOL of
+    max|f|), one POST /v1/embed against embed_file; 12 attention_qkv
+    launches per batch."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.serve import embed_files
+    from vit_cpp_tpu_torch.server import create_server
+
+    paths, bodies = asset_bodies()
+    images = load_images_rgb_batch(paths)
+    ref = VitEngine(siglip, device="cuda", verbose=False)
+    if (ref.hp.global_pool, ref.hp.pixel_norm, ref.hp.num_prefix_tokens) != ("map", "unit", 0):
+        raise AssertionError(f"SigLIP: detected {ref.hp}")
+    f_ref = ref.features_batch(ref.preprocess_images(images)).cpu().numpy()
+    del ref
+    engine, _ = build_engine(siglip, device="cuda")
+    KERNEL.reset()
+    vecs = [e.vector for e in embed_files(engine, paths, batch=8)]
+    torch.cuda.synchronize()
+    launches = KERNEL.launches
+    got = np.stack(vecs)
+    scale = float(np.abs(f_ref).max())
+    err = float(np.abs(got - f_ref).max()) / scale
+    cos = (got * f_ref).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(f_ref, axis=1)
+    httpd, batcher = create_server(engine, port=0, batch=8, max_wait_ms=5.0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        KERNEL.reset()
+        status, body, ms = post(f"http://127.0.0.1:{httpd.server_port}/v1/embed", bodies[0])
+        torch.cuda.synchronize()
+        post_launches = KERNEL.launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        server.join(timeout=30)
+    want = engine.embed_file(paths[0])
+    post_err = float(np.abs(np.array(body.get("embedding", [0.0])) - want).max()) / float(
+        np.abs(want).max())
+    log(f"SigLIP-B/16 (map pooling, unit pixels, headless) embed_files at the serving defaults "
+        f"vs the unfolded f32 engine: max|f - f_f32| / max|f| = {err:.3e} (tolerance "
+        f"{EMBED_TOL:.0e}, max|f| = {scale:.3f}), 1 - cosine at most {1 - cos.min():.3e}; "
+        f"attention_qkv {launches} = 12 x 2 batches; /v1/embed {status} in {ms:.1f} ms vs "
+        f"embed_file {post_err:.3e} (tolerance {TOL[torch.bfloat16]:.0e}), {post_launches} launches")
+    if not err <= EMBED_TOL or launches != 24 or got.shape != (10, SIGLIP_B["hidden_size"]):
+        raise AssertionError(f"SigLIP embed_files: off by {err}, {launches} launches")
+    if status != 200 or not post_err <= TOL[torch.bfloat16] or post_launches != 12:
+        raise AssertionError(f"SigLIP /v1/embed: HTTP {status}, off by {post_err}")
+    return {"siglip embed_files": {KERNEL.name: launches},
+            "siglip /v1/embed": {KERNEL.name: post_launches}}
+
+
+GEOMETRIES = (("img 384 (T=577)", {"img_size": 384}, ["--img-size", "384"], 577),
+              ("patch 8 (T=785)", {"patch_size": 8}, ["--patch-size", "8"], 785))
+
+
+def resampled_paths(f16: str, card: str) -> tuple:
+    """The ViT-B/16 file served at 384 px and at patch 8 (the
+    vit_base_patch16_384 and ViT-B/8 geometries) by serve_files at the
+    serving defaults: top-5 within PROB_TOL of the f32 engine resampled
+    the same way, 12 attention_qkv launches per batch. Returns ({path:
+    launches}, {geometry: f32 probabilities})."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.serve import serve_files
+
+    paths, _ = asset_bodies()
+    images = load_images_rgb_batch(paths)
+    out, refs = {}, {}
+    for what, kw, _, t in GEOMETRIES:
+        ref = VitEngine(f16, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                        verbose=False, **kw)
+        refs[what] = ref.predict_probs_batch(ref.preprocess_images(images)).cpu().numpy()
+        del ref
+        engine, _ = build_engine(f16, device="cuda", **kw)
+        if engine.hp.n_patches + 1 != t:
+            raise AssertionError(f"{what}: T = {engine.hp.n_patches + 1}")
+        KERNEL.reset()
+        got = list(serve_files(engine, paths, batch=8, keep_probs=True))
+        torch.cuda.synchronize()
+        launches = KERNEL.launches
+        worst = 0.0
+        for r, want in zip(got, refs[what]):
+            top = np.argsort(-want, kind="stable")[:5]
+            worst = max(worst, float(np.abs(r.probs[top] - want[top]).max()))
+        log(f"resampled ViT-B/16 {what} serve_files at the serving defaults: top-5 vs the f32 "
+            f"engine resampled the same way worst {worst:.2e} (tolerance {PROB_TOL:.0e}); "
+            f"attention_qkv {launches} = 12 x 2 batches at T={t}")
+        if worst > PROB_TOL or launches != 24:
+            raise AssertionError(f"{what}: off by {worst}, {launches} launches")
+        out[f"resampled {what} serve_files"] = {KERNEL.name: launches}
+        del engine
+    return out, refs
+
+
+def resampled_times(f16: str, card: str) -> None:
+    """Each resampled geometry's forward at B=64 at the serving defaults:
+    the median of 20 on the host clock with sync, and one forward under
+    torch.profiler with K1's share of its device time; then K1 alone at
+    that shape (bf16, fast) against SDPA and its bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.models import vit as vit_module
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL, attention_qkv, attention_qkv_plain
+
+    def hold(name, qkv, nh):
+        got, ref = attention_qkv(qkv, nh, fast=True), attention_qkv_plain(qkv, nh, fast=True)
+        err = (got.float() - ref.float()).abs().max().item()
+        log(f"kernel case {name}: max|kernel - plain| = {err:.3e} (tolerance "
+            f"{TOL[torch.bfloat16]:.0e})")
+        if not (torch.isfinite(got).all() and err <= TOL[torch.bfloat16]):
+            raise AssertionError(f"{name}: error {err} > {TOL[torch.bfloat16]}")
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for what, kw, _, t in GEOMETRIES:
+        engine, _ = build_engine(f16, device="cuda", **kw)
+        s = engine.hp.img_size
+        pixels = torch.randn((64, 3, s, s), generator=gen, device="cuda")
+        # the first forward's layer-0 qkv, the kernel's input on this path
+        with recorded(vit_module, "attention_qkv") as calls:
+            engine.predict_probs_batch(pixels)
+        torch.cuda.synchronize()
+        hold(f"attention_qkv on the B=64 {what} forward's first-layer qkv", calls[0][0][0],
+             engine.hp.num_attention_heads)
+        del calls
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            engine.predict_probs_batch(pixels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        KERNEL.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.predict_probs_batch(pixels)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev_us, (k1_us,) = device_us(prof, KERNEL)
+        ms = float(np.median(times))
+        share = (f"{dev_us / 1e3:.2f} ms of device time in {wall_us / 1e3:.2f} ms wall (idle share "
+                 f"{1 - dev_us / wall_us:.3f}), attention_qkv {k1_us / 1e3:.2f} ms "
+                 f"({k1_us / dev_us:.3f}) in {KERNEL.launches} launches") if dev_us > 0 else \
+            "torch.profiler saw no device time (shares not measured)"
+        log(f"forward resampled ViT-B/16 {what} B=64 serving defaults (W8A8, fold, K1; median of "
+            f"20, host clock with sync): {ms:.3f} ms ({64 / ms * 1e3:.0f} img/s, range "
+            f"{min(times):.3f}-{max(times):.3f}); profiled: {share} on {card}")
+        h, nh = engine.hp.hidden_size, engine.hp.num_attention_heads
+        del engine, pixels
+        qkv = torch.randn((64, t, 3 * h), generator=gen, device="cuda").to(torch.bfloat16)
+        hold(f"attention_qkv B=64 T={t} h={h} bf16 fast (timed below)", qkv, nh)
+        k_ms, lib = cuda_ms(lambda: attention_qkv(qkv, nh, fast=True)), sdpa_ms(qkv, nh)
+        b_ms, b_by = attention_bound(64, t, h, 2)
+        log(f"attention_qkv alone at B=64 T={t} h={h} bf16 fast: {k_ms:.4f} ms per call, "
+            f"SDPA {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on {card}")
+        del qkv
+
+
+def explain_path(f16: str, tmp: str, card: str) -> None:
+    """vit_cpp_tpu_torch.cli.explain on magpie.jpeg with the ViT-B/16
+    file (f32 on the card): its top-5 lines equal classify_file's (up to
+    classes within EXPLAIN_TIE), a 224 x 224 heatmap PNG and the 14 x 14
+    grid; no kernel launches (composed attention keeps the
+    probabilities)."""
+    from PIL import Image
+
+    from vit_cpp_tpu_torch.cli import explain
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+
+    magpie = os.path.join(HERE, "assets", "magpie.jpeg")
+    png, npy = os.path.join(tmp, "heat.png"), os.path.join(tmp, "heat.npy")
+    kernels = (KERNEL, QMM_KERNEL, FLASH_KERNEL, GRAD_KERNEL)
+    for k in kernels:
+        k.reset()
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = explain.main(["-m", f16, "-i", magpie, "-o", png, "--npy", npy])
+    seconds = time.perf_counter() - t0
+    launched = sum(k.launches for k in kernels)
+    engine = VitEngine(f16, device="cuda", verbose=False)
+    top = engine.classify_file(magpie, topk=6, verbose=False)
+    del engine
+    lines = [f" > {label} : {prob:.2f}" for _, prob, label in top[:5]]
+    got = out.getvalue().splitlines()
+    tied = any(a[1] - b[1] <= EXPLAIN_TIE for a, b in zip(top, top[1:]))
+    if rc != 0 or (got != lines and not (tied and sorted(got) == sorted(lines))):
+        raise AssertionError(f"cli.explain rc {rc}: {got} vs classify_file {lines}")
+    heat, grid = np.asarray(Image.open(png)), np.load(npy)
+    if heat.shape != (224, 224) or grid.shape != (14, 14) or not (
+            0.0 <= grid.min() and abs(grid.max() - 1.0) < 1e-6):
+        raise AssertionError(f"cli.explain: heatmap {heat.shape}, grid {grid.shape}")
+    if launched:
+        raise AssertionError(f"cli.explain launched {launched} kernels")
+    log(f"cli.explain ViT-B/16 f32 on magpie.jpeg: rc 0 in {seconds:.1f} s, top-5 lines equal "
+        f"classify_file's, {err.getvalue().strip().splitlines()[-1]}; grid 14 x 14 in [0, 1]; "
+        f"no kernel on this path (composed attention keeps the (B, L, H, T, T) probabilities): "
+        f"0 launches on {card}")
+
+
+def check_cli_outputs(procs: dict, ocr: str, vitstr_ref: dict, served: dict,
+                      resampled_ref: dict) -> None:
+    """The command lines started at the phase's start, each as a user runs
+    it: `cli.vitstr` (f32, the console surface; its text is the f32
+    engine's, its score printed to 2 places), `cli.serve` on ViTSTR at the
+    defaults and with --mm pallas (one `path<TAB>text<TAB>conf` line per
+    image, each text the f32 engine's or recognize_files' in this process
+    with the same flags), and at the two resampled geometries (-k 5, labels equal to the
+    f32 engine's where its top-two gap exceeds PROB_TOL)."""
+    from vit_cpp_tpu_torch.hparams import VitHParams
+
+    demos = vitstr_assets()
+    paths, _ = asset_bodies()
+    for name, proc in procs.items():
+        ref_texts = vitstr_ref["q8" if "pallas" in name else "f16"][1]
+        stdout, stderr = proc.communicate(timeout=600)
+        for line in stderr.splitlines()[-4:]:
+            log(f"{name}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} exited {proc.returncode}: {stderr[-2000:]}")
+        lines = stdout.splitlines()
+        if name == "cli.vitstr":
+            hp = VitHParams(**VITSTR_B)
+            want = [f"vit_model_load: loading model from '{ocr}' - please wait",
+                    f"vit_model_load: hidden_size            = {hp.hidden_size}",
+                    f"vit_model_load: num_hidden_layers      = {hp.num_hidden_layers}",
+                    f"vit_model_load: num_attention_heads    = {hp.num_attention_heads}",
+                    "vit_model_load: patch_size             = 16",
+                    "vit_model_load: img_size               = 224",
+                    "vit_model_load: num_classes            = 96",
+                    "vit_model_load: ftype                  = 1",
+                    "vit_model_load: qntvr                  = 0"]
+            text, conf = ref_texts[0]
+            tail = [f"load_image_from_file: loaded image '{demos[0]}' (184 x 72)",
+                    "processed, out dims : (224 x 224)", "------------------ ", text,
+                    f"score : {conf:.2f} ", "------------------ "]
+            if lines[:9] != want or lines[10:] != tail or not re.match(
+                    r"vit_model_load: model size = +[\d.]+ MB / num tensors = "
+                    rf"{hp.expected_tensor_count()}$", lines[9]):
+                raise AssertionError(f"cli.vitstr: stdout {lines}")
+            log(f"cli.vitstr ViTSTR-B f32 on demo_1.png: rc 0, 16 stdout lines, text {text!r} = "
+                f"the f32 engine's, score {conf:.2f}")
+        elif "vitstr" in name:
+            rows = [line.split("\t") for line in lines]
+            same = served["pallas" if "pallas" in name else ""]
+            if [r[0] for r in rows] != demos or any(
+                    len(r) != 3 or r[1] not in (t, s) for r, (t, _), s in zip(rows, ref_texts, same)):
+                raise AssertionError(f"{name}: stdout {lines}")
+            equal = sum(r[1] == t for r, (t, _) in zip(rows, ref_texts))
+            log(f"{name}: rc 0, 6 lines; texts equal to the f32 engine's: {equal}/6, the others "
+                f"to recognize_files' with the same flags (held above to the f32 engine at every "
+                f"position up to near-ties)")
+        else:
+            ref = resampled_ref[name.split("serve ")[1]]
+            rows = [line.split("\t") for line in lines]
+            if [r[0] for r in rows] != paths:
+                raise AssertionError(f"{name}: stdout {lines}")
+            checked = 0
+            for row, p in zip(rows, ref):
+                tags = [t.rsplit(":", 1) for t in row[1].split(" ")]
+                top2 = np.sort(p)[-2:]
+                if top2[1] - top2[0] > PROB_TOL:
+                    checked += 1
+                    if tags[0][0] != f"LABEL_{int(p.argmax())}":
+                        raise AssertionError(f"{name}: {row[0]} labelled {tags[0][0]}")
+                if abs(float(tags[0][1]) - p.max()) > PROB_TOL + 0.005:
+                    raise AssertionError(f"{name}: {row[0]} printed {tags[0][1]}")
+            log(f"{name}: rc 0, 10 lines of top-5; top-1 labels checked where the f32 top-two "
+                f"gap exceeds {PROB_TOL:.0e}: {checked}/10, each printed top-1 within it")
+
+
+def model_families(f16: str, tmp: str, card: str) -> dict:
+    """ViTSTR-Base (written f16 and quantized to Q8_0 by cli.quantize),
+    SigLIP-B/16 and the ViT-B/16 file at two resampled geometries, through
+    the entry points users call, then vit-explain. The five command lines
+    (cli.vitstr, cli.serve on ViTSTR at the defaults and --mm pallas, and
+    at --img-size 384 and --patch-size 8) run as subprocesses beside the
+    in-process checks and are read after them; the resampled forwards are
+    timed once they have exited. Returns {path: launches}."""
+    from vit_cpp_tpu_torch.cli import quantize
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.models.vitstr import vitstr_id2label
+    from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
+
+    t0 = time.perf_counter()
+    ocr, ocr_q8, siglip = (os.path.join(tmp, n) for n in (
+        "vitstr-b16-synthetic-f16.gguf", "vitstr-b16-synthetic-q8_0.gguf",
+        "siglip-b16-synthetic-f16.gguf"))
+    write_synthetic_model(ocr, VitHParams(**VITSTR_B), ftype=1, seed=0, id2label=vitstr_id2label())
+    with contextlib.redirect_stdout(io.StringIO()):
+        if quantize.main([ocr, ocr_q8, "8"]) != 0:
+            raise AssertionError("cli.quantize failed on the ViTSTR file")
+    demos = vitstr_assets()
+    paths, _ = asset_bodies()
+    serve = "vit_cpp_tpu_torch.cli.serve"
+    procs = {
+        "cli.vitstr": start_module("vit_cpp_tpu_torch.cli.vitstr", "-m", ocr, "-i", demos[0]),
+        "cli.serve vitstr defaults": start_module(serve, "-m", ocr, *demos, "-b", "8"),
+        "cli.serve vitstr --mm pallas": start_module(serve, "-m", ocr_q8, *demos, "-b", "8",
+                                                     "--mm", "pallas"),
+        **{f"cli.serve {what}": start_module(serve, "-m", f16, *paths, "-b", "8", "-k", "5", *flags)
+           for what, _, flags, _ in GEOMETRIES},
+    }
+    try:
+        write_synthetic_model(siglip, VitHParams(**SIGLIP_B), ftype=1, seed=0)
+        log(f"model_families: ViTSTR-B f16 + Q8_0 and SigLIP-B/16 f16 written, five command "
+            f"lines started, in {time.perf_counter() - t0:.1f} s")
+        launches, vitstr_ref, served = vitstr_paths(ocr, ocr_q8, f16, card)
+        launches.update(siglip_path(siglip, card))
+        more, resampled_ref = resampled_paths(f16, card)
+        launches.update(more)
+        explain_path(f16, tmp, card)
+        vit_inspect(ocr, siglip)
+        check_cli_outputs(procs, ocr, vitstr_ref, served, resampled_ref)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+    resampled_times(f16, card)
+    log(f"model_families: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -1901,6 +2520,7 @@ def run_paths(card: str):
         serve_launches = vit_serve(f16, q8, card)
         serve_launches.update(embeddings(f16, card))
         serve_launches.update(serving_workflow(f16, q8, tmp, card))
+        serve_launches.update(model_families(f16, tmp, card))
         vit_inspect(f16, q8)
         f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)

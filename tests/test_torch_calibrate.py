@@ -135,11 +135,88 @@ def test_collect_act_maxima_matches_jax(tmp_path_factory, family, fold):
 
 
 def test_attention_pooled_and_sequence_heads_raise(model):
+    """Attention-pooled (SigLIP) and sequence (ViTSTR) heads calibrate
+    since the model-families slice (test_model_family_maxima_match_jax
+    below); on this path a V-MoE model is what still raises, naming its
+    slice."""
     ours, _, hp = _trees(model)
     x = torch.from_numpy(structured_images(2))
-    for other in (dataclasses.replace(hp, global_pool="map"), dataclasses.replace(hp, seq_len=5)):
-        with pytest.raises(NotImplementedError, match="model-families"):
-            calibrate.collect_act_maxima(ours, x, other)
+    with pytest.raises(NotImplementedError, match="V-MoE"):
+        calibrate.collect_act_maxima(ours, x, dataclasses.replace(hp, num_experts=2))
+
+
+MODEL_FAMILIES = {
+    # ViTSTR: 1 channel, the 25-row sequence head (T=37 at 48 px, patch 8)
+    "vitstr": (dict(BASE, num_classes=96, img_size=48, in_chans=1, seq_len=25), 1),
+    # SigLIP: no CLS token, attention pooling, a 5-class head on the pool
+    "siglip": (dict(BASE, num_classes=5, num_prefix_tokens=0, global_pool="map",
+                    pixel_norm="unit"), 3),
+}
+
+
+def _family_trees(path, fold):
+    """(port int8 tree, JAX int8 tree, hparams) with each package's
+    detected hparams."""
+    from vit_cpp_tpu.engine import detect_hparams as jax_detect
+    from vit_cpp_tpu_torch.engine import detect_hparams
+
+    mf, jmf = read_model(path), jax_read_model(path)
+    hp = detect_hparams(mf)
+    ours = convert_params_to_int8(load_params(mf, dtype=torch.float32, hparams=hp, device="cpu"))
+    theirs = jax_to_int8(jax_load_params(jmf, hparams=jax_detect(jmf)))
+    if fold:
+        ours = fold_layernorms(ours, mm_impl="int8")
+        theirs = jax_fold(theirs, mm_impl="int8")
+    return ours, theirs, hp
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["unfolded", "folded"])
+@pytest.mark.parametrize("family", sorted(MODEL_FAMILIES))
+def test_model_family_maxima_match_jax(tmp_path_factory, family, fold):
+    """Static scales for both families: every site's maximum and the
+    head's (the 25 normed rows of the sequence readout, the output of the
+    attention pool) equal the JAX maxima within MAXIMA_RTOL, and so do the
+    attached scales; a SigLIP tree keeps its final norm when folded."""
+    geometry, chans = MODEL_FAMILIES[family]
+    path = str(tmp_path_factory.mktemp(f"cal-{family}") / "m.gguf")
+    write_synthetic_model(path, JaxHParams(**geometry), ftype=1, seed=17)
+    ours, theirs, hp = _family_trees(path, fold)
+    x = structured_images(6, size=hp.img_size)[:, :chans]
+    got = calibrate.collect_act_maxima(ours, torch.from_numpy(x), hp)
+    want = jax_cal.collect_act_maxima(theirs, jnp.asarray(x), _jax_hp(hp))
+    assert set(got) == set(want) == {*GEMMS, "head"}
+    for name in got:
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
+                                   rtol=MAXIMA_RTOL, atol=0, err_msg=name)
+    static = calibrate.calibrate_act_scales(ours, torch.from_numpy(x), hp)
+    jax_static = jax_cal.calibrate_act_scales(theirs, jnp.asarray(x), _jax_hp(hp))
+    for name, scale in _scales(static).items():
+        np.testing.assert_allclose(scale, _scales(jax_static)[name], rtol=MAXIMA_RTOL,
+                                   err_msg=name)
+    assert (static["norm"]["scale"] is None) == (fold and family == "vitstr")
+
+
+def test_static_engines_serve_both_families(tmp_path_factory):
+    """VitstrEngine and the SigLIP engine with act_quant="static" calibrate
+    on a batch, pass the guardrail and serve finite probabilities of the
+    dynamic engine's shape. These random 2-layer models have near-tied
+    logits, so the guardrail and the top-1 check against the dynamic
+    engine ask for half the predictions (per position for ViTSTR), not
+    the serving default 0.90."""
+    from vit_cpp_tpu_torch.engine import VitstrEngine
+
+    for family, (geometry, chans) in sorted(MODEL_FAMILIES.items()):
+        path = str(tmp_path_factory.mktemp(f"static-{family}") / "m.gguf")
+        write_synthetic_model(path, JaxHParams(**geometry), ftype=1, seed=19)
+        cls = VitstrEngine if family == "vitstr" else VitEngine
+        x = torch.from_numpy(structured_images(4, size=geometry["img_size"])[:, :chans])
+        engine = cls(path, device="cpu", verbose=False, mm_impl="int8", act_quant="static")
+        engine.calibrate(x, min_agreement=0.5)
+        assert params_have_static_scales(engine.params), family
+        dynamic = cls(path, device="cpu", verbose=False, mm_impl="int8")
+        got, want = engine.predict_probs_batch(x), dynamic.predict_probs_batch(x)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.5
 
 
 def test_calibrate_needs_an_int8_tree(model):

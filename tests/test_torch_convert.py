@@ -277,9 +277,10 @@ def test_f16_rules_and_forward_parity(torch_ckpt, tmp_path):
 
 
 def test_vitstr_conversion_labels_and_refusal(tmp_path):
-    """--vitstr writes the 96-token vocabulary; the port serves no ViTSTR
-    yet, so its engine refuses the file by name."""
-    from vit_cpp_tpu_torch.engine import detect_hparams
+    """--vitstr writes the 96-token vocabulary and a 1-channel patch conv,
+    which the port reads as ViTSTR (seq_len 25); its classifier refuses
+    the sequence head by name, as the JAX engine does."""
+    from vit_cpp_tpu_torch.engine import VitEngine, detect_hparams
 
     hp = JaxHParams(**{**BASE, "num_classes": 96})
     ckpt = _save(random_state_dict(hp, seed=5), tmp_path / "vitstr.pth")
@@ -288,8 +289,11 @@ def test_vitstr_conversion_labels_and_refusal(tmp_path):
     mf = read_model(out)
     assert mf.tensors["patch_embed.proj.weight"].shape[1] == 1
     assert (mf.id2label[0], mf.id2label[1], len(mf.id2label)) == ("[GO]", "[s]", 96)
-    with pytest.raises(NotImplementedError, match="ViTSTR"):
-        detect_hparams(mf)
+    assert (detect_hparams(mf).in_chans, detect_hparams(mf).seq_len) == (1, 25)
+    with pytest.raises(ValueError, match="ViTSTR"):
+        VitEngine(out, device="cpu", verbose=False).classify_file(
+            os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                         "vitstr", "demo_1.png"), verbose=False)
 
 
 def test_real_gguf_container_reads_back(torch_ckpt, tmp_path):

@@ -116,13 +116,15 @@ def test_build_engine_serving_defaults_and_unported_flags(model):
         torch.bfloat16, "int8", "pallas-fast"
     )
     assert engine.params["blocks"]["ln1"]["scale"] is None  # fold_ln on
-    # --act static serves since the static-scale slice; --patch-size still raises
-    with pytest.raises(NotImplementedError, match="model-families"):
-        build_engine(model, patch_size=4, device="cpu")
+    # --act static serves since the static-scale slice, --patch-size and
+    # --img-size since the model-families slice (models/resample.py);
+    # --tome still raises
+    engine, _ = build_engine(model, patch_size=4, device="cpu")
+    assert engine.hp.patch_size == 4
     with pytest.raises(NotImplementedError, match="ToMe"):
         build_engine(model, tome=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="model-families"):
-        build_engine(model, img_size=64, device="cpu")
+    engine, _ = build_engine(model, img_size=64, device="cpu")
+    assert engine.hp.img_size == 64
     # --mm pallas serves (block-quantized files through the dequantizing
     # kernel) and, as in the JAX tool, leaves fold off
     engine, _ = build_engine(model, mm="pallas", device="cpu")
@@ -133,20 +135,46 @@ def test_build_engine_serving_defaults_and_unported_flags(model):
             build_engine(model)  # --device cuda without a GPU never runs on the CPU
 
 
+def test_build_engine_reads_the_file_once(model, monkeypatch):
+    """build_engine parses the gguf once and hands the parsed file to the
+    engine it picks, which does not read it again."""
+    from vit_cpp_tpu_torch import engine as engine_module
+    from vit_cpp_tpu_torch.gguf import reader
+
+    real, calls = reader.read_model, []
+
+    def counted(path, *args, **kw):
+        calls.append(path)
+        return real(path, *args, **kw)
+
+    monkeypatch.setattr(reader, "read_model", counted)
+    monkeypatch.setattr(engine_module, "read_model", counted)
+    engine, _ = build_engine(model, device="cpu")
+    assert calls == [model]
+    monkeypatch.undo()
+    ref, _ = build_engine(model, device="cpu")
+    pixels = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 3, engine.hp.img_size, engine.hp.img_size)).astype(np.float32))
+    np.testing.assert_array_equal(engine.predict_probs_batch(pixels).numpy(),
+                                  ref.predict_probs_batch(pixels).numpy())
+
+
 @pytest.mark.parametrize(
     "argv,match",
     [
-        # multi-model daemons and --act static serve now: these cases point
-        # at flags that still raise, through the same two code paths, and
+        # multi-model daemons, --act static and (since the model-families
+        # slice) --img-size / --patch-size serve now: these cases point at
+        # flags that still raise, through the same two code paths, and
         # keep their ids
         pytest.param(["-m", "cls=MODEL", "-m", "b=MODEL", "--tome", "4", "--device", "cpu"],
                      "ToMe", id="argv0-multi-model"),
         (["-m", "MODEL", "--mesh", "2x1"], "multi-device"),
         pytest.param(["-m", "MODEL", "--act", "static", "--calib-dir", "d", "--patch-size", "4",
-                      "--device", "cpu"], "model-families", id="argv2-static-scale"),
+                      "--tome", "4", "--device", "cpu"], "ToMe", id="argv2-static-scale"),
         (["-m", "MODEL", "--compile-cache"], "XLA compile cache"),
         (["-m", "MODEL", "--tome", "4", "--device", "cpu"], "ToMe"),
-        (["-m", "MODEL", "--img-size", "64", "--device", "cpu"], "model-families"),
+        pytest.param(["-m", "MODEL", "--img-size", "64", "--tome", "4", "--device", "cpu"],
+                     "ToMe", id="argv5-model-families"),
     ],
 )
 def test_cli_server_unported_flags_raise(model, argv, match):

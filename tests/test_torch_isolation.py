@@ -288,6 +288,33 @@ def test_write_gguf_is_byte_identical(tmp_path, extra):
         assert f.read() == g.read()
 
 
+def test_import_scan_covers_the_model_family_modules():
+    """The scans above reach the modules of the model families: ViTSTR,
+    the geometry resampler, attention maps and their command lines."""
+    for module in ("models/vitstr.py", "models/resample.py", "models/attention_maps.py",
+                   "cli/vitstr.py", "cli/explain.py", "serve.py", "engine.py"):
+        assert os.path.join("vit_cpp_tpu_torch", module) in SOURCES
+
+
+def test_quick_example_vitstr_writer_is_byte_identical(tmp_path):
+    from vit_cpp_tpu.testing.synthetic import write_quick_example_vitstr_model as jax_quick
+    from vit_cpp_tpu_torch.testing.synthetic import write_quick_example_vitstr_model
+
+    ours, theirs = str(tmp_path / "port.gguf"), str(tmp_path / "jax.gguf")
+    hp, want = write_quick_example_vitstr_model(ours), jax_quick(theirs)
+    assert dataclasses.asdict(hp) == dataclasses.asdict(want)
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_vitstr_constants_are_the_jax_packages():
+    from vit_cpp_tpu.models import vitstr as jax_vitstr
+    from vit_cpp_tpu_torch.models import vitstr
+
+    assert (vitstr.VITSTR_SEQ_LEN, vitstr.GO_ID, vitstr.EOS_ID) == (
+        jax_vitstr.VITSTR_SEQ_LEN, jax_vitstr.GO_ID, jax_vitstr.EOS_ID) == (25, 0, 1)
+
+
 def test_vitstr_vocabulary_is_the_jax_packages():
     from vit_cpp_tpu.models.vitstr import VITSTR_VOCAB as JAX_VOCAB
     from vit_cpp_tpu.models.vitstr import vitstr_id2label as jax_id2label

@@ -251,17 +251,20 @@ def test_cli_serve_headless_encoder_needs_embed(files, capsys, tmp_path):
     "flags,match",
     [
         # --act static, --calib-dir and --act-scales serve since the
-        # static-scale slice: these cases pass each with a flag that still
-        # raises, and keep their ids
+        # static-scale slice, --img-size and --patch-size since the
+        # model-families slice: these cases pass each with a flag that
+        # still raises, and keep their ids
         pytest.param(["--act", "static", "--tome", "2"], r"--tome .* ToMe slice",
                      id=r"flags0---act static .* static-scale slice"),
         pytest.param(["--calib-dir", "d", "--mesh", "2x1"], r"--mesh .* multi-device slice",
                      id=r"flags1---calib-dir .* static-scale slice"),
-        pytest.param(["--act-scales", "s.json", "--img-size", "64"],
-                     r"--img-size .* model-families slice",
+        pytest.param(["--act-scales", "s.json", "--img-size", "64", "--mesh", "2x1"],
+                     r"--mesh .* multi-device slice",
                      id=r"flags2---act-scales .* static-scale slice"),
-        (["--img-size", "64"], r"--img-size .* model-families slice"),
-        (["--patch-size", "4"], r"--patch-size .* model-families slice"),
+        pytest.param(["--img-size", "64", "--tome", "2"], r"--tome .* ToMe slice",
+                     id=r"flags3---img-size .* model-families slice"),
+        pytest.param(["--patch-size", "4", "--mesh", "2x1"], r"--mesh .* multi-device slice",
+                     id=r"flags4---patch-size .* model-families slice"),
         (["--tome", "2"], r"--tome .* ToMe slice"),
         (["--mesh", "2x1"], r"--mesh .* multi-device slice"),
         (["--compile-cache"], "XLA compile cache"),

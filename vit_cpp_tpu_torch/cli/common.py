@@ -1,7 +1,9 @@
 """Engine construction shared by the command-line tools.
 
 Counterpart of vit_cpp_tpu/cli/common.py::build_engine, for gguf
-checkpoints (f16/f32 or block-quantized). The defaults are the serving
+checkpoints (f16/f32 or block-quantized): a sequence-head (ViTSTR) file
+gets a VitstrEngine, any other a VitEngine, and `img_size`/`patch_size`
+resample the geometry at load (models/resample.py). The defaults are the serving
 ones: bf16 activations, W8A8 int8 linears, the fused-QKV attention kernel
 with the fast softmax, and LayerNorm folded into the matmuls when serving
 int8 without a scales sidecar. `mm="pallas"` leaves fold off by default,
@@ -83,27 +85,27 @@ def build_engine(
     tome: int = 0,
     device: str = "cuda",
 ):
-    """gguf checkpoint -> (engine, is_vitstr). is_vitstr is always False:
-    ViTSTR checkpoints raise in detect_hparams. A .vitx artifact raises
-    ValueError: the port runs none."""
+    """gguf checkpoint -> (engine, is_vitstr): a VitstrEngine when the
+    file has a sequence head. A .vitx artifact raises ValueError: the
+    port runs none."""
     if is_vitx(path):
         raise ValueError(
             f"{path} is a .vitx artifact: it carries StableHLO for the JAX "
             "package and cannot run under vit_cpp_tpu_torch; serve the gguf "
             "checkpoint it was exported from"
         )
-    if img_size is not None or patch_size is not None:
-        raise _not_ported("--img-size / --patch-size",
-                          "the model-families slice (models/resample.py)")
     if tome:
         raise _not_ported("--tome", "the ToMe slice (ops/tome.py)")
-    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.engine import VitEngine, VitstrEngine, detect_hparams
+    from vit_cpp_tpu_torch.gguf.reader import read_model
 
     if fold_ln is None:
         # a sidecar's scales describe the unfolded graph (the engine
         # refuses the pair): fold stays off for them by default
         fold_ln = mm == "int8" and act_scales is None
-    engine = VitEngine(
+    mf = read_model(path)  # read once: the engine takes the parsed file
+    is_vitstr = detect_hparams(mf).seq_len is not None
+    engine = (VitstrEngine if is_vitstr else VitEngine)(
         path,
         dtype=dtype,
         attn_impl=attn,
@@ -111,10 +113,13 @@ def build_engine(
         fold_ln=fold_ln,
         act_quant=act,
         act_scales=act_scales,
+        img_size=img_size,
+        patch_size=patch_size,
         verbose=False,
         device=device,
+        model_file=mf,
     )
-    return engine, False
+    return engine, is_vitstr
 
 
 def calibrate_engine_from_paths(engine, calib: str, n: int = 16) -> bool:

@@ -9,9 +9,12 @@ read from --act-scales, or else calibrated on the first batch. Drives
 vit_cpp_tpu_torch.serve: the decode of batch k+1 overlaps the forward of
 batch k on the card. Prints one
 `path<TAB>label<TAB>prob` line per image (`path<TAB>label:prob ...` for
--k > 1) and an images/sec summary on stderr; `--embed OUT.npy` writes the
-(N, hidden) f32 features and OUT.paths.txt instead. Flags whose slice is
-not ported yet raise and name that slice.
+-k > 1; `path<TAB>text<TAB>confidence` for a ViTSTR checkpoint, through
+recognize_files) and an images/sec summary on stderr; `--embed OUT.npy`
+writes the (N, hidden) f32 features and OUT.paths.txt instead.
+`--img-size` / `--patch-size` serve the checkpoint at another geometry
+(models/resample.py). Flags whose slice is not ported yet raise and name
+that slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir [-b 64] [--device cuda|cpu]
@@ -64,8 +67,14 @@ def _parser() -> argparse.ArgumentParser:
                     "(N, hidden) f32 .npy of final-LN pooled features plus "
                     "OUT.paths.txt (one kept path per line)")
     ap.add_argument("--decode-threads", type=int, default=0)
-    ap.add_argument("--img-size", type=int, default=None, metavar="PX")
-    ap.add_argument("--patch-size", type=int, default=None, metavar="P")
+    ap.add_argument("--img-size", type=int, default=None, metavar="PX",
+                    help="serve at another resolution: the pos_embed grid is "
+                    "resampled bicubically and inputs resized to PX x PX (a "
+                    "multiple of the patch size; gguf classifiers only)")
+    ap.add_argument("--patch-size", type=int, default=None, metavar="P",
+                    help="serve at another patch size: the patch-embedding kernel "
+                    "is PI-resized and the pos_embed grid follows (gguf "
+                    "classifiers only)")
     ap.add_argument("--mesh", metavar="DPxTP", default=None)
     ap.add_argument("--tome", type=int, default=0, metavar="R")
     ap.add_argument("--compile-cache", nargs="?", const="", default=None, metavar="DIR")
@@ -80,9 +89,6 @@ def _check_ported(args) -> None:
     from vit_cpp_tpu_torch.cli.common import _not_ported
 
     for given, flag, slice_ in (
-        (args.img_size is not None, "--img-size", "the model-families slice (models/resample.py)"),
-        (args.patch_size is not None, "--patch-size",
-         "the model-families slice (models/resample.py)"),
         (args.tome, "--tome", "the ToMe slice (ops/tome.py)"),
         (args.mesh, "--mesh", "the multi-device slice"),
     ):
@@ -117,12 +123,12 @@ def main(argv=None) -> int:
     from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
 
     try:
-        engine, _ = build_engine(
+        engine, is_vitstr = build_engine(
             args.model, dtype=args.dtype, mm=args.mm, attn=args.attn,
             fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
-            device=args.device,
+            img_size=args.img_size, patch_size=args.patch_size, device=args.device,
         )
-    except ValueError as e:  # e.g. a .vitx artifact
+    except ValueError as e:  # a .vitx artifact, a geometry that does not fit
         print(f"serve: {e}", file=sys.stderr)
         return 1
     if engine.hp.num_classes == 0 and not args.embed:
@@ -145,7 +151,7 @@ def main(argv=None) -> int:
     if args.embed:
         return _embed_loop(engine, paths, out=args.embed, batch=args.batch,
                            decode_threads=args.decode_threads)
-    return _serve_loop(engine, paths, batch=args.batch, topk=args.topk,
+    return _serve_loop(engine, is_vitstr, paths, batch=args.batch, topk=args.topk,
                        decode_threads=args.decode_threads)
 
 
@@ -178,27 +184,37 @@ def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int) -> 
     return 0
 
 
-def _serve_loop(engine, paths, *, batch: int, topk: int, decode_threads: int) -> int:
+def _serve_loop(engine, is_vitstr: bool, paths, *, batch: int, topk: int,
+                decode_threads: int) -> int:
     """Stream every path through the serving pipeline and print results."""
-    from vit_cpp_tpu_torch.serve import serve_files
+    from vit_cpp_tpu_torch.serve import recognize_files, serve_files
 
     t0 = time.perf_counter()
     n_ok = 0
-    for r in serve_files(engine, paths, batch=batch, decode_threads=decode_threads,
-                         keep_probs=topk > 1):
-        if r.top1 < 0:
-            print(f"{r.path}\t<decode failed>", file=sys.stderr)
-            continue
-        n_ok += 1
-        if topk > 1:
-            order = np.argsort(-r.probs, kind="stable")[:topk]
-            tags = " ".join(
-                f"{engine.id2label.get(int(i), f'LABEL_{i}')}:{r.probs[i]:.2f}" for i in order
-            )
-            print(f"{r.path}\t{tags}")
-        else:
-            label = engine.id2label.get(r.top1, f"LABEL_{r.top1}")
-            print(f"{r.path}\t{label}\t{r.prob:.2f}")
+    if is_vitstr:
+        for r in recognize_files(engine, paths, batch=batch, decode_threads=decode_threads):
+            if r.confidence < 0:
+                print(f"{r.path}\t<decode failed>", file=sys.stderr)
+                continue
+            n_ok += 1
+            print(f"{r.path}\t{r.text}\t{r.confidence:.2f}")
+    else:
+        for r in serve_files(engine, paths, batch=batch, decode_threads=decode_threads,
+                             keep_probs=topk > 1):
+            if r.top1 < 0:
+                print(f"{r.path}\t<decode failed>", file=sys.stderr)
+                continue
+            n_ok += 1
+            if topk > 1:
+                order = np.argsort(-r.probs, kind="stable")[:topk]
+                tags = " ".join(
+                    f"{engine.id2label.get(int(i), f'LABEL_{i}')}:{r.probs[i]:.2f}"
+                    for i in order
+                )
+                print(f"{r.path}\t{tags}")
+            else:
+                label = engine.id2label.get(r.top1, f"LABEL_{r.top1}")
+                print(f"{r.path}\t{label}\t{r.prob:.2f}")
     dt = time.perf_counter() - t0
     print(
         f"serve: {n_ok}/{len(paths)} images in {dt:.2f}s "

@@ -9,15 +9,20 @@ at load, `--mm pallas` runs them through the dequantizing-matmul kernel;
 --calib-dir or read from --act-scales (the daemon warms up on a dummy
 batch, so one of the two is required). A headless encoder
 (num_classes=0) serves POST /v1/embed only; a classifier serves
-/v1/classify and /v1/embed. `-m name=path`, repeated, serves several
-models from one daemon under /v1/<name>/classify and /v1/<name>/embed.
-Flags whose slice is not ported yet raise and name that slice.
+/v1/classify and /v1/embed, a ViTSTR checkpoint /v1/recognize and
+/v1/embed. `-m name=path`, repeated, serves several models from one
+daemon under /v1/<name>/classify (or /recognize) and /v1/<name>/embed.
+`--img-size` / `--patch-size` serve every gguf model at another geometry
+(models/resample.py). Flags whose slice is not ported yet raise and name
+that slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
   curl -s -X POST --data-binary @magpie.jpeg localhost:8000/v1/classify?topk=5
   python -m vit_cpp_tpu_torch.cli.server -m a=model-f16.gguf -m b=model-q8_0.gguf --act static --calib-dir calib/
   curl -s -X POST --data-binary @magpie.jpeg localhost:8000/v1/b/classify
+  python -m vit_cpp_tpu_torch.cli.server -m cls=model.gguf -m ocr=vitstr.gguf
+  curl -s -X POST --data-binary @demo_1.png localhost:8000/v1/ocr/recognize
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-m", "--model", required=True, action="append",
                     help="gguf checkpoint; repeat with name=path to serve several "
-                    "models from one daemon (routes /v1/<name>/classify|embed)")
+                    "models from one daemon (routes /v1/<name>/classify|"
+                    "recognize|embed): -m cls=model.gguf -m ocr=vitstr.gguf")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("-b", "--batch", type=int, default=8,
@@ -51,8 +57,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="representative images for --act static (up to 16 used)")
     ap.add_argument("--act-scales", metavar="FILE",
                     help="pre-measured static scales (a sidecar JSON) for --act static")
-    ap.add_argument("--img-size", type=int, default=None, metavar="PX")
-    ap.add_argument("--patch-size", type=int, default=None, metavar="P")
+    ap.add_argument("--img-size", type=int, default=None, metavar="PX",
+                    help="serve at another resolution: the pos_embed grid is "
+                    "resampled bicubically and inputs resized to PX x PX (a "
+                    "multiple of the patch size; gguf classifiers only)")
+    ap.add_argument("--patch-size", type=int, default=None, metavar="P",
+                    help="serve at another patch size: the patch-embedding kernel "
+                    "is PI-resized and the pos_embed grid follows (gguf "
+                    "classifiers only)")
     ap.add_argument("--tome", type=int, default=0, metavar="R")
     ap.add_argument("--mesh", metavar="DPxTP", default=None)
     ap.add_argument("--request-timeout", type=float, default=30.0,
@@ -70,16 +82,30 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _engine(args, path: str, who: str):
+def _engine(args, path: str, who: str, multi: bool = False):
     """build_engine with the flags, then static calibration on --calib-dir
-    when asked; None after printing the error on a bad model or set."""
-    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+    when asked; None after printing the error on a bad model or set. In a
+    multi-model daemon a .vitx artifact skips the geometry flags with a
+    notice, as the JAX daemon does (its geometry was baked at export);
+    build_engine then refuses the artifact."""
+    from vit_cpp_tpu_torch.cli.common import (
+        build_engine,
+        calibrate_engine_from_paths,
+        is_vitx,
+    )
 
+    img_size, patch_size = args.img_size, args.patch_size
+    if multi and is_vitx(path) and (img_size is not None or patch_size is not None):
+        skipped = [f"{flag} {v}" for flag, v in (("--img-size", img_size),
+                                                 ("--patch-size", patch_size)) if v is not None]
+        print(f"{who}.vitx geometry is baked at export; ignoring {' '.join(skipped)}",
+              file=sys.stderr)
+        img_size = patch_size = None
     try:
         engine, _ = build_engine(
             path, dtype=args.dtype, mm=args.mm, attn=args.attn,
             fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
-            img_size=args.img_size, patch_size=args.patch_size,
+            img_size=img_size, patch_size=patch_size,
             tome=args.tome, device=args.device,
         )
         if args.act == "static" and not args.act_scales:
@@ -139,7 +165,7 @@ def main(argv=None) -> int:
             if name in engines:
                 print(f"duplicate model name {name!r}", file=sys.stderr)
                 return 1
-            engines[name] = _engine(args, path, f"vit-server: {name}: ")
+            engines[name] = _engine(args, path, f"vit-server: {name}: ", multi=True)
             if engines[name] is None:
                 return 1
         httpd, batchers = create_multi_server(
@@ -171,7 +197,8 @@ def main(argv=None) -> int:
             buckets=args.bucket,
         )
         batchers = {None: batcher}
-        banner = (f"vit-server: vit model on http://{args.host}:{httpd.server_port} "
+        kind = "vitstr" if engine.hp.seq_len is not None else "vit"
+        banner = (f"vit-server: {kind} model on http://{args.host}:{httpd.server_port} "
                   f"(micro-batch {args.batch}, wait {args.max_wait_ms} ms, "
                   f"device {engine.device})")
 

@@ -23,9 +23,20 @@ carries over:
                A calibration the guardrail rejects (quant/calibrate.py)
                prints a warning and leaves the engine on dynamic scales.
 
+`img_size` / `patch_size` serve the checkpoint at another resolution or
+patch size: the positional grid is resampled and the patch embedding
+PI-resized on the host at load time (models/resample.py).
+
 `verbose` prints the JAX engine's `vit_model_load:` echo on stdout.
+`model_file` is `model_path` already parsed by gguf/reader.py, which
+the engine then does not read again.
 Headless encoders (num_classes == 0) load and serve `features_batch`;
 their classifier calls raise ValueError, as the JAX package's do.
+`VitstrEngine` is the scene-text engine: grayscale input, the 25-row
+sequence readout and greedy decoding (models/vitstr.py).
+`attention_maps_batch` and `explain_file` run one composed-attention
+encoder pass that keeps every layer's attention probabilities
+(models/attention_maps.py), for vit-explain.
 """
 
 from __future__ import annotations
@@ -39,11 +50,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vit_cpp_tpu_torch.gguf.reader import read_model
+from vit_cpp_tpu_torch.gguf.reader import ModelFile, read_model
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.io.image import load_image_rgb
 from vit_cpp_tpu_torch.models.params import infer_family_hparams, load_params
 from vit_cpp_tpu_torch.models.vit import ATTN_IMPLS, forward
+from vit_cpp_tpu_torch.models.vitstr import VITSTR_SEQ_LEN
 from vit_cpp_tpu_torch.ops.precision import PRECISIONS, matmul_precision
 from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
 
@@ -64,19 +76,16 @@ def resolve_device(device) -> torch.device:
 
 def detect_hparams(mf) -> VitHParams:
     """Hparams the file's header block cannot carry, inferred from its
-    tensors: in_chans from the patch conv, and the family extensions
-    (models/params.py::infer_family_hparams). ViTSTR (1-channel) and
-    V-MoE checkpoints raise: this package does not run them yet."""
+    tensors: in_chans from the patch conv (a 1-channel file is ViTSTR,
+    whose sequence head reads seq_len=25 rows), and the family extensions
+    (models/params.py::infer_family_hparams). V-MoE checkpoints raise:
+    this package does not run them yet."""
     hp = mf.hparams
     pe = mf.tensors.get("patch_embed.proj.weight")
     if pe is not None and len(pe.shape) == 4 and pe.shape[1] != hp.in_chans:
         hp = dataclasses.replace(hp, in_chans=int(pe.shape[1]))
-    if hp.in_chans == 1:
-        raise NotImplementedError(
-            "ViTSTR (1-channel, sequence-head) checkpoints are not ported "
-            "to vit_cpp_tpu_torch yet; they come with the model-families "
-            "slice (models/vitstr.py)"
-        )
+    if hp.in_chans == 1 and hp.seq_len is None:
+        hp = dataclasses.replace(hp, seq_len=VITSTR_SEQ_LEN)
     return infer_family_hparams(hp, mf.tensors)
 
 
@@ -94,8 +103,11 @@ class VitEngine:
         fold_ln: bool = False,
         act_quant: str = "dynamic",
         act_scales: Optional[str] = None,
+        img_size: Optional[int] = None,
+        patch_size: Optional[int] = None,
         verbose: bool = True,
         device="cuda",
+        model_file: Optional[ModelFile] = None,
     ):
         t0 = time.perf_counter()
         if dtype not in _DTYPES:
@@ -128,7 +140,7 @@ class VitEngine:
         self.device = resolve_device(device)
         if verbose:
             print(f"vit_model_load: loading model from '{model_path}' - please wait")
-        mf = read_model(model_path)
+        mf = read_model(model_path) if model_file is None else model_file
         hp = detect_hparams(mf)
         if act_quant == "static" and hp.num_experts:
             raise ValueError(
@@ -154,11 +166,24 @@ class VitEngine:
                 f"vit_model_load: model size = {total_bytes / 1024 / 1024:8.2f} MB "
                 f"/ num tensors = {len(mf.tensors)}"
             )
-        self.hp = hp
         self.id2label = mf.id2label
         self.dtype = _DTYPES[dtype]
         self.matmul_precision = matmul_precision
         params = load_params(mf, dtype=self.dtype, hparams=hp, device=self.device)
+        if (img_size is not None and img_size != hp.img_size) or (
+            patch_size is not None and patch_size != hp.patch_size
+        ):
+            from vit_cpp_tpu_torch.models.resample import resample_params
+
+            patch_changed = patch_size is not None and patch_size != hp.patch_size
+            params, hp = resample_params(params, hp, img_size, patch_size=patch_size)
+            if verbose:
+                print(
+                    f"vit_model_load: geometry override      = {hp.img_size} px / patch "
+                    f"{hp.patch_size} (pos_embed resampled"
+                    + (", patch_embed PI-resized)" if patch_changed else ")")
+                )
+        self.hp = hp
         if mm_impl == "int8":
             from vit_cpp_tpu_torch.quant.int8 import convert_params_to_int8
 
@@ -185,7 +210,7 @@ class VitEngine:
         self.load_ms = (time.perf_counter() - t0) * 1000.0
 
     def preprocess_image(self, img_u8: np.ndarray) -> torch.Tensor:
-        """(H, W, 3) u8 host image -> (3, S, S) f32 on the engine's device."""
+        """(H, W, 3) u8 host image -> (C, S, S) f32 on the engine's device."""
         return self.preprocess_images([img_u8])[0]
 
     def preprocess_images(self, images: Sequence[np.ndarray]) -> torch.Tensor:
@@ -276,12 +301,63 @@ class VitEngine:
         pixels = self.preprocess_image(load_image_rgb(path))
         return self.features_batch(pixels[None])[0].float().cpu().numpy()
 
+    def attention_maps_batch(self, images: torch.Tensor) -> np.ndarray:
+        """images: (B, C, S, S) preprocessed -> (B, L, H, T, T) f32
+        attention probabilities on the host (models/attention_maps.py):
+        an analysis path on composed attention, with the engine's weights
+        (quantized, folded) as they are."""
+        from vit_cpp_tpu_torch.models.attention_maps import attention_maps
+
+        with torch.inference_mode(), matmul_precision(self.matmul_precision):
+            maps, _ = attention_maps(self.params, images.to(self.device), self.hp)
+        return maps.cpu().numpy()
+
+    def explain_file(
+        self, path: str, topk: int = 5, head_fuse: str = "mean"
+    ) -> Tuple[List[Tuple[int, float, str]], np.ndarray]:
+        """One encoder pass -> ([(class_id, prob, label)] top-k, the
+        (side, side) attention-rollout saliency). The maps forward's last
+        block output goes through the production head (head_logits), so
+        vit-explain runs the encoder once. A headless encoder gives no
+        top-k."""
+        from vit_cpp_tpu_torch.models.attention_maps import (
+            attention_maps,
+            attention_rollout,
+            head_logits,
+        )
+
+        pixels = self.preprocess_image(load_image_rgb(path))[None]
+        with torch.inference_mode(), matmul_precision(self.matmul_precision):
+            maps, final = attention_maps(self.params, pixels, self.hp)
+            probs = None
+            if self.hp.num_classes:
+                logits = head_logits(self.params, final, self.hp, self.mm_impl)
+                probs = torch.softmax(logits.float(), dim=-1)[0].cpu().numpy()
+        grid = attention_rollout(maps.cpu().numpy(), self.hp, head_fuse=head_fuse)[0]
+        if probs is None:
+            return [], grid
+        order = np.argsort(-probs, kind="stable")[:topk]
+        return [
+            (int(i), float(probs[i]), self.id2label.get(int(i), f"LABEL_{i}"))
+            for i in order
+        ], grid
+
+    def attention_rollout_file(self, path: str, head_fuse: str = "mean") -> np.ndarray:
+        """One image -> (side, side) [0, 1] attention-rollout saliency."""
+        return self.explain_file(path, head_fuse=head_fuse)[1]
+
     def classify_file(
         self, path: str, topk: int = 5, verbose: bool = True
     ) -> List[Tuple[int, float, str]]:
         """Decode, preprocess, predict, return [(class_id, prob, label)];
         verbose prints the image lines (stdout) and the resampler's scale
-        (stderr) as the JAX engine does."""
+        (stderr) as the JAX engine does. A sequence-head (ViTSTR) file
+        raises ValueError: VitstrEngine recognizes it."""
+        if self.hp.seq_len is not None and type(self) is VitEngine:
+            raise ValueError(
+                "this checkpoint has a sequence head (ViTSTR); use "
+                "VitstrEngine / the vitstr CLI instead of the classifier"
+            )
         img = load_image_rgb(path)
         if verbose:
             print(f"load_image_from_file: loaded image '{path}' ({img.shape[1]} x {img.shape[0]})")
@@ -295,3 +371,30 @@ class VitEngine:
             (int(i), float(probs[i]), self.id2label.get(int(i), f"LABEL_{i}"))
             for i in order
         ]
+
+
+class VitstrEngine(VitEngine):
+    """The scene-text engine (vit_cpp_tpu/engine.py::VitstrEngine): the
+    same transformer, grayscale (1, S, S) input and a greedy decode of the
+    (seq_len, n_tokens) probabilities instead of a top-k."""
+
+    def preprocess_images(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+        """(H, W, 3) u8 host images -> (B, 1, S, S) f32 in [-1, 1] on the
+        engine's device (models/vitstr.py)."""
+        from vit_cpp_tpu_torch.models.vitstr import preprocess_grayscale_batch
+
+        return preprocess_grayscale_batch(list(images), self.hp.img_size, self.device)
+
+    def recognize_file(self, path: str, verbose: bool = True) -> Tuple[str, float]:
+        """Decode, preprocess, predict, greedy-decode -> (text, confidence);
+        verbose prints the image lines on stdout as the JAX engine does."""
+        from vit_cpp_tpu_torch.models.vitstr import greedy_decode
+
+        img = load_image_rgb(path)
+        if verbose:
+            print(f"load_image_from_file: loaded image '{path}' ({img.shape[1]} x {img.shape[0]})")
+        pixels = self.preprocess_image(img)
+        if verbose:
+            print(f"processed, out dims : ({self.hp.img_size} x {self.hp.img_size})")
+        probs = self.predict_probs_batch(pixels[None])[0].cpu().numpy()
+        return greedy_decode(probs, self.id2label)

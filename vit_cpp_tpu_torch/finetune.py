@@ -267,7 +267,8 @@ def finetune(
     if qat or qat_act != "dynamic" or qat_scales_out:
         raise _not_ported("--qat / --qat-act", "the training-extras slice (quant/qat.py)")
     if img_size is not None or patch_size is not None:
-        raise _not_ported("--img-size / --patch-size", "the model-families slice (models/resample.py)")
+        raise _not_ported("--img-size / --patch-size training",
+                          "the training-extras slice (ROADMAP A.10)")
     if mu_dtype not in ("f32", "bf16"):
         raise ValueError(f"mu_dtype must be f32|bf16, got {mu_dtype!r}")
     if mu_dtype == "bf16":
@@ -284,7 +285,12 @@ def finetune(
     dev = resolve_device(device)
 
     mf = read_model(model)
-    hp = detect_hparams(mf)  # ViTSTR and V-MoE checkpoints raise here
+    hp = detect_hparams(mf)  # V-MoE checkpoints raise here
+    if hp.seq_len is not None:
+        raise _not_ported("ViTSTR fine-tuning", "the training-extras slice (ROADMAP A.10)")
+    if hp.global_pool == "map":
+        raise _not_ported("fine-tuning an attention-pooled (SigLIP) checkpoint",
+                          "the training-extras slice (ROADMAP A.10)")
     paths, labels, classes = load_dataset(data_dir)
     samples_per_update = batch * grad_accum
     if len(paths) < samples_per_update:

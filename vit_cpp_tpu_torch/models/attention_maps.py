@@ -1,0 +1,122 @@
+"""Attention maps and attention rollout, for interpretability.
+
+Counterpart of vit_cpp_tpu/models/attention_maps.py. The serving forward
+never materializes attention probabilities (the fused kernel keeps them
+on chip), so this module runs the encoder again with composed attention,
+keeping every layer's softmax weights as a (B, L, H, T, T) f32 tensor,
+and computes the attention-rollout saliency (Abnar & Zuidema,
+"Quantifying Attention Flow in Transformers", 2020): per layer
+A = normalize(0.5 * mean_heads(P) + 0.5 * I), rolled out as
+R = A_L @ ... @ A_1; the readout row's patch columns, on the patch grid,
+are the heatmap. An analysis path in plain PyTorch: no kernel runs here,
+as the JAX path is XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from vit_cpp_tpu_torch.hparams import VitHParams
+from vit_cpp_tpu_torch.models.vit import _head, embed, unstack_blocks
+from vit_cpp_tpu_torch.ops.core import layernorm, linear, mlp_act
+
+
+def _block_with_probs(
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """models/vit.py::transformer_block with composed attention, returning
+    its f32 softmax weights (B, H, T, T) beside the block output."""
+    b, t, h = x.shape
+    nh, hd = hp.num_attention_heads, hp.head_dim
+    y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
+    qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"])
+    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    # f32 scores, as ops/core.attention: bf16 ones would round before the
+    # softmax
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    probs = torch.softmax(scores * (1.0 / np.sqrt(hd)), dim=-1)
+    o = torch.matmul(probs.to(v.dtype).float(), v.float()).to(x.dtype)
+    o = o.permute(0, 2, 1, 3).reshape(b, t, h)
+    x = x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"])
+    y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
+    y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"])
+    y = mlp_act(hp.hidden_act)(y)
+    y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+    return x + y, probs
+
+
+def attention_maps(
+    params: Dict[str, Any], images: torch.Tensor, hp: VitHParams
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, S, S) images -> ((B, L, H, T, T) f32 attention
+    probabilities, (B, T, h) last block output)."""
+    x = embed(params, images, hp)
+    probs_all = []
+    for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):
+        x, probs = _block_with_probs(x, bp, hp)
+        probs_all.append(probs)
+    return torch.stack(probs_all, dim=1), x
+
+
+def head_logits(
+    params: Dict[str, Any], final: torch.Tensor, hp: VitHParams, mm_impl: str = "xla"
+) -> torch.Tensor:
+    """The classifier head of models/vit.py::forward (its _head, with the
+    engine's mm_impl) applied to a last block output, so that one maps
+    forward serves both the rollout and the top-k."""
+    if "head" not in params:
+        raise ValueError(
+            "checkpoint is a headless encoder — no classifier to explain; "
+            "the rollout saliency is still available (attention_rollout)"
+        )
+    return _head(params, final, hp, mm_impl, False)
+
+
+def attention_rollout(probs, hp: VitHParams, head_fuse: str = "mean") -> np.ndarray:
+    """(B, L, H, T, T) attention probabilities -> (B, side, side) f32
+    saliency over the patch grid, scaled to a maximum of 1 per image.
+
+    The heads are fused (mean, max or min), each layer mixed half and
+    half with the residual identity and its rows renormalized, and the
+    layers multiplied out. The readout row is the CLS query (the mean of
+    the CLS and distillation rows for a distilled model; never a
+    register), or the mean of the patch rows for a CLS-less model."""
+    p = np.asarray(probs, dtype=np.float32)
+    if head_fuse == "mean":
+        a = p.mean(axis=2)
+    elif head_fuse == "max":
+        a = p.max(axis=2)
+    elif head_fuse == "min":
+        a = p.min(axis=2)
+    else:
+        raise ValueError(f"head_fuse must be mean|max|min, got {head_fuse!r}")
+    b, n_layers, t, _ = a.shape
+    eye = np.eye(t, dtype=np.float32)
+    a = 0.5 * a + 0.5 * eye
+    a = a / a.sum(axis=-1, keepdims=True)
+    roll = np.broadcast_to(eye, (b, t, t)).copy()
+    for layer in range(n_layers):
+        roll = a[:, layer] @ roll
+    n_readout, total_prefix = hp.num_prefix_tokens, hp.n_prefix
+    if n_readout:
+        readout = roll[:, :n_readout].mean(axis=1)
+    else:
+        readout = roll[:, total_prefix:].mean(axis=1)
+    side = hp.n_patches_side
+    grid = readout[:, total_prefix:].reshape(b, side, side)
+    peak = grid.max(axis=(1, 2), keepdims=True)
+    return grid / np.maximum(peak, 1e-12)
+
+
+def saliency_to_png(grid: np.ndarray, path: str, upscale_to: "int | None" = None) -> None:
+    """One (side, side) [0, 1] saliency -> grayscale PNG, optionally
+    upscaled (nearest) to the input resolution for overlaying."""
+    from PIL import Image
+
+    img = Image.fromarray(np.clip(np.asarray(grid) * 255.0, 0, 255).astype(np.uint8), mode="L")
+    if upscale_to:
+        img = img.resize((upscale_to, upscale_to), Image.NEAREST)
+    img.save(path)

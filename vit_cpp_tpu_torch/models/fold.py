@@ -48,7 +48,9 @@ def fold_layernorms(params: Dict[str, Any], mm_impl: str = "int8") -> Dict[str, 
     """A new parameter tree with the LN affines folded; folded LN nodes
     carry scale=None/bias=None, which ops.core.layernorm runs as pure
     normalization. norm_pre stays a real LN (its output is the residual
-    stream), as does the final norm of a headless encoder. A folded final
+    stream), as does the final norm of a headless encoder and of an
+    attention-pooled one (it feeds the pool's keys and values, not the
+    head). A folded final
     norm keeps its affine in `features_norm`, which only the features
     readout applies (models/vit.py::_head). `mm_impl` is the matmul path
     the caller serves with: it decides how a folded QuantLinear is
@@ -65,7 +67,7 @@ def fold_layernorms(params: Dict[str, Any], mm_impl: str = "int8") -> Dict[str, 
         blocks[lin_key] = lin
         blocks[ln_key] = {"scale": None, "bias": None}
     p["blocks"] = blocks
-    if "head" in params:
+    if "head" in params and "attn_pool" not in params:
         for hk in ("head", "head_dist") if "head_dist" in params else ("head",):
             head = dict(params[hk])
             head["kernel"], head["bias"] = _fold_into(

@@ -35,19 +35,15 @@ from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
     """Family extensions declared by tensor presence rather than by the
     file's hparam block (vit_cpp_tpu/engine.py::detect_hparams and
-    models/params.py::load_params infer them the same way). MoE and
-    attention-pooled checkpoints raise: this package does not run them."""
+    models/params.py::load_params infer them the same way), with the JAX
+    loader's checks of the combinations no checkpoint family has. An
+    `attn_pool.probe` declares SigLIP attention pooling with [-1, 1]
+    pixels. MoE checkpoints raise: this package does not run them."""
     h = hp.hidden_size
     if any(re.fullmatch(r"blocks\.\d+\.moe\.router\.weight", n) for n in tensors):
         raise NotImplementedError(
             "V-MoE checkpoints are not ported to vit_cpp_tpu_torch yet; "
             "they come with the V-MoE slice (ops/moe.py)"
-        )
-    if "attn_pool.probe" in tensors:
-        raise NotImplementedError(
-            "attention-pooled (SigLIP, global_pool='map') checkpoints are "
-            "not ported to vit_cpp_tpu_torch yet; they come with the "
-            "model-families slice (attention_pool)"
         )
     fc1 = tensors.get("blocks.0.mlp.fc1.weight")
     if (
@@ -81,6 +77,8 @@ def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
                 "timm ViTs carry exactly one (the other is Identity)"
             )
         hp = dataclasses.replace(hp, global_pool="avg")
+    if "attn_pool.probe" in tensors and hp.global_pool != "map":
+        hp = dataclasses.replace(hp, global_pool="map", pixel_norm="unit")
     if "meta.clip" in tensors and hp.hidden_act != "quick_gelu":
         hp = dataclasses.replace(
             hp, hidden_act="quick_gelu", pixel_norm="clip", eps=1e-5
@@ -89,15 +87,35 @@ def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
     if pos is not None and hp.n_prefix and not hp.no_embed_class:
         if int(np.prod(pos.shape)) // h == hp.n_patches:
             hp = dataclasses.replace(hp, no_embed_class=True)
-    if hp.global_pool == "avg" and hp.num_prefix_tokens == 2:
-        raise ValueError(
-            "distilled checkpoints are token-pooled; fc_norm + dist_token "
-            "is not a timm configuration"
-        )
-    if hp.num_prefix_tokens == 0 and hp.global_pool != "avg":
-        raise ValueError(
-            "checkpoint has no cls_token and no fc_norm — nothing to pool"
-        )
+    for bad, msg in (
+        (hp.num_prefix_tokens == 2 and hp.seq_len is not None,
+         "distilled checkpoints (dist_token) cannot carry a ViTSTR sequence "
+         "head — the distillation token would shift the seq_len readout window"),
+        (hp.global_pool == "avg" and hp.seq_len is not None,
+         "avg-pool checkpoints (fc_norm) cannot carry a ViTSTR sequence head "
+         "— the readout needs per-token rows"),
+        (hp.global_pool == "avg" and hp.num_prefix_tokens == 2,
+         "distilled checkpoints are token-pooled; fc_norm + dist_token is "
+         "not a timm configuration"),
+        (hp.num_prefix_tokens == 0 and hp.global_pool not in ("avg", "map"),
+         "checkpoint has no cls_token and no fc_norm — nothing to pool"),
+        (hp.global_pool == "map" and hp.seq_len is not None,
+         "attention-pooled checkpoints (attn_pool) cannot carry a ViTSTR "
+         "sequence head — the probe collapses the token axis"),
+        (hp.global_pool == "map" and hp.num_prefix_tokens == 2,
+         "distilled checkpoints are token-pooled; attn_pool + dist_token is "
+         "not a supported configuration"),
+        (hp.num_reg_tokens and hp.num_prefix_tokens == 2,
+         "reg_token + dist_token is not a timm configuration (registers "
+         "pair with plain or avg-pool ViTs)"),
+        (hp.num_reg_tokens and hp.seq_len is not None,
+         "register tokens would shift the ViTSTR seq_len readout window — "
+         "not a supported combination"),
+        (hp.num_classes == 0 and hp.seq_len is not None,
+         "sequence-head checkpoints cannot be headless (the head IS the decoder)"),
+    ):
+        if bad:
+            raise ValueError(msg)
     return hp
 
 
@@ -222,6 +240,32 @@ def load_params(
         "scale": rs.dense(norm_name + ".weight", (h,)),
         "bias": rs.dense(norm_name + ".bias", (h,)),
     }
+    if hp.global_pool == "map":
+        # SigLIP's attention-pooling head (models/vit.py::attention_pool);
+        # its kernels load like block kernels (dense or QuantLinear)
+        params["attn_pool"] = {
+            "probe": rs.dense("attn_pool.probe", (h,)),
+            "qkv": {
+                "kernel": rs.kernel("attn_pool.qkv.weight", 3 * h, h),
+                "bias": rs.dense("attn_pool.qkv.bias", (3 * h,)),
+            },
+            "proj": {
+                "kernel": rs.kernel("attn_pool.proj.weight", h, h),
+                "bias": rs.dense("attn_pool.proj.bias", (h,)),
+            },
+            "norm": {
+                "scale": rs.dense("attn_pool.norm.weight", (h,)),
+                "bias": rs.dense("attn_pool.norm.bias", (h,)),
+            },
+            "fc1": {
+                "kernel": rs.kernel("attn_pool.mlp.fc1.weight", m, h),
+                "bias": rs.dense("attn_pool.mlp.fc1.bias", (m,)),
+            },
+            "fc2": {
+                "kernel": rs.kernel("attn_pool.mlp.fc2.weight", h, m),
+                "bias": rs.dense("attn_pool.mlp.fc2.bias", (h,)),
+            },
+        }
     for name in ("head", "head_dist") if hp.num_prefix_tokens == 2 else ("head",):
         if hp.num_classes:
             params[name] = {

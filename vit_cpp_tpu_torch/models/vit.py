@@ -6,8 +6,11 @@ Counterpart of vit_cpp_tpu/models/vit.py, with the same numerics:
 - per block: LN -> fused QKV matmul -> attention -> proj -> residual;
   LN -> fc1 -> GELU -> fc2 -> residual;
 - head: the CLS token (or the mean of the patch tokens for avg-pool
-  models; the mean of two heads for DeiT-distilled ones) -> LN -> linear;
-  `features=True` stops before the linear (the embedding readout).
+  models; the mean of two heads for DeiT-distilled ones; the first
+  seq_len tokens for ViTSTR's sequence head) -> LN -> linear; SigLIP's
+  attention pooling norms every token first, then a learned probe
+  cross-attends over them (`attention_pool`); `features=True` stops
+  before the linear (the embedding readout).
 
 A Python loop over the L stacked blocks takes the place of `lax.scan`;
 each stacked leaf is taken apart once per forward (`torch.unbind`), so
@@ -20,8 +23,8 @@ attention of the training path (safe-softmax kernel forward, the
 backward kernel backward), "xla" the composed split-head attention.
 `mm_impl` goes to every linear of the blocks and the head: "pallas" runs
 block-quantized (QuantLinear) weights through the dequantizing-matmul
-kernel (ops/qmatmul.py); dense and Int8Linear weights ignore it. ToMe, token padding, V-MoE, attention pooling and sequence
-heads are not ported yet and raise.
+kernel (ops/qmatmul.py); dense and Int8Linear weights ignore it. ToMe,
+token padding and V-MoE are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Any, Dict
 import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
-from vit_cpp_tpu_torch.ops.core import attention, layernorm, linear, mlp_act
+from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
 
 ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
@@ -129,18 +132,53 @@ def unstack_blocks(tree, n: int) -> list:
     return [tree[i] for i in range(n)]
 
 
+def attention_pool(
+    ap: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str = "xla"
+) -> torch.Tensor:
+    """SigLIP attention pooling (HF SiglipMultiheadAttentionPoolingHead):
+    a learned probe cross-attends over the already normed tokens, then a
+    residual MLP with a tanh GELU. x: (B, T, h) -> (B, h). The packed
+    in_proj [q; k; v] runs whole on the probe (q) and on the tokens (k,
+    v), since a QuantLinear kernel cannot be column-sliced; the
+    one-query attention is the composed one, as in the JAX package."""
+    b, t, h = x.shape
+    nh, hd = hp.num_attention_heads, hp.head_dim
+    kern, bias = ap["qkv"]["kernel"], ap["qkv"]["bias"]
+    probe = ap["probe"].to(x.dtype).expand(b, 1, h)
+    q = linear(probe, kern, bias, impl=mm_impl)[:, :, :h]
+    kv = linear(x, kern, bias, impl=mm_impl)
+    k, v = kv[:, :, h : 2 * h], kv[:, :, 2 * h :]
+    q = q.reshape(b, 1, nh, hd).transpose(1, 2)
+    k = k.reshape(b, t, nh, hd).transpose(1, 2)
+    v = v.reshape(b, t, nh, hd).transpose(1, 2)
+    o = attention(q, k, v).transpose(1, 2).reshape(b, 1, h)
+    o = linear(o, ap["proj"]["kernel"], ap["proj"]["bias"], impl=mm_impl)
+    y = layernorm(o, ap["norm"]["scale"], ap["norm"]["bias"], hp.eps)
+    y = linear(y, ap["fc1"]["kernel"], ap["fc1"]["bias"], impl=mm_impl)
+    y = gelu_tanh(y)
+    y = linear(y, ap["fc2"]["kernel"], ap["fc2"]["bias"], impl=mm_impl)
+    return (o + y)[:, 0]
+
+
 def _head(
     params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str, features: bool,
     tap=None,
 ) -> torch.Tensor:
     """Pooling readout + classifier head; features=True returns the
-    final-LN pooled readout (the embedding) instead of the logits. A
-    folded tree (models/fold.py) keeps the final norm's affine for that
-    readout in `features_norm`, since its `norm` carries none. `tap`
-    observes the normed readout as "head_in" (both prefix tokens of a
-    distilled tree)."""
+    final-LN pooled readout (the embedding) instead of the logits:
+    (B, hidden), or (B, seq_len, hidden) and (B, seq_len, classes) for a
+    sequence head. A folded tree (models/fold.py) keeps the final norm's
+    affine for that readout in `features_norm`, since its `norm` carries
+    none. `tap` observes the head's input as "head_in" (both prefix
+    tokens of a distilled tree, the pooled output of attention
+    pooling)."""
     norm = params["features_norm"] if features and "features_norm" in params else params["norm"]
-    if "head_dist" in params:
+    if hp.global_pool == "map":
+        # the final norm applies to every token (HF post_layernorm), then
+        # the probe pools: the reverse of every other head's order
+        y = layernorm(x, norm["scale"], norm["bias"], hp.eps)
+        pooled = attention_pool(params["attn_pool"], y, hp, mm_impl)
+    elif "head_dist" in params:
         # DeiT distilled: LN over both prefix tokens; the embedding is the
         # mean of the two normed tokens, the logits the mean of two heads
         pooled = layernorm(x[:, :2], norm["scale"], norm["bias"], hp.eps)
@@ -155,12 +193,13 @@ def _head(
                 impl=mm_impl,
             )
         ) * 0.5
-    if hp.global_pool == "avg":
+    elif hp.seq_len is not None:
+        pooled = layernorm(x[:, : hp.seq_len], norm["scale"], norm["bias"], hp.eps)
+    elif hp.global_pool == "avg":
         # mean over the patch tokens, prefix and registers excluded
-        pooled = x[:, hp.n_prefix:].mean(dim=1)
+        pooled = layernorm(x[:, hp.n_prefix:].mean(dim=1), norm["scale"], norm["bias"], hp.eps)
     else:
-        pooled = x[:, 0]
-    pooled = layernorm(pooled, norm["scale"], norm["bias"], hp.eps)
+        pooled = layernorm(x[:, 0], norm["scale"], norm["bias"], hp.eps)
     if tap is not None:
         tap("head_in", pooled)
     if features:
@@ -187,7 +226,8 @@ def forward(
     tap=None,
 ) -> torch.Tensor:
     """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
-    with features=True the final-LN pooled readout (B, hidden). `tap`
+    with features=True the final-LN pooled readout (B, hidden); a
+    sequence head (ViTSTR) gives (B, seq_len, ...) of either. `tap`
     observes every GEMM input (transformer_block, _head)."""
     if pad_tokens or tome:
         raise NotImplementedError(
@@ -196,11 +236,10 @@ def forward(
             "token-padding slices (the attention kernel already takes "
             "their kv / sizes inputs)"
         )
-    if hp.seq_len is not None or hp.global_pool == "map" or hp.num_experts:
+    if hp.num_experts:
         raise NotImplementedError(
-            "sequence heads (ViTSTR), attention pooling and V-MoE are not "
-            "ported to vit_cpp_tpu_torch yet; they come with the "
-            "model-families and V-MoE slices"
+            "V-MoE is not ported to vit_cpp_tpu_torch yet; it comes with "
+            "the V-MoE slice (ops/moe.py)"
         )
     x = embed(params, images, hp)
     for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):

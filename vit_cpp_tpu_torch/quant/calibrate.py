@@ -63,14 +63,10 @@ def collect_act_maxima(
     Walks the blocks with the int8 forward (dynamic quantization), so the
     observed activations are those static serving will see; the head's
     maximum covers the pooled readout (CLS, the mean of the patch tokens,
-    or both prefix tokens of a distilled tree)."""
+    both prefix tokens of a distilled tree, the 25 rows of a ViTSTR
+    sequence head, or the output of SigLIP's attention pooling)."""
     from vit_cpp_tpu_torch.models.vit import forward
 
-    if hp.global_pool == "map" or hp.seq_len is not None:
-        raise NotImplementedError(
-            "static scales for attention-pooled (SigLIP) and sequence-head "
-            "(ViTSTR) checkpoints come with the model-families slice"
-        )
     maxima = {name: [] for name in (*_GEMMS, "head")}
 
     def tap(name, v):

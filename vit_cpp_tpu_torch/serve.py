@@ -14,10 +14,10 @@ the decode, the host's share, overlaps the card's work.
     for result in serve_files(engine, paths, batch=64):
         ...  # result.path, result.top1, result.probs
 
-serve_files and embed_files are thin wrappers over one pipeline
-(_stream): the chunking, prefetch queue, producer-error forwarding,
-pad-to-batch and ok-mask bookkeeping live there once. ViTSTR's
-recognize_files comes with the ViTSTR slice.
+serve_files, embed_files and recognize_files (ViTSTR scene text) are
+thin wrappers over one pipeline (_stream): the chunking, prefetch queue,
+producer-error forwarding, pad-to-batch and ok-mask bookkeeping live
+there once.
 """
 
 from __future__ import annotations
@@ -41,6 +41,13 @@ class Prediction:
     top1: int
     prob: float
     probs: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class Recognition:
+    path: str
+    text: str
+    confidence: float
 
 
 @dataclasses.dataclass
@@ -162,6 +169,37 @@ def serve_files(
             continue
         t1 = int(pr.argmax())
         yield Prediction(p, t1, float(pr[t1]), probs=pr if keep_probs else None)
+
+
+def recognize_files(
+    engine,
+    paths: Iterable[str],
+    *,
+    batch: int = 64,
+    decode_threads: int = 0,
+    prefetch: int = 2,
+) -> Iterator[Recognition]:
+    """Batched ViTSTR recognition (a VitstrEngine), the serve_files
+    pipeline with the grayscale preprocess: token selection and the
+    confidence run on the engine's device (greedy_decode_device), and
+    only the (B, seq_len) tokens, flags and confidences come back to the
+    host. A failed decode yields text '' and confidence -1.0."""
+    from vit_cpp_tpu_torch.models.vitstr import decode_tokens, greedy_decode_device
+
+    def compute(pixels, n):
+        toks, valid, conf = greedy_decode_device(engine.predict_probs_batch(pixels))
+        return list(zip(toks[:n].cpu().numpy(), valid[:n].cpu().numpy(),
+                        conf[:n].cpu().numpy()))
+
+    for p, good, row in _stream(
+        paths, batch=batch, decode_threads=decode_threads, prefetch=prefetch,
+        preprocess=engine.preprocess_images, compute=compute,
+    ):
+        if not good:
+            yield Recognition(p, "", -1.0)
+            continue
+        toks, valid, conf = row
+        yield Recognition(p, decode_tokens(toks, valid, engine.id2label), float(conf))
 
 
 def embed_files(

@@ -5,7 +5,8 @@ create_multi_server, with the port's own copy of that module's HTTP
 parts: the request handler (routes /healthz, /stats, /metrics, POST
 /v1/classify and /v1/embed, per model in a multi-model daemon), the image
 decode, the ThreadingHTTPServer, the admission bound and the Prometheus
-text. Request handlers decode and preprocess onto the engine's device,
+text. Request handlers decode and preprocess onto the engine's device
+(grayscale for a ViTSTR engine),
 and the micro-batcher stacks those tensors with torch. Images decode
 through decode.py, which tries the native decoder once per process.
 
@@ -13,6 +14,8 @@ Endpoints of one model (create_server; the raw image bytes are the body
 of a POST):
   GET  /healthz, /stats, /metrics
   POST /v1/classify[?topk=K]  -> {"topk": [{"id", "label", "prob"}, ...]}
+  POST /v1/recognize          -> {"text", "confidence"}  (ViTSTR, in place
+                                 of /v1/classify; greedy decoding)
   POST /v1/embed              -> {"shape": [...], "embedding": [floats]}
                                  (the final-LN pooled features, through a
                                  second MicroBatcher over features_batch
@@ -22,10 +25,9 @@ A headless encoder (num_classes=0) serves /v1/embed as its only route,
 through the main batcher.
 
 Several models (create_multi_server, `vit-server -m name=path` repeated):
-each has its own batchers behind POST /v1/<name>/classify and
-/v1/<name>/embed; /healthz and /stats are keyed by model name and
-/metrics labels every counter with it. The recognize route (ViTSTR) is
-not served yet.
+each has its own batchers behind POST /v1/<name>/classify (or
+/v1/<name>/recognize) and /v1/<name>/embed; /healthz and /stats are
+keyed by model name and /metrics labels every counter with it.
 """
 
 from __future__ import annotations
@@ -230,6 +232,7 @@ class _Model:
         self.engine = engine
         self.batcher = batcher
         self.is_headless = _is_headless(engine)
+        self.is_vitstr = engine.hp.seq_len is not None  # the recognize route
         self.embed_batcher: Optional[MicroBatcher] = None
         if not self.is_headless:
             self.embed_batcher = MicroBatcher(
@@ -245,15 +248,23 @@ class _Model:
 
     def routes(self, prefix: str) -> dict:
         """{path: (model, kind)} under `prefix` ("/v1" or "/v1/<name>");
-        kind "embed" reads the features, None the classifier."""
+        kind "embed" reads the features, None the classifier (or the
+        recognizer)."""
         if self.is_headless:
             return {f"{prefix}/embed": (self, "embed")}
-        return {f"{prefix}/classify": (self, None), f"{prefix}/embed": (self, "embed")}
+        return {f"{prefix}/{self.route}": (self, None), f"{prefix}/embed": (self, "embed")}
+
+    @property
+    def route(self) -> str:
+        """The main batcher's route."""
+        if self.is_headless:
+            return "embed"
+        return "recognize" if self.is_vitstr else "classify"
 
     def health(self):
         hp = self.engine.hp
         h = {
-            "model": "vit-encoder" if self.is_headless else "vit",
+            "model": "vit-encoder" if self.is_headless else "vitstr" if self.is_vitstr else "vit",
             "hidden_size": hp.hidden_size,
             "img_size": hp.img_size,
             "batch": self.batcher.batch,
@@ -284,7 +295,7 @@ def _stats(model: _Model) -> dict:
 def _prometheus_metrics(models) -> str:
     """The /stats counters in Prometheus text exposition format, labelled
     by model (the single-model daemon's is "default", as in the JAX
-    daemon) and route (classify or embed)."""
+    daemon) and route (classify, recognize or embed)."""
     metrics = [
         ("vit_requests_total", "counter", "requests served",
          lambda b: b.n_requests),
@@ -308,7 +319,7 @@ def _prometheus_metrics(models) -> str:
     rows = []
     for m in models:
         name = esc(m.name or "default")
-        rows.append((name, "embed" if m.is_headless else "classify", m.batcher))
+        rows.append((name, m.route, m.batcher))
         if m.embed_batcher is not None:
             rows.append((name, "embed", m.embed_batcher))
     out = []
@@ -321,16 +332,16 @@ def _prometheus_metrics(models) -> str:
 
 
 def make_handler(model: _Model, timeout_s: float = 30.0):
-    """The single-model handler: routes /v1/classify and /v1/embed (a
-    headless encoder's /v1/embed only); /healthz and /stats describe the
-    one model."""
+    """The single-model handler: routes /v1/classify (/v1/recognize for
+    ViTSTR) and /v1/embed (a headless encoder's /v1/embed only); /healthz
+    and /stats describe the one model."""
     return _make_handler(model.routes("/v1"), [model], single=True, timeout_s=timeout_s)
 
 
 def make_multi_handler(models, timeout_s: float = 30.0):
-    """The multi-model handler: routes /v1/<name>/classify and
-    /v1/<name>/embed per model; /healthz, /stats and /metrics are keyed
-    by model name."""
+    """The multi-model handler: routes /v1/<name>/classify (or
+    /v1/<name>/recognize) and /v1/<name>/embed per model; /healthz,
+    /stats and /metrics are keyed by model name."""
     routes = {}
     for m in models:
         routes.update(m.routes(f"/v1/{m.name}"))
@@ -412,6 +423,12 @@ def _make_handler(routes: dict, models: list, *, single: bool, timeout_s: float)
                 self._json(200, {"shape": list(feat.shape),
                                  "embedding": [float(v) for v in feat.reshape(-1)]})
                 return
+            if model.is_vitstr:
+                from vit_cpp_tpu_torch.models.vitstr import greedy_decode
+
+                text, conf = greedy_decode(out, model.engine.id2label)
+                self._json(200, {"text": text, "confidence": float(conf)})
+                return
             order = np.argsort(-out, kind="stable")[:topk]
             id2label = model.engine.id2label
             self._json(200, {"topk": [
@@ -489,7 +506,7 @@ def create_multi_server(
     """Serve several models from one daemon (vit_cpp_tpu/server.py:719-770):
     `engines` is {name: engine}, each with its own MicroBatcher (and
     embed batcher, closed with it) behind the routes /v1/<name>/classify
-    and /v1/<name>/embed. `batch` and `buckets` are one value or a
+    (/v1/<name>/recognize for ViTSTR) and /v1/<name>/embed. `batch` and `buckets` are one value or a
     {name: value} map. Names must be non-empty and '/'-free. Returns
     (httpd, {name: batcher}); the caller closes every batcher."""
     if not engines:

@@ -222,3 +222,25 @@ def write_quick_example_model(path: str) -> VitHParams:
     }
     write_synthetic_model(path, hp, ftype=1, seed=42, id2label=id2label)
     return hp
+
+
+def write_quick_example_vitstr_model(path: str) -> VitHParams:
+    """The ViTSTR sibling of write_quick_example_model: ViT-tiny/16 @224
+    f16 with in_chans=1 and the 25-position head over the 96-token
+    vocabulary, seed 43. docs/QUICK_EXAMPLE.md holds the `vitstr` CLI's
+    console output on this file."""
+    from vit_cpp_tpu_torch.models.vitstr import VITSTR_VOCAB
+
+    hp = VitHParams(
+        hidden_size=192,
+        num_hidden_layers=12,
+        num_attention_heads=3,
+        num_classes=len(VITSTR_VOCAB),
+        patch_size=16,
+        img_size=224,
+        in_chans=1,
+        seq_len=25,
+    )
+    id2label = {i: c for i, c in enumerate(VITSTR_VOCAB)}
+    write_synthetic_model(path, hp, ftype=1, seed=43, id2label=id2label)
+    return hp

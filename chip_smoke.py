@@ -117,7 +117,26 @@
       (median of 20) and profiled; `cli.explain` on magpie.jpeg, whose
       top-5 equals classify_file's, with its heatmap PNG and no kernel
       launched. The five command lines run as subprocesses beside the
-      in-process checks, and the timings wait for them to exit.
+      in-process checks, and the timings wait for them to exit;
+   j. ToMe and token padding (phase `tome_paths`) on the files of (a) and
+      (b): attention_qkv (fast bf16 at the serving defaults, safe f32) on
+      the qkv and merged-token sizes that the r=16 merge gives layers 0, 5
+      and 11 (T = 197, 117, 21), attention_qkv_grad (f32) on the inputs
+      the r=8 training backward gives layers 1 and 11 (T = 189, 109), and
+      attention_qkv at T=200, kv=197 on the padded forward's first layer,
+      each against its plain version; every layer's matching on the card
+      against the CPU's on the same metric (equal, or a near-tie within
+      MATCH_TIE), identical tokens merged losslessly; serve_files at
+      --tome 16 at the defaults, --mm pallas and --act static against the
+      f32 engine with the same tome (12 attention_qkv and 49
+      dequant_matmul launches per batch), embed_files and the in-process
+      daemon; `cli.serve --tome 16` at the three configurations and
+      `cli.server --tome 16` (the ten assets, /v1/embed) as subprocesses;
+      the padded B=64 forward at the defaults and --mm pallas against the
+      unpadded one; slice parity through tome 8 and `cli.finetune --tome
+      8` (the meta's tome, 12 + 12 launches per update); the B=64 forward
+      at r = 0, 8, 16 and padded vs unpadded (median of 20 in turns, CUDA
+      events, one profiled run each) and ms per update at tome 8 vs 0.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -618,10 +637,10 @@ def check_attention_grad(card: str):
     return main_err, times
 
 
-def slice_parity(f32_path: str) -> None:
+def slice_parity(f32_path: str, tome: int = 0) -> None:
     """The training loss and its gradients on the card (the kernels)
     against the card machine's CPU (the plain versions), full ViT-B/16
-    width, B=2, f32."""
+    width, B=2, f32; through ToMe merging with `tome`."""
     from vit_cpp_tpu_torch.gguf.reader import read_model
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.models.params import load_params
@@ -629,6 +648,7 @@ def slice_parity(f32_path: str) -> None:
     from vit_cpp_tpu_torch.parallel.train import cross_entropy_loss, tree_leaves
 
     hp = VitHParams(**VIT_B16)
+    tag = f"slice parity tome {tome}" if tome else "slice parity"
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32))
     y = torch.from_numpy(rng.integers(0, 1000, (2,)))
@@ -643,13 +663,13 @@ def slice_parity(f32_path: str) -> None:
         KERNEL.reset()
         GRAD_KERNEL.reset()
         t0 = time.perf_counter()
-        loss = cross_entropy_loss(params, x.to(dev), y.to(dev), hp)
+        loss = cross_entropy_loss(params, x.to(dev), y.to(dev), hp, tome=tome)
         grads = torch.autograd.grad(loss, leaves)
         out[dev] = (loss.item(), [g.cpu() for g in grads])
-        log(f"slice parity: loss and gradients on {dev} in {time.perf_counter() - t0:.2f} s, "
+        log(f"{tag}: loss and gradients on {dev} in {time.perf_counter() - t0:.2f} s, "
             f"{KERNEL.launches} attention_qkv + {GRAD_KERNEL.launches} attention_qkv_grad launches")
         if dev == "cuda" and (KERNEL.launches, GRAD_KERNEL.launches) != (12, 12):
-            raise AssertionError("slice parity: the card's step did not run the kernels")
+            raise AssertionError(f"{tag}: the card's step did not run the kernels")
     (l_card, g_card), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
     rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
     worst, worst_name = 0.0, None
@@ -657,15 +677,15 @@ def slice_parity(f32_path: str) -> None:
         scale = b.abs().max().item()
         r = (a - b).abs().max().item() / scale if scale else (a - b).abs().max().item()
         if not np.isfinite(r) or r > PARITY_GRAD_TOL:
-            raise AssertionError(f"slice parity: {name} gradient off by {r} of max|g_cpu|")
+            raise AssertionError(f"{tag}: {name} gradient off by {r} of max|g_cpu|")
         if r >= worst:
             worst, worst_name = r, name
-        log(f"slice parity: grad {name:<24} max|g_card - g_cpu| / max|g_cpu| = {r:.3e}")
-    log(f"slice parity: loss card {l_card:.7f} cpu {l_cpu:.7f} (relative {rel_loss:.2e}, "
+        log(f"{tag}: grad {name:<24} max|g_card - g_cpu| / max|g_cpu| = {r:.3e}")
+    log(f"{tag}: loss card {l_card:.7f} cpu {l_cpu:.7f} (relative {rel_loss:.2e}, "
         f"bound {PARITY_LOSS_RTOL:.0e}); worst gradient {worst_name} {worst:.3e} "
         f"(bound {PARITY_GRAD_TOL:.0e}) over {len(g_cpu)} leaves")
     if not rel_loss <= PARITY_LOSS_RTOL:
-        raise AssertionError(f"slice parity: loss off by {rel_loss}")
+        raise AssertionError(f"{tag}: loss off by {rel_loss}")
 
 
 def _named_leaves(tree, prefix=""):
@@ -862,10 +882,11 @@ def asset_bodies():
     return paths, [open(p, "rb").read() for p in paths]
 
 
-def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images):
+def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images, tome: int = 0):
     """Serve the ten assets from `model` through the daemon built with
-    build_engine(mm=mm) and its defaults otherwise; check every answer
-    against the f32 engine on the same file (on `images`, the assets
+    build_engine(mm=mm, tome=tome) and its defaults otherwise; check every
+    answer against the f32 engine with the same tome on the same file (on
+    `images`, the assets
     decoded once) and each kernel's launches (per_batch: Kernel ->
     launches per device batch). Returns {name: launches}."""
     from vit_cpp_tpu_torch.cli.common import build_engine
@@ -874,7 +895,7 @@ def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images):
 
     paths, bodies = asset_bodies()
     t0 = time.perf_counter()
-    engine, _ = build_engine(model, mm=mm, device="cuda")
+    engine, _ = build_engine(model, mm=mm, tome=tome, device="cuda")
     log(f"{what}: engine dtype={engine.dtype} mm={engine.mm_impl} "
         f"attn={engine.attn_impl} fold={engine.params['norm']['scale'] is None} "
         f"on {engine.device}, load {engine.load_ms:.0f} ms")
@@ -900,7 +921,8 @@ def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images):
         server.join(timeout=30)
     del engine
 
-    ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda")
+    ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", tome=tome, device="cuda",
+                    verbose=False)
     worst = 0.0
     for path, img, (status, out, ms) in zip(paths, images, results):
         if status != 200:
@@ -1716,20 +1738,20 @@ def static_scales(conv: str, card: str) -> None:
 
 
 def _read_banner(proc, timeout: float) -> str:
-    """The daemon's 'models on http://' line from its stderr (read on a
+    """The daemon's '... on http://' line from its stderr (read on a
     thread, which keeps draining the pipe), or raise after `timeout` s."""
     lines, bound = [], threading.Event()
 
     def read():
         for line in proc.stderr:
             lines.append(line.rstrip())
-            if "models on http://" in line:
+            if " on http://" in line:
                 bound.set()
         bound.set()  # EOF: the daemon exited
 
     threading.Thread(target=read, daemon=True).start()
     bound.wait(timeout)
-    banner = [ln for ln in lines if "models on http://" in ln]
+    banner = [ln for ln in lines if " on http://" in ln]
     if not banner:
         raise AssertionError(f"cli.server printed no banner: {lines[-20:]}")
     return banner[0]
@@ -2481,6 +2503,462 @@ def model_families(f16: str, tmp: str, card: str) -> dict:
     return launches
 
 
+# ToMe on ViT-B/16 (phase `tome_paths`): r=16 merges 16 pairs in each of
+# the first 11 layers and 10 in the last (the clamp), so the layers run at
+# T = 197, 181, ..., 37, 21; training runs r=8 (T = 197, 189, ..., 109).
+TOME_R = 16
+TOME_TRAIN_R = 8
+TOME_LAYERS = (0, 5, 11)  # T = 197, 117 and 21 (under one 128-query block)
+TOME_GRAD_LAYERS = (1, 11)  # T = 189 and 109 at r=8
+# Two matchings of one metric (card vs CPU) may choose another source or
+# destination only where the two candidates' cosine scores lie within the
+# rounding of f32 scores summed in another order: a 64-term dot of unit
+# vectors moves by at most 64 x 2^-24 = 3.8e-6 each way, plus the
+# normalization's rounding.
+MATCH_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Record every call of `module.name` (its args and kwargs) while the
+    body runs; the calls still reach the function."""
+    calls, real = [], getattr(module, name)
+
+    def wrapper(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def check_recorded_attention(what: str, calls, layers) -> float:
+    """K1 against its plain version on the inputs the model gave it at
+    `layers`; the largest error."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_plain
+
+    worst = 0.0
+    for layer in layers:
+        (qkv, nh), kw = calls[layer]
+        got = attention_qkv(qkv, nh, **kw)
+        ref = attention_qkv_plain(qkv, nh, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what} layer {layer}: non-finite kernel output")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = TOL[qkv.dtype]
+        sizes, kv = kw.get("sizes"), kw.get("kv")
+        detail = (f"sizes {sizes.min().item():.0f}-{sizes.max().item():.0f}" if sizes is not None
+                  else f"kv={kv}" if kv is not None else "")
+        log(f"kernel case {what} layer {layer}: B={qkv.shape[0]} T={qkv.shape[1]} "
+            f"{str(qkv.dtype)[6:]} fast={kw.get('fast', False)} {detail}: max|kernel - plain| "
+            f"= {err:.3e} (tolerance {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"{what} layer {layer}: error {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def _cosine_scores(metric: torch.Tensor, n_prefix: int) -> torch.Tensor:
+    """ops/tome.py's (B, Ta, Tb) scores, on the CPU in f32."""
+    m = metric[:, n_prefix:].float().cpu()
+    m = m / torch.clamp(torch.linalg.vector_norm(m, dim=-1, keepdim=True), min=1e-6)
+    return torch.einsum("bad,bcd->bac", m[:, 0::2], m[:, 1::2])
+
+
+def check_matching(merges) -> None:
+    """Each layer's matching on the card against the port's CPU run of the
+    same metric: equal sources and destinations, or a near-tie (the gap
+    between the r-th and (r+1)-th best scores, or between the two
+    destinations' scores, within MATCH_TIE). Then identical tokens, where
+    every score ties: the card merges them losslessly."""
+    from vit_cpp_tpu_torch.ops.tome import bipartite_match, tome_merge
+
+    rows = src_diff = dst_diff = 0
+    worst_gap = 0.0
+    for (x, metric, sizes, r, n_prefix), _ in merges:
+        if not r:
+            continue
+        _, idx_card, src_card = (a.cpu() for a in bipartite_match(metric, r, n_prefix))
+        node_max, idx_cpu, src_cpu = bipartite_match(metric.cpu(), r, n_prefix)
+        scores = _cosine_scores(metric, n_prefix)
+        for b in range(metric.shape[0]):
+            rows += 1
+            if set(src_card[b].tolist()) != set(src_cpu[b].tolist()):
+                src_diff += 1
+                ranked = torch.sort(node_max[b], descending=True).values
+                gap = (ranked[r - 1] - ranked[r]).item() if ranked.numel() > r else 0.0
+                worst_gap = max(worst_gap, gap)
+                if not gap <= MATCH_TIE:
+                    raise AssertionError(f"matching: sources differ at T={metric.shape[1]} "
+                                         f"row {b} with a score gap of {gap}")
+            for a in src_cpu[b].tolist():
+                i, j = int(idx_card[b, a]), int(idx_cpu[b, a])
+                if i != j:
+                    dst_diff += 1
+                    gap = abs((scores[b, a, i] - scores[b, a, j]).item())
+                    worst_gap = max(worst_gap, gap)
+                    if not gap <= MATCH_TIE:
+                        raise AssertionError(f"matching: destinations differ at "
+                                             f"T={metric.shape[1]} row {b} with gap {gap}")
+    log(f"tome matching, card vs CPU on the same metric: {rows} (layer, image) rows over "
+        f"{len(merges)} layers; sources differ in {src_diff}, destinations in {dst_diff}, "
+        f"each a near-tie (worst gap {worst_gap:.2e}, bound {MATCH_TIE:.0e})")
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    row = torch.randn((1, 1, 64), generator=gen, device="cuda")
+    metric = row.expand(8, 197, 64).contiguous()
+    token = torch.randn((1, 1, 768), generator=gen, device="cuda")
+    x = token.expand(8, 197, 768).contiguous()
+    sizes = torch.ones((8, 197), device="cuda")
+    _, idx, src = bipartite_match(metric, TOME_R, 1)
+    exact = bool((src.cpu() == torch.arange(TOME_R)).all() and (idx == 0).all())
+    xn, sn = tome_merge(x, metric, sizes, TOME_R, 1)
+    err = (xn - token).abs().max().item()
+    log(f"tome identical tokens on the card (every score ties): the CPU's merge (sources "
+        f"0..{TOME_R - 1}, destination 0) {'exactly' if exact else 'NOT exactly (near-ties)'}; "
+        f"merged tokens off the token by {err:.2e}, sizes sum {sn.sum(1).min().item():.0f}")
+    if not (err <= 1e-6 and (sn.sum(1) == 197).all()):
+        raise AssertionError(f"identical tokens: lossy merge ({err}) or lost counts")
+
+
+def tome_daemon(proc, paths, bodies, ref_probs, ref_feats) -> None:
+    """`cli.server --tome 16` (started by the caller): the ten assets to
+    /v1/classify at once and one /v1/embed, against the f32 engine with the
+    same tome."""
+    line = _read_banner(proc, 240)
+    base = line.split(" on ")[1].split()[0]
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        results = list(ex.map(lambda b: post(base + "/v1/classify?topk=5", b), bodies))
+    status, emb, _ = post(base + "/v1/embed", bodies[0])
+    with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+        stats = json.loads(r.read())
+    proc.send_signal(signal.SIGTERM)
+    if proc.wait(timeout=60) != 0:
+        raise AssertionError("cli.server --tome exited nonzero on SIGTERM")
+    worst = 0.0
+    for path, (code, out, _), want in zip(paths, results, ref_probs):
+        if code != 200 or len(out["topk"]) != 5:
+            raise AssertionError(f"cli.server --tome {path}: HTTP {code} {out}")
+        probs = np.array([e["prob"] for e in out["topk"]])
+        worst = max(worst, float(np.abs(probs - want[[e["id"] for e in out["topk"]]]).max()))
+    if status != 200 or emb["shape"] != [ref_feats.shape[1]]:
+        raise AssertionError(f"cli.server --tome /v1/embed: HTTP {status}")
+    emb_err = float(np.abs(np.array(emb["embedding"]) - ref_feats[0]).max()
+                    / np.abs(ref_feats[0]).max())
+    log(f"cli.server --tome {TOME_R} (defaults): ten assets at once, top-5 vs the f32 engine "
+        f"with tome {TOME_R}: worst {worst:.2e} (tolerance {PROB_TOL:.0e}); /v1/embed "
+        f"max|f - f_f32| / max|f| = {emb_err:.3e} (tolerance {EMBED_TOL:.0e}); /stats "
+        f"{json.dumps(stats)}; exit 0 on SIGTERM")
+    if not (worst <= PROB_TOL and emb_err <= EMBED_TOL):
+        raise AssertionError(f"cli.server --tome: off by {worst} / {emb_err}")
+
+
+def check_cli_serve_tome(what: str, proc, paths, ref_probs, id2label, tol: float) -> None:
+    """A `cli.serve -k 5 --tome` run: 10 lines, and each line's top-1
+    label the f32 engine's (same tome) where its top-two gap exceeds the
+    tolerance, printed probabilities within it (printed to 2 places)."""
+    out, err = proc.communicate(timeout=300)
+    rows = [line.split("\t") for line in out.splitlines()]
+    if proc.returncode != 0 or [r[0] for r in rows] != paths:
+        raise AssertionError(f"{what}: exit {proc.returncode}, stderr {err[-2000:]}")
+    checked = 0
+    for (_, tags), p in zip(rows, ref_probs):
+        top2 = np.sort(p)[-2:]
+        if top2[1] - top2[0] > tol:  # a clear top-1: the labels must agree
+            checked += 1
+            label = id2label.get(int(p.argmax()), f"LABEL_{int(p.argmax())}")
+            if not tags.startswith(label + ":"):
+                raise AssertionError(f"{what}: printed {tags!r}, f32 top-1 {label}")
+            prob = float(tags[len(label) + 1:].split(" ")[0])
+            if abs(prob - top2[1]) > tol + 0.005:  # printed to 2 places
+                raise AssertionError(f"{what}: printed {prob}, f32 {top2[1]}")
+    summary = err.strip().splitlines()[-1]
+    log(f"{what}: rc 0, 10 lines, top-1 equal to the f32 engine's (tome {TOME_R}) on the "
+        f"{checked}/10 with a clear top-two gap; {summary}")
+
+
+def timed_forwards(what: str, fns: dict, card: str) -> dict:
+    """Each forward at B=64, median of 20 in turns (CUDA events around a
+    forward ended by a synchronize), then one profiled run each: device
+    time, idle share, attention_qkv's share and the launches. Returns
+    {name: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+
+    times = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(2):
+        for name in order:
+            fns[name]()
+            torch.cuda.synchronize()
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fns[name]()
+                end.record()
+                end.synchronize()
+                times[name].append(start.elapsed_time(end))
+    ms = {name: float(np.median(t)) for name, t in times.items()}
+    for name, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev_us, (k1_us,) = device_us(prof, KERNEL)
+        host, kernels = _launches(prof)
+        shares = ("device time not measured" if dev_us <= 0 else
+                  f"{dev_us / 1e3:.2f} ms device in {wall_us / 1e3:.2f} ms wall (idle share "
+                  f"{1 - dev_us / wall_us:.3f}), attention_qkv {k1_us / dev_us:.3f} of it, "
+                  f"{host} host launch calls and {kernels} device kernels")
+        log(f"{what} {name}: median {ms[name]:.3f} ms ({64e3 / ms[name]:.0f} img/s, range "
+            f"{min(times[name]):.3f}-{max(times[name]):.3f}); profiled: {shares} on {card}")
+    return ms
+
+
+def tome_paths(f16: str, q8: str, tmp: str, card: str, images) -> tuple:
+    """ToMe and token padding on ViT-B/16 (phase `tome_paths`): K1 (fast
+    bf16 and safe f32), K2 (f32) and K1 at kv=197 held to their plain
+    versions on the inputs the merged, trained and padded forwards give
+    them; the matching card vs CPU; cli.serve --tome 16 at the defaults,
+    --mm pallas and --act static, the daemon cli.server --tome 16 (with
+    /v1/embed), serve_files' launches; the padded forward; cli.finetune
+    --tome 8 with its meta and K2 launches, the loss and gradients at B=2
+    card vs CPU; the r = 0/8/16, padded/unpadded and per-update times.
+    Returns ({path: {kernel name: launches}}, attention_qkv_grad's
+    launches in cli.finetune --tome 8)."""
+    from vit_cpp_tpu_torch.cli import finetune as cli_finetune
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.finetune import _preprocess_all, _reinit_head, load_dataset
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.models import vit
+    from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.ops import flash_attention
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.parallel.train import create_train_state, train_step
+    from vit_cpp_tpu_torch.serve import embed_files, serve_files
+
+    t0 = time.perf_counter()
+    paths, bodies = asset_bodies()
+    assets = os.path.join(HERE, "assets")
+    tome = ["--tome", str(TOME_R)]
+    cli_serve = "vit_cpp_tpu_torch.cli.serve"
+    procs = {
+        "cli.serve --tome defaults": start_module(cli_serve, "-m", f16, *paths, "-b", "8", "-k", "5",
+                                                  *tome),
+        "cli.serve --tome --mm pallas": start_module(cli_serve, "-m", q8, *paths, "-b", "8", "-k",
+                                                     "5", "--mm", "pallas", *tome),
+        "cli.serve --tome --act static": start_module(cli_serve, "-m", f16, *paths, "-b", "8", "-k",
+                                                      "5", "--act", "static", "--calib-dir",
+                                                      assets, *tome),
+    }
+    daemon = subprocess.Popen(
+        [sys.executable, "-c", _RUN_MODULE, "vit_cpp_tpu_torch.cli.server", "-m", f16, *tome,
+         "--port", "0"],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+    )
+    launches = {}
+    try:
+        refs = {}
+        for name, model in (("f16", f16), ("q8", q8)):
+            f32 = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", tome=TOME_R,
+                            device="cuda", verbose=False)
+            px = f32.preprocess_images(images)
+            refs[name] = (f32.predict_probs_batch(px).cpu().numpy(),
+                          f32.features_batch(px).cpu().numpy(), f32.id2label)
+            del f32
+
+        # K1 at the merged forward's inputs: fast bf16 (the serving
+        # defaults) and safe f32; the matching's metric of the same batch
+        engine, _ = build_engine(f16, tome=TOME_R, device="cuda")
+        pixels = engine.preprocess_images(images)
+        with recording(vit, "attention_qkv") as calls, recording(vit, "tome_merge") as merges:
+            engine.predict_probs_batch(pixels)
+        k1_err = check_recorded_attention(f"attention_qkv tome r={TOME_R} serving", calls,
+                                          TOME_LAYERS)
+        check_matching(merges)
+        del calls, merges
+        f32 = VitEngine(f16, dtype="f32", attn_impl="pallas", tome=TOME_R, device="cuda",
+                        verbose=False)
+        with recording(vit, "attention_qkv") as calls:
+            f32.predict_probs_batch(f32.preprocess_images(images))
+        k1_err = max(k1_err, check_recorded_attention(f"attention_qkv tome r={TOME_R} f32",
+                                                      calls, TOME_LAYERS))
+        del f32, calls
+
+        # serve_files, as cli.serve runs it: launches and probabilities
+        for what, model, kw, per_batch, tol in (
+            ("tome serve_files defaults", f16, {}, {KERNEL: 12}, PROB_TOL),
+            ("tome serve_files --mm pallas", q8, {"mm": "pallas"}, {QMM_KERNEL: 49, KERNEL: 12},
+             Q8_PROB_TOL),
+            ("tome serve_files --act static", f16, {"act": "static"}, {KERNEL: 12}, PROB_TOL),
+        ):
+            eng = engine if not kw else build_engine(model, tome=TOME_R, device="cuda", **kw)[0]
+            if kw.get("act") == "static" and not calibrate_engine_from_paths(eng, assets):
+                raise AssertionError(f"{what}: the guardrail rejected the static scales")
+            for kernel in per_batch:
+                kernel.reset()
+            got = list(serve_files(eng, paths, batch=8, keep_probs=True))
+            torch.cuda.synchronize()
+            launches[what] = {kernel.name: kernel.launches for kernel in per_batch}
+            want = refs["q8" if model == q8 else "f16"][0]
+            err = float(max(np.abs(r.probs - p).max() for r, p in zip(got, want)))
+            log(f"{what} (tome {TOME_R}): probabilities vs the f32 engine with the same tome, "
+                f"worst {err:.2e} over 10 x 1000 (tolerance {tol:.0e}); launches "
+                f"{launches[what]} for 2 batches")
+            if not err <= tol:
+                raise AssertionError(f"{what}: off by {err} > {tol}")
+            for kernel, each in per_batch.items():
+                if launches[what][kernel.name] != 2 * each:
+                    raise AssertionError(f"{what}: {kernel.name} launched "
+                                         f"{launches[what][kernel.name]} times for 2 batches")
+            if eng is not engine:
+                del eng
+        KERNEL.reset()
+        vecs = np.stack([e.vector for e in embed_files(engine, paths, batch=8)])
+        torch.cuda.synchronize()
+        launches["tome embed_files"] = {KERNEL.name: KERNEL.launches}
+        f_ref = refs["f16"][1]
+        emb_err = float(np.abs(vecs - f_ref).max() / np.abs(f_ref).max())
+        log(f"tome embed_files (defaults, tome {TOME_R}) vs the unfolded f32 engine with the "
+            f"same tome: max|f - f_f32| / max|f| = {emb_err:.3e} (tolerance {EMBED_TOL:.0e}); "
+            f"{KERNEL.launches} attention_qkv launches")
+        if not (emb_err <= EMBED_TOL and KERNEL.launches == 24):
+            raise AssertionError(f"tome embed_files: off by {emb_err}, {KERNEL.launches} launches")
+        daemon_path = f"f16 W8A8 daemon --tome {TOME_R}"
+        launches[daemon_path] = serve(daemon_path, f16, "int8", {KERNEL: 12}, PROB_TOL, images,
+                                      tome=TOME_R)
+        del engine
+
+        # token padding: B=64 of the assets at the defaults and --mm pallas
+        big = torch.cat([pixels] * 7)[:64]
+        for what, model, kw in (("defaults", f16, {}), ("--mm pallas", q8, {"mm": "pallas"})):
+            eng = build_engine(model, device="cuda", **kw)[0]
+            KERNEL.reset()
+            with recording(vit, "attention_qkv") as calls:
+                padded = eng._forward(big, pad_tokens=True)
+            torch.cuda.synchronize()
+            n = KERNEL.launches
+            launches[f"pad_tokens forward {what}"] = {KERNEL.name: n}
+            plain = eng._forward(big)
+            p_pad = torch.softmax(padded.float(), -1)
+            err = (p_pad - torch.softmax(plain.float(), -1)).abs().max().item()
+            (qkv, _), kw1 = calls[0]
+            log(f"pad_tokens forward {what} B=64: T {qkv.shape[1]} with kv={kw1['kv']}, "
+                f"{n} attention_qkv launches; max|p_padded - p| = {err:.2e} "
+                f"(tolerance {PROB_TOL:.0e})")
+            if not (err <= PROB_TOL and qkv.shape[1] == 200 and kw1["kv"] == 197
+                    and n == 12 and torch.isfinite(p_pad).all()):
+                raise AssertionError(f"pad_tokens {what}: off by {err} or wrong shapes")
+            k1_err = max(k1_err, check_recorded_attention(f"attention_qkv pad_tokens {what}",
+                                                          calls, (0,)))
+            del calls, eng
+
+        # the command lines, which ran beside the checks above
+        for what, proc in procs.items():
+            check_cli_serve_tome(what, proc, paths, refs["q8" if "pallas" in what else "f16"][0],
+                                 refs["f16"][2], Q8_PROB_TOL if "pallas" in what else PROB_TOL)
+        tome_daemon(daemon, paths, bodies, refs["f16"][0], refs["f16"][1])
+    finally:
+        for proc in (*procs.values(), daemon):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+
+    # the times, once the command lines have exited
+    engines = {r: build_engine(f16, tome=r, device="cuda")[0] for r in (0, 8, TOME_R)}
+    timed_forwards("forward ViT-B/16 serving defaults B=64",
+                   {f"tome r={r}": (lambda e=e: e.predict_probs_batch(big))
+                    for r, e in engines.items()}, card)
+    eng = engines[0]
+    timed_forwards("forward ViT-B/16 serving defaults B=64",
+                   {"unpadded (T=197)": lambda: eng._forward(big),
+                    "pad_tokens (T=200, kv=197)": lambda: eng._forward(big, pad_tokens=True)},
+                   card)
+    del engines, eng
+
+    # training through ToMe: the loss and gradients at B=2 card vs CPU, K2
+    # on the inputs the merged backward gives it, then cli.finetune --tome 8
+    f32_path = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
+    with recording(flash_attention, "attention_qkv_grad") as grads:
+        slice_parity(f32_path, tome=TOME_TRAIN_R)
+    card_grads = [c for c in grads if c[0][0].is_cuda]
+    k2_err = 0.0
+    for layer in TOME_GRAD_LAYERS:
+        (qkv, do, nh), kw = card_grads[::-1][layer]  # the backward runs the last layer first
+        got = flash_attention.attention_qkv_grad(qkv, do, nh, **kw)
+        ref = flash_attention.attention_qkv_grad_plain(qkv, do, nh, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = GRAD_TOL[qkv.dtype] * ref.float().abs().max().item()
+        log(f"kernel case attention_qkv_grad tome r={TOME_TRAIN_R} layer {layer}: B=2 "
+            f"T={qkv.shape[1]} f32 sizes {kw['sizes'].min().item():.0f}-"
+            f"{kw['sizes'].max().item():.0f}: max|kernel - plain| = {err:.3e} (tolerance "
+            f"{tol:.3e} = {GRAD_TOL[qkv.dtype]:.0e} x max|plain|)")
+        if not err <= tol:
+            raise AssertionError(f"attention_qkv_grad tome layer {layer}: {err} > {tol}")
+        k2_err = max(k2_err, err)
+    del grads, card_grads
+
+    data = os.path.join(tmp, "train")
+    out, ckpt = os.path.join(tmp, "ft-tome.gguf"), os.path.join(tmp, "ckpt-tome")
+    err = io.StringIO()
+    KERNEL.reset()
+    GRAD_KERNEL.reset()
+    with contextlib.redirect_stderr(err):
+        rc = cli_finetune.main(["-m", f16, "-d", data, "-o", out, "-b", "32", "--epochs", "1",
+                                "--tome", str(TOME_TRAIN_R), "--ckpt-dir", ckpt,
+                                "--device", "cuda"])
+    torch.cuda.synchronize()
+    fin = (KERNEL.launches, GRAD_KERNEL.launches)
+    for line in err.getvalue().splitlines():
+        log(f"cli.finetune --tome {TOME_TRAIN_R}: {line}")
+    losses = [float(v) for v in re.findall(r"^epoch \d+/\d+: loss (\S+)", err.getvalue(), re.M)]
+    with open(ckpt + ".meta.json") as f:
+        meta = json.load(f)
+    updates = len(load_dataset(data)[0]) // 32
+    if rc != 0 or len(losses) != 1 or not np.isfinite(losses[0]) or meta["tome"] != TOME_TRAIN_R:
+        raise AssertionError(f"cli.finetune --tome: rc {rc}, losses {losses}, meta tome "
+                             f"{meta.get('tome')}")
+    if fin != (12 * updates, 12 * updates):
+        raise AssertionError(f"cli.finetune --tome: launches {fin} for {updates} updates")
+    log(f"cli.finetune --tome {TOME_TRAIN_R}: {updates} updates of batch 32, loss {losses[0]}, "
+        f"meta tome {meta['tome']}, launches {fin[0]} attention_qkv + {fin[1]} "
+        f"attention_qkv_grad = 12 + 12 per update")
+
+    mf = read_model(f16)
+    params, hp = _reinit_head(load_params(mf, torch.float32, device="cuda"), mf.hparams, 2)
+    state = create_train_state(params)
+    paths_t, labels, _ = load_dataset(data)
+    x = _preprocess_all(paths_t[:32], hp, 0, "cuda").cuda()
+    y = torch.from_numpy(labels[:32]).cuda()
+    per_update = {0: [], TOME_TRAIN_R: []}
+    for r in (0, TOME_TRAIN_R, TOME_TRAIN_R, 0):
+        train_step(state, x, y, hp, tome=r)  # warm
+        torch.cuda.synchronize()
+        for _ in range(3):
+            t1 = time.perf_counter()
+            float(train_step(state, x, y, hp, tome=r))
+            per_update[r].append((time.perf_counter() - t1) * 1e3)
+    ms = {r: float(np.median(t)) for r, t in per_update.items()}
+    log(f"update ViT-B/16 f32 B=32 (median of 6 in turns, host clock, loss read): tome 0 "
+        f"{ms[0]:.2f} ms, tome {TOME_TRAIN_R} {ms[TOME_TRAIN_R]:.2f} ms "
+        f"({ms[0] / ms[TOME_TRAIN_R]:.2f}x) on {card}")
+    del state, params
+    log(f"tome_paths: {time.perf_counter() - t0:.1f} s; worst K1 error {k1_err:.2e}, "
+        f"K2 {k2_err:.2e}")
+    return launches, fin[1]
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -2526,8 +3004,12 @@ def run_paths(card: str):
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
         slice_parity(f32)
         grad_launches = finetune_path(f16, tmp)
+        tome_launches, tome_grad_launches = tome_paths(f16, q8, tmp, card, images)
+        serve_launches.update(tome_launches)
         vit_benchmark(os.path.join(tmp, "ft.gguf"), tmp, card)
     flash_launches = split_head_path()
+    grad_launches = {"cli.finetune": grad_launches,
+                     f"cli.finetune --tome {TOME_TRAIN_R}": tome_grad_launches}
     return f16_launches, q8_launches, flash_launches, grad_launches, serve_launches
 
 
@@ -2610,8 +3092,9 @@ def main() -> int:
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
         # K2: f32 at ViT-B/16 B=32 (the training path's); bf16 and T=785
         # beside it
-        entry(GRAD_KERNEL, grad_launches, k2_err, k2_times[(torch.float32, 197)],
-              bf16=k2_times[(torch.bfloat16, 197)], t785=k2_times[(torch.float32, 785)]),
+        entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err, k2_times[(torch.float32, 197)],
+              by_path=grad_launches, bf16=k2_times[(torch.bfloat16, 197)],
+              t785=k2_times[(torch.float32, 785)]),
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL, tp.KERNEL)),
     ]}))

@@ -42,6 +42,16 @@ def model(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def vitstr_model(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("engine-vitstr") / "vitstr.gguf")
+    write_synthetic_model(path, VitHParams(hidden_size=64, num_hidden_layers=1,
+                                           num_attention_heads=2, num_classes=96, patch_size=8,
+                                           img_size=32, in_chans=1, seq_len=25),
+                          ftype=1, seed=0)
+    return path
+
+
+@pytest.fixture(scope="module")
 def q8_model(model, tmp_path_factory):
     from vit_cpp_tpu_torch.cli.quantize import quantize_model_file
 
@@ -117,12 +127,12 @@ def test_build_engine_serving_defaults_and_unported_flags(model):
     )
     assert engine.params["blocks"]["ln1"]["scale"] is None  # fold_ln on
     # --act static serves since the static-scale slice, --patch-size and
-    # --img-size since the model-families slice (models/resample.py);
-    # --tome still raises
+    # --img-size since the model-families slice (models/resample.py),
+    # --tome since the ToMe slice (ops/tome.py)
     engine, _ = build_engine(model, patch_size=4, device="cpu")
     assert engine.hp.patch_size == 4
-    with pytest.raises(NotImplementedError, match="ToMe"):
-        build_engine(model, tome=2, device="cpu")
+    engine, _ = build_engine(model, tome=2, device="cpu")
+    assert engine.tome == 2
     engine, _ = build_engine(model, img_size=64, device="cpu")
     assert engine.hp.img_size == 64
     # --mm pallas serves (block-quantized files through the dequantizing
@@ -162,25 +172,40 @@ def test_build_engine_reads_the_file_once(model, monkeypatch):
 @pytest.mark.parametrize(
     "argv,match",
     [
-        # multi-model daemons, --act static and (since the model-families
-        # slice) --img-size / --patch-size serve now: these cases point at
-        # flags that still raise, through the same two code paths, and
-        # keep their ids
-        pytest.param(["-m", "cls=MODEL", "-m", "b=MODEL", "--tome", "4", "--device", "cpu"],
-                     "ToMe", id="argv0-multi-model"),
+        # multi-model daemons, --act static, (since the model-families
+        # slice) --img-size / --patch-size and (since the ToMe slice)
+        # --tome serve now: these cases point at flags that still raise,
+        # through the same two code paths, and keep their ids (a
+        # multi-model --mesh is refused with a message, not raised, so
+        # the multi-model case passes --compile-cache)
+        pytest.param(["-m", "cls=MODEL", "-m", "b=MODEL", "--compile-cache", "--device", "cpu"],
+                     "XLA compile cache", id="argv0-multi-model"),
         (["-m", "MODEL", "--mesh", "2x1"], "multi-device"),
         pytest.param(["-m", "MODEL", "--act", "static", "--calib-dir", "d", "--patch-size", "4",
-                      "--tome", "4", "--device", "cpu"], "ToMe", id="argv2-static-scale"),
+                      "--mesh", "2x1", "--device", "cpu"], "multi-device",
+                     id="argv2-static-scale"),
         (["-m", "MODEL", "--compile-cache"], "XLA compile cache"),
-        (["-m", "MODEL", "--tome", "4", "--device", "cpu"], "ToMe"),
-        pytest.param(["-m", "MODEL", "--img-size", "64", "--tome", "4", "--device", "cpu"],
-                     "ToMe", id="argv5-model-families"),
+        # the bare --tome case (match None): the flag serves now, and a
+        # ViTSTR file refuses it with the JAX daemon's own error (named:
+        # the JAX single-model daemon drops --tome, ROADMAP C)
+        pytest.param(["-m", "ocr=VITSTR", "--tome", "4"], None, id="argv4-ToMe"),
+        pytest.param(["-m", "MODEL", "--img-size", "64", "--mesh", "2x1", "--device", "cpu"],
+                     "multi-device", id="argv5-model-families"),
     ],
 )
-def test_cli_server_unported_flags_raise(model, argv, match):
+def test_cli_server_unported_flags_raise(model, vitstr_model, argv, match, capsys):
+    from vit_cpp_tpu.cli.server import main as jax_main
     from vit_cpp_tpu_torch.cli.server import main
 
-    argv = [a.replace("MODEL", model) for a in argv]
+    argv = [a.replace("MODEL", model).replace("VITSTR", vitstr_model) for a in argv]
+    if match is None:
+        assert jax_main(argv) == 1
+        want = capsys.readouterr().err.splitlines()[-1]
+        assert main(argv + ["--device", "cpu"]) == 1
+        assert capsys.readouterr().err.splitlines()[-1] == want == (
+            "vit-server: ocr: tome token merging is incompatible with sequence-head "
+            "(ViTSTR) checkpoints")
+        return
     with pytest.raises(NotImplementedError, match=match):
         main(argv)
 

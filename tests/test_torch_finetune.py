@@ -157,9 +157,14 @@ UNPORTED = [
 def test_unported_flags_raise(model_path, data, tmp_path, flag):
     from vit_cpp_tpu_torch.cli.finetune import main
 
+    argv = ["-m", model_path, "-d", data, "-o", str(tmp_path / "x.gguf"), "--device", "cpu",
+            *flag]
+    if flag[0] == "--tome":  # trains since the ToMe slice
+        assert main(argv + ["--epochs", "1", "-b", "8"]) == 0
+        assert os.path.exists(tmp_path / "x.gguf")
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        main(["-m", model_path, "-d", data, "-o", str(tmp_path / "x.gguf"),
-              "--device", "cpu", *flag])
+        main(argv)
 
 
 def test_cuda_device_without_a_card_raises(model_path, data):

@@ -296,6 +296,16 @@ def test_import_scan_covers_the_model_family_modules():
         assert os.path.join("vit_cpp_tpu_torch", module) in SOURCES
 
 
+def test_import_scan_covers_the_tome_modules():
+    """The scans above reach ToMe and token padding: the merge, the
+    forward and composed attention that take it, the engine and the front
+    ends that pass it on, and the training path."""
+    for module in ("ops/tome.py", "ops/core.py", "models/vit.py", "engine.py", "cli/common.py",
+                   "cli/serve.py", "cli/server.py", "cli/finetune.py", "parallel/train.py",
+                   "finetune.py"):
+        assert os.path.join("vit_cpp_tpu_torch", module) in SOURCES
+
+
 def test_quick_example_vitstr_writer_is_byte_identical(tmp_path):
     from vit_cpp_tpu.testing.synthetic import write_quick_example_vitstr_model as jax_quick
     from vit_cpp_tpu_torch.testing.synthetic import write_quick_example_vitstr_model

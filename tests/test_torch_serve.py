@@ -252,27 +252,33 @@ def test_cli_serve_headless_encoder_needs_embed(files, capsys, tmp_path):
     [
         # --act static, --calib-dir and --act-scales serve since the
         # static-scale slice, --img-size and --patch-size since the
-        # model-families slice: these cases pass each with a flag that
-        # still raises, and keep their ids
-        pytest.param(["--act", "static", "--tome", "2"], r"--tome .* ToMe slice",
+        # model-families slice, --tome since the ToMe slice: these cases
+        # pass each with a flag that still raises, and keep their ids
+        pytest.param(["--act", "static", "--mesh", "2x1"], r"--mesh .* multi-device slice",
                      id=r"flags0---act static .* static-scale slice"),
         pytest.param(["--calib-dir", "d", "--mesh", "2x1"], r"--mesh .* multi-device slice",
                      id=r"flags1---calib-dir .* static-scale slice"),
         pytest.param(["--act-scales", "s.json", "--img-size", "64", "--mesh", "2x1"],
                      r"--mesh .* multi-device slice",
                      id=r"flags2---act-scales .* static-scale slice"),
-        pytest.param(["--img-size", "64", "--tome", "2"], r"--tome .* ToMe slice",
+        pytest.param(["--img-size", "64", "--mesh", "2x1"], r"--mesh .* multi-device slice",
                      id=r"flags3---img-size .* model-families slice"),
         pytest.param(["--patch-size", "4", "--mesh", "2x1"], r"--mesh .* multi-device slice",
                      id=r"flags4---patch-size .* model-families slice"),
-        (["--tome", "2"], r"--tome .* ToMe slice"),
+        # the bare --tome case (match None): the flag serves now
+        pytest.param(["--tome", "2"], None, id=r"flags5---tome .* ToMe slice"),
         (["--mesh", "2x1"], r"--mesh .* multi-device slice"),
         (["--compile-cache"], "XLA compile cache"),
     ],
 )
-def test_cli_serve_unported_flags_raise_and_name_their_slice(files, flags, match):
+def test_cli_serve_unported_flags_raise_and_name_their_slice(files, flags, match, capsys):
+    argv = ["-m", files["model"], *files["paths"], "--device", "cpu", *flags]
+    if match is None:
+        rc, out, _ = _cli(cli_serve.main, argv, capsys)
+        assert rc == 0 and len(out.splitlines()) == 7
+        return
     with pytest.raises(NotImplementedError, match=match):
-        cli_serve.main(["-m", files["model"], *files["paths"], "--device", "cpu", *flags])
+        cli_serve.main(argv)
 
 
 def test_cli_serve_rejects_a_vitx_artifact(files, capsys, tmp_path):

@@ -10,7 +10,8 @@ int8 without a scales sidecar. `mm="pallas"` leaves fold off by default,
 as the JAX tool does, so every linear of a block-quantized file runs the
 dequantizing-matmul kernel. `act="static"` serves W8A8 with calibrated
 activation scales: from `act_scales` (a sidecar JSON), from
-`calibrate_engine_from_paths`, or from the first served batch.
+`calibrate_engine_from_paths`, or from the first served batch. `tome=r`
+merges r token pairs per layer (ops/tome.py); a ViTSTR file refuses it.
 """
 
 from __future__ import annotations
@@ -94,8 +95,6 @@ def build_engine(
             "package and cannot run under vit_cpp_tpu_torch; serve the gguf "
             "checkpoint it was exported from"
         )
-    if tome:
-        raise _not_ported("--tome", "the ToMe slice (ops/tome.py)")
     from vit_cpp_tpu_torch.engine import VitEngine, VitstrEngine, detect_hparams
     from vit_cpp_tpu_torch.gguf.reader import read_model
 
@@ -115,6 +114,7 @@ def build_engine(
         act_scales=act_scales,
         img_size=img_size,
         patch_size=patch_size,
+        tome=tome,
         verbose=False,
         device=device,
         model_file=mf,

@@ -59,7 +59,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="decode + preprocess per batch on a prefetch thread")
     ap.add_argument("--img-size", type=int, default=None, metavar="PX")
     ap.add_argument("--patch-size", type=int, default=None, metavar="P")
-    ap.add_argument("--tome", type=int, default=0, metavar="R")
+    ap.add_argument("--tome", type=int, default=0, metavar="R",
+                    help="fine-tune through ToMe token merging (ops/tome.py): the "
+                    "loss, backward and per-epoch validation run the merged graph "
+                    "that `--tome R` serving runs")
     ap.add_argument("--moe", type=int, default=0, metavar="E")
     ap.add_argument("--moe-every", type=int, default=2, metavar="N")
     ap.add_argument("--moe-top-k", type=int, default=1, metavar="K")

@@ -13,8 +13,9 @@ batch k on the card. Prints one
 recognize_files) and an images/sec summary on stderr; `--embed OUT.npy`
 writes the (N, hidden) f32 features and OUT.paths.txt instead.
 `--img-size` / `--patch-size` serve the checkpoint at another geometry
-(models/resample.py). Flags whose slice is not ported yet raise and name
-that slice.
+(models/resample.py); `--tome R` merges R token pairs per layer
+(ops/tome.py). Flags whose slice is not ported yet raise and name that
+slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir [-b 64] [--device cuda|cpu]
@@ -76,7 +77,9 @@ def _parser() -> argparse.ArgumentParser:
                     "is PI-resized and the pos_embed grid follows (gguf "
                     "classifiers only)")
     ap.add_argument("--mesh", metavar="DPxTP", default=None)
-    ap.add_argument("--tome", type=int, default=0, metavar="R")
+    ap.add_argument("--tome", type=int, default=0, metavar="R",
+                    help="ToMe token merging (ops/tome.py): merge R most-similar "
+                    "patch-token pairs per layer (classifier gguf engines only)")
     ap.add_argument("--compile-cache", nargs="?", const="", default=None, metavar="DIR")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain PyTorch "
@@ -89,7 +92,6 @@ def _check_ported(args) -> None:
     from vit_cpp_tpu_torch.cli.common import _not_ported
 
     for given, flag, slice_ in (
-        (args.tome, "--tome", "the ToMe slice (ops/tome.py)"),
         (args.mesh, "--mesh", "the multi-device slice"),
     ):
         if given:
@@ -126,9 +128,10 @@ def main(argv=None) -> int:
         engine, is_vitstr = build_engine(
             args.model, dtype=args.dtype, mm=args.mm, attn=args.attn,
             fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
-            img_size=args.img_size, patch_size=args.patch_size, device=args.device,
+            img_size=args.img_size, patch_size=args.patch_size, tome=args.tome,
+            device=args.device,
         )
-    except ValueError as e:  # a .vitx artifact, a geometry that does not fit
+    except ValueError as e:  # a .vitx artifact, a geometry that does not fit, ViTSTR + --tome
         print(f"serve: {e}", file=sys.stderr)
         return 1
     if engine.hp.num_classes == 0 and not args.embed:

@@ -13,8 +13,9 @@ batch, so one of the two is required). A headless encoder
 /v1/embed. `-m name=path`, repeated, serves several models from one
 daemon under /v1/<name>/classify (or /recognize) and /v1/<name>/embed.
 `--img-size` / `--patch-size` serve every gguf model at another geometry
-(models/resample.py). Flags whose slice is not ported yet raise and name
-that slice.
+(models/resample.py), `--tome R` with R token pairs merged per layer
+(ops/tome.py). Flags whose slice is not ported yet raise and name that
+slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
@@ -65,7 +66,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="serve at another patch size: the patch-embedding kernel "
                     "is PI-resized and the pos_embed grid follows (gguf "
                     "classifiers only)")
-    ap.add_argument("--tome", type=int, default=0, metavar="R")
+    ap.add_argument("--tome", type=int, default=0, metavar="R",
+                    help="ToMe token merging (ops/tome.py) on every gguf classifier "
+                    "served: merge R most-similar patch-token pairs per layer")
     ap.add_argument("--mesh", metavar="DPxTP", default=None)
     ap.add_argument("--request-timeout", type=float, default=30.0,
                     help="per-request wait on the device queue, seconds")
@@ -85,28 +88,32 @@ def _parser() -> argparse.ArgumentParser:
 def _engine(args, path: str, who: str, multi: bool = False):
     """build_engine with the flags, then static calibration on --calib-dir
     when asked; None after printing the error on a bad model or set. In a
-    multi-model daemon a .vitx artifact skips the geometry flags with a
-    notice, as the JAX daemon does (its geometry was baked at export);
-    build_engine then refuses the artifact."""
+    multi-model daemon a .vitx artifact skips the geometry flags and
+    --tome with a notice, as the JAX daemon does (its graph was baked at
+    export); build_engine then refuses the artifact."""
     from vit_cpp_tpu_torch.cli.common import (
         build_engine,
         calibrate_engine_from_paths,
         is_vitx,
     )
 
-    img_size, patch_size = args.img_size, args.patch_size
+    img_size, patch_size, tome = args.img_size, args.patch_size, args.tome
     if multi and is_vitx(path) and (img_size is not None or patch_size is not None):
         skipped = [f"{flag} {v}" for flag, v in (("--img-size", img_size),
                                                  ("--patch-size", patch_size)) if v is not None]
         print(f"{who}.vitx geometry is baked at export; ignoring {' '.join(skipped)}",
               file=sys.stderr)
         img_size = patch_size = None
+    if multi and is_vitx(path) and tome:
+        print(f"{who}.vitx graph is baked at export; ignoring --tome {tome} (use "
+              "vit-export --tome)", file=sys.stderr)
+        tome = 0
     try:
         engine, _ = build_engine(
             path, dtype=args.dtype, mm=args.mm, attn=args.attn,
             fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
             img_size=img_size, patch_size=patch_size,
-            tome=args.tome, device=args.device,
+            tome=tome, device=args.device,
         )
         if args.act == "static" and not args.act_scales:
             if not calibrate_engine_from_paths(engine, args.calib_dir):

@@ -26,6 +26,10 @@ carries over:
 `img_size` / `patch_size` serve the checkpoint at another resolution or
 patch size: the positional grid is resampled and the patch embedding
 PI-resized on the host at load time (models/resample.py).
+`tome=r` serves with ToMe token merging (ops/tome.py; classifiers and
+encoders, not ViTSTR): r patch-token pairs merge per layer in every
+served forward; static-scale calibration still measures the unmerged
+graph, as the JAX package's does.
 
 `verbose` prints the JAX engine's `vit_model_load:` echo on stdout.
 `model_file` is `model_path` already parsed by gguf/reader.py, which
@@ -105,6 +109,7 @@ class VitEngine:
         act_scales: Optional[str] = None,
         img_size: Optional[int] = None,
         patch_size: Optional[int] = None,
+        tome: int = 0,
         verbose: bool = True,
         device="cuda",
         model_file: Optional[ModelFile] = None,
@@ -199,6 +204,23 @@ class VitEngine:
             params = attach_act_scales(params, load_act_scales(act_scales))
             if verbose:
                 print(f"vit_model_load: static act scales      = {act_scales}")
+        if tome and hp.seq_len is not None:
+            raise ValueError(
+                "tome token merging is incompatible with sequence-head "
+                "(ViTSTR) checkpoints"
+            )
+        if tome and hp.num_experts:
+            raise ValueError("tome + MoE is not supported (both re-plan the layer loop)")
+        self.tome = tome
+        if tome and verbose:
+            from vit_cpp_tpu_torch.ops.tome import tome_schedule
+
+            rs = tome_schedule(hp.n_patches, hp.num_hidden_layers, tome)
+            print(
+                f"vit_model_load: tome r={tome} — patch tokens "
+                f"{hp.n_patches} -> {hp.n_patches - sum(rs)} over "
+                f"{hp.num_hidden_layers} layers"
+            )
         self.params = params
         self.attn_impl = attn_impl
         self.mm_impl = mm_impl
@@ -280,7 +302,7 @@ class VitEngine:
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             return forward(
                 self.params, images.to(self.device), self.hp,
-                attn_impl=self.attn_impl, mm_impl=self.mm_impl, **kw,
+                attn_impl=self.attn_impl, mm_impl=self.mm_impl, tome=self.tome, **kw,
             )
 
     def predict_probs_batch(self, images: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,9 @@ hparams rewritten.
 Ported options: epochs, batch, lr, weight_decay, schedule, warmup_steps,
 grad_accum, clip_norm, freeze_backbone, augment, label_smoothing, mixup,
 ema, ckpt_dir (resume with the JAX package's settings checks), seed,
-decode_threads, val_dir, stream, device. The others raise and name the
-slice they come with.
+decode_threads, val_dir, stream, tome (training and validation through
+ToMe merging, ops/tome.py), device. The others raise and name the slice
+they come with.
 """
 
 from __future__ import annotations
@@ -161,16 +162,20 @@ def _preprocess_all(paths, hp, decode_threads: int, device) -> torch.Tensor:
     )
 
 
-def evaluate(params, hp, pixels: torch.Tensor, labels: np.ndarray, batch: int) -> float:
+def evaluate(
+    params, hp, pixels: torch.Tensor, labels: np.ndarray, batch: int, tome: int = 0
+) -> float:
     """Top-1 accuracy of `params` on preprocessed pixels, on the params'
-    device (the default, composed attention, as the JAX package's eval)."""
+    device (the default, composed attention, as the JAX package's eval).
+    `tome` evaluates through the merged graph: a --tome fine-tune
+    validates what it will serve."""
     from vit_cpp_tpu_torch.models.vit import forward
 
     dev = params["pos_embed"].device
     correct = 0
     with torch.no_grad():
         for i in range(0, len(pixels), batch):
-            pred = forward(params, pixels[i : i + batch].to(dev), hp).argmax(dim=-1)
+            pred = forward(params, pixels[i : i + batch].to(dev), hp, tome=tome).argmax(dim=-1)
             correct += int((pred.cpu().numpy() == labels[i : i + len(pred)]).sum())
     return correct / len(pixels)
 
@@ -256,8 +261,6 @@ def finetune(
 
     if mesh or fsdp:
         raise _not_ported("--mesh / --fsdp", "the multi-device slice")
-    if tome:
-        raise _not_ported("--tome training", "the ToMe slice (ops/tome.py)")
     if moe:
         raise _not_ported("--moe upcycling", "the V-MoE slice (ops/moe.py)")
     if lora:
@@ -282,10 +285,17 @@ def finetune(
         raise ValueError(f"ema decay must be in [0, 1), got {ema}")
     if mixup and grad_accum > 1:
         raise ValueError("--mixup is incompatible with --grad-accum > 1")
+    if tome < 0:
+        raise ValueError(f"tome must be >= 0, got {tome}")
     dev = resolve_device(device)
 
     mf = read_model(model)
     hp = detect_hparams(mf)  # V-MoE checkpoints raise here
+    if tome and hp.seq_len is not None:
+        raise ValueError(
+            "tome is incompatible with sequence checkpoints (ViTSTR "
+            "reads every token position)"
+        )
     if hp.seq_len is not None:
         raise _not_ported("ViTSTR fine-tuning", "the training-extras slice (ROADMAP A.10)")
     if hp.global_pool == "map":
@@ -376,6 +386,15 @@ def finetune(
         if schedule == "const":
             strict.pop("epochs")
         missing = [k for k in strict if k not in saved]
+        if "tome" in missing and tome:
+            # a meta that predates 'tome' was trained on the unmerged
+            # graph; adopting r > 0 would change the objective
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} predates --tome recording "
+                "(trained unmerged); resuming with --tome would not "
+                "replay the original run — drop --tome or use a fresh "
+                "--ckpt-dir"
+            )
         if missing:
             log(
                 f"finetune: warning — {meta_path} predates recording of "
@@ -440,12 +459,14 @@ def finetune(
                     mix = (by[perm], lam)
             if mix is not None:
                 loss = train_step_mixup(
-                    state, bx, by, mix[0], mix[1], hp, smooth=label_smoothing
+                    state, bx, by, mix[0], mix[1], hp, smooth=label_smoothing, tome=tome
                 )
             elif grad_accum > 1:
-                loss = train_step_accum(state, bx, by, hp, grad_accum, smooth=label_smoothing)
+                loss = train_step_accum(
+                    state, bx, by, hp, grad_accum, smooth=label_smoothing, tome=tome
+                )
             else:
-                loss = train_step(state, bx, by, hp, smooth=label_smoothing)
+                loss = train_step(state, bx, by, hp, smooth=label_smoothing, tome=tome)
             if ema:
                 _ema_update(ema_leaves, param_leaves, ema)
             epoch_losses.append(float(loss))  # waits for the device
@@ -457,7 +478,7 @@ def finetune(
         msg = f"epoch {epoch + 1}/{epochs}: loss {mean_loss:.4f}"
         if val is not None:
             eval_params = ema_params if ema else state.params
-            acc = evaluate(eval_params, hp, val[0], val[1], batch)
+            acc = evaluate(eval_params, hp, val[0], val[1], batch, tome=tome)
             msg += f", val top-1{' (ema)' if ema else ''} {acc:.3f}"
         log(msg)
         if ckpt_dir:

@@ -23,19 +23,28 @@ attention of the training path (safe-softmax kernel forward, the
 backward kernel backward), "xla" the composed split-head attention.
 `mm_impl` goes to every linear of the blocks and the head: "pallas" runs
 block-quantized (QuantLinear) weights through the dequantizing-matmul
-kernel (ops/qmatmul.py); dense and Int8Linear weights ignore it. ToMe,
-token padding and V-MoE are not ported yet and raise.
+kernel (ops/qmatmul.py); dense and Int8Linear weights ignore it.
+
+`pad_tokens=True` pads the token axis to a multiple of 8 after the
+embedding; the attention kernel's key mask (`kv`, the real token count)
+keeps the pad rows out of every softmax and the readouts skip them.
+`tome=r` merges r patch-token pairs per layer (ops/tome.py) between the
+attention and MLP halves of each block (`tome_block`): attention is
+proportional to the merged-token counts `sizes` on every attention path,
+and the readouts weight by them. V-MoE is not ported yet and raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
+from vit_cpp_tpu_torch.ops.precision import matmul_precision
+from vit_cpp_tpu_torch.ops.tome import tome_merge, tome_schedule
 
 ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
 
@@ -76,9 +85,11 @@ def embed(params: Dict[str, Any], images: torch.Tensor, hp: VitHParams) -> torch
 
 def _attn_half(
     x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
-    tap=None,
-) -> torch.Tensor:
-    """LN1 -> QKV -> attention -> proj -> residual."""
+    tap=None, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None,
+):
+    """LN1 -> QKV -> attention -> proj -> residual; returns (x', qkv).
+    `kv` is the real token count of a padded input (the fused kernel's
+    key mask), `sizes` (B, T) f32 ToMe's merged-token counts."""
     b, t, h = x.shape
     nh, hd = hp.num_attention_heads, hp.head_dim
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
@@ -86,27 +97,23 @@ def _attn_half(
         tap("qkv_in", y)
     qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"], impl=mm_impl)
     if attn_impl in ("pallas", "pallas-fast"):
-        o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast")
+        o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast", kv=kv, sizes=sizes)
     elif attn_impl == "pallas-train":
-        o = attention_qkv_train(qkv, nh)
+        o = attention_qkv_train(qkv, nh, sizes)
     elif attn_impl == "xla":
         q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        o = attention(q, k, v).permute(0, 2, 1, 3).reshape(b, t, h)
+        o = attention(q, k, v, sizes=sizes).permute(0, 2, 1, 3).reshape(b, t, h)
     else:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     if tap is not None:
         tap("proj_in", o)
-    return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"], impl=mm_impl)
+    return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"], impl=mm_impl), qkv
 
 
-def transformer_block(
-    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
-    tap=None,
+def _mlp_half(
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, mm_impl: str, tap=None
 ) -> torch.Tensor:
-    """One encoder block. `tap(name, tensor)`, when given, observes every
-    matmul input ("qkv_in", "proj_in", "fc1_in", "fc2_in"): the static
-    activation-scale calibrator (quant/calibrate.py) reads them."""
-    x = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap)
+    """LN2 -> fc1 -> activation -> fc2 -> residual."""
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
     if tap is not None:
         tap("fc1_in", y)
@@ -116,6 +123,40 @@ def transformer_block(
         tap("fc2_in", y)
     y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"], impl=mm_impl)
     return x + y
+
+
+def transformer_block(
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
+    tap=None, kv: Optional[int] = None,
+) -> torch.Tensor:
+    """One encoder block. `tap(name, tensor)`, when given, observes every
+    matmul input ("qkv_in", "proj_in", "fc1_in", "fc2_in"): the static
+    activation-scale calibrator (quant/calibrate.py) reads them."""
+    x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv)
+    return _mlp_half(x, bp, hp, mm_impl=mm_impl, tap=tap)
+
+
+def tome_block(
+    x: torch.Tensor, sizes: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, r: int, *,
+    attn_impl: str, mm_impl: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One encoder block with ToMe token merging: `transformer_block`'s
+    ops with attention proportional to `sizes`, and the size-weighted
+    merge of the r most similar token pairs between the two halves.
+    The similarity metric is the attention key summed over heads (the
+    paper's mean key; cosine similarity ignores the 1/nh), one f32
+    product over the k third of qkv. Returns (x', sizes') with r fewer
+    tokens."""
+    x, qkv = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, sizes=sizes)
+    if r:
+        h, hd = hp.hidden_size, hp.head_dim
+        head_sum = torch.eye(hd, dtype=torch.float32, device=qkv.device).repeat(
+            hp.num_attention_heads, 1
+        )  # (h, hd)
+        with matmul_precision("highest"):
+            metric = torch.matmul(qkv[:, :, h : 2 * h].detach().float(), head_sum)
+        x, sizes = tome_merge(x, metric, sizes, r, hp.n_prefix)
+    return _mlp_half(x, bp, hp, mm_impl=mm_impl), sizes
 
 
 def unstack_blocks(tree, n: int) -> list:
@@ -133,11 +174,13 @@ def unstack_blocks(tree, n: int) -> list:
 
 
 def attention_pool(
-    ap: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str = "xla"
+    ap: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str = "xla",
+    sizes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """SigLIP attention pooling (HF SiglipMultiheadAttentionPoolingHead):
     a learned probe cross-attends over the already normed tokens, then a
-    residual MLP with a tanh GELU. x: (B, T, h) -> (B, h). The packed
+    residual MLP with a tanh GELU. x: (B, T, h) -> (B, h). Under ToMe
+    `sizes` (B, T) the cross-attention is proportional. The packed
     in_proj [q; k; v] runs whole on the probe (q) and on the tokens (k,
     v), since a QuantLinear kernel cannot be column-sliced; the
     one-query attention is the composed one, as in the JAX package."""
@@ -151,7 +194,7 @@ def attention_pool(
     q = q.reshape(b, 1, nh, hd).transpose(1, 2)
     k = k.reshape(b, t, nh, hd).transpose(1, 2)
     v = v.reshape(b, t, nh, hd).transpose(1, 2)
-    o = attention(q, k, v).transpose(1, 2).reshape(b, 1, h)
+    o = attention(q, k, v, sizes=sizes).transpose(1, 2).reshape(b, 1, h)
     o = linear(o, ap["proj"]["kernel"], ap["proj"]["bias"], impl=mm_impl)
     y = layernorm(o, ap["norm"]["scale"], ap["norm"]["bias"], hp.eps)
     y = linear(y, ap["fc1"]["kernel"], ap["fc1"]["bias"], impl=mm_impl)
@@ -162,7 +205,7 @@ def attention_pool(
 
 def _head(
     params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str, features: bool,
-    tap=None,
+    tap=None, *, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pooling readout + classifier head; features=True returns the
     final-LN pooled readout (the embedding) instead of the logits:
@@ -171,13 +214,17 @@ def _head(
     affine for that readout in `features_norm`, since its `norm` carries
     none. `tap` observes the head's input as "head_in" (both prefix
     tokens of a distilled tree, the pooled output of attention
-    pooling)."""
+    pooling). Under token padding the pooled readouts stop at `kv`, the
+    real token count; ToMe's `sizes` weight them (the prefix tokens that
+    the CLS and distilled readouts take are never merged)."""
+    end = x.shape[1] if kv is None else kv
     norm = params["features_norm"] if features and "features_norm" in params else params["norm"]
     if hp.global_pool == "map":
         # the final norm applies to every token (HF post_layernorm), then
         # the probe pools: the reverse of every other head's order
-        y = layernorm(x, norm["scale"], norm["bias"], hp.eps)
-        pooled = attention_pool(params["attn_pool"], y, hp, mm_impl)
+        y = layernorm(x[:, :end], norm["scale"], norm["bias"], hp.eps)
+        pooled = attention_pool(params["attn_pool"], y, hp, mm_impl,
+                                sizes=None if sizes is None else sizes[:, :end])
     elif "head_dist" in params:
         # DeiT distilled: LN over both prefix tokens; the embedding is the
         # mean of the two normed tokens, the logits the mean of two heads
@@ -196,8 +243,15 @@ def _head(
     elif hp.seq_len is not None:
         pooled = layernorm(x[:, : hp.seq_len], norm["scale"], norm["bias"], hp.eps)
     elif hp.global_pool == "avg":
-        # mean over the patch tokens, prefix and registers excluded
-        pooled = layernorm(x[:, hp.n_prefix:].mean(dim=1), norm["scale"], norm["bias"], hp.eps)
+        # mean over the patch tokens, prefix and registers excluded; under
+        # ToMe each token counts as the `sizes` originals it stands for
+        if sizes is None:
+            mean = x[:, hp.n_prefix : end].mean(dim=1)
+        else:
+            s = sizes[:, hp.n_prefix : end]
+            mean = ((x[:, hp.n_prefix : end].float() * s[..., None]).sum(dim=1)
+                    / s.sum(dim=1, keepdim=True)).to(x.dtype)
+        pooled = layernorm(mean, norm["scale"], norm["bias"], hp.eps)
     else:
         pooled = layernorm(x[:, 0], norm["scale"], norm["bias"], hp.eps)
     if tap is not None:
@@ -228,20 +282,46 @@ def forward(
     """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
     with features=True the final-LN pooled readout (B, hidden); a
     sequence head (ViTSTR) gives (B, seq_len, ...) of either. `tap`
-    observes every GEMM input (transformer_block, _head)."""
-    if pad_tokens or tome:
-        raise NotImplementedError(
-            "token padding and ToMe merging are not ported to "
-            "vit_cpp_tpu_torch yet; they come with the ToMe and "
-            "token-padding slices (the attention kernel already takes "
-            "their kv / sizes inputs)"
+    observes every GEMM input (transformer_block, _head).
+
+    `pad_tokens=True` (serving; a fused attention only) zero-pads T to a
+    multiple of 8; the pad rows carry values nothing reads. `tome=r`
+    merges tokens in every layer by `tome_schedule` (layer l merges
+    min(r, remaining // 2) pairs); the two are exclusive."""
+    if pad_tokens and attn_impl not in ("pallas", "pallas-fast"):
+        raise ValueError(
+            "pad_tokens requires a fused pallas attention (the XLA "
+            "and training paths run unpadded)"
         )
+    if tome:
+        if hp.num_experts:
+            raise ValueError("tome + MoE is not supported (both re-plan the layer loop)")
+        if hp.seq_len is not None:
+            raise ValueError(
+                "tome is incompatible with sequence heads (ViTSTR reads "
+                "every token position)"
+            )
+        if pad_tokens:
+            raise ValueError("tome and pad_tokens are exclusive")
     if hp.num_experts:
         raise NotImplementedError(
             "V-MoE is not ported to vit_cpp_tpu_torch yet; it comes with "
             "the V-MoE slice (ops/moe.py)"
         )
     x = embed(params, images, hp)
-    for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):
-        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap)
-    return _head(params, x, hp, mm_impl, features, tap)
+    blocks = unstack_blocks(params["blocks"], hp.num_hidden_layers)
+    if tome:
+        rs = tome_schedule(hp.n_patches, hp.num_hidden_layers, tome)
+        sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+        for bp, rl in zip(blocks, rs):
+            x, sizes = tome_block(x, sizes, bp, hp, rl, attn_impl=attn_impl, mm_impl=mm_impl)
+        return _head(params, x, hp, mm_impl, features, tap, sizes=sizes)
+    kv = None
+    if pad_tokens:
+        b, t, h = x.shape
+        if t % 8:
+            kv = t
+            x = torch.cat([x, x.new_zeros(b, -(-t // 8) * 8 - t, h)], dim=1)
+    for bp in blocks:
+        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv)
+    return _head(params, x, hp, mm_impl, features, tap, kv=kv)

@@ -9,8 +9,9 @@ Counterpart of vit_cpp_tpu/ops/core.py, with the same numerics:
 - linear accumulates in f32 and returns the activation dtype; an
   Int8Linear kernel runs the W8A8 path (ops/int8_matmul.py), a
   QuantLinear the dequantizing matmul (ops/qmatmul.py) selected by `impl`;
-- attention is the full softmax(Q K^T / sqrt(d)) V with an f32 softmax;
-  impl="pallas" runs the split-head kernel (ops/flash_attention.py).
+- attention is the full softmax(Q K^T / sqrt(d)) V with an f32 softmax,
+  proportional (softmax(z + log s)) under ToMe sizes; impl="pallas" runs
+  the split-head kernel (ops/flash_attention.py).
 """
 
 from __future__ import annotations
@@ -83,13 +84,22 @@ def linear(
 
 
 def attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = "xla"
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, impl: str = "xla",
+    sizes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full (unmasked) multi-head attention over (B, heads, T, d) tensors;
-    the softmax runs in f32. impl="pallas" runs the split-head kernel."""
+    """Full (unmasked) multi-head attention over (B, heads, Tq, d) queries
+    and (B, heads, Tk, d) keys and values; the softmax runs in f32.
+    `sizes` (B, Tk) are ToMe merged-token counts: proportional attention,
+    softmax(z + log s) (vit_cpp_tpu/ops/flash_attention.py::
+    _attention_qkv_xla). impl="pallas" runs the split-head kernel, which
+    takes no sizes."""
     if impl == "pallas":
+        if sizes is not None:
+            raise ValueError("the split-head attention kernel takes no ToMe sizes")
         return flash_attention(q, k, v)
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    weights = torch.softmax(logits * scale, dim=-1).to(q.dtype)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if sizes is not None:
+        logits = logits + torch.log(sizes.float())[:, None, None, :]
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(weights.float(), v.float()).to(q.dtype)

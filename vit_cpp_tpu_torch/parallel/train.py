@@ -145,8 +145,8 @@ def create_train_state(
     return TrainState(params, make_optimizer(train_leaves, **(optimizer_kw or {})))
 
 
-def _log_probs(params, images, hp: VitHParams) -> torch.Tensor:
-    logits = forward(params, images, hp, attn_impl="pallas-train")
+def _log_probs(params, images, hp: VitHParams, tome: int = 0) -> torch.Tensor:
+    logits = forward(params, images, hp, attn_impl="pallas-train", tome=tome)
     return torch.log_softmax(logits.float(), dim=-1)
 
 
@@ -161,18 +161,21 @@ def _nll(logp: torch.Tensor, labels: torch.Tensor, smooth: float) -> torch.Tenso
 
 
 def cross_entropy_loss(
-    params, images, labels, hp: VitHParams, smooth: float = 0.0
+    params, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0
 ) -> torch.Tensor:
-    """Mean cross entropy of the training forward (f32 log-softmax)."""
-    return _nll(_log_probs(params, images, hp), labels, smooth)
+    """Mean cross entropy of the training forward (f32 log-softmax);
+    `tome=r` trains through ToMe merging (the matching gets no gradient,
+    the attention kernels take the merged-token sizes both ways)."""
+    return _nll(_log_probs(params, images, hp, tome), labels, smooth)
 
 
 def _mixed_cross_entropy_loss(
-    params, images, labels, labels2, lam, hp: VitHParams, smooth: float = 0.0
+    params, images, labels, labels2, lam, hp: VitHParams, smooth: float = 0.0,
+    tome: int = 0,
 ) -> torch.Tensor:
     """Mixup loss: one forward on the pre-mixed batch, CE against both
     label sets weighted by the mixing coefficient."""
-    logp = _log_probs(params, images, hp)
+    logp = _log_probs(params, images, hp, tome)
     return lam * _nll(logp, labels, smooth) + (1.0 - lam) * _nll(logp, labels2, smooth)
 
 
@@ -185,26 +188,27 @@ def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
 
 
 def train_step(
-    state: TrainState, images, labels, hp: VitHParams, smooth: float = 0.0
+    state: TrainState, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0
 ) -> torch.Tensor:
     """One update; returns the loss of the batch (before the update)."""
-    return _update(state, cross_entropy_loss(state.params, images, labels, hp, smooth))
+    return _update(state, cross_entropy_loss(state.params, images, labels, hp, smooth, tome))
 
 
 def train_step_mixup(
     state: TrainState, images, labels, labels2, lam, hp: VitHParams,
-    smooth: float = 0.0,
+    smooth: float = 0.0, tome: int = 0,
 ) -> torch.Tensor:
     """One update on a mixup batch (ops/augment.mixup_batch): images are
     already mixed; `labels2 = labels[perm]`."""
     return _update(
-        state, _mixed_cross_entropy_loss(state.params, images, labels, labels2, lam, hp, smooth)
+        state,
+        _mixed_cross_entropy_loss(state.params, images, labels, labels2, lam, hp, smooth, tome),
     )
 
 
 def train_step_accum(
     state: TrainState, images, labels, hp: VitHParams, accum: int,
-    smooth: float = 0.0,
+    smooth: float = 0.0, tome: int = 0,
 ) -> torch.Tensor:
     """One update from `accum` sequential micro-batches of (accum * B, ...)
     images: each runs its own forward and backward, so peak memory is one
@@ -218,7 +222,7 @@ def train_step_accum(
     loss_sum = torch.zeros((), device=images.device)
     for i in range(accum):
         sl = slice(i * micro, (i + 1) * micro)
-        loss = cross_entropy_loss(state.params, images[sl], labels[sl], hp, smooth)
+        loss = cross_entropy_loss(state.params, images[sl], labels[sl], hp, smooth, tome)
         (loss / accum).backward()
         loss_sum += loss.detach()
     state.optimizer.step()

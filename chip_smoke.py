@@ -136,7 +136,25 @@
       unpadded one; slice parity through tome 8 and `cli.finetune --tome
       8` (the meta's tome, 12 + 12 launches per update); the B=64 forward
       at r = 0, 8, 16 and padded vs unpadded (median of 20 in turns, CUDA
-      events, one profiled run each) and ms per update at tome 8 vs 0.
+      events, one profiled run each) and ms per update at tome 8 vs 0;
+   k. V-MoE (phase `moe_paths`): a synthetic ViT-B/16 with E=8 experts in
+      the odd blocks, top-2, capacity 1.25, written f16 and quantized to
+      Q8_0 by cli.quantize (routers f32, experts Q8_0): the in-process
+      daemon at the defaults (12 attention_qkv per batch), serve_files
+      with --mm pallas on the Q8_0 file (37 dequant_matmul + 12
+      attention_qkv per batch), `cli.serve --mm pallas` and `cli.server`
+      (ten assets, /v1/embed) as subprocesses, each against the f32
+      engine of its file, and the top-1 experts that the served engine
+      and the f32 engine choose, per MoE layer; moe_mlp card vs CPU on
+      the first MoE layer's input of a card forward in f32 and in bf16
+      (the experts chosen equal but at near-ties); the dense f32 ViT-B/16
+      upcycled (E=8, top-2, capacity 8.0) against its dense forward; the
+      V-MoE and dense forwards at the defaults at B=8 and 64 (median of
+      20 in turns) and one B=64 V-MoE forward profiled by family with
+      the router diagnostics; `cli.finetune --moe 8 --moe-top-k 2` (2
+      updates of B=32: 12 + 12 launches each, ms per update, peak
+      memory), its output through `cli.serve`, and slice parity on an
+      f32 V-MoE file (the router and experts among the gradients).
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -637,25 +655,28 @@ def check_attention_grad(card: str):
     return main_err, times
 
 
-def slice_parity(f32_path: str, tome: int = 0) -> None:
+def slice_parity(f32_path: str, tome: int = 0, tag: str = "slice parity") -> None:
     """The training loss and its gradients on the card (the kernels)
     against the card machine's CPU (the plain versions), full ViT-B/16
-    width, B=2, f32; through ToMe merging with `tome`."""
+    width, B=2, f32; through ToMe merging with `tome`. A V-MoE file adds
+    the router's auxiliary losses, and the router and experts to the
+    gradients held."""
+    from vit_cpp_tpu_torch.engine import detect_hparams
     from vit_cpp_tpu_torch.gguf.reader import read_model
-    from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.models.params import load_params
     from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
     from vit_cpp_tpu_torch.parallel.train import cross_entropy_loss, tree_leaves
 
-    hp = VitHParams(**VIT_B16)
-    tag = f"slice parity tome {tome}" if tome else "slice parity"
-    rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32))
-    y = torch.from_numpy(rng.integers(0, 1000, (2,)))
+    tag = f"{tag} tome {tome}" if tome else tag
     mf = read_model(f32_path)
+    hp = detect_hparams(mf)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(
+        rng.standard_normal((2, 3, hp.img_size, hp.img_size)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, hp.num_classes, (2,)))
     out = {}
     for dev in ("cuda", "cpu"):
-        params = load_params(mf, torch.float32, device=dev)
+        params = load_params(mf, torch.float32, hparams=hp, device=dev)
         names = _named_leaves(params)
         leaves = tree_leaves(params)
         for leaf in leaves:
@@ -2625,10 +2646,10 @@ def check_matching(merges) -> None:
         raise AssertionError(f"identical tokens: lossy merge ({err}) or lost counts")
 
 
-def tome_daemon(proc, paths, bodies, ref_probs, ref_feats) -> None:
-    """`cli.server --tome 16` (started by the caller): the ten assets to
-    /v1/classify at once and one /v1/embed, against the f32 engine with the
-    same tome."""
+def check_daemon(what: str, proc, paths, bodies, ref_probs, ref_feats) -> None:
+    """A `cli.server` subprocess at its defaults (started by the caller):
+    the ten assets to /v1/classify at once and one /v1/embed, against the
+    f32 engine of the same file and options (`ref_probs`, `ref_feats`)."""
     line = _read_banner(proc, 240)
     base = line.split(" on ")[1].split()[0]
     with ThreadPoolExecutor(len(bodies)) as ex:
@@ -2638,29 +2659,29 @@ def tome_daemon(proc, paths, bodies, ref_probs, ref_feats) -> None:
         stats = json.loads(r.read())
     proc.send_signal(signal.SIGTERM)
     if proc.wait(timeout=60) != 0:
-        raise AssertionError("cli.server --tome exited nonzero on SIGTERM")
+        raise AssertionError(f"{what} exited nonzero on SIGTERM")
     worst = 0.0
     for path, (code, out, _), want in zip(paths, results, ref_probs):
         if code != 200 or len(out["topk"]) != 5:
-            raise AssertionError(f"cli.server --tome {path}: HTTP {code} {out}")
+            raise AssertionError(f"{what} {path}: HTTP {code} {out}")
         probs = np.array([e["prob"] for e in out["topk"]])
         worst = max(worst, float(np.abs(probs - want[[e["id"] for e in out["topk"]]]).max()))
     if status != 200 or emb["shape"] != [ref_feats.shape[1]]:
-        raise AssertionError(f"cli.server --tome /v1/embed: HTTP {status}")
+        raise AssertionError(f"{what} /v1/embed: HTTP {status}")
     emb_err = float(np.abs(np.array(emb["embedding"]) - ref_feats[0]).max()
                     / np.abs(ref_feats[0]).max())
-    log(f"cli.server --tome {TOME_R} (defaults): ten assets at once, top-5 vs the f32 engine "
-        f"with tome {TOME_R}: worst {worst:.2e} (tolerance {PROB_TOL:.0e}); /v1/embed "
-        f"max|f - f_f32| / max|f| = {emb_err:.3e} (tolerance {EMBED_TOL:.0e}); /stats "
-        f"{json.dumps(stats)}; exit 0 on SIGTERM")
+    log(f"{what} (defaults): ten assets at once, top-5 vs the f32 engine: worst {worst:.2e} "
+        f"(tolerance {PROB_TOL:.0e}); /v1/embed max|f - f_f32| / max|f| = {emb_err:.3e} "
+        f"(tolerance {EMBED_TOL:.0e}); /stats {json.dumps(stats)}; exit 0 on SIGTERM")
     if not (worst <= PROB_TOL and emb_err <= EMBED_TOL):
-        raise AssertionError(f"cli.server --tome: off by {worst} / {emb_err}")
+        raise AssertionError(f"{what}: off by {worst} / {emb_err}")
 
 
-def check_cli_serve_tome(what: str, proc, paths, ref_probs, id2label, tol: float) -> None:
-    """A `cli.serve -k 5 --tome` run: 10 lines, and each line's top-1
-    label the f32 engine's (same tome) where its top-two gap exceeds the
-    tolerance, printed probabilities within it (printed to 2 places)."""
+def check_cli_serve(what: str, proc, paths, ref_probs, id2label, tol: float) -> None:
+    """A `cli.serve -k` run: one line per path, and each line's top-1
+    label the f32 engine's (same file and options) where its top-two gap
+    exceeds the tolerance, printed probabilities within it (printed to 2
+    places)."""
     out, err = proc.communicate(timeout=300)
     rows = [line.split("\t") for line in out.splitlines()]
     if proc.returncode != 0 or [r[0] for r in rows] != paths:
@@ -2677,15 +2698,15 @@ def check_cli_serve_tome(what: str, proc, paths, ref_probs, id2label, tol: float
             if abs(prob - top2[1]) > tol + 0.005:  # printed to 2 places
                 raise AssertionError(f"{what}: printed {prob}, f32 {top2[1]}")
     summary = err.strip().splitlines()[-1]
-    log(f"{what}: rc 0, 10 lines, top-1 equal to the f32 engine's (tome {TOME_R}) on the "
-        f"{checked}/10 with a clear top-two gap; {summary}")
+    log(f"{what}: rc 0, {len(rows)} lines, top-1 equal to the f32 engine's on the "
+        f"{checked}/{len(rows)} with a clear top-two gap; {summary}")
 
 
-def timed_forwards(what: str, fns: dict, card: str) -> dict:
-    """Each forward at B=64, median of 20 in turns (CUDA events around a
-    forward ended by a synchronize), then one profiled run each: device
-    time, idle share, attention_qkv's share and the launches. Returns
-    {name: ms}."""
+def timed_forwards(what: str, fns: dict, card: str, batch: int = 64) -> dict:
+    """Each forward (of `batch` images), median of 20 in turns (CUDA events
+    around a forward ended by a synchronize), then one profiled run each:
+    device time, idle share, attention_qkv's share and the launches.
+    Returns {name: ms}."""
     from torch.profiler import ProfilerActivity, profile
 
     from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
@@ -2717,7 +2738,7 @@ def timed_forwards(what: str, fns: dict, card: str) -> dict:
                   f"{dev_us / 1e3:.2f} ms device in {wall_us / 1e3:.2f} ms wall (idle share "
                   f"{1 - dev_us / wall_us:.3f}), attention_qkv {k1_us / dev_us:.3f} of it, "
                   f"{host} host launch calls and {kernels} device kernels")
-        log(f"{what} {name}: median {ms[name]:.3f} ms ({64e3 / ms[name]:.0f} img/s, range "
+        log(f"{what} {name}: median {ms[name]:.3f} ms ({batch * 1e3 / ms[name]:.0f} img/s, range "
             f"{min(times[name]):.3f}-{max(times[name]):.3f}); profiled: {shares} on {card}")
     return ms
 
@@ -2865,9 +2886,10 @@ def tome_paths(f16: str, q8: str, tmp: str, card: str, images) -> tuple:
 
         # the command lines, which ran beside the checks above
         for what, proc in procs.items():
-            check_cli_serve_tome(what, proc, paths, refs["q8" if "pallas" in what else "f16"][0],
-                                 refs["f16"][2], Q8_PROB_TOL if "pallas" in what else PROB_TOL)
-        tome_daemon(daemon, paths, bodies, refs["f16"][0], refs["f16"][1])
+            check_cli_serve(what, proc, paths, refs["q8" if "pallas" in what else "f16"][0],
+                            refs["f16"][2], Q8_PROB_TOL if "pallas" in what else PROB_TOL)
+        check_daemon(f"cli.server --tome {TOME_R}", daemon, paths, bodies, refs["f16"][0],
+                     refs["f16"][1])
     finally:
         for proc in (*procs.values(), daemon):
             if proc.poll() is None:
@@ -2959,6 +2981,368 @@ def tome_paths(f16: str, q8: str, tmp: str, card: str, images) -> tuple:
     return launches, fin[1]
 
 
+MOE_B16 = dict(VIT_B16, num_experts=8, moe_layers=(1, 3, 5, 7, 9, 11), moe_top_k=2,
+               moe_capacity=1.25)
+# Routing card vs CPU on one tensor: the two may choose other experts only
+# at a near-tie, where adjacent logits among a token's top k+1 lie within
+# 1e-5 of the logit scale (max|logit|): f32 logits summed in another order
+# move by ~1e-7 of it. moe_mlp's output on the tokens routed alike: f32
+# absolute (summation order; |out| ~ 1), bf16 relative to max|out|.
+ROUTE_TIE = 1e-5
+MOE_OUT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# The upcycled f32 forward (E=8, top-2, capacity 8.0: nothing drops)
+# against the dense one, absolute on the logits: the combine re-associates
+# sum_j gate_j * f(x) in f32.
+UPCYCLE_TOL = 1e-4
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def check_routing(what: str, y: torch.Tensor, mp: dict, hp) -> tuple:
+    """moe_mlp on the card against the CPU's run of the same tensor and
+    parameters: the experts chosen equal but at near-ties (ROUTE_TIE), and
+    where no token differs the positions, keeps and slots too; the
+    outputs of the tokens routed alike within MOE_OUT_TOL. Returns
+    (tokens routed differently, near-ties, the error)."""
+    from vit_cpp_tpu_torch.ops import moe
+    from vit_cpp_tpu_torch.ops.core import mlp_act
+
+    act = mlp_act(hp.hidden_act)
+    b, t, _ = y.shape
+    k = hp.moe_top_k
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        yd, mpd = y.to(dev), _tree_to(mp, dev)
+        r = moe.route(yd, mpd["router"]["kernel"], hp)
+        out, _ = moe.moe_mlp(yd, mpd, hp, act)
+        runs[dev] = (r, out.cpu())
+    (rc, out_c), (rp, out_p) = runs["cuda"], runs["cpu"]
+    top = torch.sort(rp.logits, dim=-1, descending=True).values[..., : k + 1]
+    gap = (top[..., :-1] - top[..., 1:]).min(dim=-1).values  # (B, T)
+    tie = gap <= ROUTE_TIE * rp.logits.abs().max()
+    differ = (rc.idx.cpu() != rp.idx).any(dim=-1)
+    if (differ & ~tie).any():
+        raise AssertionError(f"{what}: {int((differ & ~tie).sum())} tokens route to other "
+                             f"experts on the card without a near-tie")
+    per_token = lambda a: a.cpu().reshape(b, k, t).transpose(1, 2)  # noqa: E731
+    keep_c, keep_p = per_token(rc.keep), per_token(rp.keep)
+    if not differ.any() and not (torch.equal(keep_c, keep_p)
+                                 and torch.equal(rc.dest.cpu(), rp.dest)
+                                 and torch.equal(rc.posn.cpu(), rp.posn)):
+        raise AssertionError(f"{what}: equal experts but other positions or slots")
+    alike = ~differ & (keep_c == keep_p).all(dim=-1)
+    diff = (out_c.float() - out_p.float()).abs()[alike].max().item()
+    tol = MOE_OUT_TOL[y.dtype] * (1.0 if y.dtype == torch.float32
+                                  else out_p.float().abs().max().item())
+    log(f"{what}: card vs CPU on one (B={b}, T={t}) {str(y.dtype)[6:]} input: experts differ "
+        f"for {int(differ.sum())} of {b * t} tokens, {int(tie.sum())} near-ties (gap <= "
+        f"{ROUTE_TIE:.0e} x max|logit|); dropped {1 - rp.keep.float().mean().item():.4f}; "
+        f"max|out_card - out_cpu| over the {int(alike.sum())} tokens routed alike = "
+        f"{diff:.3e} (tolerance {tol:.3e})")
+    if not diff <= tol:
+        raise AssertionError(f"{what}: moe_mlp output off by {diff} > {tol}")
+    return int(differ.sum()), int(tie.sum()), diff
+
+
+def moe_family_profile(engine, big, card: str) -> None:
+    """One profiled B=64 forward of the V-MoE engine: device time by
+    family (the expert GEMMs, the dispatch and combine products, the
+    router product and sort, attention_qkv, the W8A8 int8 GEMMs, the rest),
+    idle share and launches; then the router diagnostics moe_aux returns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+
+    from vit_cpp_tpu_torch.ops.moe import moe_capacity
+
+    hp = engine.hp
+    h, e, m = hp.hidden_size, hp.num_experts, hp.mlp_dim
+    ec = e * moe_capacity(hp.n_prefix + hp.n_patches, e, hp.moe_top_k, hp.moe_capacity)
+    engine.predict_probs_batch(big)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        engine.predict_probs_batch(big)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us, (k1_us,) = device_us(prof, KERNEL)
+    host, kernels = _launches(prof)
+    # host calls that wait for the card (a synchronize, or a copy that
+    # blocks); the timed region's own final synchronize is one of them
+    waits = sum(ev.count for ev in prof.key_averages()
+                if ev.device_type != torch.autograd.DeviceType.CUDA
+                and ("Synchronize" in ev.key or "cudaMemcpy" in ev.key))
+    fam = {"expert GEMMs": 0.0, "dispatch/combine": 0.0, "router + sort": 0.0,
+           "W8A8 int8 GEMMs": 0.0}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+        shapes = [list(s) for s in (ev.input_shapes or [])]
+        if not us:
+            continue
+        if ev.key == "aten::bmm" and len(shapes) > 1 and shapes[1] in ([e, h, m], [e, m, h]):
+            fam["expert GEMMs"] += us
+        elif ev.key == "aten::bmm" and shapes and ec in shapes[0][1:]:
+            fam["dispatch/combine"] += us
+        elif ev.key == "aten::mm" and len(shapes) > 1 and shapes[1] == [h, e]:
+            fam["router + sort"] += us
+        elif ev.key == "aten::sort":
+            fam["router + sort"] += us
+        elif ev.key == "aten::_int_mm":
+            fam["W8A8 int8 GEMMs"] += us
+    if dev_us <= 0:
+        log("profiled V-MoE forward B=64: torch.profiler saw no device time (not measured)")
+    else:
+        fam["attention_qkv"] = k1_us
+        fam["elementwise and other"] = dev_us - sum(fam.values())
+        split = ", ".join(f"{name} {us / 1e3:.2f} ms ({us / dev_us:.3f})" for name, us in fam.items())
+        log(f"profiled V-MoE forward B=64 (serving defaults): {dev_us / 1e3:.2f} ms device in "
+            f"{wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}), {host} host "
+            f"launch calls, {waits} host waits (synchronize or memcpy calls) and {kernels} "
+            f"device kernels; by family: {split} on {card}")
+    _, aux = engine._forward(big, moe_aux=True)
+    log("V-MoE forward B=64 router diagnostics (moe_aux, mean of the 6 MoE layers): "
+        + ", ".join(f"{k} {v.item():.4f}" for k, v in aux.items()))
+
+
+def moe_serving(moe_f16: str, moe_q8: str, images) -> dict:
+    """The V-MoE files served: cli.server at its defaults and `cli.serve
+    --mm pallas` on the Q8_0 file as subprocesses, beside the in-process
+    daemon (defaults; 12 attention_qkv per batch) and serve_files with
+    --mm pallas (37 dequant_matmul + 12 attention_qkv per batch), each
+    against the f32 engine of the same file; the experts chosen by the
+    served engine against the f32 engine's, per MoE layer. Returns
+    {path: {kernel name: launches}}."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.ops import moe
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.serve import serve_files
+
+    paths, bodies = asset_bodies()
+    procs = {"cli.serve V-MoE Q8_0 --mm pallas": start_module(
+        "vit_cpp_tpu_torch.cli.serve", "-m", moe_q8, *paths, "-b", "8", "-k", "5", "--mm",
+        "pallas")}
+    daemon = subprocess.Popen(
+        [sys.executable, "-c", _RUN_MODULE, "vit_cpp_tpu_torch.cli.server", "-m", moe_f16,
+         "--port", "0"],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+    )
+    launches = {}
+    try:
+        refs = {}
+        for name, model in (("f16", moe_f16), ("q8", moe_q8)):
+            f32 = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                            verbose=False)
+            px = f32.preprocess_images(images)
+            with recorded(moe, "route") as routes:
+                probs = f32.predict_probs_batch(px).cpu().numpy()
+            refs[name] = (probs, f32.features_batch(px).cpu().numpy(), f32.id2label,
+                          [r.idx[..., 0].cpu() for _, r in routes])
+            del f32
+        what = "V-MoE f16 W8A8 daemon"
+        launches[what] = serve(what, moe_f16, "int8", {KERNEL: 12}, PROB_TOL, images)
+
+        engine, _ = build_engine(moe_f16, device="cuda")
+        with recorded(moe, "route") as routes:
+            engine.predict_probs_batch(engine.preprocess_images(images))
+        flips = [int((r.idx[..., 0].cpu() != want).sum())
+                 for (_, r), want in zip(routes, refs["f16"][3])]
+        log(f"V-MoE serving defaults vs the f32 engine, top-1 expert choices that differ per MoE "
+            f"layer over the ten assets (10 x 197 tokens each): {flips}")
+        del engine, routes
+
+        what = "V-MoE serve_files --mm pallas"
+        eng = build_engine(moe_q8, mm="pallas", device="cuda")[0]
+        QMM_KERNEL.reset()
+        KERNEL.reset()
+        got = list(serve_files(eng, paths, batch=8, keep_probs=True))
+        torch.cuda.synchronize()
+        launches[what] = {QMM_KERNEL.name: QMM_KERNEL.launches, KERNEL.name: KERNEL.launches}
+        err = float(max(np.abs(r.probs - p).max() for r, p in zip(got, refs["q8"][0])))
+        log(f"{what}: probabilities vs the f32 engine of the Q8_0 file, worst {err:.2e} over "
+            f"10 x 1000 (tolerance {Q8_PROB_TOL:.0e}); launches {launches[what]} for 2 batches "
+            f"(37 dequant_matmul: 6 dense layers x 4 + 6 MoE layers x 2 + the head)")
+        if not (err <= Q8_PROB_TOL and launches[what] == {QMM_KERNEL.name: 74, KERNEL.name: 24}):
+            raise AssertionError(f"{what}: off by {err} or launches {launches[what]}")
+        del eng
+
+        for what, proc in procs.items():
+            check_cli_serve(what, proc, paths, refs["q8"][0], refs["q8"][2], Q8_PROB_TOL)
+        check_daemon("cli.server V-MoE", daemon, paths, bodies, refs["f16"][0], refs["f16"][1])
+    finally:
+        for proc in (*procs.values(), daemon):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+    return launches
+
+
+def moe_checks(moe_f16: str, f16: str, images) -> None:
+    """Routing card vs CPU on the first MoE layer's LN'd input of a card
+    forward (f32, and bf16 at the serving defaults); upcycling the dense
+    f32 ViT-B/16 (E=8, top-2, capacity 8.0) against its dense forward."""
+    import dataclasses
+
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine, detect_hparams
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.models import vit
+    from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.ops.moe import upcycle_params
+    from vit_cpp_tpu_torch.ops.precision import matmul_precision
+    from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
+
+    for what, engine in (
+        ("routing f32", VitEngine(moe_f16, dtype="f32", attn_impl="pallas", device="cuda",
+                                  verbose=False)),
+        ("routing bf16 (serving defaults)", build_engine(moe_f16, device="cuda")[0]),
+    ):
+        with recording(vit, "moe_mlp") as calls:
+            engine.predict_probs_batch(engine.preprocess_images(images))
+        (y, mp, hp, _), _ = calls[0]
+        check_routing(what, y, mp, hp)
+        del engine, calls
+
+    mf = read_model(f16)
+    hp = detect_hparams(mf)
+    dense = load_params(mf, torch.float32, hparams=hp, device="cuda")
+    layers = tuple(range(1, hp.num_hidden_layers, 2))
+    up = upcycle_params(dense, hp, 8, layers)
+    hp_up = dataclasses.replace(hp, num_experts=8, moe_layers=layers, moe_top_k=2,
+                                moe_capacity=8.0)
+    mean, std = norm_constants(hp.pixel_norm)
+    x = preprocess_batch(images[:8], hp.img_size, mode=hp.interpolation, mean=mean, std=std,
+                         device="cuda")
+    with torch.inference_mode(), matmul_precision("highest"):
+        want = vit.forward(dense, x, hp, attn_impl="pallas")
+        got, aux = vit.forward(up, x, hp_up, attn_impl="pallas", moe_aux=True)
+    err = (got - want).abs().max().item()
+    log(f"upcycled ViT-B/16 (E=8 top-2, capacity 8.0, f32, TF32 off) vs dense on the card, B=8: "
+        f"max|logits - dense| = {err:.3e} (tolerance {UPCYCLE_TOL:.0e}); dropped_frac "
+        f"{aux['dropped_frac'].item()}")
+    if not (err <= UPCYCLE_TOL and aux["dropped_frac"].item() == 0.0):
+        raise AssertionError(f"upcycling: off by {err}")
+    del dense, up
+
+
+def moe_times(moe_f16: str, f16: str, card: str, images) -> None:
+    """The V-MoE engine's forward at the serving defaults beside the dense
+    ViT-B/16's, B=8 and B=64 (median of 20 in turns, CUDA events), then
+    one B=64 V-MoE forward profiled by family."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+
+    engines = {"dense ViT-B/16": build_engine(f16, device="cuda")[0],
+               "V-MoE E=8 top-2": build_engine(moe_f16, device="cuda")[0]}
+    pixels = engines["dense ViT-B/16"].preprocess_images(images)
+    for b in (8, 64):
+        x = torch.cat([pixels] * 7)[:b]
+        timed_forwards(f"forward serving defaults B={b}",
+                       {name: (lambda e=e, x=x: e.predict_probs_batch(x))
+                        for name, e in engines.items()}, card, batch=b)
+    moe_family_profile(engines["V-MoE E=8 top-2"], torch.cat([pixels] * 7)[:64], card)
+
+
+def moe_training(f16: str, moe_f32: str, tmp: str, card: str, images) -> int:
+    """cli.finetune --moe 8 --moe-top-k 2 on the dense f16 file (B=32, 2
+    updates; 12 attention_qkv + 12 attention_qkv_grad per update, ms per
+    update, peak memory), its output served by cli.serve; the loss and
+    gradients of an f32 V-MoE file at B=2 card vs CPU (slice_parity).
+    Returns attention_qkv_grad's launches in the cli.finetune run."""
+    from vit_cpp_tpu_torch.cli import finetune as cli_finetune
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.finetune import load_dataset
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+
+    data = os.path.join(tmp, "train")
+    out, ckpt = os.path.join(tmp, "ft-moe.gguf"), os.path.join(tmp, "ckpt-moe")
+    err = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset()
+    GRAD_KERNEL.reset()
+    with contextlib.redirect_stderr(err):
+        rc = cli_finetune.main(["-m", f16, "-d", data, "-o", out, "-b", "32", "--epochs", "1",
+                                "--moe", "8", "--moe-top-k", "2", "--ckpt-dir", ckpt,
+                                "--device", "cuda"])
+    torch.cuda.synchronize()
+    fin = (KERNEL.launches, GRAD_KERNEL.launches)
+    peak = torch.cuda.max_memory_allocated()
+    for line in err.getvalue().splitlines():
+        log(f"cli.finetune --moe 8: {line}")
+    losses = [float(v) for v in re.findall(r"^epoch \d+/\d+: loss (\S+)", err.getvalue(), re.M)]
+    with open(ckpt + ".meta.json") as f:
+        meta = json.load(f)
+    updates = len(load_dataset(data)[0]) // 32
+    if rc != 0 or len(losses) != 1 or not np.isfinite(losses[0]) or meta["moe"] != 8:
+        raise AssertionError(f"cli.finetune --moe: rc {rc}, losses {losses}, meta moe "
+                             f"{meta.get('moe')}")
+    if fin != (12 * updates, 12 * updates):
+        raise AssertionError(f"cli.finetune --moe: launches {fin} for {updates} updates")
+    timing = re.search(r"([\d.]+) ms per update after the first", err.getvalue())
+    log(f"cli.finetune --moe 8 --moe-top-k 2: {updates} updates of batch 32, loss {losses[0]}, "
+        f"meta moe {meta['moe']} layers {meta['moe_layers']}, {timing.group(1)} ms per update "
+        f"after the first, peak device memory {peak / 2**30:.2f} GiB; launches {fin[0]} "
+        f"attention_qkv + {fin[1]} attention_qkv_grad = 12 + 12 per update on {card}")
+
+    ref = VitEngine(out, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                    verbose=False)
+    paths, _ = asset_bodies()
+    proc = start_module("vit_cpp_tpu_torch.cli.serve", "-m", out, *paths, "-b", "8", "-k", "2")
+    ref_probs = ref.predict_probs_batch(ref.preprocess_images(images)).cpu().numpy()
+    check_cli_serve("cli.serve on the cli.finetune --moe output", proc, paths, ref_probs,
+                    ref.id2label, PROB_TOL)
+    del ref
+    slice_parity(moe_f32, tag="slice parity V-MoE")
+    return fin[1]
+
+
+def moe_paths(f16: str, tmp: str, card: str, images) -> tuple:
+    """V-MoE ViT-B/16 (phase `moe_paths`): E=8 experts in the odd blocks,
+    top-2, capacity 1.25, synthetic f16 and its Q8_0 rewrite by
+    cli.quantize (routers f32, experts Q8_0); served, routed card vs CPU,
+    upcycled, timed and trained. Returns ({path: {kernel name: launches}},
+    attention_qkv_grad's launches in cli.finetune --moe 8)."""
+    from vit_cpp_tpu_torch.cli import quantize
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
+
+    t0 = time.perf_counter()
+    moe_f16 = os.path.join(tmp, "vit-b16-moe-f16.gguf")
+    moe_q8 = os.path.join(tmp, "vit-b16-moe-q8_0.gguf")
+    moe_f32 = os.path.join(tmp, "vit-b16-moe-f32.gguf")
+    write_synthetic_model(moe_f16, VitHParams(**MOE_B16), ftype=1, seed=0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if quantize.main([moe_f16, moe_q8, "8"]) != 0:
+            raise AssertionError("cli.quantize failed on the V-MoE file")
+    mf = read_model(moe_q8)
+    kinds = {}  # the 2-D block weights' record types: dense, router, experts
+    for n, r in mf.tensors.items():
+        if n.startswith("blocks.") and len(r.shape) == 2:
+            kinds.setdefault(n.split(".")[3] if ".moe." in n else "dense", set()).add(r.dtype.name)
+    log(f"checkpoints: V-MoE ViT-B/16 synthetic f16 ({os.path.getsize(moe_f16) / 2**20:.0f} MiB) "
+        f"and Q8_0 ({os.path.getsize(moe_q8) / 2**20:.0f} MiB) in {time.perf_counter() - t0:.1f} "
+        f"s; record types in the Q8_0 file: {kinds}")
+    if kinds != {"dense": {"Q8_0"}, "router": {"F32"}, "experts": {"Q8_0"}}:
+        raise AssertionError(f"Q8_0 V-MoE file: {kinds}")
+    del mf
+    launches = moe_serving(moe_f16, moe_q8, images)
+    moe_checks(moe_f16, f16, images)
+    moe_times(moe_f16, f16, card, images)
+    write_synthetic_model(moe_f32, VitHParams(**MOE_B16), ftype=0, seed=0)
+    grad = moe_training(f16, moe_f32, tmp, card, images)
+    log(f"moe_paths: {time.perf_counter() - t0:.1f} s")
+    return launches, grad
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -3006,10 +3390,13 @@ def run_paths(card: str):
         grad_launches = finetune_path(f16, tmp)
         tome_launches, tome_grad_launches = tome_paths(f16, q8, tmp, card, images)
         serve_launches.update(tome_launches)
+        moe_launches, moe_grad_launches = moe_paths(f16, tmp, card, images)
+        serve_launches.update(moe_launches)
         vit_benchmark(os.path.join(tmp, "ft.gguf"), tmp, card)
     flash_launches = split_head_path()
     grad_launches = {"cli.finetune": grad_launches,
-                     f"cli.finetune --tome {TOME_TRAIN_R}": tome_grad_launches}
+                     f"cli.finetune --tome {TOME_TRAIN_R}": tome_grad_launches,
+                     "cli.finetune --moe 8": moe_grad_launches}
     return f16_launches, q8_launches, flash_launches, grad_launches, serve_launches
 
 

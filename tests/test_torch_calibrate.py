@@ -137,11 +137,11 @@ def test_collect_act_maxima_matches_jax(tmp_path_factory, family, fold):
 def test_attention_pooled_and_sequence_heads_raise(model):
     """Attention-pooled (SigLIP) and sequence (ViTSTR) heads calibrate
     since the model-families slice (test_model_family_maxima_match_jax
-    below); on this path a V-MoE model is what still raises, naming its
-    slice."""
+    below); on this path a V-MoE model is what still raises: static
+    scales are unsupported for MoE, for the JAX engine's reason."""
     ours, _, hp = _trees(model)
     x = torch.from_numpy(structured_images(2))
-    with pytest.raises(NotImplementedError, match="V-MoE"):
+    with pytest.raises(ValueError, match="static act scales are unsupported for MoE"):
         calibrate.collect_act_maxima(ours, x, dataclasses.replace(hp, num_experts=2))
 
 

@@ -159,7 +159,7 @@ def test_unported_flags_raise(model_path, data, tmp_path, flag):
 
     argv = ["-m", model_path, "-d", data, "-o", str(tmp_path / "x.gguf"), "--device", "cpu",
             *flag]
-    if flag[0] == "--tome":  # trains since the ToMe slice
+    if flag[0] in ("--tome", "--moe"):  # train since the ToMe and V-MoE slices
         assert main(argv + ["--epochs", "1", "-b", "8"]) == 0
         assert os.path.exists(tmp_path / "x.gguf")
         return

@@ -86,11 +86,17 @@ def test_source_has_no_import_of_jax_or_the_jax_package(source):
     assert not found, f"{source} imports {found}"
 
 
-@pytest.mark.parametrize("ftype", [0, 1])
-def test_synthetic_writer_is_byte_identical(tmp_path, ftype):
+# a V-MoE geometry too: E=4 experts in layers 1 and 3, top-2, and the
+# meta.moe marker (routers stay f32 at ftype 1)
+MOE = dict(GEOMETRY, num_hidden_layers=4, num_experts=4, moe_layers=(1, 3), moe_top_k=2)
+
+
+@pytest.mark.parametrize("ftype,geometry", [(0, GEOMETRY), (1, GEOMETRY), (0, MOE), (1, MOE)],
+                         ids=["0", "1", "moe-0", "moe-1"])
+def test_synthetic_writer_is_byte_identical(tmp_path, ftype, geometry):
     ours, theirs = str(tmp_path / "port.gguf"), str(tmp_path / "jax.gguf")
-    state = write_synthetic_model(ours, VitHParams(**GEOMETRY), ftype=ftype, seed=3)
-    want = jax_write(theirs, JaxHParams(**GEOMETRY), ftype=ftype, seed=3)
+    state = write_synthetic_model(ours, VitHParams(**geometry), ftype=ftype, seed=3)
+    want = jax_write(theirs, JaxHParams(**geometry), ftype=ftype, seed=3)
     with open(ours, "rb") as f, open(theirs, "rb") as g:
         assert f.read() == g.read()
     assert state.keys() == want.keys()

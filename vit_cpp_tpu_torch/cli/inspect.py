@@ -6,8 +6,8 @@ Counterpart of vit_cpp_tpu/cli/inspect.py, with the same text and
 port's reader dispatches by magic) and the metadata header of a `.vitx`
 artifact (cli/common.py::read_meta; the port runs no .vitx). It prints
 the family traits that the legacy hparam block cannot carry, as the
-loader infers them. V-MoE checkpoints, which the port's loader does not
-run yet, raise there. It reads files only: no card is needed.
+loader infers them, a V-MoE file's experts among them. It reads files
+only: no card is needed.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.inspect model.gguf            # hparams + family + tensor table

@@ -82,8 +82,8 @@ def detect_hparams(mf) -> VitHParams:
     """Hparams the file's header block cannot carry, inferred from its
     tensors: in_chans from the patch conv (a 1-channel file is ViTSTR,
     whose sequence head reads seq_len=25 rows), and the family extensions
-    (models/params.py::infer_family_hparams). V-MoE checkpoints raise:
-    this package does not run them yet."""
+    (models/params.py::infer_family_hparams), V-MoE's expert layout
+    among them."""
     hp = mf.hparams
     pe = mf.tensors.get("patch_embed.proj.weight")
     if pe is not None and len(pe.shape) == 4 and pe.shape[1] != hp.in_chans:
@@ -148,11 +148,9 @@ class VitEngine:
         mf = read_model(model_path) if model_file is None else model_file
         hp = detect_hparams(mf)
         if act_quant == "static" and hp.num_experts:
-            raise ValueError(
-                "static act scales are unsupported for MoE checkpoints "
-                "(the calibrator walks the dense block stack, "
-                "quant/calibrate.py — serve MoE with dynamic W8A8)"
-            )
+            from vit_cpp_tpu_torch.quant.calibrate import MOE_REFUSAL
+
+            raise ValueError(MOE_REFUSAL)
         if eps is not None:
             hp = dataclasses.replace(hp, eps=eps)
         if interpolation is not None:

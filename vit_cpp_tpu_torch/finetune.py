@@ -17,8 +17,11 @@ Ported options: epochs, batch, lr, weight_decay, schedule, warmup_steps,
 grad_accum, clip_norm, freeze_backbone, augment, label_smoothing, mixup,
 ema, ckpt_dir (resume with the JAX package's settings checks), seed,
 decode_threads, val_dir, stream, tome (training and validation through
-ToMe merging, ops/tome.py), device. The others raise and name the slice
-they come with.
+ToMe merging, ops/tome.py), moe / moe_every / moe_top_k / moe_capacity
+(sparse upcycling into a V-MoE, ops/moe.py; an MoE checkpoint also
+continues training without them: its router and experts train with the
+auxiliary losses of parallel/train.py), device. The others raise and name
+the slice they come with.
 """
 
 from __future__ import annotations
@@ -261,21 +264,6 @@ def finetune(
 
     if mesh or fsdp:
         raise _not_ported("--mesh / --fsdp", "the multi-device slice")
-    if moe:
-        raise _not_ported("--moe upcycling", "the V-MoE slice (ops/moe.py)")
-    if lora:
-        raise _not_ported("--lora", "the training-extras slice (models/lora.py)")
-    if distill:
-        raise _not_ported("--distill", "the training-extras slice")
-    if qat or qat_act != "dynamic" or qat_scales_out:
-        raise _not_ported("--qat / --qat-act", "the training-extras slice (quant/qat.py)")
-    if img_size is not None or patch_size is not None:
-        raise _not_ported("--img-size / --patch-size training",
-                          "the training-extras slice (ROADMAP A.10)")
-    if mu_dtype not in ("f32", "bf16"):
-        raise ValueError(f"mu_dtype must be f32|bf16, got {mu_dtype!r}")
-    if mu_dtype == "bf16":
-        raise _not_ported("--mu-dtype bf16", "the training-extras slice")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     aug_flip, aug_crop = augment_flags(augment)  # validates the mode
@@ -290,7 +278,25 @@ def finetune(
     dev = resolve_device(device)
 
     mf = read_model(model)
-    hp = detect_hparams(mf)  # V-MoE checkpoints raise here
+    hp = detect_hparams(mf)
+    # V-MoE's checks come first, with the JAX package's messages, so an
+    # MoE run names the flag it refuses even where the flag is unported
+    _check_moe(hp, moe, moe_every, moe_top_k, moe_capacity, tome=tome, qat=qat, lora=lora,
+               distill=distill, mixup=mixup, grad_accum=grad_accum,
+               freeze_backbone=freeze_backbone)
+    if lora:
+        raise _not_ported("--lora", "the training-extras slice (models/lora.py)")
+    if distill:
+        raise _not_ported("--distill", "the training-extras slice")
+    if qat or qat_act != "dynamic" or qat_scales_out:
+        raise _not_ported("--qat / --qat-act", "the training-extras slice (quant/qat.py)")
+    if img_size is not None or patch_size is not None:
+        raise _not_ported("--img-size / --patch-size training",
+                          "the training-extras slice (ROADMAP A.10)")
+    if mu_dtype not in ("f32", "bf16"):
+        raise ValueError(f"mu_dtype must be f32|bf16, got {mu_dtype!r}")
+    if mu_dtype == "bf16":
+        raise _not_ported("--mu-dtype bf16", "the training-extras slice")
     if tome and hp.seq_len is not None:
         raise ValueError(
             "tome is incompatible with sequence checkpoints (ViTSTR "
@@ -313,6 +319,25 @@ def finetune(
     if len(classes) != hp.num_classes:
         log(f"finetune: re-initializing head {hp.num_classes} -> {len(classes)} classes")
         params, hp = _reinit_head(params, hp, len(classes))
+    if moe:
+        # sparse upcycling (ops/moe.py): experts in every moe_every'th
+        # block from block 1 (V-MoE's odd blocks at the default 2)
+        from vit_cpp_tpu_torch.ops.moe import upcycle_params
+
+        moe_layers = tuple(range(1, hp.num_hidden_layers, moe_every))
+        if not moe_layers or len(moe_layers) >= hp.num_hidden_layers:
+            raise ValueError(
+                f"--moe-every {moe_every} places experts in no layer or "
+                f"every layer of a {hp.num_hidden_layers}-block model"
+            )
+        params = upcycle_params(params, hp, moe, moe_layers, seed=seed)
+        hp = dataclasses.replace(hp, num_experts=moe, moe_layers=moe_layers,
+                                 moe_top_k=moe_top_k, moe_capacity=moe_capacity)
+        log(
+            f"finetune: upcycling to {moe} experts (top-{moe_top_k}, "
+            f"capacity {moe_capacity:g}) in blocks "
+            f"{','.join(map(str, moe_layers))}"
+        )
 
     updates_per_epoch = len(paths) // samples_per_update
     state = create_train_state(
@@ -394,6 +419,12 @@ def finetune(
                 "(trained unmerged); resuming with --tome would not "
                 "replay the original run — drop --tome or use a fresh "
                 "--ckpt-dir"
+            )
+        if "moe" in missing and hp.num_experts:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} predates --moe recording "
+                "(trained dense); resuming with experts would not replay "
+                "the original run — drop --moe or use a fresh --ckpt-dir"
             )
         if missing:
             log(
@@ -494,6 +525,48 @@ def finetune(
         )
     final_params = ema_params if ema else state.params
     return final_params, hp, classes, losses
+
+
+def _check_moe(hp, moe: int, moe_every: int, moe_top_k: int, moe_capacity: float, *,
+               tome: int, qat: str, lora: int, distill: str, mixup: float, grad_accum: int,
+               freeze_backbone: bool) -> None:
+    """The JAX package's V-MoE checks (vit_cpp_tpu/finetune.py:483-535):
+    the upcycling flags, and what an MoE run (upcycled, or continued from
+    an MoE checkpoint) does not train with, each with its message."""
+    if moe:
+        if moe < 2:
+            raise ValueError(f"--moe needs >= 2 experts, got {moe}")
+        if moe_every < 1:
+            raise ValueError(f"--moe-every must be >= 1, got {moe_every}")
+        if not 1 <= moe_top_k <= moe:
+            raise ValueError(f"--moe-top-k must be in [1, {moe}], got {moe_top_k}")
+        if moe_capacity <= 0:
+            raise ValueError(f"--moe-capacity must be > 0, got {moe_capacity}")
+        if hp.num_experts:
+            raise ValueError(
+                "checkpoint is already MoE — drop --moe (continue-"
+                "training reuses the file's expert configuration)"
+            )
+    if not (moe or hp.num_experts):
+        return
+    if hp.seq_len is not None:
+        raise ValueError(
+            "MoE training supports classifier checkpoints only (the "
+            "sequence loss has no router-aux term)"
+        )
+    for bad, msg in (
+        (tome, "MoE training with --tome is not supported"),
+        (qat, "MoE training with --qat is not supported (the expert "
+              "einsum path has no fake-quant leaves)"),
+        (lora, "MoE training with --lora is not supported"),
+        (distill, "MoE training with --distill is not supported"),
+        (mixup, "MoE training with --mixup is not supported"),
+        (grad_accum > 1, "MoE training with --grad-accum is not supported"),
+        (freeze_backbone, "MoE training updates the experts and router — "
+                          "--freeze-backbone is not supported"),
+    ):
+        if bad:
+            raise ValueError(msg)
 
 
 def _clone(tree):

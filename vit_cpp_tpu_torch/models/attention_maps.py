@@ -9,7 +9,8 @@ and computes the attention-rollout saliency (Abnar & Zuidema,
 A = normalize(0.5 * mean_heads(P) + 0.5 * I), rolled out as
 R = A_L @ ... @ A_1; the readout row's patch columns, on the patch grid,
 are the heatmap. An analysis path in plain PyTorch: no kernel runs here,
-as the JAX path is XLA.
+as the JAX path is XLA. A V-MoE tree runs its routed MLPs (ops/moe.py)
+in its MoE layers.
 """
 
 from __future__ import annotations
@@ -20,15 +21,17 @@ import numpy as np
 import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
-from vit_cpp_tpu_torch.models.vit import _head, embed, unstack_blocks
+from vit_cpp_tpu_torch.models.vit import _head, embed, moe_layer_params, unstack_blocks
 from vit_cpp_tpu_torch.ops.core import layernorm, linear, mlp_act
+from vit_cpp_tpu_torch.ops.moe import moe_mlp
 
 
 def _block_with_probs(
-    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams
+    x: torch.Tensor, bp: Dict[str, Any], mp, hp: VitHParams
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """models/vit.py::transformer_block with composed attention, returning
-    its f32 softmax weights (B, H, T, T) beside the block output."""
+    """models/vit.py::transformer_block (moe_block where the layer's MoE
+    parameters `mp` are given) with composed attention, returning its f32
+    softmax weights (B, H, T, T) beside the block output."""
     b, t, h = x.shape
     nh, hd = hp.num_attention_heads, hp.head_dim
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
@@ -42,6 +45,8 @@ def _block_with_probs(
     o = o.permute(0, 2, 1, 3).reshape(b, t, h)
     x = x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"])
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
+    if mp is not None:
+        return x + moe_mlp(y, mp, hp, mlp_act(hp.hidden_act))[0], probs
     y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"])
     y = mlp_act(hp.hidden_act)(y)
     y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"])
@@ -55,8 +60,10 @@ def attention_maps(
     probabilities, (B, T, h) last block output)."""
     x = embed(params, images, hp)
     probs_all = []
-    for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers):
-        x, probs = _block_with_probs(x, bp, hp)
+    layers = (moe_layer_params(params, hp) if "moe" in params else
+              [(bp, None) for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers)])
+    for bp, mp in layers:
+        x, probs = _block_with_probs(x, bp, mp, hp)
         probs_all.append(probs)
     return torch.stack(probs_all, dim=1), x
 

@@ -8,8 +8,9 @@ the same weights give the same file bytes as the JAX package's
 `save_params`. QuantLinear leaves are
 dequantized to f32 by this package's codec (re-quantize the output with
 cli/quantize.py). The families this package loads are covered: plain,
-distilled (dist_token + head_dist), registers, norm_pre, avg pooling and
-CLIP.
+distilled (dist_token + head_dist), registers, norm_pre, avg pooling,
+CLIP and V-MoE (router and experts per MoE layer, the `meta.moe` marker;
+the writer keeps routers f32 at ftype 1).
 """
 
 from __future__ import annotations
@@ -72,9 +73,15 @@ def params_to_state_dict(params: Dict[str, Any], hp: VitHParams) -> Dict[str, np
     if hp.hidden_act == "quick_gelu":
         # CLIP family marker: hparams no tensor's presence can declare
         out["meta.clip"] = np.ones((1,), np.float32)
-    blocks = params["blocks"]
-    for i in range(hp.num_hidden_layers):
-        bp = {k: {n: leaf[i] for n, leaf in blocks[k].items()} for k in blocks}
+    if "moe" in params:
+        from vit_cpp_tpu_torch.models.vit import moe_layer_params
+
+        layers = moe_layer_params(params, hp)
+    else:
+        blocks = params["blocks"]
+        layers = [({k: {n: leaf[i] for n, leaf in blocks[k].items()} for k in blocks}, None)
+                  for i in range(hp.num_hidden_layers)]
+    for i, (bp, mp) in enumerate(layers):
         p = f"blocks.{i}."
         out.update(
             {
@@ -86,12 +93,30 @@ def params_to_state_dict(params: Dict[str, Any], hp: VitHParams) -> Dict[str, np
                 p + "attn.proj.bias": _np(bp["proj"]["bias"]),
                 p + "norm2.weight": _np(bp["ln2"]["scale"]),
                 p + "norm2.bias": _np(bp["ln2"]["bias"]),
+            }
+        )
+        if mp is not None:
+            # the router torch-order (E, h) like every linear weight
+            out[p + "moe.router.weight"] = _kernel_to_torch(mp["router"]["kernel"])
+            for ex in range(hp.num_experts):
+                ep = f"{p}moe.experts.{ex}."
+                out[ep + "fc1.weight"] = _kernel_to_torch(mp["fc1"]["kernel"][ex])
+                out[ep + "fc1.bias"] = _np(mp["fc1"]["bias"][ex])
+                out[ep + "fc2.weight"] = _kernel_to_torch(mp["fc2"]["kernel"][ex])
+                out[ep + "fc2.bias"] = _np(mp["fc2"]["bias"][ex])
+            continue
+        out.update(
+            {
                 p + "mlp.fc1.weight": _kernel_to_torch(bp["fc1"]["kernel"]),
                 p + "mlp.fc1.bias": _np(bp["fc1"]["bias"]),
                 p + "mlp.fc2.weight": _kernel_to_torch(bp["fc2"]["kernel"]),
                 p + "mlp.fc2.bias": _np(bp["fc2"]["bias"]),
             }
         )
+    if "moe" in params:
+        # the V-MoE marker: top_k and capacity by value (models/params.py
+        # reads them back; the layers are declared by tensor presence)
+        out["meta.moe"] = np.asarray([hp.moe_top_k, hp.moe_capacity], np.float32)
     return out
 
 

@@ -48,7 +48,9 @@ def fold_layernorms(params: Dict[str, Any], mm_impl: str = "int8") -> Dict[str, 
     """A new parameter tree with the LN affines folded; folded LN nodes
     carry scale=None/bias=None, which ops.core.layernorm runs as pure
     normalization. norm_pre stays a real LN (its output is the residual
-    stream), as does the final norm of a headless encoder and of an
+    stream), as does ln2 of a V-MoE tree (it feeds the router and the
+    experts, and the stacked dense fc1 covers only the dense layers), and
+    the final norm of a headless encoder and of an
     attention-pooled one (it feeds the pool's keys and values, not the
     head). A folded final
     norm keeps its affine in `features_norm`, which only the features
@@ -58,7 +60,8 @@ def fold_layernorms(params: Dict[str, Any], mm_impl: str = "int8") -> Dict[str, 
     int8 = mm_impl == "int8"
     p = dict(params)
     blocks = dict(params["blocks"])
-    for ln_key, lin_key in (("ln1", "qkv"), ("ln2", "fc1")):
+    pairs = (("ln1", "qkv"),) if "moe" in params else (("ln1", "qkv"), ("ln2", "fc1"))
+    for ln_key, lin_key in pairs:
         ln = blocks[ln_key]
         lin = dict(blocks[lin_key])
         lin["kernel"], lin["bias"] = _fold_into(

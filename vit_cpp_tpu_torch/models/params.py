@@ -38,13 +38,9 @@ def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
     models/params.py::load_params infer them the same way), with the JAX
     loader's checks of the combinations no checkpoint family has. An
     `attn_pool.probe` declares SigLIP attention pooling with [-1, 1]
-    pixels. MoE checkpoints raise: this package does not run them."""
+    pixels; `blocks.{i}.moe.*` tensors declare V-MoE layers
+    (`infer_moe_hparams`)."""
     h = hp.hidden_size
-    if any(re.fullmatch(r"blocks\.\d+\.moe\.router\.weight", n) for n in tensors):
-        raise NotImplementedError(
-            "V-MoE checkpoints are not ported to vit_cpp_tpu_torch yet; "
-            "they come with the V-MoE slice (ops/moe.py)"
-        )
     fc1 = tensors.get("blocks.0.mlp.fc1.weight")
     if (
         hp.num_hidden_layers > 0
@@ -116,6 +112,45 @@ def infer_family_hparams(hp: VitHParams, tensors) -> VitHParams:
     ):
         if bad:
             raise ValueError(msg)
+    return infer_moe_hparams(hp, tensors)
+
+
+def infer_moe_hparams(hp: VitHParams, tensors) -> VitHParams:
+    """V-MoE family inference (vit_cpp_tpu/models/params.py::
+    infer_moe_hparams): the MoE layers are those with a
+    blocks.{i}.moe.router.weight, the expert count comes from the
+    per-expert tensor names, and top_k/capacity from the VALUES of the
+    `meta.moe` marker. An hp that already declares experts is kept."""
+    moe_layers = sorted(
+        int(m.group(1))
+        for name in tensors
+        if (m := re.fullmatch(r"blocks\.(\d+)\.moe\.router\.weight", name))
+    )
+    if not moe_layers or hp.num_experts:
+        return hp
+    l0 = moe_layers[0]
+    n_exp = sum(
+        1 for n in tensors if re.fullmatch(rf"blocks\.{l0}\.moe\.experts\.\d+\.fc1\.weight", n)
+    )
+    if n_exp < 2:
+        raise ValueError(f"MoE layer {l0} declares {n_exp} experts — need >= 2")
+    meta = tensors.get("meta.moe")
+    if meta is None:
+        raise ValueError(
+            "checkpoint has blocks.*.moe tensors but no meta.moe "
+            "marker (top_k/capacity) — truncated or mis-converted"
+        )
+    mv = meta.as_f32().reshape(-1)
+    if mv.size != 2:
+        raise ValueError(f"meta.moe must hold [top_k, capacity], got {mv.size} values")
+    hp = dataclasses.replace(
+        hp, num_experts=n_exp, moe_layers=tuple(moe_layers),
+        moe_top_k=int(mv[0]), moe_capacity=float(mv[1]),
+    )
+    if not 1 <= hp.moe_top_k <= n_exp:
+        raise ValueError(f"meta.moe top_k {hp.moe_top_k} not in [1, {n_exp}]")
+    if hp.moe_capacity <= 0:
+        raise ValueError(f"meta.moe capacity {hp.moe_capacity} <= 0")
     return hp
 
 
@@ -172,9 +207,20 @@ def load_params(
 ) -> Dict[str, Any]:
     """Build the forward pass's parameter tree from a parsed model file.
     `dtype` is the storage dtype of the weights (f32 for parity, bf16 for
-    serving)."""
+    serving).
+
+    A V-MoE file adds a "moe" subtree stacked over its MoE layers: the
+    router (h, E) in f32 whatever the file stores, the experts' fc1/fc2
+    dense in `dtype` (a block-quantized expert is dequantized here, as the
+    JAX loader does). blocks.fc1/fc2 then stack over the dense-MLP layers
+    only (leading dimension L - Lm)."""
     hp = infer_family_hparams(hparams or mf.hparams, mf.tensors)
     h, L = hp.hidden_size, hp.num_hidden_layers
+    if hp.num_experts and len(hp.moe_layers) >= L:
+        raise ValueError(
+            "every-layer MoE is not supported — at least one dense-MLP "
+            "layer is required (V-MoE places experts in alternate blocks)"
+        )
     rs = _RecordSet(mf.tensors, dtype, device)
     if "meta.clip" in mf.tensors:
         rs.rec("meta.clip")  # the marker's value is unused
@@ -202,8 +248,11 @@ def load_params(
             "bias": rs.dense("norm_pre.bias", (h,)),
         }
 
-    def stacked(fn):
-        leaves = [fn(f"blocks.{i}.") for i in range(L)]
+    moe_layers = sorted(hp.moe_layers) if hp.num_experts else []
+    dense_layers = [i for i in range(L) if i not in moe_layers]
+
+    def stacked(fn, layers=range(L)):
+        leaves = [fn(f"blocks.{i}.") for i in layers]
         if isinstance(leaves[0], QuantLinear):
             return qlinear.stack(leaves)
         return torch.stack(leaves)
@@ -227,14 +276,51 @@ def load_params(
             "bias": stacked(lambda p: rs.dense(p + "norm2.bias", (h,))),
         },
         "fc1": {
-            "kernel": stacked(lambda p: rs.kernel(p + "mlp.fc1.weight", m, h)),
-            "bias": stacked(lambda p: rs.dense(p + "mlp.fc1.bias", (m,))),
+            "kernel": stacked(lambda p: rs.kernel(p + "mlp.fc1.weight", m, h), dense_layers),
+            "bias": stacked(lambda p: rs.dense(p + "mlp.fc1.bias", (m,)), dense_layers),
         },
         "fc2": {
-            "kernel": stacked(lambda p: rs.kernel(p + "mlp.fc2.weight", h, m)),
-            "bias": stacked(lambda p: rs.dense(p + "mlp.fc2.bias", (h,))),
+            "kernel": stacked(lambda p: rs.kernel(p + "mlp.fc2.weight", h, m), dense_layers),
+            "bias": stacked(lambda p: rs.dense(p + "mlp.fc2.bias", (h,)), dense_layers),
         },
     }
+    if moe_layers:
+        e = hp.num_experts
+
+        def expert_kernels(p, name, shape):
+            """(E, in, out) dense, from E torch-order (out, in) records."""
+            per = []
+            for ex in range(e):
+                r = rs.rec(f"{p}moe.experts.{ex}.{name}.weight")
+                if r.shape != shape:
+                    raise ValueError(f"tensor '{r.name}': shape {r.shape} != {shape}")
+                per.append(rs.tensor(r.as_f32().T))
+            return torch.stack(per)
+
+        def expert_biases(p, name, n):
+            return torch.stack([rs.dense(f"{p}moe.experts.{ex}.{name}.bias", (n,))
+                                for ex in range(e)])
+
+        def router(p):
+            r = rs.rec(p + "moe.router.weight")
+            if r.shape != (e, h):
+                raise ValueError(f"tensor '{r.name}': shape {r.shape} != {(e, h)}")
+            # f32 whatever the file stores (the top-k is argmax-fragile)
+            return rs.tensor(r.as_f32().T, torch.float32)
+
+        params["moe"] = {
+            "router": {"kernel": stacked(router, moe_layers)},
+            "fc1": {
+                "kernel": stacked(lambda p: expert_kernels(p, "fc1", (m, h)), moe_layers),
+                "bias": stacked(lambda p: expert_biases(p, "fc1", m), moe_layers),
+            },
+            "fc2": {
+                "kernel": stacked(lambda p: expert_kernels(p, "fc2", (h, m)), moe_layers),
+                "bias": stacked(lambda p: expert_biases(p, "fc2", h), moe_layers),
+            },
+        }
+        if "meta.moe" in rs.tensors:
+            rs.rec("meta.moe")  # its values are in hp already
     norm_name = "fc_norm" if hp.global_pool == "avg" else "norm"
     params["norm"] = {
         "scale": rs.dense(norm_name + ".weight", (h,)),

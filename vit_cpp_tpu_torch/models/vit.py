@@ -31,7 +31,10 @@ keeps the pad rows out of every softmax and the readouts skip them.
 `tome=r` merges r patch-token pairs per layer (ops/tome.py) between the
 attention and MLP halves of each block (`tome_block`): attention is
 proportional to the merged-token counts `sizes` on every attention path,
-and the readouts weight by them. V-MoE is not ported yet and raises.
+and the readouts weight by them. A V-MoE tree (a "moe" subtree,
+models/params.py) runs `moe_block`, routed expert MLPs (ops/moe.py), in
+its MoE layers and `transformer_block` in the others; `moe_aux=True`
+also returns the router diagnostics averaged over the MoE layers.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
+from vit_cpp_tpu_torch.ops.moe import moe_mlp
 from vit_cpp_tpu_torch.ops.precision import matmul_precision
 from vit_cpp_tpu_torch.ops.tome import tome_merge, tome_schedule
 
@@ -134,6 +138,20 @@ def transformer_block(
     activation-scale calibrator (quant/calibrate.py) reads them."""
     x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv)
     return _mlp_half(x, bp, hp, mm_impl=mm_impl, tap=tap)
+
+
+def moe_block(
+    x: torch.Tensor, bp: Dict[str, Any], mp: Dict[str, Any], hp: VitHParams, *,
+    attn_impl: str, mm_impl: str,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One V-MoE encoder block: the attention half of `transformer_block`,
+    then LN2 and a routed expert MLP (ops/moe.py::moe_mlp, one layer's
+    parameters `mp`) in place of fc1/fc2. Returns (x', the layer's router
+    diagnostics)."""
+    x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+    y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
+    out, aux = moe_mlp(y, mp, hp, mlp_act(hp.hidden_act))
+    return x + out, aux
 
 
 def tome_block(
@@ -277,17 +295,20 @@ def forward(
     features: bool = False,
     pad_tokens: bool = False,
     tome: int = 0,
+    moe_aux: bool = False,
     tap=None,
-) -> torch.Tensor:
+):
     """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
     with features=True the final-LN pooled readout (B, hidden); a
     sequence head (ViTSTR) gives (B, seq_len, ...) of either. `tap`
-    observes every GEMM input (transformer_block, _head).
+    observes every GEMM input (transformer_block, _head) of a dense tree.
 
     `pad_tokens=True` (serving; a fused attention only) zero-pads T to a
     multiple of 8; the pad rows carry values nothing reads. `tome=r`
     merges tokens in every layer by `tome_schedule` (layer l merges
-    min(r, remaining // 2) pairs); the two are exclusive."""
+    min(r, remaining // 2) pairs); the two are exclusive. A V-MoE model
+    takes neither; with `moe_aux=True` it returns (out, aux), aux the
+    mean over its MoE layers of ops/moe.py's diagnostics."""
     if pad_tokens and attn_impl not in ("pallas", "pallas-fast"):
         raise ValueError(
             "pad_tokens requires a fused pallas attention (the XLA "
@@ -304,10 +325,18 @@ def forward(
         if pad_tokens:
             raise ValueError("tome and pad_tokens are exclusive")
     if hp.num_experts:
-        raise NotImplementedError(
-            "V-MoE is not ported to vit_cpp_tpu_torch yet; it comes with "
-            "the V-MoE slice (ops/moe.py)"
-        )
+        if pad_tokens:
+            raise ValueError(
+                "pad_tokens + MoE is not supported (pad rows would claim "
+                "expert capacity)"
+            )
+        if mm_impl == "qat":
+            raise ValueError(
+                "QAT through MoE experts is not implemented (the expert "
+                "einsum path has no fake-quant leaves)"
+            )
+        return _moe_forward(params, images, hp, attn_impl=attn_impl, mm_impl=mm_impl,
+                            features=features, moe_aux=moe_aux)
     x = embed(params, images, hp)
     blocks = unstack_blocks(params["blocks"], hp.num_hidden_layers)
     if tome:
@@ -316,6 +345,8 @@ def forward(
         for bp, rl in zip(blocks, rs):
             x, sizes = tome_block(x, sizes, bp, hp, rl, attn_impl=attn_impl, mm_impl=mm_impl)
         return _head(params, x, hp, mm_impl, features, tap, sizes=sizes)
+    if moe_aux:
+        raise ValueError("moe_aux requires an MoE model (hp.num_experts)")
     kv = None
     if pad_tokens:
         b, t, h = x.shape
@@ -325,3 +356,38 @@ def forward(
     for bp in blocks:
         x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv)
     return _head(params, x, hp, mm_impl, features, tap, kv=kv)
+
+
+def moe_layer_params(params: Dict[str, Any], hp: VitHParams) -> list:
+    """A V-MoE tree -> one (bp, mp) per layer: bp that layer's ln1, qkv,
+    proj and ln2, plus fc1/fc2 in a dense layer; mp its "moe" parameters
+    in an MoE layer, else None. The dense fc1/fc2 and the experts stack
+    over their own layers (models/params.py), so each is unstacked by its
+    own counter."""
+    n, moe_set = hp.num_hidden_layers, set(hp.moe_layers)
+    shared = unstack_blocks(
+        {k: v for k, v in params["blocks"].items() if k not in ("fc1", "fc2")}, n
+    )
+    mlps = iter(unstack_blocks({k: params["blocks"][k] for k in ("fc1", "fc2")},
+                               n - len(moe_set)))
+    moes = iter(unstack_blocks(params["moe"], len(moe_set)))
+    return [(bp, next(moes)) if l in moe_set else ({**bp, **next(mlps)}, None)
+            for l, bp in enumerate(shared)]
+
+
+def _moe_forward(params, images, hp: VitHParams, *, attn_impl: str, mm_impl: str,
+                 features: bool, moe_aux: bool):
+    """The V-MoE branch of `forward` (vit_cpp_tpu/models/vit.py:518-591)."""
+    x = embed(params, images, hp)
+    aux_sum: Dict[str, torch.Tensor] = {}
+    for bp, mp in moe_layer_params(params, hp):
+        if mp is None:
+            x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+            continue
+        x, aux = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum.get(k, 0.0) + v
+    out = _head(params, x, hp, mm_impl, features)
+    if moe_aux:
+        return out, {k: v / len(hp.moe_layers) for k, v in aux_sum.items()}
+    return out

@@ -145,9 +145,23 @@ def create_train_state(
     return TrainState(params, make_optimizer(train_leaves, **(optimizer_kw or {})))
 
 
-def _log_probs(params, images, hp: VitHParams, tome: int = 0) -> torch.Tensor:
-    logits = forward(params, images, hp, attn_impl="pallas-train", tome=tome)
-    return torch.log_softmax(logits.float(), dim=-1)
+# V-MoE auxiliary-loss coefficients (vit_cpp_tpu/parallel/train.py:71-75):
+# the Switch balance loss (Fedus et al. 2022) and the ST-MoE router z-loss
+MOE_LB_COEF = 0.01
+MOE_Z_COEF = 1e-3
+
+
+def _log_probs(params, images, hp: VitHParams, tome: int = 0):
+    """(f32 log-softmax of the training forward's logits, the V-MoE
+    auxiliary term: 0.01 load_balance + 1e-3 router_z averaged over the
+    MoE layers, 0 for a dense model)."""
+    out = forward(params, images, hp, attn_impl="pallas-train", tome=tome,
+                  moe_aux=bool(hp.num_experts))
+    moe_term = 0.0
+    if hp.num_experts:
+        out, aux = out
+        moe_term = MOE_LB_COEF * aux["load_balance"] + MOE_Z_COEF * aux["router_z"]
+    return torch.log_softmax(out.float(), dim=-1), moe_term
 
 
 def _nll(logp: torch.Tensor, labels: torch.Tensor, smooth: float) -> torch.Tensor:
@@ -163,10 +177,12 @@ def _nll(logp: torch.Tensor, labels: torch.Tensor, smooth: float) -> torch.Tenso
 def cross_entropy_loss(
     params, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0
 ) -> torch.Tensor:
-    """Mean cross entropy of the training forward (f32 log-softmax);
-    `tome=r` trains through ToMe merging (the matching gets no gradient,
-    the attention kernels take the merged-token sizes both ways)."""
-    return _nll(_log_probs(params, images, hp, tome), labels, smooth)
+    """Mean cross entropy of the training forward (f32 log-softmax), plus
+    the router's auxiliary losses for a V-MoE model; `tome=r` trains
+    through ToMe merging (the matching gets no gradient, the attention
+    kernels take the merged-token sizes both ways)."""
+    logp, moe_term = _log_probs(params, images, hp, tome)
+    return _nll(logp, labels, smooth) + moe_term
 
 
 def _mixed_cross_entropy_loss(
@@ -175,8 +191,9 @@ def _mixed_cross_entropy_loss(
 ) -> torch.Tensor:
     """Mixup loss: one forward on the pre-mixed batch, CE against both
     label sets weighted by the mixing coefficient."""
-    logp = _log_probs(params, images, hp, tome)
-    return lam * _nll(logp, labels, smooth) + (1.0 - lam) * _nll(logp, labels2, smooth)
+    logp, moe_term = _log_probs(params, images, hp, tome)
+    return (lam * _nll(logp, labels, smooth) + (1.0 - lam) * _nll(logp, labels2, smooth)
+            + moe_term)
 
 
 def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,14 @@ from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 
 _GEMMS = ("qkv", "proj", "fc1", "fc2")
+# V-MoE trees take no static scales (the JAX engine's refusal,
+# vit_cpp_tpu/engine.py:193-197): the taps walk the dense block stack, and
+# the experts have no int8 leaves
+MOE_REFUSAL = (
+    "static act scales are unsupported for MoE checkpoints "
+    "(the calibrator walks the dense block stack, "
+    "quant/calibrate.py — serve MoE with dynamic W8A8)"
+)
 
 
 def _heads(params: Dict[str, Any]):
@@ -67,6 +75,8 @@ def collect_act_maxima(
     sequence head, or the output of SigLIP's attention pooling)."""
     from vit_cpp_tpu_torch.models.vit import forward
 
+    if hp.num_experts:
+        raise ValueError(MOE_REFUSAL)
     maxima = {name: [] for name in (*_GEMMS, "head")}
 
     def tap(name, v):

@@ -75,8 +75,9 @@ def _to_int8(k):
 def convert_params_to_int8(params: Dict[str, Any]) -> Dict[str, Any]:
     """Rewrite a parameter tree for W8A8 serving: the block linears
     (qkv, proj, fc1, fc2) and the head(s), dense or QuantLinear, become
-    Int8Linear; the patch
-    embedding, biases and norms stay in the float path."""
+    Int8Linear; the patch embedding, biases and norms stay in the float
+    path, and so do a V-MoE tree's router and experts (the "moe" subtree,
+    dense in the activation dtype, as in the JAX package)."""
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in ("qkv", "proj", "fc1", "fc2"):

@@ -162,14 +162,21 @@
    every variant of attn_anatomy (head-pair form at ViT-B/16 B=128,
    lane form at B=8 T=785 w=3), of attn_grad_anatomy (B=64) and the
    probe_int8_dot product (1024^3; int8 exact) against its plain version
-   on the card, each timed; then each tool's entry point, as a user runs
-   it, with the launch counts set to 0 just before and read just after.
+   on the card, each timed; the anatomies' `full` equal bit for bit to K1
+   (fast, bf16) and K2 (bf16) on the same tensors, `full`, K1 / K2 and
+   scaled_dot_product_attention (forward / backward) timed in turns,
+   and one stage-split line per tool (full - variant, in ms and as a
+   share of full, every variant timed in turns); then
+   each tool's entry point, as a user runs it, with the launch counts set
+   to 0 just before and read just after.
 Every kernel's line gives its bound (the larger of its bytes over 3.35
 TB/s and its operations over the data sheet's peak for their type: 989
 TFLOP/s bf16, 1,979 TOP/s int8, and f32 at a third of TF32's 494.7
 TFLOP/s, the rate of 3xTF32 products) and the time of one PyTorch call
 that computes the same function, where there is one (library_ms; the
-port never calls it).
+port never calls it). Every kernel time is device ms per call: a chain
+of calls queued behind a kernel that sleeps on the card, between two
+events, so that the span holds device work and not the host's.
 
 Every phase raises on failure, so the script exits nonzero and prints no
 result. On success the last lines are a JSON line with each kernel's
@@ -293,16 +300,35 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int = 50) -> float:
+    """Device ms per call of `fn`, the mean of `iters` calls between two
+    events. The calls are queued behind a kernel that sleeps on the card
+    until the host has enqueued all of them, so that the span holds their
+    device work and not the host's work per call (hundreds of us through
+    torch.autograd.grad, which would otherwise set the pace). The sleep
+    grows until it outlasts the host; a call that waits on the card
+    cannot be queued so, and is timed as it runs."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    cycles = 10_000_000
+    for _ in range(3):
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        slept_ms = slept.elapsed_time(start)
+        if host_ms < slept_ms:
+            break
+        cycles = int(cycles * 2 * host_ms / slept_ms) + 1
+    else:
+        log(f"cuda_ms: the host took {host_ms:.1f} ms to enqueue {iters} calls, longer than "
+            f"the card's sleep of {slept_ms:.1f} ms: timed as the calls ran")
     return start.elapsed_time(end) / iters
 
 
@@ -330,21 +356,29 @@ def _split_heads(qkv: torch.Tensor, nh: int):
     return qkv.view(b, t, 3, nh, three_h // 3 // nh).permute(2, 0, 3, 1, 4)
 
 
-def sdpa_ms(qkv: torch.Tensor, nh: int) -> float:
+def sdpa_fn(qkv: torch.Tensor, nh: int):
     """One scaled_dot_product_attention call on the split views (the
     library yardstick of the attention kernels)."""
     q, k, v = _split_heads(qkv, nh)
-    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)
 
 
-def sdpa_grad_ms(qkv: torch.Tensor, do: torch.Tensor, nh: int) -> float:
+def sdpa_ms(qkv: torch.Tensor, nh: int) -> float:
+    return cuda_ms(sdpa_fn(qkv, nh))
+
+
+def sdpa_grad_fn(qkv: torch.Tensor, do: torch.Tensor, nh: int):
     """The backward of one scaled_dot_product_attention call alone,
     torch.autograd.grad on a recorded graph."""
     q, k, v = (x.detach().contiguous().requires_grad_() for x in _split_heads(qkv, nh))
     out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
     b, t, h = do.shape
     g = do.view(b, t, nh, h // nh).permute(0, 2, 1, 3)
-    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+    return lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+
+def sdpa_grad_ms(qkv: torch.Tensor, do: torch.Tensor, nh: int) -> float:
+    return cuda_ms(sdpa_grad_fn(qkv, do, nh))
 
 
 def attention_bound(b: int, t: int, h: int, esize: int):
@@ -1033,10 +1067,22 @@ def split_head_path() -> int:
     return launches
 
 
+def turns(fns: dict) -> dict:
+    """Each call's mean device ms, timed in turns: in order, then in
+    reverse order, each time the mean of the two."""
+    names = list(fns)
+    first = {n: cuda_ms(fns[n]) for n in names}
+    second = {n: cuda_ms(fns[n]) for n in reversed(names)}
+    return {n: (first[n] + second[n]) / 2 for n in names}
+
+
 def check_diagnostics(card: str) -> dict:
     """Every variant of the three tools' kernels against its plain version
-    at the tools' flagship shapes, timed. Returns {kernel name: (err of
-    the main variant, kernel ms, plain ms, bound ms, bound by, library ms)}."""
+    at the tools' flagship shapes, timed; the anatomies' `full` against
+    K1 / K2 (bit for bit, then timed in turns with them and the library
+    call) and their stage splits. Returns {kernel name: (err of the main
+    variant, kernel ms, plain ms, bound ms, bound by, library ms)}."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_grad
     from vit_cpp_tpu_torch.tools import attn_anatomy as ta
     from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
     from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
@@ -1046,8 +1092,12 @@ def check_diagnostics(card: str) -> dict:
     bf16 = torch.bfloat16
     out = {}
 
-    def variants(kernel, shape, names, fn, plain, flops, nbytes, lib):
-        """Check and time each variant; the first is the kernel's line."""
+    def variants(kernel, shape, names, fn, plain, flops, nbytes, ref_fn, ref_name, lib_fn,
+                 lib_name):
+        """Check and time each variant; `full` against the port's own
+        kernel (ref_fn) bit for bit, then timed in turns with it and the
+        library call; the stage split. The first variant is the kernel's
+        line."""
         for v in names:
             got, ref = fn(v), plain(v)
             torch.cuda.synchronize()
@@ -1064,7 +1114,22 @@ def check_diagnostics(card: str) -> dict:
                 f"(tolerance {tol:.3e} = {ANATOMY_TOL:.0e} x max|plain|); kernel {k_ms:.4f} ms, "
                 f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             if v == names[0]:
-                out[kernel.name] = (err, k_ms, p_ms, b_ms, b_by, lib)
+                main = (err, p_ms, b_ms, b_by)
+        full = fn(names[0])
+        if not torch.equal(full, ref_fn()):
+            diff = (full.float() - ref_fn().float()).abs().max().item()
+            raise AssertionError(f"{kernel.name} full is not {ref_name}: max difference {diff}")
+        t = turns({"full": lambda: fn(names[0]), ref_name: ref_fn, lib_name: lib_fn})
+        log(f"diagnostic {kernel.name} full {shape}: equal to {ref_name} bit for bit; in turns, "
+            f"device ms on {card}: full {t['full']:.4f} ms, {ref_name} "
+            f"{t[ref_name]:.4f} ms, {lib_name} {t[lib_name]:.4f} ms")
+        out[kernel.name] = (main[0], t["full"], *main[1:], t[lib_name])
+        split = turns({v: (lambda v=v: fn(v)) for v in names})
+        log(f"stage split {kernel.name} {shape} on {card} (device ms, in turns; full "
+            f"{split['full']:.4f} ms; "
+            "full - variant, ms and share of full): " + "; ".join(
+                f"{v} {split['full'] - split[v]:+.4f} ({(split['full'] - split[v]) / split['full']:+.3f})"
+                for v in names[1:]))
 
     for kernel, b, t, h, fn in (
         (ta.PAIR_KERNEL, 128, 197, 768, lambda x, v: ta.pair_variant(x, v, 12)),
@@ -1073,22 +1138,21 @@ def check_diagnostics(card: str) -> dict:
         qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
         plain = {ta.PAIR_KERNEL: lambda v: ta.pair_variant_plain(qkv, v, 12),
                  ta.LANE_KERNEL: lambda v: ta.lane_variant_plain(qkv, v, 64)}[kernel]
-        lib = sdpa_ms(qkv, 12)
-        log(f"{kernel.name} full: library scaled_dot_product_attention {lib:.4f} ms on {card}")
         variants(kernel, f"B={b} T={t} h={h}", ta.VARIANTS, lambda v: fn(qkv, v), plain,
-                 lambda v: ta.dot_flops(v, b, t, h), 4 * b * t * h * 2, lib)
+                 lambda v: ta.dot_flops(v, b, t, h), 4 * b * t * h * 2,
+                 lambda: attention_qkv(qkv, 12, fast=True), "attention_qkv fast bf16",
+                 sdpa_fn(qkv, 12), "scaled_dot_product_attention")
         del qkv
 
     b, t, h = 64, 197, 768
     qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
     do = torch.randn((b, t, h), generator=gen, device="cuda").to(bf16)
-    lib = sdpa_grad_ms(qkv, do, 12)
-    log(f"{tg.KERNEL.name} full: library scaled_dot_product_attention backward {lib:.4f} ms "
-        f"on {card}")
     variants(tg.KERNEL, f"B={b} T={t} h={h}", tg.VARIANTS,
              lambda v: tg.grad_variant(qkv, do, v, 12),
              lambda v: tg.grad_variant_plain(qkv, do, v, 12),
-             lambda v: tg.dot_flops(v, b, t, h), 7 * b * t * h * 2, lib)
+             lambda v: tg.dot_flops(v, b, t, h), 7 * b * t * h * 2,
+             lambda: attention_qkv_grad(qkv, do, 12), "attention_qkv_grad bf16",
+             sdpa_grad_fn(qkv, do, 12), "scaled_dot_product_attention backward")
     del qkv, do
 
     n = tp.M

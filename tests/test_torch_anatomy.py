@@ -28,6 +28,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from vit_cpp_tpu_torch.ops import flash_attention as fa
 from vit_cpp_tpu_torch.tools import attn_anatomy as ta
 from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
 from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
@@ -169,6 +170,27 @@ def test_bf16_plain_product_matches_jax_kernel():
     np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL * np.abs(want).max())
 
 
+# `full` is K1's fast path and K2's path: the plain versions are the same
+# arithmetic, so they agree bit for bit (qkv (2, 37, 384): h=128, 4 heads
+# of d=32, one 128-lane panel)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("form", ["pair", "lane"])
+def test_forward_full_plain_is_k1_fast_plain(form, dtype):
+    qkv = torch.from_numpy(_normal(9, 2, 37, 384)).to(dtype)
+    got = ta.pair_variant(qkv, "full", 4) if form == "pair" else ta.lane_variant(qkv, "full", 32)
+    assert got.dtype == dtype
+    assert torch.equal(got, fa.attention_qkv_plain(qkv, 4, fast=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_backward_full_plain_is_k2_plain(dtype):
+    qkv = torch.from_numpy(_normal(10, 2, 37, 384)).to(dtype)
+    do = torch.from_numpy(_normal(11, 2, 37, 128)).to(dtype)
+    got = tg.grad_variant(qkv, do, "full", 4)
+    assert got.dtype == dtype
+    assert torch.equal(got, fa.attention_qkv_grad_plain(qkv, do, 4))
+
+
 @pytest.mark.parametrize("call", [
     lambda x, g: ta.pair_variant(x, "full", 3),          # odd head count
     lambda x, g: ta.pair_variant(x, "bogus", 4),
@@ -262,3 +284,59 @@ def test_probe_kernel_on_card():
     ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
     got, ref = tp.dot(ab, bb), tp.dot_plain(ab, bb)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# The anatomies' `full` against K1 (fast, bf16) and K2 (bf16) on the same
+# tensors, bit for bit: the same body at the default stages. d=72 and
+# d=32 run the anatomy's widths rounded up to 64 (zero columns add
+# exactly 0); d=128 the pair form's 256-lane groups and the lane form's
+# one-head panels.
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,nh,d", [
+    ("pair", 12, 64), ("pair", 2, 72), ("pair", 4, 128),
+    ("lane", 12, 64), ("lane", 4, 32), ("lane", 2, 128),
+])
+def test_forward_full_kernel_is_k1_on_card(form, nh, d):
+    gen = _card()
+    qkv = torch.randn((2, 197, 3 * nh * d), generator=gen, device="cuda").to(torch.bfloat16)
+    got = ta.pair_variant(qkv, "full", nh) if form == "pair" else ta.lane_variant(qkv, "full", d)
+    assert torch.equal(got, fa.attention_qkv(qkv, nh, fast=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh,d", [(12, 64), (4, 72), (4, 128)])
+def test_backward_full_kernel_is_k2_on_card(nh, d):
+    gen = _card()
+    qkv = torch.randn((2, 197, 3 * nh * d), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((2, 197, nh * d), generator=gen, device="cuda").to(torch.bfloat16)
+    assert torch.equal(tg.grad_variant(qkv, do, "full", nh), fa.attention_qkv_grad(qkv, do, nh))
+
+
+# every variant at the widths the flagship shape does not reach: d=128
+# (the pair form's nomask and T2's onedot over 256 lanes) and d=32
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("variant", ta.VARIANTS)
+def test_forward_kernels_match_plain_on_card_at_other_widths(variant, d):
+    gen = _card()
+    nh = 512 // d
+    qkv = torch.randn((2, 300, 3 * 512), generator=gen, device="cuda").to(torch.bfloat16)
+    for fn, plain, arg in ((ta.pair_variant, ta.pair_variant_plain, nh),
+                           (ta.lane_variant, ta.lane_variant_plain, d)):
+        if fn is ta.lane_variant and variant == "mxusum" and d == 128:
+            continue  # the lane form refuses it (test_lane_mxusum_needs_two_heads_per_panel)
+        got, ref = fn(qkv, variant, arg).float(), plain(qkv, variant, arg).float()
+        assert (got - ref).abs().max().item() <= CARD_TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("variant", [v for v in tg.VARIANTS if v not in ("pipe", "pipe2")])
+def test_backward_kernel_matches_plain_on_card_at_other_widths(variant, d):
+    gen = _card()
+    nh = 512 // d
+    qkv = torch.randn((2, 300, 3 * 512), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((2, 300, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    got = tg.grad_variant(qkv, do, variant, nh).float()
+    ref = tg.grad_variant_plain(qkv, do, variant, nh).float()
+    assert (got - ref).abs().max().item() <= CARD_TOL * ref.abs().max().item()

@@ -223,6 +223,26 @@ def test_closing_a_model_batcher_closes_its_embed_batcher(models):
         fut.result(timeout=5)
 
 
+@pytest.mark.parametrize("size", [64 << 10, 4 << 20])
+def test_unknown_route_answers_404_after_the_body(models, size):
+    """A POST to no route gets its 404 whatever its body's size: the
+    daemon reads the body before it answers, so closing the connection
+    does not reset it under the answer."""
+    engine = VitEngine(models["a"], device="cpu", verbose=False)
+    httpd, batcher = create_server(engine, port=0, batch=2)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{httpd.server_port}"
+    try:
+        answers = [_request(base + "/v1/nope/classify", bytes(size)) for _ in range(5)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    for status, raw in answers:
+        assert status == 404 and "no route /v1/nope/classify" in json.loads(raw)["error"]
+
+
 def test_single_model_daemon_keeps_its_routes(models):
     """create_server is unchanged: /v1/classify and /v1/embed, a flat
     /healthz and /stats, the model labelled "default" in /metrics."""

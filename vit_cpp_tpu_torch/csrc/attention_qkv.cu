@@ -34,8 +34,10 @@
 // (three per f32 product), then the exp2 of every score, while their K/V
 // copies hide behind the products.
 //
-// bf16 body (attention_mma: serving, K1 and K3), in the FlashAttention-2
-// manner. 8 warps, each owning 16 query rows (at ViT-B/16 B=64, 1536 blocks
+// bf16 body (attention_mma: serving, K1 and K3; its code is
+// attention_body.cuh, which the forward anatomy attn_anatomy.cu
+// instantiates with stages changed), in the FlashAttention-2 manner. 8
+// warps, each owning 16 query rows (at ViT-B/16 B=64, 1536 blocks
 // of 128 query rows keep every SM busy, and an H100 ran them faster than
 // 64-row blocks of 4 warps). Q is scaled in f32, rounded to bf16 once and
 // held in registers as mma.sync.m16n8k16 A fragments for the whole key
@@ -98,21 +100,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_body.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kBK = 64;  // keys per shared-memory tile
-
-// Element strides of a (batch, head, token, feature) view; feature stride 1.
-struct Strides {
-  long long batch, head, token;
-};
-
-constexpr int kWarps = 8;               // 16 query rows each
-constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kMmaRows = 16 * kWarps;   // query rows per block
-constexpr int kRing = 3;                // K and V tiles in flight
+// the blocking both bodies share (attention_body.cuh)
+using attn::bf16;
+using attn::kBK;
+using attn::kMmaRows;
+using attn::kMmaThreads;
+using attn::kRing;
+using attn::Strides;
 
 // ------------------------------------------------------------ f32 body
 
@@ -336,14 +335,7 @@ __global__ void __launch_bounds__(kMmaThreads, NK <= 4 ? 2 : 1)
 
 // ----------------------------------------------------------- bf16 body
 
-using bf16 = __nv_bfloat16;
-
-// Shared memory of the bf16 body: the Q tile, then a ring of K and V
-// tiles of 64 rows; rows of 16 NK + 8 bf16.
-__host__ __device__ constexpr size_t mma_smem_bytes(int nk) {
-  return (size_t)(kMmaRows + 2 * kRing * kBK) * (16 * nk + 8) * sizeof(bf16);
-}
-
+// attention_body.cuh's body at its default stage set.
 // NK = ceil(d / 16): 16-wide slices of the (zero-padded) head dimension.
 template <int NK>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -351,211 +343,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                   const bf16* __restrict__ vg, Strides in,
                   const float* __restrict__ sizes, bf16* __restrict__ out,
                   Strides os, int seq, int d, int kv, float qscale, int fast) {
-  constexpr int kLd = 16 * NK + 8;  // row stride: +16 B puts ldmatrix rows in distinct banks
-  constexpr int kTile = kBK * kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kMmaRows * kLd;  // kRing tiles
-  bf16* sV = sK + kRing * kTile;   // kRing tiles
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;  // fragment row and column pair
-  const int b = blockIdx.z;
-  const int head = blockIdx.y;
-  const int q0 = blockIdx.x * kMmaRows;
-  const long long in_off = b * in.batch + head * in.head;
-  const bf16* qb = qg + in_off;
-  const bf16* kb = kg + in_off;
-  const bf16* vb = vg + in_off;
-  bf16* ob = out + b * os.batch + head * os.head;
-  const int chunks = d >> 3;  // 16-byte chunks of a row
-
-  if (q0 >= kv) {  // every row of this tile is token padding
-    for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
-      const int r = idx / chunks, c = idx - r * chunks;
-      if (q0 + r < seq)
-        *reinterpret_cast<uint4*>(ob + (q0 + r) * os.token + 8 * c) = make_uint4(0, 0, 0, 0);
-    }
-    return;
-  }
-
-  // the padding columns d .. 16 NK of every row: zero once, never copied over
-  if (d < 16 * NK) {
-    for (int r = tid; r < kMmaRows + 2 * kRing * kBK; r += kMmaThreads)
-      *reinterpret_cast<uint4*>(sQ + r * kLd + d) = make_uint4(0, 0, 0, 0);
-  }
-
-  // pass 0 (safe mode only) reads K for the exact row max; pass 1 reads K
-  // and V. Step `it` of the flat loop is tile it % ntiles of its pass, in
-  // ring slot it % kRing; each step's copies are one cp.async group.
-  const int ntiles = (kv + kBK - 1) / kBK;
-  const int first = fast ? 1 : 0;
-  const int nsteps = (2 - first) * ntiles;
-  auto issue = [&](int it) {
-    if (it < nsteps) {
-      const int pass = first + (it >= ntiles);
-      const int k0 = (it - (pass - first) * ntiles) * kBK;
-      bf16* dk = sK + (it % kRing) * kTile;
-      bf16* dv = sV + (it % kRing) * kTile;
-      // rows up to the next multiple of 16 past kv; keys >= kv are zeros
-      const int rows = min(kBK, (kv - k0 + 15) & ~15);
-      for (int idx = tid; idx < rows * chunks; idx += kMmaThreads) {
-        const int r = idx / chunks, c = idx - r * chunks;
-        const bool real = k0 + r < kv;
-        const long long off = (real ? k0 + r : 0) * in.token + 8 * c;
-        tc::cp_async<16>(dk + r * kLd + 8 * c, kb + off, real ? 16 : 0);
-        if (pass == 1) tc::cp_async<16>(dv + r * kLd + 8 * c, vb + off, real ? 16 : 0);
-      }
-    }
-    tc::cp_async_commit();  // possibly empty: the wait counts stay uniform
-  };
-
-  // Q rows (zeros past kv) join the first tile's group; then each thread
-  // scales its own chunks in f32 and rounds them to bf16 once
-  for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
-    const int r = idx / chunks, c = idx - r * chunks;
-    const bool real = q0 + r < kv;
-    tc::cp_async<16>(sQ + r * kLd + 8 * c, qb + (real ? q0 + r : 0) * in.token + 8 * c,
-                     real ? 16 : 0);
-  }
-  for (int it = 0; it < kRing - 1; ++it) issue(it);
-  tc::cp_async_wait<kRing - 2>();
-  for (int idx = tid; idx < kMmaRows * chunks; idx += kMmaThreads) {
-    const int r = idx / chunks, c = idx - r * chunks;
-    uint32_t* w = reinterpret_cast<uint32_t*>(sQ + r * kLd + 8 * c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      w[i] = tc::pack_bf16(f.x * qscale, f.y * qscale);
-    }
-  }
-  __syncthreads();  // Q in shared memory
-
-  const int row0 = warp * 16;                // this warp's query rows
-  const bool active = q0 + row0 < kv;        // ... hold at least one real row
-  uint32_t qf[NK][4];
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk)
-    tc::ldmatrix_x4(qf[kk], sQ + (row0 + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8);
-
-  float o[2 * NK][4];
-#pragma unroll
-  for (int j = 0; j < 2 * NK; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  // rows g and g + 8 of the warp's 16: row max (safe) and row sum
-  float m[2] = {fast ? 0.f : -__int_as_float(0x7f800000), fast ? 0.f : -__int_as_float(0x7f800000)};
-  float l[2] = {0.f, 0.f};
-
-  for (int it = 0; it < nsteps; ++it) {
-    tc::cp_async_wait<kRing - 2>();
-    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
-    issue(it + kRing - 1);
-    if (!active) continue;
-    const int pass = first + (it >= ntiles);
-    const int k0 = (it - (pass - first) * ntiles) * kBK;
-    const int nch = min(4, (kv - k0 + 15) >> 4);  // 16-key chunks with a real key
-    const bf16* tk = sK + (it % kRing) * kTile;
-    const bf16* tv = sV + (it % kRing) * kTile;
-
-    // S = Q K^T: n8 tile j holds keys k0 + 8 j .. + 7
-    float s[8][4];
-#pragma unroll
-    for (int c16 = 0; c16 < 4; ++c16) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[2 * c16][e] = s[2 * c16 + 1][e] = 0.f;
-      if (c16 >= nch) continue;
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        uint32_t kf[4];
-        tc::ldmatrix_x4(kf, tk + (c16 * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                                kk * 16 + ((lane >> 3) & 1) * 8);
-        tc::mma_bf16(s[2 * c16], qf[kk], kf[0], kf[1]);
-        tc::mma_bf16(s[2 * c16 + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    if (pass == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j / 2 >= nch) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k0 + 8 * j + 2 * q + (e & 1) < kv) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
-      }
-      if (it == ntiles - 1) {  // the four lanes of a row hold its 64 columns
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-          m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-        }
-      }
-      continue;
-    }
-
-    // p in place of s: f32 for the row sum, then rounded for P V
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (j / 2 >= nch) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * q + (e & 1);
-        float p = 0.f;
-        if (key < kv) {
-          p = exp2f(fast ? fminf(s[j][e], 120.f) : s[j][e] - m[e >> 1]);
-          if (sizes != nullptr) p *= sizes[(size_t)b * seq + key];
-        }
-        l[e >> 1] += p;
-        s[j][e] = p;
-      }
-    }
-
-    // O += P V, P as A fragments straight from the S accumulators
-#pragma unroll
-    for (int c16 = 0; c16 < 4; ++c16) {
-      if (c16 >= nch) continue;
-      const uint32_t pf[4] = {
-          tc::pack_bf16(s[2 * c16][0], s[2 * c16][1]),
-          tc::pack_bf16(s[2 * c16][2], s[2 * c16][3]),
-          tc::pack_bf16(s[2 * c16 + 1][0], s[2 * c16 + 1][1]),
-          tc::pack_bf16(s[2 * c16 + 1][2], s[2 * c16 + 1][3]),
-      };
-#pragma unroll
-      for (int n16 = 0; n16 < NK; ++n16) {
-        uint32_t vf[4];
-        tc::ldmatrix_x4_trans(vf, tv + (c16 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                                      n16 * 16 + (lane >> 4) * 8);
-        tc::mma_bf16(o[2 * n16], pf, vf[0], vf[1]);
-        tc::mma_bf16(o[2 * n16 + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-
-  // o / l rounded to bf16, staged in this warp's rows of sQ (its Q is in
-  // registers), then written as 16-byte stores
-  bf16* so = sQ + row0 * kLd;
-  const bool real0 = q0 + row0 + g < kv, real1 = q0 + row0 + g + 8 < kv;
-#pragma unroll
-  for (int j = 0; j < 2 * NK; ++j) {
-    const int c = 8 * j + 2 * q;
-    *reinterpret_cast<uint32_t*>(so + g * kLd + c) =
-        real0 ? tc::pack_bf16(o[j][0] / l[0], o[j][1] / l[0]) : 0u;
-    *reinterpret_cast<uint32_t*>(so + (g + 8) * kLd + c) =
-        real1 ? tc::pack_bf16(o[j][2] / l[1], o[j][3] / l[1]) : 0u;
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * chunks; idx += 32) {
-    const int r = idx / chunks, c = idx - r * chunks;
-    const int t = q0 + row0 + r;
-    if (t < seq)
-      *reinterpret_cast<uint4*>(ob + t * os.token + 8 * c) =
-          *reinterpret_cast<const uint4*>(so + r * kLd + 8 * c);
-  }
+  attn::attention_mma_body<NK>(qg, kg, vg, in, sizes, out, os, seq, d, kv, qscale, fast);
 }
 
 // ------------------------------------------------------------- launches
@@ -600,10 +388,11 @@ cudaError_t launch(const Args<float>& a, cudaStream_t stream) {
 template <int NK>
 cudaError_t launch(const Args<bf16>& a, cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(attention_mma<NK>, mma_smem_bytes(NK), configured);
+  constexpr size_t bytes = attn::mma_smem_bytes<NK>();
+  cudaError_t err = allow_smem(attention_mma<NK>, bytes, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq + kMmaRows - 1) / kMmaRows, a.nh, a.batch);
-  attention_mma<NK><<<grid, kMmaThreads, mma_smem_bytes(NK), stream>>>(
+  attention_mma<NK><<<grid, kMmaThreads, bytes, stream>>>(
       a.q, a.k, a.v, a.in, a.sizes, a.out, a.os, a.seq, a.d, a.kv, a.qscale, a.fast);
   return cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy building blocks of attention_qkv.cu
-// and attention_qkv_grad.cu (K1/K3 and K2: cp.async, ldmatrix, the bf16
+// and attention_qkv_grad.cu (K1/K3 and K2, and the anatomies built on
+// their bodies: cp.async, ldmatrix, the bf16
 // mma.sync.m16n8k16 product and the f32 3xTF32 product on
 // mma.sync.m16n8k8.tf32, PTX ISA sm_80+) and dequant_matmul.cu (K4:
 // cp.async, TMA with mbarriers and the asynchronous wgmma.m64n128k16
@@ -70,6 +71,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_u32(p)) : "memory");
 }
 
+// Two 8 x 8 b16 matrices, transposed: lanes 0-7 and 8-15 give the row
+// addresses of matrices 0 and 1 (the other lanes' addresses are unused).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)) : "memory");
+}
+
 // c += a b: bf16 operands, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -84,6 +93,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// v rounded to the nearest bf16, in an f32 register.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// JAX's exp2 of a bf16 value (the anatomies' bf16exp): lax.exp2 lowers to
+// exp(ln 2 * x) in the operand's type, so x, ln 2 (0.69140625), the
+// product and the result are each rounded to bf16.
+__device__ __forceinline__ float exp2_bf16(float x) {
+  return bf16_round(expf(bf16_round(bf16_round(x) * 0.69140625f)));
 }
 
 // ------------------------------------------ 3xTF32 (f32 on tensor cores)

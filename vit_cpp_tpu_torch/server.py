@@ -387,10 +387,12 @@ def _make_handler(routes: dict, models: list, *, single: bool, timeout_s: float)
         def do_POST(self):
             path, _, query = self.path.partition("?")
             model, kind = routes.get(path, (None, None))
+            n = int(self.headers.get("Content-Length") or 0)
             if model is None:
+                if n <= MAX_BODY_BYTES:  # a body left unread resets the connection under the answer
+                    self.rfile.read(n)
                 self._json(404, {"error": f"no route {path} (use {' or '.join(sorted(routes))})"})
                 return
-            n = int(self.headers.get("Content-Length") or 0)
             if n > MAX_BODY_BYTES:
                 self._json(413, {"error": f"body {n} bytes > limit {MAX_BODY_BYTES}"})
                 return

@@ -1,16 +1,22 @@
 """Card-side diagnostics: the port's counterparts of the JAX package's
 measurement tools that run a kernel of their own.
 
-- attn_anatomy: stage-toggled replicas of the attention forward
-  (tools/attn_anatomy.py), head-pair and lane-panel forms;
+- attn_anatomy: the attention forward split by stage
+  (tools/attn_anatomy.py), head-pair and lane-panel forms: each variant
+  is K1's own tensor-core body (csrc/attention_body.cuh) with stages
+  switched off;
 - attn_grad_anatomy: the same for the attention backward
-  (tools/attn_grad_anatomy.py);
+  (tools/attn_grad_anatomy.py) on K2's bodies
+  (csrc/attention_grad_body.cuh);
 - probe_int8_dot: the int8 vs bf16 tensor-core product rate
-  (tools/probe_int8_dot.py).
+  (tools/probe_int8_dot.py);
+- sass_census: no JAX counterpart; each kernel's SASS instructions, HMMA
+  count, registers and spills, beside another tree's (nvcc and cuobjdump
+  only, no card).
 
 Each runs as `python -m vit_cpp_tpu_torch.tools.<name>` with the JAX
-tool's flags, on the card only: a device timing never falls back to the
-CPU. Their functions run the kernel on a CUDA tensor and the plain
+tool's flags, the first three on the card only: a device timing never
+falls back to the CPU. Their functions run the kernel on a CUDA tensor and the plain
 PyTorch version on a CPU tensor, as every kernel wrapper of the port does.
 """
 

@@ -1,25 +1,30 @@
 """Split the attention forward's time by stage, on the card.
 
 Counterpart of tools/attn_anatomy.py, whose Pallas kernels replicate the
-TPU's serving attention with stages switched off one at a time. Here the
-replica is the port's forward kernel (csrc/attn_anatomy.cu, the design of
-csrc/attention_qkv.cu), one variant per launch:
+TPU's serving attention with stages switched off one at a time. Here each
+variant is the port's own forward kernel, K1 (csrc/attention_qkv.cu):
+csrc/attn_anatomy.cu instantiates K1's bf16 tensor-core body
+(csrc/attention_body.cuh: mma.sync products, a cp.async ring of K/V
+tiles, P from the S accumulators) with one stage set per variant, so
+`full` is K1's fast bf16 path bit for bit and each other variant differs
+from it in the named stages only:
 
-    full      score dot + exp2 softmax + P V + /sum   (the kernel's work)
-    mxusum    full, the row sum taken from the P V product (ones column)
-    bf16exp   full, exp2 on bf16-rounded clamped scores (in bf16, as JAX
-              lowers it: exp(ln 2 x)), f32 row sum
+    full      score dot + exp2(min(s, 120)) + P V + /sum   (K1 fast)
+    mxusum    full, the row sum taken by the tensor cores (P times a
+              tile of ones beside V)
+    bf16exp   full, exp2 on the clamped scores in bf16, as JAX lowers it
+              (exp(ln 2 x)), f32 row sum
     noclamp   exp2 kept, clamp and /sum skipped
     noexp     clamp only, no exp2, no /sum
     nosoftmax P := S: both dots, no softmax
-    nomask    nosoftmax over the head group's lanes (no per-head masks)
-    onedot    score dot only, a slice of it stored
+    nomask    nosoftmax with the score dot over the head group's lanes
+              (no per-head masks)
+    onedot    score dot only (every key tile), a slice of it stored
 
 Two forms, as the JAX tool's: `pair_variant` (head pairs, the flagship
 ViT-B/16 shape; its TPU kernel is run_pair_variant) and `lane_variant`
 (128-lane panels of 128/d heads; run_variant). They differ only where a
-variant mixes the heads of a group (nomask, onedot, and mxusum's ones
-column). Run on the card:
+variant mixes the heads of a group (nomask, onedot). Run on the card:
 
     python -m vit_cpp_tpu_torch.tools.attn_anatomy --kernel pair --t 197 --h 768 --b 128
     python -m vit_cpp_tpu_torch.tools.attn_anatomy --t 785 --h 768 --b 8 --w 3
@@ -27,11 +32,12 @@ column). Run on the card:
 Each line gives a variant's ms per call over a chain of 400 launches
 (CUDA events) and its dot rate: the FLOPs of the variant's products
 (score dot and P V over each head's d lanes; onedot the score dot alone)
-per second.
+per second. full minus a variant is what the variant's stages cost K1.
 
 On a CUDA tensor the functions launch the kernel (bf16, d % 8 == 0,
-d <= 128) or raise; on a CPU tensor they run the plain PyTorch version
-below (any float type), which the tests hold against the JAX kernels.
+d <= 128, a 16-byte aligned qkv) or raise; on a CPU tensor they run the
+plain PyTorch version below (any float type), which the tests hold
+against the JAX kernels.
 """
 
 from __future__ import annotations
@@ -174,8 +180,8 @@ def _launch(kernel: Kernel, qkv, variant, nh, group, onedot_sum) -> torch.Tensor
     if d % 8 or d > 128 or group * d > 256:
         raise ValueError(f"{kernel.name} kernel takes d % 8 == 0, d <= 128 and "
                          f"group * d <= 256; got d={d}, group={group}")
-    if not qkv.is_contiguous():
-        raise ValueError(f"{kernel.name} kernel needs a contiguous qkv")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{kernel.name} kernel needs a contiguous, 16-byte aligned qkv")
     out = torch.empty((b, t, h), dtype=qkv.dtype, device=qkv.device)
     lib = library()
     with torch.cuda.device(qkv.device):

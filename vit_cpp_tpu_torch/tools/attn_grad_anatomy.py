@@ -2,12 +2,15 @@
 
 Counterpart of tools/attn_grad_anatomy.py, whose Pallas kernel replicates
 the TPU's head-pair attention backward (safe softmax) with stages
-switched off one at a time. Here the replica (csrc/attn_grad_anatomy.cu)
-is that design on the card's FMA units, in two launches as the port's
-backward kernel csrc/attention_qkv_grad.cu has them, whose products run
-on the tensor cores; one variant per call:
+switched off one at a time. Here each variant is the port's own backward
+kernel, K2 (csrc/attention_qkv_grad.cu): csrc/attn_grad_anatomy.cu
+instantiates K2's two bf16 tensor-core bodies (csrc/attention_grad_body.cuh:
+launch A for dq and the row statistics, launch B for dk and dv, every
+product on mma.sync) with one stage set per variant, so `full` is K2's
+bf16 path bit for bit and each other variant differs from it in the
+named stages only:
 
-    full       s dot + softmax + dv/dp dots + dsoftmax + dq/dk dots
+    full       s dot + softmax + dv/dp dots + dsoftmax + dq/dk dots (K2)
     pipe       full, two heads per block, stages interleaved across them
     pipe2      full, four heads per block (nh % 4 == 0)
     bf16exp    softmax exp2 on bf16-rounded scores, in bf16 (f32 row sum)
@@ -16,15 +19,16 @@ on the tensor cores; one variant per call:
     dotsonly   both chains off
     onedot     s dot only, over each pair's lanes, stored in dq, dk, dv
 
-pipe and pipe2 give full's output; on the card they ask whether
-independent work per warp hides the latency of shared-memory operands.
-Run on the card (the flagship training shape):
+pipe and pipe2 give full's output; on the card they ask whether another
+head's independent products in each warp hide the latency of K2's
+shared-memory operands. Run on the card (the flagship training shape):
 
     python -m vit_cpp_tpu_torch.tools.attn_grad_anatomy --t 197 --h 768 --b 64
 
 Each line gives a variant's ms per call over a chain of 400 calls (CUDA
 events) and its dot rate: the FLOPs of the five products over each
-head's d lanes (10 B T^2 h; onedot one fifth of it) per second.
+head's d lanes (10 B T^2 h; onedot one fifth of it) per second. full
+minus a variant is what the variant's stages cost K2.
 
 On a CUDA tensor `grad_variant` launches the kernel (bf16, even nh,
 d % 8 == 0, d <= 128; pipe and pipe2 d <= 64) or raises; on a CPU tensor
@@ -137,7 +141,7 @@ def grad_variant(qkv: torch.Tensor, do: torch.Tensor, variant: str, nh: int) -> 
     if qkv.data_ptr() % 16 or do.data_ptr() % 16:
         raise ValueError("attn_grad_anatomy kernel needs 16-byte aligned qkv and do")
     dqkv = torch.empty_like(qkv)
-    # per query row: max, sum p and r, from the first launch to the second
+    # per query row: max, 1 / sum p and r, from the first launch to the second
     stats = torch.empty((b, nh, t, 3), dtype=torch.float32, device=qkv.device)
     lib = library()
     with torch.cuda.device(qkv.device):

@@ -162,7 +162,11 @@
    every variant of attn_anatomy (head-pair form at ViT-B/16 B=128,
    lane form at B=8 T=785 w=3), of attn_grad_anatomy (B=64) and the
    probe_int8_dot product (1024^3; int8 exact) against its plain version
-   on the card, each timed; the anatomies' `full` equal bit for bit to K1
+   on the card, each timed, with a one-K-step call, B given (N, K) and C's
+   write alone beside it, then at the W8A8 linears of a ViT-B/16 B=64
+   batch (qkv, proj, fc1, fc2; int8 also with B given (N, K)), in turns
+   with torch._int_mm, torch.matmul and torch.mm with an f32 output, with
+   the int8 : bf16 ratio; the anatomies' `full` equal bit for bit to K1
    (fast, bf16) and K2 (bf16) on the same tensors, `full`, K1 / K2 and
    scaled_dot_product_attention (forward / backward) timed in turns,
    and one stage-split line per tool (full - variant, in ms and as a
@@ -1189,7 +1193,88 @@ def check_diagnostics(card: str) -> dict:
         rows[kind] = (k_ms, p_ms, b_ms, b_by, lib)
     log(f"diagnostic probe_int8_dot: int8 exact; bf16 max|kernel - plain| = {err:.3e}; "
         f"int8 : bf16 kernel rate {rows['bf16'][0] / rows['int8'][0]:.2f}x on {card}")
+    # where a 1024^3 call's time goes: the same call with one 128-byte K
+    # step (launch, the ring's first fill, the epilogue), the K steps, and
+    # C's write alone
+    c32 = torch.empty((n, n), dtype=torch.int32, device="cuda")
+    short = {"int8": (a8[:, :128].contiguous(), b8[:128].contiguous()),
+             "bf16": (ab[:, :64].contiguous(), bb[:64].contiguous())}
+    bt8 = b8.t().contiguous()
+    if not torch.equal(tp.dot_nk(a8, bt8), tp.dot_plain(a8, b8)):
+        raise AssertionError("probe_int8_dot: the int8 product with B given (N, K) is not exact")
+    t = {f: time_ms(fn, 200) for f, fn in (
+        ("int8 K=128", lambda: tp.dot(*short["int8"])), ("bf16 K=64", lambda: tp.dot(*short["bf16"])),
+        ("int8 (N, K)", lambda: tp.dot_nk(a8, bt8)),
+        ("torch.mm f32 out", lambda: torch.mm(ab, bb, out_dtype=torch.float32)),
+        ("C write", lambda: c32.fill_(7)))}
+    log(f"diagnostic probe_int8_dot {n}^3 on {card}, device ms (CUDA graph of 200 calls): one K "
+        f"step int8 {t['int8 K=128']:.4f} / bf16 {t['bf16 K=64']:.4f} against the whole K "
+        f"{rows['int8'][0]:.4f} / {rows['bf16'][0]:.4f} (8 / 16 steps: "
+        f"{(rows['int8'][0] - t['int8 K=128']) / 7 * 1e3:.2f} / "
+        f"{(rows['bf16'][0] - t['bf16 K=64']) / 15 * 1e3:.2f} us a step); int8 with B given "
+        f"(N, K) {t['int8 (N, K)']:.4f}; torch.mm with an f32 output {t['torch.mm f32 out']:.4f}; "
+        f"C's write alone (fill_) {t['C write']:.4f}")
+    del c32, short, bt8
     out[tp.KERNEL.name] = (0.0, *rows["int8"])
+    out[f"{tp.KERNEL.name} bf16"] = rows["bf16"]
+    del a8, b8, ab, bb
+    out[f"{tp.KERNEL.name} w8a8"] = probe_w8a8_shapes(card, gen)
+    return out
+
+
+# The W8A8 linears of ViT-B/16 at B=64 (M = 64 x 197 tokens): (K, N)
+W8A8_B64_M = 64 * 197
+W8A8_LINEARS = {"qkv": (768, 2304), "proj": (768, 768), "fc1": (768, 3072), "fc2": (3072, 768)}
+
+
+def probe_w8a8_shapes(card: str, gen) -> dict:
+    """T3 at the W8A8 linears' shapes of a B=64 batch: int8 exact (B given
+    (K, N) and, as a W8A8 kernel keeps its weights, (N, K)), bf16 within
+    PROBE_BF16_TOL; kernel, plain and library calls timed in turns, each
+    beside its bound. {linear: {"int8": times, "int8_nk": times, "bf16":
+    times}}, times as (ms, plain ms, bound ms, bound by, library ms)."""
+    from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
+
+    m, out = W8A8_B64_M, {}
+    for name, (k, n) in W8A8_LINEARS.items():
+        a8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
+        b8 = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+        bt8 = b8.t().contiguous()
+        ab, bb = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+        ref8 = tp.dot_plain(a8, b8)
+        if not torch.equal(tp.dot(a8, b8), ref8) or not torch.equal(tp.dot_nk(a8, bt8), ref8):
+            raise AssertionError(f"probe_int8_dot {name}: the int8 product is not exact")
+        got, ref = tp.dot(ab, bb), tp.dot_plain(ab, bb)
+        err = (got - ref).abs().max().item()
+        if got.shape != (m, n) or not err <= PROBE_BF16_TOL * ref.abs().max().item():
+            raise AssertionError(f"probe_int8_dot {name} bf16: error {err}")
+        del ref8, got, ref
+        c32 = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        t = turns({
+            "int8": lambda: tp.dot(a8, b8), "int8 (N, K)": lambda: tp.dot_nk(a8, bt8),
+            "torch._int_mm": lambda: torch._int_mm(a8, b8), "int8 plain": lambda: tp.dot_plain(a8, b8),
+            "bf16": lambda: tp.dot(ab, bb), "torch.matmul": lambda: torch.matmul(ab, bb),
+            "torch.mm f32 out": lambda: torch.mm(ab, bb, out_dtype=torch.float32),
+            "bf16 plain": lambda: tp.dot_plain(ab, bb), "C write": lambda: c32.fill_(7),
+        })
+        ops = 2.0 * m * k * n
+        b8_ms, b8_by = bound(ops, (m * k + k * n) * 1 + m * n * 4, "int8")
+        bb_ms, bb_by = bound(ops, (m * k + k * n) * 2 + m * n * 4, "bf16")
+        out[name] = {
+            "int8": (t["int8"], t["int8 plain"], b8_ms, b8_by, t["torch._int_mm"]),
+            "int8_nk": (t["int8 (N, K)"], t["int8 plain"], b8_ms, b8_by, t["torch._int_mm"]),
+            "bf16": (t["bf16"], t["bf16 plain"], bb_ms, bb_by, t["torch.matmul"]),
+        }
+        log(f"diagnostic probe_int8_dot w8a8 B=64 {name} (M={m} K={k} N={n}) on {card}, device "
+            f"ms in turns: int8 {t['int8']:.4f} (B given (N, K): {t['int8 (N, K)']:.4f}; bound "
+            f"{b8_ms:.4f}, {b8_by}; torch._int_mm {t['torch._int_mm']:.4f}; plain "
+            f"{t['int8 plain']:.4f}); bf16 {t['bf16']:.4f} (bound {bb_ms:.4f}, {bb_by}; "
+            f"torch.matmul {t['torch.matmul']:.4f}, torch.mm with an f32 output "
+            f"{t['torch.mm f32 out']:.4f}; plain {t['bf16 plain']:.4f}); C's 4-byte write alone "
+            f"(fill_) {t['C write']:.4f}; exact int8, bf16 max|kernel - plain| {err:.3e}")
+        log(f"diagnostic probe_int8_dot w8a8 B=64 {name}: int8 : bf16 kernel-time ratio "
+            f"{t['bf16'] / t['int8']:.3f}x (B given (N, K): {t['bf16'] / t['int8 (N, K)']:.3f}x)")
+        del a8, b8, bt8, ab, bb, c32
     return out
 
 
@@ -3547,7 +3632,13 @@ def main() -> int:
               by_path=grad_launches, bf16=k2_times[(torch.bfloat16, 197)],
               t785=k2_times[(torch.float32, 785)]),
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
-          for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL, tp.KERNEL)),
+          for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL)),
+        # T3: int8 at 1024^3; bf16 beside it, and both (int8 also with B
+        # given (N, K)) at the W8A8 linears of a B=64 batch
+        {**entry(tp.KERNEL, tool_launches[tp.KERNEL.name], diag[tp.KERNEL.name][0],
+                 diag[tp.KERNEL.name][1:], bf16=diag[f"{tp.KERNEL.name} bf16"]),
+         "w8a8_b64": {name: {kind: dict(zip(keys, times)) for kind, times in row.items()}
+                      for name, row in diag[f"{tp.KERNEL.name} w8a8"].items()}},
     ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -170,6 +170,37 @@ def test_bf16_plain_product_matches_jax_kernel():
     np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL * np.abs(want).max())
 
 
+# the W8A8 linears' K and N at a short M: fc2 (3072 -> 768) and qkv (768 -> 2304)
+W8A8_SHAPES = {"fc2": (64, 3072, 768), "qkv": (64, 768, 2304)}
+
+
+@pytest.mark.parametrize("shape", W8A8_SHAPES.values(), ids=W8A8_SHAPES.keys())
+def test_int8_plain_product_is_exact_at_w8a8_shapes(shape):
+    m, k, n = shape
+    rng = np.random.default_rng(12)
+    a = rng.integers(-128, 128, (m, k), dtype=np.int8)
+    b = rng.integers(-128, 128, (k, n), dtype=np.int8)
+    got = tp.dot(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, a.astype(np.int64) @ b.astype(np.int64))
+    np.testing.assert_array_equal(got, _jax_dot(a, b, jnp.int32))
+    nk = tp.dot_nk(torch.from_numpy(a), torch.from_numpy(np.ascontiguousarray(b.T))).numpy()
+    np.testing.assert_array_equal(nk, got)
+
+
+@pytest.mark.parametrize("shape", W8A8_SHAPES.values(), ids=W8A8_SHAPES.keys())
+def test_bf16_plain_product_matches_jax_kernel_at_w8a8_shapes(shape):
+    m, k, n = shape
+    rng = np.random.default_rng(13)
+    a = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    b = jnp.asarray(rng.standard_normal((k, n)), jnp.bfloat16)
+    pa, pb = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16) for x in (a, b))
+    got = tp.dot(pa, pb).numpy()
+    want = _jax_dot(a, b, jnp.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=F32_TOL * np.abs(want).max())
+
+
 # `full` is K1's fast path and K2's path: the plain versions are the same
 # arithmetic, so they agree bit for bit (qkv (2, 37, 384): h=128, 4 heads
 # of d=32, one 128-lane panel)
@@ -199,7 +230,10 @@ def test_backward_full_plain_is_k2_plain(dtype):
     lambda x, g: tg.grad_variant(x, g, "pipe2", 2),       # pipe2 needs nh % 4 == 0
     lambda x, g: tg.grad_variant(x, g[:, :, :8], "full", 4),
     lambda x, g: tp.dot(x[0], x[0]),
-], ids=["odd-nh", "variant", "onedot-short", "lane-d", "pipe2-nh", "do-shape", "dot-shape"])
+    lambda x, g: tp.dot_nk(x[0], x[0].t()),
+    lambda x, g: tp.dot_nk(x[0], x[0, 0]),
+], ids=["odd-nh", "variant", "onedot-short", "lane-d", "pipe2-nh", "do-shape", "dot-shape",
+        "dot-nk-shape", "dot-nk-1d"])
 def test_bad_arguments_raise(call):
     x, g = torch.from_numpy(_normal(6, 2, 37, 3 * 64)), torch.from_numpy(_normal(7, 2, 37, 64))
     with pytest.raises(ValueError):
@@ -219,6 +253,7 @@ def test_cpu_tensors_launch_no_kernel():
     ta.lane_variant(x, "full", 64)
     tg.grad_variant(x, x[:, :, :128].contiguous(), "full", 2)
     tp.dot(torch.ones(64, 64, dtype=torch.int8), torch.ones(64, 64, dtype=torch.int8))
+    tp.dot_nk(torch.ones(64, 64, dtype=torch.int8), torch.ones(64, 64, dtype=torch.int8))
     assert [k.launches for k in kernels] == before
 
 
@@ -284,6 +319,43 @@ def test_probe_kernel_on_card():
     ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
     got, ref = tp.dot(ab, bb), tp.dot_plain(ab, bb)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# The wgmma probe at 1024^3 (64 x 128 tiles), at the W8A8 linears' long
+# K and wide N with M % 128 != 0 (128 x 128 tiles, several a block: a
+# wrong lbo shows in the columns, a ring that wraps wrongly in the long K,
+# the last row tile is partial), and at K short of the 128-byte step
+# (TMA's zero fill, also past the whole of a short K) with N % 128 != 0:
+# int8 exact, both B layouts; bf16 within the probe's 1e-5 of max|plain|.
+PROBE_CARD_CASES = [
+    pytest.param((1024, 1024, 1024), torch.int8, id="1024^3-int8"),
+    pytest.param((1024, 1024, 1024), torch.bfloat16, id="1024^3-bf16"),
+    pytest.param((1088, 3072, 2304), torch.int8, id="k3072-n2304-int8"),
+    pytest.param((1088, 3072, 2304), torch.bfloat16, id="k3072-n2304-bf16"),
+    pytest.param((128, 64, 192), torch.int8, id="k64-int8"),
+    pytest.param((128, 96, 192), torch.bfloat16, id="k96-bf16"),
+    pytest.param((64, 32, 64), torch.bfloat16, id="k32-bf16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", PROBE_CARD_CASES)
+def test_probe_kernel_on_card_at_shapes(shape, dtype):
+    gen = _card()
+    m, k, n = shape
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda").to(dtype)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(dtype)
+    if dtype == torch.bfloat16:
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+    before = tp.KERNEL.launches
+    got, ref = tp.dot(a, b), tp.dot_plain(a, b)
+    assert tp.KERNEL.launches == before + 1
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+        assert torch.equal(tp.dot_nk(a, b.t().contiguous()), ref)
+    else:
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 # The anatomies' `full` against K1 (fast, bf16) and K2 (bf16) on the same

@@ -1,9 +1,10 @@
 """The SASS census's pure string functions: kernel names from demangled
-signatures, and registers and spills from ptxas's report."""
+signatures, registers and spills from ptxas's report, and opcodes and
+tensor-core instructions by kind from cuobjdump's text."""
 
 import pytest
 
-from vit_cpp_tpu_torch.tools.sass_census import ptxas_usage, short_name
+from vit_cpp_tpu_torch.tools.sass_census import parse_sass, ptxas_usage, short_name, tensor_ops
 
 _ROWS = "_ZN54_GLOBAL__N__6030ce41_21_attention_qkv_grad_cu_711961de13grad_rows_mmaI13__nv_bfloat16Li8EEEvN4grad4ArgsIT_EE"
 _MMA = "_ZN49_GLOBAL__N__fbb7978c_16_attention_qkv_cu_1af15f1113attention_mmaILi6EEEvPK13__nv_bfloat16S3_S3_N4attn7StridesEPKfPS1_S5_iiifi"
@@ -50,3 +51,34 @@ def test_short_name(signature, name):
 
 def test_ptxas_usage():
     assert ptxas_usage(_REPORT) == {_ROWS: (152, 0, 0), _MMA: (128, 16, 44)}
+
+
+# cuobjdump -sass's text: one kernel of each tensor-core kind, guarded and
+# unguarded instructions
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _Z3wgmv
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                       /* 0x00000a0000017a02 */
+        /*0010*/                   WARPGROUP.ARRIVE ;                            /* 0x00000000000079cd */
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8].tnspB, R24 ;  /* 0x41e00000081879f0 */
+        /*0030*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8].tnspB, R24, gsb0 ;  /* 0x41e00000081879f0 */
+        /*0040*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR12], R24, gsb0 ;  /* 0x41e000000c1879f0 */
+        /*0050*/                   EXIT ;                                        /* 0x000000000000794d */
+\t\t..........
+
+\t\tFunction : _Z4syncv
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;        /* 0x0000000c0804723c */
+        /*0010*/               @P0 HMMA.16816.F32.BF16 R16, R8, R14, R16 ;      /* 0x0000000e0810023c */
+        /*0020*/                   IMMA.16832.S8.S8 R20, R8.ROW, R12.COL, R20 ;  /* 0x0000000c0814723c */
+        /*0030*/                   EXIT ;                                        /* 0x000000000000794d */
+"""
+
+
+def test_parse_sass_counts_each_tensor_core_kind():
+    ops = parse_sass(_SASS)
+    assert set(ops) == {"_Z3wgmv", "_Z4syncv"}
+    assert ops["_Z3wgmv"][:2] == ["MOV", "WARPGROUP.ARRIVE"] and len(ops["_Z3wgmv"]) == 6
+    assert tensor_ops(ops["_Z3wgmv"]) == {"HGMMA": 2, "IGMMA": 1, "HMMA": 0, "IMMA": 0}
+    assert tensor_ops(ops["_Z4syncv"]) == {"HGMMA": 0, "IGMMA": 0, "HMMA": 2, "IMMA": 1}

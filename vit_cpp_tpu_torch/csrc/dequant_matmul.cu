@@ -58,6 +58,7 @@
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -352,48 +353,16 @@ __global__ void __launch_bounds__(kMmaThreads, 256 / BM)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 template <int BM, bool kMin>
 cudaError_t launch_wgmma(const void* x, const int8_t* codes, const float* scales,
                          const float* mins, void* out, int m, int n, int k, int offset,
                          cudaStream_t stream) {
   // x (M, K) bf16 as TMA reads it: boxes of BM rows x 64 columns (128
   // bytes), written in the 128-byte swizzle
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap xmap;
-  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)m};
-  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
-  const cuuint32_t box[2] = {kBK, BM};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
+  const cudaError_t enc = tc::encode_sw128(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, k, m,
+                                           (uint64_t)k * 2, kBK, BM);
+  if (enc != cudaSuccess) return enc;
   static bool configured = false;
   constexpr int bytes = Smem<BM>::kBytes + 1024;  // + alignment of the base
   if (!configured) {

@@ -2,9 +2,11 @@
 // and attention_qkv_grad.cu (K1/K3 and K2, and the anatomies built on
 // their bodies: cp.async, ldmatrix, the bf16
 // mma.sync.m16n8k16 product and the f32 3xTF32 product on
-// mma.sync.m16n8k8.tf32, PTX ISA sm_80+) and dequant_matmul.cu (K4:
+// mma.sync.m16n8k8.tf32, PTX ISA sm_80+), dequant_matmul.cu (K4:
 // cp.async, TMA with mbarriers and the asynchronous wgmma.m64n128k16
-// product, sm_90a). Every product accumulates in f32.
+// product, sm_90a) and probe_int8_dot.cu (T3: TMA loads and stores and
+// wgmma, bf16 m64n128k16 and s8 m64n128k32). Every floating-point product accumulates
+// in f32, the s8 product in s32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two bf16 each:
@@ -224,6 +226,26 @@ __device__ __forceinline__ void fence_operands(float (&d)[64]) {
                     "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) :: "memory");
 }
 
+// The same for s32 accumulators.
+__device__ __forceinline__ void fence_operands(int (&d)[64]) {
+  asm volatile("" : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+                    "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]) :: "memory");
+  asm volatile("" : "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+                    "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]) :: "memory");
+  asm volatile("" : "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+                    "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]) :: "memory");
+  asm volatile("" : "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+                    "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]) :: "memory");
+  asm volatile("" : "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+                    "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]) :: "memory");
+  asm volatile("" : "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+                    "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]) :: "memory");
+  asm volatile("" : "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+                    "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]) :: "memory");
+  asm volatile("" : "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+                    "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]) :: "memory");
+}
+
 // d (64 x 128 f32, this warpgroup's accumulators) += A B on the tensor
 // cores: A 64 x 16 bf16, K-major; B 16 x 128 bf16, MN-major (N contiguous).
 // Asynchronous: the operands stay in use until wgmma_wait.
@@ -247,6 +269,33 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128 s32, this warpgroup's accumulators) += A B on the tensor
+// cores: A 64 x 32 s8 and B 32 x 128 s8, both K-major (the s8 form has no
+// transpose: B is stored N rows of K bytes). It takes scale-d alone, no
+// negate or transpose immediates. Asynchronous, as above.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -292,6 +341,34 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(smem_u32(bar))
       : "memory");
+}
+
+// TMA: shared memory at `src`, in the map's layout, to the box at (c0, c1)
+// of the 2-D tensor `map` describes; elements out of range are not
+// written. Asynchronous: bulk_commit closes this thread's group of stores,
+// bulk_wait_read<N> waits until at most N groups still read shared memory
+// and bulk_wait<N> until at most N are still writing. The writes of this
+// thread's generic proxy to `src` need fence_proxy_async first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(kPending) : "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 }  // namespace tc

@@ -1,0 +1,60 @@
+// Host side of TMA for dequant_matmul.cu (K4) and probe_int8_dot.cu (T3):
+// tensor maps encoded by libcuda's cuTensorMapEncodeTiled, looked up
+// through the runtime (no link against libcuda). A map is passed to its
+// kernel by value as a __grid_constant__ parameter.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tc {
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// `map` of a row-major 2-D tensor at `base` (`rows` rows of `cols`
+// elements, rows `row_bytes` apart) as TMA moves it: boxes of `box_rows`
+// rows x `box_cols` elements (at most 128 bytes), laid out in shared
+// memory in the 128-byte swizzle; elements out of range load as zeros and
+// are not stored.
+// cudaErrorNotSupported without the encoder, cudaErrorInvalidValue if it
+// refuses the map.
+inline cudaError_t encode_sw128(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                                uint64_t cols, uint64_t rows, uint64_t row_bytes,
+                                uint32_t box_cols, uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+}  // namespace tc

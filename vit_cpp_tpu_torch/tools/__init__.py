@@ -9,10 +9,10 @@ measurement tools that run a kernel of their own.
   (tools/attn_grad_anatomy.py) on K2's bodies
   (csrc/attention_grad_body.cuh);
 - probe_int8_dot: the int8 vs bf16 tensor-core product rate
-  (tools/probe_int8_dot.py);
-- sass_census: no JAX counterpart; each kernel's SASS instructions, HMMA
-  count, registers and spills, beside another tree's (nvcc and cuobjdump
-  only, no card).
+  (tools/probe_int8_dot.py), on wgmma fed by TMA;
+- sass_census: no JAX counterpart; each kernel's SASS instructions,
+  tensor-core instructions by kind (HGMMA, IGMMA, HMMA, IMMA), registers
+  and spills, beside another tree's (nvcc and cuobjdump only, no card).
 
 Each runs as `python -m vit_cpp_tpu_torch.tools.<name>` with the JAX
 tool's flags, the first three on the card only: a device timing never

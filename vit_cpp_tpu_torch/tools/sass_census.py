@@ -4,8 +4,10 @@ Compiles csrc/*.cu with the library's flags (_build.NVCC_FLAGS), each
 source by its own nvcc and all of them at once as the build does, into
 cubins; reads each __global__ instantiation's SASS (cuobjdump -sass) and
 ptxas's report (-Xptxas -v), and prints one line per kernel: its SASS
-instructions, its HMMA (tensor-core) instructions, its registers and its
-spill bytes. With --against DIR (another tree's csrc/, for example the
+instructions, its tensor-core instructions by kind (HGMMA and IGMMA, the
+asynchronous warpgroup products of wgmma in f16/bf16 and in s8; HMMA and
+IMMA, the warp-level ones of mma.sync), its registers and its spill
+bytes. With --against DIR (another tree's csrc/, for example the
 parent commit's unpacked by `git archive`) it compiles that tree too and
 prints, for each kernel both trees have, whether the two have the same
 opcode sequence (else at how many positions it differs, and how many
@@ -79,12 +81,32 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+# the tensor-core opcodes, counted apart
+TENSOR_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+
+
+def tensor_ops(ops: list) -> dict:
+    """{kind: count} of a kernel's tensor-core instructions (an opcode
+    `HGMMA.64x128x16.F32.BF16` is of kind HGMMA)."""
+    kinds = [o.split(".")[0] for o in ops]
+    return {k: kinds.count(k) for k in TENSOR_OPS}
+
+
+def tensor_text(ops: list) -> str:
+    return ", ".join(f"{n} {k}" for k, n in tensor_ops(ops).items())
+
+
 def sass_opcodes(cubin: str) -> dict:
-    """{mangled name: [opcode of each SASS instruction]}."""
-    dump = subprocess.run(
+    """{mangled name: [opcode of each SASS instruction]} of a cubin."""
+    return parse_sass(subprocess.run(
         [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass", cubin],
         capture_output=True, text=True, check=True,
-    ).stdout
+    ).stdout)
+
+
+def parse_sass(dump: str) -> dict:
+    """{mangled name: [opcode of each SASS instruction]} of cuobjdump -sass's
+    text."""
     out, name = {}, None
     for line in dump.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
@@ -152,20 +174,18 @@ def main(argv=None) -> int:
         if key not in got["new"]:
             o_ops, o_regs, o_st, o_ld = got["old"][key]
             print(f"kernel {key}: only in old: {len(o_ops)} instructions, "
-                  f"{sum(o.startswith('HMMA') for o in o_ops)} HMMA, {o_regs} registers, "
-                  f"spills {o_st}/{o_ld}", flush=True)
+                  f"{tensor_text(o_ops)}, {o_regs} registers, spills {o_st}/{o_ld}", flush=True)
             continue
         ops, regs, st, ld = got["new"][key]
-        line = (f"kernel {key}: {len(ops)} instructions, {sum(o.startswith('HMMA') for o in ops)} "
-                f"HMMA, {regs} registers, spills {st}/{ld} bytes (stores/loads)")
+        line = (f"kernel {key}: {len(ops)} instructions, {tensor_text(ops)}, {regs} registers, "
+                f"spills {st}/{ld} bytes (stores/loads)")
         old = got.get("old", {}).get(key)
         if old is not None:
             o_ops, o_regs, o_st, o_ld = old
             diff = sum(a != b for a, b in zip(ops, o_ops)) + abs(len(ops) - len(o_ops))
             moved = sum(((Counter(ops) - Counter(o_ops)) + (Counter(o_ops) - Counter(ops))).values())
-            line += (f" | old: {len(o_ops)} instructions, "
-                     f"{sum(o.startswith('HMMA') for o in o_ops)} HMMA, {o_regs} registers, "
-                     f"spills {o_st}/{o_ld}; opcode sequence "
+            line += (f" | old: {len(o_ops)} instructions, {tensor_text(o_ops)}, "
+                     f"{o_regs} registers, spills {o_st}/{o_ld}; opcode sequence "
                      + ("identical" if ops == o_ops else
                         f"differs at {diff} positions, {moved} opcodes not in the other's multiset"))
         print(line, flush=True)

@@ -154,7 +154,36 @@
       the router diagnostics; `cli.finetune --moe 8 --moe-top-k 2` (2
       updates of B=32: 12 + 12 launches each, ms per update, peak
       memory), its output through `cli.serve`, and slice parity on an
-      f32 V-MoE file (the router and experts among the gradients).
+      f32 V-MoE file (the router and experts among the gradients);
+   l. the training extras (phase `training_extras`): fake_quant_params
+      in all six QAT formats on the ViT-B/16 f32 weights, card against
+      CPU bit for bit and against the serving chain (quant/blocks round
+      trip, then channelwise int8) on layer 0's kernels and the head;
+      fake_quant_act and fake_quant_act_static on a layer-0 qkv input,
+      card against CPU bit for bit; the QAT w8a8 linears against the W8A8
+      ones on the card, each fed the served forward's own input
+      (QAT_LINEAR_TOL), the QAT blocks against the W8A8 ones, each fed the
+      W8A8 forward's input to that block (flipped codes within
+      QAT_FLIP_SHARE, the block's deviation within QAT_BLOCK_RMS of the
+      dense block's), and the two whole forwards (the QAT one closer to
+      W8A8 than the dense f32 forward, the same argmax outside QAT_TIE);
+      the LoRA (rank 8, b a
+      seeded draw) and soft-distillation losses and gradients at B=2
+      card against CPU, and two bf16-moment AdamW steps on equal
+      gradients (moments bit for bit, parameters within ADAMW_ULPS);
+      then `cli.finetune` on the card with --lora 8, --distill (the ft.gguf
+      of g), --qat q8_0 --qat-act static, --mu-dtype bf16, --patch-size 8
+      at -b 8 (T=785), on the SigLIP-B/16 tower of (i) (a head attached)
+      and on the ViTSTR-Base of (i) (a gt.txt over assets/vitstr), each
+      on the dark/bright set of (g) (2 updates of B=32, 8 of B=8), and
+      once with no extra as the same call's baseline: finite losses, 12
+      attention_qkv + 12 attention_qkv_grad launches per update, ms per
+      update and peak device memory; the outputs served: LoRA's (folded)
+      and SigLIP's at the serving defaults, the QAT output with its
+      sidecar (--act static --act-scales) and quantized to Q8_0 by
+      cli.quantize with --mm pallas (49 dequant_matmul launches per
+      batch), in process and through `cli.serve`, ViTSTR's through
+      recognize_files.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -417,6 +446,8 @@ def check_kernels(card: str):
         ("vit-g14 d=88 T=257 safe", 4, 257, 1408, 16, bf16, {"fast": False}),
         ("f32 vit-b16 safe", 8, 197, 768, 12, f32, {"fast": False}),
         ("f32 vit-b16 fast", 8, 197, 768, 12, f32, {"fast": True}),
+        # the training forward of cli.finetune --patch-size 8 -b 8
+        ("f32 vit-b8 T=785 safe B=8", 8, 785, 768, 12, f32, {"fast": False}),
         # the edges of the bf16 body's tiling: 128-query blocks of 16-row
         # warps, 64-key tiles of 16-key chunks, d padded to a multiple of 16
         ("T=1 fast", 4, 1, 768, 12, bf16, {"fast": True}),
@@ -637,6 +668,7 @@ def check_attention_grad(card: str):
         ("vit-ti nh=3 d=64", 32, 197, 192, 3, f32, False),
         ("vit-h14 d=80 T=257", 4, 257, 1280, 16, f32, False),
         ("vit-b8 T=785", 4, 785, 768, 12, f32, False),
+        ("vit-b8 T=785 B=8 (--patch-size 8 training)", 8, 785, 768, 12, f32, False),
     ]
     # the edges of the tiling (64-row blocks of 16-row warps, chunks of 32
     # (bf16 16) keys or queries, 8-wide steps, d padded to 16), both dtypes
@@ -702,27 +734,46 @@ def slice_parity(f32_path: str, tome: int = 0, tag: str = "slice parity") -> Non
     from vit_cpp_tpu_torch.engine import detect_hparams
     from vit_cpp_tpu_torch.gguf.reader import read_model
     from vit_cpp_tpu_torch.models.params import load_params
-    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
-    from vit_cpp_tpu_torch.parallel.train import cross_entropy_loss, tree_leaves
+    from vit_cpp_tpu_torch.parallel.train import cross_entropy_loss
 
     tag = f"{tag} tome {tome}" if tome else tag
     mf = read_model(f32_path)
     hp = detect_hparams(mf)
+    x, y = parity_batch(hp)
+
+    def build(dev):
+        params = load_params(mf, torch.float32, hparams=hp, device=dev)
+        return (lambda: cross_entropy_loss(params, x.to(dev), y.to(dev), hp, tome=tome)), params
+
+    card_vs_cpu(tag, build)
+
+
+def parity_batch(hp):
+    """The slice-parity batch: B=2 seeded pixels and labels on the CPU."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(
-        rng.standard_normal((2, 3, hp.img_size, hp.img_size)).astype(np.float32))
-    y = torch.from_numpy(rng.integers(0, hp.num_classes, (2,)))
+        rng.standard_normal((2, hp.in_chans, hp.img_size, hp.img_size)).astype(np.float32))
+    return x, torch.from_numpy(rng.integers(0, hp.num_classes, (2,)))
+
+
+def card_vs_cpu(tag: str, build) -> list:
+    """`build(device)` -> (a loss closure, the tree it is differentiated
+    by), on the card and on the CPU: the loss to PARITY_LOSS_RTOL, every
+    gradient to PARITY_GRAD_TOL of max|g_cpu|, and 12 attention_qkv + 12
+    attention_qkv_grad launches on the card. Returns the CPU gradients."""
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.parallel.train import tree_leaves
+
     out = {}
     for dev in ("cuda", "cpu"):
-        params = load_params(mf, torch.float32, hparams=hp, device=dev)
-        names = _named_leaves(params)
-        leaves = tree_leaves(params)
+        loss_fn, tree = build(dev)
+        names, leaves = _named_leaves(tree), tree_leaves(tree)
         for leaf in leaves:
             leaf.requires_grad_(True)
         KERNEL.reset()
         GRAD_KERNEL.reset()
         t0 = time.perf_counter()
-        loss = cross_entropy_loss(params, x.to(dev), y.to(dev), hp, tome=tome)
+        loss = loss_fn()
         grads = torch.autograd.grad(loss, leaves)
         out[dev] = (loss.item(), [g.cpu() for g in grads])
         log(f"{tag}: loss and gradients on {dev} in {time.perf_counter() - t0:.2f} s, "
@@ -745,6 +796,7 @@ def slice_parity(f32_path: str, tome: int = 0, tag: str = "slice parity") -> Non
         f"(bound {PARITY_GRAD_TOL:.0e}) over {len(g_cpu)} leaves")
     if not rel_loss <= PARITY_LOSS_RTOL:
         raise AssertionError(f"{tag}: loss off by {rel_loss}")
+    return g_cpu
 
 
 def _named_leaves(tree, prefix=""):
@@ -3492,6 +3544,440 @@ def moe_paths(f16: str, tmp: str, card: str, images) -> tuple:
     return launches, grad
 
 
+# The training extras (phase `training_extras`) at ViT-B/16 width. The
+# QAT w8a8 linear (fake-quantized f32) against the port's W8A8 linear
+# (int8 codes, torch._int_mm) on the same input, every linear of the
+# served forward fed that forward's own input: the two round the weights
+# and each token's activations to the same codes, so they differ by f32
+# summation order only, relative to max|out| (the JAX package's own check
+# of one linear is rtol 1e-5, tests/test_qat.py).
+QAT_LINEAR_TOL = 1e-5
+# The QAT block against the W8A8 block, chained: every block of both fed
+# the served (W8A8) forward's own input to that block. The qkv inputs are
+# then equal bit for bit, and the two blocks part only where the f32
+# summation order moves an activation across a rounding boundary: that
+# code lands one step (1/127 of its token's absmax) away. Held per block:
+# - the share of activation codes that flip at each linear's input, at
+#   most QAT_FLIP_SHARE;
+# - the RMS of (QAT - W8A8) over the block's output at most QAT_BLOCK_RMS
+#   of the RMS of (dense - W8A8): the dense f32 block on the same input
+#   and the same f16-rounded weights carries the whole quantization noise
+#   on every element, the QAT block only where codes flip. A QAT block
+#   that quantized one site wrongly, or not at all, lands near 1 (1.05 at
+#   a tiny size on the CPU).
+# An NVIDIA H100 80GB HBM3 (700.00 W) measured at most 5.85e-4 flipped
+# codes (fc2's input; proj's <= 2.5e-5) and a ratio of 2.3e-2 to 5.25e-2
+# over the 12 blocks of this synthetic ViT-B/16 at B=8; the bounds leave
+# ~3x margin.
+QAT_FLIP_SHARE = 2e-3
+QAT_BLOCK_RMS = 0.15
+# Whole forwards are not held to each other: the flips compound over 12
+# layers (2.149e-2 of max|logit| between the QAT and W8A8 forwards of
+# this synthetic ViT-B/16 on an NVIDIA H100 80GB HBM3, 700.00 W, where
+# the dense f32 forward is 2.968e-2 from W8A8's). The QAT forward must be
+# the closer of the two to W8A8's, and share its argmax on every image
+# whose top-two logits lie more than QAT_TIE x max|logit| apart.
+QAT_TIE = 2.5e-2
+# The bf16-moment AdamW step card vs CPU on equal gradients: the moments
+# are elementwise products and sums (bit-equal); the update divides and
+# takes square roots, where the card's division by a scalar multiplies by
+# its reciprocal: an update an ulp apart, so each leaf's parameters at
+# most one f32 ulp of the leaf's scale (its largest |p|) apart.
+ADAMW_ULPS = 1
+
+
+def _served_leaves(tree) -> dict:
+    """The kernels serving quantizes: blocks.{qkv,proj,fc1,fc2} and the head."""
+    out = {f"blocks.{n}": tree["blocks"][n]["kernel"] for n in ("qkv", "proj", "fc1", "fc2")}
+    out["head"] = tree["head"]["kernel"]
+    return out
+
+
+def _serving_chain(w: torch.Tensor, fmt: str) -> torch.Tensor:
+    """The port's serving arithmetic on one (in, out) CPU kernel: the
+    on-disk block round trip (quant/blocks.py) or f16 storage, then the
+    load-time channelwise int8 (quant/int8.py), dequantized."""
+    from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType
+    from vit_cpp_tpu_torch.quant import blocks
+    from vit_cpp_tpu_torch.quant.int8 import channelwise_int8
+
+    if fmt == "w8a8":
+        return channelwise_int8(w.half()).dequantize()
+    dt = GGMLDType[fmt.upper()]
+    wt = np.ascontiguousarray(w.numpy().T)
+    back = blocks.dequantize(blocks.quantize(wt, dt), wt.size, dt).reshape(wt.shape).T
+    return channelwise_int8(torch.from_numpy(np.ascontiguousarray(back))).dequantize()
+
+
+def qat_codecs(f32: str, card: str) -> None:
+    """fake_quant_params in every format on the ViT-B/16 f32 weights, card
+    against CPU bit for bit, and against the serving chain on layer 0's
+    four kernels and the head; fake_quant_act / _static on a real layer-0
+    qkv input, card against CPU bit for bit; every QAT w8a8 linear against
+    the W8A8 one on the served forward's input, and the whole forwards,
+    on the card."""
+    from vit_cpp_tpu_torch.engine import detect_hparams
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.models.vit import embed, forward
+    from vit_cpp_tpu_torch.ops.core import layernorm, linear
+    from vit_cpp_tpu_torch.ops.int8_matmul import w8a8_matmul
+    from vit_cpp_tpu_torch.quant import qat
+    from vit_cpp_tpu_torch.quant.int8 import convert_params_to_int8
+
+    t0 = time.perf_counter()
+    mf = read_model(f32)
+    hp = detect_hparams(mf)
+    cpu = load_params(mf, torch.float32, hparams=hp, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    for fmt in qat.QAT_FORMATS:
+        on_card = _served_leaves(qat.fake_quant_params(gpu, fmt))
+        on_cpu = _served_leaves(qat.fake_quant_params(cpu, fmt))
+        n = 0
+        for name, a in on_card.items():
+            if not torch.equal(a.cpu(), on_cpu[name]):
+                raise AssertionError(f"qat {fmt}: {name} differs card vs CPU")
+            n += a.numel()
+            w = cpu["blocks"][name[7:]]["kernel"][0] if name != "head" else cpu["head"]["kernel"]
+            got = on_cpu[name][0] if name != "head" else on_cpu[name]
+            if not torch.equal(got, _serving_chain(w, fmt)):
+                raise AssertionError(f"qat {fmt}: {name} is not the serving chain's")
+        log(f"qat codecs {fmt}: fake_quant_params on the card = on the CPU bit for bit over "
+            f"{n} weights; layer 0's four kernels and the head = quant/blocks round trip "
+            f"-> channelwise int8 (the serving chain) bit for bit")
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((8, 3, hp.img_size, hp.img_size))
+                         .astype(np.float32)).cuda()
+    with torch.no_grad():
+        ln1 = {k: v[0] for k, v in gpu["blocks"]["ln1"].items()}
+        y = layernorm(embed(gpu, x, hp), ln1["scale"], ln1["bias"], hp.eps)
+        y_cpu = y.cpu()
+        sx = (y_cpu.abs().amax() * 0.5 / 127.0).reshape(1, 1)  # half the range: clips
+        for what, fn in (("fake_quant_act", qat.fake_quant_act),
+                         ("fake_quant_act_static", lambda v: qat.fake_quant_act_static(
+                             v, sx.to(v.device)))):
+            a, b = fn(y).cpu(), fn(y_cpu)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: card vs CPU differ on the layer-0 qkv input")
+            log(f"qat codecs {what} on the layer-0 qkv input {tuple(y.shape)}: card = CPU "
+                f"bit for bit")
+        log(f"qat codecs: the static scale {float(sx):.4e} (half the input's range) clips "
+            f"{int((y_cpu.abs() / sx > 127).sum())} of {y_cpu.numel()} values")
+        rounded = {**gpu, "head": {**gpu["head"], "kernel": gpu["head"]["kernel"].half().float()},
+                   "blocks": {k: ({**v, "kernel": v["kernel"].half().float()}
+                                  if k in ("qkv", "proj", "fc1", "fc2") else v)
+                              for k, v in gpu["blocks"].items()}}
+        int8 = convert_params_to_int8(rounded)
+        fq = qat.fake_quant_params(gpu, "w8a8")
+        taps: dict = {}
+        served = forward(int8, x, hp, tap=lambda n, v: taps.setdefault(n[:-3], []).append(v))
+        worst, n = 0.0, 0
+        for site, inputs in taps.items():
+            for l, v in enumerate(inputs):
+                leaf_s, leaf_q = ((int8["head"]["kernel"], fq["head"]["kernel"]) if site == "head"
+                                  else (int8["blocks"][site]["kernel"][l],
+                                        fq["blocks"][site]["kernel"][l]))
+                a = w8a8_matmul(v, leaf_s)
+                b = linear(v, leaf_q, impl="qat")
+                worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+                n += 1
+        chain = qat_chain(hp, embed(int8, x, hp), int8, fq, rounded)
+        trained = forward(fq, x, hp, mm_impl="qat")
+        dense = forward(gpu, x, hp)
+    scale = float(served.abs().max())
+    d_qat = float((trained - served).abs().max()) / scale
+    d_dense = float((dense - served).abs().max()) / scale
+    top2 = served.topk(2, dim=-1).values
+    ties = (top2[:, 0] - top2[:, 1]) <= QAT_TIE * scale
+    same = (trained.argmax(-1) == served.argmax(-1)) | ties
+    log(f"qat w8a8 vs W8A8 on the card, ViT-B/16 B=8: each of the {n} linears fed the served "
+        f"forward's input, max|d| / max|out| {worst:.3e} (bound {QAT_LINEAR_TOL:.0e}); blocks "
+        f"chained on the served inputs: flipped codes at most {chain[0]:.3e} of a site's "
+        f"(bound {QAT_FLIP_SHARE:.0e}), rms(qat - W8A8) / rms(dense - W8A8) at most "
+        f"{chain[1]:.3e} (bound {QAT_BLOCK_RMS}); whole forwards max|d| / max|logit| "
+        f"{d_qat:.3e} against the dense f32 forward's {d_dense:.3e}; argmax equal "
+        f"{int(same.sum())}/8 ({int(ties.sum())} within {QAT_TIE} x max|logit| of a tie); "
+        f"qat_codecs {time.perf_counter() - t0:.1f} s on {card}")
+    if worst > QAT_LINEAR_TOL or not d_qat < d_dense or not same.all():
+        raise AssertionError("the QAT w8a8 forward is not the W8A8 forward")
+
+
+def qat_chain(hp, h, int8, fq, dense) -> tuple:
+    """The QAT, W8A8 and dense blocks on the W8A8 forward's own input to
+    each block (h: the embedded tokens; the trees as in qat_codecs):
+    (the largest share of flipped activation codes at any linear's
+    input, the largest rms(qat - W8A8) / rms(dense - W8A8) of a block's
+    output). Raises past QAT_FLIP_SHARE or QAT_BLOCK_RMS."""
+    from vit_cpp_tpu_torch.models.vit import transformer_block, unstack_blocks
+
+    def codes(v):  # the per-token int8 codes of the W8A8 activations
+        return torch.round(v * (127.0 / v.abs().amax(-1, keepdim=True).clamp_min(1e-30)))
+
+    layers = [unstack_blocks(t["blocks"], hp.num_hidden_layers) for t in (int8, fq, dense)]
+    worst_flip = worst_rms = 0.0
+    for l, (bs, bq, bd) in enumerate(zip(*layers)):
+        ins = ({}, {})
+        s = transformer_block(h, bs, hp, attn_impl="xla", mm_impl="int8",
+                              tap=lambda n, v: ins[0].__setitem__(n, v))
+        q = transformer_block(h, bq, hp, attn_impl="xla", mm_impl="qat",
+                              tap=lambda n, v: ins[1].__setitem__(n, v))
+        d = transformer_block(h, bd, hp, attn_impl="xla", mm_impl="xla")
+        if not torch.equal(ins[0]["qkv_in"], ins[1]["qkv_in"]):
+            raise AssertionError(f"qat chain: block {l}'s qkv inputs differ")
+        flips = {n: float((codes(ins[0][n]) != codes(ins[1][n])).float().mean())
+                 for n in ins[0]}
+        ratio = float((q - s).pow(2).mean().sqrt() / (d - s).pow(2).mean().sqrt())
+        log(f"qat chain block {l:2d}: flipped codes " + ", ".join(
+            f"{n[:-3]} {f:.2e}" for n, f in flips.items()) +
+            f"; rms(qat - W8A8) / rms(dense - W8A8) {ratio:.3e}")
+        worst_flip, worst_rms = max(worst_flip, *flips.values()), max(worst_rms, ratio)
+        if max(flips.values()) > QAT_FLIP_SHARE or ratio > QAT_BLOCK_RMS:
+            raise AssertionError(f"qat chain: block {l} flips {flips}, rms ratio {ratio}")
+        h = s
+    return worst_flip, worst_rms
+
+
+def extras_parity(f32: str, teacher: str) -> None:
+    """LoRA (rank 8, b a nonzero seeded draw) and soft distillation: loss
+    and gradients card vs CPU at B=2 (card_vs_cpu); then two bf16-moment
+    AdamW steps on the CPU's distillation gradients, card vs CPU."""
+    from vit_cpp_tpu_torch.engine import detect_hparams
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.models.lora import LORA_SITES, lora_trainable
+    from vit_cpp_tpu_torch.models.params import load_params
+    from vit_cpp_tpu_torch.parallel.train import (
+        distill_cross_entropy_loss, lora_cross_entropy_loss, make_optimizer, tree_leaves)
+
+    mf, tmf = read_model(f32), read_model(teacher)
+    hp, thp = detect_hparams(mf), detect_hparams(tmf)
+    x, y = parity_batch(hp)
+    base = load_params(mf, torch.float32, hparams=hp)
+    trainable = lora_trainable(base, 8, seed=0)
+    gen = torch.Generator().manual_seed(1)
+    for name in LORA_SITES:
+        b = trainable["lora"]["blocks"][name]["b"]
+        b.copy_(torch.randn(b.shape, generator=gen) * 0.02)
+    trainable["head"] = {k: v.clone() for k, v in trainable["head"].items()}
+
+    def lora(dev):
+        tr, bp = _tree_to(trainable, dev), _tree_to(base, dev)
+        return (lambda: lora_cross_entropy_loss(tr, bp, x.to(dev), y.to(dev), hp, 16.0)), tr
+
+    card_vs_cpu("slice parity LoRA r=8 (a, b, head)", lora)
+    t_cpu = load_params(tmf, torch.float32, hparams=thp)
+
+    def distill(dev):
+        student, t = _tree_to(base, dev), _tree_to(t_cpu, dev)
+        return (lambda: distill_cross_entropy_loss(student, t, x.to(dev), y.to(dev), hp, thp,
+                                                   0.5, 3.0, "soft")), student
+
+    grads = card_vs_cpu("slice parity distill soft (alpha 0.5, tau 3)", distill)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = [p.detach().clone().to(dev) for p in tree_leaves(base)]
+        opt = make_optimizer(params, lr=1e-3, weight_decay=0.05, mu_dtype="bf16")
+        for scale in (1.0, -0.5):  # the second step reads a nonzero bf16 moment
+            for p, g in zip(params, grads):
+                p.grad = (g * scale).to(dev)
+            opt.step()
+        st = [opt.adamw.state[p] for p in params]
+        out[dev] = ([p.cpu() for p in params], [s["exp_avg"].cpu() for s in st],
+                    [s["exp_avg_sq"].cpu() for s in st])
+    (p_card, m_card, v_card), (p_cpu, m_cpu, v_cpu) = out["cuda"], out["cpu"]
+    if not all(torch.equal(a, b) for a, b in zip(m_card, m_cpu)):
+        raise AssertionError("bf16 AdamW: the bf16 first moments differ card vs CPU")
+    v_rel = max(float((a - b).abs().max() / max(b.abs().max(), 1e-30))
+                for a, b in zip(v_card, v_cpu))
+    # per leaf, in ulps of the leaf's largest parameter (its f32 scale)
+    ulps = max(float((a - b).abs().max()) / float(np.spacing(b.abs().max().numpy()))
+               for a, b in zip(p_card, p_cpu))
+    changed = sum(int((a != b).sum()) for a, b in zip(p_card, p_cpu))
+    log(f"bf16-moment AdamW, 2 steps on the CPU's distillation gradients ({len(p_cpu)} leaves): "
+        f"first moments (bf16) card = CPU bit for bit, second moments max rel {v_rel:.2e}, "
+        f"parameters at most {ulps:.3f} f32 ulp of their leaf's scale apart ({changed} of "
+        f"{sum(b.numel() for b in p_cpu)} elements differ; bound {ADAMW_ULPS})")
+    if ulps > ADAMW_ULPS:
+        raise AssertionError(f"bf16 AdamW parameters {ulps} ulps apart card vs CPU")
+
+
+def extras_finetune(what: str, argv: list, updates: int) -> dict:
+    """One cli.finetune run on the card: finite losses, 12 attention_qkv +
+    12 attention_qkv_grad launches per update, ms per update after the
+    first, peak device memory. Returns {"k1", "k2", "ms", "peak_gib"}."""
+    from vit_cpp_tpu_torch.cli import finetune as cli_finetune
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+
+    err = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset()
+    GRAD_KERNEL.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_finetune.main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    k1, k2, peak = KERNEL.launches, GRAD_KERNEL.launches, torch.cuda.max_memory_allocated()
+    for line in err.getvalue().splitlines():
+        log(f"{what}: {line}")
+    losses = [float(v) for v in re.findall(r"^epoch \d+/\d+: loss (\S+)", err.getvalue(), re.M)]
+    timing = re.search(r"([\d.]+) ms per update after the first", err.getvalue())
+    if rc != 0 or not losses or not np.isfinite(losses).all() or timing is None:
+        raise AssertionError(f"{what}: rc {rc}, losses {losses}")
+    if (k1, k2) != (12 * updates, 12 * updates):
+        raise AssertionError(f"{what}: launches {k1} attention_qkv + {k2} attention_qkv_grad "
+                             f"for {updates} updates (want 12 each per update)")
+    ms = float(timing.group(1))
+    log(f"{what}: {updates} updates, losses {losses}, {ms} ms per update after the first, "
+        f"peak device memory {peak / 2**30:.2f} GiB, run {seconds:.1f} s; launches {k1} "
+        f"attention_qkv + {k2} attention_qkv_grad = 12 + 12 per update")
+    return {"k1": k1, "k2": k2, "ms": ms, "peak_gib": peak / 2**30}
+
+
+def served_check(what: str, model: str, kw: dict, per_batch: dict, tol: float) -> dict:
+    """serve_files over the ten assets at batch 8 through build_engine(**kw):
+    each kernel's launches per batch, probabilities within `tol` of the
+    f32 engine (mm=xla, attn=xla) on the same file. Returns {name: launches}."""
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.serve import serve_files
+
+    paths, _ = asset_bodies()
+    ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                    verbose=False)
+    want = ref.predict_probs_batch(ref.preprocess_images(load_images_rgb_batch(paths)))
+    want = want.cpu().numpy()
+    del ref
+    engine, _ = build_engine(model, device="cuda", **kw)
+    for kernel in per_batch:
+        kernel.reset()
+    got = list(serve_files(engine, paths, batch=8, keep_probs=True))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in per_batch}
+    worst = max(float(np.abs(r.probs - p).max()) for r, p in zip(got, want))
+    log(f"{what}: serve_files (batch 8, {engine.dtype} mm={engine.mm_impl} attn="
+        f"{engine.attn_impl}) vs the f32 engine worst {worst:.2e} (tolerance {tol:.0e}) over "
+        f"10 x {want.shape[1]}; launches {launches} for 2 batches")
+    if worst > tol or any(launches[k.name] != 2 * n for k, n in per_batch.items()):
+        raise AssertionError(f"{what}: off by {worst} or launches {launches}")
+    return launches
+
+
+def vitstr_gt(root: str, n: int = 64) -> str:
+    """A gt.txt over the six assets/vitstr images, cycled to n samples."""
+    os.makedirs(root)
+    demos = vitstr_assets()
+    with open(os.path.join(root, "gt.txt"), "w") as f:
+        for i in range(n):
+            path = demos[i % len(demos)]
+            f.write(f"{path}\t{os.path.splitext(os.path.basename(path))[0].replace('_', '')}\n")
+    return root
+
+
+def training_extras(f16: str, f32: str, tmp: str, card: str) -> tuple:
+    """Phase `training_extras`: the QAT codecs, LoRA / distillation /
+    bf16-moment slice parity, then cli.finetune on the card without an
+    extra (the baseline of the same call) and with each (2 updates of
+    B=32 on the dark/bright set of (g); T=785 at B=8, 8 updates) and the
+    outputs served. Returns ({path: {kernel name: launches}} for
+    K1 and K4, {path: attention_qkv_grad launches})."""
+    from vit_cpp_tpu_torch.cli import quantize
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.serve import recognize_files
+
+    t0 = time.perf_counter()
+    qat_codecs(f32, card)
+    extras_parity(f32, f16)
+    data = os.path.join(tmp, "train")  # (g)'s 2 x 32 dark / bright images
+    words = vitstr_gt(os.path.join(tmp, "vitstr-train"))
+    out = {k: os.path.join(tmp, f"ft-{k}.gguf")
+           for k in ("full", "lora", "distill", "qat", "bf16", "p8", "siglip", "vitstr")}
+    # (key, what, model, data, flags, batch), one epoch of 64 images: 2
+    # updates at B=32, 8 at B=8. Not more: the served QAT output's static
+    # scales, measured on the noise images, move the ten photos'
+    # probabilities further from the f32 engine's as its head trains, in
+    # the JAX package too (tests/test_torch_qat.py); 3 epochs took them
+    # 1.42e-2 apart on an NVIDIA H100 80GB HBM3 (700.00 W), past PROB_TOL
+    runs = (
+        ("full", "cli.finetune (full, f32 moment: the baseline)", f16, data, [], 32),
+        ("lora", "cli.finetune --lora 8", f16, data, ["--lora", "8"], 32),
+        ("distill", "cli.finetune --distill ft.gguf", f16, data,
+         ["--distill", os.path.join(tmp, "ft.gguf")], 32),
+        ("qat", "cli.finetune --qat q8_0 --qat-act static", f16, data,
+         ["--qat", "q8_0", "--qat-act", "static"], 32),
+        ("bf16", "cli.finetune --mu-dtype bf16", f16, data, ["--mu-dtype", "bf16"], 32),
+        ("p8", "cli.finetune --patch-size 8 -b 8 (T=785)", f16, data,
+         ["--patch-size", "8"], 8),
+        ("siglip", "cli.finetune SigLIP-B/16 + head", os.path.join(
+            tmp, "siglip-b16-synthetic-f16.gguf"), data, [], 32),
+        ("vitstr", "cli.finetune ViTSTR-B (gt.txt)", os.path.join(
+            tmp, "vitstr-b16-synthetic-f16.gguf"), words, [], 32),
+    )
+    k1, k2, rows = {}, {}, {}
+    for key, what, model, d, flags, batch in runs:
+        r = extras_finetune(what, ["-m", model, "-d", d, "-o", out[key], "-b", str(batch),
+                                   "--epochs", "1", *flags], 64 // batch)
+        k1[what], k2[what], rows[what] = {KERNEL.name: r["k1"]}, r["k2"], r
+    log("training extras, ms per update after the first / peak GiB on " + card + ": " +
+        "; ".join(f"{w} {r['ms']} / {r['peak_gib']:.2f}" for w, r in rows.items()))
+
+    sidecar = out["qat"] + ".act_scales.json"
+    q8 = os.path.join(tmp, "ft-qat-q8_0.gguf")
+    with contextlib.redirect_stdout(io.StringIO()):
+        if quantize.main([out["qat"], q8, "8"]) != 0:
+            raise AssertionError("cli.quantize failed on the QAT output")
+    paths, _ = asset_bodies()
+    procs = {
+        "cli.serve QAT output --act static --act-scales": start_module(
+            "vit_cpp_tpu_torch.cli.serve", "-m", out["qat"], *paths, "-b", "8", "-k", "2",
+            "--act", "static", "--act-scales", sidecar),
+        "cli.serve QAT output Q8_0 --mm pallas": start_module(
+            "vit_cpp_tpu_torch.cli.serve", "-m", q8, *paths, "-b", "8", "-k", "2",
+            "--mm", "pallas"),
+    }
+    try:
+        k1["LoRA output served (defaults)"] = served_check(
+            "LoRA output (folded)", out["lora"], {}, {KERNEL: 12}, PROB_TOL)
+        k1["QAT output --act static"] = served_check(
+            "QAT output --act static --act-scales", out["qat"],
+            {"act": "static", "act_scales": sidecar}, {KERNEL: 12}, PROB_TOL)
+        k1["QAT output Q8_0 --mm pallas"] = served_check(
+            "QAT output Q8_0 --mm pallas", q8, {"mm": "pallas"}, {KERNEL: 12, QMM_KERNEL: 49},
+            Q8_PROB_TOL)
+        k1["SigLIP + head served (defaults)"] = served_check(
+            "SigLIP-B/16 + head output", out["siglip"], {}, {KERNEL: 12}, PROB_TOL)
+        engine, is_vitstr = build_engine(out["vitstr"], device="cuda")
+        KERNEL.reset()
+        recs = list(recognize_files(engine, vitstr_assets(), batch=8))
+        torch.cuda.synchronize()
+        if not is_vitstr or KERNEL.launches != 12 or not all(
+                0.0 <= r.confidence <= 1.0 for r in recs):
+            raise AssertionError(f"ViTSTR output: {recs}, {KERNEL.launches} launches")
+        k1["ViTSTR output recognize_files"] = {KERNEL.name: KERNEL.launches}
+        log(f"ViTSTR-B output through recognize_files: {[r.text for r in recs]}, confidences "
+            f"{[f'{r.confidence:.3e}' for r in recs]}, {KERNEL.launches} attention_qkv launches "
+            "for 1 batch")
+        for what, proc in procs.items():
+            model = out["qat"] if "static" in what else q8
+            ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", device="cuda",
+                            verbose=False)
+            ref_probs = ref.predict_probs_batch(
+                ref.preprocess_images(load_images_rgb_batch(paths))).cpu().numpy()
+            check_cli_serve(what, proc, paths, ref_probs, ref.id2label, PROB_TOL)
+            del ref
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+    log(f"training_extras: {time.perf_counter() - t0:.1f} s")
+    return k1, k2
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -3541,11 +4027,13 @@ def run_paths(card: str):
         serve_launches.update(tome_launches)
         moe_launches, moe_grad_launches = moe_paths(f16, tmp, card, images)
         serve_launches.update(moe_launches)
+        extras_launches, extras_grad_launches = training_extras(f16, f32, tmp, card)
+        serve_launches.update(extras_launches)
         vit_benchmark(os.path.join(tmp, "ft.gguf"), tmp, card)
     flash_launches = split_head_path()
     grad_launches = {"cli.finetune": grad_launches,
                      f"cli.finetune --tome {TOME_TRAIN_R}": tome_grad_launches,
-                     "cli.finetune --moe 8": moe_grad_launches}
+                     "cli.finetune --moe 8": moe_grad_launches, **extras_grad_launches}
     return f16_launches, q8_launches, flash_launches, grad_launches, serve_launches
 
 
@@ -3581,6 +4069,7 @@ def main() -> int:
             f"registers per thread, {spills} bytes of spills")
 
     card = f"{kind} ({smi})"
+    t_start = time.perf_counter()
     k1_err, k1_times = check_kernels(card)
     k4_err, k4_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
@@ -3591,6 +4080,8 @@ def main() -> int:
     for name in ("jax", "vit_cpp_tpu"):
         if sys.modules.get(name) is not None:
             raise AssertionError(f"{name} was imported")
+    log(f"chip_smoke: checks, paths and diagnostics in {time.perf_counter() - t_start:.1f} s "
+        "after the build")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 

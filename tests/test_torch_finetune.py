@@ -3,7 +3,9 @@ the dark/bright task of tests/test_finetune.py learns and the head
 transfers, the exported gguf is byte-identical to the JAX package's
 export of the same weights and serves through the port's engine, resume
 is bit-identical, resume with other settings is refused, the CLI runs
-end to end, unported flags raise, and the training modules load no JAX.
+end to end, every flag trains or refuses as the JAX CLI does (but the
+multi-device ones and --compile-cache, which raise), and the training
+modules load no JAX.
 All on the CPU (the kernels' plain versions) at hidden 64, two layers.
 """
 
@@ -145,26 +147,46 @@ def test_cli_end_to_end(model_path, data, tmp_path, capsys):
     assert main(["-m", model_path, "-d", data, "-o", out, "-b", "64", "--device", "cpu"]) == 1
 
 
-UNPORTED = [
+FLAGS = [
     ["--mesh", "2x1"], ["--fsdp"], ["--img-size", "64"], ["--patch-size", "4"],
     ["--tome", "2"], ["--moe", "4"], ["--lora", "4"], ["--distill", "t.gguf"],
     ["--qat", "q8_0"], ["--qat-act", "static"], ["--mu-dtype", "bf16"],
     ["--compile-cache"],
 ]
+NOT_PORTED = ("--mesh", "--fsdp", "--compile-cache")
 
 
-@pytest.mark.parametrize("flag", UNPORTED, ids=lambda f: f[0])
-def test_unported_flags_raise(model_path, data, tmp_path, flag):
+@pytest.mark.parametrize("flag", FLAGS, ids=lambda f: f[0])
+def test_finetune_flags_train_or_refuse_as_jax(model_path, data, tmp_path, capsys, flag):
+    """Every vit-finetune flag trains and writes the gguf, or refuses as the
+    JAX package does (--qat-act static without --qat, a missing teacher);
+    only the multi-device flags and --compile-cache stay unported."""
+    from vit_cpp_tpu.cli.finetune import main as jax_main
     from vit_cpp_tpu_torch.cli.finetune import main
 
-    argv = ["-m", model_path, "-d", data, "-o", str(tmp_path / "x.gguf"), "--device", "cpu",
-            *flag]
-    if flag[0] in ("--tome", "--moe"):  # train since the ToMe and V-MoE slices
-        assert main(argv + ["--epochs", "1", "-b", "8"]) == 0
-        assert os.path.exists(tmp_path / "x.gguf")
+    out = str(tmp_path / "x.gguf")
+    jargv = ["-m", model_path, "-d", data, "-o", out, "-b", "8", *flag]
+    argv = jargv + ["--device", "cpu"]
+    if flag[0] in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(argv)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(argv)
+    if flag[0] == "--qat-act":
+        assert main(argv) == 1 and jax_main(jargv) == 1
+        ours, theirs = capsys.readouterr().err.splitlines()
+        assert ours == theirs == "finetune: --qat-act static requires --qat FMT"
+        return
+    if flag[0] == "--distill":
+        for run, args in ((main, argv), (jax_main, jargv)):
+            with pytest.raises(FileNotFoundError, match="t.gguf"):
+                run(args)
+        teacher = str(tmp_path / "teacher.gguf")
+        write_synthetic_model(teacher, VitHParams(hidden_size=64, num_hidden_layers=2,
+                                                  num_attention_heads=2, num_classes=2,
+                                                  patch_size=8, img_size=32), ftype=1, seed=5)
+        argv[argv.index("t.gguf")] = teacher
+    assert main(argv + ["--epochs", "1"]) == 0
+    assert os.path.exists(out)
 
 
 def test_cuda_device_without_a_card_raises(model_path, data):

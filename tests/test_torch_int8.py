@@ -147,3 +147,18 @@ def test_int8_mm_on_the_card_is_exact(m, k, n):
     got = int8_matmul.int8_mm(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda())
     assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
     np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+@pytest.mark.cuda
+def test_channelwise_int8_on_the_card_is_the_cpus():
+    """The per-channel scale divides by 127 as a true division on the card
+    too (quant/int8.py::true_div): the codes and scales of the W8A8
+    weights are the CPU's, and so the JAX package's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from vit_cpp_tpu_torch.quant.int8 import channelwise_int8
+
+    w = torch.from_numpy(np.random.default_rng(9).standard_normal((12, 768, 2304))
+                         .astype(np.float32))
+    card, cpu = channelwise_int8(w.cuda()), channelwise_int8(w)
+    assert torch.equal(card.scale.cpu(), cpu.scale) and torch.equal(card.codes.cpu(), cpu.codes)

@@ -226,3 +226,71 @@ def test_resampled_forward_at_t785_on_the_card(tmp_path):
     want = ref.predict_probs_batch(x).cpu().numpy()
     top = np.argsort(-want, axis=1)[:, :5]
     assert np.abs(np.take_along_axis(got, top, 1) - np.take_along_axis(want, top, 1)).max() < 5e-3
+
+
+# ---- fine-tuning at a resampled geometry (--img-size / --patch-size) ----
+
+
+@pytest.mark.parametrize("geometry", [dict(img_size=48), dict(patch_size=4)],
+                         ids=["img-size-48", "patch-size-4"])
+def test_finetune_at_a_resampled_geometry(tmp_path, geometry):
+    """The 32 px / patch 8 checkpoint trains at 48 px (T=37) or patch 4
+    (T=65): the start is resample_params' tree (the JAX package's within
+    1e-6, test_resample_params_matches_jax), the loss falls, the export
+    serves the new geometry natively, and the resume guards pin it with
+    the JAX package's messages."""
+    import json
+
+    from tests.test_torch_finetune import _make_dataset
+    from vit_cpp_tpu.hparams import VitHParams as JaxHParams
+    from vit_cpp_tpu_torch.finetune import finetune
+    from vit_cpp_tpu_torch.models.export import save_params
+
+    base = str(tmp_path / "m.gguf")
+    write_synthetic_model(base, JaxHParams(hidden_size=64, num_hidden_layers=2,
+                                           num_attention_heads=2, num_classes=7, patch_size=8,
+                                           img_size=32), ftype=1, seed=4)
+    size = geometry.get("img_size", 32)
+    data = _make_dataset(tmp_path / "train", size=size)
+    ck = str(tmp_path / "ckpt")
+    quiet = dict(log=lambda m: None, device="cpu")
+    params, hp, classes, losses = finetune(base, data, epochs=3, batch=4, lr=1e-3,
+                                           ckpt_dir=ck, **geometry, **quiet)
+    side = size // hp.patch_size
+    assert (hp.img_size, hp.patch_size) == (size, geometry.get("patch_size", 8))
+    assert params["pos_embed"].shape == (side * side + 1, 64) and losses[-1] < losses[0]
+    out = str(tmp_path / "ft.gguf")
+    save_params(out, params, hp, id2label=dict(enumerate(classes)))
+    eng = VitEngine(out, device="cpu")
+    assert (eng.hp.img_size, eng.hp.patch_size) == (hp.img_size, hp.patch_size)
+    dark = np.random.default_rng(0).integers(0, 40, (2, size, size, 3), dtype=np.uint8)
+    probs = eng.predict_probs_batch(torch.stack([eng.preprocess_image(im) for im in dark]))
+    assert (probs.argmax(-1) == classes.index("aa_dark")).all()
+    other = {"img_size": 56} if "img_size" in geometry else {"patch_size": 16}
+    with pytest.raises(ValueError, match="would not replay"):
+        finetune(base, data, epochs=4, batch=4, lr=1e-3, ckpt_dir=ck, **other, **quiet)
+    key = next(iter(geometry))
+    with open(ck + ".meta.json") as f:
+        meta = json.load(f)
+    meta.pop(key)
+    with open(ck + ".meta.json", "w") as f:
+        json.dump(meta, f)
+    flag = "--" + key.replace("_", "-")
+    with pytest.raises(ValueError, match=f"predates {flag}"):
+        finetune(base, data, epochs=4, batch=4, lr=1e-3, ckpt_dir=ck, **other, **quiet)
+
+
+def test_finetune_geometry_start_matches_jax(model, tmp_path):
+    """One update at patch 4 from the same file: the port's loss is the
+    JAX package's finetune loss on its own resampled tree (rtol 1e-4, the
+    bound of a train_step loss in test_torch_train.py)."""
+    from tests.test_torch_finetune import _make_dataset
+    from vit_cpp_tpu.finetune import finetune as jax_finetune
+    from vit_cpp_tpu_torch.finetune import finetune
+
+    data = _make_dataset(tmp_path / "train", n_per_class=2)
+    kw = dict(epochs=1, batch=4, lr=1e-3, patch_size=4)
+    _, hp, _, ours = finetune(model, data, log=lambda m: None, device="cpu", **kw)
+    _, jhp, _, theirs = jax_finetune(model, data, log=lambda m: None, **kw)
+    assert (hp.img_size, hp.patch_size) == (jhp.img_size, jhp.patch_size) == (32, 4)
+    np.testing.assert_allclose(ours, theirs, rtol=1e-4)

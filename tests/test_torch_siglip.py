@@ -195,3 +195,98 @@ def test_headless_siglip_serves_embeddings_at_the_serving_defaults(files, tmp_pa
         t.join(timeout=30)
     assert body["shape"] == [64]
     np.testing.assert_allclose(body["embedding"], engine.embed_file(paths[0]), atol=1e-6)
+
+
+def _dark_bright(root, size=32, n=8, seed=7):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for cls, lo, hi in (("aa_dark", 0, 40), ("bb_bright", 210, 255)):
+        d = root / cls
+        d.mkdir(parents=True)
+        for i in range(n):
+            Image.fromarray(rng.integers(lo, hi, (size, size, 3), dtype=np.uint8)).save(
+                d / f"{i}.png")
+    return str(root)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+def test_finetune_attaches_head_to_siglip(files, tmp_path):
+    """Fine-tuning the headless tower attaches a classifier on the pooled
+    output (the SigLIP-probe recipe); the export is the JAX package's
+    bytes for the same weights and serves."""
+    from vit_cpp_tpu_torch.finetune import finetune
+    from vit_cpp_tpu_torch.models.export import save_params
+
+    data = _dark_bright(tmp_path / "train")
+    logs = []
+    params, hp, classes, losses = finetune(files["enc"], data, epochs=3, batch=4, lr=1e-3,
+                                           log=logs.append, device="cpu")
+    assert any("re-initializing head 0 -> 2" in m for m in logs)
+    assert hp.num_classes == 2 and losses[-1] < losses[0]
+    assert params["head"]["kernel"].shape == (64, 2) and "attn_pool" in params
+    out = str(tmp_path / "ft.gguf")
+    save_params(out, params, hp, id2label=dict(enumerate(classes)))
+    from vit_cpp_tpu.models.export import save_params as jax_save_params
+
+    theirs = str(tmp_path / "jax.gguf")
+    jax_save_params(theirs, _to_numpy(params), hp, id2label=dict(enumerate(classes)))
+    with open(out, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()  # the attention pool exported as the JAX package does
+    eng = VitEngine(out, device="cpu")
+    assert eng.hp.global_pool == "map" and eng.hp.num_classes == 2
+    dark = np.random.default_rng(7).integers(0, 40, (2, 32, 32, 3), dtype=np.uint8)
+    probs = eng.predict_probs_batch(torch.stack([eng.preprocess_image(im) for im in dark]))
+    assert (probs.argmax(-1) == classes.index("aa_dark")).all()
+
+
+def test_map_head_loss_and_grads_match_jax_and_qat_leaves_the_pool_float(files):
+    """The training loss through attention pooling and its gradients, the
+    pool's included, against the JAX package's (test_torch_train.py's
+    bounds); under QAT the pool's leaves and activations stay float, as
+    the JAX package's attention_pool exempts them."""
+    import jax
+
+    from vit_cpp_tpu.models.params import load_params as jax_load_params
+    from vit_cpp_tpu.parallel import train as jtrain
+    from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
+    from vit_cpp_tpu_torch.models.vit import attention_pool
+    from vit_cpp_tpu_torch.parallel import train as ttrain
+
+    from vit_cpp_tpu.engine import detect_hparams
+
+    mf = jax_read_model(files["cls"])
+    hp = detect_hparams(mf)
+    assert hp.global_pool == "map"
+    jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32),
+                           jax_load_params(mf, jnp.float32, hparams=hp))
+    port_hp = PortHParams(**{f.name: getattr(hp, f.name) for f in dataclasses.fields(hp)})
+    x = _images(2, seed=3)
+    y = np.array([1, 4], np.int32)
+    for qat in ("", "q8_0"):
+        l_ref, g_ref = jax.value_and_grad(jtrain.cross_entropy_loss)(
+            jparams, jnp.asarray(x), jnp.asarray(y), hp, 0.0, 0, qat)
+        params = params_from_jax(jparams)
+        for leaf in ttrain.tree_leaves(params):
+            leaf.requires_grad_(True)
+        loss = ttrain.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y),
+                                         port_hp, qat=qat)
+        loss.backward()
+        np.testing.assert_allclose(loss.item(), float(l_ref), rtol=1e-5)
+        got = {jax.tree_util.keystr(k): v for k, v in
+               jax.tree_util.tree_leaves_with_path(jax.tree.map(lambda p: p.grad, params))}
+        ref = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(g_ref)}
+        assert got.keys() == ref.keys() and any("attn_pool" in k for k in ref)
+        for k in ref:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=5e-5,
+                                       rtol=1e-3, err_msg=f"{qat} {k}")
+    params = params_from_jax(jparams)
+    tokens = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 16, 64))
+                              .astype(np.float32))
+    assert torch.equal(attention_pool(params["attn_pool"], tokens, port_hp, "qat"),
+                       attention_pool(params["attn_pool"], tokens, port_hp, "xla"))

@@ -178,3 +178,145 @@ def test_freeze_backbone_leaves_non_head_bit_equal(setup):
         else:
             assert torch.equal(v.detach(), _flat(before)[k]), k
             assert v.grad is None and not v.requires_grad, k
+
+
+def _optax_bf16_run(p0, grads, kw):
+    opt = jtrain.make_optimizer(**kw, mu_dtype=jnp.bfloat16)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    ostate = opt.init(jp)
+    for g in grads:
+        updates, ostate = opt.update({k: jnp.asarray(v) for k, v in g.items()}, ostate, jp)
+        jp = optax.apply_updates(jp, updates)
+    adam = next(s for s in jax.tree.leaves(ostate, is_leaf=lambda s: hasattr(s, "mu"))
+                if hasattr(s, "mu"))
+    return jp, adam
+
+
+@pytest.mark.parametrize("case", ["const", "cosine-warmup", "clip"])
+def test_bf16_moment_matches_optax(case):
+    """optax.adamw(mu_dtype=bf16) over three steps: the bf16 first moment
+    bit for bit, the second moment and the parameters to rtol 1e-6."""
+    kw = OPT_CASES[case]
+    rng = np.random.default_rng(7)
+    shapes = {"a": (4, 3), "b": (7,), "c": (2, 2, 5)}
+    p0 = {
+        k: (np.sign(rng.standard_normal(s)) * (0.5 + np.abs(rng.standard_normal(s))))
+        .astype(np.float32)
+        for k, s in shapes.items()
+    }
+    grads = [
+        {k: (rng.standard_normal(s) * 0.3).astype(np.float32) for k, s in shapes.items()}
+        for _ in range(3)
+    ]
+    jp, adam = _optax_bf16_run(p0, grads, kw)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    topt = ttrain.make_optimizer(list(tp.values()), **kw, mu_dtype="bf16")
+    assert isinstance(topt.adamw, ttrain.AdamWBf16Mu)
+    for g in grads:
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        topt.step()
+    for k, p in tp.items():
+        st = topt.adamw.state[p]
+        assert st["exp_avg"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(st["exp_avg"].float().numpy(),
+                                      np.asarray(adam.mu[k], np.float32), err_msg=k)
+        np.testing.assert_allclose(st["exp_avg_sq"].numpy(), np.asarray(adam.nu[k]), rtol=1e-6)
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=0, err_msg=k)
+
+
+def test_bf16_moment_state_dict_round_trips():
+    p = torch.ones(5, requires_grad=True)
+    opt = ttrain.make_optimizer([p], lr=1e-2, mu_dtype="bf16")
+    p.grad = torch.linspace(-1, 1, 5)
+    opt.step()
+    saved = opt.state_dict()
+    q = torch.ones(5, requires_grad=True)
+    opt2 = ttrain.make_optimizer([q], lr=1e-2, mu_dtype="bf16")
+    opt2.load_state_dict(saved)
+    a, b = opt.adamw.state[p], opt2.adamw.state[q]
+    assert b["exp_avg"].dtype == torch.bfloat16 and torch.equal(a["exp_avg"], b["exp_avg"])
+    assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"]) and a["step"] == b["step"]
+    with pytest.raises(ValueError, match="mu_dtype"):
+        ttrain.make_optimizer([q], mu_dtype="f16")
+
+
+def test_train_step_trajectory_bf16_moment_matches_optax(setup):
+    """Three train_step updates with a bf16 moment: the losses to rtol 1e-4,
+    as the f32 case (the optimizer alone, fed equal gradients, is held to
+    optax's bit for bit in test_bf16_moment_matches_optax)."""
+    jparams, x, y = setup
+    kw = dict(lr=1e-3, weight_decay=0.05)
+    opt = jtrain.make_optimizer(**kw, mu_dtype=jnp.bfloat16)
+    jstate = jtrain.TrainState(
+        jax.tree.map(jnp.array, jparams), opt.init(jparams), jnp.zeros((), jnp.int32)
+    )
+    tstate = ttrain.create_train_state(params_from_jax(jparams), dict(kw, mu_dtype="bf16"))
+    xj, yj, xt, yt = jnp.asarray(x), jnp.asarray(y), torch.from_numpy(x), torch.from_numpy(y)
+    for _ in range(3):
+        jstate, l_ref = jtrain.train_step(jstate, xj, yj, HP, opt)
+        loss = ttrain.train_step(tstate, xt, yt, PORT_HP)
+        np.testing.assert_allclose(float(loss), float(l_ref), rtol=1e-4)
+    assert tstate.optimizer.adamw.state[tstate.params["pos_embed"]]["exp_avg"].dtype == torch.bfloat16
+
+
+QAT_CASES = {"w8a8": ("w8a8", False), "q8_0": ("q8_0", False), "q8_0-static": ("q8_0", True)}
+
+
+@pytest.mark.parametrize("case", list(QAT_CASES))
+def test_qat_loss_and_grads_match_jax(setup, case):
+    """The fake-quantized loss and its straight-through gradients against
+    the JAX package's, dynamic and static activation scales."""
+    from vit_cpp_tpu.quant.qat import measure_act_scales
+
+    fmt, static = QAT_CASES[case]
+    jparams, x, y = setup
+    jscales = measure_act_scales(jparams, jnp.asarray(x), HP, fmt) if static else None
+    l_ref, g_ref = jax.value_and_grad(jtrain.cross_entropy_loss)(
+        jparams, jnp.asarray(x), jnp.asarray(y), HP, 0.0, 0, fmt, jscales
+    )
+    params = _port_params(jparams)
+    scales = None if jscales is None else {k: torch.from_numpy(np.array(v))
+                                           for k, v in jscales.items()}
+    loss = ttrain.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y), PORT_HP,
+                                     qat=fmt, qat_scales=scales)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(l_ref), rtol=1e-5)
+    ref, got = _flat(g_ref), {k: v.grad for k, v in _flat(params).items()}
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_allclose(
+            got[k].numpy(), np.asarray(ref[k]), atol=5e-5, rtol=1e-3, err_msg=k
+        )
+
+
+def test_train_step_qat_descends(setup):
+    jparams, x, y = setup
+    state = ttrain.create_train_state(params_from_jax(jparams), dict(lr=1e-3))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    l0 = ttrain.train_step(state, xt, yt, PORT_HP, qat="q4_0")
+    l1 = ttrain.train_step(state, xt, yt, PORT_HP, qat="q4_0")
+    assert np.isfinite(float(l0)) and float(l1) < float(l0)
+
+
+@pytest.mark.cuda
+def test_bf16_moment_on_the_card_equals_the_cpu():
+    """Two steps on equal gradients: the bf16 moments bit for bit, the
+    parameters within one f32 ulp of their scale (max |p|; the card
+    divides by a scalar through its reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(8)
+    p0 = rng.standard_normal((3, 257, 65)).astype(np.float32)
+    grads = [rng.standard_normal(p0.shape).astype(np.float32) * 0.3 for _ in range(2)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = torch.from_numpy(p0.copy()).to(dev)
+        opt = ttrain.make_optimizer([p], lr=1e-3, weight_decay=0.05, mu_dtype="bf16")
+        for g in grads:
+            p.grad = torch.from_numpy(g).to(dev)
+            opt.step()
+        out[dev] = (p.cpu(), opt.adamw.state[p]["exp_avg"].cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    ulp = np.spacing(np.abs(out["cpu"][0].numpy()).max())
+    assert np.abs(out["cuda"][0].numpy() - out["cpu"][0].numpy()).max() <= ulp

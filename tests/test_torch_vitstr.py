@@ -11,6 +11,7 @@ the `vitstr` CLI (the docs/QUICK_EXAMPLE.md transcript and the JAX CLI's
 lines), `vit-serve` and the daemons' /v1/recognize.
 """
 
+import dataclasses
 import glob
 import io
 import json
@@ -512,3 +513,164 @@ def test_vitstr_cli_runs_on_the_card_by_default(files):
         pytest.skip("checks the behaviour without a card")
     with pytest.raises(RuntimeError, match="cuda"):
         port_cli.main(["vitstr", "-m", files["model"], "-i", DEMOS[0]])
+
+
+# ---- training (vit-finetune on a sequence-head checkpoint) ----
+
+
+def _words(root, n_per=6):
+    from tests.test_finetune import _make_vitstr_dataset
+
+    return _make_vitstr_dataset(root, n_per=n_per)
+
+
+def test_vitstr_dataset_and_targets_equal_jax(tmp_path):
+    from vit_cpp_tpu import finetune as jft
+    from vit_cpp_tpu_torch import finetune as tft
+    from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
+
+    d = tmp_path / "ds"
+    _words(d, n_per=2)
+    (d / "hello_12.png").write_bytes((d / "aa_0.png").read_bytes())
+    assert tft.load_vitstr_dataset(str(d)) == jft.load_vitstr_dataset(str(d))
+    paths, texts = tft.load_vitstr_dataset(str(d))
+    assert "hello" in texts and "aa" in texts
+    np.testing.assert_array_equal(tft.encode_texts(texts + ["a$B~"], 25),
+                                  jft.encode_texts(texts + ["a$B~"], 25))
+    # the grayscale training pixels are the JAX package's
+    port_hp = PortHParams(**{f.name: getattr(HP, f.name) for f in dataclasses.fields(HP)})
+    np.testing.assert_allclose(tft._preprocess_chunk(paths, port_hp, 1, "cpu").numpy(),
+                               jft._preprocess_chunk(paths, HP, 1), atol=PIXEL_TOL)
+    (d / "gt.txt").write_text("aa_0.png\thello\nbb_0.png\tworld\n")
+    assert tft.load_vitstr_dataset(str(d)) == jft.load_vitstr_dataset(str(d))
+    for bad, match in ((["é"], "not in the vocab"), (["x" * 24], "chars > seq_len")):
+        with pytest.raises(ValueError, match=match):
+            tft.encode_texts(bad, 25)
+    (d / "gt.txt").write_text("missing-tab-line\n")
+    with pytest.raises(ValueError, match="path<TAB>text"):
+        tft.load_vitstr_dataset(str(d))
+
+
+def _seq_batch(seed=0, n=3):
+    from vit_cpp_tpu.finetune import encode_texts
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 1, 48, 48)).astype(np.float32)
+    return x, encode_texts(["ab", "hello", "x"][:n], 25)
+
+
+def _seq_params(seed=7):
+    from vit_cpp_tpu.models import params_from_state_dict
+    from vit_cpp_tpu.testing.synthetic import random_state_dict
+
+    return params_from_state_dict(random_state_dict(HP, seed=seed), HP)
+
+
+def _port_hp():
+    from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
+
+    return PortHParams(**{f.name: getattr(HP, f.name) for f in dataclasses.fields(HP)})
+
+
+@pytest.mark.parametrize("qat", ["", "q8_0"])
+def test_vitstr_loss_and_grads_match_jax(qat):
+    """The masked sequence loss and its gradients (test_torch_train.py's
+    bounds: loss rtol 1e-5, gradients atol 5e-5 / rtol 1e-3)."""
+    import jax
+
+    from vit_cpp_tpu.parallel import train as jtrain
+    from vit_cpp_tpu_torch.models.params import params_from_jax
+    from vit_cpp_tpu_torch.parallel import train as ttrain
+
+    jparams = _seq_params()
+    x, t = _seq_batch()
+    l_ref, g_ref = jax.value_and_grad(jtrain.vitstr_cross_entropy_loss)(
+        jparams, jnp.asarray(x), jnp.asarray(t), HP, qat)
+    params = params_from_jax(jparams)
+    for leaf in ttrain.tree_leaves(params):
+        leaf.requires_grad_(True)
+    loss = ttrain.vitstr_cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(t),
+                                            _port_hp(), qat)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(l_ref), rtol=1e-5)
+    got = {jax.tree_util.keystr(k): v for k, v in
+           jax.tree_util.tree_leaves_with_path(jax.tree.map(lambda p: p.grad, params))}
+    ref = {jax.tree_util.keystr(k): v for k, v in jax.tree_util.tree_leaves_with_path(g_ref)}
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), atol=5e-5, rtol=1e-3,
+                                   err_msg=k)
+
+
+def test_vitstr_lora_loss_matches_jax():
+    from vit_cpp_tpu.models.lora import lora_trainable
+    from vit_cpp_tpu.parallel import train as jtrain
+    from vit_cpp_tpu_torch.models.params import params_from_jax
+    from vit_cpp_tpu_torch.parallel import train as ttrain
+
+    jparams = _seq_params(8)
+    jtr = lora_trainable(jparams, 4, 1)
+    x, t = _seq_batch(1)
+    want = float(jtrain.lora_cross_entropy_loss(jtr, jparams, jnp.asarray(x), jnp.asarray(t), HP,
+                                                8.0, seq=True))
+    got = ttrain.lora_cross_entropy_loss(params_from_jax(jtr), params_from_jax(jparams),
+                                         torch.from_numpy(x), torch.from_numpy(t), _port_hp(),
+                                         8.0, seq=True)
+    np.testing.assert_allclose(got.item(), want, rtol=1e-5)
+
+
+def test_vitstr_accum_weighs_micro_batches_by_their_targets():
+    """Micro-batches of 1 and 2 words: the accumulated update's loss and
+    gradients are the whole batch's masked mean (the JAX package's token
+    weighting), not the mean of the micro-batch means."""
+    from vit_cpp_tpu_torch.models.params import params_from_jax
+    from vit_cpp_tpu_torch.parallel import train as ttrain
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 1, 48, 48)).astype(np.float32))
+    from vit_cpp_tpu.finetune import encode_texts
+
+    t = torch.from_numpy(encode_texts(["a", "longerword"], 25))
+    big = ttrain.create_train_state(params_from_jax(_seq_params(9)))
+    acc = ttrain.create_train_state(params_from_jax(_seq_params(9)))
+    l_big = ttrain.update(big, ttrain.vitstr_cross_entropy_loss(big.params, x, t, _port_hp()))
+    l_acc = ttrain.train_step_accum(acc, x, t, _port_hp(), 2, seq=True)
+    np.testing.assert_allclose(float(l_acc), float(l_big), rtol=1e-6)
+    for a, b in zip(ttrain.tree_leaves(acc.params), ttrain.tree_leaves(big.params)):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6, rtol=1e-5)
+
+
+def test_vitstr_finetune_learns_and_serves(files, tmp_path):
+    """Scene-text fine-tuning on file-stem labels: the loss falls, the
+    position-1 character is learned for every word, validation reports a
+    word accuracy, and the export recognizes through VitstrEngine; the
+    classifier-only options refuse with the JAX package's messages."""
+    from vit_cpp_tpu.finetune import finetune as jax_finetune
+    from vit_cpp_tpu_torch.engine import VitstrEngine
+    from vit_cpp_tpu_torch.finetune import _preprocess_all, finetune, load_vitstr_dataset
+    from vit_cpp_tpu_torch.models.export import save_params
+    from vit_cpp_tpu_torch.models.vit import forward
+
+    data = _words(tmp_path / "words")
+    logs = []
+    params, hp, classes, losses = finetune(files["model"], data, epochs=8, batch=4, lr=5e-3,
+                                           val_dir=data, log=logs.append, device="cpu")
+    assert hp.seq_len == 25 and len(classes) == 96 and losses[-1] < 1.2 < losses[0]
+    assert any("val word-acc" in m for m in logs)
+    paths, texts = load_vitstr_dataset(data)
+    with torch.no_grad():
+        probs = forward(params, _preprocess_all(paths, hp, 1, "cpu"), hp).softmax(-1)
+    for text, pr in zip(texts, probs):
+        assert classes[int(pr[1].argmax())] == text[0]
+    out = str(tmp_path / "ft.gguf")
+    save_params(out, params, hp, id2label=dict(enumerate(classes)))
+    text, conf = VitstrEngine(out, device="cpu").recognize_file(paths[0], verbose=False)
+    assert text.startswith("a") and 0.0 <= conf <= 1.0
+    for kw in (dict(augment="flip"), dict(label_smoothing=0.1), dict(tome=2),
+               dict(distill=files["model"])):
+        msgs = []
+        for run, extra in ((finetune, dict(device="cpu")), (jax_finetune, {})):
+            with pytest.raises(ValueError) as e:
+                run(files["model"], data, epochs=1, batch=4, log=lambda m: None, **kw, **extra)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]

@@ -3,14 +3,19 @@
 Counterpart of `vit-finetune` (vit_cpp_tpu/cli/finetune.py), with the same
 flags plus --device (default cuda; cpu runs the plain PyTorch versions of
 the kernels). Classifier checkpoints train on one subdirectory per class;
-the head transfers to the folder's class count; --ckpt-dir makes the run
-resumable. The output gguf serves through the port's engine and daemon.
-Flags whose slice is not ported yet raise (in `finetune`) and name that
-slice.
+the head transfers to the folder's class count (a headless SigLIP tower
+gets one); a ViTSTR checkpoint trains on scene-text pairs; --ckpt-dir
+makes the run resumable. --lora R exports the adapters folded in;
+--qat FMT --qat-act static writes OUT.act_scales.json beside the output
+for `--act static --act-scales` serving. The output gguf serves through
+the port's engine and daemon. --mesh / --fsdp (the multi-device slice)
+and --compile-cache (no slice) raise.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.finetune -m model.gguf -d train/ -o ft.gguf -b 32 \\
       [--epochs 3] [--augment all] [--label-smooth 0.1] [--ema 0.999] [--ckpt-dir ckpt/]
+      [--lora 8] [--distill teacher.gguf] [--qat q8_0 [--qat-act static]]
+      [--mu-dtype bf16] [--img-size 384] [--patch-size 8]
 """
 
 from __future__ import annotations
@@ -134,6 +139,9 @@ def main(argv=None) -> int:
             distill_tau=args.distill_tau,
             qat=args.qat,
             qat_act=args.qat_act,
+            qat_scales_out=(
+                f"{args.out}.act_scales.json" if args.qat_act == "static" else None
+            ),
             stream=args.stream,
             log=lambda m: print(m, file=sys.stderr),
             device=args.device,

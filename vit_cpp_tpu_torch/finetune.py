@@ -1,4 +1,4 @@
-"""Fine-tune a classifier checkpoint on an image-folder dataset.
+"""Fine-tune a checkpoint on an image-folder dataset.
 
 Counterpart of vit_cpp_tpu/finetune.py on one device: gguf checkpoint ->
 dense f32 parameter tree on `device` -> AdamW train steps through the
@@ -7,21 +7,26 @@ hand-written backward kernel) -> torch.save checkpoint / resume
 (parallel/checkpoint.py) -> servable gguf (models/export.py). The dataset
 layout is the JAX package's: one subdirectory per class, any decodable
 image inside (`load_dataset` and `_prefetch_batches` are the port's own
-copies of that module's).
+copies of that module's); a sequence-head (ViTSTR) checkpoint trains on
+scene-text pairs instead (`load_vitstr_dataset`: a gt.txt, or the file
+names).
 
 Head transfer: when the dataset's class count differs from the
 checkpoint's, the head is zero-initialized for the new count and the
-hparams rewritten.
+hparams rewritten; a headless encoder (SigLIP's attention-pooled tower)
+gets its first head so.
 
-Ported options: epochs, batch, lr, weight_decay, schedule, warmup_steps,
-grad_accum, clip_norm, freeze_backbone, augment, label_smoothing, mixup,
-ema, ckpt_dir (resume with the JAX package's settings checks), seed,
-decode_threads, val_dir, stream, tome (training and validation through
-ToMe merging, ops/tome.py), moe / moe_every / moe_top_k / moe_capacity
-(sparse upcycling into a V-MoE, ops/moe.py; an MoE checkpoint also
-continues training without them: its router and experts train with the
-auxiliary losses of parallel/train.py), device. The others raise and name
-the slice they come with.
+Every option of the JAX package's `finetune` runs here but `mesh` and
+`fsdp`, which raise and name the multi-device slice: the optimizer and
+schedule, grad_accum, clip_norm, mu_dtype (a bf16 first moment),
+freeze_backbone, augment, label_smoothing, mixup, ema, ckpt_dir (resume
+with the JAX package's settings checks), seed, decode_threads, val_dir,
+stream, img_size / patch_size (training at a resampled geometry,
+models/resample.py), tome (ToMe merging, ops/tome.py), moe and its
+options (sparse upcycling, ops/moe.py), lora / lora_alpha (models/
+lora.py; the export folds the adapters in), distill and its options (a
+frozen teacher's logits), qat / qat_act / qat_scales_out (quant/qat.py),
+and device.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from vit_cpp_tpu_torch.cli.common import _not_ported
 from vit_cpp_tpu_torch.decode import decode_many
 from vit_cpp_tpu_torch.io.image import IMAGE_EXTS
 from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
+from vit_cpp_tpu_torch.parallel.train import qat_params
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 
@@ -63,6 +69,63 @@ def load_dataset(data_dir: str) -> Tuple[List[str], np.ndarray, List[str]]:
     if not paths:
         raise ValueError(f"{data_dir}: no images under class directories")
     return paths, np.asarray(labels, np.int32), classes
+
+
+def load_vitstr_dataset(data_dir: str) -> Tuple[List[str], List[str]]:
+    """Scene-text training pairs from `data_dir`
+    (vit_cpp_tpu/finetune.py::load_vitstr_dataset): a `gt.txt` with one
+    `relative/path<TAB>text` line per sample, or else every image's file
+    stem, a trailing `_<digits>` dedup suffix stripped (`hello_2.png` ->
+    "hello")."""
+    gt = os.path.join(data_dir, "gt.txt")
+    paths: List[str] = []
+    texts: List[str] = []
+    if os.path.exists(gt):
+        with open(gt, encoding="utf-8") as f:
+            for ln, line in enumerate(f, 1):
+                line = line.rstrip("\n")
+                if not line:
+                    continue
+                rel, sep, text = line.partition("\t")
+                if not sep:
+                    raise ValueError(f"{gt}:{ln}: want 'path<TAB>text'")
+                paths.append(os.path.join(data_dir, rel))
+                texts.append(text)
+    else:
+        for f in sorted(os.listdir(data_dir)):
+            stem, ext = os.path.splitext(f)
+            if ext not in IMAGE_EXTS:
+                continue
+            head, _, tail = stem.rpartition("_")
+            if head and tail.isdigit():
+                stem = head
+            paths.append(os.path.join(data_dir, f))
+            texts.append(stem)
+    if not paths:
+        raise ValueError(f"{data_dir}: no training samples (gt.txt or images)")
+    return paths, texts
+
+
+def encode_texts(texts: List[str], seq_len: int) -> np.ndarray:
+    """Texts -> (N, seq_len) int32 targets for the sequence loss: position
+    0 ([GO]) and the tail after the [s] stop token are -1 (masked),
+    positions 1..n the character ids and n+1 the stop token, the read
+    pattern of the greedy decoder (models/vitstr.py)."""
+    from vit_cpp_tpu_torch.models.vitstr import EOS_ID, VITSTR_VOCAB
+
+    char2id = {c: i for i, c in enumerate(VITSTR_VOCAB) if len(c) == 1}
+    out = np.full((len(texts), seq_len), -1, np.int32)
+    for i, text in enumerate(texts):
+        if len(text) > seq_len - 2:
+            raise ValueError(
+                f"label {text!r} is {len(text)} chars > seq_len-2 = {seq_len - 2}"
+            )
+        for j, c in enumerate(text):
+            if c not in char2id:
+                raise ValueError(f"label {text!r}: char {c!r} not in the vocab")
+            out[i, 1 + j] = char2id[c]
+        out[i, 1 + len(text)] = EOS_ID
+    return out
 
 
 def _prefetch_batches(fetch, idx_seq, depth: int = 2):
@@ -144,11 +207,16 @@ def _reinit_head(params, hp, num_classes: int):
 
 def _preprocess_chunk(paths, hp, decode_threads: int, device) -> torch.Tensor:
     """Decode + preprocess files on `device` -> (n, C, S, S) f32 on the
-    CPU. A failed decode raises (training data must be clean)."""
+    CPU, through the grayscale pipeline for a sequence-head model. A
+    failed decode raises (training data must be clean)."""
     imgs = decode_many(paths, decode_threads or (os.cpu_count() or 1))
     for p, im in zip(paths, imgs):
         if im is None:
             raise ValueError(f"undecodable training image: {p}")
+    if hp.seq_len is not None:
+        from vit_cpp_tpu_torch.models.vitstr import preprocess_grayscale_batch
+
+        return preprocess_grayscale_batch(imgs, hp.img_size, device=device).cpu()
     mean, std = norm_constants(hp.pixel_norm)
     return preprocess_batch(
         imgs, hp.img_size, mode=hp.interpolation, mean=mean, std=std, device=device
@@ -166,20 +234,45 @@ def _preprocess_all(paths, hp, decode_threads: int, device) -> torch.Tensor:
 
 
 def evaluate(
-    params, hp, pixels: torch.Tensor, labels: np.ndarray, batch: int, tome: int = 0
+    params, hp, pixels: torch.Tensor, labels: np.ndarray, batch: int, tome: int = 0,
+    qat: str = "", qat_scales=None,
 ) -> float:
     """Top-1 accuracy of `params` on preprocessed pixels, on the params'
     device (the default, composed attention, as the JAX package's eval).
-    `tome` evaluates through the merged graph: a --tome fine-tune
-    validates what it will serve."""
+    `tome` evaluates through the merged graph and `qat` the
+    fake-quantized model: a fine-tune validates what it will serve."""
     from vit_cpp_tpu_torch.models.vit import forward
 
     dev = params["pos_embed"].device
     correct = 0
     with torch.no_grad():
+        p = qat_params(params, qat, qat_scales)
         for i in range(0, len(pixels), batch):
-            pred = forward(params, pixels[i : i + batch].to(dev), hp, tome=tome).argmax(dim=-1)
+            pred = forward(p, pixels[i : i + batch].to(dev), hp, tome=tome,
+                           mm_impl="qat" if qat else "xla").argmax(dim=-1)
             correct += int((pred.cpu().numpy() == labels[i : i + len(pred)]).sum())
+    return correct / len(pixels)
+
+
+def evaluate_vitstr(
+    params, hp, pixels: torch.Tensor, texts: List[str], batch: int, qat: str = "",
+    qat_scales=None,
+) -> float:
+    """Word-level exact-match accuracy through the device greedy decoder."""
+    from vit_cpp_tpu_torch.models.vit import forward
+    from vit_cpp_tpu_torch.models.vitstr import decode_tokens, greedy_decode_device, vitstr_id2label
+
+    dev = params["pos_embed"].device
+    id2label = vitstr_id2label()
+    correct = 0
+    with torch.no_grad():
+        p = qat_params(params, qat, qat_scales)
+        for i in range(0, len(pixels), batch):
+            logits = forward(p, pixels[i : i + batch].to(dev), hp, mm_impl="qat" if qat else "xla")
+            toks, valid, _ = greedy_decode_device(torch.softmax(logits.float(), dim=-1))
+            toks, valid = toks.cpu().numpy(), valid.cpu().numpy()
+            correct += sum(decode_tokens(t, v, id2label) == texts[i + j]
+                           for j, (t, v) in enumerate(zip(toks, valid)))
     return correct / len(pixels)
 
 
@@ -246,6 +339,14 @@ def finetune(
     the starting params, e := d*e + (1-d)*p after every update) and
     RETURNS it: that is what you serve, and what validation scores.
 
+    `lora` > 0 trains rank-r adapters and the head over the frozen
+    weights and returns them folded in. `distill` names a frozen teacher
+    gguf (a classifier of the dataset's taxonomy at the student's
+    geometry). `qat` trains through a serving format's quantization;
+    with `qat_act="static"` the activation scales are measured on the
+    first `batch` files at the top of every epoch, and `qat_scales_out`
+    writes those of the returned weights as the serving sidecar.
+
     The log's last line before the return gives the updates' host-clock
     time (each update ends with its loss read, which waits for the
     device), the run's first update left out."""
@@ -253,14 +354,8 @@ def finetune(
     from vit_cpp_tpu_torch.engine import detect_hparams, resolve_device
     from vit_cpp_tpu_torch.models.params import load_params
     from vit_cpp_tpu_torch.ops.augment import augment_batch, augment_flags, mixup_batch, step_generator
+    from vit_cpp_tpu_torch.parallel import train as T
     from vit_cpp_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
-    from vit_cpp_tpu_torch.parallel.train import (
-        create_train_state,
-        train_step,
-        train_step_accum,
-        train_step_mixup,
-        tree_leaves,
-    )
 
     if mesh or fsdp:
         raise _not_ported("--mesh / --fsdp", "the multi-device slice")
@@ -279,35 +374,31 @@ def finetune(
 
     mf = read_model(model)
     hp = detect_hparams(mf)
-    # V-MoE's checks come first, with the JAX package's messages, so an
-    # MoE run names the flag it refuses even where the flag is unported
     _check_moe(hp, moe, moe_every, moe_top_k, moe_capacity, tome=tome, qat=qat, lora=lora,
                distill=distill, mixup=mixup, grad_accum=grad_accum,
                freeze_backbone=freeze_backbone)
-    if lora:
-        raise _not_ported("--lora", "the training-extras slice (models/lora.py)")
-    if distill:
-        raise _not_ported("--distill", "the training-extras slice")
-    if qat or qat_act != "dynamic" or qat_scales_out:
-        raise _not_ported("--qat / --qat-act", "the training-extras slice (quant/qat.py)")
-    if img_size is not None or patch_size is not None:
-        raise _not_ported("--img-size / --patch-size training",
-                          "the training-extras slice (ROADMAP A.10)")
-    if mu_dtype not in ("f32", "bf16"):
-        raise ValueError(f"mu_dtype must be f32|bf16, got {mu_dtype!r}")
-    if mu_dtype == "bf16":
-        raise _not_ported("--mu-dtype bf16", "the training-extras slice")
-    if tome and hp.seq_len is not None:
-        raise ValueError(
-            "tome is incompatible with sequence checkpoints (ViTSTR "
-            "reads every token position)"
-        )
-    if hp.seq_len is not None:
-        raise _not_ported("ViTSTR fine-tuning", "the training-extras slice (ROADMAP A.10)")
-    if hp.global_pool == "map":
-        raise _not_ported("fine-tuning an attention-pooled (SigLIP) checkpoint",
-                          "the training-extras slice (ROADMAP A.10)")
-    paths, labels, classes = load_dataset(data_dir)
+    _check_extras(hp, lora=lora, freeze_backbone=freeze_backbone, grad_accum=grad_accum,
+                  mixup=mixup, distill=distill, distill_mode=distill_mode,
+                  distill_alpha=distill_alpha, distill_tau=distill_tau, qat=qat,
+                  qat_act=qat_act, qat_scales_out=qat_scales_out, tome=tome, augment=augment,
+                  label_smoothing=label_smoothing)
+    lora_alpha = lora_alpha or float(2 * lora)
+    is_vitstr = hp.seq_len is not None
+    vtexts = None
+    if is_vitstr:
+        # scene text: gt.txt / file-stem labels, (B, seq_len) targets
+        from vit_cpp_tpu_torch.models.vitstr import VITSTR_VOCAB
+
+        if hp.num_classes != len(VITSTR_VOCAB):
+            raise ValueError(
+                f"sequence checkpoint has {hp.num_classes} classes; "
+                f"ViTSTR training needs the {len(VITSTR_VOCAB)}-token vocab"
+            )
+        paths, texts = load_vitstr_dataset(data_dir)
+        labels = encode_texts(texts, hp.seq_len)
+        classes = list(VITSTR_VOCAB)
+    else:
+        paths, labels, classes = load_dataset(data_dir)
     samples_per_update = batch * grad_accum
     if len(paths) < samples_per_update:
         raise ValueError(
@@ -316,7 +407,20 @@ def finetune(
         )
 
     params = _dense_f32(load_params(mf, torch.float32, hparams=hp, device=dev))
-    if len(classes) != hp.num_classes:
+    native_img_size, native_patch_size = hp.img_size, hp.patch_size
+    if (img_size is not None and img_size != hp.img_size) or (
+        patch_size is not None and patch_size != hp.patch_size
+    ):
+        # fine-tune at a new resolution and/or patch size (resampled
+        # pos_embed, PI-resized patch_embed): the export serves it natively
+        from vit_cpp_tpu_torch.models.resample import resample_params
+
+        params, hp = resample_params(params, hp, img_size, patch_size=patch_size)
+        log(
+            f"finetune: geometry {hp.img_size} px / patch {hp.patch_size} "
+            "(resampled from the checkpoint's native grid)"
+        )
+    if not is_vitstr and len(classes) != hp.num_classes:
         log(f"finetune: re-initializing head {hp.num_classes} -> {len(classes)} classes")
         params, hp = _reinit_head(params, hp, len(classes))
     if moe:
@@ -339,30 +443,54 @@ def finetune(
             f"{','.join(map(str, moe_layers))}"
         )
 
+    teacher_params = teacher_hp = None
+    if distill:
+        teacher_params, teacher_hp = _load_teacher(distill, hp, len(classes), dev)
+        log(
+            f"finetune: distilling from {distill} "
+            f"({distill_mode}, alpha {distill_alpha:g}, tau {distill_tau:g})"
+        )
+
     updates_per_epoch = len(paths) // samples_per_update
-    state = create_train_state(
-        params,
-        dict(
-            lr=lr, weight_decay=weight_decay, schedule=schedule,
-            total_steps=updates_per_epoch * epochs, warmup_steps=warmup_steps,
-            clip_norm=clip_norm,
-        ),
-        trainable=("head", "head_dist") if freeze_backbone else None,
+    optimizer_kw = dict(
+        lr=lr, weight_decay=weight_decay, schedule=schedule,
+        total_steps=updates_per_epoch * epochs, warmup_steps=warmup_steps,
+        clip_norm=clip_norm, mu_dtype=mu_dtype,
     )
-    # the EMA starts as a copy of the initial params
-    ema_params = _clone(params) if ema else None
+    base_params = None
+    if lora:
+        from vit_cpp_tpu_torch.models.lora import lora_state_bytes, lora_trainable
+
+        base_params = params
+        trainable = lora_trainable(params, lora, seed)
+        log(
+            f"finetune: LoRA rank {lora} (alpha {lora_alpha:g}) — "
+            f"{lora_state_bytes(trainable) / 1e6:.1f} MB trainable vs "
+            f"{lora_state_bytes(params) / 1e6:.1f} MB full"
+        )
+        state = T.create_train_state(trainable, optimizer_kw)
+    else:
+        state = T.create_train_state(
+            params, optimizer_kw, trainable=("head", "head_dist") if freeze_backbone else None
+        )
+    # the EMA starts as a copy of the initial trainable tree
+    ema_params = _clone(state.params) if ema else None
 
     vpaths = vlabels = None
     if val_dir:
-        vpaths, vlabels, vclasses = load_dataset(val_dir)
-        if vclasses != classes:
-            raise ValueError(f"val classes {vclasses} != train classes {classes}")
+        if is_vitstr:
+            vpaths, vtexts = load_vitstr_dataset(val_dir)
+            encode_texts(vtexts, hp.seq_len)  # validate vocab / length early
+        else:
+            vpaths, vlabels, vclasses = load_dataset(val_dir)
+            if vclasses != classes:
+                raise ValueError(f"val classes {vclasses} != train classes {classes}")
 
     # sibling file, as in the JAX package (the checkpoint directory holds
     # only the state)
     meta_path = os.path.abspath(ckpt_dir).rstrip("/") + ".meta.json" if ckpt_dir else None
     # everything that changes what a resumed run replays, under the JAX
-    # package's keys (the unported options at their off values)
+    # package's keys
     run_meta = {
         "batch": batch,
         "n_images": len(paths),
@@ -386,61 +514,19 @@ def finetune(
         "qat": qat,
         "qat_act": qat_act,
         "lora": lora,
-        "lora_alpha": lora_alpha or float(2 * lora),
+        "lora_alpha": lora_alpha,
         "moe": hp.num_experts,
         "moe_layers": list(hp.moe_layers),
         "moe_top_k": hp.moe_top_k,
         "moe_capacity": hp.moe_capacity,
-        "distill": "",
-        "distill_mode": "",
-        "distill_alpha": 0.0,
-        "distill_tau": 0.0,
+        "distill": os.path.abspath(distill) if distill else "",
+        "distill_mode": distill_mode if distill else "",
+        "distill_alpha": distill_alpha if distill else 0.0,
+        "distill_tau": distill_tau if distill else 0.0,
     }
     if ckpt_dir and os.path.isdir(ckpt_dir) and os.listdir(ckpt_dir):
-        # a checkpoint without its sibling meta cannot be validated
-        if not os.path.exists(meta_path):
-            raise ValueError(
-                f"checkpoint at {ckpt_dir} has no {meta_path}; its "
-                "batching cannot be validated — use a fresh --ckpt-dir"
-            )
-        with open(meta_path) as f:
-            saved = json.load(f)
-        # `epochs` may grow on resume unless the schedule has a horizon
-        # (the cosine length derives from the total)
-        strict = dict(run_meta)
-        if schedule == "const":
-            strict.pop("epochs")
-        missing = [k for k in strict if k not in saved]
-        if "tome" in missing and tome:
-            # a meta that predates 'tome' was trained on the unmerged
-            # graph; adopting r > 0 would change the objective
-            raise ValueError(
-                f"checkpoint at {ckpt_dir} predates --tome recording "
-                "(trained unmerged); resuming with --tome would not "
-                "replay the original run — drop --tome or use a fresh "
-                "--ckpt-dir"
-            )
-        if "moe" in missing and hp.num_experts:
-            raise ValueError(
-                f"checkpoint at {ckpt_dir} predates --moe recording "
-                "(trained dense); resuming with experts would not replay "
-                "the original run — drop --moe or use a fresh --ckpt-dir"
-            )
-        if missing:
-            log(
-                f"finetune: warning — {meta_path} predates recording of "
-                f"{missing}; those settings cannot be validated against "
-                "the original run"
-            )
-        theirs = {k: saved.get(k, strict[k]) for k in strict}
-        if theirs != strict:
-            diff = {k: (theirs[k], strict[k]) for k in strict if theirs[k] != strict[k]}
-            raise ValueError(
-                f"checkpoint at {ckpt_dir} was written with different "
-                f"settings (saved, requested): {diff}; resuming would not "
-                "replay the original run — rerun with the original "
-                "settings or use a fresh --ckpt-dir"
-            )
+        _check_resume(ckpt_dir, meta_path, run_meta, log,
+                      native=(native_img_size, native_patch_size))
         ema_params = restore_train_state(ckpt_dir, state, ema_params)
         log(f"finetune: resumed from {ckpt_dir} at step {state.step}")
 
@@ -452,14 +538,50 @@ def finetune(
         pixels = _preprocess_all(paths, hp, decode_threads, dev)
     val = None
     if val_dir:
-        val = (_preprocess_all(vpaths, hp, decode_threads, dev), vlabels)
+        val = (_preprocess_all(vpaths, hp, decode_threads, dev), vtexts if is_vitstr else vlabels)
+
+    def merged(trained):
+        """The full tree of trained leaves: the LoRA adapters folded in."""
+        if not lora:
+            return trained
+        from vit_cpp_tpu_torch.models.lora import merge_lora
+
+        with torch.no_grad():
+            return merge_lora(base_params, trained, lora_alpha)
+
+    calib_px = None
+    if qat_act == "static":
+        # the fixed calibration batch: the first `batch` files in dataset
+        # order, the same on resume, streamed or preloaded
+        from vit_cpp_tpu_torch.quant.qat import measure_act_scales
+
+        calib_px = _preprocess_chunk(paths[:batch], hp, decode_threads, dev).to(dev)
+    qat_scales = None
+
+    def batch_loss(bx, by):
+        """The update's loss on one batch, by the run's kind; QAT with
+        this epoch's static scales."""
+        qkw = dict(qat=qat, qat_scales=qat_scales)
+        if lora:
+            return T.lora_cross_entropy_loss(state.params, base_params, bx, by, hp, lora_alpha,
+                                             label_smoothing, tome, seq=is_vitstr, **qkw)
+        if distill:
+            return T.distill_cross_entropy_loss(state.params, teacher_params, bx, by, hp,
+                                                teacher_hp, distill_alpha, distill_tau,
+                                                distill_mode, label_smoothing, tome, **qkw)
+        if is_vitstr:
+            return T.vitstr_cross_entropy_loss(state.params, bx, by, hp, **qkw)
+        return T.cross_entropy_loss(state.params, bx, by, hp, label_smoothing, tome, **qkw)
 
     start_epoch = state.step // updates_per_epoch
-    ema_leaves = tree_leaves(ema_params) if ema else None
-    param_leaves = tree_leaves(state.params)
+    ema_leaves = T.tree_leaves(ema_params) if ema else None
+    param_leaves = T.tree_leaves(state.params)
     losses: List[float] = []
     update_ms: List[float] = []
     for epoch in range(start_epoch, epochs):
+        if calib_px is not None:
+            # frozen for the epoch, measured on the current weights
+            qat_scales = measure_act_scales(merged(state.params), calib_px, hp, qat)
         # deterministic per-epoch shuffle: the same order replays on resume
         order = np.random.default_rng(seed + epoch).permutation(len(paths))
         idx_seq = [
@@ -488,16 +610,15 @@ def finetune(
                 if mixup:
                     bx, perm, lam = mixup_batch(gen, bx, mixup)
                     mix = (by[perm], lam)
+            qkw = dict(qat=qat, qat_scales=qat_scales)
             if mix is not None:
-                loss = train_step_mixup(
-                    state, bx, by, mix[0], mix[1], hp, smooth=label_smoothing, tome=tome
-                )
+                loss = T.train_step_mixup(state, bx, by, mix[0], mix[1], hp,
+                                          smooth=label_smoothing, tome=tome, **qkw)
             elif grad_accum > 1:
-                loss = train_step_accum(
-                    state, bx, by, hp, grad_accum, smooth=label_smoothing, tome=tome
-                )
+                loss = T.train_step_accum(state, bx, by, hp, grad_accum, smooth=label_smoothing,
+                                          tome=tome, seq=is_vitstr, **qkw)
             else:
-                loss = train_step(state, bx, by, hp, smooth=label_smoothing, tome=tome)
+                loss = T.update(state, batch_loss(bx, by))
             if ema:
                 _ema_update(ema_leaves, param_leaves, ema)
             epoch_losses.append(float(loss))  # waits for the device
@@ -508,9 +629,17 @@ def finetune(
         losses.append(mean_loss)
         msg = f"epoch {epoch + 1}/{epochs}: loss {mean_loss:.4f}"
         if val is not None:
-            eval_params = ema_params if ema else state.params
-            acc = evaluate(eval_params, hp, val[0], val[1], batch, tome=tome)
-            msg += f", val top-1{' (ema)' if ema else ''} {acc:.3f}"
+            # score what will be served: the EMA weights when enabled,
+            # merged into the frozen base under LoRA
+            eval_params = merged(ema_params if ema else state.params)
+            if is_vitstr:
+                acc = evaluate_vitstr(eval_params, hp, val[0], val[1], batch, qat=qat,
+                                      qat_scales=qat_scales)
+                msg += f", val word-acc{' (ema)' if ema else ''} {acc:.3f}"
+            else:
+                acc = evaluate(eval_params, hp, val[0], val[1], batch, tome=tome, qat=qat,
+                               qat_scales=qat_scales)
+                msg += f", val top-1{' (ema)' if ema else ''} {acc:.3f}"
         log(msg)
         if ckpt_dir:
             save_train_state(ckpt_dir, state, ema_params)
@@ -523,8 +652,175 @@ def finetune(
             f"update after the first, {samples_per_update * 1000.0 / ms:.1f} "
             "training images/s"
         )
-    final_params = ema_params if ema else state.params
+    # a LoRA run exports the adapters folded into dense kernels: the gguf
+    # serves through the unchanged engine
+    final_params = merged(ema_params if ema else state.params)
+    if qat_scales_out:
+        # the sidecar for zero-calibration static serving, measured on the
+        # exported weights
+        from vit_cpp_tpu_torch.quant.qat import save_act_scales
+
+        save_act_scales(qat_scales_out, measure_act_scales(final_params, calib_px, hp, qat),
+                        margin=1.05)
+        log(f"finetune: wrote static activation scales to {qat_scales_out}")
     return final_params, hp, classes, losses
+
+
+def _check_extras(hp, *, lora: int, freeze_backbone: bool, grad_accum: int, mixup: float,
+                  distill: str, distill_mode: str, distill_alpha: float, distill_tau: float,
+                  qat: str, qat_act: str, qat_scales_out, tome: int, augment: str,
+                  label_smoothing: float) -> None:
+    """The JAX package's checks of LoRA, distillation, QAT and sequence
+    (ViTSTR) training (vit_cpp_tpu/finetune.py:535-598), in its order and
+    with its messages."""
+    from vit_cpp_tpu_torch.quant.qat import QAT_FORMATS
+
+    if qat and qat not in QAT_FORMATS:
+        raise ValueError(f"qat format must be one of {QAT_FORMATS}, got {qat!r}")
+    if lora < 0:
+        raise ValueError(f"lora rank must be >= 0, got {lora}")
+    if lora:
+        if freeze_backbone:
+            raise ValueError("--lora already freezes the backbone — drop --freeze-backbone")
+        if grad_accum > 1:
+            raise ValueError("--lora with --grad-accum is not supported")
+        if mixup:
+            raise ValueError("--lora with --mixup is not supported")
+    if distill:
+        if distill_mode not in ("soft", "hard"):
+            raise ValueError(f"distill mode must be soft|hard, got {distill_mode!r}")
+        if not 0.0 <= distill_alpha <= 1.0:
+            raise ValueError(f"distill alpha must be in [0, 1], got {distill_alpha}")
+        if distill_tau <= 0:
+            raise ValueError(f"distill tau must be > 0, got {distill_tau}")
+        if mixup:
+            raise ValueError("--distill with --mixup is not supported")
+        if grad_accum > 1:
+            raise ValueError("--distill with --grad-accum is not supported")
+        if lora:
+            raise ValueError("--distill with --lora is not supported")
+    if qat_act not in ("dynamic", "static"):
+        raise ValueError(f"qat_act must be dynamic|static, got {qat_act!r}")
+    if qat_act == "static" and not qat:
+        raise ValueError("--qat-act static requires --qat FMT")
+    if qat_scales_out and qat_act != "static":
+        raise ValueError("an act-scales sidecar needs --qat-act static")
+    if hp.seq_len is not None:
+        if tome:
+            raise ValueError(
+                "tome is incompatible with sequence checkpoints (ViTSTR "
+                "reads every token position)"
+            )
+        if augment != "none" or label_smoothing or mixup:
+            # mirrored glyphs and cropped-away characters change the truth
+            raise ValueError(
+                "augmentation / label smoothing are classifier-only "
+                "(scene-text labels are orientation- and crop-sensitive)"
+            )
+
+
+def _load_teacher(path: str, hp, n_classes: int, dev):
+    """The frozen distillation teacher's dense f32 tree and hparams, which
+    must speak the dataset's taxonomy at the student's input geometry."""
+    from vit_cpp_tpu_torch.engine import detect_hparams
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.models.params import load_params
+
+    if hp.seq_len is not None:
+        raise ValueError(
+            "--distill supports classifier students only (sequence "
+            "heads have no logit-distillation recipe here)"
+        )
+    tmf = read_model(path)
+    teacher_hp = detect_hparams(tmf)
+    if teacher_hp.seq_len is not None:
+        raise ValueError("--distill teacher must be a classifier")
+    if teacher_hp.num_classes != n_classes:
+        raise ValueError(
+            f"--distill teacher has {teacher_hp.num_classes} classes "
+            f"but the dataset has {n_classes} — fine-tune the "
+            "teacher on this taxonomy first"
+        )
+    if teacher_hp.img_size != hp.img_size or teacher_hp.in_chans != hp.in_chans:
+        raise ValueError(
+            f"--distill teacher geometry ({teacher_hp.img_size} px, "
+            f"{teacher_hp.in_chans} ch) != student "
+            f"({hp.img_size} px, {hp.in_chans} ch)"
+        )
+    return _dense_f32(load_params(tmf, torch.float32, hparams=teacher_hp, device=dev)), teacher_hp
+
+
+# a run-meta key missing from an older meta file -> (the value that file's
+# run trained with, its flag, how it trained, what a resume departing from
+# it would resume with, the fix), the JAX package's refusals
+_PREDATES = {
+    "tome": (0, "--tome", "trained unmerged", "--tome", "drop --tome"),
+    "lora": (0, "--lora", "trained full-weight", "--lora", "drop --lora"),
+    "moe": (0, "--moe", "trained dense", "experts", "drop --moe"),
+    "distill": ("", "--distill", "trained without a teacher", "--distill", "drop it"),
+    "qat_act": ("dynamic", "--qat-act", "trained with dynamic activation qdq",
+                "--qat-act static", "drop it"),
+    "qat": ("", "--qat", "trained dense", "--qat", "drop --qat"),
+}
+
+
+def _check_resume(ckpt_dir: str, meta_path: str, run_meta: dict, log, native) -> None:
+    """The JAX package's resume checks (vit_cpp_tpu/finetune.py:865-971):
+    the saved run's meta must exist and match the requested settings; a
+    meta that predates a recorded key is accepted with a warning unless
+    the request departs from what such a run trained with."""
+    # a checkpoint without its sibling meta cannot be validated
+    if not os.path.exists(meta_path):
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} has no {meta_path}; its "
+            "batching cannot be validated — use a fresh --ckpt-dir"
+        )
+    with open(meta_path) as f:
+        saved = json.load(f)
+    # `epochs` may grow on resume unless the schedule has a horizon (the
+    # cosine length derives from the total)
+    strict = dict(run_meta)
+    if run_meta["schedule"] == "const":
+        strict.pop("epochs")
+    missing = [k for k in strict if k not in saved]
+    native_img, native_patch = native
+    if "img_size" in missing and run_meta["img_size"] != native_img:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} predates --img-size recording "
+            f"(trained at the native {native_img}); resuming at "
+            f"{run_meta['img_size']} would not replay the original run — drop "
+            "--img-size or use a fresh --ckpt-dir"
+        )
+    if "patch_size" in missing and run_meta["patch_size"] != native_patch:
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} predates --patch-size "
+            f"recording (trained at the native patch "
+            f"{native_patch}); resuming at patch {run_meta['patch_size']} "
+            "would not replay the original run — drop --patch-size "
+            "or use a fresh --ckpt-dir"
+        )
+    for key, (off, flag, trained, resuming, fix) in _PREDATES.items():
+        if key in missing and run_meta[key] != off:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} predates {flag} recording ({trained}); "
+                f"resuming with {resuming} would not replay the original run — "
+                f"{fix} or use a fresh --ckpt-dir"
+            )
+    if missing:
+        log(
+            f"finetune: warning — {meta_path} predates recording of "
+            f"{missing}; those settings cannot be validated against "
+            "the original run"
+        )
+    theirs = {k: saved.get(k, strict[k]) for k in strict}
+    if theirs != strict:
+        diff = {k: (theirs[k], strict[k]) for k in strict if theirs[k] != strict[k]}
+        raise ValueError(
+            f"checkpoint at {ckpt_dir} was written with different "
+            f"settings (saved, requested): {diff}; resuming would not "
+            "replay the original run — rerun with the original "
+            "settings or use a fresh --ckpt-dir"
+        )
 
 
 def _check_moe(hp, moe: int, moe_every: int, moe_top_k: int, moe_capacity: float, *,

@@ -9,8 +9,9 @@ the same weights give the same file bytes as the JAX package's
 dequantized to f32 by this package's codec (re-quantize the output with
 cli/quantize.py). The families this package loads are covered: plain,
 distilled (dist_token + head_dist), registers, norm_pre, avg pooling,
-CLIP and V-MoE (router and experts per MoE layer, the `meta.moe` marker;
-the writer keeps routers f32 at ftype 1).
+CLIP, SigLIP's attention pooling (attn_pool) and V-MoE (router and
+experts per MoE layer, the `meta.moe` marker; the writer keeps routers
+f32 at ftype 1).
 """
 
 from __future__ import annotations
@@ -73,6 +74,14 @@ def params_to_state_dict(params: Dict[str, Any], hp: VitHParams) -> Dict[str, np
     if hp.hidden_act == "quick_gelu":
         # CLIP family marker: hparams no tensor's presence can declare
         out["meta.clip"] = np.ones((1,), np.float32)
+    if "attn_pool" in params:  # SigLIP attention pooling
+        ap = params["attn_pool"]
+        out["attn_pool.probe"] = _np(ap["probe"]).reshape(1, 1, h)
+        for file_name, leaf in (("qkv", ap["qkv"]), ("proj", ap["proj"]), ("norm", ap["norm"]),
+                                ("mlp.fc1", ap["fc1"]), ("mlp.fc2", ap["fc2"])):
+            out[f"attn_pool.{file_name}.weight"] = (
+                _np(leaf["scale"]) if file_name == "norm" else _kernel_to_torch(leaf["kernel"]))
+            out[f"attn_pool.{file_name}.bias"] = _np(leaf["bias"])
     if "moe" in params:
         from vit_cpp_tpu_torch.models.vit import moe_layer_params
 

@@ -23,7 +23,9 @@ attention of the training path (safe-softmax kernel forward, the
 backward kernel backward), "xla" the composed split-head attention.
 `mm_impl` goes to every linear of the blocks and the head: "pallas" runs
 block-quantized (QuantLinear) weights through the dequantizing-matmul
-kernel (ops/qmatmul.py); dense and Int8Linear weights ignore it.
+kernel (ops/qmatmul.py); "qat" fake-quantizes the inputs of dense ones
+(quant/qat.py; the attention pooling stays float, and a V-MoE tree
+refuses it); other dense and Int8Linear weights ignore it.
 
 `pad_tokens=True` pads the token axis to a multiple of 8 after the
 embedding; the attention kernel's key mask (`kv`, the real token count)
@@ -87,6 +89,13 @@ def embed(params: Dict[str, Any], images: torch.Tensor, hp: VitHParams) -> torch
     return x
 
 
+def _linear(x: torch.Tensor, leaf: Dict[str, Any], mm_impl: str) -> torch.Tensor:
+    """A block or head linear: its kernel and bias, and the static
+    activation scale that quantization-aware training attaches beside
+    them (quant/qat.py::inject_act_scales)."""
+    return linear(x, leaf["kernel"], leaf["bias"], impl=mm_impl, act_scale=leaf.get("act_scale"))
+
+
 def _attn_half(
     x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
     tap=None, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None,
@@ -99,7 +108,7 @@ def _attn_half(
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
     if tap is not None:
         tap("qkv_in", y)
-    qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"], impl=mm_impl)
+    qkv = _linear(y, bp["qkv"], mm_impl)
     if attn_impl in ("pallas", "pallas-fast"):
         o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast", kv=kv, sizes=sizes)
     elif attn_impl == "pallas-train":
@@ -111,7 +120,7 @@ def _attn_half(
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     if tap is not None:
         tap("proj_in", o)
-    return x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"], impl=mm_impl), qkv
+    return x + _linear(o, bp["proj"], mm_impl), qkv
 
 
 def _mlp_half(
@@ -121,11 +130,11 @@ def _mlp_half(
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
     if tap is not None:
         tap("fc1_in", y)
-    y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"], impl=mm_impl)
+    y = _linear(y, bp["fc1"], mm_impl)
     y = mlp_act(hp.hidden_act)(y)
     if tap is not None:
         tap("fc2_in", y)
-    y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"], impl=mm_impl)
+    y = _linear(y, bp["fc2"], mm_impl)
     return x + y
 
 
@@ -201,7 +210,11 @@ def attention_pool(
     `sizes` (B, T) the cross-attention is proportional. The packed
     in_proj [q; k; v] runs whole on the probe (q) and on the tokens (k,
     v), since a QuantLinear kernel cannot be column-sliced; the
-    one-query attention is the composed one, as in the JAX package."""
+    one-query attention is the composed one, as in the JAX package. Its
+    leaves are never quantized at load, so quantization-aware training
+    (mm_impl "qat") leaves it float too."""
+    if mm_impl == "qat":
+        mm_impl = "xla"
     b, t, h = x.shape
     nh, hd = hp.num_attention_heads, hp.head_dim
     kern, bias = ap["qkv"]["kernel"], ap["qkv"]["bias"]
@@ -251,13 +264,8 @@ def _head(
             tap("head_in", pooled)
         if features:
             return (pooled[:, 0] + pooled[:, 1]) * 0.5
-        return (
-            linear(pooled[:, 0], params["head"]["kernel"], params["head"]["bias"], impl=mm_impl)
-            + linear(
-                pooled[:, 1], params["head_dist"]["kernel"], params["head_dist"]["bias"],
-                impl=mm_impl,
-            )
-        ) * 0.5
+        return (_linear(pooled[:, 0], params["head"], mm_impl)
+                + _linear(pooled[:, 1], params["head_dist"], mm_impl)) * 0.5
     elif hp.seq_len is not None:
         pooled = layernorm(x[:, : hp.seq_len], norm["scale"], norm["bias"], hp.eps)
     elif hp.global_pool == "avg":
@@ -282,7 +290,7 @@ def _head(
             "serve embeddings (features=True / embed surfaces) or "
             "fine-tune to attach a head"
         )
-    return linear(pooled, params["head"]["kernel"], params["head"]["bias"], impl=mm_impl)
+    return _linear(pooled, params["head"], mm_impl)
 
 
 def forward(

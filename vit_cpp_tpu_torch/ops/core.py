@@ -25,6 +25,7 @@ from vit_cpp_tpu_torch.ops.flash_attention import flash_attention
 from vit_cpp_tpu_torch.ops.int8_matmul import w8a8_matmul
 from vit_cpp_tpu_torch.ops.qmatmul import quant_matmul
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
+from vit_cpp_tpu_torch.quant.qat import fake_quant_act, fake_quant_act_static
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 
@@ -65,16 +66,23 @@ def linear(
     bias: Optional[torch.Tensor] = None,
     *,
     impl: str = "xla",
+    act_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """y = x @ kernel (+ bias). kernel is a dense (in, out) tensor, a
     QuantLinear dequantized inside the matmul (`impl` "pallas" runs the
     kernel, any other value the plain dequantize + matmul), or an
-    Int8Linear running W8A8. A dense kernel ignores `impl`."""
+    Int8Linear running W8A8. A dense kernel ignores `impl` but "qat":
+    quantization-aware training (quant/qat.py), whose kernel was already
+    fake-quantized, then fake-quantizes x as the W8A8 matmul quantizes
+    its activations, per token, or per tensor with the static
+    `act_scale` that rides the block dict (--qat-act static)."""
     if isinstance(kernel, Int8Linear):
         y = w8a8_matmul(x, kernel)
     elif isinstance(kernel, QuantLinear):
         y = quant_matmul(x, kernel, impl=impl)
     else:
+        if impl == "qat":
+            x = fake_quant_act(x) if act_scale is None else fake_quant_act_static(x, act_scale)
         # bf16 operands accumulate in f32 and round once, as the JAX
         # dot(preferred_element_type=f32).astype(x.dtype)
         y = torch.matmul(x, kernel.to(x.dtype))

@@ -1,17 +1,22 @@
-"""Fine-tuning step on one device.
+"""Fine-tuning steps on one device.
 
 Counterpart of vit_cpp_tpu/parallel/train.py for a single device (no
 mesh): the classifier loss through the training forward (fused attention
 whose backward is the hand-written kernel, ops/flash_attention.py), an
 AdamW update that reproduces the JAX package's optax chain, gradient
-accumulation and mixup. PyTorch runs eagerly, so a step is plain Python
-over the parameter tree; the parameters are updated in place.
+accumulation and mixup; the scene-text sequence loss (ViTSTR),
+knowledge distillation from a frozen teacher, LoRA adapters
+(models/lora.py) and quantization-aware training (`qat=`, quant/qat.py)
+on every loss. PyTorch runs eagerly, so a step is plain Python over the
+parameter tree; the parameters are updated in place.
 
 The optimizer equals `optax.adamw(lr, weight_decay)` (b1 0.9, b2 0.999,
 eps 1e-8, decay on every leaf) behind an optional
 `optax.clip_by_global_norm`, with the learning rate of the first update
 at the schedule's value for count 0 (0 under warmup), as optax evaluates
-it.
+it. `mu_dtype="bf16"` stores the first moment in bf16 as
+`optax.adamw(mu_dtype=jnp.bfloat16)` does (`AdamWBf16Mu`); f32 runs keep
+torch.optim.AdamW.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.models.vit import forward
+from vit_cpp_tpu_torch.quant.qat import fake_quant_params, inject_act_scales
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -59,12 +65,82 @@ def lr_factor(schedule: str, total_steps: int, warmup_steps: int):
     return factor
 
 
+class AdamWBf16Mu(torch.optim.Optimizer):
+    """AdamW with its first moment stored in bf16, in optax's order
+    (scale_by_adam(mu_dtype=bf16), add_decayed_weights, the learning
+    rate), step for step:
+
+        mu32 = (1 - b1) * g + bf16(bf16(b1) * mu)   (the JAX package's
+               weakly typed b1 * mu is a bf16 product)
+        nu   = (1 - b2) * g * g + b2 * nu
+        u    = (mu32 / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
+        p   += -lr * (u + wd * p)
+        mu   = bf16(mu32)
+
+    The update reads the f32 sum; only the stored moment is rounded.
+    Multi-tensor (torch._foreach_*) ops; `load_state_dict` keeps the
+    moment in bf16 (torch.optim casts state to the parameter's dtype)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            b1, b2 = group["betas"]
+            for p in ps:
+                if not self.state[p]:
+                    self.state[p].update(
+                        step=0,
+                        exp_avg=torch.zeros_like(p, dtype=torch.bfloat16),
+                        exp_avg_sq=torch.zeros_like(p),
+                    )
+                self.state[p]["step"] += 1
+            t = self.state[ps[0]]["step"]
+            grads = [p.grad for p in ps]
+            mus = [self.state[p]["exp_avg"] for p in ps]
+            nus = [self.state[p]["exp_avg_sq"] for p in ps]
+            b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
+            decayed = torch._foreach_mul(mus, b1_bf16)  # bf16 products
+            mu32 = torch._foreach_mul(grads, 1.0 - b1)
+            for m32, d in zip(mu32, decayed):
+                m32.add_(d.float())
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, g2)
+            for m, m32 in zip(mus, mu32):
+                m.copy_(m32)
+            # optax's bias corrections: 1 - b^t in f32
+            bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
+            bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
+            torch._foreach_div_(mu32, bc1)
+            den = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(mu32, den)
+            if group["weight_decay"]:
+                torch._foreach_add_(mu32, torch._foreach_mul(ps, group["weight_decay"]))
+            torch._foreach_mul_(mu32, -group["lr"])
+            torch._foreach_add_(ps, mu32)
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+
 @dataclasses.dataclass
 class Optimizer:
     """AdamW + learning-rate schedule + global-norm clipping over a list
     of parameters (the trainable leaves; frozen leaves are not in it)."""
 
-    adamw: torch.optim.AdamW
+    adamw: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     clip_norm: float = 0.0
 
@@ -108,14 +184,18 @@ def make_optimizer(
     total_steps: int = 0,
     warmup_steps: int = 0,
     clip_norm: float = 0.0,
+    mu_dtype: str = "f32",
 ) -> Optimizer:
     """AdamW over `params` with an optional cosine decay + linear warmup
     (`total_steps`: optimizer updates over the whole run) and global-norm
-    clipping before the update (`clip_norm` > 0)."""
+    clipping before the update (`clip_norm` > 0). `mu_dtype="bf16"` stores
+    the first moment in bf16 (AdamWBf16Mu): one bf16 moment read and
+    write per step instead of f32 ones."""
     factor = lr_factor(schedule, total_steps, warmup_steps)
-    adamw = torch.optim.AdamW(
-        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
-    )
+    if mu_dtype not in ("f32", "bf16"):
+        raise ValueError(f"mu_dtype must be f32|bf16, got {mu_dtype!r}")
+    opt = torch.optim.AdamW if mu_dtype == "f32" else AdamWBf16Mu
+    adamw = opt(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
     scheduler = torch.optim.lr_scheduler.LambdaLR(adamw, factor)
     return Optimizer(adamw, scheduler, clip_norm)
 
@@ -151,17 +231,26 @@ MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
 
 
-def _log_probs(params, images, hp: VitHParams, tome: int = 0):
-    """(f32 log-softmax of the training forward's logits, the V-MoE
-    auxiliary term: 0.01 load_balance + 1e-3 router_z averaged over the
-    MoE layers, 0 for a dense model)."""
-    out = forward(params, images, hp, attn_impl="pallas-train", tome=tome,
-                  moe_aux=bool(hp.num_experts))
-    moe_term = 0.0
+def qat_params(params, qat: str, qat_scales=None):
+    """The tree the QAT forward runs: the served kernels fake-quantized
+    (straight-through), the frozen static activation scales beside them
+    with --qat-act static. The dense tree when `qat` is empty."""
+    if not qat:
+        return params
+    params = fake_quant_params(params, qat)
+    return params if qat_scales is None else inject_act_scales(params, qat_scales)
+
+
+def _logits(params, images, hp: VitHParams, tome: int = 0, qat: str = "", qat_scales=None):
+    """(the training forward's logits, the V-MoE auxiliary term: 0.01
+    load_balance + 1e-3 router_z averaged over the MoE layers, 0 for a
+    dense model)."""
+    out = forward(qat_params(params, qat, qat_scales), images, hp, attn_impl="pallas-train",
+                  mm_impl="qat" if qat else "xla", tome=tome, moe_aux=bool(hp.num_experts))
     if hp.num_experts:
         out, aux = out
-        moe_term = MOE_LB_COEF * aux["load_balance"] + MOE_Z_COEF * aux["router_z"]
-    return torch.log_softmax(out.float(), dim=-1), moe_term
+        return out, MOE_LB_COEF * aux["load_balance"] + MOE_Z_COEF * aux["router_z"]
+    return out, 0.0
 
 
 def _nll(logp: torch.Tensor, labels: torch.Tensor, smooth: float) -> torch.Tensor:
@@ -175,28 +264,94 @@ def _nll(logp: torch.Tensor, labels: torch.Tensor, smooth: float) -> torch.Tenso
 
 
 def cross_entropy_loss(
-    params, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0
+    params, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0,
+    qat: str = "", qat_scales=None,
 ) -> torch.Tensor:
     """Mean cross entropy of the training forward (f32 log-softmax), plus
     the router's auxiliary losses for a V-MoE model; `tome=r` trains
     through ToMe merging (the matching gets no gradient, the attention
-    kernels take the merged-token sizes both ways)."""
-    logp, moe_term = _log_probs(params, images, hp, tome)
-    return _nll(logp, labels, smooth) + moe_term
+    kernels take the merged-token sizes both ways); `qat=FMT` through
+    FMT's serving quantization, with the static activation scales
+    `qat_scales` (quant/qat.py::measure_act_scales) when given."""
+    logits, moe_term = _logits(params, images, hp, tome, qat, qat_scales)
+    return _nll(torch.log_softmax(logits.float(), dim=-1), labels, smooth) + moe_term
+
+
+def vitstr_cross_entropy_loss(
+    params, images, targets, hp: VitHParams, qat: str = "", qat_scales=None
+) -> torch.Tensor:
+    """Scene-text sequence loss: targets (B, seq_len) int, -1 masked
+    (position 0, [GO], and everything after the stop token); the mean
+    over the valid positions."""
+    logits, _ = _logits(params, images, hp, qat=qat, qat_scales=qat_scales)
+    logp = torch.log_softmax(logits.float(), dim=-1)  # (B, S, V)
+    mask = targets >= 0
+    safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
+    nll = -torch.gather(logp, 2, safe[..., None])[..., 0]
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def distill_cross_entropy_loss(
+    params, teacher_params, images, labels, hp: VitHParams, teacher_hp: VitHParams,
+    alpha: float, tau: float, mode: str, smooth: float = 0.0, tome: int = 0,
+    qat: str = "", qat_scales=None,
+) -> torch.Tensor:
+    """Knowledge distillation (Hinton et al. 2015): the student trains
+    against the labels and a frozen teacher's logits on the same batch,
+
+      soft: (1-alpha)*CE(s, y) + alpha * tau^2 * KL(T(t/tau) || T(s/tau))
+      hard: (1-alpha)*CE(s, y) + alpha * CE(s, argmax(t))
+
+    (the KL up to the teacher's entropy). The teacher runs the plain
+    inference graph (composed attention, no gradient); the student the
+    training forward, with ToMe and QAT as cross_entropy_loss."""
+    if mode not in ("soft", "hard"):
+        raise ValueError(f"distill mode must be soft|hard, got {mode!r}")
+    with torch.no_grad():
+        t_logits = forward(teacher_params, images, teacher_hp).float()
+    logits, _ = _logits(params, images, hp, tome, qat, qat_scales)
+    logits = logits.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = _nll(logp, labels, smooth)
+    if mode == "soft":
+        t_prob = torch.softmax(t_logits / tau, dim=-1)
+        s_logp = torch.log_softmax(logits / tau, dim=-1)
+        kd = -(tau * tau) * (t_prob * s_logp).sum(dim=-1).mean()
+    else:
+        kd = -torch.gather(logp, 1, t_logits.argmax(dim=-1)[:, None]).mean()
+    return (1.0 - alpha) * ce + alpha * kd
+
+
+def lora_cross_entropy_loss(
+    trainable, base_params, images, labels, hp: VitHParams, alpha: float,
+    smooth: float = 0.0, tome: int = 0, qat: str = "", qat_scales=None, seq: bool = False,
+) -> torch.Tensor:
+    """LoRA loss: the rank-r adapters and the head merged into the frozen
+    base (models/lora.py::merge_lora), then the classifier loss, or the
+    sequence loss with `seq` (ViTSTR targets). QAT applies to the merged
+    kernels, the weights a fold-then-quantize export serves."""
+    from vit_cpp_tpu_torch.models.lora import merge_lora
+
+    merged = merge_lora(base_params, trainable, alpha)
+    if seq:
+        return vitstr_cross_entropy_loss(merged, images, labels, hp, qat, qat_scales)
+    return cross_entropy_loss(merged, images, labels, hp, smooth, tome, qat, qat_scales)
 
 
 def _mixed_cross_entropy_loss(
     params, images, labels, labels2, lam, hp: VitHParams, smooth: float = 0.0,
-    tome: int = 0,
+    tome: int = 0, qat: str = "", qat_scales=None,
 ) -> torch.Tensor:
     """Mixup loss: one forward on the pre-mixed batch, CE against both
     label sets weighted by the mixing coefficient."""
-    logp, moe_term = _log_probs(params, images, hp, tome)
+    logits, moe_term = _logits(params, images, hp, tome, qat, qat_scales)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     return (lam * _nll(logp, labels, smooth) + (1.0 - lam) * _nll(logp, labels2, smooth)
             + moe_term)
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+def update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """Backpropagate `loss`, step the optimizer; returns the loss."""
     state.optimizer.zero_grad()
     loss.backward()
     state.optimizer.step()
@@ -205,43 +360,66 @@ def _update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
 
 
 def train_step(
-    state: TrainState, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0
+    state: TrainState, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0,
+    qat: str = "", qat_scales=None,
 ) -> torch.Tensor:
     """One update; returns the loss of the batch (before the update)."""
-    return _update(state, cross_entropy_loss(state.params, images, labels, hp, smooth, tome))
+    return update(state, cross_entropy_loss(state.params, images, labels, hp, smooth, tome,
+                                             qat, qat_scales))
+
+
+def train_step_lora(
+    state: TrainState, base_params, images, labels, hp: VitHParams, alpha: float,
+    smooth: float = 0.0, tome: int = 0, qat: str = "", qat_scales=None, seq: bool = False,
+) -> torch.Tensor:
+    """One LoRA update: state.params is the {lora, head(, head_dist)}
+    tree (models/lora.py::lora_trainable); base_params stays frozen."""
+    return update(state, lora_cross_entropy_loss(
+        state.params, base_params, images, labels, hp, alpha, smooth, tome, qat, qat_scales,
+        seq))
 
 
 def train_step_mixup(
     state: TrainState, images, labels, labels2, lam, hp: VitHParams,
-    smooth: float = 0.0, tome: int = 0,
+    smooth: float = 0.0, tome: int = 0, qat: str = "", qat_scales=None,
 ) -> torch.Tensor:
     """One update on a mixup batch (ops/augment.mixup_batch): images are
     already mixed; `labels2 = labels[perm]`."""
-    return _update(
-        state,
-        _mixed_cross_entropy_loss(state.params, images, labels, labels2, lam, hp, smooth, tome),
-    )
+    return update(state, _mixed_cross_entropy_loss(
+        state.params, images, labels, labels2, lam, hp, smooth, tome, qat, qat_scales))
 
 
 def train_step_accum(
     state: TrainState, images, labels, hp: VitHParams, accum: int,
-    smooth: float = 0.0, tome: int = 0,
+    smooth: float = 0.0, tome: int = 0, qat: str = "", qat_scales=None, seq: bool = False,
 ) -> torch.Tensor:
     """One update from `accum` sequential micro-batches of (accum * B, ...)
     images: each runs its own forward and backward, so peak memory is one
-    micro-batch's activations. Every micro-batch has B targets, so the JAX
-    package's token weighting gives each the weight 1/accum, and the update
-    equals the one on the big batch."""
+    micro-batch's activations. Micro-batches weigh by their targets, as
+    in the JAX package: every classifier micro-batch has B (1/accum
+    each, the update of the big batch); with `seq` ((B, seq_len) ViTSTR
+    targets) each weighs by its valid positions, which gives the masked
+    mean over the whole batch."""
     micro = images.shape[0] // accum
     if micro * accum != images.shape[0]:
         raise ValueError(f"batch {images.shape[0]} is not a multiple of accum {accum}")
     state.optimizer.zero_grad()
     loss_sum = torch.zeros((), device=images.device)
+    if seq:
+        counts = [max(int((labels[i * micro:(i + 1) * micro] >= 0).sum()), 1)
+                  for i in range(accum)]
+        weights = [c / sum(counts) for c in counts]
     for i in range(accum):
         sl = slice(i * micro, (i + 1) * micro)
-        loss = cross_entropy_loss(state.params, images[sl], labels[sl], hp, smooth, tome)
-        (loss / accum).backward()
+        if seq:
+            loss = vitstr_cross_entropy_loss(state.params, images[sl], labels[sl], hp, qat,
+                                             qat_scales) * weights[i]
+            loss.backward()
+        else:
+            loss = cross_entropy_loss(state.params, images[sl], labels[sl], hp, smooth, tome,
+                                      qat, qat_scales)
+            (loss / accum).backward()
         loss_sum += loss.detach()
     state.optimizer.step()
     state.step += 1
-    return loss_sum / accum
+    return loss_sum if seq else loss_sum / accum

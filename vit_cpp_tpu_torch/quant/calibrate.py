@@ -29,7 +29,7 @@ from typing import Any, Dict
 import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
-from vit_cpp_tpu_torch.quant.int8 import Int8Linear
+from vit_cpp_tpu_torch.quant.int8 import Int8Linear, true_div
 
 _GEMMS = ("qkv", "proj", "fc1", "fc2")
 # V-MoE trees take no static scales (the JAX engine's refusal,
@@ -129,11 +129,19 @@ def calibrate_act_scales(
     per block site, (1, 1) for the head(s), which share one scale."""
     _require_int8(params, "calibrate_act_scales")
     maxima = collect_act_maxima(params, images, hp, attn_impl=attn_impl)
-    scales = {
-        name: torch.clamp(m.float() * margin / 127.0, min=1e-12)[..., None, None]
+    return _attach(params, act_scales_from_maxima(maxima, margin))
+
+
+def act_scales_from_maxima(
+    maxima: Dict[str, torch.Tensor], margin: float
+) -> Dict[str, torch.Tensor]:
+    """collect_act_maxima's output -> static scales absmax * margin / 127,
+    at least 1e-12: (L, 1, 1) per block site, (1, 1) for the head. The
+    division is a true one on every device (quant/int8.py::true_div)."""
+    return {
+        name: torch.clamp(true_div(m.float() * margin, 127.0), min=1e-12)[..., None, None]
         for name, m in maxima.items()
     }
-    return _attach(params, scales)
 
 
 def attach_act_scales(params: Dict[str, Any], scales: Dict[str, Any]) -> Dict[str, Any]:

@@ -49,11 +49,19 @@ class Int8Linear:
         )
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c, a true division on every device: PyTorch's CUDA kernels
+    divide by a Python scalar through its reciprocal, which can round one
+    ulp away from the quotient the CPU and the JAX package compute (and a
+    scale an ulp off moves the codes that lie on a rounding boundary)."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
 def channelwise_int8(w: torch.Tensor) -> Int8Linear:
     """Quantize a dense ([L,] in, out) weight to per-output-channel int8."""
     wf = w.float()
     absmax = wf.abs().amax(dim=-2, keepdim=True)
-    scale = absmax / 127.0
+    scale = true_div(absmax, 127.0)
     inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
     codes = torch.clamp(torch.round(wf * inv), -127, 127).to(torch.int8)
     return Int8Linear(codes=codes, scale=scale[..., 0, :])

@@ -1,20 +1,203 @@
-"""The static-scale sidecar: JSON scales beside a gguf, read by
-`VitEngine(act_scales=...)` and the CLIs' `--act-scales`.
+"""Quantization-aware training: fake quantization with straight-through
+gradients, and the static-scale sidecar.
 
-Counterpart of save_act_scales / load_act_scales of
-vit_cpp_tpu/quant/qat.py (:301-331), which write and read the same file.
-Quantization-aware training itself (fake-quant forward, `--qat`,
-`--qat-act`) is not ported yet: it comes with the training-extras slice.
+Counterpart of vit_cpp_tpu/quant/qat.py. The serving paths add
+quantization noise the dense fine-tune never sees: the block codecs on
+disk (quant/blocks.py), the load-time channelwise int8 of the W8A8 path
+(quant/int8.py) and the per-token activation quantization inside the
+int8 matmul (ops/int8_matmul.py). QAT trains through the same noise:
+
+  fake_quant_params(p, "q4_0")   == dequant(channelwise_int8(dequant(
+                                      Q4_0_blocks(w))))  per targeted leaf
+  fake_quant_act(x)              == sx * round(x / sx), sx per-token absmax/127
+
+each rounding wrapped in a straight-through estimator (identity gradient;
+the rounded value is computed without autograd) so the f32 master weights
+keep training. The values are the JAX package's bit for bit, on the CPU
+and on the card:
+
+- the STE is `(x - x.detach()) + q.detach()`, exactly q for finite x
+  (`x + (q - x).detach()` adds one f32 rounding);
+- Q8_0 codes round half away from zero, activations and channelwise int8
+  half to even (torch.round, as jnp.round);
+- every division by a constant divides by a tensor (quant/int8.py::
+  true_div): on the card PyTorch turns a division by a Python scalar
+  into a product with its reciprocal, which rounds differently;
+- block scales and minima round-trip through f16 (`_f16`); the codes use
+  the f32 scale, the dequantization the f16-stored one.
+
+`save_act_scales` / `load_act_scales` (:301-331 there) write and read the
+sidecar JSON that `VitEngine(act_scales=...)` and `--act-scales` take.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
+from vit_cpp_tpu_torch.quant.calibrate import act_scales_from_maxima, collect_act_maxima
+from vit_cpp_tpu_torch.quant.int8 import channelwise_int8, true_div
+
+QK = 32  # ggml block size (gguf/dtypes.py)
+
+QAT_FORMATS = ("w8a8", "q8_0", "q4_0", "q4_1", "q5_0", "q5_1")
+
 _GEMMS = ("qkv", "proj", "fc1", "fc2")
+
+
+def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Straight-through: the value is exactly q, the gradient that of the
+    identity on x ((x - x.detach()) is +0.0 for finite x)."""
+    return (x - x.detach()) + q.detach()
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """C roundf: half away from zero (torch.round is half to even), the
+    Q8_0 codes' rule (quant/blocks.py)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def _inverse(d: torch.Tensor, nonzero: torch.Tensor) -> torch.Tensor:
+    return torch.where(nonzero, 1.0 / d, torch.zeros_like(d))
+
+
+def fake_quant_act_static(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
+    """Per-tensor static-scale int8 quantize-dequantize with STE, the W8A8
+    matmul's static branch: codes = round(clip(x / sx, +-127)), value =
+    codes * sx, clipping included. `act_scale` ([1,] 1) is frozen."""
+    xf = x.float()
+    with torch.no_grad():
+        sx = act_scale.float()
+        q = torch.round(torch.clamp(xf / sx, -127.0, 127.0)) * sx
+    return _ste(xf, q).to(x.dtype)
+
+
+def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
+    """Per-token dynamic int8 quantize-dequantize with STE, the W8A8
+    matmul's activation quantization: sx = absmax(token) * (1/127) in f32,
+    codes = round(x * (1/sx)), value = codes * sx."""
+    xf = x.float()
+    with torch.no_grad():
+        absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+        sx = absmax * (1.0 / 127.0)
+        q = torch.round(xf * _inverse(sx, sx > 0)) * sx
+    return _ste(xf, q).to(x.dtype)
+
+
+def _block_view(w: torch.Tensor) -> torch.Tensor:
+    """([L,] in, out) -> ([L,] in/QK, QK, out): blocks run along the
+    contraction axis in groups of 32, QuantLinear's layout."""
+    if w.shape[-2] % QK:
+        raise ValueError(f"in_features {w.shape[-2]} not a multiple of QK={QK}")
+    return w.reshape(*w.shape[:-2], w.shape[-2] // QK, QK, w.shape[-1])
+
+
+def _f16(x: torch.Tensor) -> torch.Tensor:
+    """Round-trip through f16: block scales and minima are stored as f16."""
+    return x.to(torch.float16).float()
+
+
+def _block_qdq(w: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Quantize-dequantize a dense ([L,] in, out) kernel through a ggml
+    block codec, bit for bit quant/blocks.py's quantize + dequantize:
+
+      q8_0      d = absmax/127 (f16), codes = roundf(x/d)
+      q4_0/q5_0 d = signed_absmax / -(levels/2) (f16),
+                codes = min(trunc(x/d + levels/2 + 0.5), levels-1)
+      q4_1/q5_1 d = (max-min)/(levels-1), m = min (both f16),
+                codes = min(trunc((x-min)/d + 0.5), levels-1)
+    """
+    xb = _block_view(w.float())
+    if fmt == "q8_0":
+        amax = torch.amax(torch.abs(xb), dim=-2, keepdim=True)
+        d = true_div(amax, 127.0)
+        codes = _round_half_away(xb * _inverse(d, d != 0.0))
+        q = codes * _f16(d)
+    elif fmt in ("q4_0", "q5_0"):
+        levels = 16 if fmt == "q4_0" else 32
+        half = levels // 2
+        # the signed value at the absmax position, by the JAX package's
+        # where(|max| >= |min|) rule
+        mx = torch.amax(xb, dim=-2, keepdim=True)
+        mn = torch.amin(xb, dim=-2, keepdim=True)
+        signed_max = torch.where(torch.abs(mx) >= torch.abs(mn), mx, mn)
+        d = true_div(signed_max, -float(half))
+        codes = torch.clamp(torch.trunc(xb * _inverse(d, d != 0.0) + (half + 0.5)),
+                            max=float(levels - 1))
+        q = (codes - half) * _f16(d)
+    elif fmt in ("q4_1", "q5_1"):
+        levels = 16 if fmt == "q4_1" else 32
+        mn = torch.amin(xb, dim=-2, keepdim=True)
+        mx = torch.amax(xb, dim=-2, keepdim=True)
+        d = true_div(mx - mn, float(levels - 1))
+        codes = torch.clamp(torch.trunc((xb - mn) * _inverse(d, d != 0.0) + 0.5),
+                            max=float(levels - 1))
+        q = codes * _f16(d) + _f16(mn)
+    else:
+        raise ValueError(f"unknown block format {fmt!r}")
+    return q.reshape(w.shape)
+
+
+def fake_quant_weight(w: torch.Tensor, fmt: str) -> torch.Tensor:
+    """STE quantize-dequantize of one dense kernel through the whole
+    serving chain: "w8a8" is f16 storage then the load-time channelwise
+    int8; a block format is its on-disk codec, then the same channelwise
+    requantization."""
+    wf = w.float()
+    with torch.no_grad():
+        q = channelwise_int8(_f16(wf) if fmt == "w8a8" else _block_qdq(wf, fmt)).dequantize()
+    return _ste(wf, q).to(w.dtype)
+
+
+def fake_quant_params(params: Dict[str, Any], fmt: str) -> Dict[str, Any]:
+    """Fake-quantize the leaves the serving quantizer targets:
+    blocks.{qkv,proj,fc1,fc2}.kernel and the head(s); the patch
+    embedding, attention pooling, norms and biases stay float."""
+    if fmt not in QAT_FORMATS:
+        raise ValueError(f"qat format must be one of {QAT_FORMATS}, got {fmt!r}")
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for name in _GEMMS:
+        blocks[name] = {**blocks[name], "kernel": fake_quant_weight(blocks[name]["kernel"], fmt)}
+    out["blocks"] = blocks
+    for name in ("head", "head_dist"):
+        if name in params:
+            out[name] = {**params[name], "kernel": fake_quant_weight(params[name]["kernel"], fmt)}
+    return out
+
+
+def measure_act_scales(
+    params: Dict[str, Any], images: torch.Tensor, hp, fmt: str, *, margin: float = 1.05
+) -> Dict[str, torch.Tensor]:
+    """Per-site static activation scales for `--qat-act static`: the
+    serving calibrator's maxima and rule (quant/calibrate.py::
+    collect_act_maxima, act_scales_from_maxima) on the fake-quantized
+    model with the composed attention and dense matmuls:
+    {"qkv"|"proj"|"fc1"|"fc2": (L, 1, 1), "head": (1, 1)} f32. The head's
+    input is the pooled readout (the output of SigLIP's attention
+    pooling, both prefix tokens of a distilled tree, the seq_len rows of
+    a sequence head)."""
+    with torch.no_grad():
+        maxima = collect_act_maxima(fake_quant_params(params, fmt), images, hp)
+    return act_scales_from_maxima(maxima, margin)
+
+
+def inject_act_scales(params: Dict[str, Any], scales: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Attach "act_scale" entries beside the targeted kernels so that
+    forward(mm_impl="qat") runs the static fake quantization. Call it on
+    the output of fake_quant_params, inside the loss: the scales are
+    never differentiated."""
+    out = dict(params)
+    blocks = dict(params["blocks"])
+    for name in _GEMMS:
+        blocks[name] = {**blocks[name], "act_scale": scales[name]}
+    out["blocks"] = blocks
+    for name in ("head", "head_dist"):
+        if name in params:
+            out[name] = {**params[name], "act_scale": scales["head"]}
+    return out
 
 
 def save_act_scales(path: str, scales: Dict[str, torch.Tensor], margin: float) -> None:

@@ -184,6 +184,30 @@
       cli.quantize with --mm pallas (49 dequant_matmul launches per
       batch), in process and through `cli.serve`, ViTSTR's through
       recognize_files.
+   m. the AOT serving artifact (phase `aot_paths`): `cli.export_aot -b
+      1,64` at the serving defaults on the f16 file and its --info; the
+      .vitx served by AotEngine in a fresh process that cannot import
+      models.vit, models.params, engine, JAX or the JAX package, the gguf
+      moved away, against the gguf engine's probabilities at B=1 and B=64
+      (1e-5) with 12 attention_qkv launches per batch; the Q8_0 file
+      exported with --mm pallas (49 dequant_matmul + 12 attention_qkv per
+      batch) and the f16 file with --act static --calib-dir assets, each
+      against its gguf engine; `cli.vit`, `cli.serve`, `cli.server
+      --bucket` (over the baked 1 and 64; /v1/embed 404 on a classifier
+      artifact) and `cli.benchmark` on the .vitx as subprocesses; the
+      card artifact refused on the CPU and with no card visible, a CPU
+      artifact refused on the card; the artifact's size, load ms and
+      B=64 / B=1 forwards beside the gguf engine's (median of 20 in
+      turns, one profiled run each);
+   n. stage parity (phase `stage_parity`): models.vit.forward_debug on
+      the card, f32 with TF32 off and bf16 W8A8 with the fast fused
+      attention, against the card machine's CPU in f32, stage by stage
+      (embed, each block, pooled, logits, probabilities), with the first
+      stage over its tolerance and print_t's line of the probabilities;
+   o. the operators' host cost (phase `op_dispatch`): host us per call
+      of attention_qkv and dequant_matmul through torch.ops and through
+      their CUDA implementations called directly, and the Q8_0 --mm
+      pallas B=8 and ToMe r=16 B=64 forwards each way, in turns.
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -3978,6 +4002,436 @@ def training_extras(f16: str, f32: str, tmp: str, card: str) -> tuple:
     return k1, k2
 
 
+# The AOT artifact (phase `aot_paths`): the port's vit-export output served
+# against the gguf engine of the same flags. The artifact's program runs the
+# same kernels on the same operands as the engine's eager forward, so the
+# probabilities agree to the last bits that summation order leaves.
+AOT_TOL = 1e-5
+# forward_debug on the card against the card machine's CPU (f32): each
+# stage's max|card - cpu| over max(1, max|cpu|). The f32 rung (TF32 off,
+# composed attention) differs by summation order; the bf16 W8A8 rung by
+# bf16 rounding and int8 codes. The first stage over its tolerance is
+# reported; the run fails on the final probabilities only (CLI_PROB_TOL for
+# f32, PROB_TOL for W8A8, the bounds of the vit CLI and daemon phases).
+STAGE_TOL = {"f32 xla": 1e-4, "bf16 W8A8 pallas-fast": 5e-2}
+
+# Serves an artifact in a process that cannot import the model code, JAX or
+# the JAX package: the probabilities of each baked batch on the pixels of
+# argv[2] to argv[3] (.npz), and a JSON line with the load time and
+# attention_qkv's launches per batch.
+_AOT_CHILD = r"""
+import json, sys
+for name in ("jax", "vit_cpp_tpu", "vit_cpp_tpu_torch.models.vit",
+             "vit_cpp_tpu_torch.models.params", "vit_cpp_tpu_torch.engine"):
+    sys.modules[name] = None
+import numpy as np, torch
+from vit_cpp_tpu_torch.aot import AotEngine
+from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+engine = AotEngine(sys.argv[1])
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+res, probs = {"load_ms": engine.load_ms, "launches": {}}, {}
+for b in engine.batches:
+    engine.predict_probs_batch(x[:b])
+    torch.cuda.synchronize()
+    KERNEL.reset()
+    p = engine.predict_probs_batch(x[:b])
+    torch.cuda.synchronize()
+    res["launches"][str(b)] = KERNEL.launches
+    probs[str(b)] = p.cpu().numpy()
+np.savez(sys.argv[3], **probs)
+print(json.dumps(res))
+"""
+
+# Loads a card artifact with no card visible: must fail with the message.
+_NO_CARD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["vit_cpp_tpu"] = None
+from vit_cpp_tpu_torch.aot import AotEngine
+try:
+    AotEngine(sys.argv[1])
+except ValueError as e:
+    print(e)
+    sys.exit(3)
+"""
+
+
+def export_cli(*argv: str) -> tuple:
+    """vit_cpp_tpu_torch.cli.export_aot.main in this process: (rc, stdout,
+    stderr, seconds)."""
+    from vit_cpp_tpu_torch.cli import export_aot
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = export_aot.main(list(argv))
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def aot_launches(what: str, engine, pixels, per_batch: dict) -> dict:
+    """One forward of `engine` with the counts set to 0 just before: each
+    kernel of `per_batch` must have launched its count."""
+    for kernel in per_batch:
+        kernel.reset()
+    out = engine.predict_probs_batch(pixels)
+    torch.cuda.synchronize()
+    launches = {kernel.name: kernel.launches for kernel in per_batch}
+    for kernel, each in per_batch.items():
+        if launches[kernel.name] != each:
+            raise AssertionError(f"{what}: {kernel.name} launched {launches[kernel.name]} "
+                                 f"times in one batch (want {each})")
+    return out, launches
+
+
+def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
+    """The AOT serving artifact (phase `aot_paths`) on the synthetic
+    ViT-B/16: `cli.export_aot -b 1,64` at the serving defaults and its
+    --info; the artifact served in a fresh process that cannot import the
+    model code, with the gguf moved away, against the gguf engine's
+    probabilities at B=64 and B=1 (AOT_TOL) with 12 attention_qkv launches
+    per batch; the Q8_0 file exported with --mm pallas (49 dequant_matmul
+    + 12 attention_qkv per batch) and the f16 file with --act static
+    --calib-dir assets, each against its gguf engine; cli.vit, cli.serve,
+    the cli.server daemon with --bucket (over the baked 1 and 64) and
+    cli.benchmark on the artifact, as subprocesses beside those checks;
+    the card artifact refused on the CPU and in a process with no card, a
+    CPU artifact refused on the card; then, the subprocesses done, load ms
+    and the B=64 and B=1 forwards beside the gguf engine's (median of 20
+    in turns, one profiled run each). Returns {path: {kernel name:
+    launches}}."""
+    import shutil
+
+    from vit_cpp_tpu_torch.aot import AotEngine, read_meta
+    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "aot")
+    os.makedirs(d)
+    gguf = os.path.join(d, "vit-b16-synthetic-f16.gguf")
+    shutil.copyfile(f16, gguf)
+    art = os.path.join(d, "vit-b16-w8a8.vitx")
+    rc, _, err, secs = export_cli(gguf, art, "-b", "1,64")
+    if rc != 0:
+        raise AssertionError(f"cli.export_aot -b 1,64: exit {rc}: {err}")
+    log(f"cli.export_aot -b 1,64 (bf16 W8A8 fold, fast fused attention): {err.strip()} "
+        f"in {secs:.1f} s")
+    rc, info, _, _ = export_cli("--info", art)
+    meta = json.loads(info)
+    if rc != 0 or meta != read_meta(art) or meta["platforms"] != ["torch-cuda"]:
+        raise AssertionError(f"cli.export_aot --info: exit {rc}, {info[:500]}")
+    log("cli.export_aot --info: " + json.dumps({k: v for k, v in meta.items()
+                                                if k not in ("id2label", "hparams")}))
+
+    engine, _ = build_engine(gguf, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    pixels = torch.randn((64, 3, 224, 224), generator=gen, device="cuda")
+    want = {b: engine.predict_probs_batch(pixels[:b]).cpu().numpy() for b in (1, 64)}
+    pix = os.path.join(d, "pixels.npy")
+    np.save(pix, pixels.cpu().numpy())
+    os.rename(gguf, gguf + ".moved")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    child = subprocess.Popen([sys.executable, "-c", _AOT_CHILD, art, pix,
+                              os.path.join(d, "p.npz")], cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env)
+    nocard = subprocess.Popen([sys.executable, "-c", _NO_CARD, art], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=dict(env, CUDA_VISIBLE_DEVICES=""))
+    # the front ends on the artifact, as a user runs them
+    paths, bodies = asset_bodies()
+    magpie = os.path.join(HERE, "assets", "magpie.jpeg")
+    val = write_dark_bright(os.path.join(d, "bench", "val"), 4)
+    procs = {
+        "cli.vit": start_module("vit_cpp_tpu_torch.cli.vit", "-m", art, "-i", magpie,
+                                "-k", "5"),
+        "cli.serve": start_module("vit_cpp_tpu_torch.cli.serve", "-m", art, *paths,
+                                  "-b", "8", "-k", "5"),
+        "cli.server": start_module("vit_cpp_tpu_torch.cli.server", "-m", art, "--bucket",
+                                   "--port", "0"),
+        "cli.benchmark": start_module("vit_cpp_tpu_torch.cli.benchmark", art, val, "0",
+                                      os.path.join(d, "bench", "p.csv"), "--ext", ".png"),
+    }
+    out = {}
+
+    art_q8 = os.path.join(d, "vit-b16-q8_0-pallas.vitx")
+    rc, _, err, secs = export_cli(q8, art_q8, "-b", "8", "--mm", "pallas")
+    if rc != 0:
+        raise AssertionError(f"cli.export_aot --mm pallas: exit {rc}: {err}")
+    q8_engine, _ = build_engine(q8, mm="pallas", device="cuda")
+    p, out["vitx Q8_0 --mm pallas B=8"] = aot_launches(
+        "aot Q8_0 --mm pallas", AotEngine(art_q8), pixels[:8], {QMM_KERNEL: 49, KERNEL: 12})
+    err_q8 = float((p - q8_engine.predict_probs_batch(pixels[:8])).abs().max())
+    log(f"cli.export_aot Q8_0 --mm pallas -b 8 in {secs:.1f} s: {err.strip()}; launches per "
+        f"batch {out['vitx Q8_0 --mm pallas B=8']}, max|p_aot - p_gguf| {err_q8:.2e}")
+    del q8_engine
+
+    assets = os.path.join(HERE, "assets")
+    art_st = os.path.join(d, "vit-b16-static.vitx")
+    rc, _, err, secs = export_cli(f16, art_st, "-b", "8", "--act", "static",
+                                  "--calib-dir", assets)
+    if rc != 0:
+        raise AssertionError(f"cli.export_aot --act static: exit {rc}: {err}")
+    live, _ = build_engine(f16, act="static", device="cuda")
+    if not calibrate_engine_from_paths(live, assets):
+        raise AssertionError("static calibration on assets/ rejected by the guardrail")
+    static = AotEngine(art_st)
+    p, out["vitx --act static B=8"] = aot_launches("aot static", static, pixels[:8],
+                                                   {KERNEL: 12})
+    err_st = float((p - live.predict_probs_batch(pixels[:8])).abs().max())
+    log(f"cli.export_aot --act static --calib-dir assets -b 8 in {secs:.1f} s: meta act "
+        f"{static.meta['act']!r}; max|p_aot - p_live static| {err_st:.2e}")
+    act = static.meta["act"]
+    del live, static
+    if act != "static" or max(err_q8, err_st) > AOT_TOL:
+        raise AssertionError(f"aot: Q8_0 pallas off by {err_q8}, static by {err_st}, "
+                             f"meta act {act!r}")
+
+    # cross-device loads
+    try:
+        AotEngine(art, device="cpu")
+        raise AssertionError("a card artifact loaded on the CPU")
+    except ValueError as e:
+        log(f"card artifact on device cpu refused: {e}")
+    tiny = os.path.join(d, "tiny.gguf")
+    write_synthetic_model(tiny, VitHParams(hidden_size=64, num_hidden_layers=2,
+                                           num_attention_heads=2, num_classes=7,
+                                           patch_size=8, img_size=32), ftype=1, seed=0)
+    cpu_art = os.path.join(d, "tiny-cpu.vitx")
+    rc, _, err, _ = export_cli(tiny, cpu_art, "-b", "2", "--device", "cpu")
+    if rc != 0:
+        raise AssertionError(f"cli.export_aot --device cpu: exit {rc}: {err}")
+    try:
+        AotEngine(cpu_art)
+        raise AssertionError("a CPU artifact loaded on the card")
+    except ValueError as e:
+        log(f"CPU artifact on device cuda refused: {e}")
+
+    aot_engine = AotEngine(art)
+    size = os.path.getsize(art)
+    log(f"artifact {os.path.basename(art)}: {size / 1e6:.1f} MB for batches "
+        f"{aot_engine.batches} (blobs {meta['blob_lengths']}); AotEngine.load_ms "
+        f"{aot_engine.load_ms:.1f}, VitEngine.load_ms {engine.load_ms:.1f} (the gguf engine "
+        f"of the same flags) on {card}")
+
+    c_out, c_err = child.communicate(timeout=300)
+    if child.returncode != 0:
+        raise AssertionError(f"artifact without model code: exit {child.returncode}: "
+                             f"{c_err[-3000:]}")
+    res = json.loads(c_out.splitlines()[-1])
+    got = np.load(os.path.join(d, "p.npz"))
+    errs = {b: float(np.abs(got[str(b)] - want[b]).max()) for b in (1, 64)}
+    log(f"artifact served without models.vit, models.params, engine, jax or the gguf "
+        f"(fresh process): load {res['load_ms']:.1f} ms, attention_qkv launches per batch "
+        f"{res['launches']}, max|p_aot - p_gguf| B=1 {errs[1]:.2e}, B=64 {errs[64]:.2e} "
+        f"(tolerance {AOT_TOL:.0e}) on {card}")
+    if res["launches"] != {"1": 12, "64": 12} or max(errs.values()) > AOT_TOL:
+        raise AssertionError(f"artifact: launches {res['launches']}, errors {errs}")
+    os.rename(gguf + ".moved", gguf)
+    nc_out, nc_err = nocard.communicate(timeout=300)
+    if nocard.returncode != 3 or "torch.cuda.is_available() is False" not in nc_out:
+        raise AssertionError(f"card artifact with no card: exit {nocard.returncode}, "
+                             f"{nc_out} {nc_err[-2000:]}")
+    log(f"card artifact in a process with CUDA_VISIBLE_DEVICES='' refused: {nc_out.strip()}")
+
+    images = load_images_rgb_batch(paths)
+    ref = engine.predict_probs_batch(engine.preprocess_images(images + images[:1] * 54))
+    ref = ref[:10].cpu().numpy()
+    want_top = aot_engine.classify_file(magpie, topk=5, verbose=False)
+    gguf_top = engine.classify_file(magpie, topk=5, verbose=False)
+    line = _read_banner(procs["cli.server"], 240)
+    base = line.split(" on ")[1].split()[0]
+    with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+        health = json.loads(resp.read())
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        answers = list(ex.map(lambda b: post(base + "/v1/classify?topk=5", b), bodies))
+    status_embed = post(base + "/v1/embed", bodies[0])[0]
+    with urllib.request.urlopen(base + "/stats", timeout=60) as resp:
+        stats = json.loads(resp.read())
+    procs["cli.server"].send_signal(signal.SIGTERM)
+    worst = 0.0
+    for (code, ans, _), p in zip(answers, ref):
+        if code != 200:
+            raise AssertionError(f"cli.server on the artifact: HTTP {code} {ans}")
+        worst = max(worst, max(abs(e["prob"] - p[e["id"]]) for e in ans["topk"]))
+    log(f"cli.server -m vitx --bucket: {line}; /healthz {json.dumps(health)}; ten assets "
+        f"at once, top-5 vs the gguf engine's B=64 probabilities worst {worst:.2e} "
+        f"(tolerance {PROB_TOL:.0e}); /v1/embed on a classifier artifact HTTP {status_embed}; "
+        f"/stats {json.dumps(stats)}")
+    if health.get("buckets") != [1, 64] or worst > PROB_TOL or status_embed != 404:
+        raise AssertionError("cli.server on the artifact: buckets, answers or embed route off")
+    if procs["cli.server"].wait(timeout=60) != 0:
+        raise AssertionError("cli.server on the artifact exited nonzero on SIGTERM")
+    out_v, err_v = procs["cli.vit"].communicate(timeout=300)
+    lines = [ln for ln in out_v.splitlines() if ln.startswith(" > ")]
+    if procs["cli.vit"].returncode != 0 or lines != [f" > {lab} : {p:.2f}"
+                                                      for _, p, lab in want_top]:
+        raise AssertionError(f"cli.vit on the artifact: {out_v!r} {err_v[-2000:]}")
+    log(f"cli.vit -m vitx: rc 0, top-5 {[c for c, _, _ in want_top]} (the gguf engine's "
+        f"{[c for c, _, _ in gguf_top]}); " + "; ".join(
+            ln.strip() for ln in err_v.splitlines() if "time" in ln))
+    out_s, err_s = procs["cli.serve"].communicate(timeout=300)
+    rows = [ln.split("\t") for ln in out_s.splitlines()]
+    if (procs["cli.serve"].returncode != 0 or [r[0] for r in rows] != paths
+            or "compiled for batch 64; using it (ignoring -b 8)" not in err_s):
+        raise AssertionError(f"cli.serve on the artifact: {out_s!r} {err_s[-2000:]}")
+    for (_, tags), p in zip(rows, ref):
+        first = tags.split(" ")[0].rsplit(":", 1)
+        if abs(float(first[1]) - p.max()) > PROB_TOL + 0.005:
+            raise AssertionError(f"cli.serve on the artifact: {tags!r} vs {p.max()}")
+    log("cli.serve -m vitx: rc 0, 10 lines; " + "; ".join(
+        ln for ln in err_s.strip().splitlines() if ln.startswith("serve:")))
+    out_b, err_b = procs["cli.benchmark"].communicate(timeout=300)
+    with open(os.path.join(d, "bench", "p.csv")) as f:
+        n_rows = len(f.read().splitlines())
+    if (procs["cli.benchmark"].returncode != 0 or n_rows != 8
+            or "compiled for batch 64" not in err_b
+            or not out_b.splitlines()[-1].startswith("Top-1 Accuracy: ")):
+        raise AssertionError(f"cli.benchmark on the artifact: {n_rows} rows, {out_b} {err_b}")
+    log(f"cli.benchmark -m vitx: rc 0, {n_rows} rows, {out_b.splitlines()[-1]}; "
+        + "; ".join(ln for ln in err_b.splitlines() if ln.startswith("benchmark:")))
+
+    _, out["vitx W8A8 -b 1,64 B=64"] = aot_launches("aot W8A8 B=64", aot_engine, pixels,
+                                                    {KERNEL: 12})
+    for b in (64, 1):
+        timed_forwards(f"forward W8A8 bf16 B={b}", {
+            "VitEngine (gguf)": lambda: engine.predict_probs_batch(pixels[:b]),
+            "AotEngine (vitx)": lambda: aot_engine.predict_probs_batch(pixels[:b]),
+        }, card, batch=b)
+    log(f"phase aot_paths: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def op_dispatch_cost(f16: str, q8: str, card: str) -> None:
+    """The host cost of the kernels' PyTorch operators (phase
+    `op_dispatch`): each wrapper goes through torch.ops since the
+    operators were registered; its CUDA implementation called directly is
+    the wrapper as it was before. Host us per call of K1 and K4 at small
+    shapes (200 calls, one sync), then forward_phase's B=8 forward (Q8_0,
+    bf16, --mm pallas, fast fused attention) and tome_paths' r=16 B=64
+    forward (the defaults) each way, median of 20 in turns on the host
+    clock with a sync."""
+    import vit_cpp_tpu_torch.models.vit as model_vit
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+    from vit_cpp_tpu_torch.ops import qmatmul as qm
+
+    def direct_attention(qkv, num_heads, *, fast=False, kv=None, sizes=None):
+        fa._check_args(qkv, num_heads, kv, sizes)
+        return fa._attention_qkv_cuda(qkv, num_heads, fast, kv, sizes)
+
+    def direct_dequant(x, w):
+        qm._flatten(x, w)
+        return qm._dequant_matmul_cuda(x, w.codes, w.scales, w.mins, w.offset, w.out_features)
+
+    @contextlib.contextmanager
+    def way(name):
+        saved = model_vit.attention_qkv, qm.dequant_matmul
+        if name == "direct":
+            model_vit.attention_qkv, qm.dequant_matmul = direct_attention, direct_dequant
+        try:
+            yield
+        finally:
+            model_vit.attention_qkv, qm.dequant_matmul = saved
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    qkv = torch.randn((1, 16, 192), generator=gen, device="cuda").bfloat16()
+    q8_engine = VitEngine(q8, dtype="bf16", attn_impl="pallas-fast", mm_impl="pallas",
+                          device="cuda", verbose=False)
+    w = q8_engine.params["blocks"]["qkv"]["kernel"][0]
+    x = torch.randn((16, w.in_features), generator=gen, device="cuda").bfloat16()
+    calls = {"attention_qkv op": lambda: fa.attention_qkv(qkv, 1, fast=True),
+             "attention_qkv direct": lambda: direct_attention(qkv, 1, fast=True),
+             "dequant_matmul op": lambda: qm.dequant_matmul(x, w),
+             "dequant_matmul direct": lambda: direct_dequant(x, w)}
+    per_call = {k: [] for k in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            per_call[name].append((time.perf_counter() - t0) / 200 * 1e6)
+    log("host us per call, small shapes (min of 3 runs of 200): " + ", ".join(
+        f"{k} {min(v):.1f}" for k, v in per_call.items()) + f" on {card}")
+
+    tome_engine, _ = build_engine(f16, tome=TOME_R, device="cuda")
+    pixels = torch.randn((64, 3, 224, 224), generator=gen, device="cuda")
+    for what, eng, batch in (("Q8_0 --mm pallas bf16 B=8", q8_engine, 8),
+                             (f"defaults --tome {TOME_R} B=64", tome_engine, 64)):
+        times = {"op": [], "direct": []}
+        for name in ("op", "direct", "direct", "op") * 2:
+            with way(name):
+                eng.predict_probs_batch(pixels[:batch])
+                torch.cuda.synchronize()
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    eng.predict_probs_batch(pixels[:batch])
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+        ms = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"op dispatch, forward {what} (median of 20 in turns, host clock with sync): "
+            f"through the operators {ms['op']:.3f} ms, wrappers calling the CUDA "
+            f"implementations directly {ms['direct']:.3f} ms (+{ms['op'] - ms['direct']:.3f} ms, "
+            f"{(ms['op'] / ms['direct'] - 1) * 100:.1f}%) on {card}")
+
+
+def stage_parity(f16: str, card: str) -> None:
+    """forward_debug (phase `stage_parity`) on the card at two rungs, f32
+    (TF32 off, composed attention) and bf16 W8A8 with the fast fused
+    attention (fold off, so that "pooled" is the same readout), against
+    the card machine's CPU in f32, two 224 px images: each stage's
+    max|card - cpu| / max(1, max|cpu|) and the first stage over
+    STAGE_TOL. Fails if the probabilities are off (CLI_PROB_TOL f32,
+    PROB_TOL W8A8) or the fused rung did not launch attention_qkv 12
+    times."""
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.models.vit import forward_debug, print_t
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.precision import matmul_precision
+
+    t0 = time.perf_counter()
+    cpu = VitEngine(f16, dtype="f32", device="cpu", verbose=False)
+    x = torch.randn((2, 3, 224, 224), generator=torch.Generator().manual_seed(16))
+    with torch.inference_mode():
+        ref = forward_debug(cpu.params, x, cpu.hp)
+    del cpu
+    for what, kw, launches, prob_tol in (
+        ("f32 xla", dict(dtype="f32"), 0, CLI_PROB_TOL),
+        ("bf16 W8A8 pallas-fast", dict(dtype="bf16", mm_impl="int8", attn_impl="pallas-fast"),
+         12, PROB_TOL),
+    ):
+        eng = VitEngine(f16, device="cuda", verbose=False, **kw)
+        KERNEL.reset()
+        with torch.inference_mode(), matmul_precision(eng.matmul_precision):
+            got = forward_debug(eng.params, x.cuda(), eng.hp, attn_impl=eng.attn_impl,
+                                mm_impl=eng.mm_impl)
+        torch.cuda.synchronize()
+        n = KERNEL.launches
+        diffs = {k: float((got[k].float().cpu() - ref[k]).abs().max())
+                 / max(1.0, float(ref[k].abs().max())) for k in ref}
+        first = next((k for k, v in diffs.items() if v > STAGE_TOL[what]), None)
+        log(f"stage parity {what} card vs CPU f32: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in diffs.items()) + f"; first stage over "
+            f"{STAGE_TOL[what]:.0e}: {first}; attention_qkv launches {n} on {card}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            print_t(f"{what} probs", got["probs"][0], n=3)
+        log(out.getvalue().strip())
+        prob_err = float((got["probs"].cpu() - ref["probs"]).abs().max())
+        if list(got) != list(ref) or n != launches or prob_err > prob_tol:
+            raise AssertionError(f"stage parity {what}: keys {list(got)}, {n} launches, "
+                                 f"probabilities off by {prob_err}")
+        del eng
+    log(f"phase stage_parity: {time.perf_counter() - t0:.1f} s")
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -4019,6 +4473,9 @@ def run_paths(card: str):
         serve_launches.update(serving_workflow(f16, q8, tmp, card))
         serve_launches.update(model_families(f16, tmp, card))
         vit_inspect(f16, q8)
+        serve_launches.update(aot_paths(f16, q8, tmp, card))
+        stage_parity(f16, card)
+        op_dispatch_cost(f16, q8, card)
         f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
         slice_parity(f32)

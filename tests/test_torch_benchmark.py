@@ -118,13 +118,27 @@ def test_main_prints_the_jax_tools_accuracy_line(tree, capsys):
     assert lines[0] == lines[1] and lines[1].startswith("Top-1 Accuracy: ")
 
 
-def test_run_eval_rejects_a_vitx_artifact(tree, tmp_path):
+def test_run_eval_rejects_a_vitx_artifact(tree, tmp_path, capsys):
+    """A JAX-made artifact is refused by name; a port-made one (the f32
+    engine exported for the CPU) classifies the tree as the gguf does,
+    at its baked batch."""
     from vit_cpp_tpu.aot import MAGIC
+    from vit_cpp_tpu_torch.aot import save_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
 
     art = tmp_path / "m.vitx"
     art.write_bytes(MAGIC + b"\x02\0\0\0{}")
-    with pytest.raises(ValueError, match="is a .vitx artifact"):
+    with pytest.raises(ValueError, match="is a .vitx artifact of the JAX package"):
         benchmark.run_eval(str(art), tree["val"], 1, str(tmp_path / "p.csv"), device="cpu")
+    port = str(tmp_path / "port.vitx")
+    save_engine(VitEngine(tree["model"], device="cpu", verbose=False), port, batch=4)
+    got = benchmark.run_eval(port, tree["val"], 0, str(tmp_path / "a.csv"), batch=32,
+                             device="cpu", verbose=False)
+    want = benchmark.run_eval(tree["model"], tree["val"], 0, str(tmp_path / "g.csv"),
+                              batch=4, device="cpu", verbose=False)
+    assert got == want
+    assert open(tmp_path / "a.csv").read() == open(tmp_path / "g.csv").read()
+    assert "compiled for batch 4; using it (ignoring --batch 32)" in capsys.readouterr().err
 
 
 def test_benchmark_runs_on_the_card_by_default(tree, tmp_path):

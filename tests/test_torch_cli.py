@@ -153,7 +153,20 @@ def test_vit_cli_vitx_and_headless_fail_as_the_jax_cli_does(files, tmp_path, cap
     rc, _, err = _run_main(port_vit.main, ["vit", "-m", str(art), "-i", files["img"],
                                            "--device", "cpu"], capsys)
     assert rc == 1
-    assert f"main: failed to load model from '{art}':" in err and ".vitx artifact" in err
+    assert f"main: failed to load model from '{art}':" in err
+    assert ".vitx artifact of the JAX package" in err
+    # a port-made artifact of the f32 parity engine prints the gguf's lines
+    from vit_cpp_tpu_torch.aot import save_engine
+
+    port = str(tmp_path / "port.vitx")
+    save_engine(VitEngine(files["f16"], device="cpu", verbose=False), port, batch=[1, 2])
+    argv = ["vit", "-m", None, "-i", files["img"], "-k", "3", "--device", "cpu"]
+    results = []
+    for model in (port, files["f16"]):
+        argv[2] = model
+        rc, out, _ = _run_main(port_vit.main, argv, capsys)
+        results.append((rc, [line for line in out.splitlines() if line.startswith(" > ")]))
+    assert results[0] == results[1] and results[0][0] == 0 and len(results[0][1]) == 3
 
     headless = str(tmp_path / "encoder.gguf")
     write_synthetic_model(headless, VitHParams(**{**TINY.__dict__, "num_classes": 0}),

@@ -177,13 +177,27 @@ def test_model_spec_agrees(spec):
 
 
 def test_is_vitx_agrees(tmp_path, checkpoints):
+    """One copy of the header readers, the port's aot.py (cli/common.py
+    imports them), with the JAX module's magic and answers."""
     from vit_cpp_tpu.aot import MAGIC, is_vitx as jax_is_vitx
+    from vit_cpp_tpu_torch import aot
+    from vit_cpp_tpu_torch.cli import common
 
+    assert aot.MAGIC == MAGIC
+    assert common.is_vitx is aot.is_vitx and common.read_meta is aot.read_meta
     art = tmp_path / "a.vitx"
     art.write_bytes(MAGIC + b"\0" * 8)
     for p in (str(art), checkpoints["f16"], str(tmp_path / "missing")):
         assert is_vitx(p) == jax_is_vitx(p)
     assert is_vitx(str(art))
+
+
+@pytest.mark.parametrize("module", ["vit_cpp_tpu_torch/aot.py",
+                                    "vit_cpp_tpu_torch/cli/export_aot.py"])
+def test_the_aot_modules_are_checked(module):
+    """The artifact modules are among the sources whose imports are
+    checked above and that the isolated process imports."""
+    assert module in SOURCES
 
 
 def test_bundled_classnames_are_byte_identical():
@@ -207,7 +221,7 @@ def test_quick_example_writer_is_byte_identical(tmp_path):
 @pytest.mark.parametrize("case", ["ok", "bad-magic", "short-header", "short-meta", "bad-json"])
 def test_read_meta_agrees(tmp_path, case):
     from vit_cpp_tpu.aot import MAGIC, read_meta as jax_read_meta
-    from vit_cpp_tpu_torch.cli.common import read_meta
+    from vit_cpp_tpu_torch.aot import read_meta
 
     meta = b'{"format": 1, "batch": 8, "platforms": ["cpu"]}'
     data = {

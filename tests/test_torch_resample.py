@@ -183,22 +183,50 @@ def test_cli_serve_geometry_flags_match_the_jax_cli(model, tmp_path, capsys, fla
     assert out_p.splitlines() == out_j.splitlines()
 
 
-def test_cli_server_multi_model_skips_geometry_for_a_vitx(model, tmp_path, capsys):
+def test_cli_server_multi_model_skips_geometry_for_a_vitx(model, tmp_path, capsys,
+                                                         monkeypatch):
     """In a multi-model daemon a .vitx artifact gets the JAX daemon's
-    notice that its geometry is baked; the port then refuses the artifact
-    (it runs none)."""
+    notice that its geometry is baked; a JAX-made artifact is then
+    refused by name, and a port-made one is served at its own geometry
+    while the gguf beside it is resampled."""
     from vit_cpp_tpu.aot import MAGIC
+    from vit_cpp_tpu_torch import server as server_mod
+    from vit_cpp_tpu_torch.aot import save_engine
     from vit_cpp_tpu_torch.cli.server import main
 
     art = tmp_path / "m.vitx"
     art.write_bytes(MAGIC + b"\x02\0\0\0{}")
-    rc = main(["-m", f"a={model}", "-m", f"b={art}", "--img-size", "48", "--patch-size", "4",
-               "--device", "cpu", "--no-warmup", "--port", "0"])
+    argv = ["-m", f"a={model}", "-m", f"b={art}", "--img-size", "48", "--patch-size", "4",
+            "--device", "cpu", "--no-warmup", "--port", "0"]
+    rc = main(argv)
     err = capsys.readouterr().err
     assert rc == 1
     assert "vit-server: b: .vitx geometry is baked at export; ignoring --img-size 48 " \
            "--patch-size 4" in err
-    assert "vit-server: b: " in err.splitlines()[-1] and "is a .vitx artifact" in err
+    assert "vit-server: b: " in err.splitlines()[-1]
+    assert "is a .vitx artifact of the JAX package" in err
+
+    served = {}
+
+    class Stop:
+        server_port = 0
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    def fake_multi(engines, **kw):
+        served.update(engines)
+        return Stop(), {}
+
+    monkeypatch.setattr(server_mod, "create_multi_server", fake_multi)
+    save_engine(VitEngine(model, device="cpu", verbose=False), str(art), batch=2)
+    assert main(argv) == 0
+    assert "vit-server: b: .vitx geometry is baked at export" in capsys.readouterr().err
+    assert served["a"].hp.img_size == 48 and served["a"].hp.patch_size == 4
+    assert served["b"].hp.img_size == HP.img_size and served["b"].batches == [2]
 
 
 @pytest.mark.cuda

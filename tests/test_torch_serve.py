@@ -282,13 +282,24 @@ def test_cli_serve_unported_flags_raise_and_name_their_slice(files, flags, match
 
 
 def test_cli_serve_rejects_a_vitx_artifact(files, capsys, tmp_path):
+    """A JAX-made artifact is refused by name; a port-made one of the f32
+    parity engine serves the files as the gguf does, at its baked batch."""
     from vit_cpp_tpu.aot import MAGIC
+    from vit_cpp_tpu_torch.aot import save_engine
 
     art = tmp_path / "m.vitx"
     art.write_bytes(MAGIC + b"\x02\0\0\0{}")
     rc, _, err = _cli(cli_serve.main, ["-m", str(art), *files["paths"], "--device", "cpu"],
                       capsys)
-    assert rc == 1 and err.startswith(f"serve: {art} is a .vitx artifact")
+    assert rc == 1 and err.startswith(f"serve: {art} is a .vitx artifact of the JAX package")
+    port = str(tmp_path / "port.vitx")
+    save_engine(VitEngine(files["model"], device="cpu", verbose=False), port, batch=4)
+    flags = ["-b", "4", "--dtype", "f32", "--mm", "xla", "--attn", "xla", "--device", "cpu"]
+    rc, out, err = _cli(cli_serve.main, ["-m", port, *files["paths"], *flags], capsys)
+    rc_g, out_g, _ = _cli(cli_serve.main, ["-m", files["model"], *files["paths"], *flags],
+                          capsys)
+    assert rc == rc_g == 0 and out == out_g and len(out.splitlines()) == len(files["paths"]) - 1
+    assert "serve: AOT artifact (mm=xla, attn=xla, batch 4) — engine flags baked at export" in err
 
 
 def test_cli_serve_runs_on_the_card_by_default(files):

@@ -403,7 +403,9 @@ def test_cli_calibrates_each_model_and_reports_rejections(models, monkeypatch, c
     engines = captured["engines"]
     assert params_have_static_scales(engines["a"].params)
     assert not params_have_static_scales(engines["b"].params)
-    assert (captured["batch"], captured["buckets"]) == (3, True)
+    # per-model maps, as the JAX daemon passes them (a .vitx model takes
+    # its baked batch and sizes there)
+    assert (captured["batch"], captured["buckets"]) == ({"a": 3, "b": 3}, {"a": True, "b": True})
 
 
 def test_cli_single_model_static_calibrates_before_serving(models, monkeypatch, capsys):

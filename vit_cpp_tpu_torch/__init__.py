@@ -17,7 +17,9 @@ found under the same name:
                 (``export``);
 - ``parallel`` — the single-device train step and AdamW (``train``),
                 training checkpoints (``checkpoint``);
-- ``engine``, ``server``, ``cli.server`` — the serving path;
+- ``engine``, ``server``, ``cli.server`` — the serving path; ``aot``,
+  ``cli.export_aot`` — the .vitx serving artifact (``torch.export``
+  programs holding the kernels as operators);
   ``finetune``, ``cli.finetune`` — the fine-tuning path; ``decode``,
   ``io.image``, ``native`` — image decode; ``cli.quantize`` — the
   quantize tool;

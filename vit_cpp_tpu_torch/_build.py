@@ -13,7 +13,9 @@ edited source builds anew, an unchanged one loads the cached file.
 
 Each kernel's Python wrapper holds a `Kernel`, whose `launches` count is
 advanced once for every launch: a run can show that its main path went
-through the kernel.
+through the kernel. `operator` makes a wrapper's body a PyTorch operator
+in the `vit_cpp_tpu_torch` namespace, so that `torch.export` keeps each
+call as one node of a program (aot.py).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import subprocess
 import sys
 import threading
 import time
+
+import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
@@ -168,6 +172,24 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = library().vit_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+_OPS = torch.library.Library("vit_cpp_tpu_torch", "FRAGMENT")
+
+
+def operator(schema: str, *, cpu, cuda, fake):
+    """Define torch.ops.vit_cpp_tpu_torch.<name> from its schema, with
+    `cpu` and `cuda` as its CPU and CUDA implementations (another device
+    finds no kernel and raises) and `fake` giving the output's shape and
+    dtype to tracers. Registered through the dispatcher directly rather
+    than `torch.library.custom_op`, whose Python wrapper costs ~3x the
+    host time per call. Returns the operator's default overload."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cpu, "CPU")
+    _OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"vit_cpp_tpu_torch::{name}", fake, lib=_OPS)
+    return getattr(torch.ops.vit_cpp_tpu_torch, name).default
 
 
 class Kernel:

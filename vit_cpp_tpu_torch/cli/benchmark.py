@@ -9,7 +9,8 @@ package's, 998 entries included), each image gets a CSV row
 `filename,truth,prediction`, and the run ends with a `Top-1 Accuracy:`
 line. Files decode on the native thread pool (or PIL) a batch at a time;
 the tail batch is padded to the full batch; failed decodes are skipped.
-The engine runs on the card unless --device cpu is given.
+The engine runs on the card unless --device cpu is given; a port-made
+.vitx artifact (aot.py) runs at its baked batch.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.benchmark <model> <dataset_dir> \\
@@ -73,9 +74,9 @@ def run_eval(
     device: str = "cuda",
 ) -> float:
     """Classify the tree, write the CSV, print and return the top-1
-    accuracy. A .vitx artifact raises (the port runs none)."""
-    from vit_cpp_tpu_torch.cli.common import build_engine, is_vitx
-    from vit_cpp_tpu_torch.engine import VitEngine
+    accuracy. A .vitx artifact serves at its baked batch, which wins over
+    `batch`."""
+    from vit_cpp_tpu_torch.aot import is_vitx
     from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
 
     if classnames is None:
@@ -89,11 +90,22 @@ def run_eval(
         classnames = read_class_names(path)
 
     if is_vitx(model_path):
-        build_engine(model_path)  # raises: the port runs no .vitx
-    engine = VitEngine(
-        model_path, dtype=dtype, attn_impl=attn_impl, mm_impl=mm_impl,
-        verbose=verbose, device=device,
-    )
+        # an AOT artifact: engine knobs baked at export; its batch wins (the
+        # loop below pads every chunk to `batch`)
+        from vit_cpp_tpu_torch.aot import AotEngine
+
+        engine = AotEngine(model_path, device=device)
+        if batch != engine.batch:
+            print(f"benchmark: .vitx artifact is compiled for batch {engine.batch}; "
+                  f"using it (ignoring --batch {batch})", file=sys.stderr)
+            batch = engine.batch
+    else:
+        from vit_cpp_tpu_torch.engine import VitEngine
+
+        engine = VitEngine(
+            model_path, dtype=dtype, attn_impl=attn_impl, mm_impl=mm_impl,
+            verbose=verbose, device=device,
+        )
     items = collect_images(dataset_dir, per_class, ext)
     if not items:
         print(f"no *{ext} images under {dataset_dir}", file=sys.stderr)

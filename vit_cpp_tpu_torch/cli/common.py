@@ -12,46 +12,16 @@ dequantizing-matmul kernel. `act="static"` serves W8A8 with calibrated
 activation scales: from `act_scales` (a sidecar JSON), from
 `calibrate_engine_from_paths`, or from the first served batch. `tome=r`
 merges r token pairs per layer (ops/tome.py); a ViTSTR file refuses it.
+A port-made .vitx artifact (aot.py) gets an AotEngine on `device`, with
+the JAX tool's refusals of the flags that were baked at export.
 """
 
 from __future__ import annotations
 
-import json
-import struct
-from typing import Any, Dict, Tuple
+from typing import Tuple
 
-# The leading bytes of a .vitx artifact (vit_cpp_tpu/aot.py's MAGIC).
-VITX_MAGIC = b"VITX\x01"
-
-
-def is_vitx(path: str) -> bool:
-    """True when `path` is a .vitx artifact (by magic, not extension);
-    vit_cpp_tpu/aot.py::is_vitx."""
-    try:
-        with open(path, "rb") as f:
-            return f.read(len(VITX_MAGIC)) == VITX_MAGIC
-    except OSError:
-        return False
-
-
-def read_meta(path: str) -> Dict[str, Any]:
-    """A .vitx artifact's metadata header (magic, u32 length, JSON),
-    without reading the rest of the file; vit_cpp_tpu/aot.py::read_meta.
-    The port runs no .vitx, but vit-inspect prints its metadata."""
-    with open(path, "rb") as f:
-        head = f.read(len(VITX_MAGIC) + 4)
-        if head[: len(VITX_MAGIC)] != VITX_MAGIC:
-            raise ValueError("not a VITX artifact (bad magic)")
-        if len(head) < len(VITX_MAGIC) + 4:
-            raise ValueError("truncated VITX artifact (header)")
-        (n,) = struct.unpack("<I", head[len(VITX_MAGIC):])
-        mj = f.read(n)
-    if len(mj) < n:
-        raise ValueError("truncated VITX artifact (metadata)")
-    try:
-        return json.loads(mj)
-    except ValueError as e:
-        raise ValueError(f"corrupt VITX metadata: {e}") from None
+# one copy of the artifact header readers, the port's aot.py
+from vit_cpp_tpu_torch.aot import is_vitx, read_meta  # noqa: F401
 
 
 def model_spec(s: str) -> Tuple[str, str] | None:
@@ -86,15 +56,31 @@ def build_engine(
     tome: int = 0,
     device: str = "cuda",
 ):
-    """gguf checkpoint -> (engine, is_vitstr): a VitstrEngine when the
-    file has a sequence head. A .vitx artifact raises ValueError: the
-    port runs none."""
+    """gguf checkpoint or .vitx artifact -> (engine, is_vitstr): a
+    VitstrEngine when the file has a sequence head, an AotEngine for an
+    artifact (its knobs were baked at export)."""
     if is_vitx(path):
-        raise ValueError(
-            f"{path} is a .vitx artifact: it carries StableHLO for the JAX "
-            "package and cannot run under vit_cpp_tpu_torch; serve the gguf "
-            "checkpoint it was exported from"
-        )
+        from vit_cpp_tpu_torch.aot import AotEngine
+
+        if act == "static":
+            raise ValueError(
+                "--act static does not apply to a .vitx artifact — its "
+                "activation scales were baked at export (vit-export "
+                "--act static --calib-dir ...)"
+            )
+        if img_size is not None or patch_size is not None:
+            raise ValueError(
+                "--img-size/--patch-size do not apply to a .vitx artifact "
+                "— its geometry was baked at export (vit-export "
+                "--img-size/--patch-size ...)"
+            )
+        if tome:
+            raise ValueError(
+                "--tome does not apply to a .vitx artifact — the graph "
+                "was baked at export (vit-export --tome R)"
+            )
+        engine = AotEngine(path, device=device)
+        return engine, engine.hp.seq_len is not None
     from vit_cpp_tpu_torch.engine import VitEngine, VitstrEngine, detect_hparams
     from vit_cpp_tpu_torch.gguf.reader import read_model
 

@@ -4,7 +4,7 @@ and tensor table.
 Counterpart of vit_cpp_tpu/cli/inspect.py, with the same text and
 `--json [--tensors]` output: legacy-ggml or real GGUF v2/v3 files (the
 port's reader dispatches by magic) and the metadata header of a `.vitx`
-artifact (cli/common.py::read_meta; the port runs no .vitx). It prints
+artifact, the port's or the JAX package's (aot.py::read_meta). It prints
 the family traits that the legacy hparam block cannot carry, as the
 loader infers them, a V-MoE file's experts among them. It reads files
 only: no card is needed.
@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     )
     args = ap.parse_args(argv)
 
-    from vit_cpp_tpu_torch.cli.common import is_vitx, read_meta
+    from vit_cpp_tpu_torch.aot import is_vitx, read_meta
 
     try:
         if is_vitx(args.model):

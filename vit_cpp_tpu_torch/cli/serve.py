@@ -15,7 +15,8 @@ writes the (N, hidden) f32 features and OUT.paths.txt instead.
 `--img-size` / `--patch-size` serve the checkpoint at another geometry
 (models/resample.py); `--tome R` merges R token pairs per layer
 (ops/tome.py). Flags whose slice is not ported yet raise and name that
-slice.
+slice. `-m model.vitx` serves a port-made AOT artifact (aot.py) at its
+baked batch, with the JAX tool's notices and refusals.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir [-b 64] [--device cuda|cpu]
@@ -105,7 +106,11 @@ def _check_ported(args) -> None:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    _check_ported(args)
+    from vit_cpp_tpu_torch.aot import is_vitx
+
+    vitx = is_vitx(args.model)
+    if not (vitx and args.mesh):  # an artifact refuses --mesh as the JAX tool does
+        _check_ported(args)
     paths = list(args.files)
     if args.dir:
         for root, _, files in os.walk(args.dir):
@@ -118,6 +123,8 @@ def main(argv=None) -> int:
         print("no input images", file=sys.stderr)
         return 1
 
+    if vitx:
+        return _serve_artifact(args, paths)
     if args.act == "static" and args.mm != "int8":
         print("--act static requires --mm int8", file=sys.stderr)
         return 1
@@ -156,6 +163,63 @@ def main(argv=None) -> int:
                            decode_threads=args.decode_threads)
     return _serve_loop(engine, is_vitstr, paths, batch=args.batch, topk=args.topk,
                        decode_threads=args.decode_threads)
+
+
+def _serve_artifact(args, paths) -> int:
+    """A .vitx artifact: the engine knobs and the batch size were baked at
+    export, and the program is single-device; the JAX tool's refusals and
+    notices (vit_cpp_tpu/cli/serve.py)."""
+    from vit_cpp_tpu_torch.aot import AotEngine, read_meta
+
+    try:
+        headless = read_meta(args.model).get("program") == "features"
+    except ValueError as e:
+        print(f"serve: {args.model}: {e}", file=sys.stderr)
+        return 1
+    if args.embed and not headless:
+        print(
+            "--embed is not supported for classifier .vitx artifacts "
+            "(the exported program is the classifier); serve the gguf "
+            "or export a headless-encoder artifact",
+            file=sys.stderr,
+        )
+        return 1
+    if headless and not args.embed:
+        print("this artifact is a headless encoder (features program) — "
+              "use --embed OUT.npy", file=sys.stderr)
+        return 1
+    if args.act == "static":
+        print("--act static does not apply to a .vitx artifact — its "
+              "scales were baked at export (vit-export --act static)", file=sys.stderr)
+        return 1
+    if args.mesh:
+        print("--mesh is not supported for .vitx artifacts (the exported "
+              "program is compiled single-chip); serve the gguf instead", file=sys.stderr)
+        return 1
+    if args.img_size is not None or args.patch_size is not None:
+        print("--img-size/--patch-size do not apply to a .vitx artifact "
+              "— its geometry was baked at export (vit-export "
+              "--img-size/--patch-size)", file=sys.stderr)
+        return 1
+    if args.tome:
+        print("--tome does not apply to a .vitx artifact — the graph "
+              "was baked at export (vit-export --tome R)", file=sys.stderr)
+        return 1
+    try:
+        aot = AotEngine(args.model, device=args.device)
+    except ValueError as e:  # a JAX-made artifact, another device's
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
+    if args.batch != aot.batch:
+        print(f"serve: .vitx artifact is compiled for batch {aot.batch}; "
+              f"using it (ignoring -b {args.batch})", file=sys.stderr)
+    print(f"serve: AOT artifact (mm={aot.meta['mm_impl']}, attn={aot.meta['attn_impl']}, "
+          f"batch {aot.batch}) — engine flags baked at export", file=sys.stderr)
+    if headless:
+        return _embed_loop(aot, paths, out=args.embed, batch=aot.batch,
+                           decode_threads=args.decode_threads)
+    return _serve_loop(aot, aot.hp.seq_len is not None, paths, batch=aot.batch,
+                       topk=args.topk, decode_threads=args.decode_threads)
 
 
 def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int) -> int:

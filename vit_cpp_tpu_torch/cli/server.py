@@ -14,8 +14,9 @@ batch, so one of the two is required). A headless encoder
 daemon under /v1/<name>/classify (or /recognize) and /v1/<name>/embed.
 `--img-size` / `--patch-size` serve every gguf model at another geometry
 (models/resample.py), `--tome R` with R token pairs merged per layer
-(ops/tome.py). Flags whose slice is not ported yet raise and name that
-slice.
+(ops/tome.py). `-m model.vitx` (or name=model.vitx) serves a port-made
+AOT artifact (aot.py) at its baked batch, `--bucket` over its baked sizes.
+Flags whose slice is not ported yet raise and name that slice.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
@@ -90,7 +91,7 @@ def _engine(args, path: str, who: str, multi: bool = False):
     when asked; None after printing the error on a bad model or set. In a
     multi-model daemon a .vitx artifact skips the geometry flags and
     --tome with a notice, as the JAX daemon does (its graph was baked at
-    export); build_engine then refuses the artifact."""
+    export)."""
     from vit_cpp_tpu_torch.cli.common import (
         build_engine,
         calibrate_engine_from_paths,
@@ -125,14 +126,55 @@ def _engine(args, path: str, who: str, multi: bool = False):
     return engine
 
 
+def _artifact_buckets(args, engine, notice: str):
+    """--bucket on a .vitx artifact: its baked batch sizes, or off with
+    `notice` when it bakes one."""
+    if not args.bucket:
+        return False
+    if len(engine.batches) > 1:
+        return engine.batches
+    print(notice, file=sys.stderr)
+    return False
+
+
+def _artifact(args, path: str):
+    """The single-model daemon on a .vitx artifact (vit_cpp_tpu/cli/
+    server.py): the knobs and batch sizes were baked at export, so the
+    micro-batcher takes the artifact's batch and --bucket its baked
+    sizes; --act static exits 1. None after printing an error."""
+    from vit_cpp_tpu_torch.aot import AotEngine
+
+    if args.act == "static":
+        print("--act static does not apply to a .vitx artifact — its "
+              "scales were baked at export (vit-export --act static)", file=sys.stderr)
+        return None
+    try:
+        engine = AotEngine(path, device=args.device)
+    except ValueError as e:
+        print(f"vit-server: {e}", file=sys.stderr)
+        return None
+    if args.batch != engine.batch:
+        print(f"vit-server: .vitx artifact is compiled for batch {engine.batch}; "
+              f"using it (ignoring -b {args.batch})", file=sys.stderr)
+        args.batch = engine.batch
+    args.bucket = _artifact_buckets(
+        args, engine, "vit-server: .vitx artifact bakes a single batch; "
+        "ignoring --bucket (export with -b 1,.. to bucket)")
+    return engine
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    from vit_cpp_tpu_torch.cli.common import model_spec
+    from vit_cpp_tpu_torch.cli.common import is_vitx, model_spec
 
     # multi-model when -m repeats or names its model (name=path)
     multi = len(args.model) > 1 or model_spec(args.model[0]) is not None
     if args.mesh and multi:
         print("--mesh is not supported with multiple models", file=sys.stderr)
+        return 1
+    if args.mesh and not multi and is_vitx(args.model[0]):
+        print("--mesh is not supported for .vitx artifacts (the exported "
+              "program is compiled single-chip); serve the gguf instead", file=sys.stderr)
         return 1
     if args.mesh:
         raise NotImplementedError(
@@ -161,7 +203,7 @@ def main(argv=None) -> int:
     from vit_cpp_tpu_torch.server import create_multi_server, create_server
 
     if multi:
-        engines = {}
+        engines, batches, bucket_map = {}, {}, {}
         for spec in args.model:
             parsed = model_spec(spec)
             if parsed is None:
@@ -175,23 +217,34 @@ def main(argv=None) -> int:
             engines[name] = _engine(args, path, f"vit-server: {name}: ", multi=True)
             if engines[name] is None:
                 return 1
+            batches[name], bucket_map[name] = args.batch, args.bucket
+            if is_vitx(path):
+                batches[name] = engines[name].batch
+                bucket_map[name] = _artifact_buckets(
+                    args, engines[name], f"vit-server: {name}: .vitx artifact bakes a "
+                    "single batch; ignoring --bucket")
         httpd, batchers = create_multi_server(
             engines,
             host=args.host,
             port=args.port,
-            batch=args.batch,
+            batch=batches,
             max_wait_ms=args.max_wait_ms,
             warmup=not args.no_warmup,
             request_timeout_s=args.request_timeout,
             max_queue=args.max_queue,
-            buckets=args.bucket,
+            buckets=bucket_map,
         )
         banner = (f"vit-server: {len(engines)} models on http://{args.host}:"
                   f"{httpd.server_port} ({', '.join(sorted(engines))})")
+    elif is_vitx(args.model[0]):
+        engine = _artifact(args, args.model[0])
+        if engine is None:
+            return 1
     else:
         engine = _engine(args, args.model[0], "vit-server: ")
         if engine is None:
             return 1
+    if not multi:
         httpd, batcher = create_server(
             engine,
             host=args.host,

@@ -8,8 +8,9 @@ stderr. The engine is the f32 parity rung: f32 weights and activations,
 composed attention, dense matmuls with TF32 off (ops/precision.py), no
 custom kernel. `-t` (threads) and `-s` (seed) are echoed and unused, as in
 the JAX CLI. One flag is added: `--device` (default cuda; cpu runs the
-same forward on the CPU). A .vitx artifact cannot run here and fails to
-load.
+same forward on the CPU). A .vitx artifact made by the port's vit-export
+(vit_cpp_tpu_torch/aot.py) runs its smallest baked batch, with the knobs
+it was exported with, on the device it was exported on.
 
 Usage: python -m vit_cpp_tpu_torch.cli.vit -m model.gguf -i image.jpg -k 5 [--device cuda|cpu]
 """
@@ -110,13 +111,18 @@ def main(argv=None) -> int:
     print(f"main: seed = {params.seed}", file=sys.stderr)
     print(f"main: n_threads = {params.n_threads} / {os.cpu_count()}", file=sys.stderr)
 
-    from vit_cpp_tpu_torch.cli.common import build_engine, is_vitx
-    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.aot import is_vitx
 
     try:
         if is_vitx(params.model):
-            build_engine(params.model)  # raises: the port runs no .vitx
-        engine = VitEngine(params.model, eps=params.eps, device=params.device)
+            # an AOT artifact: eps and every engine knob baked at export
+            from vit_cpp_tpu_torch.aot import AotEngine
+
+            engine = AotEngine(params.model, device=params.device)
+        else:
+            from vit_cpp_tpu_torch.engine import VitEngine
+
+            engine = VitEngine(params.model, eps=params.eps, device=params.device)
     except (OSError, ValueError) as exc:
         print(f"main: failed to load model from '{params.model}': {exc}", file=sys.stderr)
         return 1

@@ -6,8 +6,8 @@ surface: the `vit_model_load:` echo and the image lines, then the decoded
 string between `------------------` rules with its `score :` line on
 stdout; `main: seed`, `main: n_threads` and the load / processing / total
 timing lines on stderr. The engine is VitstrEngine in f32 with composed
-attention and dense matmuls (TF32 off), the parity rung. A .vitx artifact
-cannot run here and fails to load.
+attention and dense matmuls (TF32 off), the parity rung. A port-made .vitx
+artifact (vit_cpp_tpu_torch/aot.py) runs its smallest baked batch.
 
 Usage: python -m vit_cpp_tpu_torch.cli.vitstr -m vitstr-model.gguf -i demo.png [--device cuda|cpu]
 """
@@ -35,13 +35,18 @@ def main(argv=None) -> int:
     print(f"main: seed = {params.seed}", file=sys.stderr)
     print(f"main: n_threads = {params.n_threads} / {os.cpu_count()}", file=sys.stderr)
 
-    from vit_cpp_tpu_torch.cli.common import build_engine, is_vitx
-    from vit_cpp_tpu_torch.engine import VitstrEngine
+    from vit_cpp_tpu_torch.aot import is_vitx
 
     try:
         if is_vitx(params.model):
-            build_engine(params.model)  # raises: the port runs no .vitx
-        engine = VitstrEngine(params.model, eps=params.eps, device=params.device)
+            # an AOT artifact: eps and every engine knob baked at export
+            from vit_cpp_tpu_torch.aot import AotEngine
+
+            engine = AotEngine(params.model, device=params.device)
+        else:
+            from vit_cpp_tpu_torch.engine import VitstrEngine
+
+            engine = VitstrEngine(params.model, eps=params.eps, device=params.device)
     except (OSError, ValueError) as exc:
         print(f"main: failed to load model from '{params.model}': {exc}", file=sys.stderr)
         return 1

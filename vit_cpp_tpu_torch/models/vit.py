@@ -37,6 +37,11 @@ and the readouts weight by them. A V-MoE tree (a "moe" subtree,
 models/params.py) runs `moe_block`, routed expert MLPs (ops/moe.py), in
 its MoE layers and `transformer_block` in the others; `moe_aux=True`
 also returns the router diagnostics averaged over the MoE layers.
+
+`forward_debug` runs the same layers eagerly and keeps each stage's
+output (embed, every block, the pooled readout, logits, probabilities)
+for stage-by-stage comparison; `print_t` prints one in the reference's
+print_t_f32 format.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
 from vit_cpp_tpu_torch.ops.moe import moe_mlp
-from vit_cpp_tpu_torch.ops.precision import matmul_precision
+from vit_cpp_tpu_torch.ops.precision import highest_product
 from vit_cpp_tpu_torch.ops.tome import tome_merge, tome_schedule
 
 ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
@@ -180,8 +185,7 @@ def tome_block(
         head_sum = torch.eye(hd, dtype=torch.float32, device=qkv.device).repeat(
             hp.num_attention_heads, 1
         )  # (h, hd)
-        with matmul_precision("highest"):
-            metric = torch.matmul(qkv[:, :, h : 2 * h].detach().float(), head_sum)
+        metric = highest_product(qkv[:, :, h : 2 * h].detach().float(), head_sum)
         x, sizes = tome_merge(x, metric, sizes, r, hp.n_prefix)
     return _mlp_half(x, bp, hp, mm_impl=mm_impl), sizes
 
@@ -399,3 +403,64 @@ def _moe_forward(params, images, hp: VitHParams, *, attn_impl: str, mm_impl: str
     if moe_aux:
         return out, {k: v / len(hp.moe_layers) for k, v in aux_sum.items()}
     return out
+
+
+def forward_debug(
+    params: Dict[str, Any], images: torch.Tensor, hp: VitHParams, **kw
+) -> Dict[str, torch.Tensor]:
+    """Forward pass that keeps every stage's activations, for stage-by-stage
+    diffing against a reference (vit_cpp_tpu/models/vit.py::forward_debug,
+    the analogue of the reference's print_t_f32 hook): {"embed",
+    "block_0", ..., "pooled", "logits", "probs"}; a headless encoder stops
+    after "pooled". `attn_impl` and `mm_impl` (default "xla") are
+    `forward`'s. "pooled" is the final-LN readout that the head reads, the
+    attention-pooled output of a SigLIP map-pooled tree; a V-MoE tree runs
+    its routed layers (moe_block), as `forward` does (the JAX function
+    pools a map-pooled tree from x[:, 0] and runs every layer dense)."""
+    attn_impl, mm_impl = kw.get("attn_impl", "xla"), kw.get("mm_impl", "xla")
+    acts: Dict[str, torch.Tensor] = {}
+    x = embed(params, images, hp)
+    acts["embed"] = x
+    if hp.num_experts:
+        layers = moe_layer_params(params, hp)
+    else:
+        layers = [(bp, None) for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers)]
+    for i, (bp, mp) in enumerate(layers):
+        if mp is None:
+            x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+        else:
+            x, _ = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+        acts[f"block_{i}"] = x
+    if "head_dist" in params and hp.seq_len is None:
+        # both normed prefix tokens, as the JAX function keeps them
+        norm = params["norm"]
+        pooled = layernorm(x[:, :2], norm["scale"], norm["bias"], hp.eps)
+        logits = (_linear(pooled[:, 0], params["head"], mm_impl)
+                  + _linear(pooled[:, 1], params["head_dist"], mm_impl)) * 0.5
+    else:
+        # the readout the head reads: a folded tree's `features_norm` is
+        # the embeddings' norm, not the head's
+        tree = {k: v for k, v in params.items() if k != "features_norm"}
+        pooled = _head(tree, x, hp, mm_impl, features=True)
+        if "head" not in params:  # a headless encoder stops at the features
+            acts["pooled"] = pooled
+            return acts
+        logits = _linear(pooled, params["head"], mm_impl)
+    acts["pooled"] = pooled
+    acts["logits"] = logits
+    acts["probs"] = torch.softmax(logits.float(), dim=-1)
+    return acts
+
+
+def print_t(name: str, t, n: int = 10) -> None:
+    """Console dump in the reference's print_t_f32 shape: the first and
+    last n values and the whole tensor's sum, as
+    vit_cpp_tpu/models/vit.py::print_t prints them."""
+    import numpy as np
+
+    if isinstance(t, torch.Tensor):
+        t = t.detach().float().cpu().numpy()
+    a = np.asarray(t, dtype=np.float32).reshape(-1)
+    head = " ".join(f"{v:.5f}" for v in a[:n])
+    tail = " ".join(f"{v:.5f}" for v in a[-n:])
+    print(f"{name}: [{head} ... {tail}], sum = {a.sum():.5f}")

@@ -28,6 +28,14 @@ PyTorch (the TPU kernel's `_sdpa` math, batched over heads). The tests
 hold the plain versions against the JAX functions; chip_smoke.py holds
 the kernel against them on the card.
 
+The two forward entry points are PyTorch operators (_build.py::operator):
+`torch.ops.vit_cpp_tpu_torch.attention_qkv` and `...flash_attention`,
+with the plain version as the CPU implementation, the kernel launch as
+the CUDA one, and a fake implementation that gives the output's shape
+and dtype. `torch.export` therefore records each call as one node of the
+exported program (aot.py) and the loaded program launches the kernel, as
+the eager forward does.
+
 Both keep the TPU kernel's numerics: Q scaled by log2(e)/sqrt(d) in f32
 and rounded to the input dtype, f32 scores, exp2 softmax (fast: scores
 clamped at 120 with no row max; safe: the row max over the real keys is
@@ -44,7 +52,7 @@ from typing import Optional
 
 import torch
 
-from vit_cpp_tpu_torch._build import Kernel, check, library
+from vit_cpp_tpu_torch._build import Kernel, check, library, operator
 
 KERNEL = Kernel(
     "attention_qkv",
@@ -147,10 +155,15 @@ def attention_qkv(
     (attn_impl="pallas-fast"). `kv` is the number of real tokens of a
     token-padded input. `sizes` (B, T) are ToMe merged-token counts
     (proportional attention); exclusive with `kv`."""
-    if qkv.device.type == "cpu":
-        return attention_qkv_plain(qkv, num_heads, fast=fast, kv=kv, sizes=sizes)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"attention_qkv: unsupported device {qkv.device}")
+    _check_args(qkv, num_heads, kv, sizes)
+    return _ATTENTION_QKV(qkv, num_heads, fast, kv, sizes)
+
+
+def _attention_qkv_cpu(qkv, num_heads, fast, kv, sizes):
+    return attention_qkv_plain(qkv, num_heads, fast=fast, kv=kv, sizes=sizes)
+
+
+def _attention_qkv_cuda(qkv, num_heads, fast, kv, sizes):
     b, t, h, d = _check_args(qkv, num_heads, kv, sizes)
     if qkv.dtype not in _DTYPES:
         raise ValueError(f"attention_qkv kernel takes f32/bf16, got {qkv.dtype}")
@@ -179,6 +192,17 @@ def attention_qkv(
     return out
 
 
+def _attention_qkv_fake(qkv, num_heads, fast, kv, sizes):
+    b, t, three_h = qkv.shape
+    return qkv.new_empty((b, t, three_h // 3))
+
+
+_ATTENTION_QKV = operator(
+    "attention_qkv(Tensor qkv, int num_heads, bool fast, int? kv, Tensor? sizes) -> Tensor",
+    cpu=_attention_qkv_cpu, cuda=_attention_qkv_cuda, fake=_attention_qkv_fake,
+)
+
+
 def _check_bhtd(q, k, v):
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -198,11 +222,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Full (unmasked) attention over (B, H, T, D) q, k, v -> (B, H, T, D),
     with the safe (row-max) softmax."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_bhtd(q, k, v)
+    return _FLASH_ATTENTION(q, k, v)
+
+
+def _flash_attention_cuda(q, k, v):
     b, nh, t, d = q.shape
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention kernel takes f32/bf16, got {q.dtype}")
@@ -222,6 +246,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     check(rc, "flash_attention kernel launch")
     FLASH_KERNEL.counted()
     return out
+
+
+_FLASH_ATTENTION = operator(
+    "flash_attention(Tensor q, Tensor k, Tensor v) -> Tensor",
+    cpu=flash_attention_plain, cuda=_flash_attention_cuda,
+    fake=lambda q, k, v: torch.empty_like(q),
+)
 
 
 def attention_qkv_grad_plain(

@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from vit_cpp_tpu_torch.ops.precision import matmul_precision
+from vit_cpp_tpu_torch.ops.precision import highest_product
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
@@ -68,8 +68,7 @@ def route(y: torch.Tensor, router: torch.Tensor, hp) -> Routing:
     b, t, _ = y.shape
     e, k = hp.num_experts, hp.moe_top_k
     cap = moe_capacity(t, e, k, hp.moe_capacity)
-    with matmul_precision("highest"):
-        logits = torch.matmul(y.float(), router.float())
+    logits = highest_product(y.float(), router.float())
     idx = torch.sort(logits, dim=-1, descending=True, stable=True).indices[..., :k]
     gates = torch.softmax(torch.gather(logits, -1, idx), dim=-1)
     idx_sm = idx.transpose(1, 2).reshape(b, k * t)

@@ -22,6 +22,14 @@ math mode it was dispatched with.
     "default"  TF32 on: the card's nearest counterpart of JAX's single
                reduced-precision pass (bf16 engines; their own products
                are bf16 and do not read the flags)
+
+`highest_product(a, b, equation)` is a product that the forward always
+wants in exact f32 (the ToMe similarity, the V-MoE router), whatever the
+engine's precision. Eagerly it runs inside matmul_precision("highest").
+An exported program (aot.py) keeps no flags, so under `torch.export` the
+product is recorded as one operator,
+`torch.ops.vit_cpp_tpu_torch.highest_product`, which sets them when the
+loaded program runs.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import contextlib
 import threading
 
 import torch
+
+from vit_cpp_tpu_torch._build import operator
 
 PRECISIONS = {"highest": False, "high": True, "default": True}
 
@@ -51,3 +61,22 @@ def matmul_precision(mode: str):
             yield
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, equation: str) -> torch.Tensor:
+    with matmul_precision("highest"):
+        return torch.einsum(equation, a, b) if equation else torch.matmul(a, b)
+
+
+def highest_product(a: torch.Tensor, b: torch.Tensor, equation: str = "") -> torch.Tensor:
+    """torch.matmul(a, b), or torch.einsum(equation, a, b), with TF32 off."""
+    if torch.compiler.is_exporting():
+        return _HIGHEST_PRODUCT(a, b, equation)
+    return _product(a, b, equation)
+
+
+_HIGHEST_PRODUCT = operator(
+    "highest_product(Tensor a, Tensor b, str equation) -> Tensor",
+    cpu=_product, cuda=_product,
+    fake=lambda a, b, equation: torch.einsum(equation, a, b) if equation else torch.matmul(a, b),
+)

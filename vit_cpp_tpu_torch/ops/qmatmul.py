@@ -20,6 +20,13 @@ Numerics of both: the weight is dequantized in f32 as (c - offset) *
 scale, then + min, rounded to x's dtype, and multiplied with f32
 accumulation; y is written in x's dtype. The bias is added by the caller
 (ops/core.py::linear).
+
+`dequant_matmul` goes through a PyTorch operator (_build.py::operator),
+`torch.ops.vit_cpp_tpu_torch.dequant_matmul(x, codes, scales, mins,
+offset, out_features)`, whose CPU implementation is the plain version and
+whose CUDA implementation launches the kernel; its fake implementation
+gives the (..., N) output, so `torch.export` keeps each call as one node
+of the exported program (aot.py).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import functools
 import torch
 
 from vit_cpp_tpu_torch.gguf.dtypes import QK
-from vit_cpp_tpu_torch._build import Kernel, check, library
+from vit_cpp_tpu_torch._build import Kernel, check, library, operator
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 KERNEL = Kernel(
@@ -70,6 +77,17 @@ def _flatten(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
     return x.reshape(-1, k)
 
 
+def _dequantize(codes, scales, mins, offset: int, dtype) -> torch.Tensor:
+    """QuantLinear.dequantize from the leaf's tensors and code offset."""
+    c = codes.float()
+    if offset:
+        c = c - offset
+    w = c * scales.repeat_interleave(QK, dim=-2)
+    if mins is not None:
+        w = w + mins.repeat_interleave(QK, dim=-2)
+    return w.to(dtype)
+
+
 def dequant_matmul_plain(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
     """The plain PyTorch version of the kernel (any device); x (..., K)."""
     y = torch.matmul(_flatten(x, w), w.dequantize(x.dtype))
@@ -81,27 +99,34 @@ def dequant_matmul(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
 
     The kernel reads the QuantLinear's own layout: codes (K, N) int8,
     scales and mins (K/32, N) f32, all row-major; x is (M, K) row-major."""
-    if x.device.type == "cpu":
-        return dequant_matmul_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"dequant_matmul: unsupported device {x.device}")
-    x2 = _flatten(x, w)
-    m, k = x2.shape
-    n = w.out_features
+    _flatten(x, w)
+    return _DEQUANT_MATMUL(x, w.codes, w.scales, w.mins, w.offset, w.out_features)
+
+
+def _dequant_matmul_cpu(x, codes, scales, mins, offset, out_features):
+    k = x.shape[-1]
+    y = torch.matmul(x.reshape(-1, k), _dequantize(codes, scales, mins, offset, x.dtype))
+    return y.reshape(*x.shape[:-1], out_features)
+
+
+def _dequant_matmul_cuda(x, codes, scales, mins, offset, out_features):
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    m, n = x2.shape[0], out_features
     if x.dtype not in _DTYPES:
         raise ValueError(f"dequant_matmul kernel takes f32/bf16 x, got {x.dtype}")
     if k % QK:
         raise ValueError(f"dequant_matmul kernel needs K % {QK} == 0, got K={k}")
-    tensors = [w.codes, w.scales] + ([] if w.mins is None else [w.mins])
+    tensors = [codes, scales] + ([] if mins is None else [mins])
     for t, dt in zip(tensors, (torch.int8, torch.float32, torch.float32)):
         if t.device != x.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(
                 "dequant_matmul kernel needs contiguous int8 codes and f32 "
                 f"scales/mins on {x.device}, got {t.dtype} on {t.device}"
             )
-    if tuple(w.scales.shape) != (k // QK, n):
-        raise ValueError(f"scales {tuple(w.scales.shape)} != {(k // QK, n)}")
-    if w.mins is not None and w.mins.shape != w.scales.shape:
+    if tuple(scales.shape) != (k // QK, n):
+        raise ValueError(f"scales {tuple(scales.shape)} != {(k // QK, n)}")
+    if mins is not None and mins.shape != scales.shape:
         raise ValueError("mins and scales differ in shape")
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:  # the kernel loads x in 16-byte vectors
@@ -111,14 +136,25 @@ def dequant_matmul(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.vit_dequant_matmul(
-            x2.data_ptr(), w.codes.data_ptr(), w.scales.data_ptr(),
-            None if w.mins is None else w.mins.data_ptr(), out.data_ptr(),
-            m, n, k, w.offset, _DTYPES[x.dtype],
+            x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            None if mins is None else mins.data_ptr(), out.data_ptr(),
+            m, n, k, offset, _DTYPES[x.dtype],
             tile_rows(m, n, _sm_count(x.device.index)), stream,
         )
     check(rc, "dequant_matmul kernel launch")
     KERNEL.counted()
     return out.reshape(*x.shape[:-1], n)
+
+
+def _dequant_matmul_fake(x, codes, scales, mins, offset, out_features):
+    return x.new_empty((*x.shape[:-1], out_features))
+
+
+_DEQUANT_MATMUL = operator(
+    "dequant_matmul(Tensor x, Tensor codes, Tensor scales, Tensor? mins, int offset, "
+    "int out_features) -> Tensor",
+    cpu=_dequant_matmul_cpu, cuda=_dequant_matmul_cuda, fake=_dequant_matmul_fake,
+)
 
 
 def quant_matmul(x: torch.Tensor, w: QuantLinear, *, impl: str = "xla") -> torch.Tensor:

@@ -33,7 +33,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from vit_cpp_tpu_torch.ops.precision import matmul_precision
+from vit_cpp_tpu_torch.ops.precision import highest_product
 
 
 def tome_schedule(n_patches: int, num_layers: int, r: int) -> List[int]:
@@ -59,9 +59,8 @@ def bipartite_match(
     the A tokens that merge, most similar first). Indices count within
     the A and B sets of the patch tokens."""
     m = metric.detach()[:, n_prefix:].float()
-    with matmul_precision("highest"):
-        m = m / torch.clamp(torch.linalg.vector_norm(m, dim=-1, keepdim=True), min=1e-6)
-        scores = torch.einsum("bad,bcd->bac", m[:, 0::2], m[:, 1::2])  # (B, Ta, Tb)
+    m = m / torch.clamp(torch.linalg.vector_norm(m, dim=-1, keepdim=True), min=1e-6)
+    scores = highest_product(m[:, 0::2], m[:, 1::2], "bad,bcd->bac")  # (B, Ta, Tb)
     node_max = scores.amax(dim=-1)
     node_idx = scores.argmax(dim=-1)
     src = torch.sort(node_max, dim=-1, descending=True, stable=True).indices[:, :r]

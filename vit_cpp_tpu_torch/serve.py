@@ -27,12 +27,14 @@ import os
 import queue
 import threading
 import time
-from typing import Callable, Iterable, Iterator, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
-from vit_cpp_tpu_torch.engine import VitEngine
 from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+
+if TYPE_CHECKING:  # an AotEngine serves here without the model code
+    from vit_cpp_tpu_torch.engine import VitEngine
 
 
 @dataclasses.dataclass

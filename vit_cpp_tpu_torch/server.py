@@ -82,7 +82,9 @@ class MicroBatcher:
     `max_queue` > 0 bounds the backlog: a submit() that would exceed it
     fails fast with OverloadedError (-> 503). 0 = unbounded.
     `buckets=True` pads to the next power of two >= the coalesced count
-    (capped at `batch`) instead of always the full batch.
+    (capped at `batch`) instead of always the full batch. A list of sizes
+    (a multi-batch .vitx artifact's baked `batches`) buckets over exactly
+    those; it must end at `batch`.
     """
 
     _SENTINEL = object()
@@ -93,11 +95,20 @@ class MicroBatcher:
         batch: int = 8,
         max_wait_ms: float = 5.0,
         max_queue: int = 0,
-        buckets: bool = False,
+        buckets=False,
     ):
         self._predict = predict
         self.batch = int(batch)
-        self.buckets = bool(buckets)
+        if isinstance(buckets, (list, tuple)):
+            sizes = sorted(int(b) for b in buckets)
+            if not sizes or sizes[-1] != self.batch:
+                raise ValueError(
+                    f"bucket sizes {sizes} must be non-empty and end at "
+                    f"batch {self.batch}"
+                )
+            self.buckets = sizes
+        else:
+            self.buckets = bool(buckets)
         self.max_queue = int(max_queue)
         self.max_wait = float(max_wait_ms) / 1000.0
         self._q: "queue.SimpleQueue" = queue.SimpleQueue()
@@ -183,7 +194,9 @@ class MicroBatcher:
 
     def bucket_sizes(self):
         """The padded batch shapes this batcher can run: powers of two up
-        to `batch`, or just `batch` when bucketing is off."""
+        to `batch`, the given sizes, or just `batch` when bucketing is off."""
+        if isinstance(self.buckets, list):
+            return self.buckets
         if not self.buckets:
             return [self.batch]
         sizes, b = [], 1
@@ -234,7 +247,11 @@ class _Model:
         self.is_headless = _is_headless(engine)
         self.is_vitstr = engine.hp.seq_len is not None  # the recognize route
         self.embed_batcher: Optional[MicroBatcher] = None
-        if not self.is_headless:
+        # a classifier .vitx artifact holds no features program: no embed
+        # route (404), as in the JAX daemon
+        meta = getattr(engine, "meta", None)
+        can_embed = meta is None or meta.get("program") == "features"
+        if not self.is_headless and can_embed:
             self.embed_batcher = MicroBatcher(
                 engine.features_batch,
                 batch=batcher.batch,
@@ -252,7 +269,10 @@ class _Model:
         recognizer)."""
         if self.is_headless:
             return {f"{prefix}/embed": (self, "embed")}
-        return {f"{prefix}/{self.route}": (self, None), f"{prefix}/embed": (self, "embed")}
+        routes = {f"{prefix}/{self.route}": (self, None)}
+        if self.embed_batcher is not None:
+            routes[f"{prefix}/embed"] = (self, "embed")
+        return routes
 
     @property
     def route(self) -> str:
@@ -459,7 +479,7 @@ def _warm(engine, batcher: MicroBatcher) -> None:
 
 
 def _batcher(engine, batch: int, max_wait_ms: float, max_queue: int,
-             buckets: bool) -> MicroBatcher:
+             buckets) -> MicroBatcher:
     """The main batcher of a model: its classifier, or a headless
     encoder's features."""
     return MicroBatcher(
@@ -480,7 +500,7 @@ def create_server(
     warmup: bool = True,
     request_timeout_s: float = 30.0,
     max_queue: int = 0,
-    buckets: bool = False,
+    buckets=False,
 ):
     """Build (ThreadingHTTPServer, MicroBatcher); the caller runs
     serve_forever() and closes both (closing the batcher closes the embed

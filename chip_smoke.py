@@ -189,16 +189,38 @@
       .vitx served by AotEngine in a fresh process that cannot import
       models.vit, models.params, engine, JAX or the JAX package, the gguf
       moved away, against the gguf engine's probabilities at B=1 and B=64
-      (1e-5) with 12 attention_qkv launches per batch; the Q8_0 file
-      exported with --mm pallas (49 dequant_matmul + 12 attention_qkv per
-      batch) and the f16 file with --act static --calib-dir assets, each
-      against its gguf engine; `cli.vit`, `cli.serve`, `cli.server
-      --bucket` (over the baked 1 and 64; /v1/embed 404 on a classifier
-      artifact) and `cli.benchmark` on the .vitx as subprocesses; the
+      (1e-5) with 12 attention_qkv launches per batch; at ViT-B/16's width
+      and 6 blocks (the depth cut that keeps the script's time since the
+      mesh phase), a Q8_0 file exported with --mm pallas (25 dequant_matmul
+      + 6 attention_qkv per batch) and its f16 file with --act static
+      --calib-dir assets, each against its gguf engine; `cli.vit`,
+      `cli.serve`, `cli.server --bucket` (over the baked 1 and 64;
+      /v1/embed 404 on a classifier artifact) and `cli.benchmark` on the
+      .vitx as subprocesses; the
       card artifact refused on the CPU and with no card visible, a CPU
       artifact refused on the card; the artifact's size, load ms and
       B=64 / B=1 forwards beside the gguf engine's (median of 20 in
       turns, one profiled run each);
+   m'. the multi-device layer (phase `mesh_paths`), every launch a 1x1
+      mesh under `python3 -m torch.distributed.run --standalone
+      --nproc-per-node 1` (NCCL, world 1: one card holds no two NCCL
+      ranks): `cli.serve --mesh 1x1` at the defaults and with --mm pallas
+      on Q8_0 prints what (d)'s unsharded commands printed; `cli.server
+      --mesh 1x1` answers the ten assets with an unsharded daemon's
+      probabilities (1e-6) and leaves rank 0 with exit code 0 after
+      SIGTERM; `cli.finetune --mesh 1x1 --fsdp` (2 updates of B=32) trains
+      and its output serves; in this process meanwhile, the finetune API
+      with and without the mesh (losses within 1e-5; 12 + 12 launches per
+      update) and a 1x1-mesh engine's launches through serve_files (12
+      attention_qkv, 49 dequant_matmul + 12 per batch); then, alone on the
+      card, the 1x1-mesh B=64 forward against the unsharded one (bit-equal,
+      median of 20 in turns) and every kernel at the per-rank shapes of
+      tp = 2 and 4 beside tp = 1 (attention_qkv bf16 fast B=64 and f32
+      safe B=32 at 6 and 3 heads, attention_qkv_grad f32 B=32,
+      dequant_matmul Q8_0 bf16 B=64 at the qkv / fc1 column shards and
+      the proj / fc2 row shards, and W8A8's int8_mm there against an
+      exact f64 product), held to plain and timed (`mesh_shards` in the
+      kernels line). No speed-up across GPUs is measured;
    n. stage parity (phase `stage_parity`): models.vit.forward_debug on
       the card, f32 with TF32 off and bf16 W8A8 with the fast fused
       attention, against the card machine's CPU in f32, stage by stage
@@ -1570,6 +1592,11 @@ def vit_cli(f16: str, card: str) -> None:
         raise AssertionError("cli.vit: the f32 engine is no closer to the CPU than a TF32 engine")
 
 
+# vit_serve's `cli.serve` stdout per configuration ("vit-serve defaults",
+# "vit-serve --mm pallas"), the unsharded runs of mesh_paths' --mesh 1x1
+SERVE_STDOUT = {}
+
+
 def vit_serve(f16: str, q8: str, card: str) -> dict:
     """`python -m vit_cpp_tpu_torch.cli.serve` over the ten assets at
     batch 8: at its defaults on the f16 file, then with --mm pallas on the
@@ -1595,6 +1622,7 @@ def vit_serve(f16: str, q8: str, card: str) -> dict:
         ("vit-serve --mm pallas", q8, ["--mm", "pallas"], {QMM_KERNEL: 49, KERNEL: 12}, Q8_PROB_TOL),
     ):
         r = run_module("vit_cpp_tpu_torch.cli.serve", "-m", model, *paths, "-b", "8", *flags)
+        SERVE_STDOUT[what] = r.stdout  # mesh_paths compares --mesh 1x1 with it
         for line in r.stderr.splitlines():
             log(f"{what}: {line}")
         rows = [line.split("\t") for line in r.stdout.splitlines()]
@@ -4083,15 +4111,19 @@ def aot_launches(what: str, engine, pixels, per_batch: dict) -> dict:
     return out, launches
 
 
+AOT_BLOCKS = 6  # the depth of the Q8_0 --mm pallas and static artifacts
+
+
 def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     """The AOT serving artifact (phase `aot_paths`) on the synthetic
     ViT-B/16: `cli.export_aot -b 1,64` at the serving defaults and its
     --info; the artifact served in a fresh process that cannot import the
     model code, with the gguf moved away, against the gguf engine's
     probabilities at B=64 and B=1 (AOT_TOL) with 12 attention_qkv launches
-    per batch; the Q8_0 file exported with --mm pallas (49 dequant_matmul
-    + 12 attention_qkv per batch) and the f16 file with --act static
-    --calib-dir assets, each against its gguf engine; cli.vit, cli.serve,
+    per batch; at ViT-B/16's width and AOT_BLOCKS blocks (the depth cut
+    to keep the script's time), a Q8_0 file exported with --mm pallas (25
+    dequant_matmul + 6 attention_qkv per batch) and the f16 file with
+    --act static --calib-dir assets, each against its gguf engine; cli.vit, cli.serve,
     the cli.server daemon with --bucket (over the baked 1 and 64) and
     cli.benchmark on the artifact, as subprocesses beside those checks;
     the card artifact refused on the CPU and in a process with no card, a
@@ -4102,6 +4134,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     import shutil
 
     from vit_cpp_tpu_torch.aot import AotEngine, read_meta
+    from vit_cpp_tpu_torch.cli import quantize
     from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
@@ -4157,13 +4190,21 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     }
     out = {}
 
+    # the two other exports at half depth: ViT-B/16's width, 6 blocks
+    f16, q8 = (os.path.join(d, f"vit-b16-6-blocks-{k}.gguf") for k in ("f16", "q8_0"))
+    write_synthetic_model(f16, VitHParams(**{**VIT_B16, "num_hidden_layers": AOT_BLOCKS}),
+                          ftype=1, seed=0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if quantize.main([f16, q8, "8"]) != 0:
+            raise AssertionError("cli.quantize failed on the 6-block file")
     art_q8 = os.path.join(d, "vit-b16-q8_0-pallas.vitx")
     rc, _, err, secs = export_cli(q8, art_q8, "-b", "8", "--mm", "pallas")
     if rc != 0:
         raise AssertionError(f"cli.export_aot --mm pallas: exit {rc}: {err}")
     q8_engine, _ = build_engine(q8, mm="pallas", device="cuda")
     p, out["vitx Q8_0 --mm pallas B=8"] = aot_launches(
-        "aot Q8_0 --mm pallas", AotEngine(art_q8), pixels[:8], {QMM_KERNEL: 49, KERNEL: 12})
+        "aot Q8_0 --mm pallas", AotEngine(art_q8), pixels[:8],
+        {QMM_KERNEL: 4 * AOT_BLOCKS + 1, KERNEL: AOT_BLOCKS})
     err_q8 = float((p - q8_engine.predict_probs_batch(pixels[:8])).abs().max())
     log(f"cli.export_aot Q8_0 --mm pallas -b 8 in {secs:.1f} s: {err.strip()}; launches per "
         f"batch {out['vitx Q8_0 --mm pallas B=8']}, max|p_aot - p_gguf| {err_q8:.2e}")
@@ -4180,7 +4221,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
         raise AssertionError("static calibration on assets/ rejected by the guardrail")
     static = AotEngine(art_st)
     p, out["vitx --act static B=8"] = aot_launches("aot static", static, pixels[:8],
-                                                   {KERNEL: 12})
+                                                   {KERNEL: AOT_BLOCKS})
     err_st = float((p - live.predict_probs_batch(pixels[:8])).abs().max())
     log(f"cli.export_aot --act static --calib-dir assets -b 8 in {secs:.1f} s: meta act "
         f"{static.meta['act']!r}; max|p_aot - p_live static| {err_st:.2e}")
@@ -4303,6 +4344,319 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
         }, card, batch=b)
     log(f"phase aot_paths: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def shard_kernels(card: str) -> dict:
+    """Each kernel at the shapes one rank of a tensor-parallel mesh gives it
+    (tp = 2 and 4 on ViT-B/16; tp = 1 is the unsharded call of the same
+    layer), held to its plain version with the existing tolerances and
+    timed with cuda_ms beside it: attention_qkv bf16 fast at B=64 and f32
+    safe at B=32 (nh/tp heads), attention_qkv_grad f32 at B=32,
+    dequant_matmul Q8_0 bf16 at B=64 on the column shards (qkv, fc1: N/tp)
+    and the row shards (proj, fc2: K/tp), and W8A8's int8 product
+    (int8_mm, torch._int_mm) at the same shards against an exact f64
+    product. Returns {kernel name: {case: (ms, plain_ms, bound_ms,
+    bound_by, library_ms)}} and the worst errors."""
+    from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType as G
+    from vit_cpp_tpu_torch.ops.flash_attention import (
+        attention_qkv,
+        attention_qkv_grad,
+        attention_qkv_grad_plain,
+        attention_qkv_plain,
+    )
+    from vit_cpp_tpu_torch.ops.int8_matmul import int8_mm
+    from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {"attention_qkv": {}, "dequant_matmul": {}, "attention_qkv_grad": {}, "int8_mm": {}}
+    errs = {k: 0.0 for k in out}
+    for tp in (1, 2, 4):
+        h, nh = 768 // tp, 12 // tp
+        for b, dtype, fast in ((64, bf16, True), (32, f32, False)):
+            qkv = torch.randn((b, 197, 3 * h), generator=gen, device="cuda").to(dtype)
+            got, ref = attention_qkv(qkv, nh, fast=fast), attention_qkv_plain(qkv, nh, fast=fast)
+            err = (got.float() - ref.float()).abs().max().item()
+            what = f"tp{tp} B={b} {str(dtype)[6:]} {'fast' if fast else 'safe'} nh={nh}"
+            log(f"kernel case mesh shard attention_qkv {what}: max|kernel - plain| = "
+                f"{err:.3e} (tolerance {TOL[dtype]:.0e})")
+            if not err <= TOL[dtype]:
+                raise AssertionError(f"attention_qkv {what}: error {err}")
+            errs["attention_qkv"] = max(errs["attention_qkv"], err)
+            k_ms, p_ms = time_pair(f"mesh shard attention_qkv {what}", card,
+                                   lambda: attention_qkv(qkv, nh, fast=fast),
+                                   lambda: attention_qkv_plain(qkv, nh, fast=fast))
+            out["attention_qkv"][what] = (
+                k_ms, p_ms, *attention_bound(b, 197, h, qkv.element_size()), sdpa_ms(qkv, nh))
+        qkv = torch.randn((32, 197, 3 * h), generator=gen, device="cuda")
+        do = torch.randn((32, 197, h), generator=gen, device="cuda")
+        got, ref = attention_qkv_grad(qkv, do, nh), attention_qkv_grad_plain(qkv, do, nh)
+        err = (got - ref).abs().max().item()
+        tol = GRAD_TOL[f32] * ref.abs().max().item()
+        what = f"tp{tp} B=32 f32 nh={nh}"
+        log(f"kernel case mesh shard attention_qkv_grad {what}: max|kernel - plain| = "
+            f"{err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"attention_qkv_grad {what}: error {err} > {tol}")
+        errs["attention_qkv_grad"] = max(errs["attention_qkv_grad"], err)
+        k_ms, p_ms = time_pair(f"mesh shard attention_qkv_grad {what}", card,
+                               lambda: attention_qkv_grad(qkv, do, nh),
+                               lambda: attention_qkv_grad_plain(qkv, do, nh))
+        out["attention_qkv_grad"][what] = (
+            k_ms, p_ms, *bound(10.0 * 32 * 197 * 197 * h, 7 * 32 * 197 * h * 4, "f32"),
+            sdpa_grad_ms(qkv, do, nh))
+        rng = np.random.default_rng(tp)
+        m = 64 * 197
+        for layer, k, n in (("qkv", 768, 2304 // tp), ("fc1", 768, 3072 // tp),
+                            ("proj", 768 // tp, 768), ("fc2", 3072 // tp, 768)):
+            what = f"{layer} tp{tp} M={m} K={k} N={n}"
+            w = _quant_linear(rng, k, n, G.Q8_0)
+            x = torch.randn((m, k), generator=gen, device="cuda").to(bf16)
+            got, ref = dequant_matmul(x, w), dequant_matmul_plain(x, w)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = QMM_TOL[bf16] * ref.float().abs().max().item()
+            log(f"kernel case mesh shard dequant_matmul {what} Q8_0 bf16: max|kernel - plain| = "
+                f"{err:.3e} (tolerance {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"dequant_matmul {what}: error {err} > {tol}")
+            errs["dequant_matmul"] = max(errs["dequant_matmul"], err)
+            k_ms, p_ms = time_pair(f"mesh shard dequant_matmul {what} Q8_0 bf16", card,
+                                   lambda: dequant_matmul(x, w), lambda: dequant_matmul_plain(x, w))
+            dense = w.dequantize(bf16)
+            out["dequant_matmul"][what] = (
+                k_ms, p_ms, *bound(2.0 * m * k * n, 2 * m * k + k * n // 32 * 34 + 2 * m * n,
+                                   "bf16"),
+                cuda_ms(lambda: torch.matmul(x, dense)))
+            xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+            codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                                  dtype=torch.int8)
+            acc = int8_mm(xq, codes)
+            exact = torch.matmul(xq.double(), codes.double())
+            err = (acc.double() - exact).abs().max().item()
+            log(f"kernel case mesh shard int8_mm {what}: max|int8_mm - f64 product| = {err:.1f} "
+                f"(exact: tolerance 0)")
+            if err != 0:
+                raise AssertionError(f"int8_mm {what}: error {err}")
+            i_ms = cuda_ms(lambda: int8_mm(xq, codes))
+            f_ms = cuda_ms(lambda: torch.matmul(xq.double(), codes.double()))
+            # int8 in, int32 out; the library call is int8_mm itself
+            out["int8_mm"][what] = (i_ms, f_ms, *bound(2.0 * m * k * n, m * k + k * n + 4 * m * n,
+                                                       "int8"), None)
+            log(f"timing mesh shard int8_mm {what} on {card}: {i_ms:.4f} ms per call, the f64 "
+                f"product {f_ms:.4f} ms")
+    for kernel, rows in out.items():
+        for what, (k_ms, p_ms, b_ms, b_by, lib) in rows.items():
+            log(f"mesh shard {kernel} {what}: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), library "
+                f"{'n/a' if lib is None else f'{lib:.4f} ms'} on {card}")
+    return out, errs
+
+
+def _descendants(pid: int) -> list:
+    """The pids under `pid` (from /proc), depth first."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            kids = [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+    return [k for c in kids for k in (c, *_descendants(c))]
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def launcher(*args: str) -> list:
+    """`python3 -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    <args>`: one rank under the launcher (NCCL, world 1)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1", "-m", *args]
+
+
+def mesh_daemon_probs(proc, bodies) -> tuple:
+    """The ten assets' /v1/classify probabilities from a daemon started
+    with --port 0 (its banner names the port), one request at a time."""
+    port = int(re.search(r"http://127\.0\.0\.1:(\d+)", _read_banner(proc, 300)).group(1))
+    probs = []
+    for body in bodies:
+        status, out, _ = post(f"http://127.0.0.1:{port}/v1/classify?topk=1000", body)
+        if status != 200:
+            raise AssertionError(f"daemon answered {status}: {out}")
+        row = np.zeros(1000)
+        for t in out["topk"]:
+            row[t["id"]] = t["prob"]
+        probs.append(row)
+    return np.stack(probs), port
+
+
+def mesh_paths(f16: str, q8: str, tmp: str, card: str) -> tuple:
+    """The multi-device layer on one card: every launch a 1x1 mesh under
+    the torch.distributed launcher (NCCL, world 1; one card cannot hold two
+    NCCL ranks). `vit-serve --mesh 1x1` at the defaults and with --mm
+    pallas on Q8_0 prints what vit_serve's unsharded commands printed;
+    `vit-server --mesh 1x1` answers the ten assets with the unsharded
+    daemon's probabilities (1e-6) and leaves rank 0 with exit code 0 after
+    SIGTERM; `vit-finetune --mesh 1x1 --fsdp` trains and its output
+    serves, its losses within 1e-5 of the unsharded run's (the API run in
+    this process, two updates at B=32, vs the same without a mesh). While
+    the launches run, this process checks (untimed) the API runs and a
+    1x1-mesh engine's launches through serve_files; then, alone on the
+    card, its B=64 forward against the unsharded engine's in turns (what
+    the sharded path costs when the collectives are trivial), and every
+    kernel at the per-rank shapes of tp = 2 and 4 (shard_kernels).
+    Returns ({path: {kernel: launches}}, {path: K2 launches}, shard
+    timings, errors)."""
+    import signal
+
+    import torch.distributed as dist
+
+    from vit_cpp_tpu_torch.cli.common import build_engine
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.finetune import finetune
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+    from vit_cpp_tpu_torch.parallel.mesh import make_mesh
+    from vit_cpp_tpu_torch.serve import serve_files
+
+    t0 = time.perf_counter()
+    paths, bodies = asset_bodies()
+    # two intra-op threads each: the launches share the host's cores with
+    # this process's checks
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="2")
+    data = write_dark_bright(os.path.join(tmp, "mesh_train"), 16)
+    ft_out = os.path.join(tmp, "mesh-ft.gguf")
+
+    def spawn(cmd):
+        return subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, env=env)
+
+    serves = {what: spawn(launcher("vit_cpp_tpu_torch.cli.serve", "-m", model, *paths, "-b",
+                                   "8", *flags, "--mesh", "1x1"))
+              for what, model, flags in (("vit-serve defaults", f16, []),
+                                         ("vit-serve --mm pallas", q8, ["--mm", "pallas"]))}
+    daemons = (spawn(launcher("vit_cpp_tpu_torch.cli.server", "-m", f16, "--port", "0",
+                              "--mesh", "1x1")),
+               spawn([sys.executable, "-m", "vit_cpp_tpu_torch.cli.server", "-m", f16,
+                      "--port", "0"]))
+    ft = spawn(launcher("vit_cpp_tpu_torch.cli.finetune", "-m", f16, "-d", data, "-o", ft_out,
+                        "-b", "32", "--epochs", "2", "--mesh", "1x1", "--fsdp"))
+    try:
+        # in this process meanwhile, untimed: a 1-rank NCCL group
+        mesh = make_mesh(1, 1, 1, device_type="cuda")
+        quiet = lambda m: None  # noqa: E731
+        KERNEL.reset()
+        GRAD_KERNEL.reset()
+        _, _, _, sharded = finetune(f16, data, epochs=2, batch=32, mesh=mesh, fsdp=True,
+                                    log=quiet)
+        torch.cuda.synchronize()
+        ft_launches = (KERNEL.launches, GRAD_KERNEL.launches)
+        _, _, _, plain = finetune(f16, data, epochs=2, batch=32, log=quiet)
+        launches = {}
+        for what, model, mm, per_batch in (
+            ("mesh 1x1 serve_files", f16, "int8", {KERNEL: 12}),
+            ("mesh 1x1 serve_files --mm pallas", q8, "pallas", {QMM_KERNEL: 49, KERNEL: 12}),
+        ):
+            engine, _ = build_engine(model, mm=mm, device="cuda")
+            engine.shard(mesh)
+            for kernel in per_batch:
+                kernel.reset()
+            got = list(serve_files(engine, paths, batch=8))
+            torch.cuda.synchronize()
+            launches[what] = {k.name: k.launches for k in per_batch}
+            if any(k.launches != 2 * n for k, n in per_batch.items()) or len(got) != 10:
+                raise AssertionError(f"{what}: launches {launches[what]} for 2 batches")
+            log(f"{what}: launches {launches[what]} = "
+                f"{ {k.name: n for k, n in per_batch.items()} } x 2 batches")
+            del engine
+
+        (mesh_p, mesh_port), (plain_p, _) = (mesh_daemon_probs(d, bodies) for d in daemons)
+        err = float(np.abs(mesh_p - plain_p).max())
+        log(f"vit-server --mesh 1x1 (launcher, port {mesh_port}): the ten assets' probabilities "
+            f"vs the unsharded daemon: max diff {err:.3e} (bound 1e-6), bit-equal "
+            f"{np.array_equal(mesh_p, plain_p)}")
+        if err > 1e-6:
+            raise AssertionError(f"vit-server --mesh 1x1: probabilities off by {err}")
+        workers = [p for p in _descendants(daemons[0].pid)
+                   if "vit_cpp_tpu_torch.cli.server" in _cmdline(p)]
+        if not workers:
+            raise AssertionError("vit-server --mesh 1x1: no worker process under the launcher")
+        os.kill(workers[0], signal.SIGTERM)  # rank 0: it broadcasts stop and returns
+        daemons[1].send_signal(signal.SIGTERM)
+        for name, d in zip(("--mesh 1x1 (the launcher: rank 0's code)", "unsharded"), daemons):
+            rc = d.wait(timeout=120)
+            log(f"vit-server {name}: exit code {rc} after SIGTERM")
+            if rc != 0:
+                raise AssertionError(f"vit-server {name} exited {rc}")
+        for what, proc in serves.items():
+            out, err_text = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise AssertionError(f"{what} --mesh 1x1: exit {proc.returncode}: "
+                                     f"{err_text[-2000:]}")
+            log(f"{what} --mesh 1x1 (launcher): {len(out.splitlines())} lines, stdout equal "
+                f"to the unsharded command's: {out == SERVE_STDOUT[what]}; "
+                f"{[ln for ln in err_text.splitlines() if 'images/sec' in ln]}")
+            if out != SERVE_STDOUT[what] or len(out.splitlines()) != 10:
+                raise AssertionError(f"{what} --mesh 1x1: {out!r} != {SERVE_STDOUT[what]!r}")
+        _, ft_err = ft.communicate(timeout=600)
+        if ft.returncode:
+            raise AssertionError(f"vit-finetune --mesh 1x1 --fsdp exited {ft.returncode}: "
+                                 f"{ft_err[-3000:]}")
+        cli_losses = re.findall(r"^epoch \d+/\d+: loss (\S+)", ft_err, re.M)
+    finally:
+        for p in (*daemons, ft, *serves.values()):
+            if p.poll() is None:
+                for w in _descendants(p.pid):
+                    os.kill(w, signal.SIGKILL)
+                p.kill()
+    diff = float(np.abs(np.array(sharded) - np.array(plain)).max())
+    log(f"vit-finetune --mesh 1x1 --fsdp: losses {sharded} vs unsharded {plain} (max diff "
+        f"{diff:.3e}, bound 1e-5); the launcher's run printed {cli_losses}; launches "
+        f"{ft_launches[0]} attention_qkv + {ft_launches[1]} attention_qkv_grad for 2 updates")
+    if diff > 1e-5 or cli_losses != [f"{v:.4f}" for v in sharded]:
+        raise AssertionError(f"vit-finetune --mesh 1x1 --fsdp: {sharded} / {cli_losses} vs "
+                             f"{plain}")
+    if ft_launches != (24, 24):
+        raise AssertionError(f"vit-finetune --mesh 1x1: launches {ft_launches}, want 12 + 12 "
+                             "per update")
+    served = VitEngine(ft_out, device="cuda", verbose=False)
+    p = served.predict_probs_batch(served.preprocess_images(
+        [decode_rgb(b) for b in bodies[:4]]))
+    if p.shape != (4, 2) or not torch.isfinite(p).all():
+        raise AssertionError(f"mesh-ft.gguf: bad probabilities {tuple(p.shape)}")
+    log(f"mesh-ft.gguf (rank 0's output) serves: probabilities {tuple(p.shape)}, finite; "
+        f"the launches and checks in {time.perf_counter() - t0:.1f} s")
+
+    x = torch.randn((64, 3, 224, 224), generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda")
+    plain_e, _ = build_engine(f16, device="cuda")
+    mesh_e, _ = build_engine(f16, device="cuda")
+    mesh_e.shard(mesh)
+    a, b = plain_e.predict_probs_batch(x), mesh_e.predict_probs_batch(x)
+    log(f"mesh 1x1 engine B=64 vs unsharded (serving defaults): max|diff| "
+        f"{(a - b).abs().max().item():.3e}, bit-equal {torch.equal(a, b)}")
+    if not torch.equal(a, b):
+        raise AssertionError("the 1x1-mesh forward differs from the unsharded one")
+    ms = timed_forwards("mesh overhead forward B=64", {
+        "unsharded": lambda: plain_e.predict_probs_batch(x),
+        "mesh 1x1": lambda: mesh_e.predict_probs_batch(x),
+    }, card)
+    log(f"mesh overhead: the 1x1-mesh forward costs {ms['mesh 1x1'] - ms['unsharded']:+.3f} ms "
+        f"({ms['mesh 1x1'] / ms['unsharded'] - 1:+.2%}) over the unsharded one at B=64 on {card}")
+    del plain_e, mesh_e
+    shards, errs = shard_kernels(card)
+    dist.destroy_process_group()
+    log(f"mesh_paths in {time.perf_counter() - t0:.1f} s")
+    return launches, {"cli.finetune --mesh 1x1 --fsdp": ft_launches[1]}, shards, errs
+
+
+def decode_rgb(body: bytes):
+    from vit_cpp_tpu_torch.server import decode_rgb_from_bytes
+
+    return decode_rgb_from_bytes(body)
 
 
 def op_dispatch_cost(f16: str, q8: str, card: str) -> None:
@@ -4474,6 +4828,8 @@ def run_paths(card: str):
         serve_launches.update(model_families(f16, tmp, card))
         vit_inspect(f16, q8)
         serve_launches.update(aot_paths(f16, q8, tmp, card))
+        mesh_launches, mesh_grad, mesh_shards, mesh_errs = mesh_paths(f16, q8, tmp, card)
+        serve_launches.update(mesh_launches)
         stage_parity(f16, card)
         op_dispatch_cost(f16, q8, card)
         f32 = os.path.join(tmp, "vit-b16-synthetic-f32.gguf")
@@ -4490,8 +4846,10 @@ def run_paths(card: str):
     flash_launches = split_head_path()
     grad_launches = {"cli.finetune": grad_launches,
                      f"cli.finetune --tome {TOME_TRAIN_R}": tome_grad_launches,
-                     "cli.finetune --moe 8": moe_grad_launches, **extras_grad_launches}
-    return f16_launches, q8_launches, flash_launches, grad_launches, serve_launches
+                     "cli.finetune --moe 8": moe_grad_launches, **extras_grad_launches,
+                     **mesh_grad}
+    return (f16_launches, q8_launches, flash_launches, grad_launches, serve_launches,
+            (mesh_shards, mesh_errs))
 
 
 def main() -> int:
@@ -4531,7 +4889,7 @@ def main() -> int:
     k4_err, k4_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
-    _, q8_launches, flash_launches, grad_launches, serve_launches = run_paths(card)
+    _, q8_launches, flash_launches, grad_launches, serve_launches, (shards, _) = run_paths(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -4561,24 +4919,31 @@ def main() -> int:
     from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
     from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
 
+    def by_shard(name):
+        """A kernel's times at the per-rank shapes of tp = 1, 2, 4 (mesh_paths)."""
+        return {"mesh_shards": {case: dict(zip(keys, t)) for case, t in shards[name].items()}}
+
     log(json.dumps({"kernels": [
         # K1: bf16 fast at ViT-B/16 B=8; B=64 and the training forward
-        # (f32 safe, B=32) beside it
-        entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
-              by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
-                       **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
-              b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"]),
-        entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
-              by_path={"Q8_0 --mm pallas daemon": q8_launches[QMM_KERNEL.name],
-                       **{p: n[QMM_KERNEL.name] for p, n in serve_launches.items()
-                          if QMM_KERNEL.name in n}},
-              b64=k4_times["qkv B=64"]),
+        # (f32 safe, B=32) beside it, and both at tensor-parallel shards
+        {**entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
+                 by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
+                          **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
+                 b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"]),
+         **by_shard(KERNEL.name)},
+        {**entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
+                 by_path={"Q8_0 --mm pallas daemon": q8_launches[QMM_KERNEL.name],
+                          **{p: n[QMM_KERNEL.name] for p, n in serve_launches.items()
+                             if QMM_KERNEL.name in n}},
+                 b64=k4_times["qkv B=64"]),
+         **by_shard(QMM_KERNEL.name)},
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
         # K2: f32 at ViT-B/16 B=32 (the training path's); bf16 and T=785
-        # beside it
-        entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err, k2_times[(torch.float32, 197)],
-              by_path=grad_launches, bf16=k2_times[(torch.bfloat16, 197)],
-              t785=k2_times[(torch.float32, 785)]),
+        # beside it, and f32 at tensor-parallel shards
+        {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,
+                 k2_times[(torch.float32, 197)], by_path=grad_launches,
+                 bf16=k2_times[(torch.bfloat16, 197)], t785=k2_times[(torch.float32, 785)]),
+         **by_shard(GRAD_KERNEL.name)},
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL)),
         # T3: int8 at 1024^3; bf16 beside it, and both (int8 also with B

@@ -173,16 +173,17 @@ def test_build_engine_reads_the_file_once(model, monkeypatch):
     "argv,match",
     [
         # multi-model daemons, --act static, (since the model-families
-        # slice) --img-size / --patch-size and (since the ToMe slice)
-        # --tome serve now: these cases point at flags that still raise,
-        # through the same two code paths, and keep their ids (a
-        # multi-model --mesh is refused with a message, not raised, so
-        # the multi-model case passes --compile-cache)
+        # slice) --img-size / --patch-size, (since the ToMe slice) --tome
+        # and (since the multi-device slice) --mesh serve now; only
+        # --compile-cache raises. Without a launcher the world is one
+        # rank, so --mesh 2x1 exits 1 with the JAX tool's message and
+        # names the launcher (the "requested" cases), after the daemon's
+        # --act static checks and before any engine is built.
         pytest.param(["-m", "cls=MODEL", "-m", "b=MODEL", "--compile-cache", "--device", "cpu"],
                      "XLA compile cache", id="argv0-multi-model"),
-        (["-m", "MODEL", "--mesh", "2x1"], "multi-device"),
+        (["-m", "MODEL", "--mesh", "2x1"], "requested"),
         pytest.param(["-m", "MODEL", "--act", "static", "--calib-dir", "d", "--patch-size", "4",
-                      "--mesh", "2x1", "--device", "cpu"], "multi-device",
+                      "--mesh", "2x1", "--device", "cpu"], "requested",
                      id="argv2-static-scale"),
         (["-m", "MODEL", "--compile-cache"], "XLA compile cache"),
         # the bare --tome case (match None): the flag serves now, and a
@@ -190,7 +191,7 @@ def test_build_engine_reads_the_file_once(model, monkeypatch):
         # the JAX single-model daemon drops --tome, ROADMAP C)
         pytest.param(["-m", "ocr=VITSTR", "--tome", "4"], None, id="argv4-ToMe"),
         pytest.param(["-m", "MODEL", "--img-size", "64", "--mesh", "2x1", "--device", "cpu"],
-                     "multi-device", id="argv5-model-families"),
+                     "requested", id="argv5-model-families"),
     ],
 )
 def test_cli_server_unported_flags_raise(model, vitstr_model, argv, match, capsys):
@@ -205,6 +206,14 @@ def test_cli_server_unported_flags_raise(model, vitstr_model, argv, match, capsy
         assert capsys.readouterr().err.splitlines()[-1] == want == (
             "vit-server: ocr: tome token merging is incompatible with sequence-head "
             "(ViTSTR) checkpoints")
+        return
+    if match == "requested":
+        assert main(argv) == 1
+        assert capsys.readouterr().err.splitlines() == [
+            "--mesh 2x1: requested 2 devices, only 1 available",
+            "--mesh needs one process per device: python -m torch.distributed.run "
+            "--nproc-per-node 2 -m vit_cpp_tpu_torch.cli.server ...",
+        ]
         return
     with pytest.raises(NotImplementedError, match=match):
         main(argv)

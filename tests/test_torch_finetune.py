@@ -3,9 +3,9 @@ the dark/bright task of tests/test_finetune.py learns and the head
 transfers, the exported gguf is byte-identical to the JAX package's
 export of the same weights and serves through the port's engine, resume
 is bit-identical, resume with other settings is refused, the CLI runs
-end to end, every flag trains or refuses as the JAX CLI does (but the
-multi-device ones and --compile-cache, which raise), and the training
-modules load no JAX.
+end to end, every flag trains or refuses as the JAX CLI does (but
+--compile-cache, which raises; the multi-rank runs of --mesh are in
+tests/test_torch_mesh_train.py), and the training modules load no JAX.
 All on the CPU (the kernels' plain versions) at hidden 64, two layers.
 """
 
@@ -153,14 +153,24 @@ FLAGS = [
     ["--qat", "q8_0"], ["--qat-act", "static"], ["--mu-dtype", "bf16"],
     ["--compile-cache"],
 ]
-NOT_PORTED = ("--mesh", "--fsdp", "--compile-cache")
+NOT_PORTED = ("--compile-cache",)
+# without a launcher the world is one rank: --mesh 2x1 exits 1 with the
+# JAX tool's message and names the launcher; --fsdp without --mesh exits
+# 1 with the JAX package's refusal
+REFUSED = {
+    "--mesh": ["--mesh 2x1: requested 2 devices, only 1 available",
+               "--mesh needs one process per device: python -m torch.distributed.run "
+               "--nproc-per-node 2 -m vit_cpp_tpu_torch.cli.finetune ..."],
+    "--fsdp": ["finetune: --fsdp needs a device mesh (--mesh DPxTP)"],
+}
 
 
 @pytest.mark.parametrize("flag", FLAGS, ids=lambda f: f[0])
 def test_finetune_flags_train_or_refuse_as_jax(model_path, data, tmp_path, capsys, flag):
     """Every vit-finetune flag trains and writes the gguf, or refuses as the
-    JAX package does (--qat-act static without --qat, a missing teacher);
-    only the multi-device flags and --compile-cache stay unported."""
+    JAX package does (--qat-act static without --qat, a missing teacher,
+    --fsdp without a mesh); --mesh 2x1 exits 1 without a launcher, and
+    only --compile-cache stays unported."""
     from vit_cpp_tpu.cli.finetune import main as jax_main
     from vit_cpp_tpu_torch.cli.finetune import main
 
@@ -170,6 +180,13 @@ def test_finetune_flags_train_or_refuse_as_jax(model_path, data, tmp_path, capsy
     if flag[0] in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="not ported"):
             main(argv)
+        return
+    if flag[0] in REFUSED:
+        assert main(argv) == 1
+        assert capsys.readouterr().err.splitlines() == REFUSED[flag[0]]
+        if flag[0] == "--fsdp":
+            assert jax_main(jargv) == 1
+            assert capsys.readouterr().err.splitlines() == REFUSED["--fsdp"]
         return
     if flag[0] == "--qat-act":
         assert main(argv) == 1 and jax_main(jargv) == 1

@@ -326,6 +326,15 @@ def test_import_scan_covers_the_tome_modules():
         assert os.path.join("vit_cpp_tpu_torch", module) in SOURCES
 
 
+def test_import_scan_covers_the_mesh_modules():
+    """The scans above reach the multi-device layer: the mesh, the specs
+    and placement, the CPU-rank test harness, and the modules that thread
+    the mesh through serving and training."""
+    for module in ("parallel/mesh.py", "parallel/sharding.py", "testing/distributed.py",
+                   "parallel/checkpoint.py", "server.py", "ops/moe.py", "models/lora.py"):
+        assert os.path.join("vit_cpp_tpu_torch", module) in SOURCES
+
+
 def test_quick_example_vitstr_writer_is_byte_identical(tmp_path):
     from vit_cpp_tpu.testing.synthetic import write_quick_example_vitstr_model as jax_quick
     from vit_cpp_tpu_torch.testing.synthetic import write_quick_example_vitstr_model

@@ -247,38 +247,61 @@ def test_cli_serve_headless_encoder_needs_embed(files, capsys, tmp_path):
     assert rc == 0 and np.load(out).shape == (7, 64)
 
 
+MESH_2X1 = ("--mesh 2x1: requested 2 devices, only 1 available\n--mesh needs one process "
+            "per device: python -m torch.distributed.run --nproc-per-node 2 -m "
+            "vit_cpp_tpu_torch.cli.serve ...\n")
+
+
 @pytest.mark.parametrize(
     "flags,match",
     [
-        # --act static, --calib-dir and --act-scales serve since the
-        # static-scale slice, --img-size and --patch-size since the
-        # model-families slice, --tome since the ToMe slice: these cases
-        # pass each with a flag that still raises, and keep their ids
-        pytest.param(["--act", "static", "--mesh", "2x1"], r"--mesh .* multi-device slice",
+        # every flag but --compile-cache serves now: --act static,
+        # --calib-dir and --act-scales since the static-scale slice,
+        # --img-size and --patch-size since the model-families slice,
+        # --tome since the ToMe slice, --mesh since the multi-device one.
+        # Without a launcher the world is one rank: --mesh 2x1 exits 1
+        # with the JAX tool's message and names the launcher (MESH_2X1),
+        # before any other flag is looked at; a 1x1 mesh serves.
+        pytest.param(["--act", "static", "--mesh", "2x1"], MESH_2X1,
                      id=r"flags0---act static .* static-scale slice"),
-        pytest.param(["--calib-dir", "d", "--mesh", "2x1"], r"--mesh .* multi-device slice",
+        pytest.param(["--calib-dir", "d", "--mesh", "2x1"], MESH_2X1,
                      id=r"flags1---calib-dir .* static-scale slice"),
         pytest.param(["--act-scales", "s.json", "--img-size", "64", "--mesh", "2x1"],
-                     r"--mesh .* multi-device slice",
-                     id=r"flags2---act-scales .* static-scale slice"),
-        pytest.param(["--img-size", "64", "--mesh", "2x1"], r"--mesh .* multi-device slice",
+                     MESH_2X1, id=r"flags2---act-scales .* static-scale slice"),
+        pytest.param(["--img-size", "64", "--mesh", "2x1"], MESH_2X1,
                      id=r"flags3---img-size .* model-families slice"),
-        pytest.param(["--patch-size", "4", "--mesh", "2x1"], r"--mesh .* multi-device slice",
+        pytest.param(["--patch-size", "4", "--mesh", "2x1"], MESH_2X1,
                      id=r"flags4---patch-size .* model-families slice"),
         # the bare --tome case (match None): the flag serves now
         pytest.param(["--tome", "2"], None, id=r"flags5---tome .* ToMe slice"),
-        (["--mesh", "2x1"], r"--mesh .* multi-device slice"),
+        (["--mesh", "2x1"], MESH_2X1),
         (["--compile-cache"], "XLA compile cache"),
+        pytest.param(["--mesh", "wat"], "bad --mesh 'wat': want DPxTP, e.g. 4x2\n",
+                     id="bad-spec"),
+        pytest.param(["--mesh", "3x1", "-b", "4"], "dp=3 must divide --batch 4\n",
+                     id="dp-not-dividing-batch"),
+        pytest.param(["--mesh", "1x1", "--tome", "2"], None, id="mesh-1x1"),
     ],
 )
 def test_cli_serve_unported_flags_raise_and_name_their_slice(files, flags, match, capsys):
+    """--compile-cache raises (PyTorch has no compile cache); a bad --mesh
+    exits 1 with the JAX tool's message, in JAX's order."""
     argv = ["-m", files["model"], *files["paths"], "--device", "cpu", *flags]
     if match is None:
         rc, out, _ = _cli(cli_serve.main, argv, capsys)
         assert rc == 0 and len(out.splitlines()) == 7
         return
-    with pytest.raises(NotImplementedError, match=match):
-        cli_serve.main(argv)
+    if "--compile-cache" in flags:
+        with pytest.raises(NotImplementedError, match=match):
+            cli_serve.main(argv)
+        return
+    rc, _, err = _cli(cli_serve.main, argv, capsys)
+    assert rc == 1 and err == match
+    if "1 available" not in match:  # the JAX tool's own run prints the same
+        from vit_cpp_tpu.cli.serve import main as jax_main
+
+        assert jax_main(argv[:-len(flags) - 2] + flags) == 1
+        assert capsys.readouterr().err == match
 
 
 def test_cli_serve_rejects_a_vitx_artifact(files, capsys, tmp_path):

@@ -352,11 +352,21 @@ def test_cli_spec_errors_match_jax(models, capsys, case):
             "mesh": "--mesh is not supported with multiple models"}[case] in err_p
 
 
-def test_single_model_mesh_still_raises(models):
+def test_single_model_mesh_still_raises(models, capsys):
+    """A single-model --mesh serves since the multi-device slice; without a
+    launcher the world is one rank, so --mesh 2x1 exits 1 with the JAX
+    tool's message and names the launcher, a bad spec and a dp that does
+    not divide --batch with the JAX daemon's own lines."""
+    from vit_cpp_tpu.cli.server import main as jax_main
     from vit_cpp_tpu_torch.cli.server import main
 
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        main(["-m", models["a"], "--mesh", "2x1", "--device", "cpu"])
+    assert main(["-m", models["a"], "--mesh", "2x1", "--device", "cpu"]) == 1
+    assert "--mesh 2x1: requested 2 devices, only 1 available" in capsys.readouterr().err
+    for flags in (["--mesh", "wat"], ["--mesh", "3x1", "-b", "4"]):
+        rc_p, err_p = _cli(main, ["-m", models["a"], *flags, "--device", "cpu",
+                                  "--no-warmup"], capsys)
+        rc_j, err_j = _cli(jax_main, ["-m", models["a"], *flags, "--no-warmup"], capsys)
+        assert rc_p == rc_j == 1 and err_p.splitlines()[-1] == err_j.splitlines()[-1]
 
 
 class _FakeHttpd:

@@ -105,9 +105,17 @@ def export_engine(engine, batch, platforms=None) -> bytes:
     (meta["tome"]), W8A8 with static or dynamic scales (meta["act"]),
     ViTSTR's (B, seq_len, V) probabilities and V-MoE trees go in as the
     engine serves them. Static scales that the engine would calibrate on
-    its first batch are not measured here: calibrate first."""
+    its first batch are not measured here: calibrate first. A sharded
+    engine (VitEngine.shard) raises: its program would be one rank's
+    shards (ROADMAP A.14)."""
     from vit_cpp_tpu_torch.ops.precision import matmul_precision
 
+    if getattr(engine, "mesh", None) is not None:
+        raise ValueError(
+            "export_engine: the engine is sharded over a mesh; exporting a sharded "
+            "engine (meta['mesh'], an AotEngine that rebuilds the mesh) is ROADMAP "
+            "A.14, not ported yet: export the unsharded engine"
+        )
     hp = engine.hp
     headless = hp.seq_len is None and hp.num_classes == 0
     here = platform_of(engine.device)

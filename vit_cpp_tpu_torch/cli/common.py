@@ -14,6 +14,10 @@ activation scales: from `act_scales` (a sidecar JSON), from
 merges r token pairs per layer (ops/tome.py); a ViTSTR file refuses it.
 A port-made .vitx artifact (aot.py) gets an AotEngine on `device`, with
 the JAX tool's refusals of the flags that were baked at export.
+
+`mesh_from_args` turns `--mesh DPxTP` into a DeviceMesh over the
+launcher's ranks (parallel/mesh.py) with the JAX tools' messages and exit
+codes; `refuse_compile_cache` is the one refusal of `--compile-cache`.
 """
 
 from __future__ import annotations
@@ -36,10 +40,51 @@ def model_spec(s: str) -> Tuple[str, str] | None:
     return None
 
 
-def _not_ported(flag: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} is not ported to vit_cpp_tpu_torch yet; it comes with {slice_}"
+def refuse_compile_cache(args) -> None:
+    """Raise for --compile-cache: it persists XLA compiles, and PyTorch
+    runs eagerly, so the port has no such cache."""
+    if args.compile_cache is not None:
+        raise NotImplementedError(
+            "--compile-cache is not ported to vit_cpp_tpu_torch: it is the XLA "
+            "compile cache, and PyTorch runs eagerly and has no such cache"
+        )
+
+
+def mesh_from_args(args, tool: str):
+    """--mesh DPxTP -> (DeviceMesh, None), or (None, exit code) after the
+    JAX tool's message on stderr (vit_cpp_tpu/cli/serve.py:237-252): a bad
+    spec, dp not dividing --batch, or a mesh the world cannot hold, which
+    also names the launcher. (None, None) without --mesh. The mesh's
+    ranks run NCCL on `--device cuda`, gloo on `--device cpu`."""
+    import sys
+
+    import torch
+
+    from vit_cpp_tpu_torch.parallel.mesh import (
+        available_ranks,
+        launcher_hint,
+        make_mesh,
+        parse_mesh,
     )
+
+    if not args.mesh:
+        return None, None
+    try:
+        dp, tp = parse_mesh(args.mesh)
+    except ValueError:
+        print(f"bad --mesh {args.mesh!r}: want DPxTP, e.g. 4x2", file=sys.stderr)
+        return None, 1
+    if args.batch % dp:
+        print(f"dp={dp} must divide --batch {args.batch}", file=sys.stderr)
+        return None, 1
+    try:
+        mesh = make_mesh(dp * tp, dp=dp, tp=tp, device_type=torch.device(args.device).type)
+    except ValueError as e:  # dp * tp != the ranks the launcher started
+        print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+        if dp * tp != available_ranks():
+            print(launcher_hint(tool, dp * tp), file=sys.stderr)
+        return None, 1
+    return mesh, None
 
 
 def build_engine(

@@ -8,14 +8,18 @@ gets one); a ViTSTR checkpoint trains on scene-text pairs; --ckpt-dir
 makes the run resumable. --lora R exports the adapters folded in;
 --qat FMT --qat-act static writes OUT.act_scales.json beside the output
 for `--act static --act-scales` serving. The output gguf serves through
-the port's engine and daemon. --mesh / --fsdp (the multi-device slice)
-and --compile-cache (no slice) raise.
+the port's engine and daemon. --mesh DPxTP trains over a mesh of
+launcher ranks (one process per device, parallel/mesh.py), --fsdp shards
+the parameters and AdamW moments over its data axis as well; rank 0
+writes the output. --compile-cache raises (PyTorch has no compile cache).
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.finetune -m model.gguf -d train/ -o ft.gguf -b 32 \\
       [--epochs 3] [--augment all] [--label-smooth 0.1] [--ema 0.999] [--ckpt-dir ckpt/]
       [--lora 8] [--distill teacher.gguf] [--qat q8_0 [--qat-act static]]
       [--mu-dtype bf16] [--img-size 384] [--patch-size 8]
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m vit_cpp_tpu_torch.cli.finetune -m model.gguf -d train/ -o ft.gguf --mesh 2x2 [--fsdp]
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from vit_cpp_tpu_torch.cli.common import _not_ported
+from vit_cpp_tpu_torch.cli.common import mesh_from_args, refuse_compile_cache
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -92,12 +96,13 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.compile_cache is not None:
-        raise _not_ported(
-            "--compile-cache", "no slice: it is the XLA compile cache, and PyTorch runs eagerly"
-        )
+    refuse_compile_cache(args)
+    mesh, rc = mesh_from_args(args, "finetune")
+    if rc is not None:
+        return rc
 
     from vit_cpp_tpu_torch.finetune import finetune
+    from vit_cpp_tpu_torch.parallel.mesh import is_leader
     from vit_cpp_tpu_torch.models.export import save_params
 
     try:
@@ -118,7 +123,7 @@ def main(argv=None) -> int:
             label_smoothing=args.label_smooth,
             mixup=args.mixup,
             ema=args.ema,
-            mesh=args.mesh,
+            mesh=mesh,
             fsdp=args.fsdp,
             ckpt_dir=args.ckpt_dir,
             seed=args.seed,
@@ -149,6 +154,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"finetune: {e}", file=sys.stderr)
         return 1
+    if not is_leader():
+        return 0
     save_params(args.out, params, hp, id2label=dict(enumerate(classes)), ftype=args.ftype)
     print(f"vit-finetune: wrote {args.out} ({len(classes)} classes)", file=sys.stderr)
     return 0

@@ -14,8 +14,11 @@ recognize_files) and an images/sec summary on stderr; `--embed OUT.npy`
 writes the (N, hidden) f32 features and OUT.paths.txt instead.
 `--img-size` / `--patch-size` serve the checkpoint at another geometry
 (models/resample.py); `--tome R` merges R token pairs per layer
-(ops/tome.py). Flags whose slice is not ported yet raise and name that
-slice. `-m model.vitx` serves a port-made AOT artifact (aot.py) at its
+(ops/tome.py). `--mesh DPxTP` shards the engine over a mesh of
+launcher ranks (one process per device; parallel/mesh.py): every rank
+decodes the same files and runs its part of each batch, and only rank 0
+prints and writes. `--compile-cache` raises (PyTorch has no compile
+cache). `-m model.vitx` serves a port-made AOT artifact (aot.py) at its
 baked batch, with the JAX tool's notices and refusals.
 
 Usage:
@@ -23,6 +26,8 @@ Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf img1.jpg img2.png ...
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --embed feats.npy
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --act static --calib-dir calib/
+  python -m torch.distributed.run --standalone --nproc-per-node 8 \
+      -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --mesh 4x2 [--device cpu]
 """
 
 from __future__ import annotations
@@ -88,29 +93,14 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _check_ported(args) -> None:
-    """Raise for every flag whose slice is not ported yet."""
-    from vit_cpp_tpu_torch.cli.common import _not_ported
-
-    for given, flag, slice_ in (
-        (args.mesh, "--mesh", "the multi-device slice"),
-    ):
-        if given:
-            raise _not_ported(flag, slice_)
-    if args.compile_cache is not None:
-        raise NotImplementedError(
-            "--compile-cache is the XLA compile cache; PyTorch runs eagerly "
-            "and has no such cache"
-        )
-
-
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     from vit_cpp_tpu_torch.aot import is_vitx
+    from vit_cpp_tpu_torch.cli.common import refuse_compile_cache
 
     vitx = is_vitx(args.model)
     if not (vitx and args.mesh):  # an artifact refuses --mesh as the JAX tool does
-        _check_ported(args)
+        refuse_compile_cache(args)
     paths = list(args.files)
     if args.dir:
         for root, _, files in os.walk(args.dir):
@@ -125,18 +115,25 @@ def main(argv=None) -> int:
 
     if vitx:
         return _serve_artifact(args, paths)
+    from vit_cpp_tpu_torch.cli.common import (
+        build_engine,
+        calibrate_engine_from_paths,
+        mesh_from_args,
+    )
+    from vit_cpp_tpu_torch.parallel.mesh import is_leader, rank_device
+
+    mesh, rc = mesh_from_args(args, "serve")
+    if rc is not None:
+        return rc
     if args.act == "static" and args.mm != "int8":
         print("--act static requires --mm int8", file=sys.stderr)
         return 1
-
-    from vit_cpp_tpu_torch.cli.common import build_engine, calibrate_engine_from_paths
-
     try:
         engine, is_vitstr = build_engine(
             args.model, dtype=args.dtype, mm=args.mm, attn=args.attn,
             fold_ln=args.fold_ln, act=args.act, act_scales=args.act_scales,
             img_size=args.img_size, patch_size=args.patch_size, tome=args.tome,
-            device=args.device,
+            device=args.device if mesh is None else rank_device(args.device),
         )
     except ValueError as e:  # a .vitx artifact, a geometry that does not fit, ViTSTR + --tome
         print(f"serve: {e}", file=sys.stderr)
@@ -149,6 +146,12 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
+    if mesh is not None:
+        try:
+            engine.shard(mesh)
+        except ValueError as e:  # tp does not divide the head count
+            print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+            return 1
     if args.act == "static" and args.calib_dir:
         try:
             ok = calibrate_engine_from_paths(engine, args.calib_dir)
@@ -158,11 +161,12 @@ def main(argv=None) -> int:
         if not ok:
             print("serve: static calibration rejected by the guardrail; "
                   "serving with dynamic activation scales", file=sys.stderr)
+    leader = is_leader()
     if args.embed:
         return _embed_loop(engine, paths, out=args.embed, batch=args.batch,
-                           decode_threads=args.decode_threads)
+                           decode_threads=args.decode_threads, leader=leader)
     return _serve_loop(engine, is_vitstr, paths, batch=args.batch, topk=args.topk,
-                       decode_threads=args.decode_threads)
+                       decode_threads=args.decode_threads, leader=leader)
 
 
 def _serve_artifact(args, paths) -> int:
@@ -222,21 +226,27 @@ def _serve_artifact(args, paths) -> int:
                        topk=args.topk, decode_threads=args.decode_threads)
 
 
-def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int) -> int:
-    """Bulk feature extraction -> OUT.npy (N, hidden) + OUT.paths.txt."""
+def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int,
+                leader: bool = True) -> int:
+    """Bulk feature extraction -> OUT.npy (N, hidden) + OUT.paths.txt;
+    on a mesh only the leader (rank 0) prints and writes."""
     from vit_cpp_tpu_torch.serve import embed_files
 
     t0 = time.perf_counter()
     kept, vecs = [], []
     for e in embed_files(engine, paths, batch=batch, decode_threads=decode_threads):
         if e.vector is None:
-            print(f"{e.path}\t<decode failed>", file=sys.stderr)
+            if leader:
+                print(f"{e.path}\t<decode failed>", file=sys.stderr)
             continue
         kept.append(e.path)
         vecs.append(e.vector)
     if not vecs:
-        print("no decodable images", file=sys.stderr)
+        if leader:
+            print("no decodable images", file=sys.stderr)
         return 1
+    if not leader:
+        return 0
     np.save(out, np.stack(vecs))
     paths_txt = out[: -len(".npy")] + ".paths.txt" if out.endswith(".npy") else out + ".paths.txt"
     with open(paths_txt, "w", encoding="utf-8") as f:
@@ -252,24 +262,26 @@ def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int) -> 
 
 
 def _serve_loop(engine, is_vitstr: bool, paths, *, batch: int, topk: int,
-                decode_threads: int) -> int:
-    """Stream every path through the serving pipeline and print results."""
+                decode_threads: int, leader: bool = True) -> int:
+    """Stream every path through the serving pipeline and print results
+    (on a mesh only the leader, rank 0, prints)."""
     from vit_cpp_tpu_torch.serve import recognize_files, serve_files
 
+    say = print if leader else _silent  # the other ranks compute and stay quiet
     t0 = time.perf_counter()
     n_ok = 0
     if is_vitstr:
         for r in recognize_files(engine, paths, batch=batch, decode_threads=decode_threads):
             if r.confidence < 0:
-                print(f"{r.path}\t<decode failed>", file=sys.stderr)
+                say(f"{r.path}\t<decode failed>", file=sys.stderr)
                 continue
             n_ok += 1
-            print(f"{r.path}\t{r.text}\t{r.confidence:.2f}")
+            say(f"{r.path}\t{r.text}\t{r.confidence:.2f}")
     else:
         for r in serve_files(engine, paths, batch=batch, decode_threads=decode_threads,
                              keep_probs=topk > 1):
             if r.top1 < 0:
-                print(f"{r.path}\t<decode failed>", file=sys.stderr)
+                say(f"{r.path}\t<decode failed>", file=sys.stderr)
                 continue
             n_ok += 1
             if topk > 1:
@@ -278,17 +290,21 @@ def _serve_loop(engine, is_vitstr: bool, paths, *, batch: int, topk: int,
                     f"{engine.id2label.get(int(i), f'LABEL_{i}')}:{r.probs[i]:.2f}"
                     for i in order
                 )
-                print(f"{r.path}\t{tags}")
+                say(f"{r.path}\t{tags}")
             else:
                 label = engine.id2label.get(r.top1, f"LABEL_{r.top1}")
-                print(f"{r.path}\t{label}\t{r.prob:.2f}")
+                say(f"{r.path}\t{label}\t{r.prob:.2f}")
     dt = time.perf_counter() - t0
-    print(
+    say(
         f"serve: {n_ok}/{len(paths)} images in {dt:.2f}s "
         f"= {n_ok / max(dt, 1e-9):.1f} images/sec",
         file=sys.stderr,
     )
     return 0
+
+
+def _silent(*args, **kwargs) -> None:
+    pass
 
 
 if __name__ == "__main__":

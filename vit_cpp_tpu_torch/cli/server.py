@@ -16,7 +16,11 @@ daemon under /v1/<name>/classify (or /recognize) and /v1/<name>/embed.
 (models/resample.py), `--tome R` with R token pairs merged per layer
 (ops/tome.py). `-m model.vitx` (or name=model.vitx) serves a port-made
 AOT artifact (aot.py) at its baked batch, `--bucket` over its baked sizes.
-Flags whose slice is not ported yet raise and name that slice.
+`--mesh DPxTP` (one model, under a launcher) shards the engine over the
+launcher's ranks: rank 0 runs the daemon and broadcasts each batch, the
+other ranks follow it (server.py::MeshLeader, follow) until it shuts
+down; a rank that fails makes the daemon exit 1. `--compile-cache`
+raises (PyTorch has no compile cache).
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
@@ -25,6 +29,8 @@ Usage:
   curl -s -X POST --data-binary @magpie.jpeg localhost:8000/v1/b/classify
   python -m vit_cpp_tpu_torch.cli.server -m cls=model.gguf -m ocr=vitstr.gguf
   curl -s -X POST --data-binary @demo_1.png localhost:8000/v1/ocr/recognize
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m vit_cpp_tpu_torch.cli.server -m model.gguf --mesh 2x2 [--device cpu]
 """
 
 from __future__ import annotations
@@ -176,15 +182,9 @@ def main(argv=None) -> int:
         print("--mesh is not supported for .vitx artifacts (the exported "
               "program is compiled single-chip); serve the gguf instead", file=sys.stderr)
         return 1
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported yet; it comes with the multi-device slice"
-        )
-    if args.compile_cache is not None:
-        raise NotImplementedError(
-            "--compile-cache is the XLA compile cache; PyTorch runs eagerly "
-            "and has no such cache"
-        )
+    from vit_cpp_tpu_torch.cli.common import mesh_from_args, refuse_compile_cache
+
+    refuse_compile_cache(args)
     if args.act == "static":
         # the warmup batch is zeros: lazy calibration would fix the scales
         # on it, so the daemon needs explicit calibration data
@@ -241,9 +241,18 @@ def main(argv=None) -> int:
         if engine is None:
             return 1
     else:
+        mesh, rc = mesh_from_args(args, "server")
+        if rc is not None:
+            return rc
+        if mesh is not None:
+            from vit_cpp_tpu_torch.parallel.mesh import rank_device
+
+            args.device = str(rank_device(args.device))
         engine = _engine(args, args.model[0], "vit-server: ")
         if engine is None:
             return 1
+        if mesh is not None:
+            return _serve_on_mesh(args, engine, mesh)
     if not multi:
         httpd, batcher = create_server(
             engine,
@@ -275,6 +284,63 @@ def main(argv=None) -> int:
         httpd.server_close()
         for b in batchers.values():
             b.close()
+    return 0
+
+
+def _serve_on_mesh(args, engine, mesh) -> int:
+    """The single-model daemon of a sharded engine: rank 0 serves HTTP
+    behind a MeshLeader, the other ranks follow its dispatches. Exit code
+    0 after a clean shutdown, 1 when a rank failed."""
+    import threading
+
+    from vit_cpp_tpu_torch.parallel.mesh import is_leader
+    from vit_cpp_tpu_torch.server import MeshLeader, create_server, follow
+
+    try:
+        engine.shard(mesh)
+    except ValueError as e:  # tp does not divide the head count
+        print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+        return 1
+    if not is_leader():
+        # the launcher's SIGTERM is rank 0's to handle: it broadcasts stop
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        follow(engine)
+        return 0
+    leader = MeshLeader(engine)
+    httpd = batcher = None
+    try:
+        httpd, batcher = create_server(
+            leader, host=args.host, port=args.port, batch=args.batch,
+            max_wait_ms=args.max_wait_ms, warmup=not args.no_warmup,
+            request_timeout_s=args.request_timeout, max_queue=args.max_queue,
+            buckets=args.bucket,
+        )
+        if args.bucket and batcher.bucket_sizes() == [args.batch]:
+            print("vit-server: no usable bucket below the full batch (sharded "
+                  "engines need dp-divisible sizes); serving unbucketed", file=sys.stderr)
+        leader.on_failure = lambda e: threading.Thread(target=httpd.shutdown, daemon=True).start()
+
+        def _sigterm(signum, frame):
+            raise KeyboardInterrupt
+
+        signal.signal(signal.SIGTERM, _sigterm)
+        kind = "vitstr" if engine.hp.seq_len is not None else "vit"
+        print(f"vit-server: {kind} model on http://{args.host}:{httpd.server_port} "
+              f"(micro-batch {args.batch}, wait {args.max_wait_ms} ms, device "
+              f"{engine.device}, mesh {args.mesh})", file=sys.stderr)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+    finally:
+        if httpd is not None:
+            httpd.server_close()
+        if batcher is not None:
+            batcher.close()
+        leader.stop()
+    if leader.failed is not None:
+        print(f"vit-server: a mesh rank failed: {leader.failed}", file=sys.stderr)
+        return 1
     return 0
 
 

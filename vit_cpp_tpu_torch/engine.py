@@ -31,6 +31,14 @@ encoders, not ViTSTR): r patch-token pairs merge per layer in every
 served forward; static-scale calibration still measures the unmerged
 graph, as the JAX package's does.
 
+`shard(mesh)` distributes the engine over a ('data', 'model') mesh
+(parallel/mesh.py): each rank keeps its tensor-parallel shards
+(parallel/sharding.py), `predict_probs_batch` and `features_batch` run
+the rank's rows of a batch split over "data" and return the whole batch,
+all-gathered, on every rank; every rank calls them with the same batch.
+Calibration runs the whole batch on each rank and takes every site's
+maximum over "model" too.
+
 `verbose` prints the JAX engine's `vit_model_load:` echo on stdout.
 `model_file` is `model_path` already parsed by gguf/reader.py, which
 the engine then does not read again.
@@ -227,7 +235,29 @@ class VitEngine:
         self._needs_calibration = act_quant == "static" and act_scales is None
         self._calibration_lock = threading.Lock()  # a daemon's two batchers
         self.calibration_agreement = None  # the guardrail's, once accepted
+        self.mesh = None
         self.load_ms = (time.perf_counter() - t0) * 1000.0
+
+    def shard(self, mesh) -> "VitEngine":
+        """Distribute the engine over a ('data', 'model') DeviceMesh: the
+        parameters become this rank's Megatron shards (replicated when the
+        model axis is 1), and the serving calls split each batch over
+        "data", whose size must divide it (vit_cpp_tpu/engine.py::shard)."""
+        from vit_cpp_tpu_torch.parallel.mesh import axis_size
+        from vit_cpp_tpu_torch.parallel.sharding import shard_params
+
+        tp = axis_size(mesh, "model")
+        if tp > 1 and self.hp.num_attention_heads % tp:
+            # the qkv column split must land on head boundaries
+            raise ValueError(
+                f"tensor-parallel size {tp} does not divide "
+                f"num_attention_heads {self.hp.num_attention_heads}; "
+                f"choose a 'model' axis that divides the head count "
+                f"(or tp=1 for pure data parallelism)"
+            )
+        self.mesh = mesh
+        self.params = shard_params(self.params, mesh)
+        return self
 
     def preprocess_image(self, img_u8: np.ndarray) -> torch.Tensor:
         """(H, W, 3) u8 host image -> (C, S, S) f32 on the engine's device."""
@@ -278,12 +308,12 @@ class VitEngine:
         images = images.to(self.device)
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             static = calibrate_act_scales(self.params, images, self.hp,
-                                          attn_impl=self.attn_impl)
+                                          attn_impl=self.attn_impl, mesh=self.mesh)
             try:
                 self.calibration_agreement = validate_act_scales(
                     static, self.params,
                     images if probe is None else probe.to(self.device), self.hp,
-                    min_agreement=min_agreement, attn_impl=self.attn_impl,
+                    min_agreement=min_agreement, attn_impl=self.attn_impl, mesh=self.mesh,
                 )
             except ValueError as e:
                 print(f"vit: static calibration rejected — {e}", file=sys.stderr)
@@ -298,10 +328,21 @@ class VitEngine:
             with self._calibration_lock:
                 self.calibrate(images)
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
-            return forward(
-                self.params, images.to(self.device), self.hp,
-                attn_impl=self.attn_impl, mm_impl=self.mm_impl, tome=self.tome, **kw,
-            )
+            if self.mesh is None:
+                return forward(
+                    self.params, images.to(self.device), self.hp,
+                    attn_impl=self.attn_impl, mm_impl=self.mm_impl, tome=self.tome, **kw,
+                )
+            from vit_cpp_tpu_torch.parallel.mesh import data_slice, gather_over_data
+
+            rows = data_slice(images.to(self.device), self.mesh)
+            out = forward(self.params, rows, self.hp, attn_impl=self.attn_impl,
+                          mm_impl=self.mm_impl, tome=self.tome, mesh=self.mesh, **kw)
+            return gather_over_data(out, self.mesh)
+
+    def _unsharded(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what} runs on an unsharded engine (this one is on a mesh)")
 
     def predict_probs_batch(self, images: torch.Tensor) -> torch.Tensor:
         """images: (B, C, S, S) preprocessed -> (B, classes) f32 probabilities
@@ -328,6 +369,7 @@ class VitEngine:
         (quantized, folded) as they are."""
         from vit_cpp_tpu_torch.models.attention_maps import attention_maps
 
+        self._unsharded("attention_maps_batch")
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             maps, _ = attention_maps(self.params, images.to(self.device), self.hp)
         return maps.cpu().numpy()
@@ -346,6 +388,7 @@ class VitEngine:
             head_logits,
         )
 
+        self._unsharded("explain_file")
         pixels = self.preprocess_image(load_image_rgb(path))[None]
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
             maps, final = attention_maps(self.params, pixels, self.hp)

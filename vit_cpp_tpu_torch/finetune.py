@@ -1,11 +1,11 @@
 """Fine-tune a checkpoint on an image-folder dataset.
 
-Counterpart of vit_cpp_tpu/finetune.py on one device: gguf checkpoint ->
-dense f32 parameter tree on `device` -> AdamW train steps through the
-training forward (parallel/train.py: fused attention forward, the
-hand-written backward kernel) -> torch.save checkpoint / resume
-(parallel/checkpoint.py) -> servable gguf (models/export.py). The dataset
-layout is the JAX package's: one subdirectory per class, any decodable
+Counterpart of vit_cpp_tpu/finetune.py: gguf checkpoint -> dense f32
+parameter tree on `device` -> AdamW train steps through the training
+forward (parallel/train.py: fused attention forward, the hand-written
+backward kernel) -> checkpoint / resume (parallel/checkpoint.py) ->
+servable gguf (models/export.py). The dataset layout is the JAX
+package's: one subdirectory per class, any decodable
 image inside (`load_dataset` and `_prefetch_batches` are the port's own
 copies of that module's); a sequence-head (ViTSTR) checkpoint trains on
 scene-text pairs instead (`load_vitstr_dataset`: a gt.txt, or the file
@@ -16,17 +16,22 @@ checkpoint's, the head is zero-initialized for the new count and the
 hparams rewritten; a headless encoder (SigLIP's attention-pooled tower)
 gets its first head so.
 
-Every option of the JAX package's `finetune` runs here but `mesh` and
-`fsdp`, which raise and name the multi-device slice: the optimizer and
-schedule, grad_accum, clip_norm, mu_dtype (a bf16 first moment),
-freeze_backbone, augment, label_smoothing, mixup, ema, ckpt_dir (resume
-with the JAX package's settings checks), seed, decode_threads, val_dir,
-stream, img_size / patch_size (training at a resampled geometry,
-models/resample.py), tome (ToMe merging, ops/tome.py), moe and its
-options (sparse upcycling, ops/moe.py), lora / lora_alpha (models/
-lora.py; the export folds the adapters in), distill and its options (a
-frozen teacher's logits), qat / qat_act / qat_scales_out (quant/qat.py),
-and device.
+Every option of the JAX package's `finetune` runs here: `mesh` (a
+('data', 'model') DeviceMesh over the launcher's ranks, parallel/mesh.py)
+and `fsdp` (ZeRO-3 over "data"), the optimizer and schedule, grad_accum,
+clip_norm, mu_dtype (a bf16 first moment), freeze_backbone, augment,
+label_smoothing, mixup, ema, ckpt_dir (resume with the JAX package's
+settings checks), seed, decode_threads, val_dir, stream, img_size /
+patch_size (training at a resampled geometry, models/resample.py), tome
+(ToMe merging, ops/tome.py), moe and its options (sparse upcycling,
+ops/moe.py), lora / lora_alpha (models/lora.py; the export folds the
+adapters in), distill and its options (a frozen teacher's logits), qat /
+qat_act / qat_scales_out (quant/qat.py), and device. On a mesh every rank reads the whole dataset in the same
+order, augments and mixes the whole batch, and trains on its rows of it
+(parallel/train.py::shard_batch); the distillation teacher and LoRA's
+frozen base are TP-sharded like the student, the checkpoint is sharded
+(torch.distributed.checkpoint), and the returned tree is the whole one,
+gathered from the shards, on every rank; only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -40,7 +45,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vit_cpp_tpu_torch.cli.common import _not_ported
 from vit_cpp_tpu_torch.decode import decode_many
 from vit_cpp_tpu_torch.io.image import IMAGE_EXTS
 from vit_cpp_tpu_torch.ops.preprocess import norm_constants, preprocess_batch
@@ -235,28 +239,29 @@ def _preprocess_all(paths, hp, decode_threads: int, device) -> torch.Tensor:
 
 def evaluate(
     params, hp, pixels: torch.Tensor, labels: np.ndarray, batch: int, tome: int = 0,
-    qat: str = "", qat_scales=None,
+    qat: str = "", qat_scales=None, mesh=None,
 ) -> float:
     """Top-1 accuracy of `params` on preprocessed pixels, on the params'
     device (the default, composed attention, as the JAX package's eval).
     `tome` evaluates through the merged graph and `qat` the
-    fake-quantized model: a fine-tune validates what it will serve."""
+    fake-quantized model: a fine-tune validates what it will serve. On a
+    mesh every rank scores every batch with its shards."""
     from vit_cpp_tpu_torch.models.vit import forward
 
     dev = params["pos_embed"].device
     correct = 0
     with torch.no_grad():
-        p = qat_params(params, qat, qat_scales)
+        p = qat_params(params, qat, qat_scales, mesh, hp)
         for i in range(0, len(pixels), batch):
             pred = forward(p, pixels[i : i + batch].to(dev), hp, tome=tome,
-                           mm_impl="qat" if qat else "xla").argmax(dim=-1)
+                           mm_impl="qat" if qat else "xla", mesh=mesh).argmax(dim=-1)
             correct += int((pred.cpu().numpy() == labels[i : i + len(pred)]).sum())
     return correct / len(pixels)
 
 
 def evaluate_vitstr(
     params, hp, pixels: torch.Tensor, texts: List[str], batch: int, qat: str = "",
-    qat_scales=None,
+    qat_scales=None, mesh=None,
 ) -> float:
     """Word-level exact-match accuracy through the device greedy decoder."""
     from vit_cpp_tpu_torch.models.vit import forward
@@ -266,9 +271,10 @@ def evaluate_vitstr(
     id2label = vitstr_id2label()
     correct = 0
     with torch.no_grad():
-        p = qat_params(params, qat, qat_scales)
+        p = qat_params(params, qat, qat_scales, mesh, hp)
         for i in range(0, len(pixels), batch):
-            logits = forward(p, pixels[i : i + batch].to(dev), hp, mm_impl="qat" if qat else "xla")
+            logits = forward(p, pixels[i : i + batch].to(dev), hp,
+                             mm_impl="qat" if qat else "xla", mesh=mesh)
             toks, valid, _ = greedy_decode_device(torch.softmax(logits.float(), dim=-1))
             toks, valid = toks.cpu().numpy(), valid.cpu().numpy()
             correct += sum(decode_tokens(t, v, id2label) == texts[i + j]
@@ -356,11 +362,16 @@ def finetune(
     from vit_cpp_tpu_torch.ops.augment import augment_batch, augment_flags, mixup_batch, step_generator
     from vit_cpp_tpu_torch.parallel import train as T
     from vit_cpp_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from vit_cpp_tpu_torch.parallel.mesh import data_slice, is_leader, rank_device
 
-    if mesh or fsdp:
-        raise _not_ported("--mesh / --fsdp", "the multi-device slice")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if fsdp and mesh is None:
+        raise ValueError("--fsdp needs a device mesh (--mesh DPxTP)")
+    if mesh is not None:
+        device = rank_device(device)
+        if not is_leader():
+            log = _quiet
     aug_flip, aug_crop = augment_flags(augment)  # validates the mode
     if mixup < 0:
         raise ValueError(f"mixup alpha must be >= 0, got {mixup}")
@@ -377,7 +388,8 @@ def finetune(
     _check_moe(hp, moe, moe_every, moe_top_k, moe_capacity, tome=tome, qat=qat, lora=lora,
                distill=distill, mixup=mixup, grad_accum=grad_accum,
                freeze_backbone=freeze_backbone)
-    _check_extras(hp, lora=lora, freeze_backbone=freeze_backbone, grad_accum=grad_accum,
+    _check_extras(hp, lora=lora, freeze_backbone=freeze_backbone, fsdp=fsdp,
+                  grad_accum=grad_accum,
                   mixup=mixup, distill=distill, distill_mode=distill_mode,
                   distill_alpha=distill_alpha, distill_tau=distill_tau, qat=qat,
                   qat_act=qat_act, qat_scales_out=qat_scales_out, tome=tome, augment=augment,
@@ -446,6 +458,11 @@ def finetune(
     teacher_params = teacher_hp = None
     if distill:
         teacher_params, teacher_hp = _load_teacher(distill, hp, len(classes), dev)
+        if mesh is not None:
+            # TP-sharded like a served model: its forward rides the same collectives
+            from vit_cpp_tpu_torch.parallel.sharding import shard_params
+
+            teacher_params = shard_params(teacher_params, mesh)
         log(
             f"finetune: distilling from {distill} "
             f"({distill_mode}, alpha {distill_alpha:g}, tau {distill_tau:g})"
@@ -458,6 +475,7 @@ def finetune(
         clip_norm=clip_norm, mu_dtype=mu_dtype,
     )
     base_params = None
+    export_specs = None  # the placement of the exported tree on the mesh
     if lora:
         from vit_cpp_tpu_torch.models.lora import lora_state_bytes, lora_trainable
 
@@ -468,11 +486,23 @@ def finetune(
             f"{lora_state_bytes(trainable) / 1e6:.1f} MB trainable vs "
             f"{lora_state_bytes(params) / 1e6:.1f} MB full"
         )
-        state = T.create_train_state(trainable, optimizer_kw)
+        if mesh is not None:
+            from vit_cpp_tpu_torch.parallel.sharding import placement_specs, shard_params
+
+            export_specs = placement_specs(params, mesh)
+            base_params = shard_params(params, mesh, specs=export_specs)
+            state = T.create_lora_train_state(trainable, optimizer_kw, mesh=mesh)
+            # the merged tree carries the trained, replicated head(s)
+            export_specs = {**export_specs, **{k: state.specs[k] for k in ("head", "head_dist")
+                                               if k in state.specs}}
+        else:
+            state = T.create_train_state(trainable, optimizer_kw)
     else:
         state = T.create_train_state(
-            params, optimizer_kw, trainable=("head", "head_dist") if freeze_backbone else None
+            params, optimizer_kw, trainable=("head", "head_dist") if freeze_backbone else None,
+            mesh=mesh, fsdp=fsdp,
         )
+        export_specs = state.specs
     # the EMA starts as a copy of the initial trainable tree
     ema_params = _clone(state.params) if ema else None
 
@@ -547,7 +577,7 @@ def finetune(
         from vit_cpp_tpu_torch.models.lora import merge_lora
 
         with torch.no_grad():
-            return merge_lora(base_params, trained, lora_alpha)
+            return merge_lora(base_params, trained, lora_alpha, mesh)
 
     calib_px = None
     if qat_act == "static":
@@ -561,7 +591,7 @@ def finetune(
     def batch_loss(bx, by):
         """The update's loss on one batch, by the run's kind; QAT with
         this epoch's static scales."""
-        qkw = dict(qat=qat, qat_scales=qat_scales)
+        qkw = dict(qat=qat, qat_scales=qat_scales, mesh=mesh)
         if lora:
             return T.lora_cross_entropy_loss(state.params, base_params, bx, by, hp, lora_alpha,
                                              label_smoothing, tome, seq=is_vitstr, **qkw)
@@ -574,14 +604,14 @@ def finetune(
         return T.cross_entropy_loss(state.params, bx, by, hp, label_smoothing, tome, **qkw)
 
     start_epoch = state.step // updates_per_epoch
-    ema_leaves = T.tree_leaves(ema_params) if ema else None
-    param_leaves = T.tree_leaves(state.params)
+    ema_leaves = [T.local_tensor(t) for t in T.tree_leaves(ema_params)] if ema else None
+    param_leaves = [T.local_tensor(t) for t in T.tree_leaves(state.params)]
     losses: List[float] = []
     update_ms: List[float] = []
     for epoch in range(start_epoch, epochs):
         if calib_px is not None:
             # frozen for the epoch, measured on the current weights
-            qat_scales = measure_act_scales(merged(state.params), calib_px, hp, qat)
+            qat_scales = measure_act_scales(merged(state.params), calib_px, hp, qat, mesh=mesh)
         # deterministic per-epoch shuffle: the same order replays on resume
         order = np.random.default_rng(seed + epoch).permutation(len(paths))
         idx_seq = [
@@ -610,6 +640,10 @@ def finetune(
                 if mixup:
                     bx, perm, lam = mixup_batch(gen, bx, mixup)
                     mix = (by[perm], lam)
+            if mesh is not None:  # this rank's rows of the (augmented, mixed) batch
+                bx, by = T.shard_batch(bx, by, mesh)
+                if mix is not None:
+                    mix = (data_slice(mix[0], mesh), mix[1])
             qkw = dict(qat=qat, qat_scales=qat_scales)
             if mix is not None:
                 loss = T.train_step_mixup(state, bx, by, mix[0], mix[1], hp,
@@ -634,17 +668,18 @@ def finetune(
             eval_params = merged(ema_params if ema else state.params)
             if is_vitstr:
                 acc = evaluate_vitstr(eval_params, hp, val[0], val[1], batch, qat=qat,
-                                      qat_scales=qat_scales)
+                                      qat_scales=qat_scales, mesh=mesh)
                 msg += f", val word-acc{' (ema)' if ema else ''} {acc:.3f}"
             else:
                 acc = evaluate(eval_params, hp, val[0], val[1], batch, tome=tome, qat=qat,
-                               qat_scales=qat_scales)
+                               qat_scales=qat_scales, mesh=mesh)
                 msg += f", val top-1{' (ema)' if ema else ''} {acc:.3f}"
         log(msg)
         if ckpt_dir:
             save_train_state(ckpt_dir, state, ema_params)
-            with open(meta_path, "w") as f:
-                json.dump(run_meta, f)
+            if is_leader():
+                with open(meta_path, "w") as f:
+                    json.dump(run_meta, f)
     if len(update_ms) > 1:
         ms = float(np.mean(update_ms[1:]))
         log(
@@ -655,18 +690,24 @@ def finetune(
     # a LoRA run exports the adapters folded into dense kernels: the gguf
     # serves through the unchanged engine
     final_params = merged(ema_params if ema else state.params)
+    if mesh is not None:
+        from vit_cpp_tpu_torch.parallel.sharding import gather_params
+
+        final_params = gather_params(final_params, export_specs, mesh)
     if qat_scales_out:
         # the sidecar for zero-calibration static serving, measured on the
         # exported weights
         from vit_cpp_tpu_torch.quant.qat import save_act_scales
 
-        save_act_scales(qat_scales_out, measure_act_scales(final_params, calib_px, hp, qat),
-                        margin=1.05)
+        scales = measure_act_scales(final_params, calib_px, hp, qat)
+        if is_leader():
+            save_act_scales(qat_scales_out, scales, margin=1.05)
         log(f"finetune: wrote static activation scales to {qat_scales_out}")
     return final_params, hp, classes, losses
 
 
-def _check_extras(hp, *, lora: int, freeze_backbone: bool, grad_accum: int, mixup: float,
+def _check_extras(hp, *, lora: int, freeze_backbone: bool, fsdp: bool, grad_accum: int,
+                  mixup: float,
                   distill: str, distill_mode: str, distill_alpha: float, distill_tau: float,
                   qat: str, qat_act: str, qat_scales_out, tome: int, augment: str,
                   label_smoothing: float) -> None:
@@ -682,6 +723,11 @@ def _check_extras(hp, *, lora: int, freeze_backbone: bool, grad_accum: int, mixu
     if lora:
         if freeze_backbone:
             raise ValueError("--lora already freezes the backbone — drop --freeze-backbone")
+        if fsdp:
+            raise ValueError(
+                "--lora optimizer state is already tiny (rank-r adapters "
+                "+ head); --fsdp is unnecessary — drop one"
+            )
         if grad_accum > 1:
             raise ValueError("--lora with --grad-accum is not supported")
         if mixup:
@@ -863,6 +909,10 @@ def _check_moe(hp, moe: int, moe_every: int, moe_top_k: int, moe_capacity: float
     ):
         if bad:
             raise ValueError(msg)
+
+
+def _quiet(msg) -> None:
+    """The log of a rank other than 0."""
 
 
 def _clone(tree):

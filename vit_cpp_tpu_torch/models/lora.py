@@ -17,6 +17,13 @@ tree feeds the unchanged forward, so the training attention, QAT and the
 export compose. Export folds the adapters into the dense kernels
 (`merge_lora`): the served gguf is a plain dense checkpoint.
 
+Under a mesh (`merge_lora(..., mesh=)`) the adapters replicate while the
+base kernels are this rank's shards: a column-parallel site (qkv, fc1)
+merges the matching columns of a @ b (qkv's head-aligned ones), a
+row-parallel site (proj, fc2) the matching rows. The adapters enter the
+merge through `copy_to_model`, so their gradients, each rank's share,
+are all-reduced over "model".
+
 `init_lora` draws `a` from a seeded torch.Generator: the JAX package's
 jax.random stream cannot be reproduced here, so the two packages start
 from different adapters for the same seed (models/params.py::
@@ -31,6 +38,8 @@ from typing import Any, Dict
 import torch
 
 from vit_cpp_tpu_torch.ops.precision import matmul_precision
+from vit_cpp_tpu_torch.parallel.mesh import copy_to_model
+from vit_cpp_tpu_torch.parallel.sharding import model_shard
 
 LORA_SITES = ("qkv", "proj", "fc1", "fc2")
 
@@ -66,7 +75,8 @@ def lora_trainable(params: Dict[str, Any], rank: int, seed: int = 0) -> Dict[str
     return out
 
 
-def merge_lora(params: Dict[str, Any], trainable: Dict[str, Any], alpha: float) -> Dict[str, Any]:
+def merge_lora(params: Dict[str, Any], trainable: Dict[str, Any], alpha: float,
+               mesh=None) -> Dict[str, Any]:
     """Fold the adapters (and the trained head) into a full parameter
     tree: kernel + (a @ b) * (alpha / rank) per site, the product one
     torch.bmm in f32 with TF32 off (the JAX package's f32 einsum).
@@ -78,6 +88,11 @@ def merge_lora(params: Dict[str, Any], trainable: Dict[str, Any], alpha: float) 
         for name in LORA_SITES:
             ab = trainable["lora"]["blocks"][name]
             a, b = ab["a"], ab["b"]
+            kernel = blocks[name]["kernel"]
+            if kernel.shape[-1] != b.shape[-1]:  # column-parallel shard
+                b = model_shard(copy_to_model(b, mesh), -1, mesh, qkv=name == "qkv")
+            if kernel.shape[-2] != a.shape[-2]:  # row-parallel shard
+                a = model_shard(copy_to_model(a, mesh), -2, mesh)
             delta = torch.bmm(a.float(), b.float()) * (alpha / a.shape[-1])
             leaf = dict(blocks[name])
             leaf["kernel"] = leaf["kernel"] + delta.to(leaf["kernel"].dtype)

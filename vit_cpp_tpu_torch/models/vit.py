@@ -38,6 +38,22 @@ models/params.py) runs `moe_block`, routed expert MLPs (ops/moe.py), in
 its MoE layers and `transformer_block` in the others; `moe_aux=True`
 also returns the router diagnostics averaged over the MoE layers.
 
+`mesh` (a ('data', 'model') DeviceMesh, parallel/mesh.py) runs the tree
+that parallel/sharding.py::shard_params placed on this rank: the caller
+gives this rank's batch rows, and tensor parallelism follows the Megatron
+pattern with explicit collectives. Column-parallel linears (qkv, fc1, the
+head) run on their output shard behind `copy_to_model` (identity forward,
+all-reduce backward); row-parallel ones (proj, fc2) on their input shard,
+all-reduced over "model" in f32 (`reduce_from_model`, identity backward)
+before their bias is added once; W8A8 reduces its int32 accumulator and
+quantizes against the global per-token absmax. The attention kernels get
+the rank's nh/tp heads from a (B, T, 3h/tp) qkv, the head's logits are
+all-gathered over "model", ToMe's key sum over heads is all-reduced
+before the merge, and a V-MoE layer runs the rank's E/tp experts and
+all-reduces their combine. Each linear reads from its kernel's shape
+whether it was sharded, so a leaf that shard_params replicated runs
+whole.
+
 `forward_debug` runs the same layers eagerly and keeps each stage's
 output (embed, every block, the pooled readout, logits, probabilities)
 for stage-by-stage comparison; `print_t` prints one in the reference's
@@ -54,8 +70,17 @@ from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
 from vit_cpp_tpu_torch.ops.moe import moe_mlp
+from vit_cpp_tpu_torch.parallel.mesh import (
+    axis_rank,
+    axis_size,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    sum_over,
+)
 from vit_cpp_tpu_torch.ops.precision import highest_product
 from vit_cpp_tpu_torch.ops.tome import tome_merge, tome_schedule
+from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 
 ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
 
@@ -101,19 +126,56 @@ def _linear(x: torch.Tensor, leaf: Dict[str, Any], mm_impl: str) -> torch.Tensor
     return linear(x, leaf["kernel"], leaf["bias"], impl=mm_impl, act_scale=leaf.get("act_scale"))
 
 
+def _shape(kernel) -> Tuple[int, int]:
+    """(in, out) of one layer's dense, QuantLinear or Int8Linear kernel."""
+    return tuple(kernel.codes.shape[-2:] if hasattr(kernel, "codes") else kernel.shape[-2:])
+
+
+def _col_linear(x, leaf, mm_impl: str, mesh, full_out: int, gather: bool = False):
+    """A column-parallel linear on replicated x: this rank's output
+    columns, all-gathered over "model" when `gather` (the head)."""
+    if axis_size(mesh, "model") == 1 or _shape(leaf["kernel"])[1] == full_out:
+        return _linear(x, leaf, mm_impl)
+    y = _linear(copy_to_model(x, mesh), leaf, mm_impl)
+    return gather_from_model(y, mesh) if gather else y
+
+
+def _row_linear(x, leaf, mm_impl: str, mesh, full_in: int):
+    """A row-parallel linear: this rank's input rows, the partial products
+    summed over "model" in f32, then the bias once. x is this rank's
+    input shard, or whole when the column-parallel linear before it was
+    replicated; a replicated kernel gathers a sharded x instead."""
+    if axis_size(mesh, "model") == 1:
+        return _linear(x, leaf, mm_impl)
+    kernel, k_in = leaf["kernel"], _shape(leaf["kernel"])[0]
+    if k_in == full_in:
+        if x.shape[-1] != full_in:
+            x = gather_from_model(x, mesh)
+        return _linear(x, leaf, mm_impl)
+    if x.shape[-1] == full_in:
+        x = copy_to_model(x, mesh).narrow(-1, axis_rank(mesh, "model") * k_in, k_in)
+    y = linear(x, kernel, None, impl=mm_impl, act_scale=leaf.get("act_scale"), mesh=mesh)
+    if not isinstance(kernel, Int8Linear):  # W8A8 reduced its int32 accumulator
+        y = reduce_from_model(y.float(), mesh).to(x.dtype)
+    return y + leaf["bias"].to(y.dtype)
+
+
 def _attn_half(
     x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
-    tap=None, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None,
+    tap=None, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None, mesh=None,
 ):
     """LN1 -> QKV -> attention -> proj -> residual; returns (x', qkv).
     `kv` is the real token count of a padded input (the fused kernel's
-    key mask), `sizes` (B, T) f32 ToMe's merged-token counts."""
-    b, t, h = x.shape
-    nh, hd = hp.num_attention_heads, hp.head_dim
+    key mask), `sizes` (B, T) f32 ToMe's merged-token counts. Under a
+    mesh qkv holds this rank's heads."""
+    b, t, _ = x.shape
+    hd = hp.head_dim
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
     if tap is not None:
         tap("qkv_in", y)
-    qkv = _linear(y, bp["qkv"], mm_impl)
+    qkv = _col_linear(y, bp["qkv"], mm_impl, mesh, 3 * hp.hidden_size)
+    h = qkv.shape[-1] // 3
+    nh = h // hd
     if attn_impl in ("pallas", "pallas-fast"):
         o = attention_qkv(qkv, nh, fast=attn_impl == "pallas-fast", kv=kv, sizes=sizes)
     elif attn_impl == "pallas-train":
@@ -125,52 +187,54 @@ def _attn_half(
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     if tap is not None:
         tap("proj_in", o)
-    return x + _linear(o, bp["proj"], mm_impl), qkv
+    return x + _row_linear(o, bp["proj"], mm_impl, mesh, hp.hidden_size), qkv
 
 
 def _mlp_half(
-    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, mm_impl: str, tap=None
+    x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, mm_impl: str, tap=None, mesh=None
 ) -> torch.Tensor:
     """LN2 -> fc1 -> activation -> fc2 -> residual."""
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
     if tap is not None:
         tap("fc1_in", y)
-    y = _linear(y, bp["fc1"], mm_impl)
+    y = _col_linear(y, bp["fc1"], mm_impl, mesh, hp.mlp_dim)
     y = mlp_act(hp.hidden_act)(y)
     if tap is not None:
         tap("fc2_in", y)
-    y = _linear(y, bp["fc2"], mm_impl)
+    y = _row_linear(y, bp["fc2"], mm_impl, mesh, hp.mlp_dim)
     return x + y
 
 
 def transformer_block(
     x: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, *, attn_impl: str, mm_impl: str,
-    tap=None, kv: Optional[int] = None,
+    tap=None, kv: Optional[int] = None, mesh=None,
 ) -> torch.Tensor:
     """One encoder block. `tap(name, tensor)`, when given, observes every
     matmul input ("qkv_in", "proj_in", "fc1_in", "fc2_in"): the static
-    activation-scale calibrator (quant/calibrate.py) reads them."""
-    x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv)
-    return _mlp_half(x, bp, hp, mm_impl=mm_impl, tap=tap)
+    activation-scale calibrator (quant/calibrate.py) reads them (under a
+    mesh, this rank's shard of the row-parallel inputs)."""
+    x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv,
+                      mesh=mesh)
+    return _mlp_half(x, bp, hp, mm_impl=mm_impl, tap=tap, mesh=mesh)
 
 
 def moe_block(
     x: torch.Tensor, bp: Dict[str, Any], mp: Dict[str, Any], hp: VitHParams, *,
-    attn_impl: str, mm_impl: str,
+    attn_impl: str, mm_impl: str, mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One V-MoE encoder block: the attention half of `transformer_block`,
     then LN2 and a routed expert MLP (ops/moe.py::moe_mlp, one layer's
     parameters `mp`) in place of fc1/fc2. Returns (x', the layer's router
     diagnostics)."""
-    x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+    x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
-    out, aux = moe_mlp(y, mp, hp, mlp_act(hp.hidden_act))
+    out, aux = moe_mlp(y, mp, hp, mlp_act(hp.hidden_act), mesh=mesh)
     return x + out, aux
 
 
 def tome_block(
     x: torch.Tensor, sizes: torch.Tensor, bp: Dict[str, Any], hp: VitHParams, r: int, *,
-    attn_impl: str, mm_impl: str,
+    attn_impl: str, mm_impl: str, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One encoder block with ToMe token merging: `transformer_block`'s
     ops with attention proportional to `sizes`, and the size-weighted
@@ -178,16 +242,20 @@ def tome_block(
     The similarity metric is the attention key summed over heads (the
     paper's mean key; cosine similarity ignores the 1/nh), one f32
     product over the k third of qkv. Returns (x', sizes') with r fewer
-    tokens."""
-    x, qkv = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, sizes=sizes)
+    tokens. Under a mesh each rank sums its own heads and the sums are
+    all-reduced over "model" before the merge."""
+    x, qkv = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, sizes=sizes,
+                        mesh=mesh)
     if r:
-        h, hd = hp.hidden_size, hp.head_dim
+        h, hd = qkv.shape[-1] // 3, hp.head_dim
         head_sum = torch.eye(hd, dtype=torch.float32, device=qkv.device).repeat(
-            hp.num_attention_heads, 1
+            h // hd, 1
         )  # (h, hd)
         metric = highest_product(qkv[:, :, h : 2 * h].detach().float(), head_sum)
+        if h != hp.hidden_size:
+            metric = sum_over(metric, mesh, "model")
         x, sizes = tome_merge(x, metric, sizes, r, hp.n_prefix)
-    return _mlp_half(x, bp, hp, mm_impl=mm_impl), sizes
+    return _mlp_half(x, bp, hp, mm_impl=mm_impl, mesh=mesh), sizes
 
 
 def unstack_blocks(tree, n: int) -> list:
@@ -240,7 +308,7 @@ def attention_pool(
 
 def _head(
     params: Dict[str, Any], x: torch.Tensor, hp: VitHParams, mm_impl: str, features: bool,
-    tap=None, *, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None,
+    tap=None, *, kv: Optional[int] = None, sizes: Optional[torch.Tensor] = None, mesh=None,
 ) -> torch.Tensor:
     """Pooling readout + classifier head; features=True returns the
     final-LN pooled readout (the embedding) instead of the logits:
@@ -268,8 +336,10 @@ def _head(
             tap("head_in", pooled)
         if features:
             return (pooled[:, 0] + pooled[:, 1]) * 0.5
-        return (_linear(pooled[:, 0], params["head"], mm_impl)
-                + _linear(pooled[:, 1], params["head_dist"], mm_impl)) * 0.5
+        c = hp.num_classes
+        return (_col_linear(pooled[:, 0], params["head"], mm_impl, mesh, c, gather=True)
+                + _col_linear(pooled[:, 1], params["head_dist"], mm_impl, mesh, c,
+                              gather=True)) * 0.5
     elif hp.seq_len is not None:
         pooled = layernorm(x[:, : hp.seq_len], norm["scale"], norm["bias"], hp.eps)
     elif hp.global_pool == "avg":
@@ -294,7 +364,7 @@ def _head(
             "serve embeddings (features=True / embed surfaces) or "
             "fine-tune to attach a head"
         )
-    return _linear(pooled, params["head"], mm_impl)
+    return _col_linear(pooled, params["head"], mm_impl, mesh, hp.num_classes, gather=True)
 
 
 def forward(
@@ -309,6 +379,7 @@ def forward(
     tome: int = 0,
     moe_aux: bool = False,
     tap=None,
+    mesh=None,
 ):
     """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
     with features=True the final-LN pooled readout (B, hidden); a
@@ -320,7 +391,13 @@ def forward(
     merges tokens in every layer by `tome_schedule` (layer l merges
     min(r, remaining // 2) pairs); the two are exclusive. A V-MoE model
     takes neither; with `moe_aux=True` it returns (out, aux), aux the
-    mean over its MoE layers of ops/moe.py's diagnostics."""
+    mean over its MoE layers of ops/moe.py's diagnostics. `mesh` runs
+    this rank's shards of a tree placed by parallel/sharding.py on this
+    rank's batch rows (FSDP leaves are all-gathered here, once)."""
+    if mesh is not None:
+        from vit_cpp_tpu_torch.parallel.sharding import local_params
+
+        params = local_params(params, mesh)
     if pad_tokens and attn_impl not in ("pallas", "pallas-fast"):
         raise ValueError(
             "pad_tokens requires a fused pallas attention (the XLA "
@@ -348,15 +425,16 @@ def forward(
                 "einsum path has no fake-quant leaves)"
             )
         return _moe_forward(params, images, hp, attn_impl=attn_impl, mm_impl=mm_impl,
-                            features=features, moe_aux=moe_aux)
+                            features=features, moe_aux=moe_aux, mesh=mesh)
     x = embed(params, images, hp)
     blocks = unstack_blocks(params["blocks"], hp.num_hidden_layers)
     if tome:
         rs = tome_schedule(hp.n_patches, hp.num_hidden_layers, tome)
         sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
         for bp, rl in zip(blocks, rs):
-            x, sizes = tome_block(x, sizes, bp, hp, rl, attn_impl=attn_impl, mm_impl=mm_impl)
-        return _head(params, x, hp, mm_impl, features, tap, sizes=sizes)
+            x, sizes = tome_block(x, sizes, bp, hp, rl, attn_impl=attn_impl, mm_impl=mm_impl,
+                                  mesh=mesh)
+        return _head(params, x, hp, mm_impl, features, tap, sizes=sizes, mesh=mesh)
     if moe_aux:
         raise ValueError("moe_aux requires an MoE model (hp.num_experts)")
     kv = None
@@ -366,8 +444,9 @@ def forward(
             kv = t
             x = torch.cat([x, x.new_zeros(b, -(-t // 8) * 8 - t, h)], dim=1)
     for bp in blocks:
-        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv)
-    return _head(params, x, hp, mm_impl, features, tap, kv=kv)
+        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv,
+                              mesh=mesh)
+    return _head(params, x, hp, mm_impl, features, tap, kv=kv, mesh=mesh)
 
 
 def moe_layer_params(params: Dict[str, Any], hp: VitHParams) -> list:
@@ -388,18 +467,18 @@ def moe_layer_params(params: Dict[str, Any], hp: VitHParams) -> list:
 
 
 def _moe_forward(params, images, hp: VitHParams, *, attn_impl: str, mm_impl: str,
-                 features: bool, moe_aux: bool):
+                 features: bool, moe_aux: bool, mesh=None):
     """The V-MoE branch of `forward` (vit_cpp_tpu/models/vit.py:518-591)."""
     x = embed(params, images, hp)
     aux_sum: Dict[str, torch.Tensor] = {}
     for bp, mp in moe_layer_params(params, hp):
         if mp is None:
-            x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+            x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
             continue
-        x, aux = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+        x, aux = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
         for k, v in aux.items():
             aux_sum[k] = aux_sum.get(k, 0.0) + v
-    out = _head(params, x, hp, mm_impl, features)
+    out = _head(params, x, hp, mm_impl, features, mesh=mesh)
     if moe_aux:
         return out, {k: v / len(hp.moe_layers) for k, v in aux_sum.items()}
     return out

@@ -67,6 +67,7 @@ def linear(
     *,
     impl: str = "xla",
     act_scale: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """y = x @ kernel (+ bias). kernel is a dense (in, out) tensor, a
     QuantLinear dequantized inside the matmul (`impl` "pallas" runs the
@@ -75,14 +76,18 @@ def linear(
     quantization-aware training (quant/qat.py), whose kernel was already
     fake-quantized, then fake-quantizes x as the W8A8 matmul quantizes
     its activations, per token, or per tensor with the static
-    `act_scale` that rides the block dict (--qat-act static)."""
+    `act_scale` that rides the block dict (--qat-act static). `mesh` says
+    that x is this rank's K-shard over the mesh's "model" axis (a
+    row-parallel linear): the per-token absmax of W8A8 and of QAT is then
+    the global one, and W8A8 returns its all-reduced product."""
     if isinstance(kernel, Int8Linear):
-        y = w8a8_matmul(x, kernel)
+        y = w8a8_matmul(x, kernel, mesh=mesh)
     elif isinstance(kernel, QuantLinear):
         y = quant_matmul(x, kernel, impl=impl)
     else:
         if impl == "qat":
-            x = fake_quant_act(x) if act_scale is None else fake_quant_act_static(x, act_scale)
+            x = (fake_quant_act(x, mesh) if act_scale is None
+                 else fake_quant_act_static(x, act_scale))
         # bf16 operands accumulate in f32 and round once, as the JAX
         # dot(preferred_element_type=f32).astype(x.dtype)
         y = torch.matmul(x, kernel.to(x.dtype))

@@ -11,6 +11,11 @@ a Pallas kernel:
     acc = xq @ codes                      (int32, exact)
     y   = acc * sx * scale                (f32, then the input dtype)
 
+On a K-sharded x (a row-parallel linear under a mesh, `mesh=`), the
+per-token absmax is all-reduced with MAX over "model" before the codes
+are formed and the int32 accumulator is all-reduced (exact) before the
+epilogue runs once, so the result equals the unsharded product.
+
 The operation order is the JAX one (multiply by the reciprocal in the
 dynamic form, divide in the static form; both round half to even), so the
 codes and accumulators are bit-equal to the JAX package's. The int8
@@ -22,17 +27,19 @@ from __future__ import annotations
 
 import torch
 
+from vit_cpp_tpu_torch.parallel.mesh import max_over, sum_over
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 
 
-def quantize_activations(x: torch.Tensor, w: Int8Linear):
-    """x (..., K) -> (xq int8 (..., K), sx f32 (..., 1) or the static scale)."""
+def quantize_activations(x: torch.Tensor, w: Int8Linear, mesh=None):
+    """x (..., K) -> (xq int8 (..., K), sx f32 (..., 1) or the static scale);
+    with `mesh`, x is a K-shard and the absmax the global one."""
     xf = x.float()
     if w.act_scale is not None:
         sx = w.act_scale
         xq = torch.round(torch.clamp(xf / sx, -127.0, 127.0)).to(torch.int8)
     else:
-        absmax = xf.abs().amax(dim=-1, keepdim=True)
+        absmax = max_over(xf.abs().amax(dim=-1, keepdim=True), mesh)
         sx = absmax * (1.0 / 127.0)
         inv = torch.where(sx > 0, 1.0 / sx, torch.zeros_like(sx))
         xq = torch.round(xf * inv).to(torch.int8)
@@ -64,13 +71,15 @@ def int8_mm(xq: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq, codes)[:m, :n]
 
 
-def w8a8_matmul(x: torch.Tensor, w: Int8Linear) -> torch.Tensor:
-    """y = x @ (codes * scale) with int8 arithmetic; x: (..., K)."""
+def w8a8_matmul(x: torch.Tensor, w: Int8Linear, mesh=None) -> torch.Tensor:
+    """y = x @ (codes * scale) with int8 arithmetic; x: (..., K), this
+    rank's K-shard of a row-parallel linear with `mesh`."""
     k = x.shape[-1]
     if w.in_features != k:
         raise ValueError(
             f"w8a8 matmul: x K={k} != weight in_features={w.in_features}"
         )
-    xq, sx = quantize_activations(x, w)
+    xq, sx = quantize_activations(x, w, mesh)
     acc = int8_mm(xq.reshape(-1, k), w.codes).reshape(*x.shape[:-1], -1)
+    acc = sum_over(acc, mesh, "model")
     return (acc.float() * sx * w.scale).to(x.dtype)

@@ -20,6 +20,15 @@ Counterpart of vit_cpp_tpu/ops/moe.py, with the same semantics:
   batched over E (`torch.bmm` over (E, B*C, h)); empty capacity slots
   compute bias garbage that the combine zeroes.
 
+Expert parallelism (`mesh=`): under the dp x tp layout a data group's
+tokens are already replicated over "model", so no all-to-all is needed.
+The router runs replicated; each model rank runs its E/tp experts (its
+slice of dimension 0 of the layer's (E, ...) kernels) on the tokens
+dispatched to them, combines only those, and the combine is all-reduced
+over "model": the unsharded result up to summation order. In training
+the dispatched tokens and the gates enter the region through
+`copy_to_model`, so their gradients sum over the ranks' experts.
+
 Routing groups are per image. No kernel is written for the layer: the JAX
 package's is XLA einsums too. `route` exposes the integer routing (expert
 index, position, keep, destination slot) that `moe_mlp` applies.
@@ -34,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from vit_cpp_tpu_torch.ops.precision import highest_product
+from vit_cpp_tpu_torch.parallel.mesh import axis_rank, copy_to_model, reduce_from_model
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
@@ -83,6 +93,7 @@ def moe_mlp(
     mp: Dict[str, Any],
     hp,
     act: Callable[[torch.Tensor], torch.Tensor],
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One MoE MLP layer. `y` is the LN'd block input (B, T, h); `mp` one
     layer's parameters: router.kernel (h, E), fc1.kernel (E, h, m),
@@ -93,29 +104,38 @@ def moe_mlp(
     diagnostics: load_balance (the Switch balance loss E * sum_e f_e P_e
     over top-1 fractions f and mean router probabilities P; 1 when
     balanced), router_z (the mean squared logsumexp of the logits) and
-    dropped_frac (the share of assignments over capacity)."""
+    dropped_frac (the share of assignments over capacity). Under a mesh
+    `mp` holds this rank's experts when their count is below E."""
     b, t, h = y.shape
     e, k = hp.num_experts, hp.moe_top_k
     r = route(y, mp["router"]["kernel"], hp)
     ec = e * r.cap
+    el = mp["fc1"]["kernel"].shape[0]  # experts on this rank
+    gates, ye = r.gates, y
+    if el != e:
+        gates, ye = copy_to_model(gates, mesh), copy_to_model(y, mesh)
+    first = axis_rank(mesh, "model") * el * r.cap  # this rank's experts' slots
+    cols = slice(first, first + el * r.cap)
 
     # k-summed dispatch: a dropped assignment's dest can point into the
     # next expert's slots (or past E*C), so it is sent one past the last
     # slot and that column cut off
     slot = torch.where(r.keep, r.dest, ec)
-    disp4 = F.one_hot(slot, ec + 1)[..., :ec].to(y.dtype).reshape(b, k, t, ec)
-    xe = torch.matmul(disp4.sum(dim=1).transpose(1, 2), y)  # (B, E*C, h)
+    disp4 = F.one_hot(slot, ec + 1)[..., :ec].to(y.dtype).reshape(b, k, t, ec)[..., cols]
+    xe = torch.matmul(disp4.sum(dim=1).transpose(1, 2), ye)  # (B, El*C, h)
 
     def experts(x, lin):  # rounded, then the bias added: ops/core.py::linear's order
         return torch.bmm(x, lin["kernel"].to(x.dtype)) + lin["bias"].to(x.dtype)[:, None, :]
 
-    xe = xe.reshape(b, e, r.cap, h).transpose(0, 1).reshape(e, b * r.cap, h)
-    f2 = experts(act(experts(xe, mp["fc1"])), mp["fc2"])  # (E, B*C, h)
-    f2 = f2.reshape(e, b, r.cap, h).transpose(0, 1).reshape(b, ec, h)
+    xe = xe.reshape(b, el, r.cap, h).transpose(0, 1).reshape(el, b * r.cap, h)
+    f2 = experts(act(experts(xe, mp["fc1"])), mp["fc2"])  # (El, B*C, h)
+    f2 = f2.reshape(el, b, r.cap, h).transpose(0, 1).reshape(b, el * r.cap, h)
 
-    gates_sm = r.gates.transpose(1, 2).reshape(b, k, t)
-    comb = (disp4 * gates_sm[..., None].to(y.dtype)).sum(dim=1)  # (B, T, E*C)
+    gates_sm = gates.transpose(1, 2).reshape(b, k, t)
+    comb = (disp4 * gates_sm[..., None].to(y.dtype)).sum(dim=1)  # (B, T, El*C)
     out = torch.matmul(comb, f2)
+    if el != e:
+        out = reduce_from_model(out, mesh)
 
     probs = torch.softmax(r.logits, dim=-1)
     f_top1 = F.one_hot(r.idx[..., 0], e).float().mean(dim=(0, 1))

@@ -1,8 +1,8 @@
-"""Fine-tuning steps on one device.
+"""Fine-tuning steps on one device or over a ('data', 'model') mesh.
 
-Counterpart of vit_cpp_tpu/parallel/train.py for a single device (no
-mesh): the classifier loss through the training forward (fused attention
-whose backward is the hand-written kernel, ops/flash_attention.py), an
+Counterpart of vit_cpp_tpu/parallel/train.py: the classifier loss
+through the training forward (fused attention whose backward is the
+hand-written kernel, ops/flash_attention.py), an
 AdamW update that reproduces the JAX package's optax chain, gradient
 accumulation and mixup; the scene-text sequence loss (ViTSTR),
 knowledge distillation from a frozen teacher, LoRA adapters
@@ -17,6 +17,19 @@ at the schedule's value for count 0 (0 under warmup), as optax evaluates
 it. `mu_dtype="bf16"` stores the first moment in bf16 as
 `optax.adamw(mu_dtype=jnp.bfloat16)` does (`AdamWBf16Mu`); f32 runs keep
 torch.optim.AdamW.
+
+On a mesh (parallel/mesh.py; `create_train_state(..., mesh=, fsdp=)`)
+each rank holds the Megatron shards of the parameters (with `fsdp`,
+DTensors sharded over "data" as well, all-gathered inside the forward)
+and runs the rows `shard_batch` gives it. The optimizer state is laid out
+like the parameters, leaf for leaf, since AdamW builds its moments from
+them. Each loss returns this rank's share of the global batch's loss
+(its mean over dp, or the masked sum over the global count of valid
+positions, all-reduced over "data"), so the backward gives each rank its
+share of the gradient: the optimizer sums the replicated leaves' shares
+over "data" (FSDP leaves are reduce-scattered by their DTensor) and the
+global-norm clip reduces the squared norms over the world, each leaf
+counted once. `update` returns the global loss.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.models.vit import forward
+from vit_cpp_tpu_torch.parallel.mesh import axis_group, axis_size, data_slice, sum_over
 from vit_cpp_tpu_torch.quant.qat import fake_quant_params, inject_act_scales
 
 
@@ -37,6 +51,13 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
     return [] if tree is None else [tree]
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (sharing its storage), any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def lr_factor(schedule: str, total_steps: int, warmup_steps: int):
@@ -143,6 +164,8 @@ class Optimizer:
     adamw: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     clip_norm: float = 0.0
+    mesh: Any = None
+    replicas: Optional[List[int]] = None  # per parameter: ranks holding a copy
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -152,9 +175,19 @@ class Optimizer:
         self.adamw.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        """One update from the gradients in each parameter's `.grad`."""
+        """One update from the gradients in each parameter's `.grad`; on a
+        mesh, the ranks' shares are summed over "data" first."""
+        if axis_size(self.mesh, "data") > 1:
+            import torch.distributed as dist
+            from torch.distributed.tensor import DTensor
+
+            group = axis_group(self.mesh, "data")
+            for p in self.params:  # FSDP DTensors were reduce-scattered
+                if p.grad is not None and not isinstance(p, DTensor):
+                    dist.all_reduce(p.grad, group=group)
         if self.clip_norm > 0:
-            clip_by_global_norm([p.grad for p in self.params], self.clip_norm)
+            clip_by_global_norm([p.grad for p in self.params], self.clip_norm,
+                                mesh=self.mesh, replicas=self.replicas)
         self.adamw.step()
         self.scheduler.step()
 
@@ -166,10 +199,21 @@ class Optimizer:
         self.scheduler.load_state_dict(state["scheduler"])
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, *, mesh=None,
+                        replicas: Optional[List[int]] = None) -> None:
     """optax.clip_by_global_norm in place: when the global norm n is at
-    least max_norm, g := (g / n) * max_norm."""
-    norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+    least max_norm, g := (g / n) * max_norm. On a mesh each gradient is
+    this rank's shard, held by `replicas[i]` ranks: the squared norms are
+    summed over the world with each shard counted once."""
+    grads = [local_tensor(g) for g in grads]
+    if mesh is None:
+        sq = sum((g.float() * g.float()).sum() for g in grads)
+    else:
+        import torch.distributed as dist
+
+        sq = sum((g.float() * g.float()).sum() / n for g, n in zip(grads, replicas))
+        dist.all_reduce(sq)
+    norm = torch.sqrt(sq)
     if norm < max_norm:
         return
     for g in grads:
@@ -185,6 +229,8 @@ def make_optimizer(
     warmup_steps: int = 0,
     clip_norm: float = 0.0,
     mu_dtype: str = "f32",
+    mesh=None,
+    replicas: Optional[List[int]] = None,
 ) -> Optimizer:
     """AdamW over `params` with an optional cosine decay + linear warmup
     (`total_steps`: optimizer updates over the whole run) and global-norm
@@ -197,7 +243,7 @@ def make_optimizer(
     opt = torch.optim.AdamW if mu_dtype == "f32" else AdamWBf16Mu
     adamw = opt(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
     scheduler = torch.optim.lr_scheduler.LambdaLR(adamw, factor)
-    return Optimizer(adamw, scheduler, clip_norm)
+    return Optimizer(adamw, scheduler, clip_norm, mesh, replicas)
 
 
 @dataclasses.dataclass
@@ -205,24 +251,88 @@ class TrainState:
     params: Dict[str, Any]
     optimizer: Optimizer
     step: int = 0
+    mesh: Any = None
+    specs: Optional[Dict[str, Any]] = None  # the placement of params on the mesh
 
 
 def create_train_state(
     params: Dict[str, Any], optimizer_kw: Optional[Dict[str, Any]] = None,
-    trainable=None,
+    trainable=None, *, mesh=None, fsdp: bool = False,
 ) -> TrainState:
     """A TrainState over `params` (updated in place from now on). Every
     leaf trains unless `trainable` (top-level keys) names the ones that do;
     the others get requires_grad False, so they get neither an update nor
-    weight decay (optax.set_to_zero in the JAX package)."""
-    train_leaves = []
+    weight decay (optax.set_to_zero in the JAX package).
+
+    With a mesh the state holds this rank's copies of its shards
+    (parallel/sharding.py::shard_params; `fsdp` shards every large dense
+    leaf over "data" too, ZeRO-3), and AdamW's moments follow them leaf
+    for leaf."""
+    specs = None
+    if mesh is not None:
+        from vit_cpp_tpu_torch.parallel.sharding import placement_specs, shard_params
+
+        specs = placement_specs(params, mesh, fsdp)
+        params = shard_params({k: _copy(v) for k, v in params.items()}, mesh, fsdp,
+                              specs=specs)
+    train_leaves, replicas = [], []
     for key, sub in params.items():
         on = trainable is None or key in trainable
-        for leaf in tree_leaves(sub):
+        spec_leaves = _spec_leaves(specs[key]) if specs is not None else None
+        for i, leaf in enumerate(tree_leaves(sub)):
             leaf.requires_grad_(on)
             if on:
                 train_leaves.append(leaf)
-    return TrainState(params, make_optimizer(train_leaves, **(optimizer_kw or {})))
+                if specs is not None:
+                    from vit_cpp_tpu_torch.parallel.sharding import replicas as _replicas
+
+                    replicas.append(_replicas(spec_leaves[i], mesh))
+    optimizer = make_optimizer(train_leaves, **(optimizer_kw or {}), mesh=mesh,
+                               replicas=replicas if mesh is not None else None)
+    return TrainState(params, optimizer, mesh=mesh, specs=specs)
+
+
+def create_lora_train_state(
+    trainable: Dict[str, Any], optimizer_kw: Optional[Dict[str, Any]] = None, *, mesh=None,
+) -> TrainState:
+    """The state of a LoRA trainable tree (models/lora.py::lora_trainable)
+    on a mesh: adapters and head are tiny, so every leaf replicates (the
+    frozen base keeps its TP shards, parallel/sharding.py::shard_params,
+    and merge_lora slices each adapter product to them)."""
+    from vit_cpp_tpu_torch.parallel.mesh import axis_size as size
+
+    trainable = {k: _copy(v) for k, v in trainable.items()}
+    leaves = tree_leaves(trainable)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    world = size(mesh, "data") * size(mesh, "model")
+    optimizer = make_optimizer(leaves, **(optimizer_kw or {}), mesh=mesh,
+                               replicas=[world] * len(leaves))
+    specs = _map(lambda t: None if t is None else (), trainable)
+    return TrainState(trainable, optimizer, mesh=mesh, specs=specs)
+
+
+def shard_batch(images: torch.Tensor, labels: torch.Tensor, mesh):
+    """This rank's rows of a batch split over "data" (dp divides it)."""
+    return data_slice(images, mesh), data_slice(labels, mesh)
+
+
+def _copy(tree):
+    """A copy the state owns: its leaves are updated in place."""
+    return _map(lambda t: None if t is None else t.detach().clone(), tree)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _spec_leaves(spec_tree) -> list:
+    """The specs of tree_leaves' tensors, in the same order."""
+    if isinstance(spec_tree, dict):
+        return [s for k in spec_tree for s in _spec_leaves(spec_tree[k])]
+    return [] if spec_tree is None else [spec_tree]
 
 
 # V-MoE auxiliary-loss coefficients (vit_cpp_tpu/parallel/train.py:71-75):
@@ -231,22 +341,37 @@ MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
 
 
-def qat_params(params, qat: str, qat_scales=None):
+def qat_params(params, qat: str, qat_scales=None, mesh=None, hp=None):
     """The tree the QAT forward runs: the served kernels fake-quantized
     (straight-through), the frozen static activation scales beside them
-    with --qat-act static. The dense tree when `qat` is empty."""
+    with --qat-act static. The dense tree when `qat` is empty. On a mesh
+    the FSDP leaves are gathered first and the row-parallel shards take
+    their channel absmax over "model"."""
     if not qat:
         return params
-    params = fake_quant_params(params, qat)
+    if mesh is not None:
+        from vit_cpp_tpu_torch.parallel.sharding import local_params
+
+        params = local_params(params, mesh)
+    params = fake_quant_params(params, qat, mesh, hp)
     return params if qat_scales is None else inject_act_scales(params, qat_scales)
 
 
-def _logits(params, images, hp: VitHParams, tome: int = 0, qat: str = "", qat_scales=None):
+def _share(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's share of the global batch's mean: its mean over dp."""
+    dp = axis_size(mesh, "data")
+    return loss if dp == 1 else loss / dp
+
+
+def _logits(params, images, hp: VitHParams, tome: int = 0, qat: str = "", qat_scales=None,
+            mesh=None):
     """(the training forward's logits, the V-MoE auxiliary term: 0.01
     load_balance + 1e-3 router_z averaged over the MoE layers, 0 for a
-    dense model)."""
-    out = forward(qat_params(params, qat, qat_scales), images, hp, attn_impl="pallas-train",
-                  mm_impl="qat" if qat else "xla", tome=tome, moe_aux=bool(hp.num_experts))
+    dense model). On a mesh, the logits of this rank's rows, and the
+    auxiliary term of its rows (the load balance of each rank's tokens)."""
+    out = forward(qat_params(params, qat, qat_scales, mesh, hp), images, hp,
+                  attn_impl="pallas-train", mm_impl="qat" if qat else "xla", tome=tome,
+                  moe_aux=bool(hp.num_experts), mesh=mesh)
     if hp.num_experts:
         out, aux = out
         return out, MOE_LB_COEF * aux["load_balance"] + MOE_Z_COEF * aux["router_z"]
@@ -265,36 +390,39 @@ def _nll(logp: torch.Tensor, labels: torch.Tensor, smooth: float) -> torch.Tenso
 
 def cross_entropy_loss(
     params, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0,
-    qat: str = "", qat_scales=None,
+    qat: str = "", qat_scales=None, mesh=None,
 ) -> torch.Tensor:
     """Mean cross entropy of the training forward (f32 log-softmax), plus
     the router's auxiliary losses for a V-MoE model; `tome=r` trains
     through ToMe merging (the matching gets no gradient, the attention
     kernels take the merged-token sizes both ways); `qat=FMT` through
     FMT's serving quantization, with the static activation scales
-    `qat_scales` (quant/qat.py::measure_act_scales) when given."""
-    logits, moe_term = _logits(params, images, hp, tome, qat, qat_scales)
-    return _nll(torch.log_softmax(logits.float(), dim=-1), labels, smooth) + moe_term
+    `qat_scales` (quant/qat.py::measure_act_scales) when given. On a mesh,
+    this rank's share of the global mean."""
+    logits, moe_term = _logits(params, images, hp, tome, qat, qat_scales, mesh)
+    return _share(_nll(torch.log_softmax(logits.float(), dim=-1), labels, smooth) + moe_term,
+                  mesh)
 
 
 def vitstr_cross_entropy_loss(
-    params, images, targets, hp: VitHParams, qat: str = "", qat_scales=None
+    params, images, targets, hp: VitHParams, qat: str = "", qat_scales=None, mesh=None,
 ) -> torch.Tensor:
     """Scene-text sequence loss: targets (B, seq_len) int, -1 masked
     (position 0, [GO], and everything after the stop token); the mean
-    over the valid positions."""
-    logits, _ = _logits(params, images, hp, qat=qat, qat_scales=qat_scales)
+    over the valid positions. On a mesh, this rank's masked sum over the
+    global count of valid positions, all-reduced over "data"."""
+    logits, _ = _logits(params, images, hp, qat=qat, qat_scales=qat_scales, mesh=mesh)
     logp = torch.log_softmax(logits.float(), dim=-1)  # (B, S, V)
     mask = targets >= 0
     safe = torch.where(mask, targets, torch.zeros_like(targets)).long()
     nll = -torch.gather(logp, 2, safe[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return (nll * mask).sum() / torch.clamp(sum_over(mask.sum(), mesh, "data"), min=1)
 
 
 def distill_cross_entropy_loss(
     params, teacher_params, images, labels, hp: VitHParams, teacher_hp: VitHParams,
     alpha: float, tau: float, mode: str, smooth: float = 0.0, tome: int = 0,
-    qat: str = "", qat_scales=None,
+    qat: str = "", qat_scales=None, mesh=None,
 ) -> torch.Tensor:
     """Knowledge distillation (Hinton et al. 2015): the student trains
     against the labels and a frozen teacher's logits on the same batch,
@@ -304,12 +432,14 @@ def distill_cross_entropy_loss(
 
     (the KL up to the teacher's entropy). The teacher runs the plain
     inference graph (composed attention, no gradient); the student the
-    training forward, with ToMe and QAT as cross_entropy_loss."""
+    training forward, with ToMe and QAT as cross_entropy_loss. On a mesh
+    the teacher is TP-sharded like the student, and the loss is this
+    rank's share."""
     if mode not in ("soft", "hard"):
         raise ValueError(f"distill mode must be soft|hard, got {mode!r}")
     with torch.no_grad():
-        t_logits = forward(teacher_params, images, teacher_hp).float()
-    logits, _ = _logits(params, images, hp, tome, qat, qat_scales)
+        t_logits = forward(teacher_params, images, teacher_hp, mesh=mesh).float()
+    logits, _ = _logits(params, images, hp, tome, qat, qat_scales, mesh)
     logits = logits.float()
     logp = torch.log_softmax(logits, dim=-1)
     ce = _nll(logp, labels, smooth)
@@ -319,12 +449,13 @@ def distill_cross_entropy_loss(
         kd = -(tau * tau) * (t_prob * s_logp).sum(dim=-1).mean()
     else:
         kd = -torch.gather(logp, 1, t_logits.argmax(dim=-1)[:, None]).mean()
-    return (1.0 - alpha) * ce + alpha * kd
+    return _share((1.0 - alpha) * ce + alpha * kd, mesh)
 
 
 def lora_cross_entropy_loss(
     trainable, base_params, images, labels, hp: VitHParams, alpha: float,
     smooth: float = 0.0, tome: int = 0, qat: str = "", qat_scales=None, seq: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """LoRA loss: the rank-r adapters and the head merged into the frozen
     base (models/lora.py::merge_lora), then the classifier loss, or the
@@ -332,40 +463,42 @@ def lora_cross_entropy_loss(
     kernels, the weights a fold-then-quantize export serves."""
     from vit_cpp_tpu_torch.models.lora import merge_lora
 
-    merged = merge_lora(base_params, trainable, alpha)
+    merged = merge_lora(base_params, trainable, alpha, mesh)
     if seq:
-        return vitstr_cross_entropy_loss(merged, images, labels, hp, qat, qat_scales)
-    return cross_entropy_loss(merged, images, labels, hp, smooth, tome, qat, qat_scales)
+        return vitstr_cross_entropy_loss(merged, images, labels, hp, qat, qat_scales, mesh)
+    return cross_entropy_loss(merged, images, labels, hp, smooth, tome, qat, qat_scales, mesh)
 
 
 def _mixed_cross_entropy_loss(
     params, images, labels, labels2, lam, hp: VitHParams, smooth: float = 0.0,
-    tome: int = 0, qat: str = "", qat_scales=None,
+    tome: int = 0, qat: str = "", qat_scales=None, mesh=None,
 ) -> torch.Tensor:
     """Mixup loss: one forward on the pre-mixed batch, CE against both
     label sets weighted by the mixing coefficient."""
-    logits, moe_term = _logits(params, images, hp, tome, qat, qat_scales)
+    logits, moe_term = _logits(params, images, hp, tome, qat, qat_scales, mesh)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return (lam * _nll(logp, labels, smooth) + (1.0 - lam) * _nll(logp, labels2, smooth)
-            + moe_term)
+    return _share(lam * _nll(logp, labels, smooth) + (1.0 - lam) * _nll(logp, labels2, smooth)
+                  + moe_term, mesh)
 
 
 def update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-    """Backpropagate `loss`, step the optimizer; returns the loss."""
+    """Backpropagate `loss` (on a mesh, this rank's share), step the
+    optimizer; returns the (global) loss."""
     state.optimizer.zero_grad()
     loss.backward()
     state.optimizer.step()
     state.step += 1
-    return loss.detach()
+    return sum_over(loss.detach(), state.mesh, "data")
 
 
 def train_step(
     state: TrainState, images, labels, hp: VitHParams, smooth: float = 0.0, tome: int = 0,
     qat: str = "", qat_scales=None,
 ) -> torch.Tensor:
-    """One update; returns the loss of the batch (before the update)."""
+    """One update; returns the loss of the batch (before the update). On a
+    mesh `images` and `labels` are this rank's rows (shard_batch)."""
     return update(state, cross_entropy_loss(state.params, images, labels, hp, smooth, tome,
-                                             qat, qat_scales))
+                                             qat, qat_scales, state.mesh))
 
 
 def train_step_lora(
@@ -376,7 +509,7 @@ def train_step_lora(
     tree (models/lora.py::lora_trainable); base_params stays frozen."""
     return update(state, lora_cross_entropy_loss(
         state.params, base_params, images, labels, hp, alpha, smooth, tome, qat, qat_scales,
-        seq))
+        seq, state.mesh))
 
 
 def train_step_mixup(
@@ -386,7 +519,8 @@ def train_step_mixup(
     """One update on a mixup batch (ops/augment.mixup_batch): images are
     already mixed; `labels2 = labels[perm]`."""
     return update(state, _mixed_cross_entropy_loss(
-        state.params, images, labels, labels2, lam, hp, smooth, tome, qat, qat_scales))
+        state.params, images, labels, labels2, lam, hp, smooth, tome, qat, qat_scales,
+        state.mesh))
 
 
 def train_step_accum(
@@ -399,27 +533,31 @@ def train_step_accum(
     in the JAX package: every classifier micro-batch has B (1/accum
     each, the update of the big batch); with `seq` ((B, seq_len) ViTSTR
     targets) each weighs by its valid positions, which gives the masked
-    mean over the whole batch."""
+    mean over the whole batch; on a mesh the counts are the global ones,
+    all-reduced over "data"."""
     micro = images.shape[0] // accum
     if micro * accum != images.shape[0]:
         raise ValueError(f"batch {images.shape[0]} is not a multiple of accum {accum}")
     state.optimizer.zero_grad()
+    mesh = state.mesh
     loss_sum = torch.zeros((), device=images.device)
     if seq:
-        counts = [max(int((labels[i * micro:(i + 1) * micro] >= 0).sum()), 1)
+        counts = [max(int(sum_over((labels[i * micro:(i + 1) * micro] >= 0).sum(), mesh,
+                                   "data")), 1)
                   for i in range(accum)]
         weights = [c / sum(counts) for c in counts]
     for i in range(accum):
         sl = slice(i * micro, (i + 1) * micro)
         if seq:
             loss = vitstr_cross_entropy_loss(state.params, images[sl], labels[sl], hp, qat,
-                                             qat_scales) * weights[i]
+                                             qat_scales, mesh) * weights[i]
             loss.backward()
         else:
             loss = cross_entropy_loss(state.params, images[sl], labels[sl], hp, smooth, tome,
-                                      qat, qat_scales)
+                                      qat, qat_scales, mesh)
             (loss / accum).backward()
         loss_sum += loss.detach()
     state.optimizer.step()
     state.step += 1
+    loss_sum = sum_over(loss_sum, mesh, "data")
     return loss_sum if seq else loss_sum / accum

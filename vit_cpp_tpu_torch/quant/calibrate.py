@@ -29,6 +29,7 @@ from typing import Any, Dict
 import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
+from vit_cpp_tpu_torch.parallel.mesh import max_over
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear, true_div
 
 _GEMMS = ("qkv", "proj", "fc1", "fc2")
@@ -64,6 +65,7 @@ def collect_act_maxima(
     hp: VitHParams,
     *,
     attn_impl: str = "xla",
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """The absmax of every GEMM input over the calibration batch:
     {"qkv"|"proj"|"fc1"|"fc2": (L,) f32, "head": () f32}.
@@ -72,7 +74,10 @@ def collect_act_maxima(
     observed activations are those static serving will see; the head's
     maximum covers the pooled readout (CLS, the mean of the patch tokens,
     both prefix tokens of a distilled tree, the 25 rows of a ViTSTR
-    sequence head, or the output of SigLIP's attention pooling)."""
+    sequence head, or the output of SigLIP's attention pooling). Under a
+    mesh every rank runs the whole batch on its shards, and each site's
+    maximum is taken over "model" too: the taps of the row-parallel
+    inputs (proj, fc2) see only a K-shard."""
     from vit_cpp_tpu_torch.models.vit import forward
 
     if hp.num_experts:
@@ -86,9 +91,9 @@ def collect_act_maxima(
     # headless encoder's readout is its features
     forward(
         params, images, hp, attn_impl=attn_impl, mm_impl="int8",
-        features="head" not in params, tap=tap,
+        features="head" not in params, tap=tap, mesh=mesh,
     )
-    out = {name: torch.stack(v) for name, v in maxima.items()}
+    out = {name: max_over(torch.stack(v), mesh) for name, v in maxima.items()}
     out["head"] = out["head"][0]
     return out
 
@@ -123,12 +128,13 @@ def calibrate_act_scales(
     *,
     margin: float = 1.05,
     attn_impl: str = "xla",
+    mesh=None,
 ) -> Dict[str, Any]:
     """A new tree whose Int8Linear leaves carry the static scale
     absmax * margin / 127 measured on `images`, at least 1e-12: (L, 1, 1)
     per block site, (1, 1) for the head(s), which share one scale."""
     _require_int8(params, "calibrate_act_scales")
-    maxima = collect_act_maxima(params, images, hp, attn_impl=attn_impl)
+    maxima = collect_act_maxima(params, images, hp, attn_impl=attn_impl, mesh=mesh)
     return _attach(params, act_scales_from_maxima(maxima, margin))
 
 
@@ -161,6 +167,7 @@ def validate_act_scales(
     *,
     min_agreement: float = 0.90,
     attn_impl: str = "xla",
+    mesh=None,
 ) -> float:
     """The guardrail before serving static scales: top-1 agreement of the
     static and dynamic int8 forwards on `images` (a headless encoder's
@@ -174,9 +181,9 @@ def validate_act_scales(
 
     feats = "head" not in dynamic_params
     dyn = forward(dynamic_params, images, hp, mm_impl="int8", attn_impl=attn_impl,
-                  features=feats)
+                  features=feats, mesh=mesh)
     st = forward(static_params, images, hp, mm_impl="int8", attn_impl=attn_impl,
-                 features=feats)
+                 features=feats, mesh=mesh)
     agreement = float((dyn.argmax(-1) == st.argmax(-1)).float().mean())
     if agreement < min_agreement:
         raise ValueError(

@@ -57,10 +57,14 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
-def channelwise_int8(w: torch.Tensor) -> Int8Linear:
-    """Quantize a dense ([L,] in, out) weight to per-output-channel int8."""
+def channelwise_int8(w: torch.Tensor, mesh=None) -> Int8Linear:
+    """Quantize a dense ([L,] in, out) weight to per-output-channel int8;
+    with `mesh`, w is this rank's rows and the channel absmax the maximum
+    over the mesh's "model" axis."""
+    from vit_cpp_tpu_torch.parallel.mesh import max_over
+
     wf = w.float()
-    absmax = wf.abs().amax(dim=-2, keepdim=True)
+    absmax = max_over(wf.abs().amax(dim=-2, keepdim=True), mesh)
     scale = true_div(absmax, 127.0)
     inv = torch.where(scale > 0, 1.0 / scale, torch.zeros_like(scale))
     codes = torch.clamp(torch.round(wf * inv), -127, 127).to(torch.int8)

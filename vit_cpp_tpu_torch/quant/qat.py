@@ -37,6 +37,7 @@ from typing import Any, Dict
 
 import torch
 
+from vit_cpp_tpu_torch.parallel.mesh import axis_size, max_over
 from vit_cpp_tpu_torch.quant.calibrate import act_scales_from_maxima, collect_act_maxima
 from vit_cpp_tpu_torch.quant.int8 import channelwise_int8, true_div
 
@@ -74,13 +75,13 @@ def fake_quant_act_static(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Ten
     return _ste(xf, q).to(x.dtype)
 
 
-def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
+def fake_quant_act(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-token dynamic int8 quantize-dequantize with STE, the W8A8
     matmul's activation quantization: sx = absmax(token) * (1/127) in f32,
     codes = round(x * (1/sx)), value = codes * sx."""
     xf = x.float()
     with torch.no_grad():
-        absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+        absmax = max_over(torch.amax(torch.abs(xf), dim=-1, keepdim=True), mesh)
         sx = absmax * (1.0 / 127.0)
         q = torch.round(xf * _inverse(sx, sx > 0)) * sx
     return _ste(xf, q).to(x.dtype)
@@ -140,27 +141,38 @@ def _block_qdq(w: torch.Tensor, fmt: str) -> torch.Tensor:
     return q.reshape(w.shape)
 
 
-def fake_quant_weight(w: torch.Tensor, fmt: str) -> torch.Tensor:
+def fake_quant_weight(w: torch.Tensor, fmt: str, mesh=None) -> torch.Tensor:
     """STE quantize-dequantize of one dense kernel through the whole
     serving chain: "w8a8" is f16 storage then the load-time channelwise
     int8; a block format is its on-disk codec, then the same channelwise
-    requantization."""
+    requantization. `mesh`: w is this rank's rows of a row-parallel
+    kernel, whose channel absmax is the maximum over "model" (its 32-row
+    blocks lie inside a shard when K/tp is a multiple of 32)."""
     wf = w.float()
     with torch.no_grad():
-        q = channelwise_int8(_f16(wf) if fmt == "w8a8" else _block_qdq(wf, fmt)).dequantize()
+        q = channelwise_int8(_f16(wf) if fmt == "w8a8" else _block_qdq(wf, fmt),
+                             mesh=mesh).dequantize()
     return _ste(wf, q).to(w.dtype)
 
 
-def fake_quant_params(params: Dict[str, Any], fmt: str) -> Dict[str, Any]:
+def fake_quant_params(params: Dict[str, Any], fmt: str, mesh=None, hp=None) -> Dict[str, Any]:
     """Fake-quantize the leaves the serving quantizer targets:
     blocks.{qkv,proj,fc1,fc2}.kernel and the head(s); the patch
-    embedding, attention pooling, norms and biases stay float."""
+    embedding, attention pooling, norms and biases stay float. Under a
+    mesh (with the model's `hp`) the row-parallel shards of proj and fc2
+    take their channel absmax over "model"."""
     if fmt not in QAT_FORMATS:
         raise ValueError(f"qat format must be one of {QAT_FORMATS}, got {fmt!r}")
     out = dict(params)
     blocks = dict(params["blocks"])
+    rows = {}
+    if axis_size(mesh, "model") > 1:
+        rows = {"proj": hp.hidden_size, "fc2": hp.mlp_dim}
     for name in _GEMMS:
-        blocks[name] = {**blocks[name], "kernel": fake_quant_weight(blocks[name]["kernel"], fmt)}
+        k = blocks[name]["kernel"]
+        row = name in rows and k.shape[-2] != rows[name]
+        blocks[name] = {**blocks[name],
+                        "kernel": fake_quant_weight(k, fmt, mesh if row else None)}
     out["blocks"] = blocks
     for name in ("head", "head_dist"):
         if name in params:
@@ -169,7 +181,8 @@ def fake_quant_params(params: Dict[str, Any], fmt: str) -> Dict[str, Any]:
 
 
 def measure_act_scales(
-    params: Dict[str, Any], images: torch.Tensor, hp, fmt: str, *, margin: float = 1.05
+    params: Dict[str, Any], images: torch.Tensor, hp, fmt: str, *, margin: float = 1.05,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-site static activation scales for `--qat-act static`: the
     serving calibrator's maxima and rule (quant/calibrate.py::
@@ -179,8 +192,13 @@ def measure_act_scales(
     input is the pooled readout (the output of SigLIP's attention
     pooling, both prefix tokens of a distilled tree, the seq_len rows of
     a sequence head)."""
+    if mesh is not None:
+        from vit_cpp_tpu_torch.parallel.sharding import local_params
+
+        params = local_params(params, mesh)
     with torch.no_grad():
-        maxima = collect_act_maxima(fake_quant_params(params, fmt), images, hp)
+        maxima = collect_act_maxima(fake_quant_params(params, fmt, mesh, hp), images, hp,
+                                    mesh=mesh)
     return act_scales_from_maxima(maxima, margin)
 
 

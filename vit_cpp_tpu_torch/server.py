@@ -24,6 +24,18 @@ of a POST):
 A headless encoder (num_classes=0) serves /v1/embed as its only route,
 through the main batcher.
 
+A sharded engine (VitEngine.shard, `vit-server --mesh DPxTP` under a
+launcher) serves from rank 0: the daemon there runs HTTP and the
+micro-batchers behind a `MeshLeader`, whose every dispatch first
+broadcasts an opcode, the shape and the padded batch to the world, then
+runs the engine call that every rank takes part in; the other ranks run
+`follow`, which joins the same calls until the stop opcode that the
+leader broadcasts at shutdown. A rank that dies makes the leader's next
+collective fail within the group timeout: the leader then fails that
+batch, refuses every later one and reports the failure, and the daemon's
+exit code is not 0. Bucket sizes of a sharded engine are multiples of
+the data axis (`_shardable_buckets`).
+
 Several models (create_multi_server, `vit-server -m name=path` repeated):
 each has its own batchers behind POST /v1/<name>/classify (or
 /v1/<name>/recognize) and /v1/<name>/embed; /healthz and /stats are
@@ -232,6 +244,114 @@ class MicroBatcher:
 def _is_headless(engine) -> bool:
     """A headless encoder serves embeddings only."""
     return engine.hp.num_classes == 0
+
+
+_STOP, _CLASSIFY, _EMBED = 0, 1, 2
+
+
+def _header(device, op: int = _STOP, shape=()) -> torch.Tensor:
+    """(opcode, ndim, dims...) as one int64 tensor of 6 on `device`."""
+    return torch.tensor([op, len(shape), *shape, *[0] * (4 - len(shape))],
+                        dtype=torch.int64, device=device)
+
+
+class MeshLeader:
+    """Rank 0's view of a sharded engine for the daemon: the engine's own
+    attributes, and `predict_probs_batch` / `features_batch` that
+    broadcast the dispatch to the follower ranks first (one at a time:
+    the daemon's batchers run on two threads, and the ranks must see the
+    same sequence of collectives)."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self._lock = threading.Lock()
+        self.failed: Optional[BaseException] = None
+        self.on_failure = None  # called with the error of a failed dispatch
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def _dispatch(self, op: int, images: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        with self._lock:
+            if self.failed is not None:
+                raise RuntimeError(f"a mesh rank failed: {self.failed}")
+            try:
+                images = images.to(self._engine.device, torch.float32).contiguous()
+                dist.broadcast(_header(images.device, op, images.shape), src=0)
+                dist.broadcast(images, src=0)
+                if op == _CLASSIFY:
+                    return self._engine.predict_probs_batch(images)
+                return self._engine.features_batch(images)
+            except Exception as e:
+                self.failed = e
+                if self.on_failure is not None:
+                    self.on_failure(e)
+                raise
+
+    def predict_probs_batch(self, images: torch.Tensor) -> torch.Tensor:
+        return self._dispatch(_CLASSIFY, images)
+
+    def features_batch(self, images: torch.Tensor) -> torch.Tensor:
+        return self._dispatch(_EMBED, images)
+
+    def stop(self) -> None:
+        """Broadcast the stop opcode: the followers return."""
+        import torch.distributed as dist
+
+        with self._lock:
+            if self.failed is None:
+                dist.broadcast(_header(self._engine.device), src=0)
+
+
+def follow(engine) -> None:
+    """A rank other than 0 of a sharded daemon: take part in every
+    dispatch the leader broadcasts, until its stop opcode."""
+    import torch.distributed as dist
+
+    while True:
+        head = _header(engine.device)
+        dist.broadcast(head, src=0)
+        op, ndim, *dims = head.tolist()
+        if op == _STOP:
+            return
+        images = torch.empty(dims[:ndim], dtype=torch.float32, device=engine.device)
+        dist.broadcast(images, src=0)
+        if op == _CLASSIFY:
+            engine.predict_probs_batch(images)
+        else:
+            engine.features_batch(images)
+
+
+def _shardable_buckets(engine, batch: int, buckets):
+    """Constrain bucket sizes to multiples of a sharded engine's data
+    axis (vit_cpp_tpu/server.py::_shardable_buckets): a (1, ...) batch
+    cannot be split dp ways. No-op for unsharded engines or
+    buckets=False."""
+    from vit_cpp_tpu_torch.parallel.mesh import axis_size
+
+    mesh = getattr(engine, "mesh", None)
+    if not buckets or mesh is None:
+        return buckets
+    dp = axis_size(mesh, "data")
+    if dp <= 1:
+        return buckets
+    if isinstance(buckets, (list, tuple)):
+        bad = [b for b in buckets if int(b) % dp]
+        if bad:
+            raise ValueError(
+                f"bucket sizes {bad} do not divide the mesh data axis "
+                f"(dp={dp}) — a sharded engine cannot run them"
+            )
+        return buckets
+    sizes, b = [], 1
+    while b < batch:
+        if b % dp == 0:
+            sizes.append(b)
+        b <<= 1
+    sizes.append(batch)  # callers validate batch % dp when sharding
+    return sizes if len(sizes) > 1 else False
 
 
 class _Model:
@@ -506,8 +626,10 @@ def create_server(
     serve_forever() and closes both (closing the batcher closes the embed
     batcher too). warmup=True runs the dummy batch(es) of the main batcher
     before the port is bound. A headless encoder's batcher runs
-    features_batch."""
-    batcher = _batcher(engine, batch, max_wait_ms, max_queue, buckets)
+    features_batch. A sharded engine's buckets are multiples of its data
+    axis (_shardable_buckets)."""
+    batcher = _batcher(engine, batch, max_wait_ms, max_queue,
+                       _shardable_buckets(engine, batch, buckets))
     if warmup:
         _warm(engine, batcher)
     handler = make_handler(_Model(None, engine, batcher), timeout_s=request_timeout_s)
@@ -539,7 +661,8 @@ def create_multi_server(
             raise ValueError(f"bad model name {name!r} (non-empty, no '/')")
         b = batch[name] if isinstance(batch, dict) else batch
         bk = buckets[name] if isinstance(buckets, dict) else buckets
-        models.append(_Model(name, engine, _batcher(engine, b, max_wait_ms, max_queue, bk)))
+        models.append(_Model(name, engine, _batcher(engine, b, max_wait_ms, max_queue,
+                                                    _shardable_buckets(engine, b, bk))))
     if warmup:
         for m in models:
             _warm(m.engine, m.batcher)

@@ -220,7 +220,9 @@
       dequant_matmul Q8_0 bf16 B=64 at the qkv / fc1 column shards and
       the proj / fc2 row shards, and W8A8's int8_mm there against an
       exact f64 product), held to plain and timed (`mesh_shards` in the
-      kernels line). No speed-up across GPUs is measured;
+      kernels line), and at the row shards the f32 partial product a
+      bf16 rank sums over "model" against an f64 product. No speed-up
+      across GPUs is measured;
    n. stage parity (phase `stage_parity`): models.vit.forward_debug on
       the card, f32 with TF32 off and bf16 W8A8 with the fast fused
       attention, against the card machine's CPU in f32, stage by stage
@@ -299,6 +301,10 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # one step apart, which is at most 2^-7 = 7.8e-3 of max|plain|. f32
 # output: summation order only.
 QMM_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
+# A bf16 row-parallel partial product in f32 vs an f64 product, relative to
+# max|f64|: the bf16 products are exact, so only the f32 sum differs
+# (~1e-6 relative at K <= 1536 by the estimate of QMM_TOL's note).
+ROW_PARTIAL_TOL = 1e-5
 # Served top-5 probabilities vs the f32 dense engine (dtype=f32, mm=xla,
 # attn=xla) on the same pixels: bf16 activations + W8A8 int8 linears move
 # the probabilities of this synthetic ViT-B/16 (1000 classes, each ~0.01)
@@ -4427,6 +4433,8 @@ def shard_kernels(card: str) -> dict:
                 k_ms, p_ms, *bound(2.0 * m * k * n, 2 * m * k + k * n // 32 * 34 + 2 * m * n,
                                    "bf16"),
                 cuda_ms(lambda: torch.matmul(x, dense)))
+            if tp > 1 and layer in ("proj", "fc2"):
+                _check_row_partial(x, dense, what, card)
             xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
             codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                                   dtype=torch.int8)
@@ -4450,6 +4458,24 @@ def shard_kernels(card: str) -> dict:
                 f"{b_ms:.4f} ms ({b_by}), library "
                 f"{'n/a' if lib is None else f'{lib:.4f} ms'} on {card}")
     return out, errs
+
+
+def _check_row_partial(x, w, what: str, card: str) -> None:
+    """A bf16 row-parallel shard's dense partial product (ops/core.py::
+    _matmul_f32, what a rank sums over "model" before it rounds) is f32
+    and within ROW_PARTIAL_TOL of max|f64 product| (bf16 products are
+    exact in f32: only the f32 sum's order and roundings differ)."""
+    from vit_cpp_tpu_torch.ops.core import _matmul_f32
+
+    got = _matmul_f32(x, w)
+    ref = torch.matmul(x.double(), w.double())
+    err = (got.double() - ref).abs().max().item()
+    tol = ROW_PARTIAL_TOL * ref.abs().max().item()
+    log(f"row partial {what}: dtype {str(got.dtype)[6:]}, max|f32 partial - f64| = {err:.3e} "
+        f"(tolerance {tol:.3e}); {cuda_ms(lambda: _matmul_f32(x, w)):.4f} ms, the bf16 "
+        f"product {cuda_ms(lambda: torch.matmul(x, w)):.4f} ms on {card}")
+    if got.dtype != torch.float32 or not err <= tol:
+        raise AssertionError(f"row partial {what}: {got.dtype}, error {err} > {tol}")
 
 
 def _descendants(pid: int) -> list:

@@ -17,6 +17,20 @@ from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
 MESHES = [(8, 1), (4, 2)]
+
+
+class SizedMesh:
+    """The sizes of a ("data", "model") mesh and this rank's "model"
+    coordinate, without a process group."""
+
+    def __init__(self, dp, tp, rank=0):
+        self.shape, self.rank = (dp, tp), rank
+
+    def size(self, dim):
+        return self.shape[dim]
+
+    def get_local_rank(self, axis):
+        return self.rank if axis == "model" else 0
 FAMILIES = ["dense", "q8_0", "q4_1", "int8", "int8-static", "folded", "siglip", "moe",
             "norm-pre", "distilled", "registers"]
 
@@ -94,7 +108,7 @@ def test_specs_equal_jax(family, dp, tp, tmp_path):
     ours = params_from_jax(jparams)
     jmesh = jax_make_mesh(dp=dp, tp=tp, devices=jax.devices()[: dp * tp])
     assert tsh.param_pspecs(ours) == _jax_spec(jsh.param_pspecs(jparams))
-    assert tsh.fsdp_pspecs(ours, {"data": dp, "model": tp}) == _jax_spec(
+    assert tsh.fsdp_pspecs(ours, SizedMesh(dp, tp)) == _jax_spec(
         jsh.fsdp_pspecs(jparams, jmesh))
 
 
@@ -146,7 +160,7 @@ def test_shardable_buckets_equal_jax(batch, buckets, dp):
 
     jax_engine = SimpleNamespace(_batch_sharding=SimpleNamespace(
         mesh=SimpleNamespace(shape={"data": dp, "model": 1})))
-    ours = SimpleNamespace(mesh={"data": dp, "model": 1})
+    ours = SimpleNamespace(mesh=SizedMesh(dp, 1))
     try:
         want = jax_buckets(jax_engine, batch, buckets)
     except ValueError as e:
@@ -165,7 +179,7 @@ def test_qkv_model_shard_lands_on_head_boundaries():
     hd = h // nh
     w = torch.arange(5 * 3 * h).reshape(5, 3 * h)
     for r in range(tp):
-        mesh = _FakeMesh(tp, r)
+        mesh = SizedMesh(1, tp, r)
         got = tsh.model_shard(w, -1, mesh, qkv=True)
         heads = range(r * nh // tp, (r + 1) * nh // tp)
         want = torch.cat([w[:, part * h + i * hd: part * h + (i + 1) * hd]
@@ -175,17 +189,6 @@ def test_qkv_model_shard_lands_on_head_boundaries():
         assert not torch.equal(got, w[:, r * 3 * h // tp:(r + 1) * 3 * h // tp])
 
 
-class _FakeMesh:
-    """Sizes and coordinates of a mesh, without a process group."""
-
-    def __init__(self, tp, rank):
-        self.tp, self.rank = tp, rank
-
-    def size(self, dim):
-        return (1, self.tp)[dim]
-
-    def get_local_rank(self, axis):
-        return self.rank if axis == "model" else 0
 
 
 def test_placement_replicates_leaves_that_do_not_divide(tmp_path):
@@ -196,7 +199,7 @@ def test_placement_replicates_leaves_that_do_not_divide(tmp_path):
 
     ours = params_from_jax(_jax_tree("q8_0", tmp_path))
     with pytest.warns(UserWarning, match="does not divide mesh axes"):
-        specs = tsh.placement_specs(ours, {"data": 1, "model": 4})
+        specs = tsh.placement_specs(ours, SizedMesh(1, 4))
     # h=64, tp=4: proj K/tp = 16, its (L, 2, 64) scales do not divide by 4
     proj = specs["blocks"]["proj"]["kernel"]
     assert isinstance(proj, QuantLinear) and proj.codes == () and proj.scales == ()
@@ -222,7 +225,7 @@ def test_shard_rejects_tp_not_dividing_heads(tmp_path):
         JaxEngine(path, verbose=False).shard(jax_make_mesh(dp=1, tp=8,
                                                            devices=jax.devices()[:8]))
     with pytest.raises(ValueError) as ours:
-        VitEngine(path, verbose=False, device="cpu").shard({"data": 1, "model": 8})
+        VitEngine(path, verbose=False, device="cpu").shard(SizedMesh(1, 8))
     assert str(ours.value) == str(theirs.value)
     assert "does not divide num_attention_heads 4" in str(ours.value)
 
@@ -240,7 +243,7 @@ def test_export_of_a_sharded_engine_raises(tmp_path):
                                            num_attention_heads=4, num_classes=8,
                                            patch_size=8, img_size=32), ftype=1, seed=0)
     engine = VitEngine(path, verbose=False, device="cpu")
-    engine.mesh = {"data": 2, "model": 1}
+    engine.mesh = SizedMesh(2, 1)
     with pytest.raises(ValueError, match="sharded.*A.14"):
         export_engine(engine, 2)
     with pytest.raises(ValueError, match="unsharded engine"):
@@ -283,3 +286,31 @@ def test_a_follower_that_dies_fails_the_run(tmp_path):
     with pytest.raises(RuntimeError, match=r"rank [01] (raised|exited)"):
         run_ranks(_follower_dies, 2, path, timeout=60)
     assert time.monotonic() - t0 < 60
+
+
+def _row_partial_case(device):
+    from vit_cpp_tpu_torch.ops.core import _matmul_f32
+
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 50, 384), generator=gen).to(torch.bfloat16)
+    w = torch.randn((384, 768), generator=gen).to(torch.bfloat16)
+    got = _matmul_f32(x.to(device), w.to(device)).cpu()
+    ref = torch.matmul(x.double(), w.double())
+    assert got.dtype == torch.float32 and got.shape == (2, 50, 768)
+    # bf16 products are exact in f32: only the order of the f32 sum differs
+    np.testing.assert_allclose(got.double().numpy(), ref.numpy(), rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+
+
+def test_row_partial_product_is_f32():
+    """A bf16 row-parallel rank's partial product (what it sums over
+    "model" before rounding) keeps f32, within 1e-5 of max|f64 product|."""
+    _row_partial_case("cpu")
+
+
+@pytest.mark.cuda
+def test_row_partial_product_is_f32_on_the_card():
+    """The same through torch.mm's f32 output on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _row_partial_case("cuda")

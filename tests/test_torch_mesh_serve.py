@@ -8,8 +8,9 @@ one spawn of 8 ranks per mesh, dp x tp in {8x1, 4x2}. The bound is the
 JAX tests' own between their sharded and single-device engines (atol 2e-5,
 rtol 1e-4, tests/test_engine_sharded.py). Random weights make q, k and v
 differ, so a qkv split that ignored head boundaries would fail every 4x2
-case. Module-level imports stay JAX-free: the spawned ranks import this
-module.
+case. bf16 engines are held to the port's single-device engine by the
+bounds that test_sharded_bf16_engine_matches_single states. Module-level
+imports stay JAX-free: the spawned ranks import this module.
 """
 
 import json
@@ -32,9 +33,14 @@ ATOL, RTOL = 2e-5, 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = {
     (4, 2): ["f32", "features", "q8_0", "q8_0-pallas", "w8a8-fold", "w8a8-nofold",
-             "static-before", "static-after", "tome", "moe"],
+             "static-before", "static-after", "tome", "moe", "moe-replicated"],
     (8, 1): ["f32", "q8_0"],
 }
+# bf16 engines, run in the 4x2 spawn and held to the port's single-device
+# engine by absolute bounds on the probabilities
+# (test_sharded_bf16_engine_matches_single)
+BF16_TOL = {"bf16": 1e-3, "q8_0-pallas-bf16": 1e-2}
+BF16_CASES = list(BF16_TOL)
 # case -> (file, the port engine's flags, the JAX reference engine's flags)
 ENGINES = {
     "f32": ("dense", {}, {}),
@@ -49,6 +55,9 @@ ENGINES = {
                      dict(mm_impl="int8", act_quant="static")),
     "tome": ("dense", dict(tome=2), dict(tome=2)),
     "moe": ("moe", {}, {}),
+    "moe-replicated": ("moe3", {}, {}),
+    "bf16": ("dense", dict(dtype="bf16"), None),
+    "q8_0-pallas-bf16": ("q8_0", dict(dtype="bf16", mm_impl="pallas"), None),
 }
 
 
@@ -75,11 +84,14 @@ def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh-serve")
     base = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, num_classes=8,
                 patch_size=8, img_size=32)
-    paths = {k: str(d / f"{k}.gguf") for k in ("dense", "q8_0", "moe")}
+    paths = {k: str(d / f"{k}.gguf") for k in ("dense", "q8_0", "moe", "moe3")}
     write_synthetic_model(paths["dense"], VitHParams(**base), ftype=1, seed=9)
     quantize_model_file(paths["dense"], paths["q8_0"], 8)
     write_synthetic_model(paths["moe"], VitHParams(**base, num_experts=4, moe_layers=(1,),
                                                    moe_top_k=2), ftype=1, seed=4)
+    # 3 experts: tp=2 does not divide them, so both packages replicate them
+    write_synthetic_model(paths["moe3"], VitHParams(**base, num_experts=3, moe_layers=(1,),
+                                                    moe_top_k=2), ftype=1, seed=5)
     return paths
 
 
@@ -112,8 +124,9 @@ _RUNS = {}
 
 def _sharded(files, mesh):
     if mesh not in _RUNS:
+        cases = CASES[mesh] + (BF16_CASES if mesh == (4, 2) else [])
         _RUNS[mesh] = run_ranks(_serve_rank, mesh[0] * mesh[1], files, mesh[0], mesh[1],
-                                CASES[mesh], _images(), timeout=240)
+                                cases, _images(), timeout=240)
     return _RUNS[mesh]
 
 
@@ -151,6 +164,25 @@ def test_sharded_engine_matches_jax(files, mesh, case):
     agree = np.isclose(one, want, atol=ATOL, rtol=RTOL).all(axis=1)
     assert agree.all() or (kw.get("mm_impl") == "int8" and agree.sum() >= len(agree) - 1)
     np.testing.assert_allclose(got[agree], want[agree], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", BF16_CASES)
+def test_sharded_bf16_engine_matches_single(files, case):
+    """bf16 engines on 4x2 against the port's single-device bf16 engine. A
+    dense row-parallel product (proj, fc2) sums its f32 partials over
+    "model" and rounds once, as the single engine rounds its whole
+    product, so only the order of an f32 sum differs: bound 1e-3
+    (measured 0 at this size; rounding each partial to bf16 first gave
+    4.1e-3). The dequantizing kernel (`--mm pallas`) writes bf16, so its
+    partials round once before the sum too: bound 1e-2 (measured 4.5e-3,
+    where the single bf16 engine itself lies 6.9e-3 from the f32 one)."""
+    from vit_cpp_tpu_torch.engine import VitEngine
+
+    file, kw, _ = ENGINES[case]
+    one = VitEngine(files[file], verbose=False, device="cpu", **kw).predict_probs_batch(
+        torch.from_numpy(_images())).float().numpy()
+    got = _sharded(files, (4, 2))[case]
+    np.testing.assert_allclose(got, one, atol=BF16_TOL[case], rtol=0)
 
 
 def _pngs(tmp_path, n=4):

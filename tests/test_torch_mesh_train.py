@@ -2,9 +2,10 @@
 create_train_state path (tests/test_parallel.py, tests/test_fsdp.py).
 
 One spawn of 4 ranks runs 2x2 with and without FSDP and 4x1, the FSDP
-memory check, the sharded checkpoint's resume and ViTSTR's accumulated
-masked mean; one spawn of 8 ranks runs 4x2 with and without FSDP; one of
-4 ranks runs `cli.finetune --mesh 2x2` with --lora, --distill and --moe.
+memory check, the sharded checkpoint's resume, ViTSTR's accumulated
+masked mean and LoRA over the sharded base; one spawn of 8 ranks runs
+4x2 with and without FSDP; one of 4 ranks runs `cli.finetune --mesh 2x2`
+with --lora, --distill and --moe.
 
 Tolerances: the losses of three updates within 1e-5 of JAX's; the first
 update's gradient (gathered from the shards) within tests/test_torch_
@@ -29,6 +30,8 @@ KW = dict(lr=1e-3, weight_decay=0.05)
 HP_KW = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, num_classes=16,
              patch_size=8, img_size=32)
 GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
+LORA_KW = dict(lr=1e-3, weight_decay=0.05, clip_norm=0.5)
+LORA_ALPHA = 8.0
 
 
 def _np(tree):
@@ -118,7 +121,36 @@ def _train_rank(tree, x, y, meshes, extra):
                                torch.from_numpy(extra["seq_y"]), mesh)
         out["accum_loss"] = float(T.train_step_accum(st, sx, sy, shp, 2, seq=True))
         out["accum_grads"] = _grads(st)
+        out["lora"] = _lora_updates(_torch(extra["lora_base"]), _torch(extra["lora_tr"]),
+                                    torch.from_numpy(x), torch.from_numpy(y), hp, mesh)
     return out
+
+
+def _lora_updates(base, trainable, x, y, hp, mesh=None):
+    """Three LoRA updates over the frozen base (TP-sharded on a mesh) ->
+    losses, the trained tree and, on a mesh, whether every rank holds the
+    same trained tree bit for bit."""
+    from vit_cpp_tpu_torch.parallel import train as T
+
+    if mesh is None:
+        st = T.create_train_state(trainable, LORA_KW)
+    else:
+        import torch.distributed as dist
+
+        from vit_cpp_tpu_torch.parallel.sharding import shard_params
+
+        base = shard_params(base, mesh)
+        st = T.create_lora_train_state(trainable, LORA_KW, mesh=mesh)
+        x, y = T.shard_batch(x, y, mesh)
+    losses = [float(T.train_step_lora(st, base, x, y, hp, LORA_ALPHA)) for _ in range(3)]
+    same = True
+    if mesh is not None:
+        flat = torch.cat([p.detach().reshape(-1) for p in T.tree_leaves(st.params)])
+        hi, lo = flat.clone(), flat.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        same = torch.equal(hi, lo)
+    return dict(losses=losses, params=_np(st.params), same=same)
 
 
 def _jax_setup():
@@ -153,6 +185,14 @@ def _seq_setup():
     return tree, x, y.astype(np.int64)
 
 
+def _lora_setup(jparams):
+    """The JAX package's rank-4 adapters and head for `jparams`, `b` drawn
+    nonzero (tests/test_torch_lora.py) so that `a`'s gradient is not zero."""
+    from tests.test_torch_lora import _jax_trainable
+
+    return _jax_trainable(jparams, 4, 9, 10)
+
+
 _RUNS = {}
 
 
@@ -165,7 +205,8 @@ def _runs(tmp_path_factory, world):
         if world == 4:
             seq_tree, sx, sy = _seq_setup()
             extra = dict(dir=str(tmp_path_factory.mktemp("mesh-ckpt")), seq_tree=seq_tree,
-                         seq_x=sx, seq_y=sy)
+                         seq_x=sx, seq_y=sy, lora_base=tree,
+                         lora_tr=_np(params_from_jax(_lora_setup(jparams))))
             meshes = [(2, 2, False), (2, 2, True), (4, 1, False)]
         else:
             extra, meshes = None, [(4, 2, False), (4, 2, True)]
@@ -235,6 +276,7 @@ def test_fsdp_state_bytes_shrink_dp_fold(tmp_path_factory):
     """FSDP's per-rank parameter and moment bytes are at most 1/dp of the
     whole, plus the leaves that do not divide (here none: each has a dim
     that dp divides)."""
+    from tests.test_torch_mesh import SizedMesh
     from vit_cpp_tpu_torch.parallel.sharding import fsdp_pspecs
 
     runs = _runs(tmp_path_factory, 4)
@@ -243,7 +285,7 @@ def test_fsdp_state_bytes_shrink_dp_fold(tmp_path_factory):
     from vit_cpp_tpu_torch.models.params import params_from_jax
 
     ours = params_from_jax(jparams)
-    specs = _flat_specs(fsdp_pspecs(ours, {"data": 2, "model": 2}))
+    specs = _flat_specs(fsdp_pspecs(ours, SizedMesh(2, 2)))
     leaves = _flat(_np(ours))
     undivided = sum(leaves[k].size * 4 * 3 for k, s in specs.items() if "data" not in s)
     assert runs[(2, 2, True)]["bytes"] <= whole / 2 + undivided
@@ -287,6 +329,43 @@ def test_accum_masked_loss_is_the_global_mean(tmp_path_factory):
     got = _flat(runs["accum_grads"])
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=1e-4, err_msg=k)
+
+
+def test_lora_on_mesh_matches_unsharded_and_jax(tmp_path_factory):
+    """LoRA on a 2x2 mesh over the TP-sharded base, with a global-norm
+    clip: every rank ends with the same adapters and head bit for bit, the
+    losses of three updates are within 1e-5 of the JAX package's unsharded
+    train_step_lora and of the port's unsharded run, and the trained tree
+    is within the gradient bound of the port's unsharded one. An adapter
+    whose gradient were left to each model rank's own columns or rows
+    would drift apart across the ranks and fail all three."""
+    import jax
+    import jax.numpy as jnp
+
+    from vit_cpp_tpu.parallel import train as jt
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.models.params import params_from_jax
+
+    got = _runs(tmp_path_factory, 4)["lora"]
+    hp, jparams, x, y = _jax_setup()
+    jtr = _lora_setup(jparams)
+    one = _lora_updates(params_from_jax(jparams), params_from_jax(jtr), torch.from_numpy(x),
+                        torch.from_numpy(y), VitHParams(**HP_KW))
+    opt = jt.make_optimizer(**LORA_KW)
+    jstate = jt.TrainState(jax.tree.map(jnp.array, jtr), opt.init(jtr), jnp.zeros((), jnp.int32))
+    want = []
+    for _ in range(3):
+        jstate, loss = jt.train_step_lora(jstate, jparams, jnp.asarray(x), jnp.asarray(y), hp,
+                                          opt, alpha=LORA_ALPHA)
+        want.append(float(loss))
+    assert got["same"]
+    np.testing.assert_allclose(got["losses"], want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got["losses"], one["losses"], atol=1e-5, rtol=0)
+    ours, ref = _flat(got["params"]), _flat(one["params"])
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(ours[k], ref[k], **GRAD_TOL, err_msg=k)
+    assert got["losses"][2] < got["losses"][0]
 
 
 def _grad_tree(tree):

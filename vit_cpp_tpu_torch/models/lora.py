@@ -20,9 +20,10 @@ export compose. Export folds the adapters into the dense kernels
 Under a mesh (`merge_lora(..., mesh=)`) the adapters replicate while the
 base kernels are this rank's shards: a column-parallel site (qkv, fc1)
 merges the matching columns of a @ b (qkv's head-aligned ones), a
-row-parallel site (proj, fc2) the matching rows. The adapters enter the
-merge through `copy_to_model`, so their gradients, each rank's share,
-are all-reduced over "model".
+row-parallel site (proj, fc2) the matching rows. Each rank's merge then
+sees only its columns or rows, so at a sharded site both adapters enter
+through `copy_to_model`: their gradients, each rank's share, are
+all-reduced over "model" and every model rank takes the same update.
 
 `init_lora` draws `a` from a seeded torch.Generator: the JAX package's
 jax.random stream cannot be reproduced here, so the two packages start
@@ -89,10 +90,14 @@ def merge_lora(params: Dict[str, Any], trainable: Dict[str, Any], alpha: float,
             ab = trainable["lora"]["blocks"][name]
             a, b = ab["a"], ab["b"]
             kernel = blocks[name]["kernel"]
-            if kernel.shape[-1] != b.shape[-1]:  # column-parallel shard
-                b = model_shard(copy_to_model(b, mesh), -1, mesh, qkv=name == "qkv")
-            if kernel.shape[-2] != a.shape[-2]:  # row-parallel shard
-                a = model_shard(copy_to_model(a, mesh), -2, mesh)
+            col = kernel.shape[-1] != b.shape[-1]  # column-parallel shard
+            row = kernel.shape[-2] != a.shape[-2]  # row-parallel shard
+            if col or row:  # each rank's product covers only its shard
+                a, b = copy_to_model(a, mesh), copy_to_model(b, mesh)
+            if col:
+                b = model_shard(b, -1, mesh, qkv=name == "qkv")
+            if row:
+                a = model_shard(a, -2, mesh)
             delta = torch.bmm(a.float(), b.float()) * (alpha / a.shape[-1])
             leaf = dict(blocks[name])
             leaf["kernel"] = leaf["kernel"] + delta.to(leaf["kernel"].dtype)

@@ -44,15 +44,17 @@ gives this rank's batch rows, and tensor parallelism follows the Megatron
 pattern with explicit collectives. Column-parallel linears (qkv, fc1, the
 head) run on their output shard behind `copy_to_model` (identity forward,
 all-reduce backward); row-parallel ones (proj, fc2) on their input shard,
-all-reduced over "model" in f32 (`reduce_from_model`, identity backward)
-before their bias is added once; W8A8 reduces its int32 accumulator and
-quantizes against the global per-token absmax. The attention kernels get
-the rank's nh/tp heads from a (B, T, 3h/tp) qkv, the head's logits are
-all-gathered over "model", ToMe's key sum over heads is all-reduced
-before the merge, and a V-MoE layer runs the rank's E/tp experts and
-all-reduces their combine. Each linear reads from its kernel's shape
-whether it was sharded, so a leaf that shard_params replicated runs
-whole.
+their f32 partial products all-reduced over "model" (`reduce_from_model`,
+identity backward) and rounded once before their bias is added once;
+W8A8 reduces its int32 accumulator and quantizes against the global
+per-token absmax. The dequantizing kernel (`mm_impl="pallas"`) writes
+bf16 partials, so a bf16 Q8_0/Q4/Q5 row-parallel product rounds twice.
+The attention kernels get the rank's nh/tp heads from a (B, T, 3h/tp)
+qkv, the head's logits are all-gathered over "model", ToMe's key sum
+over heads is all-reduced before the merge, and a V-MoE layer runs the
+rank's E/tp experts and all-reduces their combine. Each linear reads
+from its kernel's shape whether it was sharded, so a leaf that
+shard_params replicated runs whole.
 
 `forward_debug` runs the same layers eagerly and keeps each stage's
 output (embed, every block, the pooled readout, logits, probabilities)
@@ -70,17 +72,15 @@ from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
 from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_train
 from vit_cpp_tpu_torch.ops.moe import moe_mlp
+from vit_cpp_tpu_torch.ops.precision import highest_product
+from vit_cpp_tpu_torch.ops.tome import tome_merge, tome_schedule
 from vit_cpp_tpu_torch.parallel.mesh import (
     axis_rank,
     axis_size,
     copy_to_model,
     gather_from_model,
-    reduce_from_model,
     sum_over,
 )
-from vit_cpp_tpu_torch.ops.precision import highest_product
-from vit_cpp_tpu_torch.ops.tome import tome_merge, tome_schedule
-from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 
 ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
 
@@ -142,9 +142,10 @@ def _col_linear(x, leaf, mm_impl: str, mesh, full_out: int, gather: bool = False
 
 def _row_linear(x, leaf, mm_impl: str, mesh, full_in: int):
     """A row-parallel linear: this rank's input rows, the partial products
-    summed over "model" in f32, then the bias once. x is this rank's
-    input shard, or whole when the column-parallel linear before it was
-    replicated; a replicated kernel gathers a sharded x instead."""
+    summed over "model" (ops/core.py::linear), then the bias once. x is
+    this rank's input shard, or whole when the column-parallel linear
+    before it was replicated; a replicated kernel gathers a sharded x
+    instead."""
     if axis_size(mesh, "model") == 1:
         return _linear(x, leaf, mm_impl)
     kernel, k_in = leaf["kernel"], _shape(leaf["kernel"])[0]
@@ -155,8 +156,6 @@ def _row_linear(x, leaf, mm_impl: str, mesh, full_in: int):
     if x.shape[-1] == full_in:
         x = copy_to_model(x, mesh).narrow(-1, axis_rank(mesh, "model") * k_in, k_in)
     y = linear(x, kernel, None, impl=mm_impl, act_scale=leaf.get("act_scale"), mesh=mesh)
-    if not isinstance(kernel, Int8Linear):  # W8A8 reduced its int32 accumulator
-        y = reduce_from_model(y.float(), mesh).to(x.dtype)
     return y + leaf["bias"].to(y.dtype)
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from vit_cpp_tpu_torch.ops.flash_attention import flash_attention
 from vit_cpp_tpu_torch.ops.int8_matmul import w8a8_matmul
 from vit_cpp_tpu_torch.ops.qmatmul import quant_matmul
+from vit_cpp_tpu_torch.parallel.mesh import reduce_from_model
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qat import fake_quant_act, fake_quant_act_static
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
@@ -76,24 +77,46 @@ def linear(
     quantization-aware training (quant/qat.py), whose kernel was already
     fake-quantized, then fake-quantizes x as the W8A8 matmul quantizes
     its activations, per token, or per tensor with the static
-    `act_scale` that rides the block dict (--qat-act static). `mesh` says
-    that x is this rank's K-shard over the mesh's "model" axis (a
-    row-parallel linear): the per-token absmax of W8A8 and of QAT is then
-    the global one, and W8A8 returns its all-reduced product."""
+    `act_scale` that rides the block dict (--qat-act static).
+
+    `mesh` says that x is this rank's K-shard over the mesh's "model" axis
+    (a row-parallel linear): the per-token absmax of W8A8 and of QAT is
+    then the global one, and the product is summed over "model" before it
+    is rounded to x's dtype: W8A8 sums its int32 accumulator, a dense or
+    plainly dequantized kernel its f32 partial products. The
+    dequantizing kernel ("pallas") writes x's dtype, so in bf16 its
+    partials are rounded once before their f32 sum as well."""
     if isinstance(kernel, Int8Linear):
         y = w8a8_matmul(x, kernel, mesh=mesh)
     elif isinstance(kernel, QuantLinear):
-        y = quant_matmul(x, kernel, impl=impl)
+        if mesh is None or impl == "pallas":
+            y = quant_matmul(x, kernel, impl=impl)
+        else:
+            y = _matmul_f32(x, kernel.dequantize(x.dtype))
     else:
         if impl == "qat":
             x = (fake_quant_act(x, mesh) if act_scale is None
                  else fake_quant_act_static(x, act_scale))
         # bf16 operands accumulate in f32 and round once, as the JAX
         # dot(preferred_element_type=f32).astype(x.dtype)
-        y = torch.matmul(x, kernel.to(x.dtype))
+        w = kernel.to(x.dtype)
+        y = torch.matmul(x, w) if mesh is None else _matmul_f32(x, w)
+    if mesh is not None and not isinstance(kernel, Int8Linear):
+        y = reduce_from_model(y.float(), mesh).to(x.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation and an f32 result: a row-parallel
+    partial product, rounded to x's dtype only after its sum."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())  # bf16 products are exact in f32
 
 
 def attention(

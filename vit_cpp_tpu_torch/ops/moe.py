@@ -111,10 +111,10 @@ def moe_mlp(
     r = route(y, mp["router"]["kernel"], hp)
     ec = e * r.cap
     el = mp["fc1"]["kernel"].shape[0]  # experts on this rank
-    gates, ye = r.gates, y
-    if el != e:
+    gates, ye, first = r.gates, y, 0
+    if el != e:  # sharded experts (replicated when tp does not divide E)
         gates, ye = copy_to_model(gates, mesh), copy_to_model(y, mesh)
-    first = axis_rank(mesh, "model") * el * r.cap  # this rank's experts' slots
+        first = axis_rank(mesh, "model") * el * r.cap  # this rank's experts' slots
     cols = slice(first, first + el * r.cap)
 
     # k-summed dispatch: a dropped assignment's dest can point into the

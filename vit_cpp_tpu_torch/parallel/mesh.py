@@ -23,9 +23,9 @@ all-reduce too, which would multiply every gradient by tp.
 
 Each rank runs on `cuda:{LOCAL_RANK}` with NCCL, or on the CPU with gloo.
 Without a launcher the world is one rank, and a 1x1 mesh starts its own
-1-rank group. Every group has a timeout (VIT_MESH_TIMEOUT seconds,
-default 600), so a rank that dies makes the others' next collective
-fail instead of hanging. Nothing falls back: a failed rank fails the run.
+1-rank group. Every group has a fixed timeout (`TIMEOUT_S`, 600 s), so
+a rank that dies makes the others' next collective fail instead of
+hanging. Nothing falls back: a failed rank fails the run.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
-DEFAULT_TIMEOUT_S = 600.0
+TIMEOUT_S = 600.0
 
 
 def available_ranks() -> int:
@@ -66,10 +66,6 @@ def rank_device(device) -> torch.device:
     return dev
 
 
-def timeout_s() -> float:
-    return float(os.environ.get("VIT_MESH_TIMEOUT", DEFAULT_TIMEOUT_S))
-
-
 def init_world(device_type: str) -> None:
     """Start the default process group once per process: NCCL for CUDA
     ranks, gloo for CPU ones; env:// under a launcher, else a 1-rank group
@@ -77,7 +73,7 @@ def init_world(device_type: str) -> None:
     if dist.is_initialized():
         return
     backend = "nccl" if device_type == "cuda" else "gloo"
-    timeout = timedelta(seconds=timeout_s())
+    timeout = timedelta(seconds=TIMEOUT_S)
     if device_type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -150,11 +146,7 @@ def parse_mesh(spec: str):
 
 
 def axis_size(mesh, axis: str) -> int:
-    if mesh is None:
-        return 1
-    if isinstance(mesh, dict):
-        return int(mesh.get(axis, 1))
-    return mesh.size(AXES.index(axis))
+    return 1 if mesh is None else mesh.size(AXES.index(axis))
 
 
 def axis_rank(mesh, axis: str) -> int:

@@ -26,7 +26,6 @@ def _rank_main(fn, rank: int, world: int, store_path: str, timeout: float, resul
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    os.environ["VIT_MESH_TIMEOUT"] = str(timeout)
     try:
         dist.init_process_group(
             "gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world,

@@ -221,8 +221,18 @@
       the proj / fc2 row shards, and W8A8's int8_mm there against an
       exact f64 product), held to plain and timed (`mesh_shards` in the
       kernels line), and at the row shards the f32 partial product a
-      bf16 rank sums over "model" against an f64 product. No speed-up
-      across GPUs is measured;
+      bf16 rank sums over "model" against an f64 product, dense and by
+      dequant_matmul's f32-output instantiation (`f32_out` in its line);
+      sharded .vitx artifacts: a 1x1-mesh engine exported by one rank
+      under the launcher (aot.save_engine, -b 8) at the serving defaults
+      (the full ViT-B/16) and with --mm pallas on the AOT_BLOCKS-block
+      Q8_0 file, then served under the launcher by `cli.serve` (stdout
+      equal to the sharded engine's) and `cli.server` (the ten assets'
+      probabilities within 1e-6 of the sharded engine's; rank 0 exits 0
+      after SIGTERM), and in this process with the rebuilt mesh (12
+      attention_qkv per batch; 25 dequant_matmul + 6 attention_qkv) and
+      load ms beside the unsharded artifacts'. No speed-up across GPUs is
+      measured;
    n. stage parity (phase `stage_parity`): models.vit.forward_debug on
       the card, f32 with TF32 off and bf16 W8A8 with the fast fused
       attention, against the card machine's CPU in f32, stage by stage
@@ -4118,6 +4128,8 @@ def aot_launches(what: str, engine, pixels, per_batch: dict) -> dict:
 
 
 AOT_BLOCKS = 6  # the depth of the Q8_0 --mm pallas and static artifacts
+AOT_LOAD_MS = {}  # aot_paths' unsharded artifact's load ms, beside mesh_paths' sharded ones
+MESH_EXPORTS = {}  # mesh_paths' sharded exports, started in aot_paths
 
 
 def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
@@ -4135,8 +4147,10 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     the card artifact refused on the CPU and in a process with no card, a
     CPU artifact refused on the card; then, the subprocesses done, load ms
     and the B=64 and B=1 forwards beside the gguf engine's (median of 20
-    in turns, one profiled run each). Returns {path: {kernel name:
-    launches}}."""
+    in turns, one profiled run each). mesh_paths' two sharded exports run
+    under the launcher beside this phase and end before its timings
+    (start_mesh_exports, finish_mesh_exports). Returns {path: {kernel
+    name: launches}}."""
     import shutil
 
     from vit_cpp_tpu_torch.aot import AotEngine, read_meta
@@ -4151,6 +4165,15 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     t_phase = time.perf_counter()
     d = os.path.join(tmp, "aot")
     os.makedirs(d)
+    # ViT-B/16's width at AOT_BLOCKS blocks, for the Q8_0 and static exports
+    f16_6, q8 = (os.path.join(d, f"vit-b16-6-blocks-{k}.gguf") for k in ("f16", "q8_0"))
+    write_synthetic_model(f16_6, VitHParams(**{**VIT_B16, "num_hidden_layers": AOT_BLOCKS}),
+                          ftype=1, seed=0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if quantize.main([f16_6, q8, "8"]) != 0:
+            raise AssertionError("cli.quantize failed on the 6-block file")
+    # mesh_paths' sharded artifacts, exported under the launcher meanwhile
+    MESH_EXPORTS.update(start_mesh_exports(f16, q8, tmp))
     gguf = os.path.join(d, "vit-b16-synthetic-f16.gguf")
     shutil.copyfile(f16, gguf)
     art = os.path.join(d, "vit-b16-w8a8.vitx")
@@ -4197,12 +4220,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     out = {}
 
     # the two other exports at half depth: ViT-B/16's width, 6 blocks
-    f16, q8 = (os.path.join(d, f"vit-b16-6-blocks-{k}.gguf") for k in ("f16", "q8_0"))
-    write_synthetic_model(f16, VitHParams(**{**VIT_B16, "num_hidden_layers": AOT_BLOCKS}),
-                          ftype=1, seed=0)
-    with contextlib.redirect_stdout(io.StringIO()):
-        if quantize.main([f16, q8, "8"]) != 0:
-            raise AssertionError("cli.quantize failed on the 6-block file")
+    f16 = f16_6
     art_q8 = os.path.join(d, "vit-b16-q8_0-pallas.vitx")
     rc, _, err, secs = export_cli(q8, art_q8, "-b", "8", "--mm", "pallas")
     if rc != 0:
@@ -4258,6 +4276,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
         log(f"CPU artifact on device cuda refused: {e}")
 
     aot_engine = AotEngine(art)
+    AOT_LOAD_MS["vitx W8A8 -b 1,64"] = aot_engine.load_ms
     size = os.path.getsize(art)
     log(f"artifact {os.path.basename(art)}: {size / 1e6:.1f} MB for batches "
         f"{aot_engine.batches} (blobs {meta['blob_lengths']}); AotEngine.load_ms "
@@ -4341,6 +4360,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     log(f"cli.benchmark -m vitx: rc 0, {n_rows} rows, {out_b.splitlines()[-1]}; "
         + "; ".join(ln for ln in err_b.splitlines() if ln.startswith("benchmark:")))
 
+    finish_mesh_exports(MESH_EXPORTS)  # nothing else on the card while the forwards are timed
     _, out["vitx W8A8 -b 1,64 B=64"] = aot_launches("aot W8A8 B=64", aot_engine, pixels,
                                                     {KERNEL: 12})
     for b in (64, 1):
@@ -4375,7 +4395,8 @@ def shard_kernels(card: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
-    out = {"attention_qkv": {}, "dequant_matmul": {}, "attention_qkv_grad": {}, "int8_mm": {}}
+    out = {"attention_qkv": {}, "dequant_matmul": {}, "dequant_matmul f32_out": {},
+           "attention_qkv_grad": {}, "int8_mm": {}}
     errs = {k: 0.0 for k in out}
     for tp in (1, 2, 4):
         h, nh = 768 // tp, 12 // tp
@@ -4435,6 +4456,9 @@ def shard_kernels(card: str) -> dict:
                 cuda_ms(lambda: torch.matmul(x, dense)))
             if tp > 1 and layer in ("proj", "fc2"):
                 _check_row_partial(x, dense, what, card)
+                row, f32_err = _check_k4_f32_out(x, w, dense, what, card)
+                out["dequant_matmul f32_out"][what] = row
+                errs["dequant_matmul f32_out"] = max(errs["dequant_matmul f32_out"], f32_err)
             xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
             codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                                   dtype=torch.int8)
@@ -4458,6 +4482,36 @@ def shard_kernels(card: str) -> dict:
                 f"{b_ms:.4f} ms ({b_by}), library "
                 f"{'n/a' if lib is None else f'{lib:.4f} ms'} on {card}")
     return out, errs
+
+
+def _check_k4_f32_out(x, w, dense, what: str, card: str) -> tuple:
+    """K4's f32-output instantiation at a row shard (what a bf16 rank of a
+    `--mm pallas` engine sums over "model" before it rounds): f32, within
+    ROW_PARTIAL_TOL of max|f64 product|, timed beside its plain version,
+    the bf16-output call and torch.mm with an f32 output on the weight
+    dequantized once. Returns ((ms, plain_ms, bound_ms, bound_by,
+    library_ms), the error relative to max|f64|)."""
+    from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
+
+    got = dequant_matmul(x, w, f32_out=True)
+    ref = torch.matmul(x.double(), dense.double())
+    err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+    log(f"kernel case mesh shard dequant_matmul f32 out {what} Q8_0 bf16 x: dtype "
+        f"{str(got.dtype)[6:]}, max|kernel - f64| / max|f64| = {err:.3e} (tolerance "
+        f"{ROW_PARTIAL_TOL:.0e})")
+    if got.dtype != torch.float32 or not err <= ROW_PARTIAL_TOL:
+        raise AssertionError(f"dequant_matmul f32 out {what}: {got.dtype}, error {err}")
+    k_ms, p_ms = time_pair(f"mesh shard dequant_matmul f32 out {what} Q8_0", card,
+                           lambda: dequant_matmul(x, w, f32_out=True),
+                           lambda: dequant_matmul_plain(x, w, f32_out=True))
+    b_ms = cuda_ms(lambda: dequant_matmul(x, w))
+    lib = cuda_ms(lambda: torch.mm(x, dense, out_dtype=torch.float32))
+    (m, k), n = x.shape, dense.shape[1]
+    bound_ms, by = bound(2.0 * m * k * n, 2 * m * k + k * n // 32 * 34 + 4 * m * n, "bf16")
+    log(f"timing mesh shard dequant_matmul f32 out {what} on {card}: {k_ms:.4f} ms per call, "
+        f"the bf16-output call {b_ms:.4f} ms, torch.mm f32 out {lib:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by})")
+    return (k_ms, p_ms, bound_ms, by, lib), err
 
 
 def _check_row_partial(x, w, what: str, card: str) -> None:
@@ -4519,6 +4573,151 @@ def mesh_daemon_probs(proc, bodies) -> tuple:
     return np.stack(probs), port
 
 
+# One rank under the launcher: shard an engine on a 1x1 mesh, export it
+# (aot.save_engine, -b 8), and write what the sharded engine itself serves:
+# each asset's probabilities as the daemon batches a lone request (the
+# image repeated to 8 rows) and vit-serve's stdout at -b 8.
+_MESH_EXPORT = r"""
+import contextlib, io, json, sys, time
+import numpy as np, torch
+from vit_cpp_tpu_torch.aot import save_engine
+from vit_cpp_tpu_torch.cli.common import build_engine
+from vit_cpp_tpu_torch.cli.serve import _serve_loop
+from vit_cpp_tpu_torch.parallel.mesh import make_mesh, rank_device
+from vit_cpp_tpu_torch.server import decode_rgb_from_bytes
+model, mm, stem, paths = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+engine, _ = build_engine(model, mm=mm, device=rank_device("cuda"))
+engine.shard(make_mesh(1, 1, 1, device_type="cuda"))
+t0 = time.perf_counter()
+meta = save_engine(engine, stem + ".vitx", 8)
+export_s = time.perf_counter() - t0
+rows = []
+for path in paths:
+    with open(path, "rb") as f:
+        px = engine.preprocess_image(decode_rgb_from_bytes(f.read()))
+    rows.append(engine.predict_probs_batch(torch.stack([px] * 8))[0].cpu().numpy())
+np.save(stem + ".npy", np.stack(rows))
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    _serve_loop(engine, False, paths, batch=8, topk=1, decode_threads=2)
+with open(stem + ".txt", "w") as f:
+    f.write(out.getvalue())
+print(json.dumps({"export_s": export_s, "mesh": meta["mesh"],
+                  "blob_lengths": meta["blob_lengths"]}))
+"""
+
+
+def start_mesh_exports(f16: str, q8: str, tmp: str) -> dict:
+    """The sharded artifacts' exports, each one rank under the launcher
+    (_MESH_EXPORT), started by aot_paths beside its own work: the full
+    ViT-B/16 at the serving defaults (W8A8) and the AOT_BLOCKS-block Q8_0
+    file `q8` with --mm pallas. {what: [the launcher's process, the files'
+    stem, blocks]}."""
+    d = os.path.join(tmp, "mesh_vitx")
+    os.makedirs(d)
+    script = os.path.join(d, "export_sharded.py")
+    with open(script, "w") as f:
+        f.write(_MESH_EXPORT)
+    env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="2")
+    jobs = {}
+    for what, model, mm, blocks in (("W8A8", f16, "int8", 12),
+                                    ("Q8_0 --mm pallas", q8, "pallas", AOT_BLOCKS)):
+        stem = os.path.join(d, what.split()[0])
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", script, model, mm, stem, *asset_bodies()[0]]
+        jobs[what] = [subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True, env=env), stem, blocks]
+    return jobs
+
+
+def finish_mesh_exports(jobs: dict) -> None:
+    """Wait for the exports (before aot_paths times its forwards) and check
+    what each wrote."""
+    for what, (proc, stem, _) in jobs.items():
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"sharded export {what}: exit {proc.returncode}: {err[-3000:]}")
+        res = json.loads(out.strip().splitlines()[-1])
+        log(f"sharded export {what} (1x1 mesh, launcher, -b 8): {res['export_s']:.1f} s, "
+            f"meta mesh {res['mesh']}, blob_lengths {res['blob_lengths']}, "
+            f"{os.path.getsize(stem + '.vitx') / 1e6:.1f} MB")
+        if res["mesh"] != {"axis_names": ["data", "model"], "axis_sizes": [1, 1]}:
+            raise AssertionError(f"sharded export {what}: meta mesh {res['mesh']}")
+
+
+def serve_mesh_artifacts(jobs: dict, paths, spawn) -> dict:
+    """Each exported sharded artifact served under the launcher as a user
+    would: `vit-serve -m x.vitx -b 8` over the ten assets and `vit-server
+    -m x.vitx --port 0`. {(what, tool): process}."""
+    procs = {}
+    for what, (_, stem, _) in jobs.items():
+        procs[(what, "vit-serve")] = spawn(launcher(
+            "vit_cpp_tpu_torch.cli.serve", "-m", stem + ".vitx", *paths, "-b", "8"))
+        procs[(what, "vit-server")] = spawn(launcher(
+            "vit_cpp_tpu_torch.cli.server", "-m", stem + ".vitx", "--port", "0"))
+    return procs
+
+
+def check_mesh_artifacts(jobs: dict, procs: dict, tmp: str, bodies, card: str) -> dict:
+    """Each sharded artifact in this process (its launches per batch with
+    the counts set to 0 just before, its load ms beside the unsharded
+    artifact's), then what the launcher's vit-serve printed (the sharded
+    engine's stdout) and vit-server answered (the sharded engine's
+    probabilities, within 1e-6), and rank 0's exit code after SIGTERM.
+    Returns {path: {kernel: launches}}."""
+    from vit_cpp_tpu_torch.aot import AotEngine
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
+
+    pixels = torch.randn((8, 3, 224, 224), generator=torch.Generator(device="cuda").manual_seed(3),
+                         device="cuda")
+    launches = {}
+    for what, (_, stem, blocks) in jobs.items():
+        engine = AotEngine(stem + ".vitx")
+        per_batch = {KERNEL: blocks}
+        if "pallas" in what:
+            per_batch[QMM_KERNEL] = 4 * blocks + 1
+            unsharded = AotEngine(os.path.join(tmp, "aot", "vit-b16-q8_0-pallas.vitx")).load_ms
+            than = f"the unsharded {blocks}-block -b 8 artifact's {unsharded:.1f}"
+        else:
+            than = (f"the unsharded -b 1,64 artifact's {AOT_LOAD_MS['vitx W8A8 -b 1,64']:.1f} "
+                    "(two programs)")
+        path = f"mesh 1x1 vitx {what} B=8"
+        _, launches[path] = aot_launches(path, engine, pixels, per_batch)
+        log(f"{path}: AotEngine rebuilt mesh {engine.meta['mesh']['axis_sizes']}, launches per "
+            f"batch {launches[path]}; load_ms {engine.load_ms:.1f} beside {than} on {card}")
+        del engine
+        want = np.load(stem + ".npy")
+        with open(stem + ".txt") as f:
+            want_lines = f.read()
+        out, err = procs[(what, "vit-serve")].communicate(timeout=300)
+        if procs[(what, "vit-serve")].returncode or out != want_lines or len(
+                out.splitlines()) != 10:
+            raise AssertionError(f"vit-serve -m {what} sharded vitx: {out!r} vs {want_lines!r} "
+                                 f"{err[-2000:]}")
+        log(f"vit-serve -m sharded {what} vitx (launcher): 10 lines, equal to the sharded "
+            f"engine's vit-serve stdout; "
+            f"{[ln for ln in err.splitlines() if 'images/sec' in ln]}")
+        daemon = procs[(what, "vit-server")]
+        got, port = mesh_daemon_probs(daemon, bodies)
+        diff = float(np.abs(got - want).max())
+        log(f"vit-server -m sharded {what} vitx (launcher, port {port}): the ten assets' "
+            f"probabilities vs the sharded engine's: max diff {diff:.3e} (bound 1e-6), "
+            f"bit-equal {np.array_equal(got, want.astype(np.float64))}")
+        if diff > 1e-6:
+            raise AssertionError(f"vit-server on the sharded {what} artifact: off by {diff}")
+        workers = [p for p in _descendants(daemon.pid)
+                   if "vit_cpp_tpu_torch.cli.server" in _cmdline(p)]
+        if not workers:
+            raise AssertionError("vit-server on a sharded artifact: no worker under the launcher")
+        os.kill(workers[0], signal.SIGTERM)
+        rc = daemon.wait(timeout=120)
+        log(f"vit-server -m sharded {what} vitx: exit code {rc} after SIGTERM")
+        if rc != 0:
+            raise AssertionError(f"vit-server on the sharded {what} artifact exited {rc}")
+    return launches
+
+
 def mesh_paths(f16: str, q8: str, tmp: str, card: str) -> tuple:
     """The multi-device layer on one card: every launch a 1x1 mesh under
     the torch.distributed launcher (NCCL, world 1; one card cannot hold two
@@ -4534,8 +4733,10 @@ def mesh_paths(f16: str, q8: str, tmp: str, card: str) -> tuple:
     card, its B=64 forward against the unsharded engine's in turns (what
     the sharded path costs when the collectives are trivial), and every
     kernel at the per-rank shapes of tp = 2 and 4 (shard_kernels).
-    Returns ({path: {kernel: launches}}, {path: K2 launches}, shard
-    timings, errors)."""
+    Beside those launches, the two sharded .vitx artifacts that aot_paths
+    exported are served under the launcher (serve_mesh_artifacts,
+    check_mesh_artifacts). Returns ({path: {kernel: launches}}, {path:
+    K2 launches}, shard timings, errors)."""
     import signal
 
     import torch.distributed as dist
@@ -4570,6 +4771,8 @@ def mesh_paths(f16: str, q8: str, tmp: str, card: str) -> tuple:
                       "--port", "0"]))
     ft = spawn(launcher("vit_cpp_tpu_torch.cli.finetune", "-m", f16, "-d", data, "-o", ft_out,
                         "-b", "32", "--epochs", "2", "--mesh", "1x1", "--fsdp"))
+    exports = MESH_EXPORTS  # started and finished in aot_paths
+    artifacts = serve_mesh_artifacts(exports, paths, spawn)
     try:
         # in this process meanwhile, untimed: a 1-rank NCCL group
         mesh = make_mesh(1, 1, 1, device_type="cuda")
@@ -4632,8 +4835,9 @@ def mesh_paths(f16: str, q8: str, tmp: str, card: str) -> tuple:
             raise AssertionError(f"vit-finetune --mesh 1x1 --fsdp exited {ft.returncode}: "
                                  f"{ft_err[-3000:]}")
         cli_losses = re.findall(r"^epoch \d+/\d+: loss (\S+)", ft_err, re.M)
+        launches.update(check_mesh_artifacts(exports, artifacts, tmp, bodies, card))
     finally:
-        for p in (*daemons, ft, *serves.values()):
+        for p in (*daemons, ft, *serves.values(), *artifacts.values()):
             if p.poll() is None:
                 for w in _descendants(p.pid):
                     os.kill(w, signal.SIGKILL)
@@ -4915,7 +5119,8 @@ def main() -> int:
     k4_err, k4_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
-    _, q8_launches, flash_launches, grad_launches, serve_launches, (shards, _) = run_paths(card)
+    (_, q8_launches, flash_launches, grad_launches, serve_launches,
+     (shards, shard_errs)) = run_paths(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -4957,12 +5162,17 @@ def main() -> int:
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
                  b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"]),
          **by_shard(KERNEL.name)},
+        # K4: its f32-output instantiation (a bf16 rank's row-parallel
+        # partials) at the row shards of tp = 2, 4 under "f32_out"
         {**entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[QMM_KERNEL.name],
                           **{p: n[QMM_KERNEL.name] for p, n in serve_launches.items()
                              if QMM_KERNEL.name in n}},
                  b64=k4_times["qkv B=64"]),
-         **by_shard(QMM_KERNEL.name)},
+         **by_shard(QMM_KERNEL.name),
+         "f32_out": {case: dict(zip(keys, t))
+                     for case, t in shards["dequant_matmul f32_out"].items()},
+         "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"]},
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
         # K2: f32 at ViT-B/16 B=32 (the training path's); bf16 and T=785
         # beside it, and f32 at tensor-parallel shards

@@ -231,8 +231,10 @@ def test_shard_rejects_tp_not_dividing_heads(tmp_path):
 
 
 def test_export_of_a_sharded_engine_raises(tmp_path):
-    """A sharded engine is not exported single-device: the refusal names
-    the later work (ROADMAP A.14)."""
+    """A sharded engine's export refuses a batch that the data axis does
+    not divide, in the JAX package's words (its jit's in_shardings check),
+    before any rank traces; the attention maps refuse such a batch as the
+    serving calls do."""
     from vit_cpp_tpu.hparams import VitHParams
     from vit_cpp_tpu.testing.synthetic import write_synthetic_model
     from vit_cpp_tpu_torch.aot import export_engine
@@ -244,9 +246,11 @@ def test_export_of_a_sharded_engine_raises(tmp_path):
                                            patch_size=8, img_size=32), ftype=1, seed=0)
     engine = VitEngine(path, verbose=False, device="cpu")
     engine.mesh = SizedMesh(2, 1)
-    with pytest.raises(ValueError, match="sharded.*A.14"):
-        export_engine(engine, 2)
-    with pytest.raises(ValueError, match="unsharded engine"):
+    with pytest.raises(ValueError, match=r"which implies that the global size of its "
+                       r"dimension 0 should be divisible by 2, but it is equal to 3 "
+                       r"\(full shape: \(3, 3, 32, 32\)\)"):
+        export_engine(engine, [2, 3])
+    with pytest.raises(ValueError, match="does not divide the mesh data axis"):
         engine.attention_maps_batch(torch.zeros(1, 3, 32, 32))
 
 
@@ -314,3 +318,17 @@ def test_row_partial_product_is_f32_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     _row_partial_case("cuda")
+
+
+def test_a_collective_with_no_mesh_built_raises():
+    """The forward's collective operators resolve their group from the
+    meshes this process built: with none of that axis and size, they
+    raise instead of running unsharded."""
+    import vit_cpp_tpu_torch.parallel.mesh  # noqa: F401  (registers the operators)
+
+    ops = torch.ops.vit_cpp_tpu_torch
+    for call in (lambda: ops.all_reduce_over(torch.ones(2), "model", 3, "sum"),
+                 lambda: ops.all_gather_over(torch.ones(2), "data", 5, 0)):
+        with pytest.raises(RuntimeError, match="no mesh with a '(model|data)' axis of [35] "
+                                               "ranks was built in this process"):
+            call()

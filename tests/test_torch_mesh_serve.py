@@ -39,7 +39,7 @@ CASES = {
 # bf16 engines, run in the 4x2 spawn and held to the port's single-device
 # engine by absolute bounds on the probabilities
 # (test_sharded_bf16_engine_matches_single)
-BF16_TOL = {"bf16": 1e-3, "q8_0-pallas-bf16": 1e-2}
+BF16_TOL = {"bf16": 1e-3, "q8_0-pallas-bf16": 1e-3}
 BF16_CASES = list(BF16_TOL)
 # case -> (file, the port engine's flags, the JAX reference engine's flags)
 ENGINES = {
@@ -169,13 +169,14 @@ def test_sharded_engine_matches_jax(files, mesh, case):
 @pytest.mark.parametrize("case", BF16_CASES)
 def test_sharded_bf16_engine_matches_single(files, case):
     """bf16 engines on 4x2 against the port's single-device bf16 engine. A
-    dense row-parallel product (proj, fc2) sums its f32 partials over
-    "model" and rounds once, as the single engine rounds its whole
-    product, so only the order of an f32 sum differs: bound 1e-3
-    (measured 0 at this size; rounding each partial to bf16 first gave
-    4.1e-3). The dequantizing kernel (`--mm pallas`) writes bf16, so its
-    partials round once before the sum too: bound 1e-2 (measured 4.5e-3,
-    where the single bf16 engine itself lies 6.9e-3 from the f32 one)."""
+    row-parallel product (proj, fc2) sums its f32 partials over "model"
+    and rounds once, as the single engine rounds its whole product, so
+    only the order of an f32 sum differs: bound 1e-3. Dense products
+    measured 0 at this size (rounding each partial to bf16 first gave
+    4.1e-3); the dequantizing kernel (`--mm pallas`) writes its partials
+    in f32 by its f32-output instantiation (rounding them to bf16 first
+    gave 4.5e-3, where the single bf16 engine itself lies 6.9e-3 from the
+    f32 one)."""
     from vit_cpp_tpu_torch.engine import VitEngine
 
     file, kw, _ = ENGINES[case]
@@ -183,6 +184,61 @@ def test_sharded_bf16_engine_matches_single(files, case):
         torch.from_numpy(_images())).float().numpy()
     got = _sharded(files, (4, 2))[case]
     np.testing.assert_allclose(got, one, atol=BF16_TOL[case], rtol=0)
+
+
+MAPS_TOL = 1e-5  # tests/test_torch_attention_maps.py's bound
+MAPS_CASES = ["f32", "q8_0"]
+
+
+def _maps_rank(paths, images, img):
+    """attention_maps_batch and explain_file of each case's engine on a 2x2
+    mesh of this rank."""
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=2, tp=2)
+    out = {}
+    for case in MAPS_CASES:
+        file, kw, _ = ENGINES[case]
+        engine = VitEngine(paths[file], verbose=False, device="cpu", **kw).shard(mesh)
+        out[case] = (engine.attention_maps_batch(torch.from_numpy(images)),
+                     engine.explain_file(img, topk=3))
+    return out
+
+
+_MAPS = {}
+
+
+@pytest.mark.parametrize("case", MAPS_CASES)
+def test_sharded_attention_maps_match_jax(files, tmp_path_factory, case):
+    """On a 2x2 mesh (a batch split over "data", every layer's heads
+    gathered over "model") the attention maps, explain_file's rollout grid
+    and its top-k equal the port's unsharded engine's and the JAX
+    engine's, within tests/test_torch_attention_maps.py's 1e-5."""
+    import jax.numpy as jnp
+
+    from vit_cpp_tpu.engine import VitEngine as JaxEngine
+    from vit_cpp_tpu_torch.engine import VitEngine
+
+    if not _MAPS:
+        img = _pngs(tmp_path_factory.mktemp("maps"), n=1)[0]
+        _MAPS.update(img=img, runs=run_ranks(_maps_rank, 4, files, _images(), img,
+                                             timeout=240))
+    maps, (top, grid) = _MAPS["runs"][case]
+    file, kw, jkw = ENGINES[case]
+    x = _images()
+    one = VitEngine(files[file], verbose=False, device="cpu", **kw)
+    ref = JaxEngine(files[file], verbose=False, **jkw)
+    assert maps.shape == (8, 2, 4, 17, 17)
+    for want, (want_top, want_grid) in (
+        (one.attention_maps_batch(torch.from_numpy(x)), one.explain_file(_MAPS["img"], topk=3)),
+        (ref.attention_maps_batch(jnp.asarray(x)), ref.explain_file(_MAPS["img"], topk=3)),
+    ):
+        np.testing.assert_allclose(maps, want, atol=MAPS_TOL, rtol=0)
+        np.testing.assert_allclose(grid, want_grid, atol=MAPS_TOL, rtol=0)
+        assert [t[0] for t in top] == [t[0] for t in want_top]
+        np.testing.assert_allclose([t[1] for t in top], [t[1] for t in want_top],
+                                   atol=MAPS_TOL)
 
 
 def _pngs(tmp_path, n=4):

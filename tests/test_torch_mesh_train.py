@@ -3,9 +3,10 @@ create_train_state path (tests/test_parallel.py, tests/test_fsdp.py).
 
 One spawn of 4 ranks runs 2x2 with and without FSDP and 4x1, the FSDP
 memory check, the sharded checkpoint's resume, ViTSTR's accumulated
-masked mean and LoRA over the sharded base; one spawn of 8 ranks runs
-4x2 with and without FSDP; one of 4 ranks runs `cli.finetune --mesh 2x2`
-with --lora, --distill and --moe.
+masked mean, LoRA over the sharded base and a V-MoE model; one spawn of 2
+ranks runs the V-MoE model at 2x1; one spawn of 8 ranks runs 4x2 with and
+without FSDP; one of 4 ranks runs `cli.finetune --mesh 2x2` with --lora,
+--distill and --moe.
 
 Tolerances: the losses of three updates within 1e-5 of JAX's; the first
 update's gradient (gathered from the shards) within tests/test_torch_
@@ -30,6 +31,7 @@ KW = dict(lr=1e-3, weight_decay=0.05)
 HP_KW = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, num_classes=16,
              patch_size=8, img_size=32)
 GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
+MOE_HP_KW = dict(HP_KW, num_experts=4, moe_layers=(1,), moe_top_k=2)
 LORA_KW = dict(lr=1e-3, weight_decay=0.05, clip_norm=0.5)
 LORA_ALPHA = 8.0
 
@@ -75,17 +77,18 @@ def _local_bytes(state):
     return n
 
 
-def _train_rank(tree, x, y, meshes, extra):
+def _train_rank(tree, x, y, meshes, extra, hp_kw=HP_KW):
     """3 updates per (dp, tp, fsdp) mesh -> losses, gathered first-update
     gradients and final parameters; `extra` adds the checks of the 2x2
-    spawn (FSDP bytes, checkpoint resume, ViTSTR accumulation)."""
+    spawn (FSDP bytes, checkpoint resume, ViTSTR accumulation, LoRA, the
+    V-MoE model)."""
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.parallel import train as T
     from vit_cpp_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
     from vit_cpp_tpu_torch.parallel.mesh import make_mesh
     from vit_cpp_tpu_torch.parallel.sharding import gather_params
 
-    hp = VitHParams(**HP_KW)
+    hp = VitHParams(**hp_kw)
     out = {}
     for dp, tp, fsdp in meshes:
         mesh = make_mesh(dp=dp, tp=tp)
@@ -98,6 +101,8 @@ def _train_rank(tree, x, y, meshes, extra):
                                    params=_np(gather_params(st.params, st.specs, mesh)),
                                    bytes=_local_bytes(st))
     if extra:
+        out["moe"] = _train_rank(extra["moe_tree"], x, y, [(2, 2, False)], None,
+                                 MOE_HP_KW)[(2, 2, False)]
         mesh = make_mesh(dp=2, tp=2)
         bx, by = T.shard_batch(torch.from_numpy(x), torch.from_numpy(y), mesh)
         resumed = {}
@@ -153,13 +158,15 @@ def _lora_updates(base, trainable, x, y, hp, mesh=None):
     return dict(losses=losses, params=_np(st.params), same=same)
 
 
-def _jax_setup():
+def _jax_setup(hp_kw=HP_KW):
+    """The JAX package's tree of a dense (or, with MOE_HP_KW, a V-MoE)
+    model and one batch."""
     from vit_cpp_tpu.hparams import VitHParams
     from vit_cpp_tpu.models import params_from_state_dict
     from vit_cpp_tpu.testing.synthetic import random_state_dict
 
-    hp = VitHParams(**HP_KW)
-    jparams = params_from_state_dict(random_state_dict(hp, seed=0), hp)
+    hp = VitHParams(**hp_kw)
+    jparams = params_from_state_dict(random_state_dict(hp, seed=0 if hp_kw is HP_KW else 6), hp)
     rng = np.random.default_rng(1)
     x = rng.standard_normal((8, 3, 32, 32)).astype(np.float32)
     y = rng.integers(0, 16, (8,)).astype(np.int32)
@@ -206,7 +213,8 @@ def _runs(tmp_path_factory, world):
             seq_tree, sx, sy = _seq_setup()
             extra = dict(dir=str(tmp_path_factory.mktemp("mesh-ckpt")), seq_tree=seq_tree,
                          seq_x=sx, seq_y=sy, lora_base=tree,
-                         lora_tr=_np(params_from_jax(_lora_setup(jparams))))
+                         lora_tr=_np(params_from_jax(_lora_setup(jparams))),
+                         moe_tree=_np(params_from_jax(_jax_setup(MOE_HP_KW)[1])))
             meshes = [(2, 2, False), (2, 2, True), (4, 1, False)]
         else:
             extra, meshes = None, [(4, 2, False), (4, 2, True)]
@@ -217,17 +225,17 @@ def _runs(tmp_path_factory, world):
 _JAX = {}
 
 
-def _jax_run(dp, tp, fsdp):
+def _jax_run(dp, tp, fsdp, hp_kw=HP_KW):
     """JAX's create_train_state path on its virtual mesh: 3 losses, the
     first update's gradient, the final parameters."""
-    if (dp, tp, fsdp) not in _JAX:
+    if (dp, tp, fsdp, hp_kw is HP_KW) not in _JAX:
         import jax
         import jax.numpy as jnp
 
         from vit_cpp_tpu.parallel import train as jt
         from vit_cpp_tpu.parallel.mesh import make_mesh
 
-        hp, jparams, x, y = _jax_setup()
+        hp, jparams, x, y = _jax_setup(hp_kw)
         mesh = make_mesh(dp=dp, tp=tp, devices=jax.devices()[: dp * tp])
         opt = jt.make_optimizer(**KW)
         g1 = jax.grad(jt.cross_entropy_loss)(jparams, jnp.asarray(x), jnp.asarray(y), hp)
@@ -238,18 +246,43 @@ def _jax_run(dp, tp, fsdp):
             for _ in range(3):
                 st, loss = jt.train_step(st, si, sl, hp, opt)
                 losses.append(float(loss))
-        _JAX[(dp, tp, fsdp)] = (losses, _flat(g1), _flat(st.params))
-    return _JAX[(dp, tp, fsdp)]
+        _JAX[(dp, tp, fsdp, hp_kw is HP_KW)] = (losses, _flat(g1), _flat(st.params))
+    return _JAX[(dp, tp, fsdp, hp_kw is HP_KW)]
 
 
-MESHES = [(2, 2, False), (2, 2, True), (4, 2, False), (4, 2, True)]
+def _moe_run(tmp_path_factory, dp, tp):
+    """The V-MoE model's three updates at dp x tp: 2x2 in the 4-rank spawn,
+    2x1 in a spawn of its own."""
+    if (dp, tp) == (2, 2):
+        return _runs(tmp_path_factory, 4)["moe"]
+    if "moe-2x1" not in _RUNS:
+        from vit_cpp_tpu_torch.models.params import params_from_jax
+
+        _, jparams, x, y = _jax_setup(MOE_HP_KW)
+        _RUNS["moe-2x1"] = run_ranks(_train_rank, 2, _np(params_from_jax(jparams)), x, y,
+                                     [(2, 1, False)], None, MOE_HP_KW,
+                                     timeout=300)[(2, 1, False)]
+    return _RUNS["moe-2x1"]
+
+
+MESHES = [(2, 2, False), (2, 2, True), (4, 2, False), (4, 2, True), (2, 1, "moe"),
+          (2, 2, "moe")]
 
 
 @pytest.mark.parametrize("dp,tp,fsdp", MESHES,
-                         ids=[f"{d}x{t}{'-fsdp' if f else ''}" for d, t, f in MESHES])
+                         ids=[f"{d}x{t}{'-' + str(f) if f == 'moe' else '-fsdp' if f else ''}"
+                              for d, t, f in MESHES])
 def test_train_on_mesh_matches_jax(tmp_path_factory, dp, tp, fsdp):
-    got = _runs(tmp_path_factory, dp * tp)[(dp, tp, fsdp)]
-    losses, g1, params = _jax_run(dp, tp, fsdp)
+    """The "moe" cases train a V-MoE model (4 experts, top-2, on block 1)
+    with the router's auxiliary losses: its load-balance term multiplies
+    two batch means, which are the global batch's on every rank (the
+    per-rank means averaged over "data"), as in JAX on a sharded batch."""
+    if fsdp == "moe":
+        got = _moe_run(tmp_path_factory, dp, tp)
+        losses, g1, params = _jax_run(dp, tp, False, MOE_HP_KW)
+    else:
+        got = _runs(tmp_path_factory, dp * tp)[(dp, tp, fsdp)]
+        losses, g1, params = _jax_run(dp, tp, fsdp)
     np.testing.assert_allclose(got["losses"], losses, atol=1e-5, rtol=0)
     ours_g, ours_p = _flat(got["grads"]), _flat(got["params"])
     assert ours_g.keys() == g1.keys() == ours_p.keys()

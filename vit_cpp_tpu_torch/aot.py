@@ -18,6 +18,23 @@ single-image front ends run the smallest batch, serving the largest
 (meta["batch"]). Each program holds its own copy of the weights, so N
 batch sizes cost ~N x the model size on disk, as in the JAX package.
 
+A sharded engine (VitEngine.shard over a ('data', 'model') mesh of dp x
+tp ranks) exports through the same call, made on every rank. Each model
+rank's program holds that rank's Megatron shards and its collectives over
+"model" as operator nodes (parallel/mesh.py: all_reduce_over,
+all_gather_over), and runs B/dp rows of a global batch B. The data ranks
+of one model rank run the same program, so the file holds tp programs per
+batch size: meta["blob_lengths"] lists them batch by batch, and within a
+batch by model rank (index b_i * tp + m). World rank 0 gathers them and
+returns the file; meta["mesh"] = {"axis_names": ["data", "model"],
+"axis_sizes": [dp, tp]} as the JAX package writes it, and "batch" /
+"batches" stay the global sizes, which dp must divide. `AotEngine` on such
+a file builds the mesh over the launcher's ranks (one process per device,
+`python -m torch.distributed.run --nproc-per-node dp*tp`), loads its model
+rank's programs, and serves the global batch as VitEngine.shard does: the
+rank's rows through its program, the outputs all-gathered over "data".
+With fewer ranks than the mesh it raises the JAX package's message.
+
 The kernels stay in the program: attention_qkv (K1), flash_attention and
 dequant_matmul (K4) are PyTorch operators (ops/flash_attention.py,
 ops/qmatmul.py), so the capture records each call as one
@@ -74,7 +91,8 @@ def check_platforms(platforms, device) -> None:
 class _Program(torch.nn.Module):
     """The serving forward of one engine: pixels (B, C, S, S) f32 ->
     probabilities (softmax in f32), or the pooled features of a headless
-    encoder in the engine's dtype."""
+    encoder in the engine's dtype; of a sharded engine, this rank's shards
+    on its rows of the batch."""
 
     def __init__(self, engine, headless: bool):
         super().__init__()
@@ -85,12 +103,14 @@ class _Program(torch.nn.Module):
         self.attn_impl, self.mm_impl = engine.attn_impl, engine.mm_impl
         self.tome = engine.tome
         self.headless = headless
+        self.mesh = getattr(engine, "mesh", None)  # this rank's shards, its collectives
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         from vit_cpp_tpu_torch.models.vit import forward
 
         out = forward(self.tree, images, self.hp, attn_impl=self.attn_impl,
-                      mm_impl=self.mm_impl, features=self.headless, tome=self.tome)
+                      mm_impl=self.mm_impl, features=self.headless, tome=self.tome,
+                      mesh=self.mesh)
         return out if self.headless else torch.softmax(out.float(), dim=-1)
 
 
@@ -105,17 +125,16 @@ def export_engine(engine, batch, platforms=None) -> bytes:
     (meta["tome"]), W8A8 with static or dynamic scales (meta["act"]),
     ViTSTR's (B, seq_len, V) probabilities and V-MoE trees go in as the
     engine serves them. Static scales that the engine would calibrate on
-    its first batch are not measured here: calibrate first. A sharded
-    engine (VitEngine.shard) raises: its program would be one rank's
-    shards (ROADMAP A.14)."""
-    from vit_cpp_tpu_torch.ops.precision import matmul_precision
+    its first batch are not measured here: calibrate first.
 
-    if getattr(engine, "mesh", None) is not None:
-        raise ValueError(
-            "export_engine: the engine is sharded over a mesh; exporting a sharded "
-            "engine (meta['mesh'], an AotEngine that rebuilds the mesh) is ROADMAP "
-            "A.14, not ported yet: export the unsharded engine"
-        )
+    A sharded engine (VitEngine.shard) is exported by every rank of its
+    mesh together (module docstring): the file comes back on world rank 0
+    and None on the others."""
+    from vit_cpp_tpu_torch.ops.precision import matmul_precision
+    from vit_cpp_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    mesh = getattr(engine, "mesh", None)
+    dp, tp = axis_size(mesh, "data"), axis_size(mesh, "model")
     hp = engine.hp
     headless = hp.seq_len is None and hp.num_classes == 0
     here = platform_of(engine.device)
@@ -126,17 +145,30 @@ def export_engine(engine, batch, platforms=None) -> bytes:
     )
     if not batches or batches[0] < 1:
         raise ValueError(f"batch sizes must be >= 1, got {batches}")
+    shape = (hp.in_chans, hp.img_size, hp.img_size)
+    for b in batches:
+        if b % dp:
+            raise ValueError(
+                f"export_engine: the batch is sharded over the mesh's 'data' axis, which "
+                f"implies that the global size of its dimension 0 should be divisible by "
+                f"{dp}, but it is equal to {b} (full shape: {(b, *shape)})"
+            )
     program = _Program(engine, headless).eval()
     blobs = []
-    for b in batches:
-        x = torch.zeros((b, hp.in_chans, hp.img_size, hp.img_size),
-                        dtype=torch.float32, device=engine.device)
-        with torch.no_grad(), matmul_precision(engine.matmul_precision):
-            exported = torch.export.export(program, (x,), strict=False)
-        exported.example_inputs = None  # the save would keep the zeros
-        buf = io.BytesIO()
-        torch.export.save(exported, buf)
-        blobs.append(buf.getvalue())
+    # the data ranks of a model rank share its program: data rank 0 traces it
+    if axis_rank(mesh, "data") == 0:
+        for b in batches:
+            x = torch.zeros((b // dp, *shape), dtype=torch.float32, device=engine.device)
+            with torch.no_grad(), matmul_precision(engine.matmul_precision):
+                exported = torch.export.export(program, (x,), strict=False)
+            exported.example_inputs = None  # the save would keep the zeros
+            buf = io.BytesIO()
+            torch.export.save(exported, buf)
+            blobs.append(buf.getvalue())
+    if mesh is not None:
+        blobs = _gather_programs(blobs, len(batches), tp)
+        if blobs is None:
+            return None
     hp_dict = {
         k: list(v) if isinstance(v, tuple) else v
         for k, v in dataclasses.asdict(hp).items()
@@ -160,15 +192,41 @@ def export_engine(engine, batch, platforms=None) -> bytes:
         from vit_cpp_tpu_torch.quant.int8 import params_have_static_scales
 
         meta["act"] = "static" if params_have_static_scales(engine.params) else "dynamic"
+    if mesh is not None:
+        meta["mesh"] = {"axis_names": ["data", "model"], "axis_sizes": [dp, tp]}
     mj = json.dumps(meta).encode()
     return MAGIC + struct.pack("<I", len(mj)) + mj + b"".join(blobs)
 
 
+def _gather_programs(blobs, n_batches: int, tp: int):
+    """Every model rank's programs on world rank 0, batch by batch and
+    within a batch by model rank (ranks 0 .. tp-1 of the world are data
+    rank 0 of the mesh grid); None on the other ranks."""
+    import torch.distributed as dist
+
+    parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(blobs, parts, dst=0)
+    if parts is None:
+        return None
+    return [parts[m][i] for i in range(n_batches) for m in range(tp)]
+
+
 def save_engine(engine, path: str, batch, platforms=None) -> Dict[str, Any]:
+    """Write export_engine's file to `path` and return its meta; a
+    sharded engine's ranks call it together, world rank 0 writes, and
+    every rank returns the meta."""
     blob = export_engine(engine, batch, platforms=platforms)
-    with open(path, "wb") as f:
-        f.write(blob)
-    meta, _ = _split(blob)
+    meta = None
+    if blob is not None:
+        with open(path, "wb") as f:
+            f.write(blob)
+        meta, _ = _split(blob)
+    if getattr(engine, "mesh", None) is not None:
+        import torch.distributed as dist
+
+        box = [meta]
+        dist.broadcast_object_list(box, src=0)
+        meta = box[0]
     return meta
 
 
@@ -218,6 +276,45 @@ def is_vitx(path: str) -> bool:
         return False
 
 
+def _on_device(program, device: torch.device):
+    """`program` with its weights and the devices written into its graph
+    on `device` when it was captured on another card of the same kind: a
+    sharded artifact's model-rank program is captured on the card of data
+    rank 0 and runs on every data rank's card; an artifact captured on
+    cuda:0 serves on cuda:1."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    tensors = [*program.state_dict.values(), *program.constants.values()]
+    other = {str(t.device) for t in tensors
+             if isinstance(t, torch.Tensor) and t.device.type == device.type} - {str(device)}
+    if not other:
+        return program
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(program, {d: str(device) for d in other})
+
+
+def _rebuild_mesh(path: str, spec: Dict[str, Any], device: torch.device):
+    """The artifact's ('data', 'model') mesh over this world's ranks; the
+    JAX package's message (vit_cpp_tpu/aot.py) and the launcher's command
+    when the world has fewer ranks than the mesh has devices."""
+    from vit_cpp_tpu_torch.parallel.mesh import available_ranks, launcher_hint, make_mesh
+
+    names, sizes = tuple(spec["axis_names"]), [int(s) for s in spec["axis_sizes"]]
+    if names != ("data", "model"):
+        raise ValueError(f"{path}: mesh axes {list(names)}, want ['data', 'model']")
+    n = sizes[0] * sizes[1]
+    have = available_ranks()
+    if have < n:
+        raise ValueError(
+            f"{path} is a sharded artifact for {n} devices "
+            f"(mesh {dict(zip(names, sizes))}); this process has "
+            f"{have} — re-export single-chip or serve on a "
+            f"{n}-device host; " + launcher_hint("serve", n, "a sharded artifact")
+        )
+    return make_mesh(n, dp=sizes[0], tp=sizes[1], device_type=device.type)
+
+
 class AotEngine:
     """Serve a port-made .vitx artifact: VitEngine's serving surface (hp,
     id2label, preprocess_image(s), predict_probs_batch, features_batch,
@@ -226,7 +323,12 @@ class AotEngine:
     exported on. `.batches` lists every exported size, `.batch` is the
     largest (pair it with serve_files(..., batch=engine.batch) or the
     daemon's micro-batcher) and the single-image front ends run the
-    smallest. Outputs stay on the device, as VitEngine's do."""
+    smallest. Outputs stay on the device, as VitEngine's do. A sharded
+    artifact (meta["mesh"]) is loaded by every rank of a launcher's world
+    of dp x tp processes, each on `cuda:LOCAL_RANK` (or the CPU), and
+    `.mesh` is the mesh it built; every rank then calls the serving
+    methods with the same global batch (server.py's MeshLeader / follow
+    do that for the daemon)."""
 
     def __init__(self, path: str, device="cuda"):
         t0 = time.perf_counter()
@@ -258,6 +360,11 @@ class AotEngine:
         })
         self.id2label = {int(k): v for k, v in meta["id2label"].items()}
         self.device = torch.device(device)
+        self.mesh, tp, model_rank = None, 1, 0
+        if "mesh" in meta:
+            from vit_cpp_tpu_torch.parallel.mesh import rank_device
+
+            self.device = rank_device(device)
         here = platform_of(self.device)
         if here not in meta["platforms"]:
             raise ValueError(
@@ -271,16 +378,29 @@ class AotEngine:
                 "torch.cuda.is_available() is False in this process"
             )
         self.matmul_precision = meta.get("matmul_precision", "highest")
-        # the programs' kernel operators must be registered before loading
+        if "mesh" in meta:
+            self.mesh = _rebuild_mesh(path, meta["mesh"], self.device)
+            from vit_cpp_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+            tp, model_rank = axis_size(self.mesh, "model"), axis_rank(self.mesh, "model")
+        if len(blob_lengths) != len(self.batches) * tp:
+            raise ValueError(
+                f"{path}: {len(blob_lengths)} programs for {len(self.batches)} batch "
+                f"sizes x {tp} model ranks"
+            )
+        # the programs' kernel and collective operators must be registered
+        # before loading
         import vit_cpp_tpu_torch.ops.flash_attention  # noqa: F401
         import vit_cpp_tpu_torch.ops.precision  # noqa: F401
         import vit_cpp_tpu_torch.ops.qmatmul  # noqa: F401
+        import vit_cpp_tpu_torch.parallel.mesh  # noqa: F401
 
         self._programs = {}
-        off = 0
-        for b, n in zip(self.batches, blob_lengths):
-            self._programs[b] = torch.export.load(io.BytesIO(blob[off : off + n])).module()
-            off += n
+        ends = np.cumsum([0, *blob_lengths])
+        for i, b in enumerate(self.batches):
+            j = i * tp + model_rank  # batch-major, then model rank
+            program = torch.export.load(io.BytesIO(blob[ends[j] : ends[j + 1]]))
+            self._programs[b] = _on_device(program, self.device).module()
         self.load_ms = (time.perf_counter() - t0) * 1000.0
 
     def preprocess_images(self, images) -> torch.Tensor:
@@ -333,7 +453,11 @@ class AotEngine:
             )
         images = images.to(self.device, torch.float32).contiguous()
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
-            return prog(images)
+            if self.mesh is None:
+                return prog(images)
+            from vit_cpp_tpu_torch.parallel.mesh import data_slice, gather_over_data
+
+            return gather_over_data(prog(data_slice(images, self.mesh).contiguous()), self.mesh)
 
     def _predict_one(self, path: str, verbose: bool) -> np.ndarray:
         from vit_cpp_tpu_torch.io.image import load_image_rgb

@@ -4,7 +4,9 @@ and tensor table.
 Counterpart of vit_cpp_tpu/cli/inspect.py, with the same text and
 `--json [--tensors]` output: legacy-ggml or real GGUF v2/v3 files (the
 port's reader dispatches by magic) and the metadata header of a `.vitx`
-artifact, the port's or the JAX package's (aot.py::read_meta). It prints
+artifact, the port's or the JAX package's (aot.py::read_meta), printed
+whole as JSON: a sharded artifact's "mesh" (axis names and sizes) and
+per-model-rank "blob_lengths" among its keys. It prints
 the family traits that the legacy hparam block cannot carry, as the
 loader infers them, a V-MoE file's experts among them. It reads files
 only: no card is needed.

@@ -19,7 +19,10 @@ launcher ranks (one process per device; parallel/mesh.py): every rank
 decodes the same files and runs its part of each batch, and only rank 0
 prints and writes. `--compile-cache` raises (PyTorch has no compile
 cache). `-m model.vitx` serves a port-made AOT artifact (aot.py) at its
-baked batch, with the JAX tool's notices and refusals.
+baked batch, with the JAX tool's notices and refusals (`--mesh` among
+them). A sharded artifact (aot.save_engine of a sharded engine) brings its
+mesh: it serves under the launcher with one process per device of that
+mesh, and only rank 0 prints and writes.
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir [-b 64] [--device cuda|cpu]
@@ -28,6 +31,8 @@ Usage:
   python -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --act static --calib-dir calib/
   python -m torch.distributed.run --standalone --nproc-per-node 8 \
       -m vit_cpp_tpu_torch.cli.serve -m model.gguf -d images_dir --mesh 4x2 [--device cpu]
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m vit_cpp_tpu_torch.cli.serve -m sharded_2x2.vitx -d images_dir [--device cpu]
 """
 
 from __future__ import annotations
@@ -170,10 +175,13 @@ def main(argv=None) -> int:
 
 
 def _serve_artifact(args, paths) -> int:
-    """A .vitx artifact: the engine knobs and the batch size were baked at
-    export, and the program is single-device; the JAX tool's refusals and
-    notices (vit_cpp_tpu/cli/serve.py)."""
+    """A .vitx artifact: the engine knobs, the batch size and a sharded
+    artifact's mesh were baked at export; the JAX tool's refusals and
+    notices (vit_cpp_tpu/cli/serve.py). A sharded artifact runs on every
+    rank of the launcher's world (aot.py::AotEngine), and only the leader
+    (rank 0) prints and writes."""
     from vit_cpp_tpu_torch.aot import AotEngine, read_meta
+    from vit_cpp_tpu_torch.parallel.mesh import is_leader
 
     try:
         headless = read_meta(args.model).get("program") == "features"
@@ -211,19 +219,21 @@ def _serve_artifact(args, paths) -> int:
         return 1
     try:
         aot = AotEngine(args.model, device=args.device)
-    except ValueError as e:  # a JAX-made artifact, another device's
+    except ValueError as e:  # a JAX-made artifact, another device's, too few ranks
         print(f"serve: {e}", file=sys.stderr)
         return 1
-    if args.batch != aot.batch:
+    leader = is_leader()
+    if leader and args.batch != aot.batch:
         print(f"serve: .vitx artifact is compiled for batch {aot.batch}; "
               f"using it (ignoring -b {args.batch})", file=sys.stderr)
-    print(f"serve: AOT artifact (mm={aot.meta['mm_impl']}, attn={aot.meta['attn_impl']}, "
-          f"batch {aot.batch}) — engine flags baked at export", file=sys.stderr)
+    if leader:
+        print(f"serve: AOT artifact (mm={aot.meta['mm_impl']}, attn={aot.meta['attn_impl']}, "
+              f"batch {aot.batch}) — engine flags baked at export", file=sys.stderr)
     if headless:
         return _embed_loop(aot, paths, out=args.embed, batch=aot.batch,
-                           decode_threads=args.decode_threads)
+                           decode_threads=args.decode_threads, leader=leader)
     return _serve_loop(aot, aot.hp.seq_len is not None, paths, batch=aot.batch,
-                       topk=args.topk, decode_threads=args.decode_threads)
+                       topk=args.topk, decode_threads=args.decode_threads, leader=leader)
 
 
 def _embed_loop(engine, paths, *, out: str, batch: int, decode_threads: int,

@@ -19,8 +19,11 @@ AOT artifact (aot.py) at its baked batch, `--bucket` over its baked sizes.
 `--mesh DPxTP` (one model, under a launcher) shards the engine over the
 launcher's ranks: rank 0 runs the daemon and broadcasts each batch, the
 other ranks follow it (server.py::MeshLeader, follow) until it shuts
-down; a rank that fails makes the daemon exit 1. `--compile-cache`
-raises (PyTorch has no compile cache).
+down; a rank that fails makes the daemon exit 1. A sharded .vitx artifact
+(aot.save_engine of a sharded engine) brings its own mesh and is served
+the same way under the launcher, as the only model; `--mesh` with a
+.vitx is refused, as in the JAX tool. `--compile-cache` raises (PyTorch
+has no compile cache).
 
 Usage:
   python -m vit_cpp_tpu_torch.cli.server -m model-q8_0.gguf [--mm pallas] [--device cuda] --port 8000
@@ -31,6 +34,8 @@ Usage:
   curl -s -X POST --data-binary @demo_1.png localhost:8000/v1/ocr/recognize
   python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m vit_cpp_tpu_torch.cli.server -m model.gguf --mesh 2x2 [--device cpu]
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m vit_cpp_tpu_torch.cli.server -m sharded_2x2.vitx [--device cpu]
 """
 
 from __future__ import annotations
@@ -132,6 +137,20 @@ def _engine(args, path: str, who: str, multi: bool = False):
     return engine
 
 
+def _mesh_devices(path: str) -> int:
+    """The devices of a .vitx artifact's mesh: 1 unless it is sharded."""
+    from vit_cpp_tpu_torch.cli.common import read_meta
+
+    try:
+        sizes = read_meta(path).get("mesh", {}).get("axis_sizes", [1])
+    except ValueError:  # a bad header: the engine's load reports it
+        return 1
+    n = 1
+    for size in sizes:
+        n *= int(size)
+    return n
+
+
 def _artifact_buckets(args, engine, notice: str):
     """--bucket on a .vitx artifact: its baked batch sizes, or off with
     `notice` when it bakes one."""
@@ -147,8 +166,11 @@ def _artifact(args, path: str):
     """The single-model daemon on a .vitx artifact (vit_cpp_tpu/cli/
     server.py): the knobs and batch sizes were baked at export, so the
     micro-batcher takes the artifact's batch and --bucket its baked
-    sizes; --act static exits 1. None after printing an error."""
+    sizes; --act static exits 1. None after printing an error. A sharded
+    artifact's engine runs on every rank of the launcher's world; only the
+    leader prints its notices."""
     from vit_cpp_tpu_torch.aot import AotEngine
+    from vit_cpp_tpu_torch.parallel.mesh import is_leader
 
     if args.act == "static":
         print("--act static does not apply to a .vitx artifact — its "
@@ -156,9 +178,12 @@ def _artifact(args, path: str):
         return None
     try:
         engine = AotEngine(path, device=args.device)
-    except ValueError as e:
+    except ValueError as e:  # a JAX-made artifact, another device's, too few ranks
         print(f"vit-server: {e}", file=sys.stderr)
         return None
+    if engine.mesh is not None and not is_leader():
+        args.batch, args.bucket = engine.batch, False  # a follower serves no HTTP
+        return engine
     if args.batch != engine.batch:
         print(f"vit-server: .vitx artifact is compiled for batch {engine.batch}; "
               f"using it (ignoring -b {args.batch})", file=sys.stderr)
@@ -214,6 +239,10 @@ def main(argv=None) -> int:
             if name in engines:
                 print(f"duplicate model name {name!r}", file=sys.stderr)
                 return 1
+            if is_vitx(path) and _mesh_devices(path) > 1:
+                print(f"vit-server: {name}: a sharded .vitx artifact serves as the only "
+                      "model (-m path) under the launcher", file=sys.stderr)
+                return 1
             engines[name] = _engine(args, path, f"vit-server: {name}: ", multi=True)
             if engines[name] is None:
                 return 1
@@ -240,6 +269,8 @@ def main(argv=None) -> int:
         engine = _artifact(args, args.model[0])
         if engine is None:
             return 1
+        if engine.mesh is not None:  # a sharded artifact brings its mesh
+            return _serve_on_mesh(args, engine)
     else:
         mesh, rc = mesh_from_args(args, "server")
         if rc is not None:
@@ -252,7 +283,12 @@ def main(argv=None) -> int:
         if engine is None:
             return 1
         if mesh is not None:
-            return _serve_on_mesh(args, engine, mesh)
+            try:
+                engine.shard(mesh)
+            except ValueError as e:  # tp does not divide the head count
+                print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+                return 1
+            return _serve_on_mesh(args, engine)
     if not multi:
         httpd, batcher = create_server(
             engine,
@@ -287,20 +323,16 @@ def main(argv=None) -> int:
     return 0
 
 
-def _serve_on_mesh(args, engine, mesh) -> int:
-    """The single-model daemon of a sharded engine: rank 0 serves HTTP
-    behind a MeshLeader, the other ranks follow its dispatches. Exit code
-    0 after a clean shutdown, 1 when a rank failed."""
+def _serve_on_mesh(args, engine) -> int:
+    """The single-model daemon of a sharded engine or artifact: rank 0
+    serves HTTP behind a MeshLeader, the other ranks follow its
+    dispatches. Exit code 0 after a clean shutdown, 1 when a rank
+    failed."""
     import threading
 
     from vit_cpp_tpu_torch.parallel.mesh import is_leader
     from vit_cpp_tpu_torch.server import MeshLeader, create_server, follow
 
-    try:
-        engine.shard(mesh)
-    except ValueError as e:  # tp does not divide the head count
-        print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
-        return 1
     if not is_leader():
         # the launcher's SIGTERM is rank 0's to handle: it broadcasts stop
         signal.signal(signal.SIGTERM, signal.SIG_IGN)
@@ -327,7 +359,8 @@ def _serve_on_mesh(args, engine, mesh) -> int:
         kind = "vitstr" if engine.hp.seq_len is not None else "vit"
         print(f"vit-server: {kind} model on http://{args.host}:{httpd.server_port} "
               f"(micro-batch {args.batch}, wait {args.max_wait_ms} ms, device "
-              f"{engine.device}, mesh {args.mesh})", file=sys.stderr)
+              f"{engine.device}, mesh {'x'.join(map(str, engine.mesh.shape))})",
+              file=sys.stderr)
         try:
             httpd.serve_forever()
         except KeyboardInterrupt:

@@ -10,7 +10,8 @@ custom kernel. `-t` (threads) and `-s` (seed) are echoed and unused, as in
 the JAX CLI. One flag is added: `--device` (default cuda; cpu runs the
 same forward on the CPU). A .vitx artifact made by the port's vit-export
 (vit_cpp_tpu_torch/aot.py) runs its smallest baked batch, with the knobs
-it was exported with, on the device it was exported on.
+it was exported with, on the device it was exported on; a sharded one runs
+under the launcher on every rank of its mesh, and only rank 0 prints.
 
 Usage: python -m vit_cpp_tpu_torch.cli.vit -m model.gguf -i image.jpg -k 5 [--device cuda|cpu]
 """
@@ -127,9 +128,15 @@ def main(argv=None) -> int:
         print(f"main: failed to load model from '{params.model}': {exc}", file=sys.stderr)
         return 1
     t_load = engine.load_ms
+    from vit_cpp_tpu_torch.parallel.mesh import is_leader
 
+    leader = getattr(engine, "mesh", None) is None or is_leader()
     try:
-        results = engine.classify_file(params.fname_inp, topk=params.topk)
+        if leader:
+            results = engine.classify_file(params.fname_inp, topk=params.topk)
+        else:  # a sharded artifact's other ranks: the same collectives, no output
+            engine.classify_file(params.fname_inp, topk=params.topk, verbose=False)
+            return 0
     except OSError as exc:
         print(f"main: failed to load image from '{params.fname_inp}': {exc}", file=sys.stderr)
         return 1

@@ -45,7 +45,10 @@
 // 128-byte swizzle (wgmma's transposed-B layout), 16 bytes at a time
 // without bank conflicts. The epilogue rounds once to bf16, stages the tile
 // in shared memory and writes 16-byte stores, masking the ragged M and N
-// edges. Rows of codes that are not 16-byte aligned (N = 1000) take 8-byte
+// edges. A second instantiation of the same body (OutT = float,
+// dequant_matmul_wgmma_f32out) skips the rounding and writes the f32
+// accumulators: the partial product of a row-parallel shard, summed over
+// the ranks before it is rounded. Rows of codes that are not 16-byte aligned (N = 1000) take 8-byte
 // copies, odd N plain loads.
 //
 // f32 body (dequant_matmul_f32): a block owns a 64 x 64 output tile and
@@ -119,7 +122,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kBK = 2 * kQK;       // K rows per pipeline step: two quant blocks
 constexpr int kTN = 128;           // output columns per block
 constexpr int kMmaThreads = 256;   // two warpgroups
-constexpr int kLdo = kTN + 8;      // output staging row stride (bf16)
+constexpr int kLdo = kTN + 8;      // output staging row stride (elements)
 
 // Shared memory of a block of BM output rows (256, or 128 with two blocks
 // on an SM), from a 1024-aligned base: a ring of kStages x (x tile of BM
@@ -128,7 +131,8 @@ constexpr int kLdo = kTN + 8;      // output staging row stride (bf16)
 // MN-major in the 128-byte swizzle (atoms of 8 K rows x 64 N; the two N
 // atoms of a K group side by side, lbo 1024 bytes; K groups 2048 bytes
 // apart), then one mbarrier per ring slot for its x tile. The output tile
-// is staged over the ring at the end.
+// is staged over the ring at the end (an f32 tile too: 139 KB of the 172
+// KB ring at BM = 256, 70 of 80 KB at BM = 128).
 template <int BM>
 struct Smem {
   static constexpr int kStages = BM == 256 ? 4 : 3;  // copy ring: K steps in flight
@@ -139,17 +143,19 @@ struct Smem {
   static constexpr int kBar = kStages * kStage + 2 * kW;
   static constexpr int kBytes = kBar + kStages * 8;
   static_assert(kStage % 1024 == 0 && kX % 1024 == 0, "atoms stay 1024-aligned");
-  static_assert(BM * kLdo * 2 <= kStages * kStage, "output tile staging");
+  static_assert(BM * kLdo * 4 <= kStages * kStage, "output tile staging, f32 too");
 };
 
-template <int BM, bool kMin>
-__global__ void __launch_bounds__(kMmaThreads, 256 / BM)
-    dequant_matmul_wgmma(const __grid_constant__ CUtensorMap xmap,
-                         const int8_t* __restrict__ codes,
-                         const float* __restrict__ scales,
-                         const float* __restrict__ mins,
-                         bf16* __restrict__ out, int m, int n, int k,
-                         int offset) {
+// The body of both bf16 kernels; OutT is the output's type: bf16 (y in
+// x's dtype), or float, the f32 partial product of a row-parallel shard
+// (ops/core.py::linear under a mesh), rounded only after its sum.
+template <int BM, bool kMin, typename OutT>
+__device__ __forceinline__ void wgmma_body(const CUtensorMap& xmap,
+                                           const int8_t* __restrict__ codes,
+                                           const float* __restrict__ scales,
+                                           const float* __restrict__ mins,
+                                           OutT* __restrict__ out, int m, int n, int k,
+                                           int offset) {
   using S = Smem<BM>;
   constexpr int kStages = S::kStages, H = BM / 128;  // H accumulators of 64 x 128
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -325,38 +331,73 @@ __global__ void __launch_bounds__(kMmaThreads, 256 / BM)
     __syncthreads();
   }
 
-  // round once to bf16, stage the tile over the ring, then 16-byte stores
-  // masked at the edges
-  bf16* so = reinterpret_cast<bf16*>(smem);
+  // round once to bf16 (or keep f32), stage the tile over the ring, then
+  // 16-byte stores masked at the edges: 8 bf16 or 4 f32 outputs each
+  constexpr int kVec = 16 / sizeof(OutT), kShift = kVec == 8 ? 4 : 5;
+  OutT* so = reinterpret_cast<OutT*>(smem);
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int h = 0; h < H; ++h)
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      bf16* p = so + (wg * (BM / 2) + h * 64 + (warp & 3) * 16 + g) * kLdo + 8 * j + 2 * q;
-      *reinterpret_cast<uint32_t*>(p) = tc::pack_bf16(acc[h][4 * j], acc[h][4 * j + 1]);
-      *reinterpret_cast<uint32_t*>(p + 8 * kLdo) = tc::pack_bf16(acc[h][4 * j + 2], acc[h][4 * j + 3]);
+      OutT* p = so + (wg * (BM / 2) + h * 64 + (warp & 3) * 16 + g) * kLdo + 8 * j + 2 * q;
+      if constexpr (kVec == 8) {
+        *reinterpret_cast<uint32_t*>(p) = tc::pack_bf16(acc[h][4 * j], acc[h][4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(p + 8 * kLdo) =
+            tc::pack_bf16(acc[h][4 * j + 2], acc[h][4 * j + 3]);
+      } else {
+        *reinterpret_cast<float2*>(p) = make_float2(acc[h][4 * j], acc[h][4 * j + 1]);
+        *reinterpret_cast<float2*>(p + 8 * kLdo) =
+            make_float2(acc[h][4 * j + 2], acc[h][4 * j + 3]);
+      }
     }
   __syncthreads();
-  const bool ovec = n % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  for (int idx = tid; idx < BM * (kTN / 8); idx += kMmaThreads) {
-    const int r = idx >> 4, c = (idx & 15) * 8;
+  const bool ovec = n % kVec == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int idx = tid; idx < BM * (kTN / kVec); idx += kMmaThreads) {
+    const int r = idx >> kShift, c = (idx & (kTN / kVec - 1)) * kVec;
     const int row = m0 + r, col = n0 + c;
     if (row >= m || col >= n) continue;
-    bf16* dst = out + (size_t)row * n + col;
-    const bf16* src = so + r * kLdo + c;
+    OutT* dst = out + (size_t)row * n + col;
+    const OutT* src = so + r * kLdo + c;
     if (ovec) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     } else {
-      for (int e = 0; e < 8 && col + e < n; ++e) dst[e] = src[e];
+      for (int e = 0; e < kVec && col + e < n; ++e) dst[e] = src[e];
     }
   }
 }
 
 template <int BM, bool kMin>
+__global__ void __launch_bounds__(kMmaThreads, 256 / BM)
+    dequant_matmul_wgmma(const __grid_constant__ CUtensorMap xmap,
+                         const int8_t* __restrict__ codes,
+                         const float* __restrict__ scales,
+                         const float* __restrict__ mins,
+                         bf16* __restrict__ out, int m, int n, int k,
+                         int offset) {
+  wgmma_body<BM, kMin, bf16>(xmap, codes, scales, mins, out, m, n, k, offset);
+}
+
+// The f32-output instantiation: bf16 x and weights, y the f32 accumulators.
+template <int BM, bool kMin>
+__global__ void __launch_bounds__(kMmaThreads, 256 / BM)
+    dequant_matmul_wgmma_f32out(const __grid_constant__ CUtensorMap xmap,
+                                const int8_t* __restrict__ codes,
+                                const float* __restrict__ scales,
+                                const float* __restrict__ mins,
+                                float* __restrict__ out, int m, int n, int k,
+                                int offset) {
+  wgmma_body<BM, kMin, float>(xmap, codes, scales, mins, out, m, n, k, offset);
+}
+
+template <int BM, bool kMin, typename OutT>
 cudaError_t launch_wgmma(const void* x, const int8_t* codes, const float* scales,
                          const float* mins, void* out, int m, int n, int k, int offset,
                          cudaStream_t stream) {
+  const auto kernel = [] {
+    if constexpr (sizeof(OutT) == 2) return dequant_matmul_wgmma<BM, kMin>;
+    else return dequant_matmul_wgmma_f32out<BM, kMin>;
+  }();
   // x (M, K) bf16 as TMA reads it: boxes of BM rows x 64 columns (128
   // bytes), written in the 128-byte swizzle
   CUtensorMap xmap;
@@ -366,15 +407,15 @@ cudaError_t launch_wgmma(const void* x, const int8_t* codes, const float* scales
   static bool configured = false;
   constexpr int bytes = Smem<BM>::kBytes + 1024;  // + alignment of the base
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dequant_matmul_wgmma<BM, kMin>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((n + kTN - 1) / kTN, (m + BM - 1) / BM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  dequant_matmul_wgmma<BM, kMin><<<grid, kMmaThreads, bytes, stream>>>(
-      xmap, codes, scales, mins, static_cast<bf16*>(out), m, n, k, offset);
+  kernel<<<grid, kMmaThreads, bytes, stream>>>(xmap, codes, scales, mins,
+                                                static_cast<OutT*>(out), m, n, k, offset);
   return cudaGetLastError();
 }
 
@@ -483,7 +524,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // C interface, loaded with ctypes (vit_cpp_tpu_torch/_build.py).
-// dtype: 0 = float32, 1 = bfloat16 (x and y; x 16-byte aligned). mins:
+// dtype: 0 = float32, 1 = bfloat16 (x and y; x 16-byte aligned), 2 =
+// bfloat16 x with a float32 y (the bf16 body's f32 accumulators). mins:
 // (K/32, N) f32 or null. tile_m: output rows per block of the bf16 body,
 // 256 or 128 (the f32 body's tile is fixed). Returns cudaGetLastError()
 // after the launch (0 = success).
@@ -498,15 +540,20 @@ extern "C" int vit_dequant_matmul(const void* x, const void* codes,
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   const float* mn = static_cast<const float*>(mins);
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
     if (reinterpret_cast<uintptr_t>(x) & 15) return (int)cudaErrorInvalidValue;
+    if (tile_m != 256 && tile_m != 128) return (int)cudaErrorInvalidValue;
+    if (dtype == 2)
+      return (int)(tile_m == 256
+                       ? (mn ? launch_wgmma<256, true, float>(x, c, sc, mn, out, m, n, k, offset, s)
+                             : launch_wgmma<256, false, float>(x, c, sc, mn, out, m, n, k, offset, s))
+                       : (mn ? launch_wgmma<128, true, float>(x, c, sc, mn, out, m, n, k, offset, s)
+                             : launch_wgmma<128, false, float>(x, c, sc, mn, out, m, n, k, offset, s)));
     if (tile_m == 256)
-      return (int)(mn ? launch_wgmma<256, true>(x, c, sc, mn, out, m, n, k, offset, s)
-                      : launch_wgmma<256, false>(x, c, sc, mn, out, m, n, k, offset, s));
-    if (tile_m == 128)
-      return (int)(mn ? launch_wgmma<128, true>(x, c, sc, mn, out, m, n, k, offset, s)
-                      : launch_wgmma<128, false>(x, c, sc, mn, out, m, n, k, offset, s));
-    return (int)cudaErrorInvalidValue;
+      return (int)(mn ? launch_wgmma<256, true, bf16>(x, c, sc, mn, out, m, n, k, offset, s)
+                      : launch_wgmma<256, false, bf16>(x, c, sc, mn, out, m, n, k, offset, s));
+    return (int)(mn ? launch_wgmma<128, true, bf16>(x, c, sc, mn, out, m, n, k, offset, s)
+                    : launch_wgmma<128, false, bf16>(x, c, sc, mn, out, m, n, k, offset, s));
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);

@@ -37,7 +37,9 @@ graph, as the JAX package's does.
 the rank's rows of a batch split over "data" and return the whole batch,
 all-gathered, on every rank; every rank calls them with the same batch.
 Calibration runs the whole batch on each rank and takes every site's
-maximum over "model" too.
+maximum over "model" too. `attention_maps_batch` splits its batch over
+"data" as the serving calls do; `explain_file` runs its one image on
+every rank's shards. Both gather every layer's heads over "model".
 
 `verbose` prints the JAX engine's `vit_model_load:` echo on stdout.
 `model_file` is `model_path` already parsed by gguf/reader.py, which
@@ -340,10 +342,6 @@ class VitEngine:
                           mm_impl=self.mm_impl, tome=self.tome, mesh=self.mesh, **kw)
             return gather_over_data(out, self.mesh)
 
-    def _unsharded(self, what: str) -> None:
-        if self.mesh is not None:
-            raise ValueError(f"{what} runs on an unsharded engine (this one is on a mesh)")
-
     def predict_probs_batch(self, images: torch.Tensor) -> torch.Tensor:
         """images: (B, C, S, S) preprocessed -> (B, classes) f32 probabilities
         on the engine's device. A headless encoder raises ValueError."""
@@ -366,12 +364,15 @@ class VitEngine:
         """images: (B, C, S, S) preprocessed -> (B, L, H, T, T) f32
         attention probabilities on the host (models/attention_maps.py):
         an analysis path on composed attention, with the engine's weights
-        (quantized, folded) as they are."""
+        (quantized, folded) as they are. A sharded engine runs this rank's
+        rows and returns the whole batch, as predict_probs_batch does."""
         from vit_cpp_tpu_torch.models.attention_maps import attention_maps
+        from vit_cpp_tpu_torch.parallel.mesh import data_slice, gather_over_data
 
-        self._unsharded("attention_maps_batch")
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
-            maps, _ = attention_maps(self.params, images.to(self.device), self.hp)
+            rows = data_slice(images.to(self.device), self.mesh)
+            maps, _ = attention_maps(self.params, rows, self.hp, mesh=self.mesh)
+            maps = gather_over_data(maps, self.mesh)
         return maps.cpu().numpy()
 
     def explain_file(
@@ -388,13 +389,12 @@ class VitEngine:
             head_logits,
         )
 
-        self._unsharded("explain_file")
         pixels = self.preprocess_image(load_image_rgb(path))[None]
         with torch.inference_mode(), matmul_precision(self.matmul_precision):
-            maps, final = attention_maps(self.params, pixels, self.hp)
+            maps, final = attention_maps(self.params, pixels, self.hp, mesh=self.mesh)
             probs = None
             if self.hp.num_classes:
-                logits = head_logits(self.params, final, self.hp, self.mm_impl)
+                logits = head_logits(self.params, final, self.hp, self.mm_impl, mesh=self.mesh)
                 probs = torch.softmax(logits.float(), dim=-1)[0].cpu().numpy()
         grid = attention_rollout(maps.cpu().numpy(), self.hp, head_fuse=head_fuse)[0]
         if probs is None:

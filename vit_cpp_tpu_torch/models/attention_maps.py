@@ -10,7 +10,11 @@ A = normalize(0.5 * mean_heads(P) + 0.5 * I), rolled out as
 R = A_L @ ... @ A_1; the readout row's patch columns, on the patch grid,
 are the heatmap. An analysis path in plain PyTorch: no kernel runs here,
 as the JAX path is XLA. A V-MoE tree runs its routed MLPs (ops/moe.py)
-in its MoE layers.
+in its MoE layers. Under a mesh (`mesh=`, a tree placed by
+parallel/sharding.py::shard_params) the linears run on this rank's
+Megatron shards as models/vit.py's do, each layer's probabilities are
+those of this rank's heads, and they are all-gathered over "model"
+(heads are contiguous per rank) before they are returned.
 """
 
 from __future__ import annotations
@@ -21,65 +25,81 @@ import numpy as np
 import torch
 
 from vit_cpp_tpu_torch.hparams import VitHParams
-from vit_cpp_tpu_torch.models.vit import _head, embed, moe_layer_params, unstack_blocks
-from vit_cpp_tpu_torch.ops.core import layernorm, linear, mlp_act
+from vit_cpp_tpu_torch.models.vit import (
+    _col_linear,
+    _head,
+    _row_linear,
+    embed,
+    moe_layer_params,
+    unstack_blocks,
+)
+from vit_cpp_tpu_torch.ops.core import layernorm, mlp_act
 from vit_cpp_tpu_torch.ops.moe import moe_mlp
+from vit_cpp_tpu_torch.parallel.mesh import gather_from_model
 
 
 def _block_with_probs(
-    x: torch.Tensor, bp: Dict[str, Any], mp, hp: VitHParams
+    x: torch.Tensor, bp: Dict[str, Any], mp, hp: VitHParams, mesh=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """models/vit.py::transformer_block (moe_block where the layer's MoE
     parameters `mp` are given) with composed attention, returning its f32
-    softmax weights (B, H, T, T) beside the block output."""
-    b, t, h = x.shape
-    nh, hd = hp.num_attention_heads, hp.head_dim
+    softmax weights (B, H, T, T) beside the block output (under a mesh,
+    this rank's H/tp heads)."""
+    b, t, _ = x.shape
+    hd = hp.head_dim
     y = layernorm(x, bp["ln1"]["scale"], bp["ln1"]["bias"], hp.eps)
-    qkv = linear(y, bp["qkv"]["kernel"], bp["qkv"]["bias"])
-    q, k, v = qkv.reshape(b, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+    qkv = _col_linear(y, bp["qkv"], "xla", mesh, 3 * hp.hidden_size)
+    h = qkv.shape[-1] // 3
+    q, k, v = qkv.reshape(b, t, 3, h // hd, hd).permute(2, 0, 3, 1, 4)
     # f32 scores, as ops/core.attention: bf16 ones would round before the
     # softmax
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     probs = torch.softmax(scores * (1.0 / np.sqrt(hd)), dim=-1)
     o = torch.matmul(probs.to(v.dtype).float(), v.float()).to(x.dtype)
     o = o.permute(0, 2, 1, 3).reshape(b, t, h)
-    x = x + linear(o, bp["proj"]["kernel"], bp["proj"]["bias"])
+    x = x + _row_linear(o, bp["proj"], "xla", mesh, hp.hidden_size)
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
     if mp is not None:
-        return x + moe_mlp(y, mp, hp, mlp_act(hp.hidden_act))[0], probs
-    y = linear(y, bp["fc1"]["kernel"], bp["fc1"]["bias"])
+        return x + moe_mlp(y, mp, hp, mlp_act(hp.hidden_act), mesh=mesh, aux=False)[0], probs
+    y = _col_linear(y, bp["fc1"], "xla", mesh, hp.mlp_dim)
     y = mlp_act(hp.hidden_act)(y)
-    y = linear(y, bp["fc2"]["kernel"], bp["fc2"]["bias"])
+    y = _row_linear(y, bp["fc2"], "xla", mesh, hp.mlp_dim)
     return x + y, probs
 
 
 def attention_maps(
-    params: Dict[str, Any], images: torch.Tensor, hp: VitHParams
+    params: Dict[str, Any], images: torch.Tensor, hp: VitHParams, mesh=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, C, S, S) images -> ((B, L, H, T, T) f32 attention
-    probabilities, (B, T, h) last block output)."""
+    probabilities, (B, T, h) last block output). With `mesh`, this rank's
+    shards of the tree on the rows given, every head gathered."""
     x = embed(params, images, hp)
     probs_all = []
     layers = (moe_layer_params(params, hp) if "moe" in params else
               [(bp, None) for bp in unstack_blocks(params["blocks"], hp.num_hidden_layers)])
     for bp, mp in layers:
-        x, probs = _block_with_probs(x, bp, mp, hp)
+        x, probs = _block_with_probs(x, bp, mp, hp, mesh)
         probs_all.append(probs)
-    return torch.stack(probs_all, dim=1), x
+    maps = torch.stack(probs_all, dim=1)  # (B, L, H/tp, T, T)
+    if maps.shape[2] != hp.num_attention_heads:  # a qkv that shard_params split
+        maps = gather_from_model(maps, mesh, dim=2)
+    return maps, x
 
 
 def head_logits(
-    params: Dict[str, Any], final: torch.Tensor, hp: VitHParams, mm_impl: str = "xla"
+    params: Dict[str, Any], final: torch.Tensor, hp: VitHParams, mm_impl: str = "xla",
+    mesh=None,
 ) -> torch.Tensor:
     """The classifier head of models/vit.py::forward (its _head, with the
-    engine's mm_impl) applied to a last block output, so that one maps
+    engine's mm_impl; under a mesh the column-parallel head, its logits
+    all-gathered) applied to a last block output, so that one maps
     forward serves both the rollout and the top-k."""
     if "head" not in params:
         raise ValueError(
             "checkpoint is a headless encoder — no classifier to explain; "
             "the rollout saliency is still available (attention_rollout)"
         )
-    return _head(params, final, hp, mm_impl, False)
+    return _head(params, final, hp, mm_impl, False, mesh=mesh)
 
 
 def attention_rollout(probs, hp: VitHParams, head_fuse: str = "mean") -> np.ndarray:

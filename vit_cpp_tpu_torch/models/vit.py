@@ -47,8 +47,8 @@ all-reduce backward); row-parallel ones (proj, fc2) on their input shard,
 their f32 partial products all-reduced over "model" (`reduce_from_model`,
 identity backward) and rounded once before their bias is added once;
 W8A8 reduces its int32 accumulator and quantizes against the global
-per-token absmax. The dequantizing kernel (`mm_impl="pallas"`) writes
-bf16 partials, so a bf16 Q8_0/Q4/Q5 row-parallel product rounds twice.
+per-token absmax; the dequantizing kernel (`mm_impl="pallas"`) writes
+its f32 partials by its f32-output instantiation.
 The attention kernels get the rank's nh/tp heads from a (B, T, 3h/tp)
 qkv, the head's logits are all-gathered over "model", ToMe's key sum
 over heads is all-reduced before the merge, and a V-MoE layer runs the
@@ -145,15 +145,18 @@ def _row_linear(x, leaf, mm_impl: str, mesh, full_in: int):
     summed over "model" (ops/core.py::linear), then the bias once. x is
     this rank's input shard, or whole when the column-parallel linear
     before it was replicated; a replicated kernel gathers a sharded x
-    instead."""
-    if axis_size(mesh, "model") == 1:
+    instead. On a mesh whose "model" axis is 1 the product takes the same
+    path: its f32 partial, summed over one rank, is rounded once, as the
+    unsharded product is (bit-equal for W8A8 and the dequantizing kernel,
+    whose bf16 body rounds the same f32 accumulators)."""
+    if mesh is None:
         return _linear(x, leaf, mm_impl)
     kernel, k_in = leaf["kernel"], _shape(leaf["kernel"])[0]
-    if k_in == full_in:
+    if k_in == full_in and axis_size(mesh, "model") > 1:
         if x.shape[-1] != full_in:
             x = gather_from_model(x, mesh)
         return _linear(x, leaf, mm_impl)
-    if x.shape[-1] == full_in:
+    if x.shape[-1] != k_in:
         x = copy_to_model(x, mesh).narrow(-1, axis_rank(mesh, "model") * k_in, k_in)
     y = linear(x, kernel, None, impl=mm_impl, act_scale=leaf.get("act_scale"), mesh=mesh)
     return y + leaf["bias"].to(y.dtype)
@@ -219,15 +222,15 @@ def transformer_block(
 
 def moe_block(
     x: torch.Tensor, bp: Dict[str, Any], mp: Dict[str, Any], hp: VitHParams, *,
-    attn_impl: str, mm_impl: str, mesh=None,
+    attn_impl: str, mm_impl: str, mesh=None, aux: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One V-MoE encoder block: the attention half of `transformer_block`,
     then LN2 and a routed expert MLP (ops/moe.py::moe_mlp, one layer's
     parameters `mp`) in place of fc1/fc2. Returns (x', the layer's router
-    diagnostics)."""
+    diagnostics, empty with `aux=False`)."""
     x, _ = _attn_half(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
     y = layernorm(x, bp["ln2"]["scale"], bp["ln2"]["bias"], hp.eps)
-    out, aux = moe_mlp(y, mp, hp, mlp_act(hp.hidden_act), mesh=mesh)
+    out, aux = moe_mlp(y, mp, hp, mlp_act(hp.hidden_act), mesh=mesh, aux=aux)
     return x + out, aux
 
 
@@ -474,7 +477,8 @@ def _moe_forward(params, images, hp: VitHParams, *, attn_impl: str, mm_impl: str
         if mp is None:
             x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
             continue
-        x, aux = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
+        x, aux = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh,
+                           aux=moe_aux)
         for k, v in aux.items():
             aux_sum[k] = aux_sum.get(k, 0.0) + v
     out = _head(params, x, hp, mm_impl, features, mesh=mesh)
@@ -507,7 +511,7 @@ def forward_debug(
         if mp is None:
             x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
         else:
-            x, _ = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl)
+            x, _ = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl, aux=False)
         acts[f"block_{i}"] = x
     if "head_dist" in params and hp.seq_len is None:
         # both normed prefix tokens, as the JAX function keeps them

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from vit_cpp_tpu_torch.ops.flash_attention import flash_attention
 from vit_cpp_tpu_torch.ops.int8_matmul import w8a8_matmul
-from vit_cpp_tpu_torch.ops.qmatmul import quant_matmul
+from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, quant_matmul
 from vit_cpp_tpu_torch.parallel.mesh import reduce_from_model
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qat import fake_quant_act, fake_quant_act_static
@@ -83,14 +83,15 @@ def linear(
     (a row-parallel linear): the per-token absmax of W8A8 and of QAT is
     then the global one, and the product is summed over "model" before it
     is rounded to x's dtype: W8A8 sums its int32 accumulator, a dense or
-    plainly dequantized kernel its f32 partial products. The
-    dequantizing kernel ("pallas") writes x's dtype, so in bf16 its
-    partials are rounded once before their f32 sum as well."""
+    dequantized kernel (the dequantizing kernel too, by its f32-output
+    instantiation) its f32 partial products."""
     if isinstance(kernel, Int8Linear):
         y = w8a8_matmul(x, kernel, mesh=mesh)
     elif isinstance(kernel, QuantLinear):
-        if mesh is None or impl == "pallas":
+        if mesh is None:
             y = quant_matmul(x, kernel, impl=impl)
+        elif impl == "pallas":
+            y = dequant_matmul(x, kernel, f32_out=True)
         else:
             y = _matmul_f32(x, kernel.dequantize(x.dtype))
     else:

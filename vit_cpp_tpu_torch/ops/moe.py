@@ -43,7 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from vit_cpp_tpu_torch.ops.precision import highest_product
-from vit_cpp_tpu_torch.parallel.mesh import axis_rank, copy_to_model, reduce_from_model
+from vit_cpp_tpu_torch.parallel.mesh import (
+    axis_rank,
+    copy_to_model,
+    mean_over_data,
+    reduce_from_model,
+)
 from vit_cpp_tpu_torch.quant.int8 import Int8Linear
 from vit_cpp_tpu_torch.quant.qlinear import QuantLinear
 
@@ -94,6 +99,7 @@ def moe_mlp(
     hp,
     act: Callable[[torch.Tensor], torch.Tensor],
     mesh=None,
+    aux: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One MoE MLP layer. `y` is the LN'd block input (B, T, h); `mp` one
     layer's parameters: router.kernel (h, E), fc1.kernel (E, h, m),
@@ -105,7 +111,13 @@ def moe_mlp(
     over top-1 fractions f and mean router probabilities P; 1 when
     balanced), router_z (the mean squared logsumexp of the logits) and
     dropped_frac (the share of assignments over capacity). Under a mesh
-    `mp` holds this rank's experts when their count is below E."""
+    `mp` holds this rank's experts when their count is below E, and y is
+    this rank's rows of the batch: the two batch means of load_balance
+    are averaged over "data" before their product (mean_over_data), so
+    that the term is the global batch's, as JAX's is on a sharded batch;
+    router_z and dropped_frac stay this rank's means, which the ranks'
+    shares of the loss average. `aux=False` (serving) returns an empty
+    dict and runs no collective for it."""
     b, t, h = y.shape
     e, k = hp.num_experts, hp.moe_top_k
     r = route(y, mp["router"]["kernel"], hp)
@@ -137,14 +149,15 @@ def moe_mlp(
     if el != e:
         out = reduce_from_model(out, mesh)
 
-    probs = torch.softmax(r.logits, dim=-1)
-    f_top1 = F.one_hot(r.idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = {
-        "load_balance": e * (f_top1 * probs.mean(dim=(0, 1))).sum(),
+    if not aux:
+        return out, {}
+    f_top1 = mean_over_data(F.one_hot(r.idx[..., 0], e).float().mean(dim=(0, 1)), mesh)
+    p_mean = mean_over_data(torch.softmax(r.logits, dim=-1).mean(dim=(0, 1)), mesh)
+    return out, {
+        "load_balance": e * (f_top1 * p_mean).sum(),
         "router_z": (torch.logsumexp(r.logits, dim=-1) ** 2).mean(),
         "dropped_frac": 1.0 - r.keep.float().mean(),
     }
-    return out, aux
 
 
 def _subtrees(tree):

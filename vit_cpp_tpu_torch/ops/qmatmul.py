@@ -18,12 +18,15 @@ with one scale (and min) per 32 rows of K per output column.
 
 Numerics of both: the weight is dequantized in f32 as (c - offset) *
 scale, then + min, rounded to x's dtype, and multiplied with f32
-accumulation; y is written in x's dtype. The bias is added by the caller
+accumulation; y is written in x's dtype, or in f32 with `f32_out=True`
+(the partial product of a row-parallel shard, ops/core.py::linear, which
+rounds it only after the sum over "model"; the kernel's bf16 body writes
+its accumulators unrounded). The bias is added by the caller
 (ops/core.py::linear).
 
 `dequant_matmul` goes through a PyTorch operator (_build.py::operator),
 `torch.ops.vit_cpp_tpu_torch.dequant_matmul(x, codes, scales, mins,
-offset, out_features)`, whose CPU implementation is the plain version and
+offset, out_features, f32_out)`, whose CPU implementation is the plain version and
 whose CUDA implementation launches the kernel; its fake implementation
 gives the (..., N) output, so `torch.export` keeps each call as one node
 of the exported program (aot.py).
@@ -88,28 +91,37 @@ def _dequantize(codes, scales, mins, offset: int, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def dequant_matmul_plain(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
+def _product(x2: torch.Tensor, w: torch.Tensor, f32_out: bool) -> torch.Tensor:
+    """x2 @ w, rounded to x's dtype or, with f32_out, left in f32 (bf16
+    products are exact in f32, so the f32 matmul is the kernel's sum)."""
+    if f32_out:
+        return torch.matmul(x2.float(), w.float())
+    return torch.matmul(x2, w)
+
+
+def dequant_matmul_plain(x: torch.Tensor, w: QuantLinear, f32_out: bool = False) -> torch.Tensor:
     """The plain PyTorch version of the kernel (any device); x (..., K)."""
-    y = torch.matmul(_flatten(x, w), w.dequantize(x.dtype))
+    y = _product(_flatten(x, w), w.dequantize(x.dtype), f32_out)
     return y.reshape(*x.shape[:-1], w.out_features)
 
 
-def dequant_matmul(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
-    """x (..., K) @ dequant(w) -> (..., N) in x's dtype.
+def dequant_matmul(x: torch.Tensor, w: QuantLinear, f32_out: bool = False) -> torch.Tensor:
+    """x (..., K) @ dequant(w) -> (..., N) in x's dtype, or in f32 with
+    `f32_out` (bf16 x: the bf16 body's f32-output instantiation).
 
     The kernel reads the QuantLinear's own layout: codes (K, N) int8,
     scales and mins (K/32, N) f32, all row-major; x is (M, K) row-major."""
     _flatten(x, w)
-    return _DEQUANT_MATMUL(x, w.codes, w.scales, w.mins, w.offset, w.out_features)
+    return _DEQUANT_MATMUL(x, w.codes, w.scales, w.mins, w.offset, w.out_features, f32_out)
 
 
-def _dequant_matmul_cpu(x, codes, scales, mins, offset, out_features):
+def _dequant_matmul_cpu(x, codes, scales, mins, offset, out_features, f32_out=False):
     k = x.shape[-1]
-    y = torch.matmul(x.reshape(-1, k), _dequantize(codes, scales, mins, offset, x.dtype))
+    y = _product(x.reshape(-1, k), _dequantize(codes, scales, mins, offset, x.dtype), f32_out)
     return y.reshape(*x.shape[:-1], out_features)
 
 
-def _dequant_matmul_cuda(x, codes, scales, mins, offset, out_features):
+def _dequant_matmul_cuda(x, codes, scales, mins, offset, out_features, f32_out=False):
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     m, n = x2.shape[0], out_features
@@ -131,14 +143,17 @@ def _dequant_matmul_cuda(x, codes, scales, mins, offset, out_features):
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:  # the kernel loads x in 16-byte vectors
         x2 = x2.clone(memory_format=torch.contiguous_format)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    # the f32 body's output is f32 already; bf16 x writes f32 by dtype code 2
+    out_dtype = torch.float32 if f32_out else x.dtype
+    code = 2 if f32_out and x.dtype == torch.bfloat16 else _DTYPES[x.dtype]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.vit_dequant_matmul(
             x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
             None if mins is None else mins.data_ptr(), out.data_ptr(),
-            m, n, k, offset, _DTYPES[x.dtype],
+            m, n, k, offset, code,
             tile_rows(m, n, _sm_count(x.device.index)), stream,
         )
     check(rc, "dequant_matmul kernel launch")
@@ -146,13 +161,14 @@ def _dequant_matmul_cuda(x, codes, scales, mins, offset, out_features):
     return out.reshape(*x.shape[:-1], n)
 
 
-def _dequant_matmul_fake(x, codes, scales, mins, offset, out_features):
-    return x.new_empty((*x.shape[:-1], out_features))
+def _dequant_matmul_fake(x, codes, scales, mins, offset, out_features, f32_out=False):
+    return x.new_empty((*x.shape[:-1], out_features),
+                       dtype=torch.float32 if f32_out else x.dtype)
 
 
 _DEQUANT_MATMUL = operator(
     "dequant_matmul(Tensor x, Tensor codes, Tensor scales, Tensor? mins, int offset, "
-    "int out_features) -> Tensor",
+    "int out_features, bool f32_out=False) -> Tensor",
     cpu=_dequant_matmul_cpu, cuda=_dequant_matmul_cuda, fake=_dequant_matmul_fake,
 )
 

@@ -32,10 +32,12 @@ from __future__ import annotations
 
 import os
 from datetime import timedelta
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from vit_cpp_tpu_torch._build import operator
 
 AXES = ("data", "model")
 TIMEOUT_S = 600.0
@@ -125,13 +127,15 @@ def make_mesh(
             f"--nproc-per-node {n}"
         )
     grid = torch.tensor(devices, dtype=torch.int64).reshape(dp, tp)
-    return DeviceMesh(device_type, grid, mesh_dim_names=AXES)
+    mesh = DeviceMesh(device_type, grid, mesh_dim_names=AXES)
+    _register(mesh)
+    return mesh
 
 
-def launcher_hint(tool: str, n: int) -> str:
+def launcher_hint(tool: str, n: int, what: str = "--mesh") -> str:
     """The stderr line that names the launcher a multi-rank mesh needs."""
     return (
-        f"--mesh needs one process per device: python -m torch.distributed.run "
+        f"{what} needs one process per device: python -m torch.distributed.run "
         f"--nproc-per-node {n} -m vit_cpp_tpu_torch.cli.{tool} ..."
     )
 
@@ -162,32 +166,91 @@ def is_leader() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-# -- tensor-parallel collectives -----------------------------------------------
+# -- collectives as operators ------------------------------------------------
+#
+# Every collective of a forward runs through one of two PyTorch operators,
+# `torch.ops.vit_cpp_tpu_torch.all_reduce_over(x, axis, size, op)` and
+# `.all_gather_over(x, axis, size, dim)`. Each resolves its process group
+# when it runs, from the mesh that this process built with `make_mesh`:
+# the group of this rank along `axis`, whose size is `size`. Under a
+# launcher every mesh covers the whole world, so (axis, size) names one
+# group. `torch.export` keeps each call as one node of a program (aot.py),
+# and a program loaded in a fresh process binds to the mesh that process
+# builds. With no such mesh the operator raises.
+
+_GROUPS: Dict[Tuple[str, int], Any] = {}
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _register(mesh) -> None:
+    for axis in AXES:
+        _GROUPS[(axis, axis_size(mesh, axis))] = mesh.get_group(axis)
+
+
+def _group(axis: str, size: int):
+    group = _GROUPS.get((axis, size))
+    if group is None:
+        raise RuntimeError(
+            f"no mesh with a {axis!r} axis of {size} ranks was built in this process: "
+            "a sharded program's collectives run on the mesh of "
+            "vit_cpp_tpu_torch.parallel.mesh.make_mesh"
+        )
+    return group
+
+
+def _all_reduce_impl(x, axis, size, op):
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=_REDUCE_OPS[op], group=_group(axis, size))
+    return y
+
+
+def _all_gather_impl(x, axis, size, dim):
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=_group(axis, size))
+    return torch.cat(parts, dim=dim)
+
+
+def _all_gather_fake(x, axis, size, dim):
+    shape = list(x.shape)
+    shape[dim] *= size
+    return x.new_empty(shape)
+
+
+_ALL_REDUCE = operator(
+    "all_reduce_over(Tensor x, str axis, int size, str op) -> Tensor",
+    cpu=_all_reduce_impl, cuda=_all_reduce_impl,
+    fake=lambda x, axis, size, op: x.new_empty(x.shape),
+)
+_ALL_GATHER = operator(
+    "all_gather_over(Tensor x, str axis, int size, int dim) -> Tensor",
+    cpu=_all_gather_impl, cuda=_all_gather_impl, fake=_all_gather_fake,
+)
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 class _CopyToModel(torch.autograd.Function):
     """f: identity forward, all-reduce (sum) backward over "model"."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, size):
+        ctx.size = size
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _ALL_REDUCE(g, "model", ctx.size, "sum"), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     """g: all-reduce (sum) forward, identity backward over "model"."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
-        return y
+    def forward(ctx, x, size):
+        return _ALL_REDUCE(x, "model", size, "sum")
 
     @staticmethod
     def backward(ctx, g):
@@ -198,53 +261,86 @@ class _GatherFromModel(torch.autograd.Function):
     """All-gather along the last dim forward, this rank's slice backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        n = dist.get_world_size(group)
-        ctx.rank, ctx.width = dist.get_rank(group), x.shape[-1]
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=-1)
+    def forward(ctx, x, size, rank):
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        return _ALL_GATHER(x, "model", size, -1)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(-1, ctx.rank * ctx.width, ctx.width), None
+        return g.narrow(-1, ctx.rank * ctx.width, ctx.width), None, None
+
+
+class _MeanOverData(torch.autograd.Function):
+    """The mean over "data" forward, the mean of the gradients backward:
+    a term that every data rank computes from the global batch, added to
+    each rank's share of the loss (parallel/train.py), gets each rank's
+    share of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return _ALL_REDUCE(x, "data", size, "sum") / size
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ALL_REDUCE(g, "data", ctx.size, "sum") / ctx.size, None
 
 
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
-    if axis_size(mesh, "model") == 1:
+    tp = axis_size(mesh, "model")
+    if tp == 1 or not _needs_grad(x):
         return x
-    return _CopyToModel.apply(x, axis_group(mesh, "model"))
+    return _CopyToModel.apply(x, tp)
 
 
 def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
-    if axis_size(mesh, "model") == 1:
+    tp = axis_size(mesh, "model")
+    if tp == 1:
         return x
-    return _ReduceFromModel.apply(x, axis_group(mesh, "model"))
+    if _needs_grad(x):
+        return _ReduceFromModel.apply(x, tp)
+    return _ALL_REDUCE(x, "model", tp, "sum")
 
 
-def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
-    if axis_size(mesh, "model") == 1:
+def gather_from_model(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """All-gather over "model" along the last dim (differentiable), or
+    along `dim` with no gradient (attention maps' heads)."""
+    tp = axis_size(mesh, "model")
+    if tp == 1:
         return x
-    return _GatherFromModel.apply(x, axis_group(mesh, "model"))
+    if _needs_grad(x):
+        if dim != -1:
+            raise ValueError("gather_from_model differentiates along the last dim only")
+        return _GatherFromModel.apply(x, tp, axis_rank(mesh, "model"))
+    return _ALL_GATHER(x, "model", tp, dim)
+
+
+def mean_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over "data" of a per-rank batch statistic (differentiable,
+    _MeanOverData)."""
+    dp = axis_size(mesh, "data")
+    if dp == 1:
+        return x
+    if _needs_grad(x):
+        return _MeanOverData.apply(x, dp)
+    return _ALL_REDUCE(x, "data", dp, "sum") / dp
 
 
 def max_over(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """Elementwise maximum over an axis (no gradient): the global absmax
     of a K-sharded activation, a calibration site's maximum."""
-    if axis_size(mesh, axis) == 1:
+    n = axis_size(mesh, axis)
+    if n == 1:
         return x
-    y = x.detach().contiguous().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=axis_group(mesh, axis))
-    return y
+    return _ALL_REDUCE(x.detach(), axis, n, "max")
 
 
 def sum_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Sum over an axis with no gradient (int32 accumulators, counts)."""
-    if axis_size(mesh, axis) == 1:
+    n = axis_size(mesh, axis)
+    if n == 1:
         return x
-    y = x.detach().contiguous().clone()
-    dist.all_reduce(y, group=axis_group(mesh, axis))
-    return y
+    return _ALL_REDUCE(x.detach(), axis, n, "sum")
 
 
 def gather_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -254,10 +350,7 @@ def gather_over_data(x: torch.Tensor, mesh) -> torch.Tensor:
     n = axis_size(mesh, "data")
     if n == 1:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=axis_group(mesh, "data"))
-    return torch.cat(parts, dim=0)
+    return _ALL_GATHER(x.detach(), "data", n, 0)
 
 
 def data_slice(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -173,7 +173,8 @@ def _is_qkv(path) -> bool:
 
 
 def model_shard(t: torch.Tensor, dim: int, mesh, qkv: bool = False) -> torch.Tensor:
-    """This model rank's part of `t` along `dim`, contiguous. A qkv column
+    """This model rank's part of `t` along `dim`, a contiguous copy that
+    owns its storage. A qkv column
     tensor splits its nh axis: (..., 3, tp, h/tp) -> rank's (..., 3h/tp)."""
     tp, r = axis_size(mesh, "model"), axis_rank(mesh, "model")
     if tp == 1:
@@ -183,7 +184,9 @@ def model_shard(t: torch.Tensor, dim: int, mesh, qkv: bool = False) -> torch.Ten
         v = t.reshape(*t.shape[:-1], 3, tp, t.shape[-1] // (3 * tp))
         return v[..., r, :].reshape(*t.shape[:-1], t.shape[-1] // tp).contiguous()
     n = t.shape[dim] // tp
-    return t.narrow(dim, r * n, n).contiguous()
+    # a copy: a slice along the first dim is contiguous already and would
+    # keep the whole tensor's storage (an exported program saves it whole)
+    return t.narrow(dim, r * n, n).clone(memory_format=torch.contiguous_format)
 
 
 def _gather_model(t: torch.Tensor, dim: int, mesh, qkv: bool) -> torch.Tensor:
@@ -258,7 +261,8 @@ def _place(path, t: torch.Tensor, spec, mesh, dtensor: bool = False):
     local = t.contiguous()
     if data_dim is not None:
         n = t.shape[data_dim] // axis_size(mesh, "data")
-        local = t.narrow(data_dim, axis_rank(mesh, "data") * n, n).contiguous()
+        local = t.narrow(data_dim, axis_rank(mesh, "data") * n, n).clone(
+            memory_format=torch.contiguous_format)
     return as_dtensor(local, spec, mesh)
 
 

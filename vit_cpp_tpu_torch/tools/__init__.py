@@ -13,6 +13,9 @@ measurement tools that run a kernel of their own.
 - sass_census: no JAX counterpart; each kernel's SASS instructions,
   tensor-core instructions by kind (HGMMA, IGMMA, HMMA, IMMA), registers
   and spills, beside another tree's (nvcc and cuobjdump only, no card).
+- mesh_vitx: no JAX counterpart; a sharded .vitx artifact exported and
+  served by vit-server across dp x tp cards under the launcher, against
+  the sharded engine, with the forward's times beside one card's.
 
 Each runs as `python -m vit_cpp_tpu_torch.tools.<name>` with the JAX
 tool's flags, the first three on the card only: a device timing never

@@ -241,7 +241,21 @@
    o. the operators' host cost (phase `op_dispatch`): host us per call
       of attention_qkv and dequant_matmul through torch.ops and through
       their CUDA implementations called directly, and the Q8_0 --mm
-      pallas B=8 and ToMe r=16 B=64 forwards each way, in turns.
+      pallas B=8 and ToMe r=16 B=64 forwards each way, in turns;
+   p. rematerialisation (phase `remat_paths`, after g): the f32 ViT-B/16
+      at B=32 through train_step under each `remat` mode (False, True,
+      "dots", "dots+attn"; the training losses run "dots+attn"): one
+      step's gradients against remat=False's (bit-equal, else within
+      tests/test_torch_train.py's bound), 12 / 24 / 24 / 12 attention_qkv
+      and 12 attention_qkv_grad launches per update, peak device memory,
+      ms per update by cuda_ms and on the host clock; ViT-H/14 @224 in
+      f32 (hidden 1280, 32 layers, d=80, T=257), attention_qkv (safe)
+      and attention_qkv_grad at B=8 against their plain versions and
+      timed, its weights made on the card from seed 0 by
+      params_from_state_dict, the peak of a B=32 update in each mode, and
+      two B=128 updates through cross_entropy_loss under "dots+attn"
+      (finite losses, peak under H14_PEAK_GIB; the update does not fit
+      without remat, and is not tried).
    The daemons get the ten images of assets/ concurrently; every answer
    must be 200 with a top-5 that agrees with an f32 engine (mm=xla,
    attn=xla) on the same file and card, and /stats must count them all.
@@ -5016,6 +5030,222 @@ def stage_parity(f16: str, card: str) -> None:
     log(f"phase stage_parity: {time.perf_counter() - t0:.1f} s")
 
 
+# ViT-H/14 @224 (BENCH_DETAILS.json's vith14_224 rows): hidden 1280, 32
+# layers, 16 heads of d=80, MLP 5120, T=257
+VIT_H14 = dict(hidden_size=1280, num_hidden_layers=32, num_attention_heads=16,
+               num_classes=1000, patch_size=14, img_size=224)
+# the ViT-H/14 f32 update at B=128 under "dots+attn" must stay below this
+# (the card holds 79.6 GiB)
+H14_PEAK_GIB = 79.0
+# remat's gradients against remat=False's, where they are not bit-equal:
+# tests/test_torch_train.py's bound
+REMAT_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
+
+
+def remat_kernels(card: str) -> dict:
+    """K1 (f32, safe) and K2 (f32) at the ViT-H/14 training shape B=8,
+    T=257, 16 heads of d=80, against their plain versions, then timed
+    beside their bound and scaled_dot_product_attention."""
+    from vit_cpp_tpu_torch.ops.flash_attention import (
+        attention_qkv, attention_qkv_grad, attention_qkv_grad_plain, attention_qkv_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, t, h, nh = 8, 257, 1280, 16
+    qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda")
+    do = torch.randn((b, t, h), generator=gen, device="cuda")
+    out = {}
+    for name, kern, plain, tol in (
+        ("attention_qkv", lambda: attention_qkv(qkv, nh),
+         lambda: attention_qkv_plain(qkv, nh), lambda ref: TOL[torch.float32]),
+        ("attention_qkv_grad", lambda: attention_qkv_grad(qkv, do, nh),
+         lambda: attention_qkv_grad_plain(qkv, do, nh),
+         lambda ref: GRAD_TOL[torch.float32] * ref.abs().max().item()),
+    ):
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        log(f"kernel case {name} vit-h14 f32 safe B={b} T={t} h={h} nh={nh} (d=80): "
+            f"max|kernel - plain| = {err:.3e} (tolerance {tol(ref):.3e})")
+        if not torch.isfinite(got).all() or not err <= tol(ref):
+            raise AssertionError(f"{name} at the ViT-H/14 shape: error {err}")
+        k_ms, p_ms = time_pair(f"{name} B={b} T={t} h={h} f32 (ViT-H/14)", card, kern, plain)
+        if name == "attention_qkv":
+            lib = sdpa_ms(qkv, nh)
+            b_ms, b_by = attention_bound(b, t, h, 4)
+        else:
+            lib = sdpa_grad_ms(qkv, do, nh)
+            b_ms, b_by = bound(10.0 * b * t * t * h, 7 * b * t * h * 4, "f32")
+        log(f"{name} ViT-H/14 B={b} T={t} f32: bound {b_ms:.4f} ms ({b_by}), library "
+            f"scaled_dot_product_attention{' backward' if 'grad' in name else ''} "
+            f"{lib:.4f} ms on {card}")
+        out[name] = (k_ms, p_ms, b_ms, b_by, lib)
+    return out
+
+
+def _update_stats(state, x, y, hp, what: str, card: str, timed: bool = True) -> dict:
+    """One train_step of `state` (after a warm one) with the launch counts
+    set to 0 just before and read just after, and the peak device memory
+    in it; then, with `timed`, ms per update by cuda_ms and by the host
+    clock over 5 updates. An update launches more kernels than CUDA's
+    launch queue holds behind cuda_ms's sleep, so cuda_ms times it as it
+    runs: its span is device time plus any gap the host leaves."""
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.parallel.train import TRAIN_REMAT, train_step
+
+    train_step(state, x, y, hp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.reset()
+    GRAD_KERNEL.reset()
+    t0 = time.perf_counter()
+    loss = float(train_step(state, x, y, hp))
+    one_ms = (time.perf_counter() - t0) * 1e3
+    launches = (KERNEL.launches, GRAD_KERNEL.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not np.isfinite(loss) or not launches[0] or not launches[1]:
+        raise AssertionError(f"{what}: loss {loss}, launches {launches}")
+    stats = dict(launches=launches, peak=peak, one_ms=one_ms, loss=loss)
+    line = (f"{what} remat={TRAIN_REMAT}: {launches[0]} attention_qkv + {launches[1]} "
+            f"attention_qkv_grad launches per update, peak {peak:.2f} GiB, loss {loss:.5f}")
+    if timed:
+        stats["device_ms"] = cuda_ms(lambda: train_step(state, x, y, hp), iters=5)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            train_step(state, x, y, hp)
+        torch.cuda.synchronize()
+        stats["wall_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+        line += (f"; {stats['device_ms']:.2f} ms of device time per update (cuda_ms), "
+                 f"{stats['wall_ms']:.2f} ms wall (5 updates)")
+    else:
+        line += f"; {one_ms:.1f} ms wall"
+    log(f"{line} on {card}")
+    return stats
+
+
+def remat_paths(f32: str, card: str) -> tuple:
+    """Rematerialisation (models/vit.py::forward's `remat`; the training
+    losses run parallel/train.py::TRAIN_REMAT, "dots+attn"):
+    (a) ViT-B/16 f32 at B=32 through train_step in each mode: one step's
+        gradients against remat=False's, K1 and K2 launches per update
+        (12 / 24 / 24 / 12 and 12), peak device memory, ms per update;
+    (b) ViT-H/14 f32: K1 and K2 at its training shape against their plain
+        versions and timed; its weights made on the card by
+        params_from_state_dict(random_state_dict(hp, 0)); the peak of a
+        B=32 update in each mode; then two B=128 updates through
+        cross_entropy_loss under "dots+attn", with finite losses and a
+        peak under H14_PEAK_GIB. No B=128 update runs without remat.
+    Returns ({path: {kernel: launches per update}}, {path: K2 launches per
+    update}, the ViT-H/14 kernel times)."""
+    from vit_cpp_tpu_torch.gguf.reader import read_model
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.models.params import load_params, params_from_state_dict
+    from vit_cpp_tpu_torch.models.vit import REMAT_MODES
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.parallel import train as T
+    from vit_cpp_tpu_torch.testing.synthetic import random_state_dict
+
+    t_phase = time.perf_counter()
+    # a remat update adds Python work per op (the recompute, the policy's
+    # dispatch mode): other threads of this process compete for the host
+    log(f"remat_paths: {threading.active_count()} Python threads alive in this process")
+    launches, grads = {}, {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hp = VitHParams(**VIT_B16)
+    mf = read_model(f32)
+    x = torch.randn((32, 3, 224, 224), generator=gen, device="cuda")
+    y = torch.randint(0, hp.num_classes, (32,), generator=gen, device="cuda")
+    ref = None
+    try:
+        for mode in REMAT_MODES:
+            T.TRAIN_REMAT = mode
+            state = T.create_train_state(load_params(mf, torch.float32, hparams=hp,
+                                                     device="cuda"))
+            g = torch.autograd.grad(T.cross_entropy_loss(state.params, x, y, hp),
+                                    state.optimizer.params)
+            if ref is None:
+                ref = g
+            else:
+                worst = max((a - b).abs().max().item() for a, b in zip(g, ref))
+                same = all(torch.equal(a, b) for a, b in zip(g, ref))
+                log(f"remat ViT-B/16 B=32 remat={mode}: one step's gradients "
+                    f"{'bit-equal to' if same else f'{worst:.3e} at most from'} remat=False's "
+                    f"over {len(g)} leaves")
+                if not same and not all(torch.allclose(a, b, **REMAT_GRAD_TOL)
+                                        for a, b in zip(g, ref)):
+                    raise AssertionError(f"remat={mode}: gradients off by {worst}")
+            del g
+            st = _update_stats(state, x, y, hp, "remat ViT-B/16 f32 B=32 train_step", card)
+            layers = hp.num_hidden_layers
+            want = (2 * layers if mode in (True, "dots") else layers, layers)
+            if st["launches"] != want:
+                raise AssertionError(f"remat={mode}: launches {st['launches']}, want {want}")
+            path = f"train_step remat={mode}"
+            launches[path] = {KERNEL.name: st["launches"][0], GRAD_KERNEL.name: st["launches"][1]}
+            grads[path] = st["launches"][1]
+            del state
+        del ref
+        torch.cuda.empty_cache()
+
+        times = remat_kernels(card)
+        hh = VitHParams(**VIT_H14)
+        t0 = time.perf_counter()
+        params = params_from_state_dict(random_state_dict(hh, seed=0), hh, device="cuda")
+        n = sum(p.numel() for p in T.tree_leaves(params))
+        log(f"remat ViT-H/14 f32: {n / 1e6:.1f} M parameters made by params_from_state_dict on "
+            f"the card in {time.perf_counter() - t0:.1f} s")
+        state = T.create_train_state(params)
+        fixed = 4 * 4 * n / 2**30  # parameters, gradients, AdamW's two moments
+        peaks = {}
+        x = torch.randn((32, 3, 224, 224), generator=gen, device="cuda")
+        y = torch.randint(0, hh.num_classes, (32,), generator=gen, device="cuda")
+        for mode in REMAT_MODES:
+            T.TRAIN_REMAT = mode
+            st = _update_stats(state, x, y, hh, "remat ViT-H/14 f32 B=32 train_step", card,
+                               timed=False)
+            peaks[mode] = st["peak"]
+            path = f"vit-h14 B=32 train_step remat={mode}"
+            launches[path] = {KERNEL.name: st["launches"][0], GRAD_KERNEL.name: st["launches"][1]}
+            grads[path] = st["launches"][1]
+        log(f"remat ViT-H/14 f32 B=32 peaks: " + ", ".join(
+            f"{m}: {p:.2f} GiB" for m, p in peaks.items())
+            + f"; parameters, gradients and moments {fixed:.2f} GiB; without remat B=128 "
+            f"would take ~{fixed + 4 * (peaks[False] - fixed):.1f} GiB (4 x the B=32 "
+            f"activations; not run)")
+        T.TRAIN_REMAT = "dots+attn"
+        del x, y
+        torch.cuda.empty_cache()
+        x = torch.randn((128, 3, 224, 224), generator=gen, device="cuda")
+        y = torch.randint(0, hh.num_classes, (128,), generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL.reset()
+        GRAD_KERNEL.reset()
+        losses, ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            losses.append(float(T.update(state, T.cross_entropy_loss(state.params, x, y, hh))))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n1, n2 = KERNEL.launches, GRAD_KERNEL.launches
+        log(f"remat ViT-H/14 f32 B=128 cross_entropy_loss remat=dots+attn: 2 updates, losses "
+            f"{losses}, {ms[0]:.1f} / {ms[1]:.1f} ms wall, peak {peak:.2f} GiB (limit "
+            f"{H14_PEAK_GIB}), {n1} attention_qkv + {n2} attention_qkv_grad launches on {card}")
+        per_update = hh.num_hidden_layers
+        if (not all(np.isfinite(losses)) or not peak < H14_PEAK_GIB
+                or (n1, n2) != (2 * per_update, 2 * per_update)):
+            raise AssertionError(f"ViT-H/14 B=128: losses {losses}, peak {peak}, ({n1}, {n2})")
+        launches["vit-h14 B=128 cross_entropy_loss remat=dots+attn"] = {
+            KERNEL.name: n1, GRAD_KERNEL.name: n2}
+        grads["vit-h14 B=128 cross_entropy_loss remat=dots+attn"] = n2
+        del state, params, x, y
+    finally:
+        T.TRAIN_REMAT = "dots+attn"
+        torch.cuda.empty_cache()
+    log(f"remat_paths: {time.perf_counter() - t_phase:.1f} s")
+    return launches, grads, times
+
+
 def run_paths(card: str):
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
@@ -5066,6 +5296,8 @@ def run_paths(card: str):
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
         slice_parity(f32)
         grad_launches = finetune_path(f16, tmp)
+        remat_launches, remat_grad_launches, remat_times = remat_paths(f32, card)
+        serve_launches.update(remat_launches)
         tome_launches, tome_grad_launches = tome_paths(f16, q8, tmp, card, images)
         serve_launches.update(tome_launches)
         moe_launches, moe_grad_launches = moe_paths(f16, tmp, card, images)
@@ -5077,9 +5309,9 @@ def run_paths(card: str):
     grad_launches = {"cli.finetune": grad_launches,
                      f"cli.finetune --tome {TOME_TRAIN_R}": tome_grad_launches,
                      "cli.finetune --moe 8": moe_grad_launches, **extras_grad_launches,
-                     **mesh_grad}
+                     **mesh_grad, **remat_grad_launches}
     return (f16_launches, q8_launches, flash_launches, grad_launches, serve_launches,
-            (mesh_shards, mesh_errs))
+            (mesh_shards, mesh_errs), remat_times)
 
 
 def main() -> int:
@@ -5120,7 +5352,7 @@ def main() -> int:
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
     (_, q8_launches, flash_launches, grad_launches, serve_launches,
-     (shards, shard_errs)) = run_paths(card)
+     (shards, shard_errs), remat_times) = run_paths(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -5156,11 +5388,13 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         # K1: bf16 fast at ViT-B/16 B=8; B=64 and the training forward
-        # (f32 safe, B=32) beside it, and both at tensor-parallel shards
+        # (f32 safe, B=32; ViT-H/14 B=8) beside it, and both at
+        # tensor-parallel shards
         {**entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
-                 b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"]),
+                 b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"],
+                 h14_f32_b8=remat_times[KERNEL.name]),
          **by_shard(KERNEL.name)},
         # K4: its f32-output instantiation (a bf16 rank's row-parallel
         # partials) at the row shards of tp = 2, 4 under "f32_out"
@@ -5174,11 +5408,12 @@ def main() -> int:
                      for case, t in shards["dequant_matmul f32_out"].items()},
          "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"]},
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
-        # K2: f32 at ViT-B/16 B=32 (the training path's); bf16 and T=785
-        # beside it, and f32 at tensor-parallel shards
+        # K2: f32 at ViT-B/16 B=32 (the training path's); bf16, T=785 and
+        # ViT-H/14 B=8 beside it, and f32 at tensor-parallel shards
         {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,
                  k2_times[(torch.float32, 197)], by_path=grad_launches,
-                 bf16=k2_times[(torch.bfloat16, 197)], t785=k2_times[(torch.float32, 785)]),
+                 bf16=k2_times[(torch.bfloat16, 197)], t785=k2_times[(torch.float32, 785)],
+                 h14_f32_b8=remat_times[GRAD_KERNEL.name]),
          **by_shard(GRAD_KERNEL.name)},
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL)),

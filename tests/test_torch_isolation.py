@@ -200,6 +200,35 @@ def test_the_aot_modules_are_checked(module):
     assert module in SOURCES
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_from_state_dict_is_the_ports_own_copy(dtype):
+    """models/params.py::params_from_state_dict is the port's own (built on
+    the port's reader records and loader) and builds the JAX function's
+    tree from the port's copy of random_state_dict."""
+    import jax.numpy as jnp
+    import torch
+
+    from vit_cpp_tpu.models.params import params_from_state_dict as jax_from_state
+    from vit_cpp_tpu_torch.models import params as port_params
+    from vit_cpp_tpu_torch.testing.synthetic import random_state_dict
+
+    fn = port_params.params_from_state_dict
+    assert fn.__module__ == "vit_cpp_tpu_torch.models.params"
+    state = random_state_dict(VitHParams(**GEOMETRY), seed=7)
+    got = fn(state, VitHParams(**GEOMETRY), dtype=getattr(torch, dtype))
+    want = port_params.params_from_jax(jax_from_state(state, JaxHParams(**GEOMETRY),
+                                                      dtype=getattr(jnp, dtype)))
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for n, sub in tree.items() for k, v in flat(sub, f"{prefix}{n}.").items()}
+        return {prefix[:-1]: tree}
+
+    got, want = flat(got), flat(want)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) and got[k].dtype == want[k].dtype for k in got)
+
+
 def test_bundled_classnames_are_byte_identical():
     ours = os.path.join(REPO, "vit_cpp_tpu_torch", "data", "classnames.json")
     theirs = os.path.join(REPO, "vit_cpp_tpu", "data", "classnames.json")

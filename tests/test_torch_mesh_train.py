@@ -3,7 +3,8 @@ create_train_state path (tests/test_parallel.py, tests/test_fsdp.py).
 
 One spawn of 4 ranks runs 2x2 with and without FSDP and 4x1, the FSDP
 memory check, the sharded checkpoint's resume, ViTSTR's accumulated
-masked mean, LoRA over the sharded base and a V-MoE model; one spawn of 2
+masked mean, LoRA over the sharded base, a V-MoE model and a 2x2 update
+under "dots+attn" rematerialisation against one without; one spawn of 2
 ranks runs the V-MoE model at 2x1; one spawn of 8 ranks runs 4x2 with and
 without FSDP; one of 4 ranks runs `cli.finetune --mesh 2x2` with --lora,
 --distill and --moe.
@@ -128,6 +129,59 @@ def _train_rank(tree, x, y, meshes, extra, hp_kw=HP_KW):
         out["accum_grads"] = _grads(st)
         out["lora"] = _lora_updates(_torch(extra["lora_base"]), _torch(extra["lora_tr"]),
                                     torch.from_numpy(x), torch.from_numpy(y), hp, mesh)
+        out["remat"] = _remat_updates(tree, x, y, hp, mesh)
+    return out
+
+
+def _remat_updates(tree, x, y, hp, mesh):
+    """One 2x2 update (without and with FSDP, and with QAT's dynamic
+    activation quantization, whose per-token absmax is all-reduced over
+    "model") under the training losses' "dots+attn" and one with remat off
+    -> per case: whether every rank's gradients and updated parameters are
+    bit-equal between the two, the collectives rank 0 issued in each
+    backward, and whether every rank issued the same sequence."""
+    import torch.distributed as dist
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from vit_cpp_tpu_torch.parallel import train as T
+
+    class Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket)
+            if "all_reduce" in name or "all_gather" in name or "reduce_scatter" in name:
+                # the axis and size of the port's operators; a functional
+                # collective's group name differs between the groups of a mesh
+                kinds = (str, int) if name.startswith("vit_cpp_tpu_torch") else int
+                self.calls.append((name, *(a for a in args[1:] if isinstance(a, kinds))))
+            return func(*args, **(kwargs or {}))
+
+    bx, by = T.shard_batch(torch.from_numpy(x), torch.from_numpy(y), mesh)
+    out = {}
+    for case, fsdp, qat in (("tp", False, ""), ("fsdp", True, ""), ("tp-qat", False, "w8a8")):
+        runs = {}
+        for mode in (False, "dots+attn"):
+            T.TRAIN_REMAT = mode
+            st = T.create_train_state(_torch(tree), KW, mesh=mesh, fsdp=fsdp)
+            loss = T.cross_entropy_loss(st.params, bx, by, hp, qat=qat, mesh=mesh)
+            st.optimizer.zero_grad()
+            with Collectives() as seen:
+                loss.backward()
+            grads = [T.local_tensor(p.grad).clone() for p in st.optimizer.params]
+            st.optimizer.step()
+            runs[mode] = (grads, [T.local_tensor(p).detach().clone()
+                                  for p in st.optimizer.params], seen.calls)
+        T.TRAIN_REMAT = "dots+attn"
+        (g0, p0, c0), (g1, p1, c1) = runs[False], runs["dots+attn"]
+        equal = torch.tensor(int(all(torch.equal(a, b) for a, b in zip(g0 + p0, g1 + p1))))
+        dist.all_reduce(equal, op=dist.ReduceOp.MIN)
+        seqs = [None] * dist.get_world_size()
+        dist.all_gather_object(seqs, (c0, c1))
+        out[case] = dict(equal=bool(equal), calls=(c0, c1),
+                         same_on_every_rank=all(s == seqs[0] for s in seqs))
     return out
 
 
@@ -362,6 +416,21 @@ def test_accum_masked_loss_is_the_global_mean(tmp_path_factory):
     got = _flat(runs["accum_grads"])
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["tp", "fsdp", "tp-qat"])
+def test_remat_on_mesh_is_bit_equal_and_issues_no_collective_again(tmp_path_factory, case):
+    """A 2x2 update under "dots+attn" (the training losses' policy) is bit
+    for bit the update with remat off on every rank: the policy saves the
+    collectives' outputs, so the backward issues exactly the collectives
+    of the run without remat (the f / g backward all-reduces, FSDP's
+    reduce-scatters), none again for the recompute (QAT's absmax
+    all-reduce included), in the same order on every rank."""
+    got = _runs(tmp_path_factory, 4)["remat"][case]
+    assert got["equal"]
+    plain, remat = got["calls"]
+    assert plain and remat == plain
+    assert got["same_on_every_rank"]
 
 
 def test_lora_on_mesh_matches_unsharded_and_jax(tmp_path_factory):

@@ -111,3 +111,60 @@ def test_preprocess_batch_matches_jax(mode):
     diff = np.abs(got - ref)
     assert diff.max() <= 1.0 / 57.0 + 1e-5
     assert (diff > 1e-5).mean() < 1e-3
+
+
+STATE_CASES = {
+    "cls": {},
+    "distilled": {"num_prefix_tokens": 2, "norm_pre": True},
+    "avg-registers": {"global_pool": "avg", "num_reg_tokens": 2},
+    "moe": {"num_experts": 4, "moe_layers": (1,), "moe_top_k": 2},
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("extra", list(STATE_CASES.values()), ids=list(STATE_CASES))
+def test_params_from_state_dict_matches_jax(extra, dtype):
+    """The port's own params_from_state_dict on the same state dict gives
+    the JAX function's tree, leaf for leaf and bit for bit."""
+    from vit_cpp_tpu.models.params import params_from_state_dict as jax_from_state
+    from vit_cpp_tpu.testing.synthetic import random_state_dict
+    from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
+    from vit_cpp_tpu_torch.models.params import params_from_state_dict
+
+    kw = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2, num_classes=7,
+              patch_size=8, img_size=16, **extra)
+    state = random_state_dict(VitHParams(**kw), seed=4)
+    ref = _flatten(params_from_jax(jax_from_state(state, VitHParams(**kw),
+                                                  dtype=getattr(jnp, dtype))))
+    got = _flatten(params_from_state_dict(state, PortHParams(**kw), dtype=getattr(torch, dtype)))
+    assert got.keys() == ref.keys()
+    for name, t in got.items():
+        assert t.dtype == ref[name].dtype and t.shape == ref[name].shape, name
+        torch.testing.assert_close(t, ref[name], rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_predict_probs_matches_jax(attn_impl):
+    """vit.predict_probs: the forward's f32 softmax, as the JAX function's
+    (f32 weights, the same images; summation order only)."""
+    import jax.numpy as jnp_
+
+    from vit_cpp_tpu.models.params import params_from_state_dict as jax_from_state
+    from vit_cpp_tpu.models.vit import predict_probs as jax_predict_probs
+    from vit_cpp_tpu.testing.synthetic import random_state_dict
+    from vit_cpp_tpu_torch.hparams import VitHParams as PortHParams
+    from vit_cpp_tpu_torch.models.params import params_from_state_dict
+    from vit_cpp_tpu_torch.models.vit import predict_probs
+
+    kw = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2, num_classes=7,
+              patch_size=8, img_size=32)
+    state = random_state_dict(VitHParams(**kw), seed=5)
+    x = np.random.default_rng(6).standard_normal((3, 3, 32, 32)).astype(np.float32)
+    ref = np.asarray(jax_predict_probs(jax_from_state(state, VitHParams(**kw)),
+                                       jnp_.asarray(x), VitHParams(**kw), attn_impl=attn_impl))
+    with torch.no_grad():
+        got = predict_probs(params_from_state_dict(state, PortHParams(**kw)),
+                            torch.from_numpy(x), PortHParams(**kw), attn_impl=attn_impl)
+    assert got.dtype == torch.float32 and got.shape == (3, 7)
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-6, rtol=1e-5)

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType
 from vit_cpp_tpu_torch.gguf.reader import ModelFile, TensorRecord
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.quant import qlinear
@@ -360,6 +361,20 @@ def load_params(
             }
     rs.check_all_used()
     return params
+
+
+def params_from_state_dict(
+    state: Dict[str, np.ndarray], hp: VitHParams, dtype=torch.float32, device="cpu"
+) -> Dict[str, Any]:
+    """Build params directly from an f32 state dict, with no file between
+    (testing/synthetic.py::random_state_dict; vit_cpp_tpu/models/params.py::
+    params_from_state_dict), on `device`."""
+    tensors = {
+        name: TensorRecord(name, arr.shape, GGMLDType.F32, arr.astype(np.float32))
+        for name, arr in state.items()
+    }
+    mf = ModelFile(hparams=hp, id2label={}, tensors=tensors)
+    return load_params(mf, dtype=dtype, hparams=hp, device=device)
 
 
 def _leaf_tensor(a, device) -> torch.Tensor:

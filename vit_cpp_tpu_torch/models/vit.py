@@ -56,6 +56,20 @@ rank's E/tp experts and all-reduces their combine. Each linear reads
 from its kernel's shape whether it was sharded, so a leaf that
 shard_params replicated runs whole.
 
+`remat` takes the JAX package's values and meaning. While autograd
+records, each block (of all three layer loops) runs under a non-reentrant
+torch.utils.checkpoint with a selective policy, and the backward
+recomputes what the policy does not save: `True` saves nothing, "dots"
+the outputs of the products without batch dimensions (aten.mm /
+aten.addmm, JAX's dots_with_no_batch_dims_saveable; every bmm, as the
+composed attention's, ToMe's merge and V-MoE's dispatch, experts and
+combine, runs again), "dots+attn" also the fused attention's output (the
+attention_qkv operator, JAX's "attn_out") and QAT's quantize-dequantized
+GEMM inputs (the act_q operator, "act_q"); in the ToMe and V-MoE loops
+only on the "pallas-train" path, as in JAX. Every policy saves the mesh's
+collectives, so the backward issues none of them again. Without autograd
+(serving, export, no_grad) the blocks run as they are.
+
 `forward_debug` runs the same layers eagerly and keeps each stage's
 output (embed, every block, the pooled readout, logits, probabilities)
 for stage-by-stage comparison; `print_t` prints one in the reference's
@@ -64,9 +78,15 @@ print_t_f32 format.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from vit_cpp_tpu_torch.hparams import VitHParams
 from vit_cpp_tpu_torch.ops.core import attention, gelu_tanh, layernorm, linear, mlp_act
@@ -81,8 +101,15 @@ from vit_cpp_tpu_torch.parallel.mesh import (
     gather_from_model,
     sum_over,
 )
+from vit_cpp_tpu_torch.quant.qat import act_q_saved
 
 ATTN_IMPLS = ("xla", "pallas", "pallas-fast", "pallas-train")
+REMAT_MODES = (False, True, "dots", "dots+attn")
+
+_OPS = torch.ops.vit_cpp_tpu_torch
+_DOTS = frozenset({torch.ops.aten.mm, torch.ops.aten.addmm})
+_NAMED = frozenset({_OPS.attention_qkv, _OPS.act_q})  # "attn_out", "act_q"
+_COLLECTIVES = frozenset({_OPS.all_reduce_over, _OPS.all_gather_over})
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -260,6 +287,37 @@ def tome_block(
     return _mlp_half(x, bp, hp, mm_impl=mm_impl, mesh=mesh), sizes
 
 
+def remat_block(fn, remat, named: bool = True):
+    """`fn` (one block) under `remat`'s policy while autograd records;
+    `named`: whether "dots+attn" saves the named outputs too (the ToMe and
+    V-MoE loops pass attn_impl == "pallas-train")."""
+    if not remat:
+        return fn
+    saved = _COLLECTIVES
+    if remat in ("dots", "dots+attn"):
+        saved = saved | _DOTS
+    act_q = remat == "dots+attn" and named
+    if act_q:
+        saved = saved | _NAMED
+
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if func.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def body(*args):
+        with act_q_saved(act_q):
+            return fn(*args)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the blocks draw no random numbers
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=partial(create_selective_checkpoint_contexts, policy))
+
+    return run
+
+
 def unstack_blocks(tree, n: int) -> list:
     """The stacked blocks subtree -> n per-layer subtrees. A tensor leaf is
     taken apart by one `torch.unbind`; QuantLinear and Int8Linear leaves
@@ -382,6 +440,7 @@ def forward(
     moe_aux: bool = False,
     tap=None,
     mesh=None,
+    remat=False,
 ):
     """Preprocessed images (B, C, H, W) -> logits (B, num_classes), or
     with features=True the final-LN pooled readout (B, hidden); a
@@ -395,7 +454,9 @@ def forward(
     takes neither; with `moe_aux=True` it returns (out, aux), aux the
     mean over its MoE layers of ops/moe.py's diagnostics. `mesh` runs
     this rank's shards of a tree placed by parallel/sharding.py on this
-    rank's batch rows (FSDP leaves are all-gathered here, once)."""
+    rank's batch rows (FSDP leaves are all-gathered here, once). `remat`
+    (False / None, True, "dots", "dots+attn") checkpoints each block
+    while autograd records (the module's docstring)."""
     if mesh is not None:
         from vit_cpp_tpu_torch.parallel.sharding import local_params
 
@@ -427,15 +488,19 @@ def forward(
                 "einsum path has no fake-quant leaves)"
             )
         return _moe_forward(params, images, hp, attn_impl=attn_impl, mm_impl=mm_impl,
-                            features=features, moe_aux=moe_aux, mesh=mesh)
+                            features=features, moe_aux=moe_aux, mesh=mesh, remat=remat)
     x = embed(params, images, hp)
     blocks = unstack_blocks(params["blocks"], hp.num_hidden_layers)
     if tome:
+        def tome_layer(x, sizes, bp, rl):
+            return tome_block(x, sizes, bp, hp, rl, attn_impl=attn_impl, mm_impl=mm_impl,
+                              mesh=mesh)
+
+        layer = remat_block(tome_layer, remat, attn_impl == "pallas-train")
         rs = tome_schedule(hp.n_patches, hp.num_hidden_layers, tome)
         sizes = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
         for bp, rl in zip(blocks, rs):
-            x, sizes = tome_block(x, sizes, bp, hp, rl, attn_impl=attn_impl, mm_impl=mm_impl,
-                                  mesh=mesh)
+            x, sizes = layer(x, sizes, bp, rl)
         return _head(params, x, hp, mm_impl, features, tap, sizes=sizes, mesh=mesh)
     if moe_aux:
         raise ValueError("moe_aux requires an MoE model (hp.num_experts)")
@@ -445,10 +510,22 @@ def forward(
         if t % 8:
             kv = t
             x = torch.cat([x, x.new_zeros(b, -(-t // 8) * 8 - t, h)], dim=1)
+
+    def dense_layer(x, bp):
+        return transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap,
+                                 kv=kv, mesh=mesh)
+
+    layer = remat_block(dense_layer, remat)
     for bp in blocks:
-        x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, tap=tap, kv=kv,
-                              mesh=mesh)
+        x = layer(x, bp)
     return _head(params, x, hp, mm_impl, features, tap, kv=kv, mesh=mesh)
+
+
+def predict_probs(params: Dict[str, Any], images: torch.Tensor, hp: VitHParams,
+                  **kw) -> torch.Tensor:
+    """`forward` (its keywords) + an f32 softmax, the reference's graph
+    output (vit_cpp_tpu/models/vit.py::predict_probs)."""
+    return torch.softmax(forward(params, images, hp, **kw).float(), dim=-1)
 
 
 def moe_layer_params(params: Dict[str, Any], hp: VitHParams) -> list:
@@ -469,16 +546,25 @@ def moe_layer_params(params: Dict[str, Any], hp: VitHParams) -> list:
 
 
 def _moe_forward(params, images, hp: VitHParams, *, attn_impl: str, mm_impl: str,
-                 features: bool, moe_aux: bool, mesh=None):
+                 features: bool, moe_aux: bool, mesh=None, remat=False):
     """The V-MoE branch of `forward` (vit_cpp_tpu/models/vit.py:518-591)."""
+
+    def dense_layer(x, bp):
+        return transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
+
+    def moe_layer(x, bp, mp):
+        return moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh,
+                         aux=moe_aux)
+
+    named = attn_impl == "pallas-train"
+    dense_layer, moe_layer = (remat_block(f, remat, named) for f in (dense_layer, moe_layer))
     x = embed(params, images, hp)
     aux_sum: Dict[str, torch.Tensor] = {}
     for bp, mp in moe_layer_params(params, hp):
         if mp is None:
-            x = transformer_block(x, bp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh)
+            x = dense_layer(x, bp)
             continue
-        x, aux = moe_block(x, bp, mp, hp, attn_impl=attn_impl, mm_impl=mm_impl, mesh=mesh,
-                           aux=moe_aux)
+        x, aux = moe_layer(x, bp, mp)
         for k, v in aux.items():
             aux_sum[k] = aux_sum.get(k, 0.0) + v
     out = _head(params, x, hp, mm_impl, features, mesh=mesh)

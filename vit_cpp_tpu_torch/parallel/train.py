@@ -335,6 +335,10 @@ def _spec_leaves(spec_tree) -> list:
     return [] if spec_tree is None else [spec_tree]
 
 
+# The rematerialisation policy of every training loss's forward
+# (models/vit.py::forward's `remat`), as the JAX package's losses run it
+TRAIN_REMAT = "dots+attn"
+
 # V-MoE auxiliary-loss coefficients (vit_cpp_tpu/parallel/train.py:71-75):
 # the Switch balance loss (Fedus et al. 2022) and the ST-MoE router z-loss
 MOE_LB_COEF = 0.01
@@ -365,13 +369,13 @@ def _share(loss: torch.Tensor, mesh) -> torch.Tensor:
 
 def _logits(params, images, hp: VitHParams, tome: int = 0, qat: str = "", qat_scales=None,
             mesh=None):
-    """(the training forward's logits, the V-MoE auxiliary term: 0.01
+    """(the training forward's logits, under TRAIN_REMAT, the V-MoE auxiliary term: 0.01
     load_balance + 1e-3 router_z averaged over the MoE layers, 0 for a
     dense model). On a mesh, the logits of this rank's rows, and the
     auxiliary term of its rows (the load balance of each rank's tokens)."""
     out = forward(qat_params(params, qat, qat_scales, mesh, hp), images, hp,
                   attn_impl="pallas-train", mm_impl="qat" if qat else "xla", tome=tome,
-                  moe_aux=bool(hp.num_experts), mesh=mesh)
+                  moe_aux=bool(hp.num_experts), mesh=mesh, remat=TRAIN_REMAT)
     if hp.num_experts:
         out, aux = out
         return out, MOE_LB_COEF * aux["load_balance"] + MOE_Z_COEF * aux["router_z"]

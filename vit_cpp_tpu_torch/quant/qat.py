@@ -26,18 +26,28 @@ and on the card:
 - block scales and minima round-trip through f16 (`_f16`); the codes use
   the f32 scale, the dequantization the f16-stored one.
 
+The quantize-dequantized GEMM input is what the JAX package names "act_q"
+for its "dots+attn" rematerialisation policy. Inside `act_q_saved()` (a
+block that models/vit.py checkpoints under that policy) it comes from one
+operator, `torch.ops.vit_cpp_tpu_torch.act_q`, whose output the policy
+saves, so that the backward's recompute neither reruns the absmax and
+rounding chain nor its collective; elsewhere the same ops run inline.
+
 `save_act_scales` / `load_act_scales` (:301-331 there) write and read the
 sidecar JSON that `VitEngine(act_scales=...)` and `--act-scales` take.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
-from typing import Any, Dict
+import threading
+from typing import Any, Dict, Optional
 
 import torch
 
-from vit_cpp_tpu_torch.parallel.mesh import axis_size, max_over
+from vit_cpp_tpu_torch._build import operator
+from vit_cpp_tpu_torch.parallel.mesh import axis_size
 from vit_cpp_tpu_torch.quant.calibrate import act_scales_from_maxima, collect_act_maxima
 from vit_cpp_tpu_torch.quant.int8 import channelwise_int8, true_div
 
@@ -64,27 +74,61 @@ def _inverse(d: torch.Tensor, nonzero: torch.Tensor) -> torch.Tensor:
     return torch.where(nonzero, 1.0 / d, torch.zeros_like(d))
 
 
+def _qdq_act(xf: torch.Tensor, act_scale: Optional[torch.Tensor], tp: int) -> torch.Tensor:
+    """The int8 quantize-dequantized value of f32 x, the W8A8 matmul's:
+    with a static per-tensor `act_scale`, codes = round(clip(x / sx,
+    +-127)); else per token, sx = absmax(token) * (1/127) (the absmax taken
+    over the "model" axis of `tp` ranks when x is a K-shard), codes =
+    round(x * (1/sx)); value = codes * sx."""
+    if act_scale is not None:
+        sx = act_scale.float()
+        return torch.round(torch.clamp(xf / sx, -127.0, 127.0)) * sx
+    absmax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    if tp > 1:
+        absmax = torch.ops.vit_cpp_tpu_torch.all_reduce_over(absmax, "model", tp, "max")
+    sx = absmax * (1.0 / 127.0)
+    return torch.round(xf * _inverse(sx, sx > 0)) * sx
+
+
+_ACT_Q = operator(
+    "act_q(Tensor xf, Tensor? act_scale, int tp) -> Tensor",
+    cpu=_qdq_act, cuda=_qdq_act, fake=lambda xf, act_scale, tp: torch.empty_like(xf),
+)
+# per thread: the backward's recompute runs on autograd's device thread
+_SAVED = threading.local()
+
+
+@contextlib.contextmanager
+def act_q_saved(on: bool):
+    """Within it (on), the fake-quantized activations come from the act_q
+    operator."""
+    prev = getattr(_SAVED, "on", False)
+    _SAVED.on = on
+    try:
+        yield
+    finally:
+        _SAVED.on = prev
+
+
+def _fake_quant_act(x: torch.Tensor, act_scale: Optional[torch.Tensor], tp: int) -> torch.Tensor:
+    xf = x.float()
+    with torch.no_grad():
+        q = (_ACT_Q if getattr(_SAVED, "on", False) else _qdq_act)(xf, act_scale, tp)
+    return _ste(xf, q).to(x.dtype)
+
+
 def fake_quant_act_static(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
     """Per-tensor static-scale int8 quantize-dequantize with STE, the W8A8
     matmul's static branch: codes = round(clip(x / sx, +-127)), value =
     codes * sx, clipping included. `act_scale` ([1,] 1) is frozen."""
-    xf = x.float()
-    with torch.no_grad():
-        sx = act_scale.float()
-        q = torch.round(torch.clamp(xf / sx, -127.0, 127.0)) * sx
-    return _ste(xf, q).to(x.dtype)
+    return _fake_quant_act(x, act_scale, 1)
 
 
 def fake_quant_act(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-token dynamic int8 quantize-dequantize with STE, the W8A8
     matmul's activation quantization: sx = absmax(token) * (1/127) in f32,
     codes = round(x * (1/sx)), value = codes * sx."""
-    xf = x.float()
-    with torch.no_grad():
-        absmax = max_over(torch.amax(torch.abs(xf), dim=-1, keepdim=True), mesh)
-        sx = absmax * (1.0 / 127.0)
-        q = torch.round(xf * _inverse(sx, sx > 0)) * sx
-    return _ste(xf, q).to(x.dtype)
+    return _fake_quant_act(x, None, axis_size(mesh, "model"))
 
 
 def _block_view(w: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@
      leading dims, one with N=1001 (no vector loads on a row) and
      ViTSTR-Base's head at B=64 (M=1600, N=96 in Q8_0), then in
      every format at the edges of the bf16 body's tiling (M=1, 129, 1577;
-     K=3072 and 800; N=768, 1000, 1001, 3072);
+     K=3072 and 800; N=768, 1000, 1001, 3072) and of the f32 (3xTF32)
+     body's (M=1, 8, 129, 1577, 12608; K=768, 800, 3072; N=96, 768, 1000,
+     1001, 2304, 3072);
    - flash_attention (split-head attention) at (8, 12, 197, 64) in bf16
      and f32, at d=80, T=257, and at T=1, 65, 128 with d=64, 72, 128;
    - attention_qkv_grad (the attention backward) at the ViT-B/16 training
@@ -32,7 +34,12 @@
    Then times kernel and plain version with CUDA events at the ViT-B/16
    serving shapes (B=8 and 64) and training shape (B=32, f32 for the
    forward, f32 and bf16 for the backward), and the attention kernels at
-   T=785 too (the shape of the JAX package's lane paths).
+   T=785 too (the shape of the JAX package's lane paths); dequant_matmul
+   in f32 at the four block linears of B=8 and B=64 beside its bound and
+   torch.matmul on the weight dequantized once in f32.
+   `python3 chip_smoke.py --k4-f32` runs only the f32 body's cases and
+   times, after the build (from another tree's root it measures that
+   tree's body).
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -45,9 +52,10 @@
       batch;
    c. the forward of the Q8_0 file's VitEngine (bf16, fast fused
       attention, fold off) at B=8 and B=64 with --mm pallas and --mm xla:
-      the median of 20 forwards each, in turns, on the host clock, and one
-      profiled --mm pallas forward at B=64 (the two kernels' share of
-      device time);
+      the median of 20 forwards each, in turns, on the host clock, device
+      ms by cuda_ms, and one profiled --mm pallas forward at B=64 (the two
+      kernels' share of device time); the same in f32 (median of 10, the
+      two within 1e-5), K4's f32 body on every linear;
       then the flagship configuration on the Q8_0 file (int8, fold on),
       forward only, against the f32 reference;
    d. the front ends on the files of (a) and (b), each as a user runs
@@ -57,7 +65,8 @@
       probabilities against the card machine's CPU engine (1e-5) and a
       TF32 engine as the control; `python -m vit_cpp_tpu_torch.cli.serve`
       over the ten assets at -b 8, at its defaults (f16) and with --mm
-      pallas (Q8_0), against the f32 engine, with serve_files counting
+      pallas (Q8_0) in bf16 and with --dtype f32, against the f32 engine,
+      with serve_files counting
       the launches in this process (12 attention_qkv per batch, then 49
       dequant_matmul + 12) and its images/s at batch 64 over 320 files
       on one decode thread and on one per core; embed_files at the
@@ -222,7 +231,8 @@
       exact f64 product), held to plain and timed (`mesh_shards` in the
       kernels line), and at the row shards the f32 partial product a
       bf16 rank sums over "model" against an f64 product, dense and by
-      dequant_matmul's f32-output instantiation (`f32_out` in its line);
+      dequant_matmul's f32-output instantiation (`f32_out` in its line),
+      and an f32 rank's (f32 x, K4's f32 body);
       sharded .vitx artifacts: a 1x1-mesh engine exported by one rank
       under the launcher (aot.save_engine, -b 8) at the serving defaults
       (the full ViT-B/16) and with --mm pallas on the AOT_BLOCKS-block
@@ -620,6 +630,91 @@ def _quant_linear(rng, k: int, n: int, qtype):
     return quant_linear_from_record(TensorRecord("w", (n, k), qtype, raw), device="cuda")
 
 
+def qmm_f32_cases() -> list:
+    """The edges of the f32 (3xTF32) body's tiling in every block format:
+    128-row x 128-column blocks, 32-row K steps. M = 1, 8, one past a
+    block, B=8 plus one and ViT-B/16's B=64; K = fc2's 3072 and 800 (K %
+    64 = 32); N = 96 (a 128-wide tile covers it), 1000 (rows of codes
+    8-byte aligned), 1001 (no vector loads), 768, 2304 and 3072."""
+    from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType as G
+
+    f32, cases = torch.float32, []
+    for qt in (G.Q4_0, G.Q4_1, G.Q5_0, G.Q5_1, G.Q8_0):
+        cases += [
+            ("f32 M=1 N=768", (1,), 768, 768, qt, f32),
+            ("f32 M=8 head N=1000", (8,), 768, 1000, qt, f32),
+            ("f32 M=129 fc2 K=3072", (129,), 3072, 768, qt, f32),
+            ("f32 M=129 K=800 N=1001", (129,), 800, 1001, qt, f32),
+            ("f32 M=1577 N=3072", (1577,), 768, 3072, qt, f32),
+            ("f32 M=1577 N=96", (1577,), 768, 96, qt, f32),
+            ("f32 M=12608 qkv", (12608,), 768, 2304, qt, f32),
+        ]
+    return cases
+
+
+def check_qmm_cases(cases, rng) -> float:
+    """Each (name, leading dims, K, N, format, dtype) case through
+    dequant_matmul against its plain version, within QMM_TOL of
+    max|plain|; the worst absolute error."""
+    from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
+
+    worst = 0.0
+    for name, lead, k, n, qt, dtype in cases:
+        w = _quant_linear(rng, k, n, qt)
+        x = torch.from_numpy(rng.standard_normal((*lead, k)).astype(np.float32)).to("cuda", dtype)
+        got = dequant_matmul(x, w)
+        ref = dequant_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        if got.shape != (*lead, n) or got.dtype != dtype:
+            raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = QMM_TOL[dtype] * scale
+        log(f"kernel case dequant_matmul {name:<26} M={int(np.prod(lead))} K={k} N={n} "
+            f"{qt.name} {str(dtype)[6:]}: max|kernel - plain| = {err:.3e} "
+            f"(tolerance {tol:.3e} = {QMM_TOL[dtype]:.0e} x max|plain|)")
+        if not err <= tol:
+            raise AssertionError(f"dequant_matmul {name}: error {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def time_qmm_f32(card: str, rng) -> dict:
+    """The f32 body at ViT-B/16's linears at B=8 and B=64 on Q8_0 weights:
+    kernel and plain version in turns, the bound (f32 x and y, 34 bytes
+    per 32 weights, the operations at 3xTF32) and the library call,
+    torch.matmul on the weight dequantized once in f32 with TF32 off
+    (cuBLAS's f32 GEMM). Returns {"qkv", "qkv B=64", ...: (ms, plain_ms,
+    bound_ms, bound_by, library_ms)}."""
+    from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType as G
+    from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 library yardstick needs TF32 off")
+    times = {}
+    for b in (8, 64):
+        m = b * 197
+        for layer, k, n in (("qkv", 768, 2304), ("proj", 768, 768), ("fc1", 768, 3072),
+                            ("fc2", 3072, 768)):
+            name = layer if b == 8 else f"{layer} B=64"
+            w = _quant_linear(rng, k, n, G.Q8_0)
+            x = torch.randn((m, k), device="cuda")
+            k_ms, p_ms = time_pair(
+                f"dequant_matmul ViT-B/16 {name} M={m} K={k} N={n} Q8_0 f32", card,
+                lambda: dequant_matmul(x, w), lambda: dequant_matmul_plain(x, w),
+            )
+            dense = w.dequantize(torch.float32)  # once, outside the timed loop
+            lib = cuda_ms(lambda: torch.matmul(x, dense))
+            b_ms, b_by = bound(2.0 * m * k * n, 4 * m * k + k * n // 32 * 34 + 4 * m * n, "f32")
+            log(f"dequant_matmul {name} f32: {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), library torch.matmul f32 on the weight dequantized "
+                f"once {lib:.4f} ms on {card}")
+            times[name] = (k_ms, p_ms, b_ms, b_by, lib)
+    return times
+
+
 def check_dequant_matmul(card: str):
     from vit_cpp_tpu_torch.gguf.dtypes import GGMLDType as G
     from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
@@ -651,26 +746,7 @@ def check_dequant_matmul(card: str):
             ("M=129 N=1001", (129,), 768, 1001, qt, bf16),
             ("M=129 K=800 (K % 64 = 32)", (129,), 800, 768, qt, bf16),
         ]
-    worst = 0.0
-    for name, lead, k, n, qt, dtype in cases:
-        w = _quant_linear(rng, k, n, qt)
-        x = torch.from_numpy(rng.standard_normal((*lead, k)).astype(np.float32)).to("cuda", dtype)
-        got = dequant_matmul(x, w)
-        ref = dequant_matmul_plain(x, w)
-        torch.cuda.synchronize()
-        if got.shape != (*lead, n) or got.dtype != dtype:
-            raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        tol = QMM_TOL[dtype] * scale
-        log(f"kernel case dequant_matmul {name:<26} M={int(np.prod(lead))} K={k} N={n} "
-            f"{qt.name} {str(dtype)[6:]}: max|kernel - plain| = {err:.3e} "
-            f"(tolerance {tol:.3e} = {QMM_TOL[dtype]:.0e} x max|plain|)")
-        if not err <= tol:
-            raise AssertionError(f"dequant_matmul {name}: error {err} > {tol}")
-        worst = max(worst, err)
+    worst = check_qmm_cases(cases + qmm_f32_cases(), rng)
 
     times = {}
     for name, m, k, n in (("qkv", 1576, 768, 2304), ("proj", 1576, 768, 768),
@@ -689,7 +765,7 @@ def check_dequant_matmul(card: str):
         log(f"dequant_matmul {name}: bound {b_ms:.4f} ms ({b_by}), library torch.matmul on "
             f"the weight dequantized once {lib:.4f} ms on {card}")
         times[name] = (k_ms, p_ms, b_ms, b_by, lib)
-    return worst, times
+    return worst, times, time_qmm_f32(card, rng)
 
 
 def check_flash_attention(card: str):
@@ -1448,20 +1524,24 @@ def diagnostics_path() -> dict:
     return launches
 
 
-def forward_phase(q8: str, card: str) -> None:
-    """The Q8_0 file's VitEngine (bf16, fused fast attention, fold off) at
-    B=8 and B=64 with --mm pallas (the dequantizing kernel) and --mm xla
-    (dequantize, then cuBLAS): the median of 20 forwards on the host clock,
-    each ended by a synchronize, taken in turns with the other. Then one --mm pallas forward at B=64 under
-    torch.profiler: the two kernels' share of its device time."""
+def forward_phase(q8: str, card: str, dtype: str) -> None:
+    """The Q8_0 file's VitEngine (bf16 or f32, fused fast attention, fold
+    off) at B=8 and B=64 with --mm pallas (the dequantizing kernel; f32
+    runs its f32 body) and --mm xla (dequantize, then cuBLAS, TF32 off):
+    the median of 20 forwards (f32: 10) on the host clock, each ended by a
+    synchronize, taken in turns with the other, and the device ms per
+    forward by cuda_ms; the two within Q8_PROB_TOL (f32: CLI_PROB_TOL).
+    Then one --mm pallas forward at B=64 under torch.profiler: the two
+    kernels' share of its device time and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from vit_cpp_tpu_torch.engine import VitEngine
     from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
     from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
-    engines = {mm: VitEngine(q8, dtype="bf16", attn_impl="pallas-fast", mm_impl=mm,
+    engines = {mm: VitEngine(q8, dtype=dtype, attn_impl="pallas-fast", mm_impl=mm,
                              device="cuda") for mm in ("pallas", "xla")}
+    tol, passes = (Q8_PROB_TOL, 2) if dtype == "bf16" else (CLI_PROB_TOL, 1)
     gen = torch.Generator(device="cuda").manual_seed(6)
     batches = {b: torch.randn((b, 3, 224, 224), generator=gen, device="cuda") for b in (8, 64)}
     for b, pixels in batches.items():
@@ -1469,7 +1549,7 @@ def forward_phase(q8: str, card: str) -> None:
         times = {mm: [] for mm in engines}
         # in turns (pallas, xla, xla, pallas), 5 forwards each: the host's
         # share of a B=8 forward drifts between calls
-        for mm in ("pallas", "xla", "xla", "pallas") * 2:
+        for mm in ("pallas", "xla", "xla", "pallas") * passes:
             engine = engines[mm]
             engine.predict_probs_batch(pixels)
             torch.cuda.synchronize()
@@ -1479,15 +1559,19 @@ def forward_phase(q8: str, card: str) -> None:
                 torch.cuda.synchronize()
                 times[mm].append((time.perf_counter() - t0) * 1e3)
         ms = {mm: float(np.median(t)) for mm, t in times.items()}
+        dev = {mm: cuda_ms(lambda e=engine: e.predict_probs_batch(pixels), iters=10)
+               for mm, engine in engines.items()}
         err = (probs["pallas"] - probs["xla"]).abs().max().item()
-        log(f"forward Q8_0 ViT-B/16 bf16 fold off B={b} (median of 20 in turns, host clock "
-            f"with sync): --mm pallas {ms['pallas']:.3f} ms ({b / ms['pallas'] * 1e3:.0f} img/s, "
-            f"range {min(times['pallas']):.3f}-{max(times['pallas']):.3f}), --mm xla "
+        log(f"forward Q8_0 ViT-B/16 {dtype} fold off B={b} (median of {10 * passes} in turns, "
+            f"host clock with sync; device by cuda_ms): --mm pallas {ms['pallas']:.3f} ms "
+            f"({b / ms['pallas'] * 1e3:.0f} img/s, range {min(times['pallas']):.3f}-"
+            f"{max(times['pallas']):.3f}, device {dev['pallas']:.3f}), --mm xla "
             f"{ms['xla']:.3f} ms ({b / ms['xla'] * 1e3:.0f} img/s, range "
-            f"{min(times['xla']):.3f}-{max(times['xla']):.3f}); "
-            f"max|p_pallas - p_xla| = {err:.2e} on {card}")
-        if not (torch.isfinite(probs["pallas"]).all() and err <= Q8_PROB_TOL):
-            raise AssertionError(f"forward B={b}: --mm pallas vs xla probabilities off by {err}")
+            f"{min(times['xla']):.3f}-{max(times['xla']):.3f}, device {dev['xla']:.3f}); "
+            f"max|p_pallas - p_xla| = {err:.2e} (tolerance {tol:.0e}) on {card}")
+        if not (torch.isfinite(probs["pallas"]).all() and err <= tol):
+            raise AssertionError(f"{dtype} forward B={b}: --mm pallas vs xla probabilities "
+                                 f"off by {err}")
 
     engine, pixels = engines["pallas"], batches[64]
     engine.predict_probs_batch(pixels)
@@ -1499,10 +1583,10 @@ def forward_phase(q8: str, card: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_us, (k4_us, k1_us) = device_us(prof, QMM_KERNEL, KERNEL)
     if dev_us <= 0:
-        log("profiled forward: torch.profiler saw no device time (shares not measured)")
+        log(f"profiled {dtype} forward: torch.profiler saw no device time (shares not measured)")
         return
-    log(f"profiled --mm pallas forward B=64 (torch.profiler): {dev_us / 1e3:.2f} ms of device "
-        f"time in {wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}); "
+    log(f"profiled {dtype} --mm pallas forward B=64 (torch.profiler): {dev_us / 1e3:.2f} ms of "
+        f"device time in {wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}); "
         f"dequant_matmul {k4_us / 1e3:.2f} ms ({k4_us / dev_us:.3f}), attention_qkv "
         f"{k1_us / 1e3:.2f} ms ({k1_us / dev_us:.3f}) of device time")
 
@@ -1630,12 +1714,13 @@ SERVE_STDOUT = {}
 def vit_serve(f16: str, q8: str, card: str) -> dict:
     """`python -m vit_cpp_tpu_torch.cli.serve` over the ten assets at
     batch 8: at its defaults on the f16 file, then with --mm pallas on the
-    Q8_0 file. Each top-1 probability within PROB_TOL / Q8_PROB_TOL of the
-    f32 engine (mm=xla, attn=xla) on the same file; labels equal wherever
-    that engine's top-two gap exceeds the tolerance. The same files through
-    serve_files in this process count the launches (12 attention_qkv per
-    batch, then 49 dequant_matmul + 12). Then images/s of serve_files at
-    batch 64 over 320 files, decoding on one thread and on one per core.
+    Q8_0 file in bf16 and in f32 (K4's f32 body). Each top-1 probability
+    within PROB_TOL / Q8_PROB_TOL / CLI_PROB_TOL of the f32 engine (mm=xla,
+    attn=xla) on the same file; labels equal wherever that engine's top-two
+    gap exceeds the tolerance. The same files through serve_files in this
+    process count the launches (12 attention_qkv per batch, then 49
+    dequant_matmul + 12). Then, for the first two, images/s of serve_files
+    at batch 64 over 320 files, decoding on one thread and on one per core.
     Returns {path: {kernel name: launches}}."""
     from vit_cpp_tpu_torch.cli.common import build_engine
     from vit_cpp_tpu_torch.engine import VitEngine
@@ -1650,6 +1735,9 @@ def vit_serve(f16: str, q8: str, card: str) -> dict:
     for what, model, flags, per_batch, tol in (
         ("vit-serve defaults", f16, [], {KERNEL: 12}, PROB_TOL),
         ("vit-serve --mm pallas", q8, ["--mm", "pallas"], {QMM_KERNEL: 49, KERNEL: 12}, Q8_PROB_TOL),
+        # f32 activations: every block linear and the head on K4's f32 body
+        ("vit-serve --dtype f32 --mm pallas", q8, ["--dtype", "f32", "--mm", "pallas"],
+         {QMM_KERNEL: 49, KERNEL: 12}, CLI_PROB_TOL),
     ):
         r = run_module("vit_cpp_tpu_torch.cli.serve", "-m", model, *paths, "-b", "8", *flags)
         SERVE_STDOUT[what] = r.stdout  # mesh_paths compares --mesh 1x1 with it
@@ -1666,7 +1754,8 @@ def vit_serve(f16: str, q8: str, card: str) -> dict:
                         verbose=False)
         want = ref.predict_probs_batch(ref.preprocess_images(images)).cpu().numpy()
         del ref
-        engine, _ = build_engine(model, mm="pallas" if flags else "int8", device="cuda")
+        engine, _ = build_engine(model, dtype="f32" if "f32" in flags else "bf16",
+                                 mm="pallas" if flags else "int8", device="cuda")
         for kernel in per_batch:
             kernel.reset()
         got = list(serve_files(engine, paths, batch=8, keep_probs=True))
@@ -1696,6 +1785,9 @@ def vit_serve(f16: str, q8: str, card: str) -> dict:
         if worst > tol:
             raise AssertionError(f"{what}: probabilities off by {worst} > {tol}")
         out[what] = launches
+        if "f32" in flags:  # its batch throughput is not a serving configuration's
+            del engine
+            continue
 
         many = paths * 32
         throughput(engine, paths, batch=64)  # warm: the B=64 shapes
@@ -4473,6 +4565,9 @@ def shard_kernels(card: str) -> dict:
                 row, f32_err = _check_k4_f32_out(x, w, dense, what, card)
                 out["dequant_matmul f32_out"][what] = row
                 errs["dequant_matmul f32_out"] = max(errs["dequant_matmul f32_out"], f32_err)
+                x32 = torch.randn((m, k), generator=gen, device="cuda")
+                errs["dequant_matmul f32 x"] = max(errs.get("dequant_matmul f32 x", 0.0),
+                                                   _check_k4_f32_x(x32, w, what, card))
             xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
             codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                                   dtype=torch.int8)
@@ -4526,6 +4621,26 @@ def _check_k4_f32_out(x, w, dense, what: str, card: str) -> tuple:
         f"the bf16-output call {b_ms:.4f} ms, torch.mm f32 out {lib:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({by})")
     return (k_ms, p_ms, bound_ms, by, lib), err
+
+
+def _check_k4_f32_x(x, w, what: str, card: str) -> float:
+    """K4's f32 body at a row shard (an f32 rank's row-parallel partial,
+    `f32_out` with f32 x): within ROW_PARTIAL_TOL of max|f64 product| on
+    the weight dequantized in f32; its ms beside the plain version's.
+    Returns the error relative to max|f64|."""
+    from vit_cpp_tpu_torch.ops.qmatmul import dequant_matmul, dequant_matmul_plain
+
+    got = dequant_matmul(x, w, f32_out=True)
+    ref = torch.matmul(x.double(), w.dequantize(torch.float32).double())
+    err = (got.double() - ref).abs().max().item() / ref.abs().max().item()
+    k_ms = cuda_ms(lambda: dequant_matmul(x, w, f32_out=True))
+    p_ms = cuda_ms(lambda: dequant_matmul_plain(x, w, f32_out=True))
+    log(f"kernel case mesh shard dequant_matmul f32 x {what} Q8_0: dtype {str(got.dtype)[6:]}, "
+        f"max|kernel - f64| / max|f64| = {err:.3e} (tolerance {ROW_PARTIAL_TOL:.0e}); "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms on {card}")
+    if got.dtype != torch.float32 or not err <= ROW_PARTIAL_TOL:
+        raise AssertionError(f"dequant_matmul f32 x {what}: {got.dtype}, error {err}")
+    return err
 
 
 def _check_row_partial(x, w, what: str, card: str) -> None:
@@ -5279,7 +5394,8 @@ def run_paths(card: str):
             "Q8_0 --mm pallas daemon", q8, "pallas", {QMM_KERNEL: 49, KERNEL: 12},
             Q8_PROB_TOL, images,
         )
-        forward_phase(q8, card)
+        forward_phase(q8, card, "bf16")
+        forward_phase(q8, card, "f32")
         flagship_forward(q8, images)
         vit_cli(f16, card)
         serve_launches = vit_serve(f16, q8, card)
@@ -5346,9 +5462,17 @@ def main() -> int:
             f"registers per thread, {spills} bytes of spills")
 
     card = f"{kind} ({smi})"
+    if sys.argv[1:] == ["--k4-f32"]:
+        # the f32 body alone: its kernel cases, then its times at ViT-B/16's
+        # linears (run from another tree's root, it measures that tree's body)
+        rng = np.random.default_rng(0)
+        check_qmm_cases(qmm_f32_cases(), rng)
+        time_qmm_f32(card, rng)
+        log(smi)
+        return 0
     t_start = time.perf_counter()
     k1_err, k1_times = check_kernels(card)
-    k4_err, k4_times = check_dequant_matmul(card)
+    k4_err, k4_times, k4_f32_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
     (_, q8_launches, flash_launches, grad_launches, serve_launches,
@@ -5402,11 +5526,13 @@ def main() -> int:
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[QMM_KERNEL.name],
                           **{p: n[QMM_KERNEL.name] for p, n in serve_launches.items()
                              if QMM_KERNEL.name in n}},
-                 b64=k4_times["qkv B=64"]),
+                 b64=k4_times["qkv B=64"], f32=k4_f32_times["qkv"],
+                 f32_b64=k4_f32_times["qkv B=64"]),
          **by_shard(QMM_KERNEL.name),
          "f32_out": {case: dict(zip(keys, t))
                      for case, t in shards["dequant_matmul f32_out"].items()},
-         "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"]},
+         "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"],
+         "f32_x_row_shards_max_rel_err": shard_errs["dequant_matmul f32 x"]},
         entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
         # K2: f32 at ViT-B/16 B=32 (the training path's); bf16, T=785 and
         # ViT-H/14 B=8 beside it, and f32 at tensor-parallel shards

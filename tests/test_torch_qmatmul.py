@@ -181,3 +181,44 @@ def test_bf16_kernel_tile_edges_on_card(fmt, m, k, n):
     ref = qmatmul.dequant_matmul_plain(x, w).float()
     assert qmatmul.KERNEL.launches == before + 1
     torch.testing.assert_close(got, ref, atol=1e-2 * ref.abs().max().item(), rtol=0)
+
+
+# The edges of the f32 (3xTF32) body's tiling (128-row x 128-column
+# blocks, 32-row K steps): M = 1, 8, one past a block, B=8 plus one and
+# ViT-B/16's B=64; fc2's K and K % 64 == 32; N = 96 (under one block),
+# 1000 and 1001 (rows of codes 8-byte aligned, and not at all), 2304,
+# 3072. The tolerance is chip_smoke.py's QMM_TOL for f32: 2e-5 of
+# max|plain| (3xTF32 and cuBLAS's f32 GEMM differ in summation order).
+F32_TILE_EDGES = [(1, 768, 768), (8, 768, 1000), (129, 3072, 768), (129, 800, 1001),
+                  (1577, 768, 3072), (1577, 768, 96), (12608, 768, 2304)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS, ids=IDS)
+@pytest.mark.parametrize("m,k,n", F32_TILE_EDGES,
+                         ids=[f"M{m}-K{k}-N{n}" for m, k, n in F32_TILE_EDGES])
+def test_f32_kernel_tile_edges_on_card(fmt, m, k, n):
+    _card()
+    w = quant_linear_from_record(_record(n, k, fmt, seed=m + n), device="cuda")
+    x = torch.from_numpy(_x((m, k), seed=k)).to("cuda")
+    before = qmatmul.KERNEL.launches
+    got = qmatmul.dequant_matmul(x, w)
+    ref = qmatmul.dequant_matmul_plain(x, w)
+    assert qmatmul.KERNEL.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_copies_a_misaligned_view():
+    # TMA reads x from a 16-byte-aligned base: the wrapper copies a view
+    # that starts 4 bytes in, and the kernel still launches
+    _card()
+    w = quant_linear_from_record(_record(768, 768, GGMLDType.Q4_1, seed=3), device="cuda")
+    flat = torch.from_numpy(_x((129 * 768 + 1,), seed=4)).to("cuda")
+    x = flat[1:].view(129, 768)
+    assert x.data_ptr() % 16
+    before = qmatmul.KERNEL.launches
+    got = qmatmul.dequant_matmul(x, w)
+    ref = qmatmul.dequant_matmul_plain(x.contiguous(), w)
+    assert qmatmul.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=2e-5 * ref.abs().max().item(), rtol=0)

@@ -207,6 +207,38 @@ def test_cli_serve_prints_the_jax_tools_lines(files, capsys, k):
     assert summary.startswith("serve: 7/8 images in ") and summary.endswith(" images/sec")
 
 
+@pytest.fixture(scope="module")
+def q8_model(files):
+    from vit_cpp_tpu_torch.cli.quantize import quantize_model_file
+
+    q8 = str(files["tmp"] / "m-q8_0.gguf")
+    assert quantize_model_file(files["model"], q8, 8, verbose=False)
+    return q8
+
+
+# f32 activations through the dequantizing matmul on every linear (the
+# port's plain version here, the JAX Pallas kernel in interpret mode):
+# the printed top-3 lines equal, the --embed features within F32_TOL.
+@pytest.mark.parametrize("mode", ["top3", "embed"])
+def test_cli_serve_f32_pallas_matches_jax(files, q8_model, capsys, mode):
+    outs = {}
+    for name, main, extra in (("jax", jax_cli_serve.main, []),
+                              ("port", cli_serve.main, ["--device", "cpu"])):
+        out = str(files["tmp"] / f"f32-pallas-{name}.npy")
+        flags = ["-k", "3"] if mode == "top3" else ["--embed", out]
+        rc, stdout, err = _cli(main, ["-m", q8_model, "-d", files["dir"], "-b", "4",
+                                      "--dtype", "f32", "--mm", "pallas", *flags, *extra],
+                               capsys)
+        assert rc == 0, err
+        outs[name] = stdout.splitlines() if mode == "top3" else np.load(out)
+    if mode == "top3":
+        assert outs["port"] == outs["jax"] and len(outs["port"]) == 7
+        assert all(line.count(":") == 3 for line in outs["port"])
+    else:
+        assert outs["port"].dtype == np.float32 and outs["port"].shape == (7, 64)
+        np.testing.assert_allclose(outs["port"], outs["jax"], atol=F32_TOL, rtol=0)
+
+
 def test_cli_serve_at_its_defaults(files, capsys):
     rc, out, err = _cli(cli_serve.main, ["-m", files["model"], *files["paths"], "-b", "4",
                                          "--device", "cpu"], capsys)

@@ -24,7 +24,8 @@
 // and the bytes of its codes. Unlike a plain GEMM, every block also has to
 // dequantize its weight tile, which costs SM issue slots and shared-memory
 // bandwidth beside the tensor cores' operand reads; the design below
-// overlaps the two and dequantizes each weight tile once per 256 rows of x.
+// overlaps the two and dequantizes each weight tile once per 256 rows of x
+// (the f32 body: 128).
 //
 // bf16 body (dequant_matmul_wgmma: serving), for Hopper's asynchronous
 // tensor cores. Unlike the TPU kernel, whose grid step holds the full K of
@@ -51,10 +52,41 @@
 // the ranks before it is rounded. Rows of codes that are not 16-byte aligned (N = 1000) take 8-byte
 // copies, odd N plain loads.
 //
-// f32 body (dequant_matmul_f32): a block owns a 64 x 64 output tile and
-// loops over K in 32-row quant steps with a one-step register prefetch;
-// each thread runs 4 x 4 f32 FMAs per k, so it is bound by shared-memory
-// operand feed. It serves f32 activations (--mm pallas with dtype f32).
+// f32 body (dequant_matmul_tf32: f32 activations, --dtype f32 --mm
+// pallas, and a mesh's f32 row-parallel partials). The same TPU kernel
+// with f32 x and y. At f32 the bound is the operations at 3xTF32 (a third
+// of the TF32 tensor-core rate, ~165 TFLOP/s): ViT-B/16's qkv at B=64 is
+// 44.6 GFLOP, 0.27 ms, against 0.05 ms of bytes. The FMA units alone (67
+// TFLOP/s, and half of that where each FMA needs a shared-memory load, as
+// in the FMA body this one replaces) cannot come near it, so every product
+// runs on wgmma in 3xTF32: each f32 operand is split into TF32 high and
+// low parts (tensor_core.cuh::split_tf32, hi rounded to nearest, lo = x -
+// hi) and lo * hi, hi * lo, then hi * hi are summed in f32 accumulators,
+// which keeps f32's accuracy. The tf32 wgmma forms read a shared-memory
+// operand K-major only, so the block computes y's transpose: the
+// dequantized weight is the A operand, from registers (each thread
+// dequantizes and splits the 16 weights of its own fragments per step,
+// with no shared weight tile to transpose), and x is the B operand, read
+// from shared memory K-major as TMA lands it (one 32-row quant step of
+// f32 x is one 128-byte swizzle row). A block owns 128 output columns
+// (64 per warpgroup) x 128 rows of x, so each weight tile is dequantized
+// once per 128 rows (the FMA body: 64), and loops over K in 32-row quant
+// steps through a ring of 5 slots (x by TMA; codes, scales and mins by
+// cp.async, the code tile padded so that the fragments' 2-byte reads are
+// free of bank conflicts). While step k's 12 wgmma.m64n128k8 run, every
+// thread splits step k + 2's x tile in place into hi and a lo tile beside
+// it (read only after the next barrier), waits for step k - 1's wgmmas,
+// meets the others at the step's one barrier and dequantizes step k + 1's
+// fragments into a second register set, the only work between a barrier
+// and the next step's wgmmas. Every 2 steps
+// the tensor cores are drained and their partial sum is added to the
+// running sum by rounded f32 additions: the tensor cores truncate each
+// wgmma's sum, and kept in one accumulator over K = 3072 that bias
+// reached 2.1e-5 of max|y|. Accumulators, partial sums and two fragment
+// sets take ~250 registers: one block of 8 warps per SM, whose dequantize
+// and split overlap the tensor cores only in part. The epilogue writes
+// each thread's accumulators straight to y, two adjacent columns per
+// 8-byte store, masking the ragged M and N edges.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,55 +98,6 @@
 namespace {
 
 constexpr int kQK = 32;  // rows of K per quant block
-constexpr int kThreads = 256;
-
-// W consecutive codes of row `row` from column `col`; zero past n.
-template <int W>
-struct __align__(8) Codes {
-  int8_t c[W];
-};
-
-template <int W>
-__device__ __forceinline__ Codes<W> load_codes(const int8_t* __restrict__ codes,
-                                               int row, int col, int n,
-                                               bool vec) {
-  Codes<W> out;
-  const int8_t* p = codes + (size_t)row * n + col;
-  if (vec && col + W <= n) {
-    *reinterpret_cast<uint2*>(out.c) = __ldg(reinterpret_cast<const uint2*>(p));
-  } else {
-#pragma unroll
-    for (int w = 0; w < W; ++w) out.c[w] = col + w < n ? p[w] : 0;
-  }
-  return out;
-}
-
-// W consecutive f32 values (scales or mins) of one row from column `col`;
-// zero past n.
-template <int W>
-__device__ __forceinline__ void load_row(const float* __restrict__ p, int col,
-                                         int n, bool vec, float (&v)[W]) {
-  if (vec && col + W <= n) {
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + q);
-      v[4 * q] = t.x;
-      v[4 * q + 1] = t.y;
-      v[4 * q + 2] = t.z;
-      v[4 * q + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int w = 0; w < W; ++w) v[w] = col + w < n ? __ldg(p + w) : 0.f;
-  }
-}
-
-// The f32 weight of one code: (c - offset) * scale, then + min.
-__device__ __forceinline__ float dequant(int8_t c, int offset, float s,
-                                         float mn, bool has_min) {
-  float v = __fmul_rn((float)((int)c - offset), s);
-  return has_min ? __fadd_rn(v, mn) : v;
-}
 
 // ---------------------------------------------------------------- bf16 x
 using bf16 = __nv_bfloat16;
@@ -420,111 +403,286 @@ cudaError_t launch_wgmma(const void* x, const int8_t* codes, const float* scales
 }
 
 // ----------------------------------------------------------------- f32 x
-constexpr int kFM = 64;          // output rows per block
-constexpr int kFN = 64;          // output columns per block
-constexpr int kFLdx = kQK + 1;   // odd stride: no bank conflicts on store
+constexpr int kFM = 128;           // rows of x per block: the wgmma's N
+constexpr int kFN = 128;           // output columns per block: 64 per warpgroup, the wgmma's M
+constexpr int kFLdc = kFN + 16;    // code tile row stride, bytes: fragment reads conflict-free
 
-__global__ void __launch_bounds__(kThreads)
-    dequant_matmul_f32(const float* __restrict__ x,
-                       const int8_t* __restrict__ codes,
-                       const float* __restrict__ scales,
-                       const float* __restrict__ mins, float* __restrict__ out,
-                       int m, int n, int k, int offset) {
-  __shared__ float sX[2][kFM * kFLdx];
-  __shared__ __align__(16) float sW[2][kQK * kFN];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // outputs: rows ty + 16 i, cols tx + 16 j
-  const int m0 = blockIdx.y * kFM;
-  const int n0 = blockIdx.x * kFN;
-  const bool has_min = mins != nullptr;
-  const bool vec = n % 8 == 0 && (reinterpret_cast<uintptr_t>(codes) & 7) == 0;
-  const bool vec_s = n % 4 == 0 && ((reinterpret_cast<uintptr_t>(scales) |
-                                     reinterpret_cast<uintptr_t>(mins)) & 15) == 0;
+// Shared memory of the f32 body, from a 1024-aligned base: a ring of
+// kStages slots, each the x tile of one 32-row quant step (128 rows x 32
+// f32 = one 128-byte row per x row, in the 128-byte swizzle as TMA writes
+// it, then split in place into its TF32 high part), its TF32 low part at
+// the same offsets, the codes (32 rows x 128 columns, rows kFLdc bytes
+// apart) and the scale and min rows; then one mbarrier per slot for its x
+// tile.
+struct SmemF32 {
+  static constexpr int kStages = 5;
+  static constexpr int kX = kFM * kQK * 4;
+  static constexpr int kCodes = kQK * kFLdc;
+  static constexpr int kStage = (2 * kX + kCodes + 2 * kFN * 4 + 1023) / 1024 * 1024;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kBytes = kBar + kStages * 8;
+  static_assert(kX % 1024 == 0, "atoms stay 1024-aligned");
+};
 
-  // x tile: 64 rows x 8 float4 chunks, two chunks per thread
-  int xr[2], xc[2];
+// yT = W^T x^T in 3xTF32: warpgroup wg computes the 64 x 128 tile of yT
+// for its 64 output columns and the block's 128 rows of x. A is the
+// dequantized weight, from registers: each thread dequantizes and splits
+// the 16 weights of its own fragments per step (two adjacent columns, 8
+// rows of K). B is the x tile, K-major in shared memory as TMA lands it.
+template <bool kMin>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    dequant_matmul_tf32(const __grid_constant__ CUtensorMap xmap,
+                        const int8_t* __restrict__ codes,
+                        const float* __restrict__ scales,
+                        const float* __restrict__ mins, float* __restrict__ out,
+                        int m, int n, int k, int offset) {
+  using S = SmemF32;
+  constexpr int kStages = S::kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
+  const int nsteps = k / kQK;
+  const uintptr_t ca = reinterpret_cast<uintptr_t>(codes);
+  const int cvec = n % 16 == 0 && ca % 16 == 0 ? 16 : n % 8 == 0 && ca % 8 == 0 ? 8 : 1;
+  const bool svec = n % 4 == 0 && ((reinterpret_cast<uintptr_t>(scales) |
+                                    reinterpret_cast<uintptr_t>(mins)) & 15) == 0;
+  auto stage_x = [&](int s) { return smem + s * S::kStage; };
+  auto stage_lo = [&](int s) { return smem + s * S::kStage + S::kX; };
+  auto stage_c = [&](int s) { return smem + s * S::kStage + 2 * S::kX; };
+  auto stage_s = [&](int s) {  // rows: scale, min
+    return reinterpret_cast<float*>(smem + s * S::kStage + 2 * S::kX + S::kCodes);
+  };
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBar);  // x tile s has landed
+
+  // The copies of quant step `step` into ring slot `s`: the x tile by TMA
+  // (thread 0), the codes, scales and mins as one cp.async group of every
+  // thread. Rows and columns out of range are zeros.
+  auto issue = [&](int step, int s) {
+    const int k0 = step * kQK;
+    if (tid == 0) {
+      tc::mbar_arrive_expect_tx(&full[s], S::kX);
+      tc::tma_load_2d(stage_x(s), &xmap, k0, m0, &full[s]);
+    }
+    unsigned char* dc = stage_c(s);
+    const int8_t* src = codes + (size_t)k0 * n + n0;
+    if (cvec == 16) {  // one 16-byte chunk per thread
+      static_assert(kQK * (kFN / 16) == kMmaThreads, "one chunk per thread");
+      const int r = tid >> 3, c = (tid & 7) * 16;
+      const bool ok = n0 + c < n;
+      tc::cp_async<16>(dc + r * kFLdc + c, ok ? src + (size_t)r * n + c : codes, ok ? 16 : 0);
+    } else if (cvec == 8) {
+      for (int idx = tid; idx < kQK * (kFN / 8); idx += kMmaThreads) {
+        const int r = idx >> 4, c = (idx & 15) * 8;
+        const bool ok = n0 + c < n;
+        tc::cp_async<8>(dc + r * kFLdc + c, ok ? src + (size_t)r * n + c : codes, ok ? 8 : 0);
+      }
+    } else {  // rows of codes off 8-byte alignment: plain loads
+      for (int idx = tid; idx < kQK * kFN; idx += kMmaThreads) {
+        const int r = idx / kFN, c = idx % kFN;
+        dc[r * kFLdc + c] = n0 + c < n ? src[(size_t)r * n + c] : 0;
+      }
+    }
+    float* ds = stage_s(s);
+    for (int idx = tid; idx < (kMin ? 2 : 1) * (kFN / 4); idx += kMmaThreads) {
+      const int row = idx >> 5, c = (idx & 31) * 4;
+      const float* rsrc = (row == 0 ? scales : mins) + (size_t)step * n + n0 + c;
+      if (svec) {
+        const bool ok = n0 + c < n;
+        tc::cp_async<16>(ds + row * kFN + c, ok ? rsrc : scales, ok ? 16 : 0);
+      } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int chunk = tid + kThreads * r;
-    xr[r] = chunk >> 3;
-    xc[r] = (chunk & 7) * 4;
-  }
-  // weight tile: 8 columns of one of the 32 rows per thread
-  const int br = tid >> 3, bc = (tid & 7) * 8;
-  const int col = n0 + bc;
-
-  float4 xv[2];
-  Codes<8> cv;
-  float sv[8], mv[8] = {};
-  auto fetch = [&](int kb) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      xv[r] = m0 + xr[r] < m
-                  ? __ldg(reinterpret_cast<const float4*>(
-                        x + (size_t)(m0 + xr[r]) * k + (size_t)kb * kQK + xc[r]))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    cv = load_codes<8>(codes, kb * kQK + br, col, n, vec);
-    load_row<8>(scales + (size_t)kb * n + col, col, n, vec_s, sv);
-    if (has_min) load_row<8>(mins + (size_t)kb * n + col, col, n, vec_s, mv);
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = n0 + c + e < n;
+          tc::cp_async<4>(ds + row * kFN + c + e, ok ? rsrc + e : scales, ok ? 4 : 0);
+        }
+      }
+    }
+    tc::cp_async_commit();
   };
 
-  float acc[4][4];
+  // The x tile of slot `s` -> its TF32 high part in place and its low
+  // part beside it, 16 bytes at a time at the offsets TMA wrote.
+  auto split_x = [&](int s) {
+    uint4* xs = reinterpret_cast<uint4*>(stage_x(s));
+    uint4* ls = reinterpret_cast<uint4*>(stage_lo(s));
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int nkb = k / kQK;
-  fetch(0);
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int buf = kb & 1;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float* d = &sX[buf][xr[r] * kFLdx + xc[r]];
-      d[0] = xv[r].x;
-      d[1] = xv[r].y;
-      d[2] = xv[r].z;
-      d[3] = xv[r].w;
+    for (int i = 0; i < S::kX / 16 / kMmaThreads; ++i) {
+      const int idx = tid + i * kMmaThreads;
+      const uint4 v = xs[idx];
+      const tc::Split a = tc::split_tf32(__uint_as_float(v.x)),
+                      b = tc::split_tf32(__uint_as_float(v.y)),
+                      c = tc::split_tf32(__uint_as_float(v.z)),
+                      d = tc::split_tf32(__uint_as_float(v.w));
+      xs[idx] = make_uint4(a.hi, b.hi, c.hi, d.hi);
+      ls[idx] = make_uint4(a.lo, b.lo, c.lo, d.lo);
     }
-    float wv[8];
-#pragma unroll
-    for (int w = 0; w < 8; ++w) wv[w] = dequant(cv.c[w], offset, sv[w], mv[w], has_min);
-    float4* dst = reinterpret_cast<float4*>(&sW[buf][br * kFN + bc]);
-    dst[0] = make_float4(wv[0], wv[1], wv[2], wv[3]);
-    dst[1] = make_float4(wv[4], wv[5], wv[6], wv[7]);
-    __syncthreads();  // one barrier per step, as in the bf16 kernel
-    if (kb + 1 < nkb) fetch(kb + 1);
+  };
 
-#pragma unroll 8
-    for (int kk = 0; kk < kQK; ++kk) {
-      float a[4], b[4];
+  // Slot `s`'s codes -> this thread's A fragments of the step's four k8
+  // slices, f[j] = {hi a0..a3, lo a0..a3}. Row r of warp w's 16 fragment
+  // rows is output column pc = 16 w + 2 g (r = g) or pc + 1 (r = g + 8)
+  // of the warpgroup's 64, so each k row is one 2-byte read, and the
+  // warp's reads of 4 k rows (q) fall kFLdc bytes apart on 16 distinct
+  // banks. A code becomes c - offset by the bf16 body's byte permute.
+  const int pc = wg * 64 + (warp & 3) * 16 + 2 * g;
+  const float bias = 8388608.f + 128.f + (float)offset;
+  auto fragments = [&](int s, uint32_t (&f)[4][8]) {
+    const float2 sv = *reinterpret_cast<const float2*>(stage_s(s) + pc);
+    const float2 mv = kMin ? *reinterpret_cast<const float2*>(stage_s(s) + kFN + pc)
+                           : make_float2(0.f, 0.f);
+    const unsigned char* cs = stage_c(s) + pc;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sX[buf][(ty + 16 * i) * kFLdx + kk];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sW[buf][kk * kFN + tx + 16 * j];
+      for (int h = 0; h < 2; ++h) {  // k = 8 j + q + 4 h
+        const uint32_t cw =
+            *reinterpret_cast<const uint16_t*>(cs + (8 * j + q + 4 * h) * kFLdc) ^ 0x8080u;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 2; ++e) {  // column pc + e: fragment row g + 8 e
+          const float c = __int_as_float(__byte_perm(cw, 0x4B000000u, 0x7650 | e)) - bias;
+          float v = __fmul_rn(c, e ? sv.y : sv.x);
+          if (kMin) v = __fadd_rn(v, e ? mv.y : mv.x);
+          const tc::Split p = tc::split_tf32(v);
+          f[j][e + 2 * h] = p.hi;
+          f[j][4 + e + 2 * h] = p.lo;
+        }
+      }
+  };
+
+  // part: a few steps' sum on the tensor cores; acc: the sum over K, in
+  // rounded f32 additions (the tensor cores truncate each wgmma's sum, and
+  // 3 K / 8 truncations into one accumulator would add up)
+  float acc[64], part[64];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t frag[2][4][8];
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) tc::mbar_init(&full[s], 1);
+    tc::fence_mbarrier_init();
+  }
+  __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) issue(s, s);
+    else tc::cp_async_commit();  // empty group: the wait count stays uniform
+  }
+  tc::cp_async_wait<kStages - 2>();
+  tc::mbar_wait(&full[0], 0);
+  __syncthreads();
+  fragments(0, frag[0]);
+  split_x(0);
+  if (nsteps > 1) {
+    tc::mbar_wait(&full[1], 0);
+    split_x(1);
+  }
+  tc::fence_proxy_async();  // the split x tiles, for the wgmmas
+  __syncthreads();
+
+  // Step kb: its 12 wgmmas (lo * hi, hi * lo, hi * hi per k8 slice, as
+  // tc::mma_3xtf32) run on the tensor cores into `part` while every
+  // thread splits step kb + 2's x tile, waits for step kb - 1's wgmmas
+  // (whose registers and ring slot it reuses), meets the others at the
+  // step's one barrier, dequantizes step kb + 1's fragments into the
+  // other register set and issues the copies of step kb + kStages - 1
+  // into step kb - 1's ring slot. A split tile is so read by the wgmmas
+  // only after the next step's barrier, and between a barrier and the
+  // next wgmmas there is only the dequantize. Steps go in pairs so that
+  // each names its register set, frag[h], at compile time; after each
+  // pair the tensor cores are drained and acc += part.
+  auto drain = [&] {
+    tc::wgmma_wait<0>();
+    tc::fence_operands(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+  };
+  for (int k2 = 0; k2 < nsteps; k2 += 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kb = k2 + h;
+      if (kb >= nsteps) break;
+      const unsigned char* xs = stage_x(kb % kStages);
+      const unsigned char* ls = stage_lo(kb % kStages);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t* f = frag[h][j];
+        const uint64_t hi = tc::sw128_desc(xs + 32 * j, 16, 1024);
+        const uint64_t lo = tc::sw128_desc(ls + 32 * j, 16, 1024);
+        tc::wgmma_m64n128k8_tf32(part, f[4], f[5], f[6], f[7], hi, j > 0 || h > 0);
+        tc::wgmma_m64n128k8_tf32(part, f[0], f[1], f[2], f[3], lo, 1);
+        tc::wgmma_m64n128k8_tf32(part, f[0], f[1], f[2], f[3], hi, 1);
+      }
+      tc::wgmma_commit();
+      if (kb + 2 < nsteps) {  // its slot's last reader, step kb - 3, is done
+        tc::mbar_wait(&full[(kb + 2) % kStages], ((kb + 2) / kStages) & 1);
+        split_x((kb + 2) % kStages);
+        tc::fence_proxy_async();
+      }
+      if (kb + 1 < nsteps) {
+        tc::wgmma_wait<1>();  // step kb - 1's wgmmas are done
+        tc::cp_async_wait<kStages - 3>();  // step kb + 1's codes
+        __syncthreads();  // every thread's copies are in, every warpgroup is past step kb - 1
+        fragments((kb + 1) % kStages, frag[h ^ 1]);
+      }
+      const int next = kb + kStages - 1;
+      if (next < nsteps) issue(next, next % kStages);
+      else tc::cp_async_commit();
+      if (h == 1) drain();
     }
   }
+  if (nsteps & 1) drain();
 
+  // yT's fragment rows g and g + 8 (columns pc, pc + 1), columns 8 j + 2 q
+  // + i, are y[8 j + 2 q + i][pc, pc + 1]: acc[4 j + i], acc[4 j + 2 + i]
+  const bool ovec = n % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  const int col = n0 + pc;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= m) continue;
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < n) out[(size_t)r * n + c] = acc[i][j];
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + 8 * j + 2 * q + i;
+      if (row >= m || col >= n) continue;
+      float* dst = out + (size_t)row * n + col;
+      if (ovec) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[4 * j + i], acc[4 * j + 2 + i]);
+      } else {
+        dst[0] = acc[4 * j + i];
+        if (col + 1 < n) dst[1] = acc[4 * j + 2 + i];
+      }
     }
+}
+
+template <bool kMin>
+cudaError_t launch_tf32(const void* x, const int8_t* codes, const float* scales,
+                        const float* mins, float* out, int m, int n, int k, int offset,
+                        cudaStream_t stream) {
+  // x (M, K) f32 as TMA reads it: boxes of 128 rows x 32 columns (128
+  // bytes), written in the 128-byte swizzle
+  CUtensorMap xmap;
+  const cudaError_t enc = tc::encode_sw128(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, k, m,
+                                           (uint64_t)k * 4, kQK, kFM);
+  if (enc != cudaSuccess) return enc;
+  static bool configured = false;
+  constexpr int bytes = SmemF32::kBytes + 1024;  // + alignment of the base
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dequant_matmul_tf32<kMin>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
   }
+  const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  dequant_matmul_tf32<kMin><<<grid, kMmaThreads, bytes, stream>>>(xmap, codes, scales, mins,
+                                                                  out, m, n, k, offset);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes (vit_cpp_tpu_torch/_build.py).
-// dtype: 0 = float32, 1 = bfloat16 (x and y; x 16-byte aligned), 2 =
+// x 16-byte aligned. dtype: 0 = float32, 1 = bfloat16 (x and y), 2 =
 // bfloat16 x with a float32 y (the bf16 body's f32 accumulators). mins:
 // (K/32, N) f32 or null. tile_m: output rows per block of the bf16 body,
 // 256 or 128 (the f32 body's tile is fixed). Returns cudaGetLastError()
@@ -540,26 +698,21 @@ extern "C" int vit_dequant_matmul(const void* x, const void* codes,
   const int8_t* c = static_cast<const int8_t*>(codes);
   const float* sc = static_cast<const float*>(scales);
   const float* mn = static_cast<const float*>(mins);
-  if (dtype == 1 || dtype == 2) {
-    if (reinterpret_cast<uintptr_t>(x) & 15) return (int)cudaErrorInvalidValue;
-    if (tile_m != 256 && tile_m != 128) return (int)cudaErrorInvalidValue;
-    if (dtype == 2)
-      return (int)(tile_m == 256
-                       ? (mn ? launch_wgmma<256, true, float>(x, c, sc, mn, out, m, n, k, offset, s)
-                             : launch_wgmma<256, false, float>(x, c, sc, mn, out, m, n, k, offset, s))
-                       : (mn ? launch_wgmma<128, true, float>(x, c, sc, mn, out, m, n, k, offset, s)
-                             : launch_wgmma<128, false, float>(x, c, sc, mn, out, m, n, k, offset, s)));
-    if (tile_m == 256)
-      return (int)(mn ? launch_wgmma<256, true, bf16>(x, c, sc, mn, out, m, n, k, offset, s)
-                      : launch_wgmma<256, false, bf16>(x, c, sc, mn, out, m, n, k, offset, s));
-    return (int)(mn ? launch_wgmma<128, true, bf16>(x, c, sc, mn, out, m, n, k, offset, s)
-                    : launch_wgmma<128, false, bf16>(x, c, sc, mn, out, m, n, k, offset, s));
-  }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kFN - 1) / kFN, (m + kFM - 1) / kFM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  dequant_matmul_f32<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(x), c, sc, mn, static_cast<float*>(out), m,
-      n, k, offset);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(x) & 15) return (int)cudaErrorInvalidValue;  // TMA reads x
+  if (dtype == 0)
+    return (int)(mn ? launch_tf32<true>(x, c, sc, mn, static_cast<float*>(out), m, n, k, offset, s)
+                    : launch_tf32<false>(x, c, sc, mn, static_cast<float*>(out), m, n, k, offset, s));
+  if (dtype != 1 && dtype != 2) return (int)cudaErrorInvalidValue;
+  if (tile_m != 256 && tile_m != 128) return (int)cudaErrorInvalidValue;
+  if (dtype == 2)
+    return (int)(tile_m == 256
+                     ? (mn ? launch_wgmma<256, true, float>(x, c, sc, mn, out, m, n, k, offset, s)
+                           : launch_wgmma<256, false, float>(x, c, sc, mn, out, m, n, k, offset, s))
+                     : (mn ? launch_wgmma<128, true, float>(x, c, sc, mn, out, m, n, k, offset, s)
+                           : launch_wgmma<128, false, float>(x, c, sc, mn, out, m, n, k, offset, s)));
+  if (tile_m == 256)
+    return (int)(mn ? launch_wgmma<256, true, bf16>(x, c, sc, mn, out, m, n, k, offset, s)
+                    : launch_wgmma<256, false, bf16>(x, c, sc, mn, out, m, n, k, offset, s));
+  return (int)(mn ? launch_wgmma<128, true, bf16>(x, c, sc, mn, out, m, n, k, offset, s)
+                  : launch_wgmma<128, false, bf16>(x, c, sc, mn, out, m, n, k, offset, s));
 }

@@ -3,8 +3,9 @@
 // their bodies: cp.async, ldmatrix, the bf16
 // mma.sync.m16n8k16 product and the f32 3xTF32 product on
 // mma.sync.m16n8k8.tf32, PTX ISA sm_80+), dequant_matmul.cu (K4:
-// cp.async, TMA with mbarriers and the asynchronous wgmma.m64n128k16
-// product, sm_90a) and probe_int8_dot.cu (T3: TMA loads and stores and
+// cp.async, TMA with mbarriers and the asynchronous wgmma products,
+// bf16 m64n128k16 and tf32 m64n128k8 with A from registers, sm_90a) and
+// probe_int8_dot.cu (T3: TMA loads and stores and
 // wgmma, bf16 m64n128k16 and s8 m64n128k32). Every floating-point product accumulates
 // in f32, the s8 product in s32.
 //
@@ -270,6 +271,42 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128 f32, this warpgroup's accumulators) = A B, or += A B with
+// `accumulate`, on the tensor cores in TF32: A 64 x 8 from registers, B
+// 8 x 128 from shared memory, K-major (N rows of 8 k: the tf32 forms have
+// no transpose). Warp w of the warpgroup holds rows 16 w .. 16 w + 15 of
+// A as m16n8k8.tf32 does (g = lane / 4, q = lane % 4): a0 = A[g][q], a1 =
+// A[g+8][q], a2 = A[g][q+4], a3 = A[g+8][q+4], each the bits of a value
+// already rounded to TF32 (the tensor cores drop the low 13 bits). The
+// sum d + A B is not rounded to nearest: on an H100 the error of many
+// products into one accumulator grew with their count instead of
+// averaging out (dequant_matmul.cu's f32 body). Asynchronous: the A
+// registers stay in use, as the operands above, until wgmma_wait.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                     uint32_t a2, uint32_t a3, uint64_t b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 128 s32, this warpgroup's accumulators) += A B on the tensor

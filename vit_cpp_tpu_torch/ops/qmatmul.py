@@ -13,8 +13,9 @@ with one scale (and min) per 32 rows of K per output column.
 - `impl="pallas"` calls `dequant_matmul`: on a CUDA tensor it launches
   csrc/dequant_matmul.cu (built by _build.py) or raises; on a CPU tensor
   it runs `dequant_matmul_plain`, which chip_smoke.py also holds the
-  kernel against on the card. `tile_rows` picks the bf16 kernel's output
-  rows per block for the shape and the card.
+  kernel against on the card. bf16 x runs the bf16 body (`tile_rows`
+  picks its output rows per block for the shape and the card), f32 x the
+  f32 body (3xTF32 on the tensor cores, 128 x 128 blocks).
 
 Numerics of both: the weight is dequantized in f32 as (c - offset) *
 scale, then + min, rounded to x's dtype, and multiplied with f32
@@ -141,7 +142,7 @@ def _dequant_matmul_cuda(x, codes, scales, mins, offset, out_features, f32_out=F
     if mins is not None and mins.shape != scales.shape:
         raise ValueError("mins and scales differ in shape")
     x2 = x2.contiguous()
-    if x2.data_ptr() % 16:  # the kernel loads x in 16-byte vectors
+    if x2.data_ptr() % 16:  # both bodies read x by TMA, from a 16-byte-aligned base
         x2 = x2.clone(memory_format=torch.contiguous_format)
     # the f32 body's output is f32 already; bf16 x writes f32 by dtype code 2
     out_dtype = torch.float32 if f32_out else x.dtype

@@ -40,6 +40,17 @@
    `python3 chip_smoke.py --k4-f32` runs only the f32 body's cases and
    times, after the build (from another tree's root it measures that
    tree's body).
+   attention_qkv and flash_attention in bf16 at d=64 run the wgmma body;
+   its own edges (T=1, 63, 64, 65, 128, 129, 196, 197, 255, 256, 257, 577,
+   785 fast and safe, sizes, kv at 197 of 200, 256 of 257 and 64 of 70
+   with pad rows of 1e4, a misaligned qkv, the split-head shapes) are held
+   to the plain versions and, bit for bit, to the mma.sync body it
+   replaced; that body (reached at
+   d=64 only through attention_qkv_mma / flash_attention_mma, a check-only
+   entry) is held to them too and timed in turns with it and
+   scaled_dot_product_attention at B=8 / 64 T=197, B=8 T=577 / 785 and
+   K3's (8, 12, 197, 64). `python3 chip_smoke.py --k1-bf16` runs only
+   those cases and times, after the build.
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -505,6 +516,181 @@ def attention_bound(b: int, t: int, h: int, esize: int):
     return bound(4.0 * b * t * t * h, (3 + 1) * b * t * h * esize, "bf16" if esize == 2 else "f32")
 
 
+# The wgmma body's (bf16, d=64) own edges, ViT-B/16's heads at B=2: one
+# 256-key tile up to T=256 (64-key boxes: T=63/64/65, 128/129, 196/197,
+# 255/256), a ring of 128-key tiles past it (257, 577) or of 64-key ones
+# (785); 64-row query tiles; kv at 197 of 200, 256 of 257 and 64 of 70
+# with pad rows of 1e4; ToMe sizes on either side of 256 keys.
+K1_D64_EDGES = (
+    [(f"d=64 T={t} {mode}", 2, t, {"fast": mode == "fast"})
+     for t in (1, 63, 64, 65, 128, 129, 196, 197, 255, 256, 257, 577, 785)
+     for mode in ("fast", "safe")]
+    + [(f"d=64 T={t} {mode} sizes", 2, t, {"fast": mode == "fast", "sizes": True})
+       for t, mode in ((197, "safe"), (197, "fast"), (257, "fast"), (785, "safe"))]
+    + [(f"d=64 kv={kv} T={t} {mode}, pad rows 1e4", 2, t, {"fast": mode == "fast", "kv": kv})
+       for kv, t in ((197, 200), (256, 257), (64, 70)) for mode in ("fast", "safe")]
+)
+
+# The split-head entry's (K3's) shapes through the wgmma body: (B, H, T, D)
+K3_D64_EDGES = [(2, 12, t, 64) for t in (1, 63, 64, 65, 128, 197, 256, 257, 577, 785)]
+
+# K1's timed shapes in bf16 fast (B, T): ViT-B/16 serving at B=8 and 64,
+# --img-size 384 and --patch-size 8 (K1', the JAX lane path's shape)
+K1_TIMED = ((8, 197), (64, 197), (8, 577), (8, 785))
+
+
+def check_attention_case(name, qkv, nh, kw, fn, plain, gen, same_as=None) -> float:
+    """One attention_qkv case against its plain version (pad rows of 1e4
+    past kv, random sizes in [1, 5)); its error, logged beside TOL. With
+    `same_as`, another kernel entry whose output must equal this one's bit
+    for bit on the same call."""
+    b, t, three_h = qkv.shape
+    kw = dict(kw)
+    if kw.get("kv"):
+        qkv[:, kw["kv"]:] = 1e4  # adversarial pad rows
+    if kw.get("sizes"):
+        kw["sizes"] = torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
+    if same_as is not None and not torch.equal(fn(qkv, nh, **kw), same_as(qkv, nh, **kw)):
+        raise AssertionError(f"{name}: the two bodies differ")
+    got = fn(qkv, nh, **kw)
+    ref = plain(qkv, nh, **kw)
+    torch.cuda.synchronize()
+    if got.shape != (b, t, three_h // 3) or got.dtype != qkv.dtype:
+        raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = TOL[qkv.dtype]
+    log(f"kernel case {name:<38} B={b} T={t} h={three_h // 3} nh={nh} {str(qkv.dtype)[6:]}: "
+        f"max|kernel - plain| = {err:.3e} (tolerance {tol:.0e})"
+        + ("; equal to the mma.sync body bit for bit" if same_as is not None else ""))
+    if not err <= tol:
+        raise AssertionError(f"{name}: error {err} > {tol}")
+    return err
+
+
+def check_k1_d64(gen) -> float:
+    """The wgmma body's edges (K1_D64_EDGES, K3_D64_EDGES, a misaligned
+    qkv) and the mma.sync body at d=64 (the check-only entry), each
+    against the plain version, and the two bodies' outputs equal bit for
+    bit at every edge; the worst error."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    bf16, worst = torch.bfloat16, 0.0
+    for name, b, t, kw in K1_D64_EDGES:
+        qkv = torch.randn((b, t, 3 * 768), generator=gen, device="cuda").to(bf16)
+        worst = max(worst, check_attention_case(
+            name, qkv, 12, kw, fa.attention_qkv, fa.attention_qkv_plain, gen,
+            same_as=fa.attention_qkv_mma))
+    qkv = torch.randn((2, 197, 3 * 768), generator=gen, device="cuda").to(bf16)
+    flat = torch.empty(qkv.numel() + 1, dtype=bf16, device="cuda")
+    shifted = flat[1:].view(qkv.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(qkv)
+    worst = max(worst, check_attention_case(
+        "d=64 misaligned qkv (copied)", shifted, 12, {"fast": True}, fa.attention_qkv,
+        fa.attention_qkv_plain, gen))
+    for name, t, kw in (("mma.sync body d=64 T=197 fast", 197, {"fast": True}),
+                        ("mma.sync body d=64 T=785 safe", 785, {"fast": False}),
+                        ("mma.sync body d=64 kv=197 T=200", 200, {"fast": True, "kv": 197})):
+        qkv = torch.randn((2, t, 3 * 768), generator=gen, device="cuda").to(bf16)
+        check_attention_case(name, qkv, 12, kw, fa.attention_qkv_mma, fa.attention_qkv_plain, gen)
+    for shape in K3_D64_EDGES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(bf16) for _ in range(3))
+        if not torch.equal(fa.flash_attention(q, k, v), fa.flash_attention_mma(q, k, v)):
+            raise AssertionError(f"flash_attention {shape}: the two bodies differ")
+        for what, fn in (("flash_attention", fa.flash_attention),
+                         ("flash_attention mma.sync body", fa.flash_attention_mma)):
+            if what != "flash_attention" and shape[2] not in (197, 785):
+                continue
+            got, ref = fn(q, k, v), fa.flash_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            if got.shape != q.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{what} {shape}: bad output")
+            err = (got.float() - ref.float()).abs().max().item()
+            log(f"kernel case {what} B={shape[0]} H={shape[1]} T={shape[2]} D={shape[3]} "
+                f"bfloat16: max|kernel - plain| = {err:.3e} (tolerance {TOL[bf16]:.0e})")
+            if not err <= TOL[bf16]:
+                raise AssertionError(f"{what} {shape}: error {err}")
+            if what == "flash_attention":
+                worst = max(worst, err)
+    return worst
+
+
+def time_k1_bodies(card: str, gen) -> dict:
+    """The wgmma body, the mma.sync body it replaced and
+    scaled_dot_product_attention in turns (queued device ms) at K1's timed
+    shapes (bf16 fast) and K3's (8, 12, 197, 64) (safe), each beside its
+    bound; {(B, T) or "K3": (wgmma ms, mma.sync ms, SDPA ms)}."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for b, t in K1_TIMED:
+        qkv = torch.randn((b, t, 3 * 768), generator=gen, device="cuda").to(torch.bfloat16)
+        r = turns({"wgmma": lambda: fa.attention_qkv(qkv, 12, fast=True),
+                   "mma.sync": lambda: fa.attention_qkv_mma(qkv, 12, fast=True),
+                   "sdpa": sdpa_fn(qkv, 12)})
+        b_ms, b_by = attention_bound(b, t, 768, 2)
+        log(f"attention_qkv bodies B={b} T={t} h=768 bf16 fast (device ms, in turns) on {card}: "
+            f"wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+            f"({r['mma.sync'] / r['wgmma']:.2f}x), scaled_dot_product_attention "
+            f"{r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x); bound {b_ms:.4f} ms ({b_by})")
+        out[(b, t)] = (r["wgmma"], r["mma.sync"], r["sdpa"])
+        del qkv
+    q, k, v = (torch.randn((8, 12, 197, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    r = turns({"wgmma": lambda: fa.flash_attention(q, k, v),
+               "mma.sync": lambda: fa.flash_attention_mma(q, k, v),
+               "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v)})
+    b_ms, b_by = attention_bound(8, 197, 768, 2)
+    log(f"flash_attention bodies (8, 12, 197, 64) bf16 (device ms, in turns) on {card}: wgmma "
+        f"{r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} ({r['mma.sync'] / r['wgmma']:.2f}x), "
+        f"scaled_dot_product_attention {r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x); bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    out["K3"] = (r["wgmma"], r["mma.sync"], r["sdpa"])
+    return out
+
+
+def encode_cost(card: str) -> None:
+    """Host us per call of the wgmma body's C entry (two tensor maps
+    encoded per call) and of the mma.sync body's (none) on one small bf16
+    d=64 input, each called straight through ctypes with the same
+    arguments: 500 calls enqueued behind a kernel that sleeps on the card
+    (so that the host's time is its own, not the card's), min of 3 runs.
+    The difference is what the tensor maps cost the host."""
+    import math
+
+    from vit_cpp_tpu_torch._build import library
+
+    lib = library()
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    qkv = torch.randn((1, 16, 192), generator=gen, device="cuda").bfloat16()
+    out = torch.empty((1, 16, 64), dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = 1.4426950408889634 / math.sqrt(64)
+    q, o = qkv.data_ptr(), out.data_ptr()
+    calls = {"wgmma": lambda: lib.vit_attention_qkv(q, None, o, 1, 16, 1, 64, 16, scale, 1, 1,
+                                                    stream),
+             "mma.sync": lambda: lib.vit_attention_mma(q, q, q, None, o, 1, 16, 1, 64, 16, scale, 1,
+                                                       0, stream)}
+    per_call = {k: [] for k in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            if fn() != 0:
+                raise AssertionError(f"encode_cost: the {name} launch failed")
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            per_call[name].append((time.perf_counter() - t0) / 500 * 1e6)
+            torch.cuda.synchronize()
+    us = {k: min(v) for k, v in per_call.items()}
+    log(f"host us per C call, attention (1, 16, 192) bf16 d=64 through ctypes, enqueued behind a "
+        f"sleeping kernel (min of 3 runs of 500): wgmma body {us['wgmma']:.2f}, mma.sync body "
+        f"{us['mma.sync']:.2f}; the tensor maps' encode and larger launch "
+        f"{us['wgmma'] - us['mma.sync']:+.2f} us on {card}")
+
+
 def check_kernels(card: str):
     from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_plain
 
@@ -565,45 +751,30 @@ def check_kernels(card: str):
     ]
     main_err = None
     for name, b, t, h, nh, dtype, kw in cases:
-        kw = dict(kw)
-        qkv = qkv_of(b, t, h, dtype)
-        if kw.get("kv"):
-            qkv[:, kw["kv"]:] = 1e4  # adversarial pad rows
-        if kw.get("sizes"):
-            kw["sizes"] = torch.randint(
-                1, 5, (b, t), generator=gen, device="cuda"
-            ).float()
-        got = attention_qkv(qkv, nh, **kw)
-        ref = attention_qkv_plain(qkv, nh, **kw)
-        torch.cuda.synchronize()
-        if got.shape != (b, t, h) or got.dtype != dtype:
-            raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = TOL[dtype]
-        log(f"kernel case {name:<38} B={b} T={t} h={h} nh={nh} {str(dtype)[6:]}: "
-            f"max|kernel - plain| = {err:.3e} (tolerance {tol:.0e})")
-        if not err <= tol:
-            raise AssertionError(f"{name}: error {err} > {tol}")
+        err = check_attention_case(name, qkv_of(b, t, h, dtype), nh, kw, attention_qkv,
+                                   attention_qkv_plain, gen)
         if main_err is None:
             main_err = err
+    check_k1_d64(gen)
 
     times = {}
-    # ViT-B/16 serving at B=8 and 64; T=785 is the shape of the JAX
-    # package's lane path (K1')
-    for b, t in ((8, 197), (64, 197), (8, 785)):
+    # ViT-B/16 serving at B=8 and 64; T=577 and 785 are --img-size 384 and
+    # --patch-size 8 (785: the shape of the JAX package's lane path, K1');
+    # each beside the mma.sync body it replaced and SDPA, in turns
+    bodies = time_k1_bodies(card, gen)
+    for b, t in K1_TIMED:
         qkv = qkv_of(b, t, 768, bf16)
         k_ms, p_ms = time_pair(
             f"attention_qkv B={b} T={t} h=768 bf16 fast", card,
             lambda: attention_qkv(qkv, 12, fast=True),
             lambda: attention_qkv_plain(qkv, 12, fast=True),
         )
-        lib = sdpa_ms(qkv, 12)
+        _, mma, lib = bodies[(b, t)]
         b_ms, b_by = attention_bound(b, t, 768, 2)
         log(f"attention_qkv B={b} T={t}: bound {b_ms:.4f} ms ({b_by}), library "
-            f"scaled_dot_product_attention {lib:.4f} ms on {card}")
-        times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib)
+            f"scaled_dot_product_attention {lib:.4f} ms, mma.sync body {mma:.4f} ms on {card}")
+        times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib, mma)
+    times["K3"] = bodies["K3"]
     # the training forward: f32, safe softmax, ViT-B/16 at B=32
     qkv = qkv_of(32, 197, 768, f32)
     k_ms, p_ms = time_pair(
@@ -1287,10 +1458,11 @@ def turns(fns: dict) -> dict:
 def check_diagnostics(card: str) -> dict:
     """Every variant of the three tools' kernels against its plain version
     at the tools' flagship shapes, timed; the anatomies' `full` against
-    K1 / K2 (bit for bit, then timed in turns with them and the library
-    call) and their stage splits. Returns {kernel name: (err of the main
-    variant, kernel ms, plain ms, bound ms, bound by, library ms)}."""
-    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_grad
+    K1's mma.sync body / K2 (bit for bit, then timed in turns with them
+    and the library call) and their stage splits. Returns {kernel name:
+    (err of the main variant, kernel ms, plain ms, bound ms, bound by,
+    library ms)}."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_grad, attention_qkv_mma
     from vit_cpp_tpu_torch.tools import attn_anatomy as ta
     from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
     from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
@@ -1348,7 +1520,7 @@ def check_diagnostics(card: str) -> dict:
                  ta.LANE_KERNEL: lambda v: ta.lane_variant_plain(qkv, v, 64)}[kernel]
         variants(kernel, f"B={b} T={t} h={h}", ta.VARIANTS, lambda v: fn(qkv, v), plain,
                  lambda v: ta.dot_flops(v, b, t, h), 4 * b * t * h * 2,
-                 lambda: attention_qkv(qkv, 12, fast=True), "attention_qkv fast bf16",
+                 lambda: attention_qkv_mma(qkv, 12, fast=True), "attention_qkv mma.sync fast bf16",
                  sdpa_fn(qkv, 12), "scaled_dot_product_attention")
         del qkv
 
@@ -2127,7 +2299,8 @@ def static_scales(conv: str, card: str) -> None:
         log(f"profiled {k} W8A8 forward B=64 (torch.profiler, mean of 3): {dev_us / 1e3:.2f} ms "
             f"of device time in {wall_us / 1e3:.2f} ms wall (idle share "
             f"{1 - dev_us / wall_us:.3f}); {per_forward[0]:.1f} kernel launches by the host, "
-            f"{per_forward[1]:.1f} kernels on the card; attention_qkv {k1_us / 1e3:.2f} ms; one "
+            f"{per_forward[1]:.1f} kernels on the card; attention_qkv {k1_us / 1e3:.2f} ms "
+            f"({k1_us / dev_us:.3f} of device time); one "
             f"qkv linear ({tokens} x {hp.hidden_size} x {3 * hp.hidden_size}, mean of 10 calls): "
             f"{per_linear[0]:.1f} launches by the host, {per_linear[1]:.1f} kernels on the card")
     del engines, static, dynamic
@@ -5073,6 +5246,7 @@ def op_dispatch_cost(f16: str, q8: str, card: str) -> None:
             per_call[name].append((time.perf_counter() - t0) / 200 * 1e6)
     log("host us per call, small shapes (min of 3 runs of 200): " + ", ".join(
         f"{k} {min(v):.1f}" for k, v in per_call.items()) + f" on {card}")
+    encode_cost(card)
 
     tome_engine, _ = build_engine(f16, tome=TOME_R, device="cuda")
     pixels = torch.randn((64, 3, 224, 224), generator=gen, device="cuda")
@@ -5436,7 +5610,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from vit_cpp_tpu_torch import _build
-    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, GRAD_KERNEL, KERNEL, MMA_KERNEL
     from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5462,6 +5636,15 @@ def main() -> int:
             f"registers per thread, {spills} bytes of spills")
 
     card = f"{kind} ({smi})"
+    if sys.argv[1:] == ["--k1-bf16"]:
+        # the wgmma body alone: its cases (and the mma.sync body's at d=64),
+        # then its times in turns with that body and SDPA, and its host cost
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        check_k1_d64(gen)
+        time_k1_bodies(card, gen)
+        encode_cost(card)
+        log(smi)
+        return 0
     if sys.argv[1:] == ["--k4-f32"]:
         # the f32 body alone: its kernel cases, then its times at ViT-B/16's
         # linears (run from another tree's root, it measures that tree's body)
@@ -5475,8 +5658,14 @@ def main() -> int:
     k4_err, k4_times, k4_f32_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
+    MMA_KERNEL.reset()
     (_, q8_launches, flash_launches, grad_launches, serve_launches,
      (shards, shard_errs), remat_times) = run_paths(card)
+    if MMA_KERNEL.launches:
+        raise AssertionError(f"the check-only mma.sync entry launched {MMA_KERNEL.launches} "
+                             "times on the paths")
+    log("paths: the mma.sync body's check-only entry launched 0 times (every bf16 d=64 "
+        "attention went through the wgmma body)")
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -5485,7 +5674,9 @@ def main() -> int:
     log(f"chip_smoke: checks, paths and diagnostics in {time.perf_counter() - t_start:.1f} s "
         "after the build")
 
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K1 and K3 in bf16 also carry the mma.sync body's time (in turns with
+    # the wgmma body that replaced it at d=64)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "mma_sync_ms")
 
     def entry(kernel, launches, err, times, by_path=None, **more):
         """A kernel's numbers; `by_path`: its launches on each path that
@@ -5511,14 +5702,14 @@ def main() -> int:
         return {"mesh_shards": {case: dict(zip(keys, t)) for case, t in shards[name].items()}}
 
     log(json.dumps({"kernels": [
-        # K1: bf16 fast at ViT-B/16 B=8; B=64 and the training forward
-        # (f32 safe, B=32; ViT-H/14 B=8) beside it, and both at
-        # tensor-parallel shards
+        # K1: bf16 fast at ViT-B/16 B=8; B=64, T=577 / 785 at B=8 and the
+        # training forward (f32 safe, B=32; ViT-H/14 B=8) beside it, and
+        # both at tensor-parallel shards
         {**entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
-                 b64=k1_times[(64, 197)], f32_b32=k1_times["f32 B=32"],
-                 h14_f32_b8=remat_times[KERNEL.name]),
+                 b64=k1_times[(64, 197)], t577=k1_times[(8, 577)], t785=k1_times[(8, 785)],
+                 f32_b32=k1_times["f32 B=32"], h14_f32_b8=remat_times[KERNEL.name]),
          **by_shard(KERNEL.name)},
         # K4: its f32-output instantiation (a bf16 rank's row-parallel
         # partials) at the row shards of tp = 2, 4 under "f32_out"
@@ -5533,7 +5724,7 @@ def main() -> int:
                      for case, t in shards["dequant_matmul f32_out"].items()},
          "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"],
          "f32_x_row_shards_max_rel_err": shard_errs["dequant_matmul f32 x"]},
-        entry(FLASH_KERNEL, flash_launches, k3_err, k3_times),
+        entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1])),
         # K2: f32 at ViT-B/16 B=32 (the training path's); bf16, T=785 and
         # ViT-H/14 B=8 beside it, and f32 at tensor-parallel shards
         {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,

@@ -358,11 +358,13 @@ def test_probe_kernel_on_card_at_shapes(shape, dtype):
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
-# The anatomies' `full` against K1 (fast, bf16) and K2 (bf16) on the same
-# tensors, bit for bit: the same body at the default stages. d=72 and
-# d=32 run the anatomy's widths rounded up to 64 (zero columns add
-# exactly 0); d=128 the pair form's 256-lane groups and the lane form's
-# one-head panels.
+# The anatomies' `full` against K1's mma.sync body (fast, bf16) and K2
+# (bf16) on the same tensors, bit for bit: the same body at the default
+# stages. K1 runs that body through its check-only entry
+# (`attention_qkv_mma`): at d=64 the served bf16 path takes the wgmma
+# body instead. d=72 and d=32 run the anatomy's widths rounded up to 64
+# (zero columns add exactly 0); d=128 the pair form's 256-lane groups and
+# the lane form's one-head panels.
 @pytest.mark.cuda
 @pytest.mark.parametrize("form,nh,d", [
     ("pair", 12, 64), ("pair", 2, 72), ("pair", 4, 128),
@@ -372,7 +374,7 @@ def test_forward_full_kernel_is_k1_on_card(form, nh, d):
     gen = _card()
     qkv = torch.randn((2, 197, 3 * nh * d), generator=gen, device="cuda").to(torch.bfloat16)
     got = ta.pair_variant(qkv, "full", nh) if form == "pair" else ta.lane_variant(qkv, "full", d)
-    assert torch.equal(got, fa.attention_qkv(qkv, nh, fast=True))
+    assert torch.equal(got, fa.attention_qkv_mma(qkv, nh, fast=True))
 
 
 @pytest.mark.cuda

@@ -4,7 +4,12 @@ On the CPU the port's `attention_qkv` runs its plain PyTorch version; the
 JAX `attention_qkv` runs its Pallas kernels in interpret mode, as the JAX
 package's own tests run them. Inputs are made with numpy from a seed and
 handed to both. The CUDA kernel itself is held against the plain version
-on the card (the `cuda` test below, and chip_smoke.py).
+on the card (the `cuda` tests below, and chip_smoke.py): in bf16 at d=64
+its wgmma body, elsewhere its mma.sync and 3xTF32 bodies, and the
+mma.sync body at d=64 too through the check-only `attention_qkv_mma` /
+`flash_attention_mma`. The bf16 tolerance on the card (2e-2 absolute)
+is a few bf16 steps of O(1) outputs: both sides round p to bf16 for P V
+and the output to bf16, in another order of f32 sums.
 
 Tolerances: f32 on both sides, differing only in summation order, so
 2e-5 absolute (outputs are O(1)).
@@ -101,6 +106,23 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
     assert port.KERNEL.launches == before == 0
 
 
+@pytest.mark.parametrize("kw", [{"fast": True}, {"fast": False, "kv": 4}, {"sizes": True}])
+def test_mma_entry_runs_plain_version_on_cpu(kw):
+    # the check-only entry to the mma.sync body: the plain version on CPU
+    # tensors, no launch counted
+    before = port.MMA_KERNEL.launches
+    qkv = torch.from_numpy(_qkv(2, 6, 2, 64, seed=4))
+    kw = dict(kw)
+    if kw.pop("sizes", False):
+        kw["sizes"] = torch.from_numpy(np.random.default_rng(4).integers(1, 5, (2, 6)).astype(np.float32))
+    torch.testing.assert_close(port.attention_qkv_mma(qkv, 2, **kw),
+                               port.attention_qkv_plain(qkv, 2, **kw), rtol=0, atol=0)
+    q, k, v = (torch.from_numpy(a) for a in _bhtd(2, 2, 6, 64, seed=5))
+    torch.testing.assert_close(port.flash_attention_mma(q, k, v),
+                               port.flash_attention_plain(q, k, v), rtol=0, atol=0)
+    assert port.MMA_KERNEL.launches == before == 0
+
+
 def test_rejects_bad_arguments():
     qkv = torch.zeros(1, 4, 12)
     with pytest.raises(ValueError):
@@ -186,9 +208,11 @@ def test_flash_attention_kernel_matches_plain_on_card(dtype):
     assert port.FLASH_KERNEL.launches == before + 2
 
 
-# The edges of both bodies' tiling: 128-query blocks of 8 warps x 16
+# The edges of the bodies' tiling: 128-query blocks of 8 warps x 16
 # rows, 64-key tiles of 16-key (bf16) or 8-key (f32) steps, d padded to a
-# multiple of 16.
+# multiple of 16; at d=64 in bf16 the wgmma body's 64-query tiles, one
+# tile of 64-key boxes up to T=256, a ring of 128- or 64-key tiles past it
+# (257, 577, 785), kv at 197 of 200, 256 of 257 and 64 of 70.
 TILE_EDGES = [
     (2, 1, {"fast": True}, 64),
     (2, 1, {"fast": False}, 64),
@@ -203,6 +227,19 @@ TILE_EDGES = [
     (2, 197, {"fast": True, "sizes": True}, 72),
     (2, 197, {"fast": True}, 128),
     (2, 197, {"fast": False, "kv": 190}, 128),
+    *[(2, t, {"fast": fast}, 64) for t in (63, 64, 196, 197, 255, 256, 257, 577, 785)
+      for fast in (True, False)],
+    (2, 65, {"fast": True}, 64),
+    (2, 128, {"fast": False}, 64),
+    (2, 129, {"fast": True}, 64),
+    (2, 197, {"fast": False, "sizes": True}, 64),
+    (2, 257, {"fast": True, "sizes": True}, 64),
+    (1, 785, {"fast": False, "sizes": True}, 64),
+    (2, 200, {"fast": True, "kv": 197}, 64),
+    (2, 200, {"fast": False, "kv": 197}, 64),
+    (2, 257, {"fast": True, "kv": 256}, 64),
+    (2, 257, {"fast": False, "kv": 256}, 64),
+    (2, 70, {"fast": False, "kv": 64}, 64),
 ]
 
 
@@ -293,7 +330,11 @@ def test_bf16_kernel_takes_an_unaligned_qkv_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 4, 1, 64), (2, 4, 65, 72), (2, 4, 128, 128), (2, 4, 129, 64)])
+@pytest.mark.parametrize("shape", [
+    (2, 4, 1, 64), (2, 4, 65, 72), (2, 4, 128, 128), (2, 4, 129, 64),
+    (2, 4, 63, 64), (2, 4, 64, 64), (2, 12, 197, 64), (2, 4, 256, 64), (2, 4, 257, 64),
+    (2, 4, 577, 64), (1, 4, 785, 64),
+])
 def test_flash_attention_bf16_tile_edges_on_card(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -301,3 +342,54 @@ def test_flash_attention_bf16_tile_edges_on_card(shape):
     got = port.flash_attention(q, k, v).float()
     ref = port.flash_attention_plain(q, k, v).float()
     torch.testing.assert_close(got, ref, atol=2e-2, rtol=0)
+
+
+# The wgmma body (bf16, d=64) computes the mma.sync body's products in the
+# same order and divides by l to the correctly rounded quotient, so the
+# two agree bit for bit: held at each edge of the wgmma body's tiling.
+WGMMA_EDGES = [(t, {"fast": fast}) for t in (1, 65, 197, 256, 257, 785) for fast in (True, False)] + [
+    (197, {"fast": True, "sizes": True}), (785, {"fast": False, "sizes": True}),
+    (200, {"fast": True, "kv": 197}), (257, {"fast": False, "kv": 256}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "t,kw", WGMMA_EDGES,
+    ids=[f"T{t}-" + "-".join(f"{k}{v}" for k, v in kw.items()) for t, kw in WGMMA_EDGES],
+)
+def test_wgmma_body_is_the_mma_body_bit_for_bit_on_card(t, kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    qkv = torch.from_numpy(_qkv(2, t, 4, 64, seed=t + 7)).to("cuda", torch.bfloat16)
+    kw = dict(kw)
+    if kw.get("kv"):
+        qkv[:, kw["kv"]:] = 1e4
+    if kw.pop("sizes", False):
+        kw["sizes"] = torch.from_numpy(np.random.default_rng(t).integers(1, 5, (2, t)).astype(np.float32)).cuda()
+    assert torch.equal(port.attention_qkv(qkv, 4, **kw), port.attention_qkv_mma(qkv, 4, **kw))
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _bhtd(1, 4, t, 64, seed=t))
+    assert torch.equal(port.flash_attention(q, k, v), port.flash_attention_mma(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,kw", [(197, {"fast": True}), (785, {"fast": False}),
+                                  (200, {"fast": True, "kv": 197}), (257, {"sizes": True})])
+def test_mma_body_at_d64_matches_plain_on_card(t, kw):
+    # the body the wgmma one replaced, through its check-only entry: still
+    # right at d=64, counted on MMA_KERNEL and not on KERNEL
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    qkv = torch.from_numpy(_qkv(2, t, 4, 64, seed=t)).to("cuda", torch.bfloat16)
+    kw = dict(kw)
+    if kw.get("kv"):
+        qkv[:, kw["kv"]:] = 1e4
+    if kw.pop("sizes", False):
+        kw["sizes"] = torch.from_numpy(np.random.default_rng(t).integers(1, 5, (2, t)).astype(np.float32)).cuda()
+    before, mma_before = port.KERNEL.launches, port.MMA_KERNEL.launches
+    got = port.attention_qkv_mma(qkv, 4, **kw).float()
+    assert (port.KERNEL.launches, port.MMA_KERNEL.launches) == (before, mma_before + 1)
+    torch.testing.assert_close(got, port.attention_qkv_plain(qkv, 4, **kw).float(), atol=2e-2, rtol=0)
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _bhtd(1, 4, t, 64, seed=t))
+    torch.testing.assert_close(port.flash_attention_mma(q, k, v).float(),
+                               port.flash_attention_plain(q, k, v).float(), atol=2e-2, rtol=0)

@@ -127,6 +127,13 @@ def library() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
             ]
+            lib.vit_attention_mma.restype = ctypes.c_int
+            lib.vit_attention_mma.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
             lib.vit_dequant_matmul.restype = ctypes.c_int
             lib.vit_dequant_matmul.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

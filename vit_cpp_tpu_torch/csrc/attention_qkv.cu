@@ -1,6 +1,16 @@
-// Multi-head attention for Hopper (sm_90a), CUDA C++: two bodies, both on
+// Multi-head attention for Hopper (sm_90a), CUDA C++: three bodies, all on
 // the tensor cores (bf16 products, and f32 as 3xTF32), two C entry points,
-// each with its own launch counter in Python.
+// each with its own launch counter in Python, and a third for the checks.
+//
+// Which body takes a call, at both entry points:
+//   bf16, d = 64          attention_wgmma (attention_wgmma.cuh: wgmma fed
+//                         by TMA; every ViT-Ti/S/B/L head)
+//   bf16, any other d     attention_mma (attention_body.cuh: mma.sync fed
+//                         by cp.async; d = 72, 80, 88, 128, ...)
+//   f32, any d            attention_tf32 (below: 3xTF32 on mma.sync)
+// vit_attention_mma runs attention_mma at any d, d = 64 included, so that
+// the checks can hold T1's `full` to it bit for bit and time it beside
+// attention_wgmma; no path of the port calls it.
 //
 // vit_attention_qkv replaces the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel
@@ -16,13 +26,14 @@
 // (_bhtd_kernel -> _sdpa in safe mode): q, k, v and the output are
 // separate (B, H, T, D) tensors.
 //
-// Both bodies read Q, K and V through a (batch, head, token) stride set
-// and write the output through another, so both layouts are read in
-// place: no head split or merge transposes exist in device memory. One
-// thread block owns one (batch, head, query tile) of 128 rows; keys are
-// tiled 64 at a time through shared memory (K and V of one head at T=785,
-// d=88 would not fit whole), and the (T, T) score matrix never leaves the
-// SM.
+// The mma.sync and f32 bodies read Q, K and V through a (batch, head,
+// token) stride set and write the output through another (the wgmma body
+// through tensor maps over the same views), so both layouts are read in
+// place: no head split or merge transposes exist in device memory. In the
+// two bodies below, one thread block owns one (batch, head, query tile)
+// of 128 rows; keys are tiled 64 at a time through shared memory (K and V
+// of one head at T=785, d=88 would not fit whole), and the (T, T) score
+// matrix never leaves the SM.
 //
 // What bounds it on this card. At ViT-B/16 (T=197, h=768) attention is
 // about 4 T^2 h = 0.12 GFLOP per image per layer against ~1.2 MB of qkv
@@ -32,9 +43,10 @@
 // fast the SM feeds operands to its multiply-adds. Both bodies below are
 // still not bound by HBM but by issue on the SM: the mma.sync products
 // (three per f32 product), then the exp2 of every score, while their K/V
-// copies hide behind the products.
+// copies hide behind the products. The wgmma body's note says what it
+// does about that at d = 64.
 //
-// bf16 body (attention_mma: serving, K1 and K3; its code is
+// bf16 body (attention_mma: serving, K1 and K3, at d != 64; its code is
 // attention_body.cuh, which the forward anatomy attn_anatomy.cu
 // instantiates with stages changed), in the FlashAttention-2 manner. 8
 // warps, each owning 16 query rows (at ViT-B/16 B=64, 1536 blocks
@@ -72,15 +84,16 @@
 // and reads V's rows 2 q and 2 q + 1 for B's rows q and q + 4. The output
 // is written from the accumulators in 8-byte stores.
 //
-// Numerics of both, as in the TPU kernel (flash_attention.py _sdpa and
-// _qkv_pair_kernel):
+// Numerics of all three, as in the TPU kernel (flash_attention.py _sdpa
+// and _qkv_pair_kernel):
 //  1. Q is scaled by log2(e)/sqrt(d) in f32 and rounded to the input type
 //     before Q K^T; scores accumulate in f32.
 //  2. fast: s = min(s, 120) with no row max. safe: s - max over the real
-//     keys. The bf16 body takes the exact row max in a first pass over the
-//     keys (the scores are recomputed in the second pass), so its weights
-//     are exp2(s - max) as in the TPU kernel before they are rounded to
-//     bf16. The f32 body, whose p is not rounded, keeps an online max in
+//     keys. The bf16 bodies take the exact row max in a first pass over the
+//     keys (the scores are recomputed in the second pass; the wgmma body
+//     at kv <= 256 reads it from the one tile's accumulators), so their
+//     weights are exp2(s - max) as in the TPU kernel before they are
+//     rounded to bf16. The f32 body, whose p is not rounded, keeps an online max in
 //     one pass instead: o and l are rescaled by exp2(m_old - m_new) when
 //     the max grows, which the division o / l cancels up to f32 rounding
 //     (an H100 measured the f32 cases within 6e-6 of the plain version,
@@ -89,10 +102,12 @@
 //  3. p = exp2(s), times the key mask (keys >= kv are skipped: weight 0),
 //     times sizes[key] when given.
 //  4. l = sum p in f32 from the f32 p; the PV product uses p rounded to
-//     the input type with f32 accumulation; o / l after PV, then cast.
-// Products of bf16 values are exact in f32, so the bf16 body differs from
-// the plain version only in the order of its f32 sums; the f32 body also
-// by 3xTF32's ~2^-22 per product. Query rows >= kv
+//     the input type with f32 accumulation; o / l after PV (the wgmma
+//     body: o times one reciprocal of l per row), then cast.
+// Products of bf16 values are exact in f32, so the mma.sync body differs
+// from the plain version only in the order of its f32 sums; the wgmma
+// body also by the tensor cores' truncated sums and the reciprocal; the
+// f32 body by 3xTF32's ~2^-22 per product. Query rows >= kv
 // (token padding) are written as zeros, as the composed path
 // (_attention_qkv_xla) does.
 
@@ -101,7 +116,9 @@
 #include <stdint.h>
 
 #include "attention_body.cuh"
+#include "attention_wgmma.cuh"
 #include "tensor_core.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -346,6 +363,21 @@ __global__ void __launch_bounds__(kMmaThreads)
   attn::attention_mma_body<NK>(qg, kg, vg, in, sizes, out, os, seq, d, kv, qscale, fast);
 }
 
+// ---------------------------------------------------- bf16 body, d = 64
+
+// attention_wgmma.cuh's body, one kernel per softmax (kFast) and per
+// presence of ToMe sizes. Three blocks share an SM: at most 168 registers
+// a thread.
+template <bool kFast, bool kSizes>
+__global__ void __launch_bounds__(attn::kWgThreads, 3)
+    attention_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, attn::WgCoords co,
+                    const float* __restrict__ sizes, int seq, int kv, float qscale) {
+  attn::attention_wgmma_body<kFast, kSizes>(qmap, kmap, vmap, omap, co, sizes, seq, kv, qscale);
+}
+
 // ------------------------------------------------------------- launches
 
 // The operands of one launch: Q, K, V and output pointers with their
@@ -397,6 +429,37 @@ cudaError_t launch(const Args<bf16>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The operands of a wgmma launch: tensor maps of Q, K, V and the output
+// (for fused qkv the first three are one map), where a (batch, head)'s
+// tiles lie in them, and the geometry.
+struct WgArgs {
+  CUtensorMap q, k, v, o;
+  attn::WgCoords co;
+  const float* sizes;
+  int batch, seq, nh, kv;
+  float qscale;
+  int fast;
+};
+
+template <bool kFast, bool kSizes>
+cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(attention_wgmma<kFast, kSizes>, attn::wgmma_smem_bytes(1 << 30),
+                               configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq + attn::kWgRows - 1) / attn::kWgRows, a.nh, a.batch);
+  const size_t bytes = attn::wgmma_smem_bytes(a.kv);
+  attention_wgmma<kFast, kSizes><<<grid, attn::kWgThreads, bytes, stream>>>(
+      a.q, a.k, a.v, a.o, a.co, a.sizes, a.seq, a.kv, a.qscale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t stream) {
+  if (a.fast)
+    return a.sizes ? launch_wgmma<true, true>(a, stream) : launch_wgmma<true, false>(a, stream);
+  return a.sizes ? launch_wgmma<false, true>(a, stream) : launch_wgmma<false, false>(a, stream);
+}
+
 // NK = ceil(d / 16): 16-wide slices of the head dimension.
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
@@ -418,12 +481,31 @@ bool bad_geometry(int batch, int seq, int nh, int d) {
          batch > 65535 || nh > 65535;
 }
 
-// Fused QKV: q | k | v thirds of (B, T, 3h) rows; output (B, T, h).
+// Fused QKV: q | k | v thirds of (B, T, 3h) rows; output (B, T, h). bf16
+// at d = 64 takes the wgmma body unless `mma`.
 template <typename T>
 cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
                     int seq, int nh, int d, int kv, float qscale, int fast,
-                    cudaStream_t stream) {
+                    bool mma, cudaStream_t stream) {
   const long long h = (long long)nh * d;
+  if constexpr (sizeof(T) == 2) {
+    if (d == attn::kWgD && !mma) {
+      // planes are images: rows of 3h (tokens past kv load as zeros) in,
+      // rows of h out; a head's Q, K and V are column offsets
+      WgArgs w;
+      cudaError_t err = tc::encode_sw128_3d(&w.q, qkv, 3 * h, kv, batch, 3 * h * 2,
+                                            (uint64_t)seq * 3 * h * 2, attn::kWgD, attn::kWgRows);
+      if (err == cudaSuccess)
+        err = tc::encode_sw128_3d(&w.o, out, h, seq, batch, h * 2, (uint64_t)seq * h * 2,
+                                  attn::kWgD, attn::kWgRows);
+      if (err != cudaSuccess) return err;
+      w.k = w.v = w.q;
+      w.co = attn::WgCoords{0, (int)h, (int)(2 * h), d, 1, 0};
+      w.sizes = static_cast<const float*>(sizes);
+      w.batch = batch, w.seq = seq, w.nh = nh, w.kv = kv, w.qscale = qscale, w.fast = fast;
+      return launch_wgmma(w, stream);
+    }
+  }
   const T* base = static_cast<const T*>(qkv);
   const Args<T> a{base, base + h, base + 2 * h, Strides{seq * 3 * h, d, 3 * h},
                   static_cast<const float*>(sizes), static_cast<T*>(out),
@@ -431,11 +513,31 @@ cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
   return dispatch<T>(a, stream);
 }
 
-// Split heads: q, k, v and output each (B, H, T, D); safe softmax.
+// Split heads: q, k, v and output each (B, H, T, D); safe softmax. bf16
+// at d = 64 takes the wgmma body unless `mma`.
 template <typename T>
 cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
-                     int batch, int nh, int seq, int d, float qscale,
+                     int batch, int nh, int seq, int d, float qscale, bool mma,
                      cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    if (d == attn::kWgD && !mma) {
+      // planes are (image, head) pairs of seq rows of 64
+      if ((long long)batch * nh > 0x7fffffff) return cudaErrorInvalidValue;
+      WgArgs w;
+      const void* src[4] = {q, k, v, out};
+      CUtensorMap* map[4] = {&w.q, &w.k, &w.v, &w.o};
+      for (int i = 0; i < 4; ++i) {
+        const cudaError_t err =
+            tc::encode_sw128_3d(map[i], src[i], d, seq, (uint64_t)batch * nh, d * 2,
+                                (uint64_t)seq * d * 2, attn::kWgD, attn::kWgRows);
+        if (err != cudaSuccess) return err;
+      }
+      w.co = attn::WgCoords{0, 0, 0, 0, nh, 1};
+      w.sizes = nullptr;
+      w.batch = batch, w.seq = seq, w.nh = nh, w.kv = seq, w.qscale = qscale, w.fast = 0;
+      return launch_wgmma(w, stream);
+    }
+  }
   const Strides st{(long long)nh * seq * d, (long long)seq * d, d};
   const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), st, nullptr, static_cast<T*>(out),
@@ -443,7 +545,7 @@ cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
   return dispatch<T>(a, stream);
 }
 
-// Both bodies copy 16-byte chunks.
+// The bodies copy 16-byte chunks (TMA: 16-byte aligned bases).
 bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
 
 }  // namespace
@@ -461,9 +563,9 @@ extern "C" int vit_attention_qkv(const void* qkv, const void* sizes, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (misaligned(qkv) || misaligned(out)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)run_qkv<float>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
+    return (int)run_qkv<float>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, false, s);
   if (dtype == 1)
-    return (int)run_qkv<bf16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, s);
+    return (int)run_qkv<bf16>(qkv, sizes, out, batch, seq, nh, d, kv, qscale, fast, false, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -476,10 +578,31 @@ extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)run_bhtd<float>(q, k, v, out, batch, nh, seq, d, qscale, s);
+    return (int)run_bhtd<float>(q, k, v, out, batch, nh, seq, d, qscale, false, s);
   if (dtype == 1)
-    return (int)run_bhtd<bf16>(q, k, v, out, batch, nh, seq, d, qscale, s);
+    return (int)run_bhtd<bf16>(q, k, v, out, batch, nh, seq, d, qscale, false, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 through the mma.sync body (attention_mma) at any d, d = 64
+// included, for the checks only: T1's `full` is that body bit for bit,
+// and chip_smoke.py times it beside the wgmma body. No path of the port
+// calls it. split 0: q is the fused (B, T, 3h) qkv (k and v unused), out
+// (B, T, h), kv, sizes and fast as vit_attention_qkv's; split 1: q, k, v
+// and out (B, H, T, D), safe softmax (kv, sizes and fast unused).
+extern "C" int vit_attention_mma(const void* q, const void* k, const void* v,
+                                 const void* sizes, void* out, int batch, int seq,
+                                 int nh, int d, int kv, float qscale, int fast, int split,
+                                 void* stream) {
+  if (bad_geometry(batch, seq, nh, d)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split) {
+    if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out))
+      return (int)cudaErrorInvalidValue;
+    return (int)run_bhtd<bf16>(q, k, v, out, batch, nh, seq, d, qscale, true, s);
+  }
+  if (kv < 1 || kv > seq || misaligned(q) || misaligned(out)) return (int)cudaErrorInvalidValue;
+  return (int)run_qkv<bf16>(q, sizes, out, batch, seq, nh, d, kv, qscale, fast, true, s);
 }
 
 extern "C" const char* vit_cuda_error_string(int err) {

@@ -4,10 +4,12 @@
 // mma.sync.m16n8k16 product and the f32 3xTF32 product on
 // mma.sync.m16n8k8.tf32, PTX ISA sm_80+), dequant_matmul.cu (K4:
 // cp.async, TMA with mbarriers and the asynchronous wgmma products,
-// bf16 m64n128k16 and tf32 m64n128k8 with A from registers, sm_90a) and
+// bf16 m64n128k16 and tf32 m64n128k8 with A from registers, sm_90a),
 // probe_int8_dot.cu (T3: TMA loads and stores and
-// wgmma, bf16 m64n128k16 and s8 m64n128k32). Every floating-point product accumulates
-// in f32, the s8 product in s32.
+// wgmma, bf16 m64n128k16 and s8 m64n128k32) and attention_wgmma.cuh (K1
+// and K3 in bf16 at d = 64: 3-D TMA loads and stores, bf16 m64n64k16 with
+// A from shared memory or from registers). Every floating-point product
+// accumulates in f32, the s8 product in s32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two bf16 each:
@@ -247,6 +249,68 @@ __device__ __forceinline__ void fence_operands(int (&d)[64]) {
                     "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]) :: "memory");
 }
 
+// The same for 32 accumulators (m64n64).
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) :: "memory");
+  asm volatile("" : "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) :: "memory");
+  asm volatile("" : "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]) :: "memory");
+  asm volatile("" : "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+                    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) :: "memory");
+}
+
+// d (64 x 64 f32) = A B, or += A B with `accumulate`: A 64 x 16 bf16 and
+// B 16 x 64 bf16, both from shared memory and both K-major (B stored as
+// 64 N rows of 16 k: the attention's S = Q K^T, K's rows as they lie).
+// The accumulator layout is m64n128's: warp w of the warpgroup holds rows
+// 16 w + g and + 8, d[4 j + e] at column 8 j + 2 q + (e & 1) (g = lane /
+// 4, q = lane % 4). Asynchronous, as above.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A B, or += A B with `accumulate`: A 64 x 16 bf16 from
+// registers, in m16n8k16's A layout for the 16 rows of each warp (a0 =
+// A[g][2q, 2q+1], a1 = A[g+8][..], a2 = A[g][2q+8, +9], a3 = A[g+8][..]),
+// so that m64n64's accumulators of two neighbouring n8 columns, rounded
+// and packed in pairs, are the A of a 16-wide k slice; B 16 x 64 bf16 from
+// shared memory, MN-major (the transpose bit: N contiguous, the
+// attention's V rows as they lie). Asynchronous: the A registers stay in
+// use, as the operands above, until wgmma_wait.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 128 f32, this warpgroup's accumulators) += A B on the tensor
 // cores: A 64 x 16 bf16, K-major; B 16 x 128 bf16, MN-major (N contiguous).
 // Asynchronous: the operands stay in use until wgmma_wait.
@@ -367,6 +431,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
+// mbar_wait that gives up: after ~2^24 polls (seconds) the thread traps, so
+// a copy that never lands fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, %2;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "sub.u32 n, n, 1;\n"
+      "setp.ne.u32 p, n, 0;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity), "n"(1 << 24) : "memory");
+}
+
 // TMA: the box at (c0, c1) (innermost coordinate first) of the 2-D tensor
 // `map` describes, into shared memory at `dst` in the map's layout;
 // completes `bar`'s expected bytes. Out-of-range elements are zeros.
@@ -391,6 +474,25 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int
   asm volatile(
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+
+// The same for a 3-D tensor: the box at (c0, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int c0, int c1, int c2,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
       : "memory");
 }
 

@@ -13,6 +13,13 @@ its own C entry point and launch counter:
   ops/core.py::attention(impl="pallas"), as in the JAX package, where no
   model entry point calls it.
 
+In bf16 at d = 64 both run the kernel's wgmma body (csrc/
+attention_wgmma.cuh), at every other (dtype, d) its mma.sync or 3xTF32
+body. `attention_qkv_mma` and `flash_attention_mma` (MMA_KERNEL) run the
+mma.sync body at any d, d = 64 included: for the checks only (the forward
+anatomy's `full` is that body bit for bit; chip_smoke.py times it beside
+the wgmma body). No path of the port calls them.
+
 and of the backward kernel, csrc/attention_qkv_grad.cu:
 
 - `attention_qkv_grad` (GRAD_KERNEL): (B, T, 3h) qkv and the (B, T, h)
@@ -64,6 +71,12 @@ FLASH_KERNEL = Kernel(
     "flash_attention",
     source="vit_cpp_tpu_torch/csrc/attention_qkv.cu",
     replaces="vit_cpp_tpu/ops/flash_attention.py:1298",
+)
+
+MMA_KERNEL = Kernel(
+    "attention_mma",
+    source="vit_cpp_tpu_torch/csrc/attention_qkv.cu",
+    replaces="vit_cpp_tpu/ops/flash_attention.py:669",
 )
 
 GRAD_KERNEL = Kernel(
@@ -203,6 +216,48 @@ _ATTENTION_QKV = operator(
 )
 
 
+def _launch_mma(q, k, v, sizes, out, geometry, fast, split) -> torch.Tensor:
+    """vit_attention_mma on bf16 CUDA tensors: (B, T, nh, d, kv)."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the mma.sync body is checked in bf16, got {q.dtype}")
+    b, t, nh, d, kv = geometry
+    if d % 8 or d > 128:
+        raise ValueError(f"the mma.sync body takes d % 8 == 0, d <= 128; got d={d}")
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vit_attention_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if sizes is None else sizes.data_ptr(), out.data_ptr(),
+            b, t, nh, d, kv, _LOG2E / math.sqrt(d), int(fast), int(split), stream,
+        )
+    check(rc, "attention_mma kernel launch")
+    MMA_KERNEL.counted()
+    return out
+
+
+def attention_qkv_mma(
+    qkv: torch.Tensor,
+    num_heads: int,
+    *,
+    fast: bool = False,
+    kv: Optional[int] = None,
+    sizes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`attention_qkv` through the kernel's mma.sync body at any d (bf16):
+    for the checks only, never on a path. On a CPU tensor, the plain
+    version."""
+    b, t, h, d = _check_args(qkv, num_heads, kv, sizes)
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, fast=fast, kv=kv, sizes=sizes)
+    qkv = _aligned(qkv)
+    if sizes is not None and (sizes.dtype != torch.float32 or not sizes.is_contiguous()):
+        raise ValueError("sizes must be contiguous float32")
+    out = torch.empty((b, t, h), dtype=qkv.dtype, device=qkv.device)
+    return _launch_mma(qkv, qkv, qkv, sizes, out, (b, t, num_heads, d, t if kv is None else kv),
+                       fast, split=False)
+
+
 def _check_bhtd(q, k, v):
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -246,6 +301,18 @@ def _flash_attention_cuda(q, k, v):
     check(rc, "flash_attention kernel launch")
     FLASH_KERNEL.counted()
     return out
+
+
+def flash_attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """`flash_attention` through the kernel's mma.sync body at any d
+    (bf16): for the checks only, never on a path. On CPU tensors, the
+    plain version."""
+    _check_bhtd(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    q, k, v = (_aligned(a) for a in (q, k, v))
+    b, nh, t, d = q.shape
+    return _launch_mma(q, k, v, None, torch.empty_like(q), (b, t, nh, d, t), False, split=True)
 
 
 _FLASH_ATTENTION = operator(

@@ -30,7 +30,11 @@
      sizes too, ViT-Ti (3 heads), ViT-H/14 (d=80, T=257) and ViT-B/8
      (T=785), and at the edges of its tiling in f32 and bf16 (T=1, 63,
      64, 65, 129; d=72 and 128; sizes at T=65), each error relative to
-     max|plain|.
+     max|plain|; in f32 at d=64 (every training path's K2) it runs the
+     wgmma body, whose own edges (T=1 to 785, sizes at 65, 197 and 785, 1,
+     3 and 12 heads, a misaligned qkv) are held to the plain version and
+     to the mma.sync body it replaced (the check-only attention_qkv_grad_mma)
+     and are bit-equal from one call to the next.
    Then times kernel and plain version with CUDA events at the ViT-B/16
    serving shapes (B=8 and 64) and training shape (B=32, f32 for the
    forward, f32 and bf16 for the backward), and the attention kernels at
@@ -50,7 +54,11 @@
    entry) is held to them too and timed in turns with it and
    scaled_dot_product_attention at B=8 / 64 T=197, B=8 T=577 / 785 and
    K3's (8, 12, 197, 64). `python3 chip_smoke.py --k1-bf16` runs only
-   those cases and times, after the build.
+   those cases and times, after the build. The backward's f32 wgmma body,
+   the mma.sync body and SDPA's backward are timed in turns at B=32
+   T=197, B=4 and 8 T=785 and the tp 2 / 4 per-rank shapes (6 and 3
+   heads); `python3 chip_smoke.py --k2-f32` runs only its cases and those
+   times, after the build.
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -650,6 +658,106 @@ def time_k1_bodies(card: str, gen) -> dict:
     return out
 
 
+# The backward's f32 body at d=64 (wgmma + TMA): 64-row blocks of two
+# warpgroups, 32-token chunks with 8-token tails (T=1, 8, 63, 64, 65, 127,
+# 128, 129), the 256-key edge (196, 197, 200, 256, 257), the lane shapes
+# (577, 785); ToMe sizes on either side; 1, 3 and 12 heads. (B, T, heads,
+# sizes)
+K2_F32_EDGES = (
+    [(2, t, 3, False) for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 200, 256, 257,
+                                577, 785)]
+    + [(2, t, 3, True) for t in (65, 197, 785)]
+    + [(2, 197, nh, False) for nh in (1, 12)]
+)
+
+# Its timed shapes (B, T, heads): ViT-B/16 training at B=32 and its tp 2 /
+# 4 per-rank shapes, ViT-B/8 (--patch-size 8) at B=4 and at the training
+# path's B=8
+K2_TIMED = ((32, 197, 12), (4, 785, 12), (8, 785, 12), (32, 197, 6), (32, 197, 3))
+
+
+def check_k2_f32(gen) -> float:
+    """The backward's f32 wgmma body at its edges (K2_F32_EDGES) and on a
+    misaligned qkv and dO: each against the plain version and against the
+    mma.sync body (the check-only entry) within GRAD_TOL, two calls
+    bit-equal; the worst error relative to max|plain|."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    f32, worst = torch.float32, 0.0
+    before = (fa.GRAD_KERNEL.launches, fa.GRAD_MMA_KERNEL.launches)
+    cases = [(b, t, nh, sized, False) for b, t, nh, sized in K2_F32_EDGES]
+    cases.append((2, 197, 12, False, True))
+    for b, t, nh, sized, shift in cases:
+        qkv = torch.randn((b, t, 3 * 64 * nh), generator=gen, device="cuda")
+        do = torch.randn((b, t, 64 * nh), generator=gen, device="cuda")
+        sizes = (torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
+                 if sized else None)
+        if shift:  # 4 bytes past a 16-byte boundary: the wrapper copies them
+            views = []
+            for a in (qkv, do):
+                flat = torch.empty(a.numel() + 1, device="cuda")
+                views.append(flat[1:].view(a.shape))
+                views[-1].copy_(a)
+            args = views
+        else:
+            args = (qkv, do)
+        got = fa.attention_qkv_grad(*args, nh, sizes=sizes)
+        again = fa.attention_qkv_grad(*args, nh, sizes=sizes)
+        mma = fa.attention_qkv_grad_mma(qkv, do, nh, sizes=sizes)
+        ref = fa.attention_qkv_grad_plain(qkv, do, nh, sizes=sizes)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"attention_qkv_grad f32 d=64 T={t}: bad output")
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item() / scale
+        err_mma = (got - mma).abs().max().item() / scale
+        same = torch.equal(got, again)
+        what = f"B={b} T={t} nh={nh}{' sizes' if sized else ''}{' misaligned' if shift else ''}"
+        log(f"kernel case attention_qkv_grad wgmma body f32 d=64 {what}: max|kernel - plain| = "
+            f"{err:.3e} x max|plain|, max|kernel - mma.sync body| = {err_mma:.3e} (tolerance "
+            f"{GRAD_TOL[f32]:.0e}); two calls bit-equal: {same}")
+        if not (err <= GRAD_TOL[f32] and err_mma <= GRAD_TOL[f32] and same):
+            raise AssertionError(f"attention_qkv_grad wgmma body {what}: error {err}, "
+                                 f"{err_mma} to the mma.sync body, bit-equal {same}")
+        worst = max(worst, err)
+    got = (fa.GRAD_KERNEL.launches - before[0], fa.GRAD_MMA_KERNEL.launches - before[1])
+    if got != (2 * len(cases), len(cases)):
+        raise AssertionError(f"attention_qkv_grad launches {got}, expected "
+                             f"{(2 * len(cases), len(cases))}")
+    return worst
+
+
+def k2_bound(b: int, t: int, h: int, esize: int):
+    """K2: five T x T x d products per head; qkv and dO in, dqkv out."""
+    return bound(10.0 * b * t * t * h, (3 + 1 + 3) * b * t * h * esize,
+                 "f32" if esize == 4 else "bf16")
+
+
+def time_k2_bodies(card: str, gen) -> dict:
+    """The backward's f32 wgmma body, the mma.sync body it replaced (the
+    check-only entry) and SDPA's backward in turns (queued device ms) at
+    K2_TIMED, each beside its bound; {(B, T, heads): (wgmma, mma.sync,
+    SDPA ms)}."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for b, t, nh in K2_TIMED:
+        h = 64 * nh
+        qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda")
+        do = torch.randn((b, t, h), generator=gen, device="cuda")
+        r = turns({"wgmma": lambda: fa.attention_qkv_grad(qkv, do, nh),
+                   "mma.sync": lambda: fa.attention_qkv_grad_mma(qkv, do, nh),
+                   "sdpa": sdpa_grad_fn(qkv, do, nh)})
+        b_ms, b_by = k2_bound(b, t, h, 4)
+        log(f"attention_qkv_grad bodies B={b} T={t} nh={nh} f32 (device ms, in turns) on {card}: "
+            f"wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+            f"({r['mma.sync'] / r['wgmma']:.2f}x), scaled_dot_product_attention backward "
+            f"{r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x); bound {b_ms:.4f} ms ({b_by})")
+        out[(b, t, nh)] = (r["wgmma"], r["mma.sync"], r["sdpa"])
+        del qkv, do
+    return out
+
+
 def encode_cost(card: str) -> None:
     """Host us per call of the wgmma body's C entry (two tensor maps
     encoded per call) and of the mma.sync body's (none) on one small bf16
@@ -978,7 +1086,11 @@ def check_flash_attention(card: str):
 
 
 def check_attention_grad(card: str):
-    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_grad, attention_qkv_grad_plain
+    from vit_cpp_tpu_torch.ops.flash_attention import (
+        attention_qkv_grad,
+        attention_qkv_grad_mma,
+        attention_qkv_grad_plain,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1028,8 +1140,9 @@ def check_attention_grad(card: str):
             main_err = err
     times = {}
     # ViT-B/16 training at B=32; T=785 is the shape of the JAX package's
-    # lane path (K2')
-    for dtype, b, t in ((f32, 32, 197), (bf16, 32, 197), (f32, 4, 785)):
+    # lane path (K2'), B=8 the --patch-size 8 training path's. In f32 (the
+    # wgmma body) the mma.sync body it replaced is timed in turns with it.
+    for dtype, b, t in ((f32, 32, 197), (bf16, 32, 197), (f32, 4, 785), (f32, 8, 785)):
         qkv = torch.randn((b, t, 2304), generator=gen, device="cuda").to(dtype)
         do = torch.randn((b, t, 768), generator=gen, device="cuda").to(dtype)
         k_ms, p_ms = time_pair(
@@ -1038,13 +1151,18 @@ def check_attention_grad(card: str):
             lambda: attention_qkv_grad_plain(qkv, do, 12),
         )
         lib = sdpa_grad_ms(qkv, do, 12)
-        esize = qkv.element_size()
-        # five T x T x d products per head; qkv and dO in, dqkv out
-        b_ms, b_by = bound(10.0 * b * t * t * 768, (3 + 1 + 3) * b * t * 768 * esize,
-                           "f32" if dtype == f32 else "bf16")
+        b_ms, b_by = k2_bound(b, t, 768, qkv.element_size())
         log(f"attention_qkv_grad B={b} T={t} {str(dtype)[6:]}: bound {b_ms:.4f} ms ({b_by}), "
             f"library scaled_dot_product_attention backward {lib:.4f} ms on {card}")
-        times[(dtype, t)] = (k_ms, p_ms, b_ms, b_by, lib)
+        times[(dtype, t, b)] = (k_ms, p_ms, b_ms, b_by, lib)
+        if dtype == f32:
+            r = turns({"wgmma": lambda: attention_qkv_grad(qkv, do, 12),
+                       "mma.sync": lambda: attention_qkv_grad_mma(qkv, do, 12)})
+            log(f"attention_qkv_grad B={b} T={t} f32 bodies (device ms, in turns) on {card}: "
+                f"wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+                f"({r['mma.sync'] / r['wgmma']:.2f}x)")
+            times[(dtype, t, b)] += (r["mma.sync"],)
+        del qkv, do
     return main_err, times
 
 
@@ -4709,8 +4827,7 @@ def shard_kernels(card: str) -> dict:
                                lambda: attention_qkv_grad(qkv, do, nh),
                                lambda: attention_qkv_grad_plain(qkv, do, nh))
         out["attention_qkv_grad"][what] = (
-            k_ms, p_ms, *bound(10.0 * 32 * 197 * 197 * h, 7 * 32 * 197 * h * 4, "f32"),
-            sdpa_grad_ms(qkv, do, nh))
+            k_ms, p_ms, *k2_bound(32, 197, h, 4), sdpa_grad_ms(qkv, do, nh))
         rng = np.random.default_rng(tp)
         m = 64 * 197
         for layer, k, n in (("qkv", 768, 2304 // tp), ("fc1", 768, 3072 // tp),
@@ -5610,7 +5727,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from vit_cpp_tpu_torch import _build
-    from vit_cpp_tpu_torch.ops.flash_attention import FLASH_KERNEL, GRAD_KERNEL, KERNEL, MMA_KERNEL
+    from vit_cpp_tpu_torch.ops.flash_attention import (
+        FLASH_KERNEL,
+        GRAD_KERNEL,
+        GRAD_MMA_KERNEL,
+        KERNEL,
+        MMA_KERNEL,
+    )
     from vit_cpp_tpu_torch.ops.qmatmul import KERNEL as QMM_KERNEL
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5645,6 +5768,15 @@ def main() -> int:
         encode_cost(card)
         log(smi)
         return 0
+    if sys.argv[1:] == ["--k2-f32"]:
+        # the backward's f32 body alone: its cases against plain and the
+        # mma.sync body, then its times in turns with that body and SDPA's
+        # backward
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        check_k2_f32(gen)
+        time_k2_bodies(card, gen)
+        log(smi)
+        return 0
     if sys.argv[1:] == ["--k4-f32"]:
         # the f32 body alone: its kernel cases, then its times at ViT-B/16's
         # linears (run from another tree's root, it measures that tree's body)
@@ -5658,14 +5790,18 @@ def main() -> int:
     k4_err, k4_times, k4_f32_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
     k2_err, k2_times = check_attention_grad(card)
+    k2_err = max(k2_err, check_k2_f32(torch.Generator(device="cuda").manual_seed(21)))
     MMA_KERNEL.reset()
+    GRAD_MMA_KERNEL.reset()
     (_, q8_launches, flash_launches, grad_launches, serve_launches,
      (shards, shard_errs), remat_times) = run_paths(card)
-    if MMA_KERNEL.launches:
-        raise AssertionError(f"the check-only mma.sync entry launched {MMA_KERNEL.launches} "
-                             "times on the paths")
-    log("paths: the mma.sync body's check-only entry launched 0 times (every bf16 d=64 "
-        "attention went through the wgmma body)")
+    if MMA_KERNEL.launches or GRAD_MMA_KERNEL.launches:
+        raise AssertionError(f"the check-only mma.sync entries launched {MMA_KERNEL.launches} "
+                             f"(attention) and {GRAD_MMA_KERNEL.launches} (backward) times on "
+                             "the paths")
+    log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 d=64 "
+        "attention went through the wgmma body, every f32 d=64 backward through its wgmma "
+        "body)")
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -5674,8 +5810,8 @@ def main() -> int:
     log(f"chip_smoke: checks, paths and diagnostics in {time.perf_counter() - t_start:.1f} s "
         "after the build")
 
-    # K1 and K3 in bf16 also carry the mma.sync body's time (in turns with
-    # the wgmma body that replaced it at d=64)
+    # K1 and K3 in bf16 and K2 in f32 also carry the mma.sync body's time
+    # (in turns with the wgmma body that replaced it at d=64)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "mma_sync_ms")
 
     def entry(kernel, launches, err, times, by_path=None, **more):
@@ -5725,11 +5861,14 @@ def main() -> int:
          "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"],
          "f32_x_row_shards_max_rel_err": shard_errs["dequant_matmul f32 x"]},
         entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1])),
-        # K2: f32 at ViT-B/16 B=32 (the training path's); bf16, T=785 and
-        # ViT-H/14 B=8 beside it, and f32 at tensor-parallel shards
+        # K2: f32 at ViT-B/16 B=32 (the training path's, the wgmma body,
+        # with the mma.sync body's time in turns); bf16, T=785 at B=4 and 8
+        # and ViT-H/14 B=8 beside it, and f32 at tensor-parallel shards
         {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,
-                 k2_times[(torch.float32, 197)], by_path=grad_launches,
-                 bf16=k2_times[(torch.bfloat16, 197)], t785=k2_times[(torch.float32, 785)],
+                 k2_times[(torch.float32, 197, 32)], by_path=grad_launches,
+                 bf16=k2_times[(torch.bfloat16, 197, 32)],
+                 t785=k2_times[(torch.float32, 785, 4)],
+                 t785_b8=k2_times[(torch.float32, 785, 8)],
                  h14_f32_b8=remat_times[GRAD_KERNEL.name]),
          **by_shard(GRAD_KERNEL.name)},
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])

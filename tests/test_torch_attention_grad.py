@@ -12,10 +12,16 @@ Tolerances: f32 on both sides, differing only in summation order:
 bodies; through the autograd function, where the cotangent of sum(o * w)
 passes one more product, 3e-5 absolute and 1e-4 relative.
 
-The kernel's f32 body computes its products as 3xTF32 on the tensor
+The kernel's f32 bodies compute their products as 3xTF32 on the tensor
 cores; a test below emulates TF32 rounding on the CPU and holds 3xTF32
 products, and not single TF32 ones, within the card's tolerance (1e-4 of
-max|plain|) of the plain version.
+max|plain|) of the plain version. Another emulates the arithmetic of the
+f32 body at d = 64 (csrc/attention_grad_wgmma.cuh): its split, its three
+TF32 terms per 8-deep step with each wgmma's sum truncated toward zero,
+and its per-chunk drains and two warpgroups' partial sums, against the
+plain version and the JAX kernel. The `cuda` tests hold that body, the
+mma.sync bodies behind the check-only `attention_qkv_grad_mma` and the
+plain version to one another on the card.
 """
 
 import math
@@ -239,3 +245,176 @@ def test_kernel_takes_a_misaligned_qkv_and_do_on_card(dtype):
     tol = (1e-4 if dt == torch.float32 else 2e-2) * ref.abs().max().item()
     assert (got.float() - ref).abs().max().item() <= tol
     assert port.GRAD_KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sizes", [False, True], ids=["nosizes", "sizes"])
+def test_mma_entry_on_cpu_is_the_plain_version_and_counts_no_launch(dtype, sizes):
+    qkv, do, sz = _inputs(2, 29, 2, 64, seed=7, sizes=sizes)
+    dt = getattr(torch, dtype)
+    x, g = (torch.from_numpy(a).to(dt) for a in (qkv, do))
+    s = None if sz is None else torch.from_numpy(sz)
+    before = (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches)
+    got = port.attention_qkv_grad_mma(x, g, 2, sizes=s)
+    assert got.dtype == dt
+    torch.testing.assert_close(got, port.attention_qkv_grad_plain(x, g, 2, sizes=s), rtol=0, atol=0)
+    assert (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches) == before
+
+
+# ---- the f32 body at d = 64 (csrc/attention_grad_wgmma.cuh), emulated
+
+
+def _tensor_core_tf32(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits (TF32
+    by truncation)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split_trunc(x):
+    """The body's operands: hi = x as the tensor cores truncate it, lo =
+    x - hi (exact in f32) rounded to TF32."""
+    hi = _tensor_core_tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _to_f32_toward_zero(x):
+    """f64 -> f32 rounded toward zero (a wgmma's sum, as the tensor cores
+    leave it)."""
+    r = x.to(torch.float32)
+    over = r.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _wgmma_chain(acc, terms):
+    """acc (None: a chain started with scale-d 0) += a @ b for each 8-deep
+    (a, b) term, each sum exact (f64) and then truncated to f32."""
+    for a, b in terms:
+        s = torch.matmul(a.double(), b.double())
+        acc = _to_f32_toward_zero(s if acc is None else acc.double() + s)
+    return acc
+
+
+def _score_chain(a, b):
+    """a b^T over the last axis (d = 64) as the body's S and dP: per 8-deep
+    step the terms lo hi, hi lo, hi hi."""
+    (ah, al), (bh, bl) = _split_trunc(a), _split_trunc(b)
+    terms = []
+    for k in range(0, a.shape[-1], 8):
+        sl = slice(k, k + 8)
+        at = lambda x: x[..., sl]  # noqa: E731
+        bt = lambda x: x[..., sl].transpose(-1, -2)  # noqa: E731
+        terms += [(at(al), bt(bh)), (at(ah), bt(bl)), (at(ah), bt(bh))]
+    return _wgmma_chain(None, terms)
+
+
+def _token_chain(a, b, chunk=32, warpgroups=2, drain=True):
+    """a b over the token axis (a: (.., M, T), b: (.., T, N)) as the body's
+    dQ, dV and dK: chunks of 32 tokens taken by the two warpgroups in turn,
+    each chunk's 8-token steps (lo hi, hi lo, hi hi) summed into a part
+    that a rounded f32 addition drains into the warpgroup's accumulator;
+    then warpgroup 0's sum plus warpgroup 1's. Without `drain`, one
+    truncated chain per warpgroup."""
+    (ah, al), (bh, bl) = _split_trunc(a), _split_trunc(b)
+    t = a.shape[-1]
+    acc = [torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+           for _ in range(warpgroups)]
+    for c, c0 in enumerate(range(0, t, chunk)):
+        terms = []
+        for k in range(c0, min(c0 + chunk, t), 8):
+            sl = slice(k, k + 8)
+            terms += [(al[..., sl], bh[..., sl, :]), (ah[..., sl], bl[..., sl, :]),
+                      (ah[..., sl], bh[..., sl, :])]
+        w = c % warpgroups
+        if drain:
+            acc[w] = acc[w] + _wgmma_chain(None, terms)
+        else:
+            acc[w] = _wgmma_chain(acc[w], terms)
+    return sum(acc[1:], acc[0])
+
+
+def _wgmma_body_emulated(qkv, do, nh, drain=True):
+    """attention_qkv_grad's f32 d = 64 body on the CPU: its operands and
+    products as above, the softmax and dsoftmax chains as the plain
+    version's f32 math."""
+    b, t, three_h = qkv.shape
+    h = three_h // 3
+    d = h // nh
+    x = qkv.reshape(b, t, 3, nh, d).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0], x[1], x[2]
+    g = do.reshape(b, t, nh, d).permute(0, 2, 1, 3)
+    qs = q * (_LOG2E / math.sqrt(d))
+    s = _score_chain(qs, k)
+    dp = _score_chain(g, v)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    pn = p * (1.0 / p.sum(dim=-1, keepdim=True))
+    ds = pn * (dp - (dp * pn).sum(dim=-1, keepdim=True))
+    nat = 1.0 / math.sqrt(d)
+    dq = _token_chain(ds, k, drain=drain) * nat
+    dk = _token_chain(ds.transpose(-1, -2), q, drain=drain) * nat
+    dv = _token_chain(pn.transpose(-1, -2), g, drain=drain)
+    out = torch.stack([dq, dk, dv])
+    return out.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h)
+
+
+@pytest.mark.parametrize("t", [197, 785])
+def test_wgmma_body_arithmetic_holds_the_f32_tolerance(t):
+    # ViT-B/16 (T=197) and ViT-B/8 (T=785) head pairs: nh=2, d=64, B=1
+    qkv, do, _ = _inputs(1, t, 2, 64, seed=t)
+    x, g = torch.from_numpy(qkv), torch.from_numpy(do)
+    plain = port.attention_qkv_grad_plain(x, g, 2)
+    ref = np.asarray(jfa._attention_qkv_grad(jnp.asarray(qkv), jnp.asarray(do), 2, interpret=True))
+    got = _wgmma_body_emulated(x, g, 2)
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    tol = 1e-4 * plain.abs().max().item()  # chip_smoke.GRAD_TOL[f32]
+    err = (got - plain).abs().max().item()
+    assert err <= tol / 10
+    assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+    # the drains keep the truncation of the token sums small; one chain
+    # per warpgroup truncates each of its 3 T / 8 / 2 sums
+    undrained = (_wgmma_body_emulated(x, g, 2, drain=False) - plain).abs().max().item()
+    assert err <= undrained
+
+
+@pytest.mark.cuda
+def test_wgmma_body_matches_plain_and_mma_body_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [(2, t, 3, False) for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 200, 256,
+                                        257, 577, 785)]
+    cases += [(2, t, 3, True) for t in (65, 197, 785)]
+    cases += [(2, 197, nh, False) for nh in (1, 12)]
+    before = (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches)
+    for b, t, nh, sized in cases:
+        qkv, do, sz = _inputs(b, t, nh, 64, seed=t + nh, sizes=sized)
+        x, g = (torch.from_numpy(a).cuda() for a in (qkv, do))
+        s = None if sz is None else torch.from_numpy(sz).cuda()
+        got = port.attention_qkv_grad(x, g, nh, sizes=s)
+        again = port.attention_qkv_grad(x, g, nh, sizes=s)
+        mma = port.attention_qkv_grad_mma(x, g, nh, sizes=s)
+        ref = port.attention_qkv_grad_plain(x, g, nh, sizes=s)
+        tol = 1e-4 * ref.abs().max().item()
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max().item() <= tol, (t, nh, sized)
+        assert (got - mma).abs().max().item() <= tol, (t, nh, sized)
+        assert torch.equal(got, again)
+    n = len(cases)
+    assert (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches) == (
+        before[0] + 2 * n, before[1] + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 80), ("float32", 72),
+                                     ("float32", 80), ("float32", 128)])
+def test_other_calls_keep_the_mma_body_on_card(dtype, d):
+    # everything but f32 at d = 64 still runs the mma.sync bodies: equal
+    # to the check-only entry bit for bit
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    qkv, do, sz = _inputs(2, 197, 4, d, seed=d, sizes=True)
+    x, g = (torch.from_numpy(a).to("cuda", dt) for a in (qkv, do))
+    s = torch.from_numpy(sz).cuda()
+    for sizes in (None, s):
+        assert torch.equal(port.attention_qkv_grad(x, g, 4, sizes=sizes),
+                           port.attention_qkv_grad_mma(x, g, 4, sizes=sizes))

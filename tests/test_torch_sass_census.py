@@ -44,6 +44,10 @@ ptxas info    : Compile time = 543.421 ms
     ("void <unnamed>::dot_kernel<signed char>(const signed char *, int *)",
      "dot_kernel<signed char>"),
     ("vit_probe_kernel", "vit_probe_kernel"),
+    ("void (anonymous namespace)::grad_rows_wgmma(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, gradwg::Params)", "grad_rows_wgmma"),
+    ("void <unnamed>::grad_cols_wgmma(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "gradwg::Params)", "grad_cols_wgmma"),
 ])
 def test_short_name(signature, name):
     assert short_name(signature) == name

@@ -148,6 +148,8 @@ def library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p,
             ]
+            lib.vit_attention_qkv_grad_mma.restype = ctypes.c_int
+            lib.vit_attention_qkv_grad_mma.argtypes = lib.vit_attention_qkv_grad.argtypes
             lib.vit_attn_anatomy.restype = ctypes.c_int
             lib.vit_attn_anatomy.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

@@ -8,8 +8,10 @@
 // probe_int8_dot.cu (T3: TMA loads and stores and
 // wgmma, bf16 m64n128k16 and s8 m64n128k32) and attention_wgmma.cuh (K1
 // and K3 in bf16 at d = 64: 3-D TMA loads and stores, bf16 m64n64k16 with
-// A from shared memory or from registers). Every floating-point product
-// accumulates in f32, the s8 product in s32.
+// A from shared memory or from registers) and attention_grad_wgmma.cuh
+// (K2 in f32 at d = 64: tf32 m64nNk8 with both operands from shared
+// memory, N = 8 to 32, and m64n64k8 with A from registers). Every
+// floating-point product accumulates in f32, the s8 product in s32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two bf16 each:
@@ -371,6 +373,110 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint32_t a0
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 8 NT f32) = A B, or += A B with `accumulate`, in TF32: A 64 x 8
+// and B 8 x 8 NT, both from shared memory and both K-major (rows of 8
+// tf32 values, 32 bytes: the tf32 forms have no transpose). NT = 1 .. 4
+// (N = 8 .. 32); the accumulators are laid out as m64n64k16's, d[4 j + e]
+// at row 16 w + g + 8 (e >> 1), column 8 j + 2 q + (e & 1). Each value's
+// low 13 bits are dropped: the operands are TF32 values already.
+// Asynchronous, as above.
+template <int NT>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[4 * NT], uint64_t a, uint64_t b,
+                                              int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<1>(float (&d)[4], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<2>(float (&d)[8], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<3>(float (&d)[12], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<4>(float (&d)[16], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A B, or += A B with `accumulate`, in TF32: A 64 x 8
+// from registers in m16n8k8.tf32's A layout for each warp's 16 rows (a0 =
+// A[g][q], a1 = A[g+8][q], a2 = A[g][q+4], a3 = A[g+8][q+4], as
+// wgmma_m64n128k8_tf32 takes it), B 8 x 64 from shared memory, K-major.
+// Asynchronous, as above.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// Keeps the compiler from moving accesses of any accumulator array across
+// a wgmma_wait, one register at a time.
+template <int N>
+__device__ __forceinline__ void fence_each(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 // d (64 x 128 s32, this warpgroup's accumulators) += A B on the tensor

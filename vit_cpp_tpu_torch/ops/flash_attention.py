@@ -29,6 +29,13 @@ and of the backward kernel, csrc/attention_qkv_grad.cu:
   path: `attention_qkv` in safe mode forward, `attention_qkv_grad`
   backward.
 
+In f32 at d = 64 (every training path's head but ViT-H/14's) the backward
+runs the kernel's wgmma body (csrc/attention_grad_wgmma.cuh), at every
+other (dtype, d) its mma.sync bodies. `attention_qkv_grad_mma`
+(GRAD_MMA_KERNEL) runs the mma.sync bodies at any d, f32 d = 64 included:
+for the checks only (chip_smoke.py times them beside the wgmma body). No
+path of the port calls it.
+
 On a CUDA tensor each launches its kernel or raises; it never falls back.
 On a CPU tensor each runs its plain version: the same arithmetic in plain
 PyTorch (the TPU kernel's `_sdpa` math, batched over heads). The tests
@@ -81,6 +88,12 @@ MMA_KERNEL = Kernel(
 
 GRAD_KERNEL = Kernel(
     "attention_qkv_grad",
+    source="vit_cpp_tpu_torch/csrc/attention_qkv_grad.cu",
+    replaces="vit_cpp_tpu/ops/flash_attention.py:857",
+)
+
+GRAD_MMA_KERNEL = Kernel(
+    "attention_qkv_grad_mma",
     source="vit_cpp_tpu_torch/csrc/attention_qkv_grad.cu",
     replaces="vit_cpp_tpu/ops/flash_attention.py:857",
 )
@@ -367,6 +380,27 @@ def attention_qkv_grad(
     (B, T) are the ToMe key weights of the forward."""
     if qkv.device.type == "cpu":
         return attention_qkv_grad_plain(qkv, do, num_heads, sizes=sizes)
+    return _launch_grad(qkv, do, num_heads, sizes, mma=False)
+
+
+def attention_qkv_grad_mma(
+    qkv: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    *,
+    sizes: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`attention_qkv_grad` through the kernel's mma.sync bodies at any
+    (dtype, d): for the checks only, never on a path. On a CPU tensor, the
+    plain version."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_grad_plain(qkv, do, num_heads, sizes=sizes)
+    return _launch_grad(qkv, do, num_heads, sizes, mma=True)
+
+
+def _launch_grad(qkv, do, num_heads, sizes, *, mma: bool) -> torch.Tensor:
+    """vit_attention_qkv_grad (or, with `mma`, vit_attention_qkv_grad_mma)
+    on CUDA tensors, counted on GRAD_KERNEL (GRAD_MMA_KERNEL)."""
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_qkv_grad: unsupported device {qkv.device}")
     b, t, h, d = _check_args(qkv, num_heads, None, sizes)
@@ -389,17 +423,19 @@ def attention_qkv_grad(
     # per query row: max, 1 / sum p and r, from the first launch to the second
     stats = torch.empty((b, num_heads, t, 3), dtype=torch.float32, device=qkv.device)
     lib = library()
+    entry = lib.vit_attention_qkv_grad_mma if mma else lib.vit_attention_qkv_grad
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.vit_attention_qkv_grad(
+        rc = entry(
             qkv.data_ptr(), do.data_ptr(),
             None if sizes is None else sizes.data_ptr(),
             dqkv.data_ptr(), stats.data_ptr(),
             b, t, num_heads, d, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
             _DTYPES[qkv.dtype], stream,
         )
-    check(rc, "attention_qkv_grad kernel launch")
-    GRAD_KERNEL.counted()
+    kernel = GRAD_MMA_KERNEL if mma else GRAD_KERNEL
+    check(rc, f"{kernel.name} kernel launch")
+    kernel.counted()
     return dqkv
 
 

@@ -30,11 +30,11 @@
      sizes too, ViT-Ti (3 heads), ViT-H/14 (d=80, T=257) and ViT-B/8
      (T=785), and at the edges of its tiling in f32 and bf16 (T=1, 63,
      64, 65, 129; d=72 and 128; sizes at T=65), each error relative to
-     max|plain|; in f32 at d=64 (every training path's K2) it runs the
-     wgmma body, whose own edges (T=1 to 785, sizes at 65, 197 and 785, 1,
-     3 and 12 heads, a misaligned qkv) are held to the plain version and
-     to the mma.sync body it replaced (the check-only attention_qkv_grad_mma)
-     and are bit-equal from one call to the next.
+     max|plain|; in f32 at d=64 and 80 (every training path's K2) it runs
+     the wgmma body, whose own edges (d=64: T=1 to 785, sizes at 65, 197
+     and 785, 1, 3 and 12 heads, a misaligned qkv) are held to the plain
+     version and to the mma.sync body it replaced (the check-only
+     attention_qkv_grad_mma) and are bit-equal from one call to the next.
    Then times kernel and plain version with CUDA events at the ViT-B/16
    serving shapes (B=8 and 64) and training shape (B=32, f32 for the
    forward, f32 and bf16 for the backward), and the attention kernels at
@@ -59,6 +59,21 @@
    T=197, B=4 and 8 T=785 and the tp 2 / 4 per-rank shapes (6 and 3
    heads); `python3 chip_smoke.py --k2-f32` runs only its cases and those
    times, after the build.
+   attention_qkv and flash_attention in f32 at d=64 and 80 run the f32
+   wgmma body (3xTF32), and attention_qkv_grad in f32 at d=80 the
+   backward's wgmma body; `python3 chip_smoke.py --attn-f32` runs, after
+   the build, the forward body's edges (d=64 and 80; T=1, 8, 63, 64, 65,
+   127, 128, 129, 196, 197, 256, 257, 577, 785 fast and safe; sizes at 65,
+   197, 257; kv at 197 of 200, 256 of 257, 64 of 70 with pad rows of 1e4;
+   1, 3, 12, 16 heads; a misaligned qkv; K3's (8, 12, 197, 64) and (1, 16,
+   257, 80)) and the backward's d=80 edges (T=1 to 785, sizes at 65 and
+   257, 1, 3, 16 heads, a misaligned qkv), each against the plain version
+   and the mma.sync body it replaced (the check-only entries, f32 now
+   too) and bit-equal from one call to the next, then times them in turns
+   with those bodies, SDPA (its backward) and plain: the forward at
+   ViT-B/16 B=32, --patch-size 8 B=8, ViT-H/14 B=8 (T=256 and 257) and
+   B=128 (safe) and ViT-B/16 B=64 fast (f32 serving), the backward at
+   ViT-H/14 B=8 (T=256 and 257) and B=128.
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -279,10 +294,13 @@
       and 12 attention_qkv_grad launches per update, peak device memory,
       ms per update by cuda_ms and on the host clock; ViT-H/14 @224 in
       f32 (hidden 1280, 32 layers, d=80, T=257), attention_qkv (safe)
-      and attention_qkv_grad at B=8 against their plain versions and
-      timed, its weights made on the card from seed 0 by
-      params_from_state_dict, the peak of a B=32 update in each mode, and
-      two B=128 updates through cross_entropy_loss under "dots+attn"
+      and attention_qkv_grad at B=8 against their plain versions, each
+      timed at B=8 and B=128 in turns with the mma.sync body it replaced,
+      SDPA (its backward) and plain, its weights made on the card from
+      seed 0 by params_from_state_dict, the peak of a B=32 update in each
+      mode, one B=32 "dots+attn" update profiled (K1's and K2's device ms
+      and shares), and two B=128 updates through cross_entropy_loss under
+      "dots+attn"
       (finite losses, peak under H14_PEAK_GIB; the update does not fit
       without remat, and is not tried).
    The daemons get the ten images of assets/ concurrently; every answer
@@ -547,6 +565,15 @@ K3_D64_EDGES = [(2, 12, t, 64) for t in (1, 63, 64, 65, 128, 197, 256, 257, 577,
 K1_TIMED = ((8, 197), (64, 197), (8, 577), (8, 785))
 
 
+def _misaligned(a: torch.Tensor) -> torch.Tensor:
+    """A copy of `a` one element (2 or 4 bytes) past a 16-byte boundary:
+    the wrapper copies it."""
+    flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = flat[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 def check_attention_case(name, qkv, nh, kw, fn, plain, gen, same_as=None) -> float:
     """One attention_qkv case against its plain version (pad rows of 1e4
     past kv, random sizes in [1, 5)); its error, logged beside TOL. With
@@ -591,11 +618,8 @@ def check_k1_d64(gen) -> float:
             name, qkv, 12, kw, fa.attention_qkv, fa.attention_qkv_plain, gen,
             same_as=fa.attention_qkv_mma))
     qkv = torch.randn((2, 197, 3 * 768), generator=gen, device="cuda").to(bf16)
-    flat = torch.empty(qkv.numel() + 1, dtype=bf16, device="cuda")
-    shifted = flat[1:].view(qkv.shape)  # 2 bytes past a 16-byte boundary
-    shifted.copy_(qkv)
     worst = max(worst, check_attention_case(
-        "d=64 misaligned qkv (copied)", shifted, 12, {"fast": True}, fa.attention_qkv,
+        "d=64 misaligned qkv (copied)", _misaligned(qkv), 12, {"fast": True}, fa.attention_qkv,
         fa.attention_qkv_plain, gen))
     for name, t, kw in (("mma.sync body d=64 T=197 fast", 197, {"fast": True}),
                         ("mma.sync body d=64 T=785 safe", 785, {"fast": False}),
@@ -676,48 +700,40 @@ K2_F32_EDGES = (
 K2_TIMED = ((32, 197, 12), (4, 785, 12), (8, 785, 12), (32, 197, 6), (32, 197, 3))
 
 
-def check_k2_f32(gen) -> float:
-    """The backward's f32 wgmma body at its edges (K2_F32_EDGES) and on a
-    misaligned qkv and dO: each against the plain version and against the
-    mma.sync body (the check-only entry) within GRAD_TOL, two calls
-    bit-equal; the worst error relative to max|plain|."""
+def check_k2_f32(gen, d: int = 64, edges=K2_F32_EDGES) -> float:
+    """The backward's f32 wgmma body at d and its edges (B, T, heads,
+    sizes) and on a misaligned qkv and dO: each against the plain version
+    and against the mma.sync body (the check-only entry) within GRAD_TOL,
+    two calls bit-equal; the worst error relative to max|plain|."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
     f32, worst = torch.float32, 0.0
     before = (fa.GRAD_KERNEL.launches, fa.GRAD_MMA_KERNEL.launches)
-    cases = [(b, t, nh, sized, False) for b, t, nh, sized in K2_F32_EDGES]
+    cases = [(b, t, nh, sized, False) for b, t, nh, sized in edges]
     cases.append((2, 197, 12, False, True))
     for b, t, nh, sized, shift in cases:
-        qkv = torch.randn((b, t, 3 * 64 * nh), generator=gen, device="cuda")
-        do = torch.randn((b, t, 64 * nh), generator=gen, device="cuda")
+        qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda")
+        do = torch.randn((b, t, d * nh), generator=gen, device="cuda")
         sizes = (torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
                  if sized else None)
-        if shift:  # 4 bytes past a 16-byte boundary: the wrapper copies them
-            views = []
-            for a in (qkv, do):
-                flat = torch.empty(a.numel() + 1, device="cuda")
-                views.append(flat[1:].view(a.shape))
-                views[-1].copy_(a)
-            args = views
-        else:
-            args = (qkv, do)
+        args = (_misaligned(qkv), _misaligned(do)) if shift else (qkv, do)
         got = fa.attention_qkv_grad(*args, nh, sizes=sizes)
         again = fa.attention_qkv_grad(*args, nh, sizes=sizes)
         mma = fa.attention_qkv_grad_mma(qkv, do, nh, sizes=sizes)
         ref = fa.attention_qkv_grad_plain(qkv, do, nh, sizes=sizes)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"attention_qkv_grad f32 d=64 T={t}: bad output")
+            raise AssertionError(f"attention_qkv_grad f32 d={d} T={t}: bad output")
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item() / scale
         err_mma = (got - mma).abs().max().item() / scale
         same = torch.equal(got, again)
         what = f"B={b} T={t} nh={nh}{' sizes' if sized else ''}{' misaligned' if shift else ''}"
-        log(f"kernel case attention_qkv_grad wgmma body f32 d=64 {what}: max|kernel - plain| = "
+        log(f"kernel case attention_qkv_grad wgmma body f32 d={d} {what}: max|kernel - plain| = "
             f"{err:.3e} x max|plain|, max|kernel - mma.sync body| = {err_mma:.3e} (tolerance "
             f"{GRAD_TOL[f32]:.0e}); two calls bit-equal: {same}")
         if not (err <= GRAD_TOL[f32] and err_mma <= GRAD_TOL[f32] and same):
-            raise AssertionError(f"attention_qkv_grad wgmma body {what}: error {err}, "
+            raise AssertionError(f"attention_qkv_grad wgmma body d={d} {what}: error {err}, "
                                  f"{err_mma} to the mma.sync body, bit-equal {same}")
         worst = max(worst, err)
     got = (fa.GRAD_KERNEL.launches - before[0], fa.GRAD_MMA_KERNEL.launches - before[1])
@@ -733,29 +749,166 @@ def k2_bound(b: int, t: int, h: int, esize: int):
                  "f32" if esize == 4 else "bf16")
 
 
-def time_k2_bodies(card: str, gen) -> dict:
+def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64) -> dict:
     """The backward's f32 wgmma body, the mma.sync body it replaced (the
-    check-only entry) and SDPA's backward in turns (queued device ms) at
-    K2_TIMED, each beside its bound; {(B, T, heads): (wgmma, mma.sync,
-    SDPA ms)}."""
+    check-only entry), SDPA's backward and the plain version in turns
+    (queued device ms) at `shapes` (B, T, heads) of heads of d, each beside
+    its bound; {(B, T, heads): (wgmma, plain, bound ms, bound by, SDPA,
+    mma.sync ms)}, the kernels line's order."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
     out = {}
-    for b, t, nh in K2_TIMED:
-        h = 64 * nh
+    for b, t, nh in shapes:
+        h = d * nh
         qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda")
         do = torch.randn((b, t, h), generator=gen, device="cuda")
         r = turns({"wgmma": lambda: fa.attention_qkv_grad(qkv, do, nh),
                    "mma.sync": lambda: fa.attention_qkv_grad_mma(qkv, do, nh),
-                   "sdpa": sdpa_grad_fn(qkv, do, nh)})
+                   "sdpa": sdpa_grad_fn(qkv, do, nh),
+                   "plain": lambda: fa.attention_qkv_grad_plain(qkv, do, nh)},
+                  iters=50 if b <= 32 else 10)
         b_ms, b_by = k2_bound(b, t, h, 4)
-        log(f"attention_qkv_grad bodies B={b} T={t} nh={nh} f32 (device ms, in turns) on {card}: "
-            f"wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+        log(f"attention_qkv_grad bodies B={b} T={t} nh={nh} d={d} f32 (device ms, in turns) on "
+            f"{card}: wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
             f"({r['mma.sync'] / r['wgmma']:.2f}x), scaled_dot_product_attention backward "
-            f"{r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x); bound {b_ms:.4f} ms ({b_by})")
-        out[(b, t, nh)] = (r["wgmma"], r["mma.sync"], r["sdpa"])
+            f"{r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x), plain {r['plain']:.4f}; bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        out[(b, t, nh)] = (r["wgmma"], r["plain"], b_ms, b_by, r["sdpa"], r["mma.sync"])
         del qkv, do
     return out
+
+
+# K1's f32 body (wgmma + TMA) at d=64 and 80: 64-row query tiles, 32-key
+# chunks taken by two warpgroups in turn with 8-key tails (T=1, 8, 63, 64,
+# 65, 127, 128, 129), ToMe's and ViT-B/16's lengths (196, 197), ViT-H/14's
+# (256, 257: one real row in the last tile) and the lane shapes (577,
+# 785); fast and safe; sizes at 65, 197 and 257; kv at 197 of 200, 256 of
+# 257 and 64 of 70 with pad rows of 1e4; 1, 3, 12 and 16 heads. (name, d,
+# B, T, heads, kwargs)
+K1_F32_EDGES = (
+    [(f"d={d} T={t} {mode}", d, 2, t, 3, {"fast": mode == "fast"})
+     for d in (64, 80)
+     for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 256, 257, 577, 785)
+     for mode in ("fast", "safe")]
+    + [(f"d={d} T={t} {mode} sizes", d, 2, t, 3, {"fast": mode == "fast", "sizes": True})
+       for d in (64, 80) for t, mode in ((65, "safe"), (197, "fast"), (257, "safe"))]
+    + [(f"d={d} kv={kv} T={t} {mode}, pad rows 1e4", d, 2, t, 3,
+        {"fast": mode == "fast", "kv": kv})
+       for d in (64, 80) for kv, t in ((197, 200), (256, 257), (64, 70))
+       for mode in ("fast", "safe")]
+    + [(f"d={d} T=197 safe nh={nh}", d, 2, 197, nh, {"fast": False})
+       for d in (64, 80) for nh in (1, 12, 16)]
+)
+
+# The split-head entry's (K3's) f32 shapes (B, H, T, D)
+K3_F32_EDGES = ((8, 12, 197, 64), (1, 16, 257, 80))
+
+# K1's f32 timed shapes: (label, B, T, d, heads, fast). ViT-B/16 training
+# at B=32 and --patch-size 8 (T=785, K1') at B=8, ViT-H/14 at B=8 and 128
+# (and T=256 beside 257: what the last tile's one real row costs), f32
+# serving (vit-serve --dtype f32) at B=64
+K1_F32_TIMED = (("vit-b16", 32, 197, 64, 12, False), ("vit-b8", 8, 785, 64, 12, False),
+                ("vit-h14", 8, 257, 80, 16, False), ("vit-h14 T=256", 8, 256, 80, 16, False),
+                ("vit-h14 B=128", 128, 257, 80, 16, False),
+                ("vit-b16 fast", 64, 197, 64, 12, True))
+
+# K2's d=80 edges (B, T, heads, sizes): 16-token chunks, 64-row blocks;
+# and its timed shapes, ViT-H/14 at B=8 (T=256 beside 257) and B=128
+K2_D80_EDGES = (
+    [(2, t, 3, False) for t in (1, 8, 63, 64, 65, 129, 256, 257, 258, 785)]
+    + [(2, t, 3, True) for t in (65, 257)]
+    + [(2, 257, nh, False) for nh in (1, 16)]
+)
+K2_D80_TIMED = ((8, 257, 16), (8, 256, 16), (128, 257, 16))
+
+
+def check_k1_f32(gen) -> float:
+    """K1's f32 wgmma body at its edges (K1_F32_EDGES, a misaligned qkv at
+    d=64 and 80, K3_F32_EDGES): each against the plain version and against
+    the 3xTF32 mma.sync body it replaced (the check-only entry) within
+    TOL[f32], two calls bit-equal, with their launch counts; the worst
+    error."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    f32, tol, worst = torch.float32, TOL[torch.float32], 0.0
+    before = (fa.KERNEL.launches, fa.MMA_KERNEL.launches, fa.FLASH_KERNEL.launches)
+    cases = [(*c, False) for c in K1_F32_EDGES]
+    cases += [(f"d={d} T={t} safe misaligned qkv", d, 2, t, nh, {"fast": False}, True)
+              for d, t, nh in ((64, 197, 12), (80, 257, 16))]
+    for name, d, b, t, nh, kw, shift in cases:
+        qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda")
+        kw = dict(kw)
+        if kw.get("kv"):
+            qkv[:, kw["kv"]:] = 1e4  # adversarial pad rows
+        if kw.get("sizes"):
+            kw["sizes"] = torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
+        x = _misaligned(qkv) if shift else qkv
+        got = fa.attention_qkv(x, nh, **kw)
+        again = fa.attention_qkv(x, nh, **kw)
+        mma = fa.attention_qkv_mma(qkv, nh, **kw)
+        ref = fa.attention_qkv_plain(qkv, nh, **kw)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or got.dtype != f32 or not torch.isfinite(got).all():
+            raise AssertionError(f"attention_qkv f32 {name}: bad output")
+        err = (got - ref).abs().max().item()
+        err_mma = (got - mma).abs().max().item()
+        same = torch.equal(got, again)
+        log(f"kernel case attention_qkv wgmma body f32 {name} B={b} nh={nh}: max|kernel - plain| "
+            f"= {err:.3e}, max|kernel - mma.sync body| = {err_mma:.3e} (tolerance {tol:.0e}); "
+            f"two calls bit-equal: {same}")
+        if not (err <= tol and err_mma <= tol and same):
+            raise AssertionError(f"attention_qkv f32 wgmma body {name}: error {err}, {err_mma} "
+                                 f"to the mma.sync body, bit-equal {same}")
+        worst = max(worst, err)
+    for shape in K3_F32_EDGES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        got, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+        mma, ref = fa.flash_attention_mma(q, k, v), fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        if got.shape != q.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention f32 {shape}: bad output")
+        err, err_mma = (got - ref).abs().max().item(), (got - mma).abs().max().item()
+        same = torch.equal(got, again)
+        log(f"kernel case flash_attention wgmma body f32 B={shape[0]} H={shape[1]} T={shape[2]} "
+            f"D={shape[3]}: max|kernel - plain| = {err:.3e}, max|kernel - mma.sync body| = "
+            f"{err_mma:.3e} (tolerance {tol:.0e}); two calls bit-equal: {same}")
+        if not (err <= tol and err_mma <= tol and same):
+            raise AssertionError(f"flash_attention f32 {shape}: error {err}, {err_mma}, {same}")
+        worst = max(worst, err)
+    n, n3 = len(cases), len(K3_F32_EDGES)
+    got = (fa.KERNEL.launches - before[0], fa.MMA_KERNEL.launches - before[1],
+           fa.FLASH_KERNEL.launches - before[2])
+    if got != (2 * n, n + n3, 2 * n3):
+        raise AssertionError(f"attention launches {got}, expected {(2 * n, n + n3, 2 * n3)}")
+    return worst
+
+
+def time_k1_f32(card: str, gen, label: str, b: int, t: int, d: int, nh: int,
+                fast: bool) -> tuple:
+    """K1's f32 wgmma body, the mma.sync body it replaced (the check-only
+    entry), scaled_dot_product_attention and the plain version in turns
+    (queued device ms) at one shape, beside its bound: (wgmma, plain, bound
+    ms, bound by, SDPA, mma.sync ms), the kernels line's order."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda")
+    r = turns({"wgmma": lambda: fa.attention_qkv(qkv, nh, fast=fast),
+               "mma.sync": lambda: fa.attention_qkv_mma(qkv, nh, fast=fast),
+               "sdpa": sdpa_fn(qkv, nh),
+               "plain": lambda: fa.attention_qkv_plain(qkv, nh, fast=fast)},
+              iters=50 if b <= 64 else 10)
+    b_ms, b_by = attention_bound(b, t, d * nh, 4)
+    log(f"attention_qkv bodies {label} B={b} T={t} nh={nh} d={d} f32 "
+        f"{'fast' if fast else 'safe'} (device ms, in turns) on {card}: wgmma {r['wgmma']:.4f}, "
+        f"mma.sync {r['mma.sync']:.4f} ({r['mma.sync'] / r['wgmma']:.2f}x), "
+        f"scaled_dot_product_attention {r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x), plain "
+        f"{r['plain']:.4f}; bound {b_ms:.4f} ms ({b_by})")
+    return r["wgmma"], r["plain"], b_ms, b_by, r["sdpa"], r["mma.sync"]
+
+
+def time_k1_f32_bodies(card: str, gen) -> dict:
+    """time_k1_f32 at K1_F32_TIMED; {label: its tuple}."""
+    return {label: time_k1_f32(card, gen, label, *shape) for label, *shape in K1_F32_TIMED}
 
 
 def encode_cost(card: str) -> None:
@@ -779,7 +932,7 @@ def encode_cost(card: str) -> None:
     calls = {"wgmma": lambda: lib.vit_attention_qkv(q, None, o, 1, 16, 1, 64, 16, scale, 1, 1,
                                                     stream),
              "mma.sync": lambda: lib.vit_attention_mma(q, q, q, None, o, 1, 16, 1, 64, 16, scale, 1,
-                                                       0, stream)}
+                                                       0, 1, stream)}
     per_call = {k: [] for k in calls}
     for _ in range(3):
         for name, fn in calls.items():
@@ -883,17 +1036,9 @@ def check_kernels(card: str):
             f"scaled_dot_product_attention {lib:.4f} ms, mma.sync body {mma:.4f} ms on {card}")
         times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib, mma)
     times["K3"] = bodies["K3"]
-    # the training forward: f32, safe softmax, ViT-B/16 at B=32
-    qkv = qkv_of(32, 197, 768, f32)
-    k_ms, p_ms = time_pair(
-        "attention_qkv B=32 T=197 h=768 f32 safe", card,
-        lambda: attention_qkv(qkv, 12), lambda: attention_qkv_plain(qkv, 12),
-    )
-    lib = sdpa_ms(qkv, 12)
-    b_ms, b_by = attention_bound(32, 197, 768, 4)
-    log(f"attention_qkv B=32 T=197 f32: bound {b_ms:.4f} ms ({b_by}), library "
-        f"scaled_dot_product_attention {lib:.4f} ms on {card}")
-    times["f32 B=32"] = (k_ms, p_ms, b_ms, b_by, lib)
+    # the training forward: f32, safe softmax, ViT-B/16 at B=32, the wgmma
+    # body in turns with the mma.sync body it replaced
+    times["f32 B=32"] = time_k1_f32(card, gen, "vit-b16", 32, 197, 64, 12, False)
     return main_err, times
 
 
@@ -1564,12 +1709,12 @@ def split_head_path() -> int:
     return launches
 
 
-def turns(fns: dict) -> dict:
+def turns(fns: dict, iters: int = 50) -> dict:
     """Each call's mean device ms, timed in turns: in order, then in
     reverse order, each time the mean of the two."""
     names = list(fns)
-    first = {n: cuda_ms(fns[n]) for n in names}
-    second = {n: cuda_ms(fns[n]) for n in reversed(names)}
+    first = {n: cuda_ms(fns[n], iters) for n in names}
+    second = {n: cuda_ms(fns[n], iters) for n in reversed(names)}
     return {n: (first[n] + second[n]) / 2 for n in names}
 
 
@@ -5450,8 +5595,11 @@ REMAT_GRAD_TOL = dict(atol=5e-5, rtol=1e-3)
 
 def remat_kernels(card: str) -> dict:
     """K1 (f32, safe) and K2 (f32) at the ViT-H/14 training shape B=8,
-    T=257, 16 heads of d=80, against their plain versions, then timed
-    beside their bound and scaled_dot_product_attention."""
+    T=257, 16 heads of d=80 (the wgmma bodies), against their plain
+    versions; then each timed at B=8 and B=128 in turns with the mma.sync
+    body it replaced, scaled_dot_product_attention (its backward) and the
+    plain version, beside its bound. {name: B=8 times, name + " B=128":
+    B=128 times}, each in the kernels line's order."""
     from vit_cpp_tpu_torch.ops.flash_attention import (
         attention_qkv, attention_qkv_grad, attention_qkv_grad_plain, attention_qkv_plain,
     )
@@ -5460,7 +5608,6 @@ def remat_kernels(card: str) -> dict:
     b, t, h, nh = 8, 257, 1280, 16
     qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda")
     do = torch.randn((b, t, h), generator=gen, device="cuda")
-    out = {}
     for name, kern, plain, tol in (
         ("attention_qkv", lambda: attention_qkv(qkv, nh),
          lambda: attention_qkv_plain(qkv, nh), lambda ref: TOL[torch.float32]),
@@ -5475,18 +5622,43 @@ def remat_kernels(card: str) -> dict:
             f"max|kernel - plain| = {err:.3e} (tolerance {tol(ref):.3e})")
         if not torch.isfinite(got).all() or not err <= tol(ref):
             raise AssertionError(f"{name} at the ViT-H/14 shape: error {err}")
-        k_ms, p_ms = time_pair(f"{name} B={b} T={t} h={h} f32 (ViT-H/14)", card, kern, plain)
-        if name == "attention_qkv":
-            lib = sdpa_ms(qkv, nh)
-            b_ms, b_by = attention_bound(b, t, h, 4)
-        else:
-            lib = sdpa_grad_ms(qkv, do, nh)
-            b_ms, b_by = bound(10.0 * b * t * t * h, 7 * b * t * h * 4, "f32")
-        log(f"{name} ViT-H/14 B={b} T={t} f32: bound {b_ms:.4f} ms ({b_by}), library "
-            f"scaled_dot_product_attention{' backward' if 'grad' in name else ''} "
-            f"{lib:.4f} ms on {card}")
-        out[name] = (k_ms, p_ms, b_ms, b_by, lib)
+    del qkv, do
+    out = {}
+    for bb in (8, 128):
+        tail = "" if bb == 8 else f" B={bb}"
+        out["attention_qkv" + tail] = time_k1_f32(card, gen, "vit-h14", bb, t, 80, nh, False)
+        out["attention_qkv_grad" + tail] = time_k2_bodies(card, gen, ((bb, t, nh),), 80)[
+            (bb, t, nh)]
     return out
+
+
+def profile_h14_update(state, x, y, hp, card: str) -> None:
+    """One ViT-H/14 f32 update (train_step, the remat mode in force) under
+    torch.profiler: K1's and K2's device ms and their shares of the
+    update's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.parallel.train import TRAIN_REMAT, train_step
+
+    train_step(state, x, y, hp)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, x, y, hp)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us, (fwd_us, bwd_us) = device_us(prof, KERNEL, GRAD_KERNEL)
+    if dev_us <= 0:
+        log("profiled ViT-H/14 update: torch.profiler saw no device time (shares not measured)")
+        return
+    if fwd_us <= 0 or bwd_us <= 0:
+        raise AssertionError(f"profiled ViT-H/14 update: no device time under attention_qkv "
+                             f"({fwd_us} us) or attention_qkv_grad ({bwd_us} us)")
+    log(f"profiled update (ViT-H/14 f32 B={x.shape[0]} remat={TRAIN_REMAT}, torch.profiler) on "
+        f"{card}: {dev_us / 1e3:.2f} ms of device time in {wall_us / 1e3:.2f} ms wall; "
+        f"attention_qkv {fwd_us / 1e3:.2f} ms ({fwd_us / dev_us:.3f} of device time), "
+        f"attention_qkv_grad {bwd_us / 1e3:.2f} ms ({bwd_us / dev_us:.3f})")
 
 
 def _update_stats(state, x, y, hp, what: str, card: str, timed: bool = True) -> dict:
@@ -5535,14 +5707,16 @@ def remat_paths(f32: str, card: str) -> tuple:
     (a) ViT-B/16 f32 at B=32 through train_step in each mode: one step's
         gradients against remat=False's, K1 and K2 launches per update
         (12 / 24 / 24 / 12 and 12), peak device memory, ms per update;
-    (b) ViT-H/14 f32: K1 and K2 at its training shape against their plain
-        versions and timed; its weights made on the card by
+    (b) ViT-H/14 f32: its weights made on the card by
         params_from_state_dict(random_state_dict(hp, 0)); the peak of a
-        B=32 update in each mode; then two B=128 updates through
-        cross_entropy_loss under "dots+attn", with finite losses and a
-        peak under H14_PEAK_GIB. No B=128 update runs without remat.
+        B=32 update in each mode, the "dots+attn" one profiled; then two
+        B=128 updates through cross_entropy_loss under "dots+attn", with
+        finite losses and a peak under H14_PEAK_GIB. No B=128 update runs
+        without remat. (Its K1 and K2 are checked and timed by
+        remat_kernels, after the paths: the timings launch the check-only
+        entries.)
     Returns ({path: {kernel: launches per update}}, {path: K2 launches per
-    update}, the ViT-H/14 kernel times)."""
+    update})."""
     from vit_cpp_tpu_torch.gguf.reader import read_model
     from vit_cpp_tpu_torch.hparams import VitHParams
     from vit_cpp_tpu_torch.models.params import load_params, params_from_state_dict
@@ -5593,7 +5767,6 @@ def remat_paths(f32: str, card: str) -> tuple:
         del ref
         torch.cuda.empty_cache()
 
-        times = remat_kernels(card)
         hh = VitHParams(**VIT_H14)
         t0 = time.perf_counter()
         params = params_from_state_dict(random_state_dict(hh, seed=0), hh, device="cuda")
@@ -5613,6 +5786,8 @@ def remat_paths(f32: str, card: str) -> tuple:
             path = f"vit-h14 B=32 train_step remat={mode}"
             launches[path] = {KERNEL.name: st["launches"][0], GRAD_KERNEL.name: st["launches"][1]}
             grads[path] = st["launches"][1]
+            if mode == "dots+attn":
+                profile_h14_update(state, x, y, hh, card)
         log(f"remat ViT-H/14 f32 B=32 peaks: " + ", ".join(
             f"{m}: {p:.2f} GiB" for m, p in peaks.items())
             + f"; parameters, gradients and moments {fixed:.2f} GiB; without remat B=128 "
@@ -5649,7 +5824,7 @@ def remat_paths(f32: str, card: str) -> tuple:
         T.TRAIN_REMAT = "dots+attn"
         torch.cuda.empty_cache()
     log(f"remat_paths: {time.perf_counter() - t_phase:.1f} s")
-    return launches, grads, times
+    return launches, grads
 
 
 def run_paths(card: str):
@@ -5703,7 +5878,7 @@ def run_paths(card: str):
         write_synthetic_model(f32, VitHParams(**VIT_B16), ftype=0, seed=0)
         slice_parity(f32)
         grad_launches = finetune_path(f16, tmp)
-        remat_launches, remat_grad_launches, remat_times = remat_paths(f32, card)
+        remat_launches, remat_grad_launches = remat_paths(f32, card)
         serve_launches.update(remat_launches)
         tome_launches, tome_grad_launches = tome_paths(f16, q8, tmp, card, images)
         serve_launches.update(tome_launches)
@@ -5718,7 +5893,7 @@ def run_paths(card: str):
                      "cli.finetune --moe 8": moe_grad_launches, **extras_grad_launches,
                      **mesh_grad, **remat_grad_launches}
     return (f16_launches, q8_launches, flash_launches, grad_launches, serve_launches,
-            (mesh_shards, mesh_errs), remat_times)
+            (mesh_shards, mesh_errs))
 
 
 def main() -> int:
@@ -5777,6 +5952,17 @@ def main() -> int:
         time_k2_bodies(card, gen)
         log(smi)
         return 0
+    if sys.argv[1:] == ["--attn-f32"]:
+        # K1's f32 body at d=64 and 80 and K2's at d=80 alone: their cases
+        # against plain and the mma.sync bodies, then their times in turns
+        # with those bodies, SDPA (its backward) and plain
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        check_k1_f32(gen)
+        check_k2_f32(gen, 80, K2_D80_EDGES)
+        time_k1_f32_bodies(card, gen)
+        time_k2_bodies(card, gen, K2_D80_TIMED, 80)
+        log(smi)
+        return 0
     if sys.argv[1:] == ["--k4-f32"]:
         # the f32 body alone: its kernel cases, then its times at ViT-B/16's
         # linears (run from another tree's root, it measures that tree's body)
@@ -5794,14 +5980,15 @@ def main() -> int:
     MMA_KERNEL.reset()
     GRAD_MMA_KERNEL.reset()
     (_, q8_launches, flash_launches, grad_launches, serve_launches,
-     (shards, shard_errs), remat_times) = run_paths(card)
+     (shards, shard_errs)) = run_paths(card)
     if MMA_KERNEL.launches or GRAD_MMA_KERNEL.launches:
         raise AssertionError(f"the check-only mma.sync entries launched {MMA_KERNEL.launches} "
                              f"(attention) and {GRAD_MMA_KERNEL.launches} (backward) times on "
                              "the paths")
     log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 d=64 "
-        "attention went through the wgmma body, every f32 d=64 backward through its wgmma "
-        "body)")
+        "and f32 d=64 / 80 attention went through a wgmma body, every f32 d=64 / 80 backward "
+        "through its wgmma body)")
+    remat_times = remat_kernels(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -5810,8 +5997,8 @@ def main() -> int:
     log(f"chip_smoke: checks, paths and diagnostics in {time.perf_counter() - t_start:.1f} s "
         "after the build")
 
-    # K1 and K3 in bf16 and K2 in f32 also carry the mma.sync body's time
-    # (in turns with the wgmma body that replaced it at d=64)
+    # K1 and K3 in bf16, K1 in f32 and K2 in f32 also carry the mma.sync
+    # body's time (in turns with the wgmma body that replaced it)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "mma_sync_ms")
 
     def entry(kernel, launches, err, times, by_path=None, **more):
@@ -5839,13 +6026,15 @@ def main() -> int:
 
     log(json.dumps({"kernels": [
         # K1: bf16 fast at ViT-B/16 B=8; B=64, T=577 / 785 at B=8 and the
-        # training forward (f32 safe, B=32; ViT-H/14 B=8) beside it, and
-        # both at tensor-parallel shards
+        # training forward (f32 safe, B=32; ViT-H/14 B=8 and 128, each with
+        # the mma.sync body's time in turns) beside it, and both at
+        # tensor-parallel shards
         {**entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
                  b64=k1_times[(64, 197)], t577=k1_times[(8, 577)], t785=k1_times[(8, 785)],
-                 f32_b32=k1_times["f32 B=32"], h14_f32_b8=remat_times[KERNEL.name]),
+                 f32_b32=k1_times["f32 B=32"], h14_f32_b8=remat_times[KERNEL.name],
+                 h14_f32_b128=remat_times[KERNEL.name + " B=128"]),
          **by_shard(KERNEL.name)},
         # K4: its f32-output instantiation (a bf16 rank's row-parallel
         # partials) at the row shards of tp = 2, 4 under "f32_out"
@@ -5863,13 +6052,15 @@ def main() -> int:
         entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1])),
         # K2: f32 at ViT-B/16 B=32 (the training path's, the wgmma body,
         # with the mma.sync body's time in turns); bf16, T=785 at B=4 and 8
-        # and ViT-H/14 B=8 beside it, and f32 at tensor-parallel shards
+        # and ViT-H/14 B=8 and 128 (d=80, mma.sync in turns) beside it, and
+        # f32 at tensor-parallel shards
         {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,
                  k2_times[(torch.float32, 197, 32)], by_path=grad_launches,
                  bf16=k2_times[(torch.bfloat16, 197, 32)],
                  t785=k2_times[(torch.float32, 785, 4)],
                  t785_b8=k2_times[(torch.float32, 785, 8)],
-                 h14_f32_b8=remat_times[GRAD_KERNEL.name]),
+                 h14_f32_b8=remat_times[GRAD_KERNEL.name],
+                 h14_f32_b128=remat_times[GRAD_KERNEL.name + " B=128"]),
          **by_shard(GRAD_KERNEL.name)},
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL)),

@@ -108,18 +108,20 @@ def test_cpu_runs_plain_version_and_counts_no_launch():
 
 @pytest.mark.parametrize("kw", [{"fast": True}, {"fast": False, "kv": 4}, {"sizes": True}])
 def test_mma_entry_runs_plain_version_on_cpu(kw):
-    # the check-only entry to the mma.sync body: the plain version on CPU
-    # tensors, no launch counted
+    # the check-only entry to the mma.sync bodies (f32's 3xTF32 one here;
+    # bf16's too): the plain version on CPU tensors, no launch counted
     before = port.MMA_KERNEL.launches
     qkv = torch.from_numpy(_qkv(2, 6, 2, 64, seed=4))
     kw = dict(kw)
     if kw.pop("sizes", False):
         kw["sizes"] = torch.from_numpy(np.random.default_rng(4).integers(1, 5, (2, 6)).astype(np.float32))
-    torch.testing.assert_close(port.attention_qkv_mma(qkv, 2, **kw),
-                               port.attention_qkv_plain(qkv, 2, **kw), rtol=0, atol=0)
+    got = port.attention_qkv_mma(qkv, 2, **kw)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, port.attention_qkv_plain(qkv, 2, **kw), rtol=0, atol=0)
     q, k, v = (torch.from_numpy(a) for a in _bhtd(2, 2, 6, 64, seed=5))
-    torch.testing.assert_close(port.flash_attention_mma(q, k, v),
-                               port.flash_attention_plain(q, k, v), rtol=0, atol=0)
+    got = port.flash_attention_mma(q, k, v)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, port.flash_attention_plain(q, k, v), rtol=0, atol=0)
     assert port.MMA_KERNEL.launches == before == 0
 
 
@@ -313,6 +315,122 @@ def test_3xtf32_products_hold_the_f32_tolerance_and_1xtf32_do_not():
     assert err1 > 2 * ATOL
 
 
+# ---- the f32 body at d = 64 and 80 (csrc/attention_tf32_wgmma.cuh), emulated
+
+
+def _tensor_core_tf32(x):
+    """What the tensor cores read of an f32 operand: its top 19 bits (TF32
+    by truncation)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split_trunc(x):
+    """The body's operands: hi = x as the tensor cores truncate it, lo =
+    x - hi (exact in f32) rounded to TF32."""
+    hi = _tensor_core_tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _to_f32_toward_zero(x):
+    """f64 -> f32 rounded toward zero (a wgmma's sum, as the tensor cores
+    leave it)."""
+    r = x.to(torch.float32)
+    over = r.to(torch.float64).abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _wgmma_chain(acc, terms):
+    """acc (None: a chain started with scale-d 0) += a @ b for each 8-deep
+    (a, b) term, each sum exact (f64) and then truncated to f32."""
+    for a, b in terms:
+        s = torch.matmul(a.double(), b.double())
+        acc = _to_f32_toward_zero(s if acc is None else acc.double() + s)
+    return acc
+
+
+def _three_terms(a, b):
+    """a @ b over an 8-deep step in 3xTF32: the terms lo hi, hi lo, hi hi."""
+    (ah, al), (bh, bl) = _split_trunc(a), _split_trunc(b)
+    return [(al, bh), (ah, bl), (ah, bh)]
+
+
+def _k1_wgmma_emulated(qkv, nh, *, fast, sizes=None, drain=True, chunk=16):
+    """attention_qkv's f32 wgmma body on the CPU: S = qs K^T in three
+    terms per 8-deep step, the hi hi terms in one truncated chain and the
+    cross terms in another, added in f32; keys in chunks of 16
+    taken by two warpgroups in turn, each with its own softmax state (safe:
+    an online row max, o and l rescaled by exp2(m_old - m_new) when it
+    grows); each chunk's P V (three terms per 8-key step) summed into a
+    part that a rounded f32 addition drains into o (without `drain`, one
+    truncated chain per warpgroup); then the two states combined and o / l
+    rounded once."""
+    b, t, three_h = qkv.shape
+    h = three_h // 3
+    d = h // nh
+    x = qkv.reshape(b, t, 3, nh, d).permute(2, 0, 3, 1, 4)
+    qs, k, v = x[0] * (_LOG2E / math.sqrt(d)), x[1], x[2]
+    terms = [_three_terms(qs[..., c:c + 8], k[..., c:c + 8].transpose(-1, -2))
+             for c in range(0, d, 8)]
+    s = (_wgmma_chain(None, [tm[2] for tm in terms])
+         + _wgmma_chain(None, [x for tm in terms for x in tm[:2]]))
+    states = []
+    for w in range(2):
+        m = torch.full((b, nh, t, 1), -math.inf)
+        l = torch.zeros((b, nh, t, 1))
+        o = torch.zeros((b, nh, t, d))
+        for c0 in range(chunk * w, t, 2 * chunk):
+            sc = s[..., c0:c0 + chunk]
+            if fast:
+                p = torch.exp2(torch.clamp(sc, max=120.0))
+            else:
+                mt = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+                alpha = torch.exp2(m - mt)
+                l, o, m = l * alpha, o * alpha, mt
+                p = torch.exp2(sc - m)
+            if sizes is not None:
+                p = p * sizes[:, None, None, c0:c0 + chunk]
+            l = l + p.sum(dim=-1, keepdim=True)
+            terms = [tm for c in range(0, p.shape[-1], 8)
+                     for tm in _three_terms(p[..., c:c + 8], v[..., c0 + c:c0 + c + 8, :])]
+            o = o + _wgmma_chain(None, terms) if drain else _wgmma_chain(o, terms)
+        states.append((m, l, o))
+    (m0, l0, o0), (m1, l1, o1) = states
+    if fast:
+        o, l = o0 + o1, l0 + l1
+    else:
+        mx = torch.maximum(m0, m1)
+        s0, s1 = torch.exp2(m0 - mx), torch.exp2(m1 - mx)
+        o, l = o0 * s0 + o1 * s1, l0 * s0 + l1 * s1
+    return (o / l).permute(0, 2, 1, 3).reshape(b, t, h)
+
+
+@pytest.mark.parametrize("t,d,fast,sized", [
+    (197, 64, False, False), (197, 64, True, True), (257, 80, False, False),
+    (257, 80, True, False), (257, 80, False, True),
+], ids=["d64-T197-safe", "d64-T197-fast-sizes", "d80-T257-safe", "d80-T257-fast",
+        "d80-T257-safe-sizes"])
+def test_f32_wgmma_body_arithmetic_holds_the_f32_tolerance(t, d, fast, sized):
+    # ViT-B/16 (d=64, T=197) and ViT-H/14 (d=80, T=257) head pairs, B=1
+    qkv = _qkv(1, t, 2, d, seed=t + d)
+    sizes = (np.random.default_rng(t).integers(1, 5, (1, t)).astype(np.float32)
+             if sized else None)
+    x = torch.from_numpy(qkv)
+    sz = None if sizes is None else torch.from_numpy(sizes)
+    plain = port.attention_qkv_plain(x, 2, fast=fast, sizes=sz)
+    ref = np.asarray(jax_attention_qkv(
+        jnp.asarray(qkv), 2, fast=fast, sizes=None if sizes is None else jnp.asarray(sizes),
+        interpret=True))
+    got = _k1_wgmma_emulated(x, 2, fast=fast, sizes=sz)
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    err = (got - plain).abs().max().item()
+    assert err <= ATOL / 10
+    assert np.abs(got.numpy() - ref).max() <= ATOL
+    # the drains keep the truncation of the key sums small; one chain per
+    # warpgroup truncates each of its sums
+    undrained = (_k1_wgmma_emulated(x, 2, fast=fast, sizes=sz, drain=False) - plain).abs().max()
+    assert err <= undrained.item()
+
+
 @pytest.mark.cuda
 def test_bf16_kernel_takes_an_unaligned_qkv_on_card():
     # a view 2 bytes past a 16-byte boundary: the wrapper copies it first
@@ -393,3 +511,58 @@ def test_mma_body_at_d64_matches_plain_on_card(t, kw):
     q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _bhtd(1, 4, t, 64, seed=t))
     torch.testing.assert_close(port.flash_attention_mma(q, k, v).float(),
                                port.flash_attention_plain(q, k, v).float(), atol=2e-2, rtol=0)
+
+
+# The f32 body at d = 64 and 80 (wgmma + TMA): 64-query tiles, 16-key
+# chunks taken by two warpgroups in turn, the 257 = 4 x 64 + 1 tail; held
+# to the plain version and to the 3xTF32 mma.sync body it replaced (the
+# check-only entry), and bit-equal from one call to the next.
+F32_WGMMA_EDGES = [(t, d, {"fast": fast}) for d in (64, 80)
+                   for t in (1, 8, 65, 197, 256, 257, 785) for fast in (True, False)] + [
+    (197, 64, {"fast": False, "sizes": True}), (257, 80, {"fast": True, "sizes": True}),
+    (200, 64, {"fast": True, "kv": 197}), (257, 80, {"fast": False, "kv": 256}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "t,d,kw", F32_WGMMA_EDGES,
+    ids=[f"T{t}-d{d}-" + "-".join(f"{k}{v}" for k, v in kw.items()) for t, d, kw in F32_WGMMA_EDGES],
+)
+def test_f32_wgmma_body_matches_plain_and_mma_body_on_card(t, d, kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = torch.from_numpy(_qkv(2, t, 4, d, seed=t + d)).cuda()
+    kw = dict(kw)
+    if kw.get("kv"):
+        qkv[:, kw["kv"]:] = 1e4
+    if kw.pop("sizes", False):
+        kw["sizes"] = torch.from_numpy(np.random.default_rng(t).integers(1, 5, (2, t)).astype(np.float32)).cuda()
+    before = (port.KERNEL.launches, port.MMA_KERNEL.launches)
+    got, again = port.attention_qkv(qkv, 4, **kw), port.attention_qkv(qkv, 4, **kw)
+    mma = port.attention_qkv_mma(qkv, 4, **kw)
+    assert (port.KERNEL.launches, port.MMA_KERNEL.launches) == (before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(got, port.attention_qkv_plain(qkv, 4, **kw), atol=ATOL, rtol=0)
+    torch.testing.assert_close(got, mma, atol=ATOL, rtol=0)
+    assert torch.equal(got, again)
+    q, k, v = (torch.from_numpy(a).cuda() for a in _bhtd(1, 4, t, d, seed=t))
+    got, again = port.flash_attention(q, k, v), port.flash_attention(q, k, v)
+    torch.testing.assert_close(got, port.flash_attention_plain(q, k, v), atol=ATOL, rtol=0)
+    torch.testing.assert_close(got, port.flash_attention_mma(q, k, v), atol=ATOL, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 128])
+def test_f32_other_d_keep_the_mma_body_on_card(d):
+    # f32 at d other than 64 and 80 still runs the 3xTF32 mma.sync body:
+    # equal to the check-only entry bit for bit
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    qkv = torch.from_numpy(_qkv(2, 197, 4, d, seed=d)).cuda()
+    sizes = torch.from_numpy(np.random.default_rng(d).integers(1, 5, (2, 197)).astype(np.float32)).cuda()
+    for kw in ({"fast": True}, {"fast": False, "sizes": sizes}, {"fast": False, "kv": 190}):
+        assert torch.equal(port.attention_qkv(qkv, 4, **kw), port.attention_qkv_mma(qkv, 4, **kw))
+    q, k, v = (torch.from_numpy(a).cuda() for a in _bhtd(1, 4, 65, d, seed=d))
+    assert torch.equal(port.flash_attention(q, k, v), port.flash_attention_mma(q, k, v))

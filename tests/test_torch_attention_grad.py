@@ -309,7 +309,7 @@ def _score_chain(a, b):
 
 def _token_chain(a, b, chunk=32, warpgroups=2, drain=True):
     """a b over the token axis (a: (.., M, T), b: (.., T, N)) as the body's
-    dQ, dV and dK: chunks of 32 tokens taken by the two warpgroups in turn,
+    dQ, dV and dK: chunks of `chunk` tokens taken by the two warpgroups in turn,
     each chunk's 8-token steps (lo hi, hi lo, hi hi) summed into a part
     that a rounded f32 addition drains into the warpgroup's accumulator;
     then warpgroup 0's sum plus warpgroup 1's. Without `drain`, one
@@ -333,9 +333,11 @@ def _token_chain(a, b, chunk=32, warpgroups=2, drain=True):
 
 
 def _wgmma_body_emulated(qkv, do, nh, drain=True):
-    """attention_qkv_grad's f32 d = 64 body on the CPU: its operands and
-    products as above, the softmax and dsoftmax chains as the plain
-    version's f32 math."""
+    """attention_qkv_grad's f32 body (d = 64 and 80) on the CPU: its
+    operands and products as above, the token products in each launch's
+    chunks (d = 64: 32 tokens; d = 80: launch A's dQ 32, launch B's dK and
+    dV 16), the softmax and dsoftmax chains as the plain version's f32
+    math."""
     b, t, three_h = qkv.shape
     h = three_h // 3
     d = h // nh
@@ -349,17 +351,19 @@ def _wgmma_body_emulated(qkv, do, nh, drain=True):
     pn = p * (1.0 / p.sum(dim=-1, keepdim=True))
     ds = pn * (dp - (dp * pn).sum(dim=-1, keepdim=True))
     nat = 1.0 / math.sqrt(d)
+    chunk_b = 32 if d == 64 else 16
     dq = _token_chain(ds, k, drain=drain) * nat
-    dk = _token_chain(ds.transpose(-1, -2), q, drain=drain) * nat
-    dv = _token_chain(pn.transpose(-1, -2), g, drain=drain)
+    dk = _token_chain(ds.transpose(-1, -2), q, chunk=chunk_b, drain=drain) * nat
+    dv = _token_chain(pn.transpose(-1, -2), g, chunk=chunk_b, drain=drain)
     out = torch.stack([dq, dk, dv])
     return out.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h)
 
 
-@pytest.mark.parametrize("t", [197, 785])
-def test_wgmma_body_arithmetic_holds_the_f32_tolerance(t):
-    # ViT-B/16 (T=197) and ViT-B/8 (T=785) head pairs: nh=2, d=64, B=1
-    qkv, do, _ = _inputs(1, t, 2, 64, seed=t)
+@pytest.mark.parametrize("t,d", [(197, 64), (785, 64), (257, 80)])
+def test_wgmma_body_arithmetic_holds_the_f32_tolerance(t, d):
+    # ViT-B/16 (T=197), ViT-B/8 (T=785) and ViT-H/14 (T=257, d=80) head
+    # pairs: nh=2, B=1
+    qkv, do, _ = _inputs(1, t, 2, d, seed=t)
     x, g = torch.from_numpy(qkv), torch.from_numpy(do)
     plain = port.attention_qkv_grad_plain(x, g, 2)
     ref = np.asarray(jfa._attention_qkv_grad(jnp.asarray(qkv), jnp.asarray(do), 2, interpret=True))
@@ -380,13 +384,18 @@ def test_wgmma_body_matches_plain_and_mma_body_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = [(2, t, 3, False) for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 200, 256,
-                                        257, 577, 785)]
-    cases += [(2, t, 3, True) for t in (65, 197, 785)]
-    cases += [(2, 197, nh, False) for nh in (1, 12)]
+    cases = [(2, t, 3, False, 64) for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 200, 256,
+                                            257, 577, 785)]
+    cases += [(2, t, 3, True, 64) for t in (65, 197, 785)]
+    cases += [(2, 197, nh, False, 64) for nh in (1, 12)]
+    # d = 80 (ViT-H/14): launch A's 32-token chunks in a ring of one,
+    # launch B's 16-token chunks, the 257 = 4 x 64 + 1 tail
+    cases += [(2, t, 3, False, 80) for t in (1, 8, 63, 64, 65, 129, 256, 257, 258, 785)]
+    cases += [(2, t, 3, True, 80) for t in (65, 257)]
+    cases += [(2, 257, nh, False, 80) for nh in (1, 16)]
     before = (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches)
-    for b, t, nh, sized in cases:
-        qkv, do, sz = _inputs(b, t, nh, 64, seed=t + nh, sizes=sized)
+    for b, t, nh, sized, d in cases:
+        qkv, do, sz = _inputs(b, t, nh, d, seed=t + nh, sizes=sized)
         x, g = (torch.from_numpy(a).cuda() for a in (qkv, do))
         s = None if sz is None else torch.from_numpy(sz).cuda()
         got = port.attention_qkv_grad(x, g, nh, sizes=s)
@@ -395,8 +404,8 @@ def test_wgmma_body_matches_plain_and_mma_body_on_card():
         ref = port.attention_qkv_grad_plain(x, g, nh, sizes=s)
         tol = 1e-4 * ref.abs().max().item()
         assert torch.isfinite(got).all()
-        assert (got - ref).abs().max().item() <= tol, (t, nh, sized)
-        assert (got - mma).abs().max().item() <= tol, (t, nh, sized)
+        assert (got - ref).abs().max().item() <= tol, (t, nh, sized, d)
+        assert (got - mma).abs().max().item() <= tol, (t, nh, sized, d)
         assert torch.equal(got, again)
     n = len(cases)
     assert (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches) == (
@@ -405,10 +414,10 @@ def test_wgmma_body_matches_plain_and_mma_body_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 80), ("float32", 72),
-                                     ("float32", 80), ("float32", 128)])
+                                     ("float32", 128)])
 def test_other_calls_keep_the_mma_body_on_card(dtype, d):
-    # everything but f32 at d = 64 still runs the mma.sync bodies: equal
-    # to the check-only entry bit for bit
+    # everything but f32 at d = 64 and 80 still runs the mma.sync bodies:
+    # equal to the check-only entry bit for bit
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)

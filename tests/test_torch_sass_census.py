@@ -48,6 +48,15 @@ ptxas info    : Compile time = 543.421 ms
      "CUtensorMap_st, gradwg::Params)", "grad_rows_wgmma"),
     ("void <unnamed>::grad_cols_wgmma(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
      "gradwg::Params)", "grad_cols_wgmma"),
+    # K2's d = 80 kernels and K1's f32 wgmma body (d, fast, sizes)
+    ("void (anonymous namespace)::grad_rows_wgmma80(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, gradwg::Params)", "grad_rows_wgmma80"),
+    ("void <unnamed>::grad_cols_wgmma80(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "gradwg::Params)", "grad_cols_wgmma80"),
+    ("void (anonymous namespace)::attention_tf32_wgmma<80, false, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, fwdwg::Params)", "attention_tf32_wgmma<80, false, true>"),
+    ("void <unnamed>::attention_tf32_wgmma<(int)64, (bool)1, (bool)0>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, fwdwg::Params)", "attention_tf32_wgmma<64, 1, 0>"),
 ])
 def test_short_name(signature, name):
     assert short_name(signature) == name

@@ -1,14 +1,16 @@
-// K2's f32 body at d = 64 for Hopper (sm_90a): the attention backward in
-// 3xTF32 on wgmma, fed by TMA. attention_qkv_grad.cu instantiates it
-// (grad_rows_wgmma, grad_cols_wgmma) and sends it every f32 call with
-// d = 64: any B, T and nh, with or without ToMe sizes.
+// K2's f32 body at d = 64 and 80 for Hopper (sm_90a): the attention
+// backward in 3xTF32 on wgmma, fed by TMA. attention_qkv_grad.cu
+// instantiates it (grad_rows_wgmma, grad_cols_wgmma at d = 64;
+// grad_rows_wgmma80, grad_cols_wgmma80 at d = 80) and sends it every f32
+// call with d = 64 or 80: any B, T and nh, with or without ToMe sizes.
 //
 // Replaces, for those calls, the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::_attention_qkv_grad (:1214; the d = 64 pair kernel
-// _qkv_grad_pair_kernel) and _attention_qkv_grad_lane (:1113; large T x
-// h), as the mma.sync body of attention_grad_body.cuh did before it (that
-// body still serves bf16 and every other d, and the checks reach it at
-// d = 64 through vit_attention_qkv_grad_mma).
+// _qkv_grad_pair_kernel, _qkv_grad_kernel + _qkv_grad_head at d = 80) and
+// _attention_qkv_grad_lane (:1113; large T x h), as the mma.sync body of
+// attention_grad_body.cuh did before it (that body still serves bf16 and
+// every other d, and the checks reach it at d = 64 and 80 through
+// vit_attention_qkv_grad_mma).
 //
 // What bounds it on this card. Five T x T x d products per head at the
 // 3xTF32 rate (a third of TF32's, ~165 TFLOP/s) against ~2 MB of qkv, dO
@@ -34,6 +36,14 @@
 //   softmax, the other's wgmmas run: the two share the SM as two blocks
 //   would, but the resident tiles are loaded and split once. One block
 //   per SM (launch A 193 KB of shared memory, B 225 KB).
+// - d = 80 takes its own plan (GA, GB below): its tiles are 1.25x d = 64's,
+//   and the plan above would need 241 and 281 KB. Launch A streams
+//   32-token chunks through a ring of one slot per warpgroup (201 KB: a
+//   chunk's TMA waits for the slot's S and dP, and the other warpgroup's
+//   work covers it); launch B 16-token chunks through a ring of two (181
+//   KB), whose transposed copies are rows of 64 bytes. 16-token chunks in
+//   launch A as well ran slower on an H100: twice the wgmmas per token,
+//   each half as wide.
 // - Launch A (dq and the row statistics): pass 1 over the warpgroup's
 //   chunks keeps the online max, sum p and sum dp p per row; the two
 //   warpgroups' partial statistics meet in shared memory; pass 2 streams
@@ -42,19 +52,26 @@
 // - Launch B (dk, dv): per chunk of queries, S^T = K qs^T and dP^T = V
 //   dO^T, pn and ds from the stored statistics, dV += Pn^T dO and dK +=
 //   dS^T q; the two partials added as in A.
-// - Every tile arrives by TMA in the 128-byte swizzle, two boxes of 32
-//   floats (128 bytes) wide for a d = 64 row, over a 3-D map (columns,
-//   tokens, images) whose token extent is T: rows past the sequence load
-//   as zeros and a box never reaches the next image.
+// - Every tile arrives by TMA over a 3-D map (columns, tokens, images)
+//   whose token extent is T: rows past the sequence load as zeros and a
+//   box never reaches the next image. A d = 64 row is two boxes of 32
+//   floats in the 128-byte swizzle, a d = 80 row (2.5 rows of that
+//   swizzle) five boxes of 16 floats in the 64-byte swizzle, whose k steps
+//   read that layout's descriptors (tf32_wgmma.cuh).
 // - S and dP (S^T, dP^T) contract over d and read both operands as they
 //   land (K-major): wgmma.m64nNk8 with N = 8 to 32 (a chunk's last 8-token
-//   columns with a real token), 24 per product (8 k steps, three TF32
-//   terms each: lo hi, hi lo, hi hi; launch B mirrors the cross terms'
+//   columns with a real token), 3 d / 8 per product (d / 8 k steps, three
+//   TF32 terms each: lo hi, hi lo, hi hi; launch B mirrors the cross terms'
 //   order, so that its S^T sums the terms of A's S in A's order). One
 //   chain of small tf32 wgmmas is bound by their latency more than by the
 //   tensor cores' rate (an H100 ran m64n32k8 at 183 TFLOP/s as one chain
 //   per warpgroup, 245 as two), so S and dP (and dV and dK) alternate
-//   instruction by instruction, two chains in flight.
+//   instruction by instruction, two chains in flight. (Each product split
+//   into a hi hi chain and a cross chain, four in flight, ran no faster at
+//   d = 80.) At d = 80 the descriptors of a product's eight tiles are made
+//   once per step and moved by one addition per k step: launch A's ring
+//   of one slot makes every address loop-invariant, and the 80 hoisted
+//   descriptors spilled registers.
 // - dQ = dS K, dV = Pn^T dO and dK = dS^T q contract over tokens. The tf32
 //   forms have no transpose, so their B operands (K; dO and q) need
 //   token-contiguous copies: the split pass writes them, transposed, hi
@@ -88,37 +105,49 @@
 #include <cuda.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "tensor_core.cuh"
+#include "tf32_wgmma.cuh"
 
 namespace gradwg {
 
-constexpr int kD = 64;                  // the head dimension it takes
-constexpr int kRows = 64;               // resident rows per block: wgmma's M
-constexpr int kChunk = 32;              // streamed tokens per step
-constexpr int kWgs = 2;                 // warpgroups per block
-constexpr int kThreads = 128 * kWgs;
-constexpr int kRing = 2;                // chunk slots per warpgroup
-constexpr int kResBox = kRows * 128;    // a 64-row box of 32 floats
-constexpr int kRes = 2 * kResBox;       // a resident 64 x 64 tile, 16 KB
-constexpr int kStrBox = kChunk * 128;   // a 32-row box of 32 floats
-constexpr int kStr = 2 * kStrBox;       // a streamed 32 x 64 tile, 8 KB
-constexpr int kTr = kD * kChunk * 4;    // a transposed 64 x 32 tile, 8 KB
+using namespace tf32wg;
+
+// K2's tilings, launch A's (GA) and launch B's (GB): at d = 64 32-token
+// chunks in rings of two, in the 128-byte swizzle; at d = 80 in the 64-byte
+// swizzle, launch A 32-token chunks in rings of one and launch B 16-token
+// chunks in rings of two (at 32 tokens in rings of two they would need 241
+// and 281 KB of shared memory). With 16-token chunks in both launches an
+// H100 ran it at ViT-H/14 B = 8 (B = 128) in 0.524 (7.657) ms, slower
+// than the mma.sync body at B = 128.
+template <int D>
+using GA = Geo<D, 32, D == 64 ? 2 : 1>;
+template <int D>
+using GB = Geo<D, D == 64 ? 32 : 16, 2>;
+
+constexpr int kRows = 64;     // resident rows per block: wgmma's M
+constexpr int kThreads = 256;  // two warpgroups
 
 // Per warpgroup. Launch A: its ring of (K, V) chunks, K and V lo, K^T hi
 // and lo. Launch B: its ring of (q, dO) chunks, qs and dO lo, dO^T hi and
 // lo, q^T hi and lo.
-constexpr int kWgRowsBytes = kRing * 2 * kStr + 2 * kStr + 2 * kTr;
-constexpr int kWgColsBytes = kRing * 2 * kStr + 2 * kStr + 4 * kTr;
+template <int D>
+__host__ __device__ constexpr int wg_rows_bytes() {
+  return GA<D>::kRing * 2 * GA<D>::kStr + 2 * GA<D>::kStr + 2 * GA<D>::kTr;
+}
+template <int D>
+__host__ __device__ constexpr int wg_cols_bytes() {
+  return GB<D>::kRing * 2 * GB<D>::kStr + 2 * GB<D>::kStr + 4 * GB<D>::kTr;
+}
 
 // Dynamic shared memory: the four resident tiles (hi and lo of two), then
-// each warpgroup's, from a 1024-aligned base (+ 1024 for the alignment).
+// each warpgroup's, from a 1024-aligned base (+ 1024 for the alignment):
+// at d = 64 193 and 225 KB, at d = 80 201 and 181 KB.
+template <int D>
 __host__ __device__ constexpr size_t rows_smem_bytes() {
-  return 1024 + 4 * kRes + kWgs * kWgRowsBytes;
+  return 1024 + 4 * GA<D>::kRes + GA<D>::kWgs * wg_rows_bytes<D>();
 }
+template <int D>
 __host__ __device__ constexpr size_t cols_smem_bytes() {
-  return 1024 + 4 * kRes + kWgs * kWgColsBytes;
+  return 1024 + 4 * GB<D>::kRes + GB<D>::kWgs * wg_cols_bytes<D>();
 }
 
 // The operands of one call besides its tensor maps.
@@ -130,192 +159,17 @@ struct Params {
   float qscale, nat;
 };
 
-template <int N>
-using Nt = std::integral_constant<int, N>;
-
-// f(Nt<nt>()) for the live 8-token columns of a chunk, nt = 1 .. 4, so
-// that the chunk's products and accumulators are sized at compile time.
-template <class F>
-__device__ __forceinline__ void with_nt(int nt, F&& f) {
-  switch (nt) {
-    case 1: f(Nt<1>()); break;
-    case 2: f(Nt<2>()); break;
-    case 3: f(Nt<3>()); break;
-    default: f(Nt<4>()); break;
-  }
-}
-
-// The 128 threads of warpgroup `wg` meet (named barrier 1 + wg).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
-}
-
-// x as the tensor cores' TF32 hi and lo parts: hi is x itself (they read
-// its top 19 bits, truncating), lo = x - trunc(x), exact in f32, rounded
-// to TF32.
-__device__ __forceinline__ tc::Split split_trunc(float x) {
-  const uint32_t hi = __float_as_uint(x);
-  return tc::Split{hi, tc::tf32(__fsub_rn(x, __uint_as_float(hi & 0xffffe000u)))};
-}
-
-__device__ __forceinline__ uint4 his(const tc::Split (&s)[4]) {
-  return make_uint4(s[0].hi, s[1].hi, s[2].hi, s[3].hi);
-}
-__device__ __forceinline__ uint4 los(const tc::Split (&s)[4]) {
-  return make_uint4(s[0].lo, s[1].lo, s[2].lo, s[3].lo);
-}
-
-// A resident tile (16 KB as TMA wrote it) -> its TF32 lo part at the same
-// offsets in `lo`; with kScale, x * scale first, written back in place (the
-// tile is then its own hi part). Elementwise, so the swizzle does not
-// matter. All threads of the block.
-template <bool kScale>
-__device__ __forceinline__ void split_resident(unsigned char* t, unsigned char* lo, float scale) {
-  for (int i = threadIdx.x; i < kRes / 16; i += kThreads) {
-    const float4 v = reinterpret_cast<const float4*>(t)[i];
-    const float f[4] = {v.x, v.y, v.z, v.w};
-    tc::Split s[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[e] = split_trunc(kScale ? __fmul_rn(f[e], scale) : f[e]);
-    if (kScale) reinterpret_cast<uint4*>(t)[i] = his(s);
-    reinterpret_cast<uint4*>(lo)[i] = los(s);
-  }
-}
-
-// A streamed chunk (32 tokens x 64 columns in two 4 KB boxes) -> its TF32
-// lo part at the same offsets in `lo` (with kScale, x * scale first,
-// written back in place); with kT also x's hi and lo (unscaled)
-// transposed into `th` and
-// `tl`: 64 rows of 32 tokens, the tokens of each 8 in the order 0, 2, 4,
-// 6, 1, 3, 5, 7 (the renumbered contraction index), in the 128-byte
-// swizzle. Thread wt of the warpgroup takes token wt % 32 and the 16-byte
-// chunks 4 (wt / 32) .. + 3 of its row: the warp's 16-byte accesses fall
-// 8 to a 128-byte row, and its transposed 4-byte stores (one dim, 32
-// tokens) on 32 distinct banks.
-template <bool kT, bool kScale>
-__device__ __forceinline__ void split_stream(unsigned char* x, unsigned char* lo,
-                                             unsigned char* th, unsigned char* tl, float scale,
-                                             int wt) {
-  const int t = wt & 31, s8 = t & 7;
-  const int p = (s8 & 1) ? 4 + (s8 >> 1) : (s8 >> 1);  // position in its 8-token step
-  const int k16 = 2 * (t >> 3) + (p >> 2), pw = (p & 3) << 2;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int c = 4 * (wt >> 5) + k;
-    const int off = (c >> 3) * kStrBox + t * 128 + (((c & 7) ^ (t & 7)) << 4);
-    const float4 v = *reinterpret_cast<const float4*>(x + off);
-    const float f[4] = {v.x, v.y, v.z, v.w};
-    tc::Split s[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kT) {
-        const tc::Split r = split_trunc(f[e]);
-        const int n = 4 * c + e;
-        const int toff = n * 128 + (((k16 ^ (n & 7)) << 4) | pw);
-        *reinterpret_cast<uint32_t*>(th + toff) = r.hi;
-        *reinterpret_cast<uint32_t*>(tl + toff) = r.lo;
-      }
-      s[e] = split_trunc(kScale ? __fmul_rn(f[e], scale) : f[e]);
-    }
-    if (kScale) *reinterpret_cast<uint4*>(x + off) = his(s);
-    *reinterpret_cast<uint4*>(lo + off) = los(s);
-  }
-}
-
-// acc (64 x 8 NT) = A B^T and acc2 = A2 B2^T over d = 64 in 3xTF32, the
-// two chains alternating: A and A2 resident tiles (hi `ah`, lo `al`; 8 KB
-// boxes), B and B2 a streamed one's first 8 NT rows (4 KB boxes). Per k
-// step the terms lo hi, hi lo, hi hi; kSwap: hi lo, lo hi, hi hi (launch
-// B, whose A is launch A's B). Issued, not waited.
-template <int NT, bool kSwap>
-__device__ __forceinline__ void scores(float (&acc)[4 * NT], float (&acc2)[4 * NT],
-                                       const unsigned char* ah, const unsigned char* al,
-                                       const unsigned char* bh, const unsigned char* bl,
-                                       const unsigned char* ah2, const unsigned char* al2,
-                                       const unsigned char* bh2, const unsigned char* bl2) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 8; ++kk) {
-    const int oa = (kk >> 2) * kResBox + 32 * (kk & 3);
-    const int ob = (kk >> 2) * kStrBox + 32 * (kk & 3);
-    const uint64_t a[2][2] = {
-        {tc::sw128_desc(ah + oa, 16, 1024), tc::sw128_desc(al + oa, 16, 1024)},
-        {tc::sw128_desc(ah2 + oa, 16, 1024), tc::sw128_desc(al2 + oa, 16, 1024)}};
-    const uint64_t b[2][2] = {
-        {tc::sw128_desc(bh + ob, 16, 1024), tc::sw128_desc(bl + ob, 16, 1024)},
-        {tc::sw128_desc(bh2 + ob, 16, 1024), tc::sw128_desc(bl2 + ob, 16, 1024)}};
-    const int x = kSwap ? 0 : 1;  // the first term's A part: hi (0) or lo (1)
-    tc::wgmma_tf32_ss<NT>(acc, a[0][x], b[0][1 - x], kk > 0);
-    tc::wgmma_tf32_ss<NT>(acc2, a[1][x], b[1][1 - x], kk > 0);
-    tc::wgmma_tf32_ss<NT>(acc, a[0][1 - x], b[0][x], 1);
-    tc::wgmma_tf32_ss<NT>(acc2, a[1][1 - x], b[1][x], 1);
-    tc::wgmma_tf32_ss<NT>(acc, a[0][0], b[0][0], 1);
-    tc::wgmma_tf32_ss<NT>(acc2, a[1][0], b[1][0], 1);
-  }
-}
-
-// The A fragments of a 64 x 8 NT operand held as accumulators (v[4 j + e]
-// at row g + 8 (e >> 1), column 8 j + 2 q + (e & 1)): fragment column q is
-// token 2q and q + 4 token 2q + 1, so a = {v0, v2, v1, v3}; fa[j] = {hi
-// a0..a3, lo a0..a3}.
-template <int NT>
-__device__ __forceinline__ void fragments(uint32_t (&fa)[NT][8], const float (&v)[4 * NT]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float x[4] = {v[4 * j], v[4 * j + 2], v[4 * j + 1], v[4 * j + 3]};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const tc::Split s = split_trunc(x[e]);
-      fa[j][e] = s.hi;
-      fa[j][4 + e] = s.lo;
-    }
-  }
-}
-
-// part[i] (64 x 64) = A_i B_i over the chunk's NT live 8-token steps in
-// 3xTF32 (lo hi, hi lo, hi hi per step), for i < P products whose chains
-// alternate: A_i the fragments fa[i], B_i a transposed tile (hi bh[i], lo
-// bl[i]), step j at bytes 32 j of its rows. Issued, not waited.
-template <int NT, int P>
-__device__ __forceinline__ void contract(float (&part)[P][32], const uint32_t (&fa)[P][NT][8],
-                                         const unsigned char* const (&bh)[P],
-                                         const unsigned char* const (&bl)[P]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    uint64_t dh[P], dl[P];
-    uint32_t hi[P][4], lo[P][4];
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      dh[i] = tc::sw128_desc(bh[i] + 32 * j, 16, 1024);
-      dl[i] = tc::sw128_desc(bl[i] + 32 * j, 16, 1024);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hi[i][e] = fa[i][j][e], lo[i][e] = fa[i][j][4 + e];
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) tc::wgmma_m64n64k8_tf32_rs(part[i], lo[i], dh[i], j > 0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) tc::wgmma_m64n64k8_tf32_rs(part[i], hi[i], dl[i], 1);
-#pragma unroll
-    for (int i = 0; i < P; ++i) tc::wgmma_m64n64k8_tf32_rs(part[i], hi[i], dh[i], 1);
-  }
-}
-
-// *acc[i] += part[i] after the chunk's wgmmas, in rounded f32 additions.
-template <int P>
-__device__ __forceinline__ void drain(float* const (&acc)[P], float (&part)[P][32]) {
-  tc::wgmma_commit();
-  tc::wgmma_wait<0>();
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    tc::fence_each(part[i]);
-#pragma unroll
-    for (int n = 0; n < 32; ++n) acc[i][n] = __fadd_rn(acc[i][n], part[i][n]);
-  }
-}
-
 // ------------------------------------------------------------- launch A
-// One block per (batch, head, 64-query tile) -> dq, row statistics.
-__device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const CUtensorMap& qkv32,
-                                               const CUtensorMap& do64, const Params& a) {
+// One block per (batch, head, 64-query tile) -> dq, row statistics. The
+// maps: qkv in resident boxes (64 rows) and streamed ones (kChunk rows),
+// dO in resident ones.
+template <int D>
+__device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv_res,
+                                               const CUtensorMap& qkv_str,
+                                               const CUtensorMap& do_res, const Params& a) {
+  using g_ = GA<D>;
+  constexpr int kRing = g_::kRing, kWgs = g_::kWgs, kRes = g_::kRes, kStr = g_::kStr;
+  constexpr int kTr = g_::kTr, kChunk = g_::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t bars[1 + kWgs * kRing];  // resident tiles; each warpgroup's slots
   __shared__ float xst[kWgs][kRows][3];        // each warpgroup's row max, sum p, sum dp p
@@ -328,8 +182,8 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, warp = wt >> 5;
   const int lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int seq = a.seq, h = a.nh * kD, hc = head * kD;
-  unsigned char* wb = sm + 4 * kRes + wg * kWgRowsBytes;
+  const int seq = a.seq, h = a.nh * D, hc = head * D;
+  unsigned char* wb = sm + 4 * kRes + wg * wg_rows_bytes<D>();
   auto slot = [&](int r) { return wb + r * 2 * kStr; };  // K, then V
   unsigned char* sKlo = wb + kRing * 2 * kStr;
   unsigned char* sVlo = sKlo + kStr;
@@ -347,10 +201,8 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
     const int c0 = chunk0(s), r = s % kRing;
     unsigned char* k = slot(r);
     tc::mbar_arrive_expect_tx(&rbar[r], 2 * kStr);
-    tc::tma_load_3d(k, &qkv32, h + hc, c0, b, &rbar[r]);
-    tc::tma_load_3d(k + kStrBox, &qkv32, h + hc + 32, c0, b, &rbar[r]);
-    tc::tma_load_3d(k + kStr, &qkv32, 2 * h + hc, c0, b, &rbar[r]);
-    tc::tma_load_3d(k + kStr + kStrBox, &qkv32, 2 * h + hc + 32, c0, b, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(k, &qkv_str, h + hc, c0, b, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(k + kStr, &qkv_str, 2 * h + hc, c0, b, &rbar[r]);
   };
 
   if (tid == 0) {
@@ -360,16 +212,14 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
   __syncthreads();
   if (tid == 0) {
     tc::mbar_arrive_expect_tx(&bars[0], 2 * kRes);
-    tc::tma_load_3d(sQ, &qkv64, hc, q0, b, &bars[0]);
-    tc::tma_load_3d(sQ + kResBox, &qkv64, hc + 32, q0, b, &bars[0]);
-    tc::tma_load_3d(sO, &do64, hc, q0, b, &bars[0]);
-    tc::tma_load_3d(sO + kResBox, &do64, hc + 32, q0, b, &bars[0]);
+    load_tile<g_, g_::kResBox>(sQ, &qkv_res, hc, q0, b, &bars[0]);
+    load_tile<g_, g_::kResBox>(sO, &do_res, hc, q0, b, &bars[0]);
   }
   if (wt == 0)
     for (int s = 0; s < kRing && s < nsteps; ++s) issue(s);
   tc::mbar_wait_or_trap(&bars[0], 0);
-  split_resident<true>(sQ, sQlo, a.qscale);
-  split_resident<false>(sO, sOlo, 0.f);
+  split_resident<g_, true>(sQ, sQlo, a.qscale);
+  split_resident<g_, false>(sO, sOlo, 0.f);
   tc::fence_proxy_async();
   __syncthreads();
 
@@ -380,10 +230,10 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
     tc::mbar_wait_or_trap(&rbar[s % kRing], (s / kRing) & 1);
     unsigned char* k = slot(s % kRing);
     if (transpose)
-      split_stream<true, false>(k, sKlo, sKth, sKtl, 0.f, wt);
+      split_stream<g_, true, false>(k, sKlo, sKth, sKtl, 0.f, wt);
     else
-      split_stream<false, false>(k, sKlo, nullptr, nullptr, 0.f, wt);
-    split_stream<false, false>(k + kStr, sVlo, nullptr, nullptr, 0.f, wt);
+      split_stream<g_, false, false>(k, sKlo, nullptr, nullptr, 0.f, wt);
+    split_stream<g_, false, false>(k + kStr, sVlo, nullptr, nullptr, 0.f, wt);
     tc::fence_proxy_async();
     wg_sync(wg);
   };
@@ -392,7 +242,7 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
     constexpr int NT = decltype(nt)::value;
     const unsigned char* k = slot(s % kRing);
     tc::wgmma_fence();
-    scores<NT, false>(sa, pa, sQ, sQlo, k, sKlo, sO, sOlo, k + kStr, sVlo);
+    scores<g_, NT, false>(sa, pa, sQ, sQlo, k, sKlo, sO, sOlo, k + kStr, sVlo);
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_each(sa);
@@ -410,7 +260,7 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
   for (int s = 0; s < nwc; ++s) {
     const int c0 = chunk0(s);
     stream_in(s, false);
-    with_nt(min(4, (seq - c0 + 7) >> 3), [&](auto nt) {
+    with_nt<kChunk / 8>(min(kChunk / 8, (seq - c0 + 7) >> 3), [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
       float sa[4 * NT], pa[4 * NT];
       products(nt, s, sa, pa);
@@ -479,13 +329,13 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
   }
 
   // pass 2: dS, then dQ += dS K chunk by chunk
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   for (int s = nwc; s < nsteps; ++s) {
     const int c0 = chunk0(s);
     stream_in(s, true);
-    with_nt(min(4, (seq - c0 + 7) >> 3), [&](auto nt) {
+    with_nt<kChunk / 8>(min(kChunk / 8, (seq - c0 + 7) >> 3), [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
       float sa[4 * NT], pa[4 * NT];
       products(nt, s, sa, pa);
@@ -505,19 +355,19 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
         }
       uint32_t fa[1][NT][8];
       fragments<NT>(fa[0], sa);
-      float part[1][32];
+      float part[1][D / 2];
       tc::wgmma_fence();
-      contract<NT, 1>(part, fa, {sKth}, {sKtl});
+      contract<g_, NT, 1>(part, fa, {sKth}, {sKtl});
       drain<1>({acc}, part);
     });
   }
 
   // warpgroup 1's dQ to shared memory (its own slots, idle now), added to
   // warpgroup 0's; warpgroup 0 writes dq and the statistics
-  float* xq = reinterpret_cast<float*>(sm + 4 * kRes + kWgRowsBytes);
+  float* xq = reinterpret_cast<float*>(sm + 4 * kRes + wg_rows_bytes<D>());
   if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) xq[i * 128 + wt] = acc[i];
+    for (int i = 0; i < D / 2; ++i) xq[i * 128 + wt] = acc[i];
   }
   __syncthreads();
   if (wg == 1) return;
@@ -529,7 +379,7 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
     const int t = q0 + 16 * warp + g + 8 * i;
     if (t >= seq) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float x = __fadd_rn(acc[4 * j + 2 * i], xq[(4 * j + 2 * i) * 128 + wt]);
       const float y = __fadd_rn(acc[4 * j + 2 * i + 1], xq[(4 * j + 2 * i + 1) * 128 + wt]);
       *reinterpret_cast<float2*>(dqb + (long long)t * row3 + 8 * j + 2 * q) =
@@ -544,9 +394,15 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv64, const C
 }
 
 // ------------------------------------------------------------- launch B
-// One block per (batch, head, 64-key tile) -> dk, dv.
-__device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const CUtensorMap& qkv32,
-                                               const CUtensorMap& do32, const Params& a) {
+// One block per (batch, head, 64-key tile) -> dk, dv. The maps: qkv in
+// resident boxes and streamed ones, dO in streamed ones.
+template <int D>
+__device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv_res,
+                                               const CUtensorMap& qkv_str,
+                                               const CUtensorMap& do_str, const Params& a) {
+  using g_ = GB<D>;
+  constexpr int kRing = g_::kRing, kWgs = g_::kWgs, kRes = g_::kRes, kStr = g_::kStr;
+  constexpr int kTr = g_::kTr, kChunk = g_::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t bars[1 + kWgs * kRing];
   unsigned char* sm = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
@@ -558,8 +414,8 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, warp = wt >> 5;
   const int lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int b = blockIdx.z, head = blockIdx.y, k0 = blockIdx.x * kRows;
-  const int seq = a.seq, h = a.nh * kD, hc = head * kD;
-  unsigned char* wb = sm + 4 * kRes + wg * kWgColsBytes;
+  const int seq = a.seq, h = a.nh * D, hc = head * D;
+  unsigned char* wb = sm + 4 * kRes + wg * wg_cols_bytes<D>();
   auto slot = [&](int r) { return wb + r * 2 * kStr; };  // q (then qs hi), then dO
   unsigned char* sQslo = wb + kRing * 2 * kStr;
   unsigned char* sOlo = sQslo + kStr;
@@ -576,10 +432,8 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
     const int c0 = kChunk * (wg + 2 * s), r = s % kRing;
     unsigned char* x = slot(r);
     tc::mbar_arrive_expect_tx(&rbar[r], 2 * kStr);
-    tc::tma_load_3d(x, &qkv32, hc, c0, b, &rbar[r]);
-    tc::tma_load_3d(x + kStrBox, &qkv32, hc + 32, c0, b, &rbar[r]);
-    tc::tma_load_3d(x + kStr, &do32, hc, c0, b, &rbar[r]);
-    tc::tma_load_3d(x + kStr + kStrBox, &do32, hc + 32, c0, b, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(x, &qkv_str, hc, c0, b, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(x + kStr, &do_str, hc, c0, b, &rbar[r]);
   };
 
   if (tid == 0) {
@@ -589,16 +443,14 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
   __syncthreads();
   if (tid == 0) {
     tc::mbar_arrive_expect_tx(&bars[0], 2 * kRes);
-    tc::tma_load_3d(sK, &qkv64, h + hc, k0, b, &bars[0]);
-    tc::tma_load_3d(sK + kResBox, &qkv64, h + hc + 32, k0, b, &bars[0]);
-    tc::tma_load_3d(sV, &qkv64, 2 * h + hc, k0, b, &bars[0]);
-    tc::tma_load_3d(sV + kResBox, &qkv64, 2 * h + hc + 32, k0, b, &bars[0]);
+    load_tile<g_, g_::kResBox>(sK, &qkv_res, h + hc, k0, b, &bars[0]);
+    load_tile<g_, g_::kResBox>(sV, &qkv_res, 2 * h + hc, k0, b, &bars[0]);
   }
   if (wt == 0)
     for (int s = 0; s < kRing && s < nwc; ++s) issue(s);
   tc::mbar_wait_or_trap(&bars[0], 0);
-  split_resident<false>(sK, sKlo, 0.f);
-  split_resident<false>(sV, sVlo, 0.f);
+  split_resident<g_, false>(sK, sKlo, 0.f);
+  split_resident<g_, false>(sV, sVlo, 0.f);
   tc::fence_proxy_async();
   __syncthreads();
 
@@ -610,13 +462,13 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
     real[i] = key < seq;
     w[i] = (a.sizes == nullptr || !real[i]) ? 1.f : a.sizes[(long long)b * seq + key];
   }
-  float dk[32], dv[32];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
   for (int s = 0; s < nwc; ++s) {
     const int c0 = kChunk * (wg + 2 * s);
-    with_nt(min(4, (seq - c0 + 7) >> 3), [&](auto nt) {
+    with_nt<kChunk / 8>(min(kChunk / 8, (seq - c0 + 7) >> 3), [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
       // the statistics of this thread's query columns c0 + 8 j + 2 q + e
       float sx[NT][2], sl[NT][2], sr[NT][2];
@@ -633,14 +485,14 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
       wg_sync(wg);  // the warpgroup is past step s - 1
       tc::mbar_wait_or_trap(&rbar[s % kRing], (s / kRing) & 1);
       unsigned char* x = slot(s % kRing);
-      split_stream<true, true>(x, sQslo, sQth, sQtl, a.qscale, wt);
-      split_stream<true, false>(x + kStr, sOlo, sOth, sOtl, 0.f, wt);
+      split_stream<g_, true, true>(x, sQslo, sQth, sQtl, a.qscale, wt);
+      split_stream<g_, true, false>(x + kStr, sOlo, sOth, sOtl, 0.f, wt);
       tc::fence_proxy_async();
       wg_sync(wg);
 
       float sa[4 * NT], pa[4 * NT];
       tc::wgmma_fence();
-      scores<NT, true>(sa, pa, sK, sKlo, x, sQslo, sV, sVlo, x + kStr, sOlo);
+      scores<g_, NT, true>(sa, pa, sK, sKlo, x, sQslo, sV, sVlo, x + kStr, sOlo);
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
       tc::fence_each(sa);
@@ -666,22 +518,22 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
         }
       // dV += Pn^T dO and dK += dS^T q
       uint32_t fa[2][NT][8];
-      float part[2][32];
+      float part[2][D / 2];
       fragments<NT>(fa[0], sa);
       fragments<NT>(fa[1], pa);
       tc::wgmma_fence();
-      contract<NT, 2>(part, fa, {sOth, sQth}, {sOtl, sQtl});
+      contract<g_, NT, 2>(part, fa, {sOth, sQth}, {sOtl, sQtl});
       drain<2>({dv, dk}, part);
     });
   }
 
   // warpgroup 1's dK and dV to shared memory, added to warpgroup 0's;
   // warpgroup 0 writes them
-  float* xk = reinterpret_cast<float*>(sm + 4 * kRes + kWgColsBytes);
-  float* xv = xk + 32 * 128;
+  float* xk = reinterpret_cast<float*>(sm + 4 * kRes + wg_cols_bytes<D>());
+  float* xv = xk + (D / 2) * 128;
   if (wg == 1) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < D / 2; ++i) {
       xk[i * 128 + wt] = dk[i];
       xv[i * 128 + wt] = dv[i];
     }
@@ -695,7 +547,7 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv64, const C
     if (!real[i]) continue;
     const long long t = k0 + 16 * warp + g + 8 * i;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int n0 = 4 * j + 2 * i, c = 8 * j + 2 * q;
       const float kx = __fadd_rn(dk[n0], xk[n0 * 128 + wt]);
       const float ky = __fadd_rn(dk[n0 + 1], xk[(n0 + 1) * 128 + wt]);

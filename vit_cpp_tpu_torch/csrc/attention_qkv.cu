@@ -1,4 +1,4 @@
-// Multi-head attention for Hopper (sm_90a), CUDA C++: three bodies, all on
+// Multi-head attention for Hopper (sm_90a), CUDA C++: four bodies, all on
 // the tensor cores (bf16 products, and f32 as 3xTF32), two C entry points,
 // each with its own launch counter in Python, and a third for the checks.
 //
@@ -7,10 +7,16 @@
 //                         by TMA; every ViT-Ti/S/B/L head)
 //   bf16, any other d     attention_mma (attention_body.cuh: mma.sync fed
 //                         by cp.async; d = 72, 80, 88, 128, ...)
-//   f32, any d            attention_tf32 (below: 3xTF32 on mma.sync)
-// vit_attention_mma runs attention_mma at any d, d = 64 included, so that
-// the checks can hold T1's `full` to it bit for bit and time it beside
-// attention_wgmma; no path of the port calls it.
+//   f32, d = 64 and 80    attention_tf32_wgmma (attention_tf32_wgmma.cuh:
+//                         3xTF32 on wgmma fed by TMA; every training
+//                         forward, ViT-Ti/S/B/L and ViT-H/14, and f32
+//                         serving)
+//   f32, any other d      attention_tf32 (below: 3xTF32 on mma.sync;
+//                         d = 72, 88, 128, ...)
+// vit_attention_mma runs the mma.sync bodies at any d (bf16:
+// attention_mma; f32: attention_tf32), d = 64 and 80 included, so that the
+// checks can hold T1's `full` to the bf16 one bit for bit and time each
+// beside the wgmma body that replaced it; no path of the port calls it.
 //
 // vit_attention_qkv replaces the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel
@@ -26,8 +32,8 @@
 // (_bhtd_kernel -> _sdpa in safe mode): q, k, v and the output are
 // separate (B, H, T, D) tensors.
 //
-// The mma.sync and f32 bodies read Q, K and V through a (batch, head,
-// token) stride set and write the output through another (the wgmma body
+// The mma.sync bodies read Q, K and V through a (batch, head, token)
+// stride set and write the output through another (the wgmma bodies read
 // through tensor maps over the same views), so both layouts are read in
 // place: no head split or merge transposes exist in device memory. In the
 // two bodies below, one thread block owns one (batch, head, query tile)
@@ -43,8 +49,8 @@
 // fast the SM feeds operands to its multiply-adds. Both bodies below are
 // still not bound by HBM but by issue on the SM: the mma.sync products
 // (three per f32 product), then the exp2 of every score, while their K/V
-// copies hide behind the products. The wgmma body's note says what it
-// does about that at d = 64.
+// copies hide behind the products. The wgmma bodies' notes say what they
+// do about that: bf16 at d = 64, f32 at d = 64 and 80.
 //
 // bf16 body (attention_mma: serving, K1 and K3, at d != 64; its code is
 // attention_body.cuh, which the forward anatomy attn_anatomy.cu
@@ -68,7 +74,9 @@
 // output is staged through shared memory and written in 16-byte stores.
 //
 // f32 body (attention_tf32: training's forward, where the loss must agree
-// with the CPU to 1e-5 relative, and f32 serving), the bf16 body's
+// with the CPU to 1e-5 relative, and f32 serving, at every d but 64 and
+// 80, which attention_tf32_wgmma takes; and through vit_attention_mma at
+// any d for the checks), the bf16 body's
 // structure in 3xTF32 (tensor_core.cuh): each f32 operand is split into
 // TF32 hi and lo parts and each product is hi*hi + hi*lo + lo*hi on
 // mma.sync.m16n8k8 with f32 accumulators, which drops ~2^-22 of |x y|, the
@@ -84,7 +92,7 @@
 // and reads V's rows 2 q and 2 q + 1 for B's rows q and q + 4. The output
 // is written from the accumulators in 8-byte stores.
 //
-// Numerics of all three, as in the TPU kernel (flash_attention.py _sdpa
+// Numerics of all four, as in the TPU kernel (flash_attention.py _sdpa
 // and _qkv_pair_kernel):
 //  1. Q is scaled by log2(e)/sqrt(d) in f32 and rounded to the input type
 //     before Q K^T; scores accumulate in f32.
@@ -93,8 +101,10 @@
 //     keys (the scores are recomputed in the second pass; the wgmma body
 //     at kv <= 256 reads it from the one tile's accumulators), so their
 //     weights are exp2(s - max) as in the TPU kernel before they are
-//     rounded to bf16. The f32 body, whose p is not rounded, keeps an online max in
-//     one pass instead: o and l are rescaled by exp2(m_old - m_new) when
+//     rounded to bf16. The f32 bodies, whose p is not rounded, keep an
+//     online max in one pass instead (the wgmma one per warpgroup, over
+//     its half of the keys, the two states combined at the end): o and l
+//     are rescaled by exp2(m_old - m_new) when
 //     the max grows, which the division o / l cancels up to f32 rounding
 //     (an H100 measured the f32 cases within 6e-6 of the plain version,
 //     against 2e-5, and the safe body 1.41x faster than with the exact
@@ -102,12 +112,14 @@
 //  3. p = exp2(s), times the key mask (keys >= kv are skipped: weight 0),
 //     times sizes[key] when given.
 //  4. l = sum p in f32 from the f32 p; the PV product uses p rounded to
-//     the input type with f32 accumulation; o / l after PV (the wgmma
-//     body: o times one reciprocal of l per row), then cast.
+//     the input type with f32 accumulation; o / l after PV (the bf16 wgmma
+//     body: o times one reciprocal of l per row, to the correctly rounded
+//     quotient; the f32 bodies: __fdiv_rn), then cast.
 // Products of bf16 values are exact in f32, so the mma.sync body differs
-// from the plain version only in the order of its f32 sums; the wgmma
-// body also by the tensor cores' truncated sums and the reciprocal; the
-// f32 body by 3xTF32's ~2^-22 per product. Query rows >= kv
+// from the plain version only in the order of its f32 sums; the bf16
+// wgmma body also by the tensor cores' truncated sums; the f32 bodies by
+// 3xTF32's ~2^-22 per product (the wgmma one's hi truncated, ~2^-21, and
+// its sums truncated, drained by rounded additions). Query rows >= kv
 // (token padding) are written as zeros, as the composed path
 // (_attention_qkv_xla) does.
 
@@ -116,6 +128,7 @@
 #include <stdint.h>
 
 #include "attention_body.cuh"
+#include "attention_tf32_wgmma.cuh"
 #include "attention_wgmma.cuh"
 #include "tensor_core.cuh"
 #include "tensor_map.cuh"
@@ -378,6 +391,19 @@ __global__ void __launch_bounds__(attn::kWgThreads, 3)
   attn::attention_wgmma_body<kFast, kSizes>(qmap, kmap, vmap, omap, co, sizes, seq, kv, qscale);
 }
 
+// --------------------------------------------------- f32 body, d = 64, 80
+
+// attention_tf32_wgmma.cuh's body, one kernel per head dimension, per
+// softmax (kFast) and per presence of ToMe sizes. One block of two
+// warpgroups per SM.
+template <int D, bool kFast, bool kSizes>
+__global__ void __launch_bounds__(fwdwg::kThreads, fwdwg::kBlocksPerSm)
+    attention_tf32_wgmma(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, fwdwg::Params p) {
+  fwdwg::attention_tf32_wgmma_body<D, kFast, kSizes>(qmap, kmap, vmap, p);
+}
+
 // ------------------------------------------------------------- launches
 
 // The operands of one launch: Q, K, V and output pointers with their
@@ -460,6 +486,58 @@ cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t stream) {
   return a.sizes ? launch_wgmma<false, true>(a, stream) : launch_wgmma<false, false>(a, stream);
 }
 
+// The operands of an f32 wgmma launch: tensor maps of Q (64-row boxes), K
+// and V (32-row boxes; for fused qkv, one map), and the rest.
+struct Tf32WgArgs {
+  CUtensorMap q, k, v;
+  fwdwg::Params p;
+  int batch, nh, d, fast;
+};
+
+template <int D, bool kFast, bool kSizes>
+cudaError_t launch_tf32_wgmma(const Tf32WgArgs& a, cudaStream_t stream) {
+  static bool configured = false;
+  constexpr size_t bytes = fwdwg::smem_bytes<D>();
+  cudaError_t err = allow_smem(attention_tf32_wgmma<D, kFast, kSizes>, bytes, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.p.seq + fwdwg::kRows - 1) / fwdwg::kRows, a.nh, a.batch);
+  attention_tf32_wgmma<D, kFast, kSizes><<<grid, fwdwg::kThreads, bytes, stream>>>(a.q, a.k, a.v,
+                                                                                   a.p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tf32_wgmma(const Tf32WgArgs& a, cudaStream_t stream) {
+  const bool sized = a.p.sizes != nullptr;
+  if (a.fast)
+    return sized ? launch_tf32_wgmma<D, true, true>(a, stream)
+                 : launch_tf32_wgmma<D, true, false>(a, stream);
+  return sized ? launch_tf32_wgmma<D, false, true>(a, stream)
+               : launch_tf32_wgmma<D, false, false>(a, stream);
+}
+
+// Encodes the three maps of an f32 wgmma launch over `planes` planes of
+// `rows` rows (the token extent) of `cols` floats, rows `row_bytes` and
+// planes `plane_bytes` apart: boxes of one swizzle row (d = 64: 32 floats
+// in the 128-byte swizzle; d = 80: 16 in the 64-byte one), then launches.
+cudaError_t run_tf32_wgmma(Tf32WgArgs& a, const void* q, const void* k, const void* v,
+                           uint64_t cols, uint64_t rows, uint64_t planes, uint64_t row_bytes,
+                           uint64_t plane_bytes, cudaStream_t stream) {
+  const uint32_t bc = a.d == 64 ? 32 : 16, sw = 4 * bc;
+  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  cudaError_t err = tc::encode_sw_3d(&a.q, t, q, cols, rows, planes, row_bytes, plane_bytes, bc,
+                                     fwdwg::kRows, sw);
+  if (err == cudaSuccess)
+    err = tc::encode_sw_3d(&a.k, t, k, cols, rows, planes, row_bytes, plane_bytes, bc,
+                           fwdwg::kChunkK1, sw);
+  if (err == cudaSuccess && v != k)
+    err = tc::encode_sw_3d(&a.v, t, v, cols, rows, planes, row_bytes, plane_bytes, bc,
+                           fwdwg::kChunkK1, sw);
+  if (err != cudaSuccess) return err;
+  if (v == k) a.v = a.k;
+  return a.d == 64 ? launch_tf32_wgmma<64>(a, stream) : launch_tf32_wgmma<80>(a, stream);
+}
+
 // NK = ceil(d / 16): 16-wide slices of the head dimension.
 template <typename T>
 cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
@@ -482,12 +560,25 @@ bool bad_geometry(int batch, int seq, int nh, int d) {
 }
 
 // Fused QKV: q | k | v thirds of (B, T, 3h) rows; output (B, T, h). bf16
-// at d = 64 takes the wgmma body unless `mma`.
+// at d = 64 and f32 at d = 64 and 80 take the wgmma bodies unless `mma`.
 template <typename T>
 cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
                     int seq, int nh, int d, int kv, float qscale, int fast,
                     bool mma, cudaStream_t stream) {
   const long long h = (long long)nh * d;
+  if constexpr (sizeof(T) == 4) {
+    if ((d == 64 || d == 80) && !mma) {
+      // planes are images: rows of 3h (tokens past kv load as zeros); a
+      // head's Q, K and V are column offsets
+      Tf32WgArgs w;
+      w.p = fwdwg::Params{attn::WgCoords{0, (int)h, (int)(2 * h), d, 1, 0},
+                          static_cast<const float*>(sizes), static_cast<float*>(out),
+                          Strides{seq * h, d, h}, seq, kv, qscale};
+      w.batch = batch, w.nh = nh, w.d = d, w.fast = fast;
+      return run_tf32_wgmma(w, qkv, qkv, qkv, 3 * h, kv, batch, 3 * h * 4,
+                            (uint64_t)seq * 3 * h * 4, stream);
+    }
+  }
   if constexpr (sizeof(T) == 2) {
     if (d == attn::kWgD && !mma) {
       // planes are images: rows of 3h (tokens past kv load as zeros) in,
@@ -514,11 +605,23 @@ cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
 }
 
 // Split heads: q, k, v and output each (B, H, T, D); safe softmax. bf16
-// at d = 64 takes the wgmma body unless `mma`.
+// at d = 64 and f32 at d = 64 and 80 take the wgmma bodies unless `mma`.
 template <typename T>
 cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
                      int batch, int nh, int seq, int d, float qscale, bool mma,
                      cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    if ((d == 64 || d == 80) && !mma) {
+      // planes are (image, head) pairs of seq rows of d
+      if ((long long)batch * nh > 0x7fffffff) return cudaErrorInvalidValue;
+      Tf32WgArgs w;
+      const long long hd = (long long)seq * d;
+      w.p = fwdwg::Params{attn::WgCoords{0, 0, 0, 0, nh, 1}, nullptr, static_cast<float*>(out),
+                          Strides{nh * hd, hd, d}, seq, seq, qscale};
+      w.batch = batch, w.nh = nh, w.d = d, w.fast = 0;
+      return run_tf32_wgmma(w, q, k, v, d, seq, (uint64_t)batch * nh, d * 4, hd * 4, stream);
+    }
+  }
   if constexpr (sizeof(T) == 2) {
     if (d == attn::kWgD && !mma) {
       // planes are (image, head) pairs of seq rows of 64
@@ -584,24 +687,30 @@ extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 through the mma.sync body (attention_mma) at any d, d = 64
-// included, for the checks only: T1's `full` is that body bit for bit,
-// and chip_smoke.py times it beside the wgmma body. No path of the port
-// calls it. split 0: q is the fused (B, T, 3h) qkv (k and v unused), out
-// (B, T, h), kv, sizes and fast as vit_attention_qkv's; split 1: q, k, v
-// and out (B, H, T, D), safe softmax (kv, sizes and fast unused).
+// The bodies the wgmma ones replaced, at any d, d = 64 (and f32's 80)
+// included, for the checks only: bf16 through the mma.sync body
+// (attention_mma; T1's `full` is that body bit for bit), f32 through the
+// 3xTF32 mma.sync body (attention_tf32); chip_smoke.py times each beside
+// the wgmma body that replaced it. No path of the port calls it. dtype as
+// above; split 0: q is the fused (B, T, 3h) qkv (k and v unused), out (B,
+// T, h), kv, sizes and fast as vit_attention_qkv's; split 1: q, k, v and
+// out (B, H, T, D), safe softmax (kv, sizes and fast unused).
 extern "C" int vit_attention_mma(const void* q, const void* k, const void* v,
                                  const void* sizes, void* out, int batch, int seq,
                                  int nh, int d, int kv, float qscale, int fast, int split,
-                                 void* stream) {
-  if (bad_geometry(batch, seq, nh, d)) return (int)cudaErrorInvalidValue;
+                                 int dtype, void* stream) {
+  if (bad_geometry(batch, seq, nh, d) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (split) {
     if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(out))
       return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return (int)run_bhtd<float>(q, k, v, out, batch, nh, seq, d, qscale, true, s);
     return (int)run_bhtd<bf16>(q, k, v, out, batch, nh, seq, d, qscale, true, s);
   }
   if (kv < 1 || kv > seq || misaligned(q) || misaligned(out)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)run_qkv<float>(q, sizes, out, batch, seq, nh, d, kv, qscale, fast, true, s);
   return (int)run_qkv<bf16>(q, sizes, out, batch, seq, nh, d, kv, qscale, fast, true, s);
 }
 

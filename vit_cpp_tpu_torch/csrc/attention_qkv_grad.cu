@@ -16,12 +16,14 @@
 //   f32, d = 64     grad_rows_wgmma / grad_cols_wgmma (attention_grad_
 //                   wgmma.cuh: 3xTF32 on wgmma fed by TMA; every training
 //                   path's head at ViT-Ti/S/B/L, ToMe, the mesh's shards)
+//   f32, d = 80     grad_rows_wgmma80 / grad_cols_wgmma80 (the same body
+//                   on d = 80's plan; ViT-H/14's training path)
 //   any other call  grad_rows_mma / grad_cols_mma (attention_grad_body.cuh:
-//                   mma.sync fed by cp.async; bf16, and f32 at d = 72, 80
-//                   (ViT-H/14), 88, 128, ...)
+//                   mma.sync fed by cp.async; bf16, and f32 at d = 72, 88,
+//                   128, ...)
 // vit_attention_qkv_grad_mma runs the mma.sync bodies at any (dtype, d),
-// f32 d = 64 included, so that the checks can time them beside the wgmma
-// body; no path of the port calls it. The mma.sync bodies' code is
+// f32 d = 64 and 80 included, so that the checks can time them beside the
+// wgmma body; no path of the port calls it. The mma.sync bodies' code is
 // attention_grad_body.cuh, which the backward anatomy (attn_grad_anatomy.cu)
 // instantiates with stages changed; what follows is their design, and the
 // wgmma body's note says what it does in their place.
@@ -175,60 +177,86 @@ cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
   }
 }
 
-// The f32 d = 64 body (attention_grad_wgmma.cuh): launch A, then launch
-// B, one block of two warpgroups per SM.
+// The f32 body at d = 64 and 80 (attention_grad_wgmma.cuh): launch A, then
+// launch B, one block of two warpgroups per SM.
 __global__ void __launch_bounds__(gradwg::kThreads, 1)
     grad_rows_wgmma(const __grid_constant__ CUtensorMap qkv64,
                     const __grid_constant__ CUtensorMap qkv32,
                     const __grid_constant__ CUtensorMap do64, gradwg::Params p) {
-  gradwg::grad_rows_body(qkv64, qkv32, do64, p);
+  gradwg::grad_rows_body<64>(qkv64, qkv32, do64, p);
 }
 
 __global__ void __launch_bounds__(gradwg::kThreads, 1)
     grad_cols_wgmma(const __grid_constant__ CUtensorMap qkv64,
                     const __grid_constant__ CUtensorMap qkv32,
                     const __grid_constant__ CUtensorMap do32, gradwg::Params p) {
-  gradwg::grad_cols_body(qkv64, qkv32, do32, p);
+  gradwg::grad_cols_body<64>(qkv64, qkv32, do32, p);
+}
+
+__global__ void __launch_bounds__(gradwg::kThreads, 1)
+    grad_rows_wgmma80(const __grid_constant__ CUtensorMap qkv64,
+                      const __grid_constant__ CUtensorMap qkv32,
+                      const __grid_constant__ CUtensorMap do64, gradwg::Params p) {
+  gradwg::grad_rows_body<80>(qkv64, qkv32, do64, p);
+}
+
+__global__ void __launch_bounds__(gradwg::kThreads, 1)
+    grad_cols_wgmma80(const __grid_constant__ CUtensorMap qkv64,
+                      const __grid_constant__ CUtensorMap qkv16,
+                      const __grid_constant__ CUtensorMap do16, gradwg::Params p) {
+  gradwg::grad_cols_body<80>(qkv64, qkv16, do16, p);
 }
 
 // Tensor maps over the images: qkv (rows of 3h) and dO (rows of h) f32, in
-// boxes of 32 columns (128 bytes) by 64 rows (the resident tiles) or 32
-// (the streamed chunks); the token extent is seq.
+// boxes of one swizzle row (d = 64: 32 columns, 128 bytes; d = 80: 16, 64
+// bytes) by 64 rows (the resident tiles) or each launch's kChunk (the
+// streamed chunks); the token extent is seq.
+template <int D>
 cudaError_t run_wgmma(const void* qkv, const void* dout, const void* sizes, void* dqkv,
                       void* stats, int batch, int seq, int nh, float qscale, float nat,
                       cudaStream_t stream) {
-  const uint64_t h = (uint64_t)nh * gradwg::kD, f = sizeof(float);
-  CUtensorMap qkv64, qkv32, do64, do32;
+  using ga = gradwg::GA<D>;
+  using gb = gradwg::GB<D>;
+  auto* rows = D == 64 ? grad_rows_wgmma : grad_rows_wgmma80;
+  auto* cols = D == 64 ? grad_cols_wgmma : grad_cols_wgmma80;
+  const uint64_t h = (uint64_t)nh * D, f = sizeof(float);
+  const uint32_t bc = ga::kBoxCols, sw = ga::kSw;
+  CUtensorMap qkv_res, qkv_a, do_res, qkv_b, do_b;
   const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  cudaError_t err =
-      tc::encode_sw128_3d(&qkv64, t, qkv, 3 * h, seq, batch, 3 * h * f, seq * 3 * h * f, 32, 64);
+  cudaError_t err = tc::encode_sw_3d(&qkv_res, t, qkv, 3 * h, seq, batch, 3 * h * f,
+                                     seq * 3 * h * f, bc, 64, sw);
   if (err == cudaSuccess)
-    err = tc::encode_sw128_3d(&qkv32, t, qkv, 3 * h, seq, batch, 3 * h * f, seq * 3 * h * f, 32,
-                              32);
+    err = tc::encode_sw_3d(&qkv_a, t, qkv, 3 * h, seq, batch, 3 * h * f, seq * 3 * h * f, bc,
+                           ga::kChunk, sw);
+  if constexpr (ga::kChunk == gb::kChunk)
+    qkv_b = qkv_a;
+  else if (err == cudaSuccess)
+    err = tc::encode_sw_3d(&qkv_b, t, qkv, 3 * h, seq, batch, 3 * h * f, seq * 3 * h * f, bc,
+                           gb::kChunk, sw);
   if (err == cudaSuccess)
-    err = tc::encode_sw128_3d(&do64, t, dout, h, seq, batch, h * f, seq * h * f, 32, 64);
+    err = tc::encode_sw_3d(&do_res, t, dout, h, seq, batch, h * f, seq * h * f, bc, 64, sw);
   if (err == cudaSuccess)
-    err = tc::encode_sw128_3d(&do32, t, dout, h, seq, batch, h * f, seq * h * f, 32, 32);
+    err = tc::encode_sw_3d(&do_b, t, dout, h, seq, batch, h * f, seq * h * f, bc, gb::kChunk, sw);
   if (err != cudaSuccess) return err;
   static bool configured = false;
   if (!configured) {
-    err = cudaFuncSetAttribute(grad_rows_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)gradwg::rows_smem_bytes());
+    err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)gradwg::rows_smem_bytes<D>());
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(grad_cols_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)gradwg::cols_smem_bytes());
+    err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)gradwg::cols_smem_bytes<D>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const gradwg::Params p{static_cast<const float*>(sizes), static_cast<float*>(dqkv),
                          static_cast<float*>(stats), seq, nh, qscale, nat};
   const dim3 grid((seq + gradwg::kRows - 1) / gradwg::kRows, nh, batch);
-  grad_rows_wgmma<<<grid, gradwg::kThreads, gradwg::rows_smem_bytes(), stream>>>(qkv64, qkv32,
-                                                                                 do64, p);
+  rows<<<grid, gradwg::kThreads, gradwg::rows_smem_bytes<D>(), stream>>>(qkv_res, qkv_a,
+                                                                         do_res, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  grad_cols_wgmma<<<grid, gradwg::kThreads, gradwg::cols_smem_bytes(), stream>>>(qkv64, qkv32,
-                                                                                 do32, p);
+  cols<<<grid, gradwg::kThreads, gradwg::cols_smem_bytes<D>(), stream>>>(qkv_res, qkv_b,
+                                                                         do_b, p);
   return cudaGetLastError();
 }
 
@@ -256,15 +284,17 @@ bool bad_call(const void* qkv, const void* dout, const void* dqkv, int batch, in
 // and dqkv 16-byte aligned (16-byte copies, TMA); sizes: (B, T) float32
 // or null; stats: an f32 workspace of B * nh * T * 3 floats. dtype: 0 =
 // float32, 1 = bfloat16. qscale = log2(e)/sqrt(d), nat = 1/sqrt(d).
-// Returns cudaGetLastError() after the launches. f32 at d = 64 takes the
-// wgmma body, every other call the mma.sync bodies.
+// Returns cudaGetLastError() after the launches. f32 at d = 64 and 80 takes
+// the wgmma body, every other call the mma.sync bodies.
 extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const void* sizes,
                                       void* dqkv, void* stats, int batch, int seq, int nh,
                                       int d, float qscale, float nat, int dtype, void* stream) {
   if (bad_call(qkv, dout, dqkv, batch, seq, nh, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == gradwg::kD)
-    return (int)run_wgmma(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
+  if (dtype == 0 && d == 64)
+    return (int)run_wgmma<64>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
+  if (dtype == 0 && d == 80)
+    return (int)run_wgmma<80>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
   if (dtype == 0)
     return (int)run<float>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, d, qscale, nat, s);
   if (dtype == 1)
@@ -273,8 +303,8 @@ extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const v
 }
 
 // vit_attention_qkv_grad through the mma.sync bodies at any (dtype, d),
-// f32 d = 64 included, for the checks only: chip_smoke.py times them
-// beside the wgmma body. No path of the port calls it.
+// f32 d = 64 and 80 included, for the checks only: chip_smoke.py times
+// them beside the wgmma body. No path of the port calls it.
 extern "C" int vit_attention_qkv_grad_mma(const void* qkv, const void* dout, const void* sizes,
                                           void* dqkv, void* stats, int batch, int seq, int nh,
                                           int d, float qscale, float nat, int dtype,

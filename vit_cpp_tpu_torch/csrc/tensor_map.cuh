@@ -1,5 +1,5 @@
 // Host side of TMA for dequant_matmul.cu (K4), probe_int8_dot.cu (T3),
-// attention_qkv.cu (K1 and K3's wgmma body) and attention_qkv_grad.cu
+// attention_qkv.cu (K1 and K3's wgmma bodies) and attention_qkv_grad.cu
 // (K2's f32 wgmma body):
 // tensor maps encoded by libcuda's cuTensorMapEncodeTiled, looked up
 // through the runtime (no link against libcuda). A map is passed to its
@@ -62,33 +62,35 @@ inline cudaError_t encode_sw128(CUtensorMap* map, CUtensorMapDataType type, cons
 // `map` of a 3-D tensor of `type` at `base`: `depth` planes of `rows` rows
 // of `cols` elements, rows `row_bytes` and planes `plane_bytes` apart, as
 // TMA moves it in boxes of one plane's `box_rows` rows x `box_cols`
-// elements (at most 128 bytes) in the 128-byte swizzle. A box past `rows`
-// loads zeros there and does not store there, and never reaches the next
-// plane (attention_wgmma.cuh: planes are images or (image, head) pairs;
-// attention_grad_wgmma.cuh: images, f32).
-inline cudaError_t encode_sw128_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                                   uint64_t cols, uint64_t rows, uint64_t depth,
-                                   uint64_t row_bytes, uint64_t plane_bytes, uint32_t box_cols,
-                                   uint32_t box_rows) {
+// elements (at most `swizzle` bytes) in the 128-byte (or 64-byte) swizzle.
+// A box past `rows` loads zeros there and does not store there, and never
+// reaches the next plane (attention_wgmma.cuh: planes are images or (image,
+// head) pairs; attention_grad_wgmma.cuh and attention_tf32_wgmma.cuh:
+// images or (image, head) pairs, f32; a d = 80 row in 64-byte boxes).
+inline cudaError_t encode_sw_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                                uint64_t cols, uint64_t rows, uint64_t depth, uint64_t row_bytes,
+                                uint64_t plane_bytes, uint32_t box_cols, uint32_t box_rows,
+                                int swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cols, rows, depth};
   const cuuint64_t strides[2] = {row_bytes, plane_bytes};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   if (encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+             CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-// The same map of a bf16 tensor.
+// The map of a bf16 tensor in the 128-byte swizzle.
 inline cudaError_t encode_sw128_3d(CUtensorMap* map, const void* base, uint64_t cols,
                                    uint64_t rows, uint64_t depth, uint64_t row_bytes,
                                    uint64_t plane_bytes, uint32_t box_cols, uint32_t box_rows) {
-  return encode_sw128_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows, depth,
-                         row_bytes, plane_bytes, box_cols, box_rows);
+  return encode_sw_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows, depth, row_bytes,
+                      plane_bytes, box_cols, box_rows, 128);
 }
 
 }  // namespace tc

@@ -13,12 +13,18 @@ its own C entry point and launch counter:
   ops/core.py::attention(impl="pallas"), as in the JAX package, where no
   model entry point calls it.
 
-In bf16 at d = 64 both run the kernel's wgmma body (csrc/
-attention_wgmma.cuh), at every other (dtype, d) its mma.sync or 3xTF32
-body. `attention_qkv_mma` and `flash_attention_mma` (MMA_KERNEL) run the
-mma.sync body at any d, d = 64 included: for the checks only (the forward
-anatomy's `full` is that body bit for bit; chip_smoke.py times it beside
-the wgmma body). No path of the port calls them.
+Which body of the kernel a call runs, at both entry points:
+
+    bf16, d = 64         wgmma + TMA (csrc/attention_wgmma.cuh)
+    bf16, any other d    mma.sync (csrc/attention_body.cuh)
+    f32, d = 64 and 80   3xTF32 on wgmma + TMA (csrc/attention_tf32_wgmma.cuh)
+    f32, any other d     3xTF32 on mma.sync (attention_tf32, attention_qkv.cu)
+
+`attention_qkv_mma` and `flash_attention_mma` (MMA_KERNEL) run the
+mma.sync bodies at any d, in bf16 and in f32, d = 64 and 80 included: for
+the checks only (the forward anatomy's `full` is the bf16 body bit for
+bit; chip_smoke.py times each beside the wgmma body that replaced it). No
+path of the port calls them.
 
 and of the backward kernel, csrc/attention_qkv_grad.cu:
 
@@ -29,12 +35,13 @@ and of the backward kernel, csrc/attention_qkv_grad.cu:
   path: `attention_qkv` in safe mode forward, `attention_qkv_grad`
   backward.
 
-In f32 at d = 64 (every training path's head but ViT-H/14's) the backward
-runs the kernel's wgmma body (csrc/attention_grad_wgmma.cuh), at every
-other (dtype, d) its mma.sync bodies. `attention_qkv_grad_mma`
-(GRAD_MMA_KERNEL) runs the mma.sync bodies at any d, f32 d = 64 included:
-for the checks only (chip_smoke.py times them beside the wgmma body). No
-path of the port calls it.
+In f32 at d = 64 and 80 (every training path's head: ViT-Ti/S/B/L at 64,
+ViT-H/14 at 80) the backward runs the kernel's 3xTF32 wgmma body (csrc/
+attention_grad_wgmma.cuh), at every other (dtype, d) its mma.sync
+bodies. `attention_qkv_grad_mma` (GRAD_MMA_KERNEL) runs the mma.sync
+bodies at any d, f32 d = 64 and 80 included: for the checks only
+(chip_smoke.py times them beside the wgmma body). No path of the port
+calls it.
 
 On a CUDA tensor each launches its kernel or raises; it never falls back.
 On a CPU tensor each runs its plain version: the same arithmetic in plain
@@ -230,9 +237,9 @@ _ATTENTION_QKV = operator(
 
 
 def _launch_mma(q, k, v, sizes, out, geometry, fast, split) -> torch.Tensor:
-    """vit_attention_mma on bf16 CUDA tensors: (B, T, nh, d, kv)."""
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the mma.sync body is checked in bf16, got {q.dtype}")
+    """vit_attention_mma on bf16 or f32 CUDA tensors: (B, T, nh, d, kv)."""
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"the mma.sync bodies take f32/bf16, got {q.dtype}")
     b, t, nh, d, kv = geometry
     if d % 8 or d > 128:
         raise ValueError(f"the mma.sync body takes d % 8 == 0, d <= 128; got d={d}")
@@ -242,7 +249,8 @@ def _launch_mma(q, k, v, sizes, out, geometry, fast, split) -> torch.Tensor:
         rc = lib.vit_attention_mma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if sizes is None else sizes.data_ptr(), out.data_ptr(),
-            b, t, nh, d, kv, _LOG2E / math.sqrt(d), int(fast), int(split), stream,
+            b, t, nh, d, kv, _LOG2E / math.sqrt(d), int(fast), int(split),
+            _DTYPES[q.dtype], stream,
         )
     check(rc, "attention_mma kernel launch")
     MMA_KERNEL.counted()
@@ -257,9 +265,9 @@ def attention_qkv_mma(
     kv: Optional[int] = None,
     sizes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """`attention_qkv` through the kernel's mma.sync body at any d (bf16):
-    for the checks only, never on a path. On a CPU tensor, the plain
-    version."""
+    """`attention_qkv` through the kernel's mma.sync bodies at any d (bf16:
+    attention_mma; f32: the 3xTF32 attention_tf32): for the checks only,
+    never on a path. On a CPU tensor, the plain version."""
     b, t, h, d = _check_args(qkv, num_heads, kv, sizes)
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, fast=fast, kv=kv, sizes=sizes)
@@ -317,9 +325,9 @@ def _flash_attention_cuda(q, k, v):
 
 
 def flash_attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """`flash_attention` through the kernel's mma.sync body at any d
-    (bf16): for the checks only, never on a path. On CPU tensors, the
-    plain version."""
+    """`flash_attention` through the kernel's mma.sync bodies at any d
+    (bf16 or f32): for the checks only, never on a path. On CPU tensors,
+    the plain version."""
     _check_bhtd(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)

@@ -74,6 +74,18 @@
    ViT-B/16 B=32, --patch-size 8 B=8, ViT-H/14 B=8 (T=256 and 257) and
    B=128 (safe) and ViT-B/16 B=64 fast (f32 serving), the backward at
    ViT-H/14 B=8 (T=256 and 257) and B=128.
+   attention_qkv_grad in bf16 at d=64 runs the bf16 wgmma body; its edges
+   (T=1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 200, 256, 257, 577, 785;
+   sizes at 65, 197, 785; 1, 3, 6 and 12 heads; a misaligned qkv) are held
+   to the plain version and to the mma.sync body it replaced, bit-equal
+   from one call to the next, and it is timed in turns with that body,
+   SDPA's backward and plain at B=64 T=197 and B=8 T=785 (B=32 T=197 in
+   the backward's cases above). flash_attention in f32 (K3) is timed in
+   turns with its mma.sync body, SDPA in f32 and plain at (8, 12, 197, 64)
+   and (1, 16, 257, 80). `python3 chip_smoke.py --k2-bf16` runs, after the
+   build, the bf16 body's edges and times (B=32 and 64 T=197, B=8 T=785),
+   attn_grad_anatomy's variants on it with its stage split, and K3's f32
+   times.
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -315,10 +327,12 @@
    batch (qkv, proj, fc1, fc2; int8 also with B given (N, K)), in turns
    with torch._int_mm, torch.matmul and torch.mm with an f32 output, with
    the int8 : bf16 ratio; the anatomies' `full` equal bit for bit to K1
-   (fast, bf16) and K2 (bf16) on the same tensors, `full`, K1 / K2 and
-   scaled_dot_product_attention (forward / backward) timed in turns,
-   and one stage-split line per tool (full - variant, in ms and as a
-   share of full, every variant timed in turns); then
+   (fast, bf16) and K2 (bf16; at d=64, 72 and 128) on the same tensors,
+   `full`, K1 / K2 and scaled_dot_product_attention (forward / backward)
+   timed in turns (attn_grad_anatomy also with K2's mma.sync body: at
+   d=64 T2 runs K2's bf16 wgmma body), and one stage-split line per tool
+   (full - variant, in ms and as a share of full, every variant timed in
+   turns); then
    each tool's entry point, as a user runs it, with the launch counts set
    to 0 just before and read just after.
 Every kernel's line gives its bound (the larger of its bytes over 3.35
@@ -694,47 +708,61 @@ K2_F32_EDGES = (
     + [(2, 197, nh, False) for nh in (1, 12)]
 )
 
+# The backward's bf16 body at d=64 (wgmma + TMA): 64-row warpgroups,
+# 64-token chunks (T=1, 8, 63, 64, 65, 127, 128, 129), ViT-B/16's and
+# ToMe's lengths (196, 197, 200), the 256-key edge (256, 257: one real row
+# in the last tile), the lane shapes (577, 785); ToMe sizes on either side;
+# 1, 3, 6 and 12 heads. (B, T, heads, sizes)
+K2_BF16_EDGES = (
+    [(2, t, 3, False) for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 200, 256, 257,
+                                577, 785)]
+    + [(2, t, 3, True) for t in (65, 197, 785)]
+    + [(2, 197, nh, False) for nh in (1, 6, 12)]
+)
+
 # Its timed shapes (B, T, heads): ViT-B/16 training at B=32 and its tp 2 /
 # 4 per-rank shapes, ViT-B/8 (--patch-size 8) at B=4 and at the training
-# path's B=8
+# path's B=8; bf16: ViT-B/16 at B=32 and 64 (T2's shape) and ViT-B/8 at B=8
 K2_TIMED = ((32, 197, 12), (4, 785, 12), (8, 785, 12), (32, 197, 6), (32, 197, 3))
+K2_BF16_TIMED = ((32, 197, 12), (64, 197, 12), (8, 785, 12))
 
 
-def check_k2_f32(gen, d: int = 64, edges=K2_F32_EDGES) -> float:
-    """The backward's f32 wgmma body at d and its edges (B, T, heads,
-    sizes) and on a misaligned qkv and dO: each against the plain version
-    and against the mma.sync body (the check-only entry) within GRAD_TOL,
-    two calls bit-equal; the worst error relative to max|plain|."""
+def check_k2_wgmma(gen, d: int = 64, edges=K2_F32_EDGES, dtype=torch.float32) -> float:
+    """The backward's wgmma body (f32 at d = 64 and 80, bf16 at d = 64) at
+    d and its edges (B, T, heads, sizes) and on a misaligned qkv and dO:
+    each against the plain version and against the mma.sync body (the
+    check-only entry) within GRAD_TOL, two calls bit-equal; the worst
+    error relative to max|plain|."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
-    f32, worst = torch.float32, 0.0
+    worst, tol, kind = 0.0, GRAD_TOL[dtype], str(dtype)[6:]
     before = (fa.GRAD_KERNEL.launches, fa.GRAD_MMA_KERNEL.launches)
     cases = [(b, t, nh, sized, False) for b, t, nh, sized in edges]
     cases.append((2, 197, 12, False, True))
     for b, t, nh, sized, shift in cases:
-        qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda")
-        do = torch.randn((b, t, d * nh), generator=gen, device="cuda")
+        qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, t, d * nh), generator=gen, device="cuda").to(dtype)
         sizes = (torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
                  if sized else None)
         args = (_misaligned(qkv), _misaligned(do)) if shift else (qkv, do)
         got = fa.attention_qkv_grad(*args, nh, sizes=sizes)
         again = fa.attention_qkv_grad(*args, nh, sizes=sizes)
-        mma = fa.attention_qkv_grad_mma(qkv, do, nh, sizes=sizes)
-        ref = fa.attention_qkv_grad_plain(qkv, do, nh, sizes=sizes)
+        mma = fa.attention_qkv_grad_mma(qkv, do, nh, sizes=sizes).float()
+        ref = fa.attention_qkv_grad_plain(qkv, do, nh, sizes=sizes).float()
         torch.cuda.synchronize()
-        if got.shape != ref.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"attention_qkv_grad f32 d={d} T={t}: bad output")
+        if got.shape != ref.shape or got.dtype != dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"attention_qkv_grad {kind} d={d} T={t}: bad output")
         scale = ref.abs().max().item()
-        err = (got - ref).abs().max().item() / scale
-        err_mma = (got - mma).abs().max().item() / scale
+        err = (got.float() - ref).abs().max().item() / scale
+        err_mma = (got.float() - mma).abs().max().item() / scale
         same = torch.equal(got, again)
         what = f"B={b} T={t} nh={nh}{' sizes' if sized else ''}{' misaligned' if shift else ''}"
-        log(f"kernel case attention_qkv_grad wgmma body f32 d={d} {what}: max|kernel - plain| = "
-            f"{err:.3e} x max|plain|, max|kernel - mma.sync body| = {err_mma:.3e} (tolerance "
-            f"{GRAD_TOL[f32]:.0e}); two calls bit-equal: {same}")
-        if not (err <= GRAD_TOL[f32] and err_mma <= GRAD_TOL[f32] and same):
-            raise AssertionError(f"attention_qkv_grad wgmma body d={d} {what}: error {err}, "
-                                 f"{err_mma} to the mma.sync body, bit-equal {same}")
+        log(f"kernel case attention_qkv_grad wgmma body {kind} d={d} {what}: max|kernel - plain| "
+            f"= {err:.3e} x max|plain|, max|kernel - mma.sync body| = {err_mma:.3e} (tolerance "
+            f"{tol:.0e}); two calls bit-equal: {same}")
+        if not (err <= tol and err_mma <= tol and same):
+            raise AssertionError(f"attention_qkv_grad wgmma body {kind} d={d} {what}: error "
+                                 f"{err}, {err_mma} to the mma.sync body, bit-equal {same}")
         worst = max(worst, err)
     got = (fa.GRAD_KERNEL.launches - before[0], fa.GRAD_MMA_KERNEL.launches - before[1])
     if got != (2 * len(cases), len(cases)):
@@ -749,26 +777,27 @@ def k2_bound(b: int, t: int, h: int, esize: int):
                  "f32" if esize == 4 else "bf16")
 
 
-def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64) -> dict:
-    """The backward's f32 wgmma body, the mma.sync body it replaced (the
+def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64, dtype=torch.float32) -> dict:
+    """The backward's wgmma body, the mma.sync body it replaced (the
     check-only entry), SDPA's backward and the plain version in turns
-    (queued device ms) at `shapes` (B, T, heads) of heads of d, each beside
-    its bound; {(B, T, heads): (wgmma, plain, bound ms, bound by, SDPA,
-    mma.sync ms)}, the kernels line's order."""
+    (queued device ms) at `shapes` (B, T, heads) of heads of d in `dtype`,
+    each beside its bound; {(B, T, heads): (wgmma, plain, bound ms, bound
+    by, SDPA, mma.sync ms)}, the kernels line's order."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
     out = {}
     for b, t, nh in shapes:
         h = d * nh
-        qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda")
-        do = torch.randn((b, t, h), generator=gen, device="cuda")
+        qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, t, h), generator=gen, device="cuda").to(dtype)
         r = turns({"wgmma": lambda: fa.attention_qkv_grad(qkv, do, nh),
                    "mma.sync": lambda: fa.attention_qkv_grad_mma(qkv, do, nh),
                    "sdpa": sdpa_grad_fn(qkv, do, nh),
                    "plain": lambda: fa.attention_qkv_grad_plain(qkv, do, nh)},
                   iters=50 if b <= 32 else 10)
-        b_ms, b_by = k2_bound(b, t, h, 4)
-        log(f"attention_qkv_grad bodies B={b} T={t} nh={nh} d={d} f32 (device ms, in turns) on "
+        b_ms, b_by = k2_bound(b, t, h, qkv.element_size())
+        log(f"attention_qkv_grad bodies B={b} T={t} nh={nh} d={d} {str(dtype)[6:]} (device ms, "
+            f"in turns) on "
             f"{card}: wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
             f"({r['mma.sync'] / r['wgmma']:.2f}x), scaled_dot_product_attention backward "
             f"{r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x), plain {r['plain']:.4f}; bound "
@@ -909,6 +938,33 @@ def time_k1_f32(card: str, gen, label: str, b: int, t: int, d: int, nh: int,
 def time_k1_f32_bodies(card: str, gen) -> dict:
     """time_k1_f32 at K1_F32_TIMED; {label: its tuple}."""
     return {label: time_k1_f32(card, gen, label, *shape) for label, *shape in K1_F32_TIMED}
+
+
+def time_k3_f32(card: str, gen) -> dict:
+    """K3 in f32 (flash_attention on split heads, safe: the f32 wgmma body),
+    the mma.sync body it replaced (the check-only entry),
+    scaled_dot_product_attention in f32 and the plain version in turns
+    (queued device ms) at K3_F32_EDGES, each beside its bound; {(B, H, T,
+    D): (wgmma, plain, bound ms, bound by, SDPA, mma.sync ms)}, the kernels
+    line's order."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for shape in K3_F32_EDGES:
+        b, nh, t, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+        r = turns({"wgmma": lambda: fa.flash_attention(q, k, v),
+                   "mma.sync": lambda: fa.flash_attention_mma(q, k, v),
+                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                   "plain": lambda: fa.flash_attention_plain(q, k, v)})
+        b_ms, b_by = attention_bound(b, t, d * nh, 4)
+        log(f"flash_attention bodies {shape} f32 (device ms, in turns) on {card}: wgmma "
+            f"{r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} ({r['mma.sync'] / r['wgmma']:.2f}x), "
+            f"scaled_dot_product_attention f32 {r['sdpa']:.4f} ({r['sdpa'] / r['wgmma']:.2f}x), "
+            f"plain {r['plain']:.4f}; bound {b_ms:.4f} ms ({b_by})")
+        out[shape] = (r["wgmma"], r["plain"], b_ms, b_by, r["sdpa"], r["mma.sync"])
+        del q, k, v
+    return out
 
 
 def encode_cost(card: str) -> None:
@@ -1285,8 +1341,9 @@ def check_attention_grad(card: str):
             main_err = err
     times = {}
     # ViT-B/16 training at B=32; T=785 is the shape of the JAX package's
-    # lane path (K2'), B=8 the --patch-size 8 training path's. In f32 (the
-    # wgmma body) the mma.sync body it replaced is timed in turns with it.
+    # lane path (K2'), B=8 the --patch-size 8 training path's. The mma.sync
+    # body the wgmma bodies replaced (f32 and bf16 at d=64) is timed in
+    # turns with them.
     for dtype, b, t in ((f32, 32, 197), (bf16, 32, 197), (f32, 4, 785), (f32, 8, 785)):
         qkv = torch.randn((b, t, 2304), generator=gen, device="cuda").to(dtype)
         do = torch.randn((b, t, 768), generator=gen, device="cuda").to(dtype)
@@ -1299,14 +1356,12 @@ def check_attention_grad(card: str):
         b_ms, b_by = k2_bound(b, t, 768, qkv.element_size())
         log(f"attention_qkv_grad B={b} T={t} {str(dtype)[6:]}: bound {b_ms:.4f} ms ({b_by}), "
             f"library scaled_dot_product_attention backward {lib:.4f} ms on {card}")
-        times[(dtype, t, b)] = (k_ms, p_ms, b_ms, b_by, lib)
-        if dtype == f32:
-            r = turns({"wgmma": lambda: attention_qkv_grad(qkv, do, 12),
-                       "mma.sync": lambda: attention_qkv_grad_mma(qkv, do, 12)})
-            log(f"attention_qkv_grad B={b} T={t} f32 bodies (device ms, in turns) on {card}: "
-                f"wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
-                f"({r['mma.sync'] / r['wgmma']:.2f}x)")
-            times[(dtype, t, b)] += (r["mma.sync"],)
+        r = turns({"wgmma": lambda: attention_qkv_grad(qkv, do, 12),
+                   "mma.sync": lambda: attention_qkv_grad_mma(qkv, do, 12)})
+        log(f"attention_qkv_grad B={b} T={t} {str(dtype)[6:]} bodies (device ms, in turns) on "
+            f"{card}: wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+            f"({r['mma.sync'] / r['wgmma']:.2f}x)")
+        times[(dtype, t, b)] = (k_ms, p_ms, b_ms, b_by, lib, r["mma.sync"])
         del qkv, do
     return main_err, times
 
@@ -1718,61 +1773,97 @@ def turns(fns: dict, iters: int = 50) -> dict:
     return {n: (first[n] + second[n]) / 2 for n in names}
 
 
+def anatomy_variants(card, out, kernel, shape, names, fn, plain, flops, nbytes, ref_fn,
+                     ref_name, lib_fn, lib_name, mma=None):
+    """Check and time each variant of a diagnostic's kernel; `full`
+    against the port's own kernel (ref_fn) bit for bit, then timed in
+    turns with it, the library call and `mma` (name, fn: the mma.sync body
+    a wgmma body replaced); the stage split. The first variant is the
+    kernel's line, stored in out[kernel.name]."""
+    for v in names:
+        got, ref = fn(v), plain(v)
+        torch.cuda.synchronize()
+        if (got.shape != ref.shape or got.dtype != torch.bfloat16
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f"{kernel.name} {v}: bad output {tuple(got.shape)} {got.dtype}")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = ANATOMY_TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{kernel.name} {v}: error {err} > {tol}")
+        k_ms, p_ms = time_pair(f"{kernel.name} {v} {shape} bf16", card,
+                               lambda: fn(v), lambda: plain(v), iters=10)
+        b_ms, b_by = bound(flops(v), nbytes, "bf16")
+        log(f"diagnostic {kernel.name} {v:<9} {shape}: max|kernel - plain| = {err:.3e} "
+            f"(tolerance {tol:.3e} = {ANATOMY_TOL:.0e} x max|plain|); kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if v == names[0]:
+            main = (err, p_ms, b_ms, b_by)
+    full = fn(names[0])
+    if not torch.equal(full, ref_fn()):
+        diff = (full.float() - ref_fn().float()).abs().max().item()
+        raise AssertionError(f"{kernel.name} full is not {ref_name}: max difference {diff}")
+    t = turns({"full": lambda: fn(names[0]), ref_name: ref_fn, lib_name: lib_fn,
+               **dict([mma] if mma else [])})
+    log(f"diagnostic {kernel.name} full {shape}: equal to {ref_name} bit for bit; in turns, "
+        f"device ms on {card}: full {t['full']:.4f} ms, {ref_name} "
+        f"{t[ref_name]:.4f} ms, {lib_name} {t[lib_name]:.4f} ms"
+        + (f", {mma[0]} {t[mma[0]]:.4f} ms" if mma else ""))
+    out[kernel.name] = (main[0], t["full"], *main[1:], t[lib_name],
+                        *([t[mma[0]]] if mma else []))
+    split = turns({v: (lambda v=v: fn(v)) for v in names})
+    log(f"stage split {kernel.name} {shape} on {card} (device ms, in turns; full "
+        f"{split['full']:.4f} ms; "
+        "full - variant, ms and share of full): " + "; ".join(
+            f"{v} {split['full'] - split[v]:+.4f} ({(split['full'] - split[v]) / split['full']:+.3f})"
+            for v in names[1:]))
+
+
+def check_grad_anatomy(card: str, gen, out: dict) -> None:
+    """T2 at its flagship shape (B=64, T=197, ViT-B/16's heads: the bf16
+    wgmma body): every variant against its plain version, `full` bit-equal
+    to K2 and timed in turns with it, K2's mma.sync body and SDPA's
+    backward, the stage split; then `full` bit-equal to K2 at d=72 and 128
+    (the mma.sync bodies). Its numbers into out[tg.KERNEL.name]."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_grad, attention_qkv_grad_mma
+    from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
+
+    bf16 = torch.bfloat16
+    b, t, h = 64, 197, 768
+    qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
+    do = torch.randn((b, t, h), generator=gen, device="cuda").to(bf16)
+    anatomy_variants(card, out, tg.KERNEL, f"B={b} T={t} h={h}", tg.VARIANTS,
+                     lambda v: tg.grad_variant(qkv, do, v, 12),
+                     lambda v: tg.grad_variant_plain(qkv, do, v, 12),
+                     lambda v: tg.dot_flops(v, b, t, h), 7 * b * t * h * 2,
+                     lambda: attention_qkv_grad(qkv, do, 12), "attention_qkv_grad bf16",
+                     sdpa_grad_fn(qkv, do, 12), "scaled_dot_product_attention backward",
+                     ("attention_qkv_grad mma.sync bf16",
+                      lambda: attention_qkv_grad_mma(qkv, do, 12)))
+    del qkv, do
+    for nh, d in ((4, 72), (4, 128)):
+        qkv = torch.randn((2, 197, 3 * nh * d), generator=gen, device="cuda").to(bf16)
+        do = torch.randn((2, 197, nh * d), generator=gen, device="cuda").to(bf16)
+        if not torch.equal(tg.grad_variant(qkv, do, "full", nh), attention_qkv_grad(qkv, do, nh)):
+            raise AssertionError(f"{tg.KERNEL.name} full at d={d} is not attention_qkv_grad bf16")
+        log(f"diagnostic {tg.KERNEL.name} full B=2 T=197 nh={nh} d={d}: equal to "
+            "attention_qkv_grad bf16 (its mma.sync body) bit for bit")
+
+
 def check_diagnostics(card: str) -> dict:
     """Every variant of the three tools' kernels against its plain version
     at the tools' flagship shapes, timed; the anatomies' `full` against
     K1's mma.sync body / K2 (bit for bit, then timed in turns with them
-    and the library call) and their stage splits. Returns {kernel name:
-    (err of the main variant, kernel ms, plain ms, bound ms, bound by,
-    library ms)}."""
-    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_grad, attention_qkv_mma
+    and the library call; T2's also with K2's mma.sync body) and their
+    stage splits. Returns {kernel name: (err of the main variant, kernel
+    ms, plain ms, bound ms, bound by, library ms[, mma.sync ms])}."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_mma
     from vit_cpp_tpu_torch.tools import attn_anatomy as ta
-    from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
     from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
     from vit_cpp_tpu_torch.tools import time_ms
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16 = torch.bfloat16
     out = {}
-
-    def variants(kernel, shape, names, fn, plain, flops, nbytes, ref_fn, ref_name, lib_fn,
-                 lib_name):
-        """Check and time each variant; `full` against the port's own
-        kernel (ref_fn) bit for bit, then timed in turns with it and the
-        library call; the stage split. The first variant is the kernel's
-        line."""
-        for v in names:
-            got, ref = fn(v), plain(v)
-            torch.cuda.synchronize()
-            if got.shape != ref.shape or got.dtype != bf16 or not torch.isfinite(got).all():
-                raise AssertionError(f"{kernel.name} {v}: bad output {tuple(got.shape)} {got.dtype}")
-            err = (got.float() - ref.float()).abs().max().item()
-            tol = ANATOMY_TOL * ref.float().abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"{kernel.name} {v}: error {err} > {tol}")
-            k_ms, p_ms = time_pair(f"{kernel.name} {v} {shape} bf16", card,
-                                   lambda: fn(v), lambda: plain(v), iters=10)
-            b_ms, b_by = bound(flops(v), nbytes, "bf16")
-            log(f"diagnostic {kernel.name} {v:<9} {shape}: max|kernel - plain| = {err:.3e} "
-                f"(tolerance {tol:.3e} = {ANATOMY_TOL:.0e} x max|plain|); kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            if v == names[0]:
-                main = (err, p_ms, b_ms, b_by)
-        full = fn(names[0])
-        if not torch.equal(full, ref_fn()):
-            diff = (full.float() - ref_fn().float()).abs().max().item()
-            raise AssertionError(f"{kernel.name} full is not {ref_name}: max difference {diff}")
-        t = turns({"full": lambda: fn(names[0]), ref_name: ref_fn, lib_name: lib_fn})
-        log(f"diagnostic {kernel.name} full {shape}: equal to {ref_name} bit for bit; in turns, "
-            f"device ms on {card}: full {t['full']:.4f} ms, {ref_name} "
-            f"{t[ref_name]:.4f} ms, {lib_name} {t[lib_name]:.4f} ms")
-        out[kernel.name] = (main[0], t["full"], *main[1:], t[lib_name])
-        split = turns({v: (lambda v=v: fn(v)) for v in names})
-        log(f"stage split {kernel.name} {shape} on {card} (device ms, in turns; full "
-            f"{split['full']:.4f} ms; "
-            "full - variant, ms and share of full): " + "; ".join(
-                f"{v} {split['full'] - split[v]:+.4f} ({(split['full'] - split[v]) / split['full']:+.3f})"
-                for v in names[1:]))
 
     for kernel, b, t, h, fn in (
         (ta.PAIR_KERNEL, 128, 197, 768, lambda x, v: ta.pair_variant(x, v, 12)),
@@ -1781,22 +1872,14 @@ def check_diagnostics(card: str) -> dict:
         qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
         plain = {ta.PAIR_KERNEL: lambda v: ta.pair_variant_plain(qkv, v, 12),
                  ta.LANE_KERNEL: lambda v: ta.lane_variant_plain(qkv, v, 64)}[kernel]
-        variants(kernel, f"B={b} T={t} h={h}", ta.VARIANTS, lambda v: fn(qkv, v), plain,
-                 lambda v: ta.dot_flops(v, b, t, h), 4 * b * t * h * 2,
-                 lambda: attention_qkv_mma(qkv, 12, fast=True), "attention_qkv mma.sync fast bf16",
-                 sdpa_fn(qkv, 12), "scaled_dot_product_attention")
+        anatomy_variants(card, out, kernel, f"B={b} T={t} h={h}", ta.VARIANTS,
+                         lambda v: fn(qkv, v), plain, lambda v: ta.dot_flops(v, b, t, h),
+                         4 * b * t * h * 2, lambda: attention_qkv_mma(qkv, 12, fast=True),
+                         "attention_qkv mma.sync fast bf16", sdpa_fn(qkv, 12),
+                         "scaled_dot_product_attention")
         del qkv
 
-    b, t, h = 64, 197, 768
-    qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(bf16)
-    do = torch.randn((b, t, h), generator=gen, device="cuda").to(bf16)
-    variants(tg.KERNEL, f"B={b} T={t} h={h}", tg.VARIANTS,
-             lambda v: tg.grad_variant(qkv, do, v, 12),
-             lambda v: tg.grad_variant_plain(qkv, do, v, 12),
-             lambda v: tg.dot_flops(v, b, t, h), 7 * b * t * h * 2,
-             lambda: attention_qkv_grad(qkv, do, 12), "attention_qkv_grad bf16",
-             sdpa_grad_fn(qkv, do, 12), "scaled_dot_product_attention backward")
-    del qkv, do
+    check_grad_anatomy(card, gen, out)
 
     n = tp.M
     a8 = torch.randint(-127, 128, (n, n), generator=gen, device="cuda").to(torch.int8)
@@ -5943,12 +6026,24 @@ def main() -> int:
         encode_cost(card)
         log(smi)
         return 0
+    if sys.argv[1:] == ["--k2-bf16"]:
+        # the backward's bf16 body alone: its cases against plain and the
+        # mma.sync body, its times in turns with that body, SDPA's backward
+        # and plain, then T2 on it (every variant, full bit-equal to K2 and
+        # timed in turns, the stage split), and K3's f32 times
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        check_k2_wgmma(gen, 64, K2_BF16_EDGES, torch.bfloat16)
+        time_k2_bodies(card, gen, K2_BF16_TIMED, 64, torch.bfloat16)
+        check_grad_anatomy(card, torch.Generator(device="cuda").manual_seed(5), {})
+        time_k3_f32(card, gen)
+        log(smi)
+        return 0
     if sys.argv[1:] == ["--k2-f32"]:
         # the backward's f32 body alone: its cases against plain and the
         # mma.sync body, then its times in turns with that body and SDPA's
         # backward
         gen = torch.Generator(device="cuda").manual_seed(21)
-        check_k2_f32(gen)
+        check_k2_wgmma(gen)
         time_k2_bodies(card, gen)
         log(smi)
         return 0
@@ -5958,7 +6053,7 @@ def main() -> int:
         # with those bodies, SDPA (its backward) and plain
         gen = torch.Generator(device="cuda").manual_seed(22)
         check_k1_f32(gen)
-        check_k2_f32(gen, 80, K2_D80_EDGES)
+        check_k2_wgmma(gen, 80, K2_D80_EDGES)
         time_k1_f32_bodies(card, gen)
         time_k2_bodies(card, gen, K2_D80_TIMED, 80)
         log(smi)
@@ -5975,8 +6070,12 @@ def main() -> int:
     k1_err, k1_times = check_kernels(card)
     k4_err, k4_times, k4_f32_times = check_dequant_matmul(card)
     k3_err, k3_times = check_flash_attention(card)
+    k3_f32_times = time_k3_f32(card, torch.Generator(device="cuda").manual_seed(22))
     k2_err, k2_times = check_attention_grad(card)
-    k2_err = max(k2_err, check_k2_f32(torch.Generator(device="cuda").manual_seed(21)))
+    k2_err = max(k2_err, check_k2_wgmma(torch.Generator(device="cuda").manual_seed(21)))
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    k2_bf16_err = check_k2_wgmma(gen, 64, K2_BF16_EDGES, torch.bfloat16)
+    k2_bf16_times = time_k2_bodies(card, gen, K2_BF16_TIMED[1:], 64, torch.bfloat16)
     MMA_KERNEL.reset()
     GRAD_MMA_KERNEL.reset()
     (_, q8_launches, flash_launches, grad_launches, serve_launches,
@@ -5986,8 +6085,8 @@ def main() -> int:
                              f"(attention) and {GRAD_MMA_KERNEL.launches} (backward) times on "
                              "the paths")
     log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 d=64 "
-        "and f32 d=64 / 80 attention went through a wgmma body, every f32 d=64 / 80 backward "
-        "through its wgmma body)")
+        "and f32 d=64 / 80 attention went through a wgmma body, every f32 d=64 / 80 and bf16 "
+        "d=64 backward through its wgmma body)")
     remat_times = remat_kernels(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
@@ -6049,19 +6148,24 @@ def main() -> int:
                      for case, t in shards["dequant_matmul f32_out"].items()},
          "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"],
          "f32_x_row_shards_max_rel_err": shard_errs["dequant_matmul f32 x"]},
-        entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1])),
+        # K3: bf16 (8, 12, 197, 64); f32 at (8, 12, 197, 64) and ViT-H/14's
+        # (1, 16, 257, 80) beside it
+        entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1]),
+              f32=k3_f32_times[(8, 12, 197, 64)], f32_h14=k3_f32_times[(1, 16, 257, 80)]),
         # K2: f32 at ViT-B/16 B=32 (the training path's, the wgmma body,
-        # with the mma.sync body's time in turns); bf16, T=785 at B=4 and 8
-        # and ViT-H/14 B=8 and 128 (d=80, mma.sync in turns) beside it, and
-        # f32 at tensor-parallel shards
+        # with the mma.sync body's time in turns); bf16 (its wgmma body) at
+        # B=32 and 64 T=197 and B=8 T=785, T=785 at B=4 and 8 and ViT-H/14
+        # B=8 and 128 (d=80, mma.sync in turns) beside it, and f32 at
+        # tensor-parallel shards
         {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,
                  k2_times[(torch.float32, 197, 32)], by_path=grad_launches,
                  bf16=k2_times[(torch.bfloat16, 197, 32)],
+                 bf16_b64=k2_bf16_times[(64, 197, 12)], bf16_t785=k2_bf16_times[(8, 785, 12)],
                  t785=k2_times[(torch.float32, 785, 4)],
                  t785_b8=k2_times[(torch.float32, 785, 8)],
                  h14_f32_b8=remat_times[GRAD_KERNEL.name],
                  h14_f32_b128=remat_times[GRAD_KERNEL.name + " B=128"]),
-         **by_shard(GRAD_KERNEL.name)},
+         **by_shard(GRAD_KERNEL.name), "bf16_edges_max_rel_err": k2_bf16_err},
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL)),
         # T3: int8 at 1024^3; bf16 beside it, and both (int8 also with B

@@ -31,6 +31,7 @@ from jax.experimental.pallas import tpu as pltpu
 from vit_cpp_tpu_torch.ops import flash_attention as fa
 from vit_cpp_tpu_torch.tools import attn_anatomy as ta
 from vit_cpp_tpu_torch.tools import attn_grad_anatomy as tg
+from vit_cpp_tpu_torch.tools import grad_variants as gv
 from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -261,11 +262,13 @@ def test_cpu_tensors_launch_no_kernel():
     ("attn_anatomy", ["--kernel", "pair", "--t", "8", "--h", "128", "--b", "1"]),
     ("attn_grad_anatomy", ["--t", "8", "--h", "128", "--b", "1"]),
     ("probe_int8_dot", []),
+    ("grad_variants", ["no-such-csrc-copy"]),
 ])
 def test_tools_exit_nonzero_without_a_card(tool, argv):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
-    mod = {"attn_anatomy": ta, "attn_grad_anatomy": tg, "probe_int8_dot": tp}[tool]
+    mod = {"attn_anatomy": ta, "attn_grad_anatomy": tg, "probe_int8_dot": tp,
+           "grad_variants": gv}[tool]
     with pytest.raises(SystemExit) as e:
         mod.main(argv)
     assert e.value.code not in (0, None)
@@ -362,9 +365,10 @@ def test_probe_kernel_on_card_at_shapes(shape, dtype):
 # (bf16) on the same tensors, bit for bit: the same body at the default
 # stages. K1 runs that body through its check-only entry
 # (`attention_qkv_mma`): at d=64 the served bf16 path takes the wgmma
-# body instead. d=72 and d=32 run the anatomy's widths rounded up to 64
-# (zero columns add exactly 0); d=128 the pair form's 256-lane groups and
-# the lane form's one-head panels.
+# body instead. T2 takes K2's own bodies at every d: at d=64 its bf16
+# wgmma body, at d=72 and 128 the mma.sync body. d=72 and d=32 run the
+# anatomy's widths rounded up to 64 (zero columns add exactly 0); d=128
+# the pair form's 256-lane groups and the lane form's one-head panels.
 @pytest.mark.cuda
 @pytest.mark.parametrize("form,nh,d", [
     ("pair", 12, 64), ("pair", 2, 72), ("pair", 4, 128),

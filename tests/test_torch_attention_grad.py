@@ -19,7 +19,11 @@ max|plain|) of the plain version. Another emulates the arithmetic of the
 f32 body at d = 64 (csrc/attention_grad_wgmma.cuh): its split, its three
 TF32 terms per 8-deep step with each wgmma's sum truncated toward zero,
 and its per-chunk drains and two warpgroups' partial sums, against the
-plain version and the JAX kernel. The `cuda` tests hold that body, the
+plain version and the JAX kernel. A third emulates the bf16 body at d = 64
+(csrc/attention_grad_bf16_wgmma.cuh): its rounding points (qs, pn, ds and
+the packed bf16 A operands) and its chains of 16-deep wgmma sums, against
+the plain version and the JAX kernel in bf16 (2e-2 of the largest value,
+chip_smoke.GRAD_TOL[bf16]). The `cuda` tests hold the wgmma bodies, the
 mma.sync bodies behind the check-only `attention_qkv_grad_mma` and the
 plain version to one another on the card.
 """
@@ -413,11 +417,11 @@ def test_wgmma_body_matches_plain_and_mma_body_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 80), ("float32", 72),
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 72), ("bfloat16", 80), ("float32", 72),
                                      ("float32", 128)])
 def test_other_calls_keep_the_mma_body_on_card(dtype, d):
-    # everything but f32 at d = 64 and 80 still runs the mma.sync bodies:
-    # equal to the check-only entry bit for bit
+    # everything but f32 at d = 64 and 80 and bf16 at d = 64 still runs the
+    # mma.sync bodies: equal to the check-only entry bit for bit
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -427,3 +431,144 @@ def test_other_calls_keep_the_mma_body_on_card(dtype, d):
     for sizes in (None, s):
         assert torch.equal(port.attention_qkv_grad(x, g, 4, sizes=sizes),
                            port.attention_qkv_grad_mma(x, g, 4, sizes=sizes))
+
+
+# ---- the bf16 body at d = 64 (csrc/attention_grad_bf16_wgmma.cuh), emulated
+
+
+def _bf16(x):
+    """x rounded to the nearest bf16, in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _steps16(a, b):
+    """a b over the last axis of a (b's first) in 16-deep steps, the k steps
+    of the body's wgmma.m64n64k16."""
+    return [(a[..., k:k + 16], b[..., k:k + 16, :]) for k in range(0, a.shape[-1], 16)]
+
+
+def _bf16_body_emulated(qkv, do, nh, sizes=None):
+    """attention_qkv_grad's bf16 body at d = 64 on the CPU, at its rounding
+    points: qs = bf16(q log2(e)/sqrt(d)); S, dP (launch A) and S^T, dP^T
+    (launch B) as chains of four 16-deep wgmmas, each sum truncated toward
+    zero to f32; p = exp2(s - max) times sizes; pn = p * (1 / sum p); r =
+    sum dp p / sum p; ds = bf16(pn (dp - r)); dQ = ds K and dK = dS^T q
+    (q unscaled), dV = bf16(pn)^T dO, each one chain of 16-token steps
+    over the whole sequence (the body's 64-token chunks add into one
+    accumulator, never drained); dq and dk times 1/sqrt(d), every output
+    rounded to bf16. The softmax's f32 sums are taken in torch's order,
+    not the body's per-lane order."""
+    b, t, three_h = qkv.shape
+    h = three_h // 3
+    d = h // nh
+    x = qkv.float().reshape(b, t, 3, nh, d).permute(2, 0, 3, 1, 4)
+    q, k, v = x[0], x[1], x[2]
+    g = do.float().reshape(b, t, nh, d).permute(0, 2, 1, 3)
+    qs = _bf16(q * (_LOG2E / math.sqrt(d)))
+    s = _wgmma_chain(None, _steps16(qs, k.transpose(-1, -2)))  # launch A: (B, nh, Tq, Tk)
+    dp = _wgmma_chain(None, _steps16(g, v.transpose(-1, -2)))
+    w = torch.ones((b, 1, 1, t)) if sizes is None else sizes.float()[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m) * w
+    total = p.sum(dim=-1, keepdim=True)
+    inv = 1.0 / total
+    r = (dp * p).sum(dim=-1, keepdim=True) / total
+    ds = _bf16(p * inv * (dp - r))
+    nat = 1.0 / math.sqrt(d)
+    dq = _bf16(_wgmma_chain(torch.zeros_like(q), _steps16(ds, k)) * nat)
+    # launch B: the keys as rows, the same statistics per query column
+    st = _wgmma_chain(None, _steps16(k, qs.transpose(-1, -2)))  # (B, nh, Tk, Tq)
+    dpt = _wgmma_chain(None, _steps16(v, g.transpose(-1, -2)))
+    pnt = torch.exp2(st - m.transpose(-1, -2)) * w.transpose(-1, -2) * inv.transpose(-1, -2)
+    dst = _bf16(pnt * (dpt - r.transpose(-1, -2)))
+    dk = _bf16(_wgmma_chain(torch.zeros_like(k), _steps16(dst, q)) * nat)
+    dv = _bf16(_wgmma_chain(torch.zeros_like(v), _steps16(_bf16(pnt), g)))
+    out = torch.stack([dq, dk, dv])  # (3, B, nh, T, d)
+    return out.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h).to(torch.bfloat16)
+
+
+def _bf16_case(b, t, nh, sized, seed):
+    qkv, do, sz = _inputs(b, t, nh, 64, seed=seed, sizes=sized)
+    x, g = (torch.from_numpy(a).to(torch.bfloat16) for a in (qkv, do))
+    return x, g, None if sz is None else torch.from_numpy(sz)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("t", [1, 63, 65, 197, 257])
+@pytest.mark.parametrize("nh", [1, 2])
+@pytest.mark.parametrize("sizes", [False, True], ids=["nosizes", "sizes"])
+def test_bf16_wgmma_body_arithmetic_holds_the_bf16_tolerance(t, nh, sizes):
+    # the pair form's shapes: T at the 64-token chunks' edges (one token,
+    # 63 / 65, ViT-B/16's 197 with 5 real rows in its last chunk, 257 with
+    # one), one head (the carve kernel) and a head pair
+    x, g, sz = _bf16_case(2, t, nh, sizes, seed=t + nh)
+    got = _bf16_body_emulated(x, g, nh, sz)
+    plain = port.attention_qkv_grad_plain(x, g, nh, sizes=sz)
+    assert got.shape == plain.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    ref = jfa._attention_qkv_grad(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(g.float().numpy(), jnp.bfloat16),
+        nh, interpret=True, sizes=None if sz is None else jnp.asarray(sz.numpy()))
+    # chip_smoke.GRAD_TOL[bf16], relative to the largest value
+    assert _rel(got.float(), plain.float()) <= 2e-2
+    assert _rel(got.float(), np.asarray(ref.astype(jnp.float32))) <= 2e-2
+
+
+@pytest.mark.parametrize("sizes", [False, True], ids=["nosizes", "sizes"])
+def test_bf16_wgmma_body_arithmetic_holds_at_the_lane_shape(sizes):
+    # ViT-B/8's T = 785 (13 chunks, one real row in the last), one image of
+    # a head pair: the JAX package runs its lane kernel there
+    x, g, sz = _bf16_case(1, 785, 2, sizes, seed=785)
+    got = _bf16_body_emulated(x, g, 2, sz)
+    plain = port.attention_qkv_grad_plain(x, g, 2, sizes=sz)
+    ref = jfa._attention_qkv_grad_lane(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(g.float().numpy(), jnp.bfloat16),
+        2, True, sizes=None if sz is None else jnp.asarray(sz.numpy()))
+    assert _rel(got.float(), plain.float()) <= 2e-2
+    assert _rel(got.float(), np.asarray(ref.astype(jnp.float32))) <= 2e-2
+
+
+def test_bf16_wgmma_body_rounds_where_the_contract_does():
+    # without the bf16 roundings of qs, pn and ds the emulation drifts from
+    # the plain version by more than their rounding does: the points
+    # matter at the bf16 tolerance's scale
+    x, g, _ = _bf16_case(1, 197, 2, False, seed=11)
+    plain = port.attention_qkv_grad_plain(x, g, 2).float()
+    err = _rel(_bf16_body_emulated(x, g, 2).float(), plain)
+    f32 = port.attention_qkv_grad_plain(x.float(), g.float(), 2)
+    assert err < 2e-2
+    assert err <= _rel(_bf16(f32), plain)
+
+
+@pytest.mark.cuda
+def test_bf16_wgmma_body_matches_plain_and_mma_body_on_card():
+    # the bf16 body at d = 64: 64-token chunks (T = 1, 63, 65, 129), ViT-B/16
+    # (197), the 256-key edge (256, 257), the lane shape (785), ToMe sizes,
+    # 1 and 12 heads; bit-equal call to call, within 2e-2 x max|plain| of
+    # the plain version and of the mma.sync body (the check-only entry)
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cases = [(2, t, 3, False) for t in (1, 63, 65, 129, 197, 256, 257, 785)]
+    cases += [(2, t, 3, True) for t in (65, 197, 785)]
+    cases += [(2, 197, nh, False) for nh in (1, 12)]
+    before = (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches)
+    for b, t, nh, sized in cases:
+        x, g, sz = _bf16_case(b, t, nh, sized, seed=t + nh)
+        x, g = x.cuda(), g.cuda()
+        s = None if sz is None else sz.cuda()
+        got = port.attention_qkv_grad(x, g, nh, sizes=s)
+        again = port.attention_qkv_grad(x, g, nh, sizes=s)
+        mma = port.attention_qkv_grad_mma(x, g, nh, sizes=s).float()
+        ref = port.attention_qkv_grad_plain(x, g, nh, sizes=s).float()
+        tol = 2e-2 * ref.abs().max().item()
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+        assert (got.float() - ref).abs().max().item() <= tol, (t, nh, sized)
+        assert (got.float() - mma).abs().max().item() <= tol, (t, nh, sized)
+        assert torch.equal(got, again)
+    n = len(cases)
+    assert (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches) == (
+        before[0] + 2 * n, before[1] + n)

@@ -1,9 +1,11 @@
 """The SASS census's pure string functions: kernel names from demangled
 signatures, registers and spills from ptxas's report, and opcodes and
-tensor-core instructions by kind from cuobjdump's text."""
+tensor-core instructions by kind from cuobjdump's text; and the variant
+tool's (tools/grad_variants.py) reading of ptxas's report."""
 
 import pytest
 
+from vit_cpp_tpu_torch.tools.grad_variants import parse_report
 from vit_cpp_tpu_torch.tools.sass_census import parse_sass, ptxas_usage, short_name, tensor_ops
 
 _ROWS = "_ZN54_GLOBAL__N__6030ce41_21_attention_qkv_grad_cu_711961de13grad_rows_mmaI13__nv_bfloat16Li8EEEvN4grad4ArgsIT_EE"
@@ -57,6 +59,17 @@ ptxas info    : Compile time = 543.421 ms
      "CUtensorMap_st, CUtensorMap_st, fwdwg::Params)", "attention_tf32_wgmma<80, false, true>"),
     ("void <unnamed>::attention_tf32_wgmma<(int)64, (bool)1, (bool)0>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, fwdwg::Params)", "attention_tf32_wgmma<64, 1, 0>"),
+    # K2's bf16 body at d = 64 and T2's instantiations of it (variant, onedot)
+    ("void (anonymous namespace)::grad_rows_bf16_wgmma(CUtensorMap_st, CUtensorMap_st, "
+     "gradbf::Params)", "grad_rows_bf16_wgmma"),
+    ("void <unnamed>::grad_cols_bf16_wgmma(CUtensorMap_st, CUtensorMap_st, gradbf::Params)",
+     "grad_cols_bf16_wgmma"),
+    ("void (anonymous namespace)::grad_rows_anatomy_wgmma<3>(CUtensorMap_st, CUtensorMap_st, "
+     "gradbf::Params)", "grad_rows_anatomy_wgmma<3>"),
+    ("void <unnamed>::grad_cols_anatomy_wgmma<(int)2>(CUtensorMap_st, CUtensorMap_st, "
+     "gradbf::Params)", "grad_cols_anatomy_wgmma<2>"),
+    ("void (anonymous namespace)::grad_onedot_wgmma(CUtensorMap_st, __nv_bfloat16*, int, int, "
+     "float)", "grad_onedot_wgmma"),
 ])
 def test_short_name(signature, name):
     assert short_name(signature) == name
@@ -95,3 +108,15 @@ def test_parse_sass_counts_each_tensor_core_kind():
     assert ops["_Z3wgmv"][:2] == ["MOV", "WARPGROUP.ARRIVE"] and len(ops["_Z3wgmv"]) == 6
     assert tensor_ops(ops["_Z3wgmv"]) == {"HGMMA": 2, "IGMMA": 1, "HMMA": 0, "IMMA": 0}
     assert tensor_ops(ops["_Z4syncv"]) == {"HGMMA": 0, "IGMMA": 0, "HMMA": 2, "IMMA": 1}
+
+
+_NOTE = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+         "serialized due to non wgmma instructions defining accumulator registers of a wgmma "
+         f"between start and end of the pipeline stage in the function '{_ROWS}'\n")
+
+
+def test_parse_report_reads_registers_spills_and_wgmma_notes():
+    usage, notes = parse_report(_NOTE + _REPORT + _NOTE)
+    assert usage == {_ROWS: (152, 0), _MMA: (128, 16)}
+    assert notes == [("C7515", _ROWS)]
+    assert parse_report(_REPORT) == ({_ROWS: (152, 0), _MMA: (128, 16)}, [])

@@ -18,15 +18,18 @@
 //                   path's head at ViT-Ti/S/B/L, ToMe, the mesh's shards)
 //   f32, d = 80     grad_rows_wgmma80 / grad_cols_wgmma80 (the same body
 //                   on d = 80's plan; ViT-H/14's training path)
+//   bf16, d = 64    grad_rows_bf16_wgmma / grad_cols_bf16_wgmma
+//                   (attention_grad_bf16_wgmma.cuh: bf16 wgmma fed by TMA)
 //   any other call  grad_rows_mma / grad_cols_mma (attention_grad_body.cuh:
-//                   mma.sync fed by cp.async; bf16, and f32 at d = 72, 88,
+//                   mma.sync fed by cp.async; bf16 and f32 at d = 72, 88,
 //                   128, ...)
 // vit_attention_qkv_grad_mma runs the mma.sync bodies at any (dtype, d),
-// f32 d = 64 and 80 included, so that the checks can time them beside the
-// wgmma body; no path of the port calls it. The mma.sync bodies' code is
-// attention_grad_body.cuh, which the backward anatomy (attn_grad_anatomy.cu)
-// instantiates with stages changed; what follows is their design, and the
-// wgmma body's note says what it does in their place.
+// f32 d = 64 and 80 and bf16 d = 64 included, so that the checks can time
+// them beside the wgmma bodies; no path of the port calls it. The
+// mma.sync bodies' code is attention_grad_body.cuh, which the backward
+// anatomy (attn_grad_anatomy.cu) instantiates with stages changed at d !=
+// 64 (at d = 64 it instantiates the bf16 wgmma body); what follows is their
+// design, and each wgmma body's note says what it does in their place.
 //
 // Per head it computes what _qkv_grad_head computes (the forward is
 // recomputed from qkv; no (T, T) tensor ever reaches device memory):
@@ -113,6 +116,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_grad_bf16_wgmma.cuh"
 #include "attention_grad_body.cuh"
 #include "attention_grad_wgmma.cuh"
 #include "tensor_map.cuh"
@@ -260,6 +264,29 @@ cudaError_t run_wgmma(const void* qkv, const void* dout, const void* sizes, void
   return cudaGetLastError();
 }
 
+// The bf16 body at d = 64 (attention_grad_bf16_wgmma.cuh) at K2's stages:
+// launch A, then launch B, one warpgroup per block.
+__global__ void __launch_bounds__(gradbf::kWgThreads, gradbf::kRowsBlocks)
+    grad_rows_bf16_wgmma(const __grid_constant__ CUtensorMap qkv,
+                         const __grid_constant__ CUtensorMap dout, gradbf::Params p) {
+  gradbf::grad_rows_body<grad::Stages>(qkv, dout, p);
+}
+
+__global__ void __launch_bounds__(gradbf::kWgThreads, gradbf::kColsBlocks)
+    grad_cols_bf16_wgmma(const __grid_constant__ CUtensorMap qkv,
+                         const __grid_constant__ CUtensorMap dout, gradbf::Params p) {
+  gradbf::grad_cols_body<grad::Stages>(qkv, dout, p);
+}
+
+cudaError_t run_bf16_wgmma(const void* qkv, const void* dout, const void* sizes, void* dqkv,
+                           void* stats, int batch, int seq, int nh, float qscale, float nat,
+                           cudaStream_t stream) {
+  static bool configured = false;
+  return gradbf::launch<grad::Stages>(grad_rows_bf16_wgmma, grad_cols_bf16_wgmma, configured,
+                                      qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat,
+                                      stream);
+}
+
 template <typename T>
 cudaError_t run(const void* qkv, const void* dout, const void* sizes, void* dqkv, void* stats,
                 int batch, int seq, int nh, int d, float qscale, float nat, cudaStream_t stream) {
@@ -284,8 +311,9 @@ bool bad_call(const void* qkv, const void* dout, const void* dqkv, int batch, in
 // and dqkv 16-byte aligned (16-byte copies, TMA); sizes: (B, T) float32
 // or null; stats: an f32 workspace of B * nh * T * 3 floats. dtype: 0 =
 // float32, 1 = bfloat16. qscale = log2(e)/sqrt(d), nat = 1/sqrt(d).
-// Returns cudaGetLastError() after the launches. f32 at d = 64 and 80 takes
-// the wgmma body, every other call the mma.sync bodies.
+// Returns cudaGetLastError() after the launches. f32 at d = 64 and 80 and
+// bf16 at d = 64 take the wgmma bodies, every other call the mma.sync
+// bodies.
 extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const void* sizes,
                                       void* dqkv, void* stats, int batch, int seq, int nh,
                                       int d, float qscale, float nat, int dtype, void* stream) {
@@ -297,14 +325,17 @@ extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const v
     return (int)run_wgmma<80>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
   if (dtype == 0)
     return (int)run<float>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, d, qscale, nat, s);
+  if (dtype == 1 && d == 64)
+    return (int)run_bf16_wgmma(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
   if (dtype == 1)
     return (int)run<bf16>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, d, qscale, nat, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // vit_attention_qkv_grad through the mma.sync bodies at any (dtype, d),
-// f32 d = 64 and 80 included, for the checks only: chip_smoke.py times
-// them beside the wgmma body. No path of the port calls it.
+// f32 d = 64 and 80 and bf16 d = 64 included, for the checks only:
+// chip_smoke.py times them beside the wgmma bodies. No path of the port
+// calls it.
 extern "C" int vit_attention_qkv_grad_mma(const void* qkv, const void* dout, const void* sizes,
                                           void* dqkv, void* stats, int batch, int seq, int nh,
                                           int d, float qscale, float nat, int dtype,

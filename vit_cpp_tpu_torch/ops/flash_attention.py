@@ -35,12 +35,17 @@ and of the backward kernel, csrc/attention_qkv_grad.cu:
   path: `attention_qkv` in safe mode forward, `attention_qkv_grad`
   backward.
 
-In f32 at d = 64 and 80 (every training path's head: ViT-Ti/S/B/L at 64,
-ViT-H/14 at 80) the backward runs the kernel's 3xTF32 wgmma body (csrc/
-attention_grad_wgmma.cuh), at every other (dtype, d) its mma.sync
-bodies. `attention_qkv_grad_mma` (GRAD_MMA_KERNEL) runs the mma.sync
-bodies at any d, f32 d = 64 and 80 included: for the checks only
-(chip_smoke.py times them beside the wgmma body). No path of the port
+Which body of the backward kernel a call runs:
+
+    f32, d = 64 and 80   3xTF32 on wgmma + TMA (csrc/attention_grad_wgmma.cuh;
+                         every training path's head: ViT-Ti/S/B/L at 64,
+                         ViT-H/14 at 80)
+    bf16, d = 64         bf16 wgmma + TMA (csrc/attention_grad_bf16_wgmma.cuh)
+    any other call       mma.sync (csrc/attention_grad_body.cuh)
+
+`attention_qkv_grad_mma` (GRAD_MMA_KERNEL) runs the mma.sync bodies at
+any d, f32 d = 64 and 80 and bf16 d = 64 included: for the checks only
+(chip_smoke.py times them beside the wgmma bodies). No path of the port
 calls it.
 
 On a CUDA tensor each launches its kernel or raises; it never falls back.

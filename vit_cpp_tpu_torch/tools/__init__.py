@@ -6,8 +6,8 @@ measurement tools that run a kernel of their own.
   is K1's own tensor-core body (csrc/attention_body.cuh) with stages
   switched off;
 - attn_grad_anatomy: the same for the attention backward
-  (tools/attn_grad_anatomy.py) on K2's bodies
-  (csrc/attention_grad_body.cuh);
+  (tools/attn_grad_anatomy.py) on K2's bf16 bodies (at d = 64
+  csrc/attention_grad_bf16_wgmma.cuh, else csrc/attention_grad_body.cuh);
 - probe_int8_dot: the int8 vs bf16 tensor-core product rate
   (tools/probe_int8_dot.py), on wgmma fed by TMA;
 - sass_census: no JAX counterpart; each kernel's SASS instructions,
@@ -16,9 +16,13 @@ measurement tools that run a kernel of their own.
 - mesh_vitx: no JAX counterpart; a sharded .vitx artifact exported and
   served by vit-server across dp x tp cards under the launcher, against
   the sharded engine, with the forward's times beside one card's.
+- grad_variants: no JAX counterpart; copies of csrc/ with a change each,
+  K2's C entry built from every copy and the copies timed in turns in
+  bf16 at d = 64, with ptxas's registers, spills and wgmma notes.
 
 Each runs as `python -m vit_cpp_tpu_torch.tools.<name>` with the JAX
-tool's flags, the first three on the card only: a device timing never
+tool's flags, the first three and grad_variants on the card only: a
+device timing never
 falls back to the CPU. Their functions run the kernel on a CUDA tensor and the plain
 PyTorch version on a CPU tensor, as every kernel wrapper of the port does.
 """

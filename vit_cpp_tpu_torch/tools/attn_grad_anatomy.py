@@ -3,25 +3,35 @@
 Counterpart of tools/attn_grad_anatomy.py, whose Pallas kernel replicates
 the TPU's head-pair attention backward (safe softmax) with stages
 switched off one at a time. Here each variant is the port's own backward
-kernel, K2 (csrc/attention_qkv_grad.cu): csrc/attn_grad_anatomy.cu
-instantiates K2's two bf16 tensor-core bodies (csrc/attention_grad_body.cuh:
-launch A for dq and the row statistics, launch B for dk and dv, every
-product on mma.sync) with one stage set per variant, so `full` is K2's
-bf16 path bit for bit and each other variant differs from it in the
-named stages only:
+kernel, K2 (csrc/attention_qkv_grad.cu), with that variant's stages:
+csrc/attn_grad_anatomy.cu instantiates K2's two bf16 bodies (launch A for
+dq and the row statistics, launch B for dk and dv) with one stage set per
+variant: at d = 64 the wgmma body (csrc/attention_grad_bf16_wgmma.cuh:
+every product on wgmma.m64n64k16 fed by TMA), at other d the mma.sync
+body (csrc/attention_grad_body.cuh), as K2 itself takes them. So `full`
+is K2's bf16 path bit for bit at every d and each other variant differs
+from it in the named stages only:
 
     full       s dot + softmax + dv/dp dots + dsoftmax + dq/dk dots (K2)
-    pipe       full, two heads per block, stages interleaved across them
+    pipe       full, two heads per block
     pipe2      full, four heads per block (nh % 4 == 0)
     bf16exp    softmax exp2 on bf16-rounded scores, in bf16 (f32 row sum)
     nosoftmax  pn := s                  (no exp / max / sum / div)
     nodsoft    ds := dp                 (no r row sum, no pn (dp - r))
     dotsonly   both chains off
     onedot     s dot only, over each pair's lanes, stored in dq, dk, dv
+               (d = 64: the wgmma body's S product over every key chunk;
+               other d: the forward anatomy's onedot kernel)
 
-pipe and pipe2 give full's output; on the card they ask whether another
-head's independent products in each warp hide the latency of K2's
-shared-memory operands. Run on the card (the flagship training shape):
+pipe and pipe2 give full's output: they ask whether another head's
+independent products hide the latency of K2's own. At d = 64 each head
+has a warpgroup of its own, two or four warpgroups a block (the mma.sync
+form, every stage run for each head in turn inside one warp, would hold
+two or four heads' accumulators: more registers than a warpgroup has;
+pipe2's 512 threads may hold 128 registers each, and its launch B
+spills). At d < 64 they are the mma.sync
+form: stages interleaved across the heads inside each warp. Run on the
+card (the flagship training shape):
 
     python -m vit_cpp_tpu_torch.tools.attn_grad_anatomy --t 197 --h 768 --b 64
 

@@ -85,7 +85,11 @@
    and (1, 16, 257, 80). `python3 chip_smoke.py --k2-bf16` runs, after the
    build, the bf16 body's edges and times (B=32 and 64 T=197, B=8 T=785),
    attn_grad_anatomy's variants on it with its stage split, and K3's f32
-   times.
+   times. attention_qkv in bf16 at d=80 and 88 (ViT-H/14 and ViT-g/14,
+   B=8 T=257, fast: the mma.sync body) is timed in turns with SDPA and
+   plain. `python3 chip_smoke.py --t1` runs, after the build, only
+   attn_anatomy's part of 5 below (its d=64 edges, its variants at the
+   flagship shapes, its stage split and each d=64 variant's occupancy).
 4. Paths, each driven through the entry points a user calls, with every
    kernel's launch count set to 0 just before and read just after:
    a. the f16 W8A8 daemon: a synthetic ViT-B/16 @224 f16 checkpoint
@@ -327,12 +331,15 @@
    batch (qkv, proj, fc1, fc2; int8 also with B given (N, K)), in turns
    with torch._int_mm, torch.matmul and torch.mm with an f32 output, with
    the int8 : bf16 ratio; the anatomies' `full` equal bit for bit to K1
-   (fast, bf16) and K2 (bf16; at d=64, 72 and 128) on the same tensors,
-   `full`, K1 / K2 and scaled_dot_product_attention (forward / backward)
-   timed in turns (attn_grad_anatomy also with K2's mma.sync body: at
-   d=64 T2 runs K2's bf16 wgmma body), and one stage-split line per tool
-   (full - variant, in ms and as a share of full, every variant timed in
-   turns); then
+   (fast, bf16; at d=64, 72, 32 and 128) and K2 (bf16; at d=64, 72 and
+   128) on the same tensors, `full`, K1 / K2, their mma.sync bodies (at
+   d=64 T1 and T2 run K1's and K2's bf16 wgmma bodies) and
+   scaled_dot_product_attention (forward / backward) timed in turns, and
+   one stage-split line per tool (full - variant, in ms and as a share of
+   full, every variant timed in turns); attn_anatomy at d=64 also on its
+   edges (T=1, 63, 64, 65, 197, 256, 257, 785; 2 and 12 heads; both forms,
+   every variant against plain, `full` bit-equal to K1), and each d=64
+   variant's registers, spills and blocks per SM; then
    each tool's entry point, as a user runs it, with the launch counts set
    to 0 just before and read just after.
 Every kernel's line gives its bound (the larger of its bytes over 3.35
@@ -1092,6 +1099,20 @@ def check_kernels(card: str):
             f"scaled_dot_product_attention {lib:.4f} ms, mma.sync body {mma:.4f} ms on {card}")
         times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib, mma)
     times["K3"] = bodies["K3"]
+    # bf16 at d=80 and 88 (ViT-H/14 and ViT-g/14 at B=8 T=257, fast: the
+    # mma.sync body, which T1 also keeps at d != 64), in turns with SDPA
+    # and plain
+    for key, h, nh in (("h14", 1280, 16), ("g14", 1408, 16)):
+        qkv = qkv_of(8, 257, h, bf16)
+        r = turns({"kernel": lambda: attention_qkv(qkv, nh, fast=True), "sdpa": sdpa_fn(qkv, nh),
+                   "plain": lambda: attention_qkv_plain(qkv, nh, fast=True)})
+        b_ms, b_by = attention_bound(8, 257, h, 2)
+        log(f"attention_qkv B=8 T=257 h={h} d={h // nh} bf16 fast (device ms, in turns) on "
+            f"{card}: kernel {r['kernel']:.4f}, scaled_dot_product_attention {r['sdpa']:.4f} "
+            f"({r['kernel'] / r['sdpa']:.2f}x), plain {r['plain']:.4f}; bound {b_ms:.4f} ms "
+            f"({b_by})")
+        times[key] = (r["kernel"], r["plain"], b_ms, b_by, r["sdpa"])
+        del qkv
     # the training forward: f32, safe softmax, ViT-B/16 at B=32, the wgmma
     # body in turns with the mma.sync body it replaced
     times["f32 B=32"] = time_k1_f32(card, gen, "vit-b16", 32, 197, 64, 12, False)
@@ -1849,22 +1870,97 @@ def check_grad_anatomy(card: str, gen, out: dict) -> None:
             "attention_qkv_grad bf16 (its mma.sync body) bit for bit")
 
 
-def check_diagnostics(card: str) -> dict:
-    """Every variant of the three tools' kernels against its plain version
-    at the tools' flagship shapes, timed; the anatomies' `full` against
-    K1's mma.sync body / K2 (bit for bit, then timed in turns with them
-    and the library call; T2's also with K2's mma.sync body) and their
-    stage splits. Returns {kernel name: (err of the main variant, kernel
-    ms, plain ms, bound ms, bound by, library ms[, mma.sync ms])}."""
-    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv_mma
+# T1's d=64 edges (the wgmma body's): one 64-query tile and its neighbours
+# (T=1, 63, 64, 65), the resident keys' last length and one past it
+# (256, 257: the ring), ViT-B/16's T and the lane shape; 2 and 12 heads
+T1_EDGES = [(t, nh) for t in (1, 63, 64, 65, 197, 256, 257, 785) for nh in (2, 12)]
+
+
+def check_t1_edges(gen) -> float:
+    """T1 at d=64 on its edges (T1_EDGES, B=2): every variant of both forms
+    against its plain version within ANATOMY_TOL (onedot where T >= 128),
+    `full` bit-equal to attention_qkv and to its mma.sync body (the
+    check-only entry); the worst error relative to max|plain|."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_mma
     from vit_cpp_tpu_torch.tools import attn_anatomy as ta
-    from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
-    from vit_cpp_tpu_torch.tools import time_ms
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for t, nh in T1_EDGES:
+        qkv = torch.randn((2, t, 3 * 64 * nh), generator=gen, device="cuda").to(torch.bfloat16)
+        k1 = attention_qkv(qkv, nh, fast=True)
+        if not torch.equal(k1, attention_qkv_mma(qkv, nh, fast=True)):
+            raise AssertionError(f"attention_qkv T={t} nh={nh}: the two bodies differ")
+        for form, fn, plain, arg in (("pair", ta.pair_variant, ta.pair_variant_plain, nh),
+                                     ("lane", ta.lane_variant, ta.lane_variant_plain, 64)):
+            for v in ta.VARIANTS:
+                if v == "onedot" and t < 128:
+                    continue
+                got, ref = fn(qkv, v, arg).float(), plain(qkv, v, arg).float()
+                if v == "full" and not torch.equal(fn(qkv, v, arg), k1):
+                    raise AssertionError(f"T1 {form} full T={t} nh={nh} is not attention_qkv")
+                err = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+                if not torch.isfinite(got).all() or not err <= ANATOMY_TOL:
+                    raise AssertionError(f"T1 {form} {v} T={t} nh={nh}: relative error {err}")
+                worst = max(worst, err)
+        del qkv, k1
+    log(f"diagnostic T1 d=64 edges ({len(T1_EDGES)} shapes x 2 forms x {len(ta.VARIANTS)} "
+        f"variants, B=2): every variant within {ANATOMY_TOL:.0e} x max|plain| (worst "
+        f"{worst:.3e}); full equal to attention_qkv and its mma.sync body bit for bit")
+    return worst
+
+
+def t1_occupancy(card: str, t: int) -> None:
+    """Registers and spills (ptxas, from the build's log) of each d=64 T1
+    instantiation and its blocks per SM at T: the fewer of what the
+    registers and what the shared memory allow. Shared memory as
+    attention_wgmma.cuh's wgmma_smem_bytes gives it (64-row boxes of 8 KB
+    for Q and each chunk's K (two each for nomask and onedot's lane form)
+    and V (none for onedot), a ring of at most 4 chunks, 1024 bytes for the
+    alignment, mxusum's 512-byte ones tile), plus 72 bytes of barriers and
+    the 1 KB the card reserves for each block."""
+    from vit_cpp_tpu_torch import _build
+    from vit_cpp_tpu_torch.tools import attn_anatomy as ta
+    from vit_cpp_tpu_torch.tools.grad_variants import parse_report
+    from vit_cpp_tpu_torch.tools.sass_census import ptxas_usage
+
+    usage = {}
+    for name, regs in ptxas_usage(_build.build_log).items():
+        m = re.search(r"anatomy_wgmmaILi(\d+)ELi(\d+)E", name)
+        if m:
+            usage[(int(m.group(1)), int(m.group(2)))] = regs
+    sm_bytes = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_multiprocessor",
+                       233472)
+    slots = min((t + 63) // 64, 4)
+    kernels = [(v, i, 8 if v == "nomask" else 0) for i, v in enumerate(ta.VARIANTS[:-1])]
+    kernels += [("onedot pair", 7, 4), ("onedot lane", 7, 8)]
+    parts = []
+    for label, i, nks in kernels:
+        boxes = nks // 4 if nks else 1
+        smem = (1024 + 8192 * (boxes + (boxes + (i != 7)) * slots)
+                + (512 if label == "mxusum" else 0))
+        regs, st, ld = usage.get((i, nks), (-1, -1, -1))
+        by_regs = 65536 // (128 * ((regs + 7) // 8 * 8)) if regs > 0 else 0
+        blocks = min(by_regs, sm_bytes // (smem + 72 + 1024), 16)
+        parts.append(f"{label} {regs} registers, spills {st}/{ld} B, {smem} B shared, "
+                     f"{blocks} blocks per SM")
+    notes = sorted({f"{code} {m.group(0)}" for code, name in parse_report(_build.build_log)[1]
+                    for m in [re.search(r"(?<![A-Za-z_])(anatomy|attention)_wgmmaI\w+?EE", name)] if m})
+    log(f"diagnostic T1 d=64 occupancy at T={t} on {card} ({sm_bytes} B of shared memory an "
+        "SM): " + "; ".join(parts) + "; ptxas's C75xx notes on the wgmma kernels: "
+        + (", ".join(notes) or "none"))
+
+
+def check_fwd_anatomy(card: str, gen, out: dict) -> None:
+    """T1 at its flagship shapes (pair B=128 T=197, lane B=8 T=785, ViT-B/16's
+    heads: the bf16 wgmma body): every variant against its plain version,
+    `full` bit-equal to K1 and timed in turns with it, K1's mma.sync body
+    and SDPA, the stage split and the occupancy of each variant; then
+    `full` bit-equal to K1 at d=72, 32 and 128 (the mma.sync body). Its
+    numbers into out[kernel name]."""
+    from vit_cpp_tpu_torch.ops.flash_attention import attention_qkv, attention_qkv_mma
+    from vit_cpp_tpu_torch.tools import attn_anatomy as ta
+
     bf16 = torch.bfloat16
-    out = {}
-
     for kernel, b, t, h, fn in (
         (ta.PAIR_KERNEL, 128, 197, 768, lambda x, v: ta.pair_variant(x, v, 12)),
         (ta.LANE_KERNEL, 8, 785, 768, lambda x, v: ta.lane_variant(x, v, 64)),
@@ -1874,11 +1970,38 @@ def check_diagnostics(card: str) -> dict:
                  ta.LANE_KERNEL: lambda v: ta.lane_variant_plain(qkv, v, 64)}[kernel]
         anatomy_variants(card, out, kernel, f"B={b} T={t} h={h}", ta.VARIANTS,
                          lambda v: fn(qkv, v), plain, lambda v: ta.dot_flops(v, b, t, h),
-                         4 * b * t * h * 2, lambda: attention_qkv_mma(qkv, 12, fast=True),
-                         "attention_qkv mma.sync fast bf16", sdpa_fn(qkv, 12),
-                         "scaled_dot_product_attention")
+                         4 * b * t * h * 2, lambda: attention_qkv(qkv, 12, fast=True),
+                         "attention_qkv fast bf16", sdpa_fn(qkv, 12),
+                         "scaled_dot_product_attention",
+                         ("attention_qkv mma.sync fast bf16",
+                          lambda: attention_qkv_mma(qkv, 12, fast=True)))
+        t1_occupancy(card, t)
         del qkv
+    for form, nh, d in (("pair", 4, 72), ("pair", 4, 128), ("lane", 4, 32), ("lane", 2, 128)):
+        qkv = torch.randn((2, 197, 3 * nh * d), generator=gen, device="cuda").to(bf16)
+        got = ta.pair_variant(qkv, "full", nh) if form == "pair" else ta.lane_variant(qkv, "full", d)
+        if not torch.equal(got, attention_qkv_mma(qkv, nh, fast=True)):
+            raise AssertionError(f"T1 {form} full at d={d} is not K1's mma.sync body")
+        log(f"diagnostic T1 {form} full B=2 T=197 nh={nh} d={d}: equal to attention_qkv "
+            "(its mma.sync body) bit for bit")
 
+
+def check_diagnostics(card: str) -> dict:
+    """Every variant of the three tools' kernels against its plain version
+    at the tools' flagship shapes, timed; the anatomies' `full` against K1
+    / K2 (bit for bit, then timed in turns with them, their mma.sync
+    bodies and the library call) and their stage splits. Returns {kernel
+    name: (err of the main variant, kernel ms, plain ms, bound ms, bound
+    by, library ms[, mma.sync ms])}."""
+    from vit_cpp_tpu_torch.tools import probe_int8_dot as tp
+    from vit_cpp_tpu_torch.tools import time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    out = {}
+
+    check_fwd_anatomy(card, gen, out)
+    check_t1_edges(gen)
     check_grad_anatomy(card, gen, out)
 
     n = tp.M
@@ -6026,6 +6149,14 @@ def main() -> int:
         encode_cost(card)
         log(smi)
         return 0
+    if sys.argv[1:] == ["--t1"]:
+        # T1 alone: its d=64 edges, then its variants at the flagship shapes
+        # (full bit-equal to K1, in turns with K1, K1's mma.sync body and
+        # SDPA, the stage split, each variant's occupancy) and full at d != 64
+        check_t1_edges(torch.Generator(device="cuda").manual_seed(24))
+        check_fwd_anatomy(card, torch.Generator(device="cuda").manual_seed(5), {})
+        log(smi)
+        return 0
     if sys.argv[1:] == ["--k2-bf16"]:
         # the backward's bf16 body alone: its cases against plain and the
         # mma.sync body, its times in turns with that body, SDPA's backward
@@ -6132,6 +6263,7 @@ def main() -> int:
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
                  b64=k1_times[(64, 197)], t577=k1_times[(8, 577)], t785=k1_times[(8, 785)],
+                 h14_bf16_b8=k1_times["h14"], g14_bf16_b8=k1_times["g14"],
                  f32_b32=k1_times["f32 B=32"], h14_f32_b8=remat_times[KERNEL.name],
                  h14_f32_b128=remat_times[KERNEL.name + " B=128"]),
          **by_shard(KERNEL.name)},
@@ -6175,6 +6307,7 @@ def main() -> int:
          "w8a8_b64": {name: {kind: dict(zip(keys, times)) for kind, times in row.items()}
                       for name, row in diag[f"{tp.KERNEL.name} w8a8"].items()}},
     ]}))
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, the build included")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -241,6 +241,18 @@ def test_bad_arguments_raise(call):
         call(x, g)
 
 
+# At d=64 both forms group two heads (the pair form always, the lane form
+# 128/d), so they are one computation in every variant but onedot, which
+# stores the group's first head's scores (pair) or the group's summed
+# scores (lane); the d=64 kernels lean on this.
+@pytest.mark.parametrize("variant", ta.VARIANTS)
+def test_forms_agree_at_d64_but_onedot(variant):
+    qkv = torch.from_numpy(_normal(14, 2, 130, 3 * 256))  # 4 heads of d=64
+    pair = ta.pair_variant(qkv, variant, 4)
+    lane = ta.lane_variant(qkv, variant, 64)
+    assert torch.equal(pair, lane) == (variant != "onedot")
+
+
 def test_lane_mxusum_needs_two_heads_per_panel():
     with pytest.raises(ValueError, match="two heads"):
         ta.lane_variant(torch.zeros(1, 128, 3 * 128), "mxusum", 128)
@@ -361,12 +373,12 @@ def test_probe_kernel_on_card_at_shapes(shape, dtype):
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
-# The anatomies' `full` against K1's mma.sync body (fast, bf16) and K2
-# (bf16) on the same tensors, bit for bit: the same body at the default
-# stages. K1 runs that body through its check-only entry
-# (`attention_qkv_mma`): at d=64 the served bf16 path takes the wgmma
-# body instead. T2 takes K2's own bodies at every d: at d=64 its bf16
-# wgmma body, at d=72 and 128 the mma.sync body. d=72 and d=32 run the
+# The anatomies' `full` against K1 (fast, bf16) and K2 (bf16) on the same
+# tensors, bit for bit: the same bodies at the default stages. T1 and T2
+# take K1's and K2's own bodies at every d: at d=64 their bf16 wgmma
+# bodies (T1's `full` is then also K1's mma.sync body, reached through the
+# check-only `attention_qkv_mma`: the two bodies are bit-equal at d=64),
+# at d=72, 32 and 128 the mma.sync bodies. d=72 and d=32 run the
 # anatomy's widths rounded up to 64 (zero columns add exactly 0); d=128
 # the pair form's 256-lane groups and the lane form's one-head panels.
 @pytest.mark.cuda
@@ -378,7 +390,39 @@ def test_forward_full_kernel_is_k1_on_card(form, nh, d):
     gen = _card()
     qkv = torch.randn((2, 197, 3 * nh * d), generator=gen, device="cuda").to(torch.bfloat16)
     got = ta.pair_variant(qkv, "full", nh) if form == "pair" else ta.lane_variant(qkv, "full", d)
-    assert torch.equal(got, fa.attention_qkv_mma(qkv, nh, fast=True))
+    assert torch.equal(got, fa.attention_qkv(qkv, nh, fast=True))
+    if d == 64:
+        assert torch.equal(got, fa.attention_qkv_mma(qkv, nh, fast=True))
+
+
+# T1 at d=64 on the edges of K1's wgmma body: one 64-query tile and its
+# neighbours (T=1, 63, 64, 65), ViT-B/16's T, the last length whose keys
+# stay resident and one past it (256, 257: the ring of 4 chunks), the lane
+# shape (785); 2 and 12 heads (at d=64 both forms group two heads). Every
+# variant of both forms against plain (onedot stores 2d key columns: T >=
+# 128), `full` bit-equal to K1.
+@pytest.mark.cuda
+@pytest.mark.parametrize("nh", [2, 12])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 197, 256, 257, 785])
+def test_forward_kernels_match_plain_on_card_at_wgmma_edges(t, nh):
+    gen = _card()
+    qkv = torch.randn((2, t, 3 * 64 * nh), generator=gen, device="cuda").to(torch.bfloat16)
+    k1 = fa.attention_qkv(qkv, nh, fast=True)
+    for kernel, fn, plain, arg in (
+        (ta.PAIR_KERNEL, ta.pair_variant, ta.pair_variant_plain, nh),
+        (ta.LANE_KERNEL, ta.lane_variant, ta.lane_variant_plain, 64),
+    ):
+        for variant in ta.VARIANTS:
+            if variant == "onedot" and t < 128:
+                continue
+            before = kernel.launches
+            got = fn(qkv, variant, arg)
+            assert kernel.launches == before + 1
+            if variant == "full":
+                assert torch.equal(got, k1)
+            got, ref = got.float(), plain(qkv, variant, arg).float()
+            assert torch.isfinite(got).all()
+            assert (got - ref).abs().max().item() <= CARD_TOL * ref.abs().max().item(), variant
 
 
 @pytest.mark.cuda

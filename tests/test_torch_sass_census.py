@@ -70,6 +70,15 @@ ptxas info    : Compile time = 543.421 ms
      "gradbf::Params)", "grad_cols_anatomy_wgmma<2>"),
     ("void (anonymous namespace)::grad_onedot_wgmma(CUtensorMap_st, __nv_bfloat16*, int, int, "
      "float)", "grad_onedot_wgmma"),
+    # K1's bf16 body at d = 64 and T1's instantiations of it (variant, NKS)
+    ("void (anonymous namespace)::attention_wgmma<true, false>(CUtensorMap_st, CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, attn::WgCoords, float const*, int, int, float)",
+     "attention_wgmma<true, false>"),
+    ("void anatomy::anatomy_wgmma<0, 0>(CUtensorMap_st, CUtensorMap_st, attn::WgCoords, int, "
+     "float, attn::Group, __nv_bfloat16*, long long)", "anatomy_wgmma<0, 0>"),
+    ("void anatomy::anatomy_wgmma<(int)7, (int)8>(CUtensorMap_st, CUtensorMap_st, "
+     "attn::WgCoords, int, float, attn::Group, __nv_bfloat16 *, long long)",
+     "anatomy_wgmma<7, 8>"),
 ])
 def test_short_name(signature, name):
     assert short_name(signature) == name

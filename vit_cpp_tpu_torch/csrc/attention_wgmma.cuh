@@ -86,6 +86,27 @@
 // o / l rounded to bf16. On an H100 its outputs equal the mma.sync body's
 // bit for bit at every d = 64 case chip_smoke.py and the card tests run
 // (the same products in the same order, the same f32 sums).
+//
+// Stage sets. The body takes one as a template argument, as the mma.sync
+// body does (attention_body.cuh, whose attn::Stages it reads): the default
+// is K1's, and the forward anatomy (attn_anatomy.cuh, T1) instantiates one
+// per variant at d = 64, each K1's body with the variant's stages changed
+// and nothing else. What a stage set changes here:
+//   kExp, kClamp  the weight in wgmma_softmax: exp2f (K1), exp2 in bf16 as
+//                 JAX lowers it, or none; the clamp at 120 or none
+//   kSum       the divisor: 1 the f32 row sum of the f32 p (K1); 2 the row
+//              sum of the rounded p taken by the tensor cores, one
+//              wgmma.m64n8k16 per 16-key step beside P V, P from registers
+//              against a 16 x 8 tile of ones (a d = 64 row of V fills its
+//              128-byte swizzle row: no padding columns to hold the ones,
+//              as the mma.sync body's V has); 0 none (no division)
+//   kNKS       the score dot over the head group's first head (4: one
+//              64-lane box of Q and of K) or over the group's two heads
+//              (8: two boxes a tile, 8 k16 steps); 0 the head's own
+//   kTimesGroup  o times the group size
+//   kOneDot    the score dot alone: S of every chunk, then chunk (head %
+//              group)'s keys stored from the accumulators in `copies`
+//              sections; no V, no softmax, no P V
 
 #pragma once
 
@@ -93,6 +114,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attention_body.cuh"
 #include "tensor_core.cuh"
 
 namespace attn {
@@ -110,14 +132,28 @@ struct WgCoords {
   int q, k, v, head_c, z_batch, z_head;
 };
 
+constexpr int kWgOnes = 512;                // kSum 2: bytes of the ones tile
+
+// 64-lane boxes of Q and of each K chunk the score dot of a stage set reads.
+template <class S>
+__host__ __device__ constexpr int wgmma_boxes() {
+  return S::kNKS != 0 ? S::kNKS / 4 : 1;
+}
+
 // Dynamic shared memory of a block over kv keys: the Q box (then the
 // output tile), and min(ceil(kv / 64), kWgRing) ring slots of one K and
-// one V box each, from a 1024-aligned base (+ 1024 for the alignment).
+// one V box each, from a 1024-aligned base (+ 1024 for the alignment);
+// for a stage set, its boxes of Q and K, no V (onedot), and the ones tile
+// (kSum 2).
 __host__ __device__ constexpr int wgmma_slots(int kv) {
   return (kv + 63) / 64 < kWgRing ? (kv + 63) / 64 : kWgRing;
 }
+template <class S = Stages>
 __host__ __device__ constexpr size_t wgmma_smem_bytes(int kv) {
-  return 1024 + (size_t)kWgBox * (1 + 2 * wgmma_slots(kv));
+  return 1024 +
+         (size_t)kWgBox * (wgmma_boxes<S>() +
+                           (wgmma_boxes<S>() + (S::kOneDot ? 0 : 1)) * wgmma_slots(kv)) +
+         (S::kSum == 2 ? kWgOnes : 0);
 }
 
 // Chunk c's p in place of its S (f32: the row sum, from registers), then
@@ -126,8 +162,8 @@ __host__ __device__ constexpr size_t wgmma_smem_bytes(int kv) {
 // + (e & 1) (q2 = 2 q). kMask: the chunk holds keys >= kv, which weigh 0
 // (8-key columns past kv skip their exp2). Without kMask and kSizes no
 // key index is formed: the loop is a clamp (or a subtraction), an exp2
-// and an add per score.
-template <bool kFast, bool kSizes, bool kMask>
+// and an add per score (K1's stages; S's weight and sum otherwise).
+template <bool kFast, bool kSizes, bool kMask, class S = Stages>
 __device__ __forceinline__ void wgmma_softmax(float (&acc)[32], uint32_t (&p16)[4][4],
                                               float (&l)[2], const float (&m)[2], int c0,
                                               int q2, int kv, const float* __restrict__ srow) {
@@ -146,11 +182,12 @@ __device__ __forceinline__ void wgmma_softmax(float (&acc)[32], uint32_t (&p16)[
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float x = kFast ? fminf(acc[4 * j + e], 120.f) : acc[4 * j + e] - m[e >> 1];
-      float p = exp2f(x);
+      const float x = kFast ? (S::kClamp ? fminf(acc[4 * j + e], 120.f) : acc[4 * j + e])
+                            : acc[4 * j + e] - m[e >> 1];
+      float p = S::kExp == 1 ? exp2f(x) : (S::kExp == 2 ? tc::exp2_bf16(x) : x);
       if constexpr (kSizes) p *= sz[e & 1];
       if constexpr (kMask) p = key + (e & 1) < kv ? p : 0.f;
-      l[e >> 1] += p;
+      if constexpr (S::kSum == 1) l[e >> 1] += p;
       acc[4 * j + e] = p;
     }
   }
@@ -166,19 +203,23 @@ __device__ __forceinline__ void wgmma_softmax(float (&acc)[32], uint32_t (&p16)[
 
 // The body, for fast (clamped) or safe softmax and with or without ToMe
 // sizes: each a kernel of its own, so that the softmax's inner loop holds
-// neither test.
-template <bool kFast, bool kSizes>
+// neither test. S, grp, dots and dots_row: a stage set (K1's by default)
+// and what the anatomy's stage sets read: the head group, and onedot's
+// output (rows of dots_row elements, the head's columns at head * head_c).
+template <bool kFast, bool kSizes, class S = Stages>
 __device__ __forceinline__ void attention_wgmma_body(
     const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
     const CUtensorMap& omap, WgCoords co, const float* __restrict__ sizes, int seq, int kv,
-    float qscale) {
+    float qscale, Group grp = Group{1, 0, 1, 0}, bf16* dots = nullptr, long long dots_row = 0) {
+  constexpr int kBoxes = wgmma_boxes<S>();
+  static_assert(kBoxes == 1 || kBoxes == 2, "the score dot reads one or two 64-lane boxes");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t bars[1 + 2 * kWgRing];  // Q; K of each slot; V of each slot
   unsigned char* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sq = smem;  // Q, then the output tile
   const int slots = wgmma_slots(kv);
-  auto sk = [&](int s) { return smem + kWgBox * (1 + s); };
-  auto sv = [&](int s) { return smem + kWgBox * (1 + slots + s); };
+  auto sk = [&](int s) { return smem + kWgBox * (kBoxes + kBoxes * s); };
+  auto sv = [&](int s) { return smem + kWgBox * (kBoxes + kBoxes * slots + s); };
   uint64_t* kbar = bars + 1;
   uint64_t* vbar = bars + 1 + kWgRing;
 
@@ -186,6 +227,8 @@ __device__ __forceinline__ void attention_wgmma_body(
   const int g = lane >> 2, q = lane & 3;
   const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kWgRows;
   const int z = b * co.z_batch + head * co.z_head, hc = head * co.head_c;
+  // Q's and K's columns: the head's, or its group's first head's
+  const int qkc = S::kNKS != 0 ? (head - head % grp.size) * co.head_c : hc;
 
   if (q0 < kv) {
     // Chunks of 64 keys. Safe mode over more than one chunk takes the
@@ -202,8 +245,10 @@ __device__ __forceinline__ void attention_wgmma_body(
     auto load_k = [&](int j) {  // K load j: the chunk of S-step j
       const int s = resident ? j : j % kWgRing;
       const int c = j < np0 ? j : j - np0;
-      tc::mbar_arrive_expect_tx(&kbar[s], kWgBox);
-      tc::tma_load_3d(sk(s), &kmap, co.k + hc, 64 * c, z, &kbar[s]);
+      tc::mbar_arrive_expect_tx(&kbar[s], kBoxes * kWgBox);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+        tc::tma_load_3d(sk(s) + x * kWgBox, &kmap, co.k + qkc + 64 * x, 64 * c, z, &kbar[s]);
     };
     auto load_v = [&](int c) {
       const int s = c % kWgRing;
@@ -217,17 +262,27 @@ __device__ __forceinline__ void attention_wgmma_body(
     }
     __syncthreads();  // the barriers are initialized
     if (tid == 0) {
-      tc::mbar_arrive_expect_tx(&bars[0], kWgBox);
-      tc::tma_load_3d(sq, &qmap, co.q + hc, q0, z, &bars[0]);
+      tc::mbar_arrive_expect_tx(&bars[0], kBoxes * kWgBox);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x)
+        tc::tma_load_3d(sq + x * kWgBox, &qmap, co.q + qkc + 64 * x, q0, z, &bars[0]);
       for (int j = 0; j < nk && j < kWgRing; ++j) load_k(j);
-      for (int c = 0; c < nck && c < kWgRing; ++c) load_v(c);
+      if constexpr (!S::kOneDot)
+        for (int c = 0; c < nck && c < kWgRing; ++c) load_v(c);
+    }
+    // kSum 2: the ones tile after the V slots, read without swizzle
+    unsigned char* ones = sv(slots);
+    if constexpr (S::kSum == 2) {
+      for (int i = tid; i < kWgOnes / 16; i += kWgThreads)
+        reinterpret_cast<uint4*>(ones)[i] =
+            make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u, 0x3f803f80u);
     }
 
     // Q * qscale in f32, rounded to bf16 in place (the swizzle moves whole
     // 16-byte chunks, so the elementwise pass ignores it), then fenced for
     // the tensor cores' reads
     tc::mbar_wait_or_trap(&bars[0], 0);
-    for (int i = tid; i < kWgBox / 16; i += kWgThreads) {
+    for (int i = tid; i < kBoxes * kWgBox / 16; i += kWgThreads) {
       uint4* p = reinterpret_cast<uint4*>(sq) + i;
       uint4 w = *p;
       uint32_t* u = reinterpret_cast<uint32_t*>(&w);
@@ -258,9 +313,11 @@ __device__ __forceinline__ void attention_wgmma_body(
       }
       tc::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kWgD / 16; ++kk)
-        tc::wgmma_m64n64k16_ss(acc, tc::sw128_desc(sq + 32 * kk, 16, 1024),
-                               tc::sw128_desc(sk(s) + 32 * kk, 16, 1024), kk);
+      for (int kk = 0; kk < kBoxes * kWgD / 16; ++kk) {
+        const int at = kWgBox * (kk / 4) + 32 * (kk % 4);  // box kk / 4, k16 step kk % 4
+        tc::wgmma_m64n64k16_ss(acc, tc::sw128_desc(sq + at, 16, 1024),
+                               tc::sw128_desc(sk(s) + at, 16, 1024), kk);
+      }
       tc::wgmma_commit();
     };
     // the exact max over the real keys of chunk c's S, into m
@@ -278,6 +335,42 @@ __device__ __forceinline__ void attention_wgmma_body(
         m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
       }
     };
+
+    if constexpr (S::kOneDot) {
+      // the score dot alone, chunk by chunk; chunk pos = head % group,
+      // keys 64 pos .. + 63 of S, stored from the accumulators (T >= 64 x
+      // group)
+      const int pos = head % grp.size;
+      float live = 0.f;  // keeps every chunk's products live
+      for (int i = 0; i < nck; ++i) {
+        float acc[32];
+        issue_s(i, acc);
+        tc::wgmma_wait<0>();
+        tc::fence_operands(acc);
+        if (i == pos) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int t = q0 + 16 * warp + g + 8 * r;
+            if (t >= seq) continue;
+            bf16* row = dots + ((long long)b * seq + t) * dots_row + hc + 2 * q;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const uint32_t v = tc::pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+              for (int cp = 0; cp < grp.copies; ++cp)
+                *reinterpret_cast<uint32_t*>(row + cp * grp.copy_stride + 8 * j) = v;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) live += acc[4 * j];
+        if (!resident) {
+          __syncthreads();  // every warp's wgmmas are done with the slot
+          if (tid == 0 && i + kWgRing < nk) load_k(i + kWgRing);
+        }
+      }
+      if (grp.copies < 0) *dots = __float2bfloat16_rn(live);  // never: copies >= 1
+      return;
+    }
 
     // pass 0 (safe mode, more than one chunk): S-step by S-step, the max
     for (int i = 0; i < np0; ++i) {
@@ -303,6 +396,7 @@ __device__ __forceinline__ void attention_wgmma_body(
     // between two register sets (the loop is unrolled by 2 so that each
     // names its set at compile time).
     float sacc[2][32], o[32];
+    float lsum[4] = {0.f, 0.f, 0.f, 0.f};  // kSum 2: rows g and g + 8, every column
     uint32_t pf[2][4][4];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
@@ -312,12 +406,13 @@ __device__ __forceinline__ void attention_wgmma_body(
         reduce_max();
       }
       if (64 * c + 64 <= kv)
-        wgmma_softmax<kFast, kSizes, false>(acc, p16, l, m, 64 * c, 2 * q, kv, srow);
+        wgmma_softmax<kFast, kSizes, false, S>(acc, p16, l, m, 64 * c, 2 * q, kv, srow);
       else
-        wgmma_softmax<kFast, kSizes, true>(acc, p16, l, m, 64 * c, 2 * q, kv, srow);
+        wgmma_softmax<kFast, kSizes, true, S>(acc, p16, l, m, 64 * c, 2 * q, kv, srow);
     };
     // O += P V(c) over the chunk's 16-key steps: V rows 16 k16 .. + 15 lie
-    // 2048 bytes apart in its box
+    // 2048 bytes apart in its box (kSum 2: the row sums of P beside it, P
+    // times the ones tile, in the same group)
     auto issue_pv = [&](int c, const uint32_t (&p16)[4][4]) {
       const int s = c % kWgRing;
       tc::mbar_wait_or_trap(&vbar[s], (vph >> s) & 1);
@@ -326,6 +421,11 @@ __device__ __forceinline__ void attention_wgmma_body(
 #pragma unroll
       for (int k16 = 0; k16 < 4; ++k16)
         tc::wgmma_m64n64k16_rs(o, p16[k16], tc::sw128_desc(sv(s) + 2048 * k16, 8192, 1024), 1);
+      if constexpr (S::kSum == 2) {
+#pragma unroll
+        for (int k16 = 0; k16 < 4; ++k16)
+          tc::wgmma_m64n8k16_rs(lsum, p16[k16], tc::plain_desc(ones, 128, 256), 1);
+      }
       tc::wgmma_commit();
     };
     // S-step i done: its K slot takes K load i + kWgRing; P V(c) done: its
@@ -368,10 +468,16 @@ __device__ __forceinline__ void attention_wgmma_body(
     }
     tc::fence_operands(o);
 
+    if constexpr (S::kSum == 1) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      }
+    } else if constexpr (S::kSum == 2) {
+      tc::fence_operands(lsum);
+      l[0] = lsum[0];  // rows g and g + 8, summed over all the row's keys
+      l[1] = lsum[2];
     }
     __syncthreads();  // every warp's wgmmas are done with Q's tile
     // o / l, rounded to bf16, staged over Q's tile in the 128-byte swizzle
@@ -388,9 +494,13 @@ __device__ __forceinline__ void attention_wgmma_body(
       const int r = 16 * warp + g + 8 * i;
       const bool real = q0 + r < kv;
       const float inv = __frcp_rn(l[i]);
-      auto div = [&](float v) {
-        const float y = __fmul_rn(v, inv);
-        return __fmaf_rn(__fmaf_rn(-y, l[i], v), inv, y);
+      auto div = [&](float v) {  // what is stored of an accumulator
+        if constexpr (S::kSum != 0) {
+          const float y = __fmul_rn(v, inv);
+          return __fmaf_rn(__fmaf_rn(-y, l[i], v), inv, y);
+        } else {
+          return S::kTimesGroup ? v * (float)grp.size : v;
+        }
       };
       unsigned char* row = sq + r * 128 + 4 * q;
 #pragma unroll
@@ -399,6 +509,7 @@ __device__ __forceinline__ void attention_wgmma_body(
             real ? tc::pack_bf16(div(o[4 * j + 2 * i]), div(o[4 * j + 2 * i + 1])) : 0u;
     }
   } else {
+    if constexpr (S::kOneDot) return;  // no row of S to store
     // every row of this tile is token padding: zeros
     for (int i = tid; i < kWgBox / 16; i += kWgThreads)
       reinterpret_cast<uint4*>(sq)[i] = make_uint4(0, 0, 0, 0);

@@ -201,6 +201,14 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo, uint3
          (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)2 << 62;
 }
 
+// The same with no swizzle (attention_wgmma.cuh's ones tile): 8-row core
+// matrices of 16-byte rows, 128 bytes each, `lbo` apart along K and `sbo`
+// apart along M or N.
+__device__ __forceinline__ uint64_t plain_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
+}
+
 // Orders this warpgroup's register and shared-memory accesses before the
 // next wgmma.
 __device__ __forceinline__ void wgmma_fence() {
@@ -275,6 +283,11 @@ __device__ __forceinline__ void fence_operands(float (&d)[32]) {
                     "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) :: "memory");
 }
 
+// The same for 4 accumulators (m64n8).
+__device__ __forceinline__ void fence_operands(float (&d)[4]) {
+  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]) :: "memory");
+}
+
 // d (64 x 64 f32) = A B, or += A B with `accumulate`: A 64 x 16 bf16 and
 // B 16 x 64 bf16, both from shared memory and both K-major (B stored as
 // 64 N rows of 16 k: the attention's S = Q K^T, K's rows as they lie).
@@ -322,6 +335,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 8 f32) = A B, or += A B with `accumulate`: A as wgmma_m64n64k16_rs
+// takes it, B 16 x 8 bf16 from shared memory, K-major (warp w holds rows
+// 16 w + g in d[0], d[1] and + 8 in d[2], d[3], columns 2 q, 2 q + 1).
+// Asynchronous, as above.
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

@@ -3,15 +3,18 @@
 Counterpart of tools/attn_anatomy.py, whose Pallas kernels replicate the
 TPU's serving attention with stages switched off one at a time. Here each
 variant is the port's own forward kernel, K1 (csrc/attention_qkv.cu):
-csrc/attn_anatomy.cu instantiates K1's bf16 tensor-core body
-(csrc/attention_body.cuh: mma.sync products, a cp.async ring of K/V
-tiles, P from the S accumulators) with one stage set per variant, so
-`full` is K1's fast bf16 path bit for bit and each other variant differs
-from it in the named stages only:
+csrc/attn_anatomy.cu instantiates K1's bf16 body with one stage set per
+variant, the body K1 itself runs at that d. At d = 64 (every ViT-Ti/S/B/L
+head) that is the wgmma body (csrc/attention_wgmma.cuh: one warpgroup per
+64 query rows, Q, K and V by TMA, S and P V on wgmma, software-pipelined);
+at every other d the mma.sync body (csrc/attention_body.cuh: mma.sync
+products, a cp.async ring of K/V tiles). Either way P is taken from the S
+accumulators, `full` is K1's fast bf16 path bit for bit and each other
+variant differs from it in the named stages only:
 
     full      score dot + exp2(min(s, 120)) + P V + /sum   (K1 fast)
     mxusum    full, the row sum taken by the tensor cores (P times a
-              tile of ones beside V)
+              tile of ones: at d = 64 its own n8 product, else beside V)
     bf16exp   full, exp2 on the clamped scores in bf16, as JAX lowers it
               (exp(ln 2 x)), f32 row sum
     noclamp   exp2 kept, clamp and /sum skipped
@@ -24,7 +27,8 @@ from it in the named stages only:
 Two forms, as the JAX tool's: `pair_variant` (head pairs, the flagship
 ViT-B/16 shape; its TPU kernel is run_pair_variant) and `lane_variant`
 (128-lane panels of 128/d heads; run_variant). They differ only where a
-variant mixes the heads of a group (nomask, onedot). Run on the card:
+variant mixes the heads of a group (nomask, onedot); at d = 64 both group
+two heads. Run on the card:
 
     python -m vit_cpp_tpu_torch.tools.attn_anatomy --kernel pair --t 197 --h 768 --b 128
     python -m vit_cpp_tpu_torch.tools.attn_anatomy --t 785 --h 768 --b 8 --w 3
@@ -35,9 +39,9 @@ Each line gives a variant's ms per call over a chain of 400 launches
 per second. full minus a variant is what the variant's stages cost K1.
 
 On a CUDA tensor the functions launch the kernel (bf16, d % 8 == 0,
-d <= 128, a 16-byte aligned qkv) or raise; on a CPU tensor they run the
-plain PyTorch version below (any float type), which the tests hold
-against the JAX kernels.
+d <= 128, a 16-byte aligned qkv) or raise, at every d: there is no
+fallback. On a CPU tensor they run the plain PyTorch version below (any
+float type), which the tests hold against the JAX kernels.
 """
 
 from __future__ import annotations

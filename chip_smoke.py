@@ -703,6 +703,158 @@ def time_k1_bodies(card: str, gen) -> dict:
     return out
 
 
+# The bf16 wgmma body at d=80 and 88 (each 64-row tile a 64-column box and
+# a tail box; ViT-H/14's and ViT-g/14's 16 heads at B=2): 64-query tiles
+# and 64-key chunks (T=1, 63/64/65, 128/129), the ring (d=80: 3 chunks, so
+# 256 and 257 stream; d=88: 4), T=257's one real row in the last tile,
+# T=577; ToMe sizes at T=65 and 257; kv at 256 of 257 and 64 of 70 with pad
+# rows of 1e4; 1, 3 and 16 heads. (name, B, T, heads, kwargs)
+K1_WIDE_EDGES = (
+    [(f"T={t} {mode}", 2, t, 16, {"fast": mode == "fast"})
+     for t in (1, 63, 64, 65, 128, 129, 256, 257, 577) for mode in ("fast", "safe")]
+    + [(f"T={t} {mode} sizes", 2, t, 16, {"fast": mode == "fast", "sizes": True})
+       for t, mode in ((65, "safe"), (257, "fast"))]
+    + [(f"kv={kv} T={t} {mode}, pad rows 1e4", 2, t, 16, {"fast": mode == "fast", "kv": kv})
+       for kv, t in ((256, 257), (64, 70)) for mode in ("fast", "safe")]
+    + [(f"T=197 fast {nh} heads", 2, 197, nh, {"fast": True}) for nh in (1, 3)]
+)
+# K3 (split heads, safe) through it: (B, H, T, D)
+K3_WIDE_EDGES = ((1, 16, 257, 80), (1, 16, 257, 88), (4, 16, 257, 88))
+# Its timed shapes (key, d, B, T), bf16 fast: ViT-H/14 at B=8 (T=256 beside
+# 257: the cost of the last tile's one real row) and its BENCH_DETAILS
+# batch 64; ViT-g/14 at B=8 and its batch 32
+K1_WIDE_TIMED = (("h14_bf16_b8_t256", 80, 8, 256), ("h14_bf16_b8", 80, 8, 257),
+                 ("h14_bf16_b64", 80, 64, 257), ("g14_bf16_b8", 88, 8, 257),
+                 ("g14_bf16_b32", 88, 32, 257))
+
+
+def held_wide(name: str, got, again, mma, ref, apart: list) -> float:
+    """One bf16 case of the wgmma body at d=80 / 88: its error to plain
+    (ref); raises if it is not finite, past TOL, or if two calls (got,
+    again) differ; a difference from the mma.sync body (mma) is logged
+    and appended to `apart` as (case, largest difference)."""
+    tol = TOL[torch.bfloat16]
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two calls of the wgmma body differ")
+    err = (got.float() - ref.float()).abs().max().item()
+    same = torch.equal(got, mma)
+    if not same:
+        apart.append((name, (got.float() - mma.float()).abs().max().item()))
+    log(f"kernel case {name:<44} bfloat16: max|kernel - plain| = {err:.3e} (tolerance "
+        f"{tol:.0e}); " + ("equal to the mma.sync body bit for bit" if same else
+                          f"differs from the mma.sync body by up to {apart[-1][1]:.3e}")
+        + ", each call equal to the next")
+    if not err <= tol:
+        raise AssertionError(f"{name}: error {err} > {tol}")
+    return err
+
+
+def check_k1_wide(gen) -> tuple:
+    """The wgmma body at d=80 and 88 (K1_WIDE_EDGES, K3_WIDE_EDGES and a
+    misaligned qkv): each case against the plain version within TOL,
+    against the mma.sync body it replaced (the check-only entry) and
+    against itself from one call to the next, both bit for bit. A case
+    that differs from the mma.sync body is logged with its largest
+    difference; a call that differs from the last raises. (worst error to
+    plain, [(case, largest difference to the mma.sync body)])."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    bf16, tol, worst, apart, n = torch.bfloat16, TOL[torch.bfloat16], 0.0, [], 0
+    for d in (80, 88):
+        cases = [(f"d={d} {name}", b, t, nh, kw) for name, b, t, nh, kw in K1_WIDE_EDGES]
+        cases.append((f"d={d} misaligned qkv (copied)", 2, 197, 16, {"fast": True}))
+        for name, b, t, nh, kw in cases:
+            qkv = torch.randn((b, t, 3 * nh * d), generator=gen, device="cuda").to(bf16)
+            if "misaligned" in name:
+                qkv = _misaligned(qkv)
+            kw = dict(kw)
+            if kw.get("kv"):
+                qkv[:, kw["kv"]:] = 1e4  # adversarial pad rows
+            if kw.get("sizes"):
+                kw["sizes"] = torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
+            got, again = fa.attention_qkv(qkv, nh, **kw), fa.attention_qkv(qkv, nh, **kw)
+            if got.shape != (b, t, nh * d) or got.dtype != bf16:
+                raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
+            worst = max(worst, held_wide(f"{name} B={b} T={t} nh={nh}", got, again,
+                                         fa.attention_qkv_mma(qkv, nh, **kw),
+                                         fa.attention_qkv_plain(qkv, nh, **kw), apart))
+            n += 1
+            del qkv
+    for shape in K3_WIDE_EDGES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(bf16) for _ in range(3))
+        name = "flash_attention B={} H={} T={} D={}".format(*shape)
+        got, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
+        if got.shape != q.shape or got.dtype != bf16:
+            raise AssertionError(f"{name}: got {tuple(got.shape)} {got.dtype}")
+        worst = max(worst, held_wide(name, got, again, fa.flash_attention_mma(q, k, v),
+                                     fa.flash_attention_plain(q, k, v), apart))
+        n += 1
+    log(f"K1 / K3 bf16 at d=80 and 88: {n} cases, worst error to plain {worst:.3e} (tolerance "
+        f"{tol:.0e}); equal to the mma.sync body bit for bit in {n - len(apart)} of {n}, each "
+        "call equal to the next")
+    return worst, apart
+
+
+def time_k1_wide(card: str, gen, apart: list) -> tuple:
+    """The wgmma body at d=80 and 88 (K1_WIDE_TIMED, bf16 fast; K3 at (8,
+    16, 257, d), safe) in turns with the mma.sync body it replaced,
+    scaled_dot_product_attention and the plain version (queued device ms),
+    each beside its bound. Before its timing each shape's inputs are held
+    as check_k1_wide holds its cases (held_wide: within TOL of plain, the
+    mma.sync body and the next call bit for bit; differences from the
+    mma.sync body appended to `apart`). ({key: (ms, plain ms, bound ms,
+    bound by, SDPA ms, mma.sync ms)}, worst error to plain)."""
+    from vit_cpp_tpu_torch.ops import flash_attention as fa
+
+    out, worst = {}, 0.0
+    for key, d, b, t in K1_WIDE_TIMED:
+        nh = 16
+        qkv = torch.randn((b, t, 3 * nh * d), generator=gen, device="cuda").to(torch.bfloat16)
+        worst = max(worst, held_wide(
+            f"timed d={d} B={b} T={t} nh={nh} fast", fa.attention_qkv(qkv, nh, fast=True),
+            fa.attention_qkv(qkv, nh, fast=True), fa.attention_qkv_mma(qkv, nh, fast=True),
+            fa.attention_qkv_plain(qkv, nh, fast=True), apart))
+        r = turns({"wgmma": lambda: fa.attention_qkv(qkv, nh, fast=True),
+                   "mma.sync": lambda: fa.attention_qkv_mma(qkv, nh, fast=True),
+                   "sdpa": sdpa_fn(qkv, nh),
+                   "plain": lambda: fa.attention_qkv_plain(qkv, nh, fast=True)})
+        b_ms, b_by = attention_bound(b, t, nh * d, 2)
+        log(f"attention_qkv bodies B={b} T={t} h={nh * d} d={d} bf16 fast (device ms, in turns) "
+            f"on {card}: wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+            f"({r['mma.sync'] / r['wgmma']:.2f}x), scaled_dot_product_attention {r['sdpa']:.4f} "
+            f"({r['wgmma'] / r['sdpa']:.2f}x of it), plain {r['plain']:.4f}; bound {b_ms:.4f} ms "
+            f"({b_by}, {r['wgmma'] / b_ms:.1f}x)")
+        out[key] = (r["wgmma"], r["plain"], b_ms, b_by, r["sdpa"], r["mma.sync"])
+        del qkv
+    t256, t257 = out["h14_bf16_b8_t256"][0], out["h14_bf16_b8"][0]
+    log(f"attention_qkv d=80 B=8: T=257 takes {t257 / t256 - 1:+.1%} over T=256 (the fifth "
+        "64-row tile and 64-key chunk hold one real row and one real key)")
+    for d in (80, 88):
+        q, k, v = (torch.randn((8, 16, 257, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        worst = max(worst, held_wide(
+            f"timed flash_attention (8, 16, 257, {d})", fa.flash_attention(q, k, v),
+            fa.flash_attention(q, k, v), fa.flash_attention_mma(q, k, v),
+            fa.flash_attention_plain(q, k, v), apart))
+        r = turns({"wgmma": lambda: fa.flash_attention(q, k, v),
+                   "mma.sync": lambda: fa.flash_attention_mma(q, k, v),
+                   "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+                   "plain": lambda: fa.flash_attention_plain(q, k, v)})
+        b_ms, b_by = attention_bound(8, 257, 16 * d, 2)
+        log(f"flash_attention bodies (8, 16, 257, {d}) bf16 (device ms, in turns) on {card}: "
+            f"wgmma {r['wgmma']:.4f}, mma.sync {r['mma.sync']:.4f} "
+            f"({r['mma.sync'] / r['wgmma']:.2f}x), scaled_dot_product_attention "
+            f"{r['sdpa']:.4f}, plain {r['plain']:.4f}; bound {b_ms:.4f} ms ({b_by})")
+        out[f"K3 d={d}"] = (r["wgmma"], r["plain"], b_ms, b_by, r["sdpa"], r["mma.sync"])
+    log(f"K1 / K3 bf16 at d=80 and 88, the {len(K1_WIDE_TIMED) + 2} timed shapes: worst error "
+        f"to plain {worst:.3e} (tolerance {TOL[torch.bfloat16]:.0e}); apart from the mma.sync "
+        f"body in all cases so far: {len(apart)}")
+    return out, worst
+
+
 # The backward's f32 body at d=64 (wgmma + TMA): 64-row blocks of two
 # warpgroups, 32-token chunks with 8-token tails (T=1, 8, 63, 64, 65, 127,
 # 128, 129), the 256-key edge (196, 197, 200, 256, 257), the lane shapes
@@ -1080,6 +1232,7 @@ def check_kernels(card: str):
         if main_err is None:
             main_err = err
     check_k1_d64(gen)
+    wide = check_k1_wide(gen)
 
     times = {}
     # ViT-B/16 serving at B=8 and 64; T=577 and 785 are --img-size 384 and
@@ -1099,20 +1252,11 @@ def check_kernels(card: str):
             f"scaled_dot_product_attention {lib:.4f} ms, mma.sync body {mma:.4f} ms on {card}")
         times[(b, t)] = (k_ms, p_ms, b_ms, b_by, lib, mma)
     times["K3"] = bodies["K3"]
-    # bf16 at d=80 and 88 (ViT-H/14 and ViT-g/14 at B=8 T=257, fast: the
-    # mma.sync body, which T1 also keeps at d != 64), in turns with SDPA
-    # and plain
-    for key, h, nh in (("h14", 1280, 16), ("g14", 1408, 16)):
-        qkv = qkv_of(8, 257, h, bf16)
-        r = turns({"kernel": lambda: attention_qkv(qkv, nh, fast=True), "sdpa": sdpa_fn(qkv, nh),
-                   "plain": lambda: attention_qkv_plain(qkv, nh, fast=True)})
-        b_ms, b_by = attention_bound(8, 257, h, 2)
-        log(f"attention_qkv B=8 T=257 h={h} d={h // nh} bf16 fast (device ms, in turns) on "
-            f"{card}: kernel {r['kernel']:.4f}, scaled_dot_product_attention {r['sdpa']:.4f} "
-            f"({r['kernel'] / r['sdpa']:.2f}x), plain {r['plain']:.4f}; bound {b_ms:.4f} ms "
-            f"({b_by})")
-        times[key] = (r["kernel"], r["plain"], b_ms, b_by, r["sdpa"])
-        del qkv
+    # bf16 at d=80 and 88 (ViT-H/14 and ViT-g/14: the wgmma body's two-box
+    # tiles), in turns with the mma.sync body, SDPA and plain
+    wide_times, timed_err = time_k1_wide(card, gen, wide[1])
+    times.update(wide_times)
+    times["wide"] = (*wide, timed_err)
     # the training forward: f32, safe softmax, ViT-B/16 at B=32, the wgmma
     # body in turns with the mma.sync body it replaced
     times["f32 B=32"] = time_k1_f32(card, gen, "vit-b16", 32, 197, 64, 12, False)
@@ -1655,13 +1799,15 @@ def asset_bodies():
     return paths, [open(p, "rb").read() for p in paths]
 
 
-def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images, tome: int = 0):
+def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images, tome: int = 0,
+          after=None):
     """Serve the ten assets from `model` through the daemon built with
     build_engine(mm=mm, tome=tome) and its defaults otherwise; check every
     answer against the f32 engine with the same tome on the same file (on
     `images`, the assets
     decoded once) and each kernel's launches (per_batch: Kernel ->
-    launches per device batch). Returns {name: launches}."""
+    launches per device batch); `after(engine)` runs on the served engine
+    once the daemon is down. Returns {name: launches}."""
     from vit_cpp_tpu_torch.cli.common import build_engine
     from vit_cpp_tpu_torch.engine import VitEngine
     from vit_cpp_tpu_torch.server import create_server
@@ -1692,6 +1838,8 @@ def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images, t
         httpd.server_close()
         batcher.close()
         server.join(timeout=30)
+    if after is not None:
+        after(engine)
     del engine
 
     ref = VitEngine(model, dtype="f32", mm_impl="xla", attn_impl="xla", tome=tome, device="cuda",
@@ -1732,6 +1880,99 @@ def serve(what: str, model: str, mm: str, per_batch: dict, tol: float, images, t
     log(f"{what}: request latency ms: min {lat[0]:.1f} median "
         f"{lat[len(lat) // 2]:.1f} max {lat[-1]:.1f}")
     return launches
+
+
+# ViT-g/14 @224 (bench.py's "giant"; Zhai et al., "Scaling Vision
+# Transformers"): hidden 1408, 16 heads of d=88, MLP 6144, T=257, 40
+# layers, served at 4: the full-size file (~1.0 B parameters) would take
+# chip_smoke past its time limit
+G14_LAYERS = 40
+VIT_G14 = dict(hidden_size=1408, num_hidden_layers=4, num_attention_heads=16, mlp_hidden=6144,
+               num_classes=1000, patch_size=14, img_size=224)
+
+
+def wide_forward(engine, card: str) -> None:
+    """The served ViT-H/14 engine (the daemon's defaults) at B=64, the
+    BENCH_DETAILS row's batch: finite (64, 1000) probabilities, K1 once
+    per layer; the median host ms of 10 forwards, each ended by a
+    synchronize, and the median stream-elapsed ms of the same forwards
+    between two CUDA events, gaps included (cuda_ms cannot queue a forward
+    of ~10^4 launches behind its sleep: the launch queue fills, and the
+    host waits on the card); then one forward under torch.profiler: its
+    device time, K1's share of it and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+
+    layers = engine.hp.num_hidden_layers
+    pixels = torch.randn((64, 3, 224, 224), generator=torch.Generator(device="cuda").manual_seed(25),
+                         device="cuda")
+    KERNEL.reset()
+    probs = engine.predict_probs_batch(pixels)
+    torch.cuda.synchronize()
+    if (tuple(probs.shape) != (64, engine.hp.num_classes) or not torch.isfinite(probs).all()
+            or KERNEL.launches != layers):
+        raise AssertionError(f"ViT-H/14 B=64: probabilities {tuple(probs.shape)}, "
+                             f"{KERNEL.launches} attention_qkv launches (want {layers})")
+    times, dev = [], []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        engine.predict_probs_batch(pixels)
+        end.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    log(f"forward ViT-H/14 @224 W8A8 bf16 fold B=64 (the served engine; median of 10, host "
+        f"clock with sync): {ms:.3f} ms ({64 / ms * 1e3:.1f} img/s, range {min(times):.3f}-"
+        f"{max(times):.3f}), stream elapsed {float(np.median(dev)):.3f} ms (events) on {card}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.predict_probs_batch(pixels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us, (k1_us,) = device_us(prof, KERNEL)
+    if dev_us <= 0:
+        log("profiled ViT-H/14 forward: torch.profiler saw no device time (shares not measured)")
+        return
+    log(f"profiled ViT-H/14 W8A8 forward B=64 (torch.profiler): {dev_us / 1e3:.2f} ms of device "
+        f"time in {wall_us / 1e3:.2f} ms wall (idle share {1 - dev_us / wall_us:.3f}); "
+        f"attention_qkv {k1_us / 1e3:.2f} ms ({k1_us / dev_us:.3f} of device time, "
+        f"{k1_us / layers:.1f} us per layer)")
+
+
+def wide_paths(tmp: str, card: str, images) -> dict:
+    """ViT-H/14 @224 (VIT_H14, full depth) and ViT-g/14 @224 (VIT_G14, 4 of
+    its 40 layers), f16 files from write_synthetic_model(seed=0), each
+    served through serve() at the daemon's defaults (bf16, W8A8, fast fused
+    attention, LayerNorm folded, micro-batch 8): every answer within
+    PROB_TOL of the f32 engine, K1 once per layer per device batch, on its
+    bf16 wgmma body at d=80 / 88; then ViT-H/14's B=64 forward
+    (wide_forward). {path: {kernel: launches}}."""
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.ops.flash_attention import KERNEL
+    from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    for what, geometry, after in (
+            ("ViT-H/14 f16 W8A8 daemon", VIT_H14, lambda e: wide_forward(e, card)),
+            (f"ViT-g/14 f16 W8A8 daemon ({VIT_G14['num_hidden_layers']} of {G14_LAYERS} layers)",
+             VIT_G14, None)):
+        path = os.path.join(tmp, what.split()[0].replace("/", "") + "-synthetic-f16.gguf")
+        t0 = time.perf_counter()
+        write_synthetic_model(path, VitHParams(**geometry), ftype=1, seed=0)
+        log(f"checkpoint: {what.split()[0]} @224 synthetic f16 (hidden "
+            f"{geometry['hidden_size']}, {geometry['num_hidden_layers']} layers, 16 heads of "
+            f"d={geometry['hidden_size'] // 16}) written in {time.perf_counter() - t0:.1f} s, "
+            f"{os.path.getsize(path) / 2**20:.0f} MiB")
+        out[what] = serve(what, path, "int8", {KERNEL: geometry["num_hidden_layers"]}, PROB_TOL,
+                          images, after=after)
+        os.remove(path)
+    log(f"wide_paths: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def flagship_forward(q8: str, images) -> None:
@@ -4875,19 +5116,19 @@ def aot_launches(what: str, engine, pixels, per_batch: dict) -> dict:
     return out, launches
 
 
-AOT_BLOCKS = 6  # the depth of the Q8_0 --mm pallas and static artifacts
+AOT_BLOCKS = 6  # the depth of aot_paths' artifacts and of mesh_paths' sharded ones
 AOT_LOAD_MS = {}  # aot_paths' unsharded artifact's load ms, beside mesh_paths' sharded ones
 MESH_EXPORTS = {}  # mesh_paths' sharded exports, started in aot_paths
 
 
 def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     """The AOT serving artifact (phase `aot_paths`) on the synthetic
-    ViT-B/16: `cli.export_aot -b 1,64` at the serving defaults and its
-    --info; the artifact served in a fresh process that cannot import the
-    model code, with the gguf moved away, against the gguf engine's
-    probabilities at B=64 and B=1 (AOT_TOL) with 12 attention_qkv launches
-    per batch; at ViT-B/16's width and AOT_BLOCKS blocks (the depth cut
-    to keep the script's time), a Q8_0 file exported with --mm pallas (25
+    ViT-B/16 at its width and AOT_BLOCKS blocks (the depth cut to keep the
+    script's time): `cli.export_aot -b 1,64` at the serving defaults and
+    its --info; the artifact served in a fresh process that cannot import
+    the model code, with the gguf moved away, against the gguf engine's
+    probabilities at B=64 and B=1 (AOT_TOL) with AOT_BLOCKS attention_qkv
+    launches per batch; a Q8_0 file exported with --mm pallas (25
     dequant_matmul + 6 attention_qkv per batch) and the f16 file with
     --act static --calib-dir assets, each against its gguf engine; cli.vit, cli.serve,
     the cli.server daemon with --bucket (over the baked 1 and 64) and
@@ -4913,16 +5154,16 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     t_phase = time.perf_counter()
     d = os.path.join(tmp, "aot")
     os.makedirs(d)
-    # ViT-B/16's width at AOT_BLOCKS blocks, for the Q8_0 and static exports
-    f16_6, q8 = (os.path.join(d, f"vit-b16-6-blocks-{k}.gguf") for k in ("f16", "q8_0"))
-    write_synthetic_model(f16_6, VitHParams(**{**VIT_B16, "num_hidden_layers": AOT_BLOCKS}),
+    # ViT-B/16's width at AOT_BLOCKS blocks, for every export
+    f16, q8 = (os.path.join(d, f"vit-b16-6-blocks-{k}.gguf") for k in ("f16", "q8_0"))
+    write_synthetic_model(f16, VitHParams(**{**VIT_B16, "num_hidden_layers": AOT_BLOCKS}),
                           ftype=1, seed=0)
     with contextlib.redirect_stdout(io.StringIO()):
-        if quantize.main([f16_6, q8, "8"]) != 0:
+        if quantize.main([f16, q8, "8"]) != 0:
             raise AssertionError("cli.quantize failed on the 6-block file")
     # mesh_paths' sharded artifacts, exported under the launcher meanwhile
     MESH_EXPORTS.update(start_mesh_exports(f16, q8, tmp))
-    gguf = os.path.join(d, "vit-b16-synthetic-f16.gguf")
+    gguf = os.path.join(d, "vit-b16-6-blocks-served.gguf")
     shutil.copyfile(f16, gguf)
     art = os.path.join(d, "vit-b16-w8a8.vitx")
     rc, _, err, secs = export_cli(gguf, art, "-b", "1,64")
@@ -4967,8 +5208,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
     }
     out = {}
 
-    # the two other exports at half depth: ViT-B/16's width, 6 blocks
-    f16 = f16_6
+    # the two other exports
     art_q8 = os.path.join(d, "vit-b16-q8_0-pallas.vitx")
     rc, _, err, secs = export_cli(q8, art_q8, "-b", "8", "--mm", "pallas")
     if rc != 0:
@@ -5042,7 +5282,8 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
         f"(fresh process): load {res['load_ms']:.1f} ms, attention_qkv launches per batch "
         f"{res['launches']}, max|p_aot - p_gguf| B=1 {errs[1]:.2e}, B=64 {errs[64]:.2e} "
         f"(tolerance {AOT_TOL:.0e}) on {card}")
-    if res["launches"] != {"1": 12, "64": 12} or max(errs.values()) > AOT_TOL:
+    if (res["launches"] != {"1": AOT_BLOCKS, "64": AOT_BLOCKS}
+            or max(errs.values()) > AOT_TOL):
         raise AssertionError(f"artifact: launches {res['launches']}, errors {errs}")
     os.rename(gguf + ".moved", gguf)
     nc_out, nc_err = nocard.communicate(timeout=300)
@@ -5110,7 +5351,7 @@ def aot_paths(f16: str, q8: str, tmp: str, card: str) -> dict:
 
     finish_mesh_exports(MESH_EXPORTS)  # nothing else on the card while the forwards are timed
     _, out["vitx W8A8 -b 1,64 B=64"] = aot_launches("aot W8A8 B=64", aot_engine, pixels,
-                                                    {KERNEL: 12})
+                                                    {KERNEL: AOT_BLOCKS})
     for b in (64, 1):
         timed_forwards(f"forward W8A8 bf16 B={b}", {
             "VitEngine (gguf)": lambda: engine.predict_probs_batch(pixels[:b]),
@@ -5379,9 +5620,9 @@ print(json.dumps({"export_s": export_s, "mesh": meta["mesh"],
 
 def start_mesh_exports(f16: str, q8: str, tmp: str) -> dict:
     """The sharded artifacts' exports, each one rank under the launcher
-    (_MESH_EXPORT), started by aot_paths beside its own work: the full
-    ViT-B/16 at the serving defaults (W8A8) and the AOT_BLOCKS-block Q8_0
-    file `q8` with --mm pallas. {what: [the launcher's process, the files'
+    (_MESH_EXPORT), started by aot_paths beside its own work: its
+    AOT_BLOCKS-block files, `f16` at the serving defaults (W8A8) and the
+    Q8_0 `q8` with --mm pallas. {what: [the launcher's process, the files'
     stem, blocks]}."""
     d = os.path.join(tmp, "mesh_vitx")
     os.makedirs(d)
@@ -5390,7 +5631,7 @@ def start_mesh_exports(f16: str, q8: str, tmp: str) -> dict:
         f.write(_MESH_EXPORT)
     env = dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="2")
     jobs = {}
-    for what, model, mm, blocks in (("W8A8", f16, "int8", 12),
+    for what, model, mm, blocks in (("W8A8", f16, "int8", AOT_BLOCKS),
                                     ("Q8_0 --mm pallas", q8, "pallas", AOT_BLOCKS)):
         stem = os.path.join(d, what.split()[0])
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -5450,8 +5691,8 @@ def check_mesh_artifacts(jobs: dict, procs: dict, tmp: str, bodies, card: str) -
             unsharded = AotEngine(os.path.join(tmp, "aot", "vit-b16-q8_0-pallas.vitx")).load_ms
             than = f"the unsharded {blocks}-block -b 8 artifact's {unsharded:.1f}"
         else:
-            than = (f"the unsharded -b 1,64 artifact's {AOT_LOAD_MS['vitx W8A8 -b 1,64']:.1f} "
-                    "(two programs)")
+            than = (f"the unsharded {blocks}-block -b 1,64 artifact's "
+                    f"{AOT_LOAD_MS['vitx W8A8 -b 1,64']:.1f} (two programs)")
         path = f"mesh 1x1 vitx {what} B=8"
         _, launches[path] = aot_launches(path, engine, pixels, per_batch)
         log(f"{path}: AotEngine rebuilt mesh {engine.meta['mesh']['axis_sizes']}, launches per "
@@ -6071,6 +6312,7 @@ def run_paths(card: str):
         flagship_forward(q8, images)
         vit_cli(f16, card)
         serve_launches = vit_serve(f16, q8, card)
+        serve_launches.update(wide_paths(tmp, card, images))
         serve_launches.update(embeddings(f16, card))
         serve_launches.update(serving_workflow(f16, q8, tmp, card))
         serve_launches.update(model_families(f16, tmp, card))
@@ -6149,6 +6391,14 @@ def main() -> int:
         encode_cost(card)
         log(smi)
         return 0
+    if sys.argv[1:] == ["--k1-wide"]:
+        # the wgmma body at d=80 and 88 alone: its cases against plain and
+        # the mma.sync body, then its times in turns with that body, SDPA
+        # and plain
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        time_k1_wide(card, gen, check_k1_wide(gen)[1])
+        log(smi)
+        return 0
     if sys.argv[1:] == ["--t1"]:
         # T1 alone: its d=64 edges, then its variants at the flagship shapes
         # (full bit-equal to K1, in turns with K1, K1's mma.sync body and
@@ -6215,9 +6465,9 @@ def main() -> int:
         raise AssertionError(f"the check-only mma.sync entries launched {MMA_KERNEL.launches} "
                              f"(attention) and {GRAD_MMA_KERNEL.launches} (backward) times on "
                              "the paths")
-    log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 d=64 "
-        "and f32 d=64 / 80 attention went through a wgmma body, every f32 d=64 / 80 and bf16 "
-        "d=64 backward through its wgmma body)")
+    log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 d=64, "
+        "80 and 88 and f32 d=64 / 80 attention went through a wgmma body, every f32 d=64 / 80 "
+        "and bf16 d=64 backward through its wgmma body)")
     remat_times = remat_kernels(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
@@ -6255,18 +6505,23 @@ def main() -> int:
         return {"mesh_shards": {case: dict(zip(keys, t)) for case, t in shards[name].items()}}
 
     log(json.dumps({"kernels": [
-        # K1: bf16 fast at ViT-B/16 B=8; B=64, T=577 / 785 at B=8 and the
-        # training forward (f32 safe, B=32; ViT-H/14 B=8 and 128, each with
-        # the mma.sync body's time in turns) beside it, and both at
-        # tensor-parallel shards
+        # K1: bf16 fast at ViT-B/16 B=8; B=64, T=577 / 785 at B=8, ViT-H/14
+        # (d=80) at B=8 (T=256 too) and 64 and ViT-g/14 (d=88) at B=8 and
+        # 32, and the training forward (f32 safe, B=32; ViT-H/14 B=8 and
+        # 128), each with the mma.sync body's time in turns, beside it, and
+        # both at tensor-parallel shards
         {**entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
                  b64=k1_times[(64, 197)], t577=k1_times[(8, 577)], t785=k1_times[(8, 785)],
-                 h14_bf16_b8=k1_times["h14"], g14_bf16_b8=k1_times["g14"],
+                 h14_bf16_b8=k1_times["h14_bf16_b8"], h14_bf16_b8_t256=k1_times["h14_bf16_b8_t256"],
+                 h14_bf16_b64=k1_times["h14_bf16_b64"], g14_bf16_b8=k1_times["g14_bf16_b8"],
+                 g14_bf16_b32=k1_times["g14_bf16_b32"],
                  f32_b32=k1_times["f32 B=32"], h14_f32_b8=remat_times[KERNEL.name],
                  h14_f32_b128=remat_times[KERNEL.name + " B=128"]),
-         **by_shard(KERNEL.name)},
+         **by_shard(KERNEL.name), "wide_edges_max_abs_err": k1_times["wide"][0],
+         "wide_edges_apart_from_mma_sync": dict(k1_times["wide"][1]),
+         "wide_timed_max_abs_err": k1_times["wide"][2]},
         # K4: its f32-output instantiation (a bf16 rank's row-parallel
         # partials) at the row shards of tp = 2, 4 under "f32_out"
         {**entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
@@ -6281,9 +6536,11 @@ def main() -> int:
          "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"],
          "f32_x_row_shards_max_rel_err": shard_errs["dequant_matmul f32 x"]},
         # K3: bf16 (8, 12, 197, 64); f32 at (8, 12, 197, 64) and ViT-H/14's
-        # (1, 16, 257, 80) beside it
+        # (1, 16, 257, 80), bf16 at (8, 16, 257, 80) and (8, 16, 257, 88)
+        # beside it
         entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1]),
-              f32=k3_f32_times[(8, 12, 197, 64)], f32_h14=k3_f32_times[(1, 16, 257, 80)]),
+              f32=k3_f32_times[(8, 12, 197, 64)], f32_h14=k3_f32_times[(1, 16, 257, 80)],
+              h14_bf16=k1_times["K3 d=80"], g14_bf16=k1_times["K3 d=88"]),
         # K2: f32 at ViT-B/16 B=32 (the training path's, the wgmma body,
         # with the mma.sync body's time in turns); bf16 (its wgmma body) at
         # B=32 and 64 T=197 and B=8 T=785, T=785 at B=4 and 8 and ViT-H/14

@@ -275,6 +275,7 @@ def test_cpu_tensors_launch_no_kernel():
     ("attn_grad_anatomy", ["--t", "8", "--h", "128", "--b", "1"]),
     ("probe_int8_dot", []),
     ("grad_variants", ["no-such-csrc-copy"]),
+    ("grad_variants", ["--entry", "k1", "no-such-csrc-copy"]),
 ])
 def test_tools_exit_nonzero_without_a_card(tool, argv):
     if torch.cuda.is_available():

@@ -4,10 +4,10 @@ On the CPU the port's `attention_qkv` runs its plain PyTorch version; the
 JAX `attention_qkv` runs its Pallas kernels in interpret mode, as the JAX
 package's own tests run them. Inputs are made with numpy from a seed and
 handed to both. The CUDA kernel itself is held against the plain version
-on the card (the `cuda` tests below, and chip_smoke.py): in bf16 at d=64
-its wgmma body, elsewhere its mma.sync and 3xTF32 bodies, and the
-mma.sync body at d=64 too through the check-only `attention_qkv_mma` /
-`flash_attention_mma`. The bf16 tolerance on the card (2e-2 absolute)
+on the card (the `cuda` tests below, and chip_smoke.py): in bf16 at d=64,
+80 and 88 its wgmma body, elsewhere its mma.sync and 3xTF32 bodies, and
+the mma.sync body at those d too through the check-only
+`attention_qkv_mma` / `flash_attention_mma`. The bf16 tolerance on the card (2e-2 absolute)
 is a few bf16 steps of O(1) outputs: both sides round p to bf16 for P V
 and the output to bf16, in another order of f32 sums.
 
@@ -55,6 +55,8 @@ def _both(qkv, nh, **kw):
         (2, 37, 2, 64),  # d=64: the TPU pair kernel
         (1, 29, 3, 64),  # odd head count: pair kernel + the _sdpa tail
         (2, 21, 2, 80),  # d=80 (ViT-H): the full-block carve kernel
+        (1, 257, 2, 80),  # ViT-H/14's T=257: one real row in the last 64-row tile
+        (2, 23, 2, 88),  # d=88 (ViT-g/14): 128 % d != 0, the same kernel
     ],
 )
 @pytest.mark.parametrize("fast", [False, True])
@@ -160,11 +162,13 @@ def _bhtd(b, h, t, d, seed):
     [
         (2, 3, 37, 64, "float32", ATOL),  # d=64
         (1, 2, 29, 80, "float32", ATOL),  # d=80 (ViT-H)
+        (1, 2, 29, 88, "float32", ATOL),  # d=88 (ViT-g)
         # bf16 on both sides: Q, p and the output round to bf16 at the
         # same places; one output step is 2^-8 of values up to ~2
         (2, 2, 33, 64, "bfloat16", 2e-2),
+        (1, 2, 65, 88, "bfloat16", 2e-2),
     ],
-    ids=["f32-d64", "f32-d80", "bf16-d64"],
+    ids=["f32-d64", "f32-d80", "f32-d88", "bf16-d64", "bf16-d88"],
 )
 def test_flash_attention_plain_matches_jax(b, h, t, d, dtype, atol):
     from vit_cpp_tpu.ops.flash_attention import flash_attention as jax_flash_attention
@@ -511,6 +515,50 @@ def test_mma_body_at_d64_matches_plain_on_card(t, kw):
     q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _bhtd(1, 4, t, 64, seed=t))
     torch.testing.assert_close(port.flash_attention_mma(q, k, v).float(),
                                port.flash_attention_plain(q, k, v).float(), atol=2e-2, rtol=0)
+
+
+# The bf16 body at d = 80 and 88 (wgmma + TMA, each 64-row tile a 64-column
+# box and a tail box): 64-query tiles and 64-key chunks (T = 1, 63, 64, 65,
+# 128, 129), the ring (d = 80: 3 chunks, 256 and 257 stream; d = 88: 4),
+# T = 257's one real row in the last tile, T = 577; ToMe sizes; kv at 256
+# of 257 and 64 of 70 with pad rows of 1e4; 1, 3 and 16 heads. Held to the
+# plain version, to the mma.sync body it replaced (the check-only entry)
+# bit for bit, and to itself from one call to the next.
+WIDE_EDGES = [(t, d, 4, {"fast": fast}) for d in (80, 88)
+              for t in (1, 63, 64, 65, 128, 129, 256, 257, 577) for fast in (True, False)] + [
+    (t, d, 4, {"fast": t == 257, "sizes": True}) for d in (80, 88) for t in (65, 257)] + [
+    (t, d, 4, {"fast": fast, "kv": kv}) for d in (80, 88) for t, kv in ((257, 256), (70, 64))
+    for fast in (True, False)] + [
+    (197, d, nh, {"fast": True}) for d in (80, 88) for nh in (1, 3, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "t,d,nh,kw", WIDE_EDGES,
+    ids=[f"T{t}-d{d}-h{nh}-" + "-".join(f"{k}{v}" for k, v in kw.items())
+         for t, d, nh, kw in WIDE_EDGES],
+)
+def test_wide_wgmma_body_matches_plain_and_mma_body_on_card(t, d, nh, kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    qkv = torch.from_numpy(_qkv(2, t, nh, d, seed=t + d + nh)).to("cuda", torch.bfloat16)
+    kw = dict(kw)
+    if kw.get("kv"):
+        qkv[:, kw["kv"]:] = 1e4
+    if kw.pop("sizes", False):
+        kw["sizes"] = torch.from_numpy(np.random.default_rng(t).integers(1, 5, (2, t)).astype(np.float32)).cuda()
+    before = (port.KERNEL.launches, port.MMA_KERNEL.launches)
+    got, again = port.attention_qkv(qkv, nh, **kw), port.attention_qkv(qkv, nh, **kw)
+    mma = port.attention_qkv_mma(qkv, nh, **kw)
+    assert (port.KERNEL.launches, port.MMA_KERNEL.launches) == (before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(got.float(), port.attention_qkv_plain(qkv, nh, **kw).float(),
+                               atol=2e-2, rtol=0)
+    assert torch.equal(got, mma) and torch.equal(got, again)
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in _bhtd(1, nh, t, d, seed=t))
+    got, again = port.flash_attention(q, k, v), port.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), port.flash_attention_plain(q, k, v).float(),
+                               atol=2e-2, rtol=0)
+    assert torch.equal(got, port.flash_attention_mma(q, k, v)) and torch.equal(got, again)
 
 
 # The f32 body at d = 64 and 80 (wgmma + TMA): 64-query tiles, 16-key

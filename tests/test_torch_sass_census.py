@@ -74,6 +74,11 @@ ptxas info    : Compile time = 543.421 ms
     ("void (anonymous namespace)::attention_wgmma<true, false>(CUtensorMap_st, CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, attn::WgCoords, float const*, int, int, float)",
      "attention_wgmma<true, false>"),
+    # the same body at d = 80 and 88 (D, fast, sizes)
+    ("void (anonymous namespace)::attention_wgmma_d<80, true, false>(attn::WgMaps, "
+     "attn::WgCoords, float const*, int, int, float)", "attention_wgmma_d<80, true, false>"),
+    ("void <unnamed>::attention_wgmma_d<(int)88, (bool)0, (bool)1>(attn::WgMaps, "
+     "attn::WgCoords, const float *, int, int, float)", "attention_wgmma_d<88, 0, 1>"),
     ("void anatomy::anatomy_wgmma<0, 0>(CUtensorMap_st, CUtensorMap_st, attn::WgCoords, int, "
      "float, attn::Group, __nv_bfloat16*, long long)", "anatomy_wgmma<0, 0>"),
     ("void anatomy::anatomy_wgmma<(int)7, (int)8>(CUtensorMap_st, CUtensorMap_st, "

@@ -5,8 +5,10 @@
 // Which body takes a call, at both entry points:
 //   bf16, d = 64          attention_wgmma (attention_wgmma.cuh: wgmma fed
 //                         by TMA; every ViT-Ti/S/B/L head)
+//   bf16, d = 80 and 88   attention_wgmma_d<D> (the same body, each tile a
+//                         64-column box and a tail box; ViT-H/14, ViT-g/14)
 //   bf16, any other d     attention_mma (attention_body.cuh: mma.sync fed
-//                         by cp.async; d = 72, 80, 88, 128, ...)
+//                         by cp.async; d = 72, 128, ...)
 //   f32, d = 64 and 80    attention_tf32_wgmma (attention_tf32_wgmma.cuh:
 //                         3xTF32 on wgmma fed by TMA; every training
 //                         forward, ViT-Ti/S/B/L and ViT-H/14, and f32
@@ -14,9 +16,10 @@
 //   f32, any other d      attention_tf32 (below: 3xTF32 on mma.sync;
 //                         d = 72, 88, 128, ...)
 // vit_attention_mma runs the mma.sync bodies at any d (bf16:
-// attention_mma; f32: attention_tf32), d = 64 and 80 included, so that the
-// checks can hold T1's `full` to the bf16 one bit for bit and time each
-// beside the wgmma body that replaced it; no path of the port calls it.
+// attention_mma; f32: attention_tf32), bf16 d = 64, 80, 88 and f32 d = 64,
+// 80 included, so that the checks can hold T1's `full` and the wgmma
+// bodies to the bf16 one bit for bit and time each beside the wgmma body
+// that replaced it; no path of the port calls it.
 //
 // vit_attention_qkv replaces the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::attention_qkv: _qkv_pair_kernel (d=64), _qkv_kernel
@@ -50,10 +53,10 @@
 // still not bound by HBM but by issue on the SM: the mma.sync products
 // (three per f32 product), then the exp2 of every score, while their K/V
 // copies hide behind the products. The wgmma bodies' notes say what they
-// do about that: bf16 at d = 64, f32 at d = 64 and 80.
+// do about that: bf16 at d = 64, 80 and 88, f32 at d = 64 and 80.
 //
-// bf16 body (attention_mma: serving, K1 and K3, at d != 64; its code is
-// attention_body.cuh, which the forward anatomy attn_anatomy.cu
+// bf16 body (attention_mma: K1 and K3 at d other than 64, 80 and 88; its
+// code is attention_body.cuh, which the forward anatomy attn_anatomy.cu
 // instantiates with stages changed), in the FlashAttention-2 manner. 8
 // warps, each owning 16 query rows (at ViT-B/16 B=64, 1536 blocks
 // of 128 query rows keep every SM busy, and an H100 ran them faster than
@@ -388,7 +391,22 @@ __global__ void __launch_bounds__(attn::kWgThreads, 3)
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap omap, attn::WgCoords co,
                     const float* __restrict__ sizes, int seq, int kv, float qscale) {
-  attn::attention_wgmma_body<kFast, kSizes>(qmap, kmap, vmap, omap, co, sizes, seq, kv, qscale);
+  attn::attention_wgmma_body<64, kFast, kSizes>(qmap, kmap, vmap, omap, co, sizes, seq, kv,
+                                                qscale);
+}
+
+// ---------------------------------------------- bf16 body, d = 80 and 88
+
+// The same body at head dimension D (80: ViT-H/14, 88: ViT-g/14), one
+// kernel per D, softmax and presence of sizes: each tile two TMA boxes
+// (attention_wgmma.cuh), three blocks per SM as at d = 64.
+template <int D, bool kFast, bool kSizes>
+__global__ void __launch_bounds__(attn::kWgThreads, 3)
+    attention_wgmma_d(const __grid_constant__ attn::WgMaps maps, attn::WgCoords co,
+                      const float* __restrict__ sizes, int seq, int kv, float qscale) {
+  attn::attention_wgmma_body<D, kFast, kSizes>(maps.q, maps.k, maps.v, maps.o, co, sizes, seq,
+                                               kv, qscale, attn::Group{1, 0, 1, 0}, nullptr, 0,
+                                               maps.tail);
 }
 
 // --------------------------------------------------- f32 body, d = 64, 80
@@ -455,35 +473,71 @@ cudaError_t launch(const Args<bf16>& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The operands of a wgmma launch: tensor maps of Q, K, V and the output
-// (for fused qkv the first three are one map), where a (batch, head)'s
-// tiles lie in them, and the geometry.
+// The operands of a bf16 wgmma launch: tensor maps of Q, K, V and the
+// output (for fused qkv the first three are one map; at d = 80 and 88 each
+// with its tail box's map), where a (batch, head)'s tiles lie in them, and
+// the geometry.
 struct WgArgs {
-  CUtensorMap q, k, v, o;
+  attn::WgMaps m;
   attn::WgCoords co;
   const float* sizes;
-  int batch, seq, nh, kv;
+  int batch, seq, nh, d, kv;
   float qscale;
   int fast;
 };
 
-template <bool kFast, bool kSizes>
+template <int D, bool kFast, bool kSizes>
 cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t stream) {
   static bool configured = false;
-  cudaError_t err = allow_smem(attention_wgmma<kFast, kSizes>, attn::wgmma_smem_bytes(1 << 30),
-                               configured);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.seq + attn::kWgRows - 1) / attn::kWgRows, a.nh, a.batch);
-  const size_t bytes = attn::wgmma_smem_bytes(a.kv);
-  attention_wgmma<kFast, kSizes><<<grid, attn::kWgThreads, bytes, stream>>>(
-      a.q, a.k, a.v, a.o, a.co, a.sizes, a.seq, a.kv, a.qscale);
+  const size_t bytes = attn::wgmma_smem_bytes<D>(a.kv);
+  if constexpr (D == 64) {
+    cudaError_t err = allow_smem(attention_wgmma<kFast, kSizes>,
+                                 attn::wgmma_smem_bytes<64>(1 << 30), configured);
+    if (err != cudaSuccess) return err;
+    attention_wgmma<kFast, kSizes><<<grid, attn::kWgThreads, bytes, stream>>>(
+        a.m.q, a.m.k, a.m.v, a.m.o, a.co, a.sizes, a.seq, a.kv, a.qscale);
+  } else {
+    cudaError_t err = allow_smem(attention_wgmma_d<D, kFast, kSizes>,
+                                 attn::wgmma_smem_bytes<D>(1 << 30), configured);
+    if (err != cudaSuccess) return err;
+    attention_wgmma_d<D, kFast, kSizes><<<grid, attn::kWgThreads, bytes, stream>>>(
+        a.m, a.co, a.sizes, a.seq, a.kv, a.qscale);
+  }
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t stream) {
   if (a.fast)
-    return a.sizes ? launch_wgmma<true, true>(a, stream) : launch_wgmma<true, false>(a, stream);
-  return a.sizes ? launch_wgmma<false, true>(a, stream) : launch_wgmma<false, false>(a, stream);
+    return a.sizes ? launch_wgmma<D, true, true>(a, stream)
+                   : launch_wgmma<D, true, false>(a, stream);
+  return a.sizes ? launch_wgmma<D, false, true>(a, stream)
+                 : launch_wgmma<D, false, false>(a, stream);
+}
+
+cudaError_t launch_wgmma(const WgArgs& a, cudaStream_t stream) {
+  switch (a.d) {
+    case 64: return launch_wgmma<64>(a, stream);
+    case 80: return launch_wgmma<80>(a, stream);
+    case 88: return launch_wgmma<88>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The 4-D maps of one bf16 operand at d = 80 or 88, (d columns, heads,
+// tokens, planes) with heads d * 2 bytes apart: the 64-column box in the
+// 128-byte swizzle into `main`, the tail box (attn::wgmma_tail columns, a
+// row of it one swizzle span) into `tail`; 64-row boxes.
+cudaError_t encode_wide(CUtensorMap* main, CUtensorMap* tail, const void* base, int d,
+                        uint64_t heads, uint64_t rows, uint64_t planes, uint64_t row_bytes,
+                        uint64_t plane_bytes) {
+  const uint64_t dims[4] = {(uint64_t)d, heads, rows, planes};
+  const uint64_t strides[3] = {(uint64_t)d * 2, row_bytes, plane_bytes};
+  cudaError_t err = tc::encode_bf16_4d(main, base, dims, strides, attn::kWgD, attn::kWgRows, 128);
+  if (err != cudaSuccess) return err;
+  const int cols = d == 80 ? attn::wgmma_tail<80>() : attn::wgmma_tail<88>();
+  return tc::encode_bf16_4d(tail, base, dims, strides, cols, attn::kWgRows, 2 * cols);
 }
 
 // The operands of an f32 wgmma launch: tensor maps of Q (64-row boxes), K
@@ -560,7 +614,8 @@ bool bad_geometry(int batch, int seq, int nh, int d) {
 }
 
 // Fused QKV: q | k | v thirds of (B, T, 3h) rows; output (B, T, h). bf16
-// at d = 64 and f32 at d = 64 and 80 take the wgmma bodies unless `mma`.
+// at d = 64, 80 and 88 and f32 at d = 64 and 80 take the wgmma bodies
+// unless `mma`.
 template <typename T>
 cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
                     int seq, int nh, int d, int kv, float qscale, int fast,
@@ -580,20 +635,33 @@ cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
     }
   }
   if constexpr (sizeof(T) == 2) {
-    if (d == attn::kWgD && !mma) {
+    if (attn::wgmma_takes(d) && !mma) {
       // planes are images: rows of 3h (tokens past kv load as zeros) in,
-      // rows of h out; a head's Q, K and V are column offsets
+      // rows of h out; a head's Q, K and V are column offsets (d = 64) or
+      // head offsets (d = 80, 88: 3 nh heads of d columns a row)
       WgArgs w;
-      cudaError_t err = tc::encode_sw128_3d(&w.q, qkv, 3 * h, kv, batch, 3 * h * 2,
-                                            (uint64_t)seq * 3 * h * 2, attn::kWgD, attn::kWgRows);
-      if (err == cudaSuccess)
-        err = tc::encode_sw128_3d(&w.o, out, h, seq, batch, h * 2, (uint64_t)seq * h * 2,
-                                  attn::kWgD, attn::kWgRows);
+      cudaError_t err;
+      if (d == attn::kWgD) {
+        err = tc::encode_sw128_3d(&w.m.q, qkv, 3 * h, kv, batch, 3 * h * 2,
+                                  (uint64_t)seq * 3 * h * 2, attn::kWgD, attn::kWgRows);
+        if (err == cudaSuccess)
+          err = tc::encode_sw128_3d(&w.m.o, out, h, seq, batch, h * 2, (uint64_t)seq * h * 2,
+                                    attn::kWgD, attn::kWgRows);
+        w.co = attn::WgCoords{0, (int)h, (int)(2 * h), d, 1, 0};
+      } else {
+        err = encode_wide(&w.m.q, &w.m.tail[0], qkv, d, 3 * nh, kv, batch, 3 * h * 2,
+                          (uint64_t)seq * 3 * h * 2);
+        if (err == cudaSuccess)
+          err = encode_wide(&w.m.o, &w.m.tail[3], out, d, nh, seq, batch, h * 2,
+                            (uint64_t)seq * h * 2);
+        w.m.tail[1] = w.m.tail[2] = w.m.tail[0];
+        w.co = attn::WgCoords{0, nh, 2 * nh, 1, 1, 0};
+      }
       if (err != cudaSuccess) return err;
-      w.k = w.v = w.q;
-      w.co = attn::WgCoords{0, (int)h, (int)(2 * h), d, 1, 0};
+      w.m.k = w.m.v = w.m.q;
       w.sizes = static_cast<const float*>(sizes);
-      w.batch = batch, w.seq = seq, w.nh = nh, w.kv = kv, w.qscale = qscale, w.fast = fast;
+      w.batch = batch, w.seq = seq, w.nh = nh, w.d = d, w.kv = kv, w.qscale = qscale;
+      w.fast = fast;
       return launch_wgmma(w, stream);
     }
   }
@@ -605,7 +673,8 @@ cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
 }
 
 // Split heads: q, k, v and output each (B, H, T, D); safe softmax. bf16
-// at d = 64 and f32 at d = 64 and 80 take the wgmma bodies unless `mma`.
+// at d = 64, 80 and 88 and f32 at d = 64 and 80 take the wgmma bodies
+// unless `mma`.
 template <typename T>
 cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
                      int batch, int nh, int seq, int d, float qscale, bool mma,
@@ -623,21 +692,26 @@ cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
     }
   }
   if constexpr (sizeof(T) == 2) {
-    if (d == attn::kWgD && !mma) {
-      // planes are (image, head) pairs of seq rows of 64
+    if (attn::wgmma_takes(d) && !mma) {
+      // planes are (image, head) pairs of seq rows of d (d = 80, 88: one
+      // head a plane)
       if ((long long)batch * nh > 0x7fffffff) return cudaErrorInvalidValue;
       WgArgs w;
       const void* src[4] = {q, k, v, out};
-      CUtensorMap* map[4] = {&w.q, &w.k, &w.v, &w.o};
+      CUtensorMap* map[4] = {&w.m.q, &w.m.k, &w.m.v, &w.m.o};
       for (int i = 0; i < 4; ++i) {
         const cudaError_t err =
-            tc::encode_sw128_3d(map[i], src[i], d, seq, (uint64_t)batch * nh, d * 2,
-                                (uint64_t)seq * d * 2, attn::kWgD, attn::kWgRows);
+            d == attn::kWgD
+                ? tc::encode_sw128_3d(map[i], src[i], d, seq, (uint64_t)batch * nh, d * 2,
+                                      (uint64_t)seq * d * 2, attn::kWgD, attn::kWgRows)
+                : encode_wide(map[i], &w.m.tail[i], src[i], d, 1, seq, (uint64_t)batch * nh,
+                              d * 2, (uint64_t)seq * d * 2);
         if (err != cudaSuccess) return err;
       }
       w.co = attn::WgCoords{0, 0, 0, 0, nh, 1};
       w.sizes = nullptr;
-      w.batch = batch, w.seq = seq, w.nh = nh, w.kv = seq, w.qscale = qscale, w.fast = 0;
+      w.batch = batch, w.seq = seq, w.nh = nh, w.d = d, w.kv = seq, w.qscale = qscale;
+      w.fast = 0;
       return launch_wgmma(w, stream);
     }
   }
@@ -687,8 +761,9 @@ extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The bodies the wgmma ones replaced, at any d, d = 64 (and f32's 80)
-// included, for the checks only: bf16 through the mma.sync body
+// The bodies the wgmma ones replaced, at any d, bf16's 64, 80 and 88 and
+// f32's 64 and 80 included, for the checks only: bf16 through the mma.sync
+// body
 // (attention_mma; T1's `full` is that body bit for bit), f32 through the
 // 3xTF32 mma.sync body (attention_tf32); chip_smoke.py times each beside
 // the wgmma body that replaced it. No path of the port calls it. dtype as

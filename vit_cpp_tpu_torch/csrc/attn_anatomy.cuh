@@ -88,8 +88,9 @@ __global__ void __launch_bounds__(attn::kWgThreads, 3)
     anatomy_wgmma(const __grid_constant__ CUtensorMap qkv,
                   const __grid_constant__ CUtensorMap omap, attn::WgCoords co, int seq,
                   float qscale, attn::Group grp, bf16* dots, long long dots_row) {
-  attn::attention_wgmma_body<true, false, Stages<V, NKS>>(qkv, qkv, qkv, omap, co, nullptr, seq,
-                                                          seq, qscale, grp, dots, dots_row);
+  attn::attention_wgmma_body<64, true, false, Stages<V, NKS>>(qkv, qkv, qkv, omap, co, nullptr,
+                                                              seq, seq, qscale, grp, dots,
+                                                              dots_row);
 }
 
 // The tensor maps are encoded per call, as K1's fused-qkv call does: planes
@@ -102,7 +103,7 @@ cudaError_t launch_wgmma(const Args& a, const attn::Group& grp, cudaStream_t str
   if (!configured) {
     const cudaError_t err =
         cudaFuncSetAttribute(anatomy_wgmma<V, NKS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)attn::wgmma_smem_bytes<S>(1 << 30));
+                             (int)attn::wgmma_smem_bytes<64, S>(1 << 30));
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -115,7 +116,8 @@ cudaError_t launch_wgmma(const Args& a, const attn::Group& grp, cudaStream_t str
                               (uint64_t)a.seq * a.out_stride * 2, attn::kWgD, attn::kWgRows);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq + attn::kWgRows - 1) / attn::kWgRows, a.nh, a.batch);
-  anatomy_wgmma<V, NKS><<<grid, attn::kWgThreads, attn::wgmma_smem_bytes<S>(a.seq), stream>>>(
+  anatomy_wgmma<V, NKS><<<grid, attn::kWgThreads, attn::wgmma_smem_bytes<64, S>(a.seq),
+                          stream>>>(
       mq, mo, attn::WgCoords{0, (int)h, (int)(2 * h), attn::kWgD, 1, 0}, a.seq, a.qscale, grp,
       a.out, a.out_stride);
   return cudaGetLastError();

@@ -7,8 +7,10 @@
 // bf16 m64n128k16 and tf32 m64n128k8 with A from registers, sm_90a),
 // probe_int8_dot.cu (T3: TMA loads and stores and
 // wgmma, bf16 m64n128k16 and s8 m64n128k32) and attention_wgmma.cuh (K1
-// and K3 in bf16 at d = 64: 3-D TMA loads and stores, bf16 m64n64k16 with
-// A from shared memory or from registers), attention_grad_wgmma.cuh and
+// and K3 in bf16 at d = 64, 80 and 88: 3-D and 4-D TMA loads and stores,
+// bf16 m64n64k16 with A from shared memory or from registers, m64n16k16,
+// m64n24k16 and m64n32k16 with A from registers, in the 128-, 64- and
+// 32-byte swizzles), attention_grad_wgmma.cuh and
 // attention_tf32_wgmma.cuh (K2, and K1 and K3, in f32 at d = 64 and 80,
 // through tf32_wgmma.cuh: tf32 m64nNk8 with both operands from shared
 // memory, N = 8 to 32, and m64n64k8 / m64n80k8 with A from registers, in
@@ -201,6 +203,15 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo, uint3
          (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)2 << 62;
 }
 
+// The same in the 32-byte swizzle: rows of 32 bytes in atoms of 8 rows
+// (256 bytes, 256-aligned) in which the 16-byte chunk j of row r is stored
+// at chunk j ^ ((r / 4) % 2) (attention_wgmma.cuh at d = 80: the 16
+// columns of a row past its first 64).
+__device__ __forceinline__ uint64_t sw32_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)3 << 62;
+}
+
 // The same with no swizzle (attention_wgmma.cuh's ones tile): 8-row core
 // matrices of 16-byte rows, 128 bytes each, `lbo` apart along K and `sbo`
 // apart along M or N.
@@ -352,6 +363,47 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4], const uint32_t 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 8 NT f32) = A B, or += A B with `accumulate`: A as
+// wgmma_m64n64k16_rs takes it, B 16 x 8 NT bf16 from shared memory,
+// MN-major (the transpose bit) within one swizzle atom's width (NT = 2:
+// 16 columns in the 32-byte swizzle; 3: 24 of the 64-byte one's 32: the
+// columns of a d = 80 / 88 V row past its first 64).
+// Accumulators as m64n64's, d[4 j + e] at column 8 j + 2 q + (e & 1).
+// Asynchronous, as above.
+template <int NT>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[4 * NT], const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<2>(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<3>(float (&d)[12], const uint32_t (&a)[4],
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
@@ -662,6 +714,26 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, int c0, int
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
       :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+
+// The same for a 4-D tensor: the box at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, int c0, int c1, int c2,
+                                             int c3, const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(smem_u32(src))
       : "memory");
 }
 

@@ -1,5 +1,6 @@
 // Host side of TMA for dequant_matmul.cu (K4), probe_int8_dot.cu (T3),
-// attention_qkv.cu (K1 and K3's wgmma bodies) and attention_qkv_grad.cu
+// attention_qkv.cu (K1 and K3's wgmma bodies, 3-D and, at d = 80 and 88
+// in bf16, 4-D) and attention_qkv_grad.cu
 // (K2's f32 wgmma body):
 // tensor maps encoded by libcuda's cuTensorMapEncodeTiled, looked up
 // through the runtime (no link against libcuda). A map is passed to its
@@ -79,6 +80,33 @@ inline cudaError_t encode_sw_3d(CUtensorMap* map, CUtensorMapDataType type, cons
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle sw = swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   if (encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// `map` of a 4-D bf16 tensor at `base`: dims[0] elements a row (the
+// innermost), then dims[1], dims[2] and dims[3], `strides` bytes apart,
+// as TMA moves it in boxes of `box_rows` along dims[2] x `box_cols`
+// elements (one along dims[1] and dims[3]) in the `swizzle`-byte swizzle
+// (32, 64 or 128; `box_cols` at most `swizzle` bytes). A box past any
+// extent loads zeros there and does not store there (attention_wgmma.cuh
+// at d = 80 and 88: (d, heads, tokens, planes), so that a tail box read
+// past column d is zeros and a stored one stops at d).
+inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                                  const uint64_t (&strides)[3], uint32_t box_cols,
+                                  uint32_t box_rows, int swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t box[4] = {box_cols, 1, box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, st, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;

@@ -15,16 +15,19 @@ its own C entry point and launch counter:
 
 Which body of the kernel a call runs, at both entry points:
 
-    bf16, d = 64         wgmma + TMA (csrc/attention_wgmma.cuh)
-    bf16, any other d    mma.sync (csrc/attention_body.cuh)
-    f32, d = 64 and 80   3xTF32 on wgmma + TMA (csrc/attention_tf32_wgmma.cuh)
-    f32, any other d     3xTF32 on mma.sync (attention_tf32, attention_qkv.cu)
+    bf16, d = 64, 80, 88  wgmma + TMA (csrc/attention_wgmma.cuh; at 80 and
+                          88, ViT-H/14's and ViT-g/14's heads, each tile a
+                          64-column box and a tail box)
+    bf16, any other d     mma.sync (csrc/attention_body.cuh)
+    f32, d = 64 and 80    3xTF32 on wgmma + TMA (csrc/attention_tf32_wgmma.cuh)
+    f32, any other d      3xTF32 on mma.sync (attention_tf32, attention_qkv.cu)
 
 `attention_qkv_mma` and `flash_attention_mma` (MMA_KERNEL) run the
-mma.sync bodies at any d, in bf16 and in f32, d = 64 and 80 included: for
-the checks only (the forward anatomy's `full` is the bf16 body bit for
-bit; chip_smoke.py times each beside the wgmma body that replaced it). No
-path of the port calls them.
+mma.sync bodies at any d, in bf16 and in f32, bf16 d = 64, 80, 88 and f32
+d = 64, 80 included: for the checks only (the forward anatomy's `full`
+and the wgmma body are the bf16 body bit for bit; chip_smoke.py times
+each beside the wgmma body that replaced it). No path of the port calls
+them.
 
 and of the backward kernel, csrc/attention_qkv_grad.cu:
 

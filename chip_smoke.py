@@ -370,6 +370,7 @@ import io
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import tempfile
@@ -936,12 +937,36 @@ def k2_bound(b: int, t: int, h: int, esize: int):
                  "f32" if esize == 4 else "bf16")
 
 
-def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64, dtype=torch.float32) -> dict:
+def hold_timed(name: str, kern, mma, plain, tol: float, held: dict) -> None:
+    """A timed f32 shape held before its timing, on the input it is timed
+    on: the kernel's output finite, within tol of the plain version's and
+    of the check-only mma.sync entry's, and equal to its next call bit for
+    bit; the error to plain (over max|plain| where `tol` is relative, the
+    backward's) is logged and kept as held[name]'s worst."""
+    got, again, ref, m = kern(), kern(), plain(), mma()
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item() if name == "attention_qkv_grad" else 1.0
+    err = (got - ref).abs().max().item() / scale
+    err_mma = (got - m).abs().max().item() / scale
+    same = torch.equal(got, again)
+    log(f"  held before timing: max|kernel - plain| = {err:.3e}"
+        + (" x max|plain|" if scale != 1.0 else "")
+        + f", max|kernel - mma.sync body| = {err_mma:.3e} (tolerance {tol:.0e}); two calls "
+        f"bit-equal: {same}")
+    if not (torch.isfinite(got).all() and err <= tol and err_mma <= tol and same):
+        raise AssertionError(f"{name} timed shape: error {err}, {err_mma} to the mma.sync body, "
+                             f"bit-equal {same}")
+    held[name] = max(held.get(name, 0.0), err)
+
+
+def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64, dtype=torch.float32,
+                   held: dict = None) -> dict:
     """The backward's wgmma body, the mma.sync body it replaced (the
     check-only entry), SDPA's backward and the plain version in turns
     (queued device ms) at `shapes` (B, T, heads) of heads of d in `dtype`,
     each beside its bound; {(B, T, heads): (wgmma, plain, bound ms, bound
-    by, SDPA, mma.sync ms)}, the kernels line's order."""
+    by, SDPA, mma.sync ms)}, the kernels line's order. With `held` (f32),
+    each shape's input is first held by hold_timed."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
     out = {}
@@ -949,6 +974,11 @@ def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64, dtype=torch.flo
         h = d * nh
         qkv = torch.randn((b, t, 3 * h), generator=gen, device="cuda").to(dtype)
         do = torch.randn((b, t, h), generator=gen, device="cuda").to(dtype)
+        if held is not None:
+            log(f"attention_qkv_grad timed shape B={b} T={t} nh={nh} d={d} {str(dtype)[6:]}:")
+            hold_timed("attention_qkv_grad", lambda: fa.attention_qkv_grad(qkv, do, nh),
+                       lambda: fa.attention_qkv_grad_mma(qkv, do, nh),
+                       lambda: fa.attention_qkv_grad_plain(qkv, do, nh), GRAD_TOL[dtype], held)
         r = turns({"wgmma": lambda: fa.attention_qkv_grad(qkv, do, nh),
                    "mma.sync": lambda: fa.attention_qkv_grad_mma(qkv, do, nh),
                    "sdpa": sdpa_grad_fn(qkv, do, nh),
@@ -966,30 +996,31 @@ def time_k2_bodies(card: str, gen, shapes=K2_TIMED, d: int = 64, dtype=torch.flo
     return out
 
 
-# K1's f32 body (wgmma + TMA) at d=64 and 80: 64-row query tiles, 32-key
-# chunks taken by two warpgroups in turn with 8-key tails (T=1, 8, 63, 64,
-# 65, 127, 128, 129), ToMe's and ViT-B/16's lengths (196, 197), ViT-H/14's
-# (256, 257: one real row in the last tile) and the lane shapes (577,
-# 785); fast and safe; sizes at 65, 197 and 257; kv at 197 of 200, 256 of
-# 257 and 64 of 70 with pad rows of 1e4; 1, 3, 12 and 16 heads. (name, d,
-# B, T, heads, kwargs)
+# K1's f32 body (wgmma + TMA) at d=64, 80 and 88: 64-row query tiles,
+# 16-key chunks taken by two warpgroups in turn with 8-key tails (T=1, 8,
+# 63, 64, 65, 127, 128, 129), ToMe's and ViT-B/16's lengths (196, 197),
+# ViT-H/14's and ViT-g/14's (256, 257: one real row in the last tile; 258)
+# and the lane shapes (577, 785); fast and safe; sizes at 65, 197 and 257;
+# kv at 197 of 200, 256 of 257 and 64 of 70 with pad rows of 1e4; 1, 3,
+# 12 and 16 heads. (name, d, B, T, heads, kwargs)
+K1_F32_D = (64, 80, 88)
 K1_F32_EDGES = (
     [(f"d={d} T={t} {mode}", d, 2, t, 3, {"fast": mode == "fast"})
-     for d in (64, 80)
-     for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 256, 257, 577, 785)
+     for d in K1_F32_D
+     for t in (1, 8, 63, 64, 65, 127, 128, 129, 196, 197, 256, 257, 258, 577, 785)
      for mode in ("fast", "safe")]
     + [(f"d={d} T={t} {mode} sizes", d, 2, t, 3, {"fast": mode == "fast", "sizes": True})
-       for d in (64, 80) for t, mode in ((65, "safe"), (197, "fast"), (257, "safe"))]
+       for d in K1_F32_D for t, mode in ((65, "safe"), (197, "fast"), (257, "safe"))]
     + [(f"d={d} kv={kv} T={t} {mode}, pad rows 1e4", d, 2, t, 3,
         {"fast": mode == "fast", "kv": kv})
-       for d in (64, 80) for kv, t in ((197, 200), (256, 257), (64, 70))
+       for d in K1_F32_D for kv, t in ((197, 200), (256, 257), (64, 70))
        for mode in ("fast", "safe")]
     + [(f"d={d} T=197 safe nh={nh}", d, 2, 197, nh, {"fast": False})
-       for d in (64, 80) for nh in (1, 12, 16)]
+       for d in K1_F32_D for nh in (1, 12, 16)]
 )
 
 # The split-head entry's (K3's) f32 shapes (B, H, T, D)
-K3_F32_EDGES = ((8, 12, 197, 64), (1, 16, 257, 80))
+K3_F32_EDGES = ((8, 12, 197, 64), (1, 16, 257, 80), (1, 16, 257, 88))
 
 # K1's f32 timed shapes: (label, B, T, d, heads, fast). ViT-B/16 training
 # at B=32 and --patch-size 8 (T=785, K1') at B=8, ViT-H/14 at B=8 and 128
@@ -1000,9 +1031,10 @@ K1_F32_TIMED = (("vit-b16", 32, 197, 64, 12, False), ("vit-b8", 8, 785, 64, 12, 
                 ("vit-h14 B=128", 128, 257, 80, 16, False),
                 ("vit-b16 fast", 64, 197, 64, 12, True))
 
-# K2's d=80 edges (B, T, heads, sizes): 16-token chunks, 64-row blocks;
-# and its timed shapes, ViT-H/14 at B=8 (T=256 beside 257) and B=128
-K2_D80_EDGES = (
+# K2's d=80 and d=88 edges (B, T, heads, sizes): launch B's 16-token
+# chunks, 64-row blocks; and its timed shapes, ViT-H/14 at B=8 (T=256
+# beside 257) and B=128
+K2_WIDE_EDGES = (
     [(2, t, 3, False) for t in (1, 8, 63, 64, 65, 129, 256, 257, 258, 785)]
     + [(2, t, 3, True) for t in (65, 257)]
     + [(2, 257, nh, False) for nh in (1, 16)]
@@ -1010,19 +1042,20 @@ K2_D80_EDGES = (
 K2_D80_TIMED = ((8, 257, 16), (8, 256, 16), (128, 257, 16))
 
 
-def check_k1_f32(gen) -> float:
-    """K1's f32 wgmma body at its edges (K1_F32_EDGES, a misaligned qkv at
-    d=64 and 80, K3_F32_EDGES): each against the plain version and against
-    the 3xTF32 mma.sync body it replaced (the check-only entry) within
-    TOL[f32], two calls bit-equal, with their launch counts; the worst
-    error."""
+def check_k1_f32(gen, dims=K1_F32_D) -> float:
+    """K1's f32 wgmma body at its edges at head dimensions `dims`
+    (K1_F32_EDGES, a misaligned qkv, K3_F32_EDGES): each against the plain
+    version and against the 3xTF32 mma.sync body it replaced (the
+    check-only entry) within TOL[f32], two calls bit-equal, with their
+    launch counts; the worst error."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
     f32, tol, worst = torch.float32, TOL[torch.float32], 0.0
     before = (fa.KERNEL.launches, fa.MMA_KERNEL.launches, fa.FLASH_KERNEL.launches)
-    cases = [(*c, False) for c in K1_F32_EDGES]
+    cases = [(*c, False) for c in K1_F32_EDGES if c[1] in dims]
     cases += [(f"d={d} T={t} safe misaligned qkv", d, 2, t, nh, {"fast": False}, True)
-              for d, t, nh in ((64, 197, 12), (80, 257, 16))]
+              for d, t, nh in ((64, 197, 12), (80, 257, 16), (88, 257, 16)) if d in dims]
+    k3_edges = [shape for shape in K3_F32_EDGES if shape[3] in dims]
     for name, d, b, t, nh, kw, shift in cases:
         qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda")
         kw = dict(kw)
@@ -1048,7 +1081,7 @@ def check_k1_f32(gen) -> float:
             raise AssertionError(f"attention_qkv f32 wgmma body {name}: error {err}, {err_mma} "
                                  f"to the mma.sync body, bit-equal {same}")
         worst = max(worst, err)
-    for shape in K3_F32_EDGES:
+    for shape in k3_edges:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
         got, again = fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)
         mma, ref = fa.flash_attention_mma(q, k, v), fa.flash_attention_plain(q, k, v)
@@ -1063,7 +1096,7 @@ def check_k1_f32(gen) -> float:
         if not (err <= tol and err_mma <= tol and same):
             raise AssertionError(f"flash_attention f32 {shape}: error {err}, {err_mma}, {same}")
         worst = max(worst, err)
-    n, n3 = len(cases), len(K3_F32_EDGES)
+    n, n3 = len(cases), len(k3_edges)
     got = (fa.KERNEL.launches - before[0], fa.MMA_KERNEL.launches - before[1],
            fa.FLASH_KERNEL.launches - before[2])
     if got != (2 * n, n + n3, 2 * n3):
@@ -1072,14 +1105,21 @@ def check_k1_f32(gen) -> float:
 
 
 def time_k1_f32(card: str, gen, label: str, b: int, t: int, d: int, nh: int,
-                fast: bool) -> tuple:
+                fast: bool, held: dict = None) -> tuple:
     """K1's f32 wgmma body, the mma.sync body it replaced (the check-only
     entry), scaled_dot_product_attention and the plain version in turns
     (queued device ms) at one shape, beside its bound: (wgmma, plain, bound
-    ms, bound by, SDPA, mma.sync ms), the kernels line's order."""
+    ms, bound by, SDPA, mma.sync ms), the kernels line's order. With
+    `held`, the input is first held by hold_timed."""
     from vit_cpp_tpu_torch.ops import flash_attention as fa
 
     qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda")
+    if held is not None:
+        log(f"attention_qkv timed shape {label} B={b} T={t} nh={nh} d={d} f32 "
+            f"{'fast' if fast else 'safe'}:")
+        hold_timed("attention_qkv", lambda: fa.attention_qkv(qkv, nh, fast=fast),
+                   lambda: fa.attention_qkv_mma(qkv, nh, fast=fast),
+                   lambda: fa.attention_qkv_plain(qkv, nh, fast=fast), TOL[torch.float32], held)
     r = turns({"wgmma": lambda: fa.attention_qkv(qkv, nh, fast=fast),
                "mma.sync": lambda: fa.attention_qkv_mma(qkv, nh, fast=fast),
                "sdpa": sdpa_fn(qkv, nh),
@@ -1970,7 +2010,8 @@ def wide_paths(tmp: str, card: str, images) -> dict:
             f"{os.path.getsize(path) / 2**20:.0f} MiB")
         out[what] = serve(what, path, "int8", {KERNEL: geometry["num_hidden_layers"]}, PROB_TOL,
                           images, after=after)
-        os.remove(path)
+        if geometry is VIT_H14:  # ViT-g/14's file stays for g14_paths
+            os.remove(path)
     log(f"wide_paths: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -4857,10 +4898,11 @@ def extras_parity(f32: str, teacher: str) -> None:
         raise AssertionError(f"bf16 AdamW parameters {ulps} ulps apart card vs CPU")
 
 
-def extras_finetune(what: str, argv: list, updates: int) -> dict:
-    """One cli.finetune run on the card: finite losses, 12 attention_qkv +
-    12 attention_qkv_grad launches per update, ms per update after the
-    first, peak device memory. Returns {"k1", "k2", "ms", "peak_gib"}."""
+def extras_finetune(what: str, argv: list, updates: int, per_update: int = 12) -> dict:
+    """One cli.finetune run on the card: finite losses, `per_update` (the
+    depth) attention_qkv + attention_qkv_grad launches per update, ms per
+    update after the first, peak device memory. Returns {"k1", "k2", "ms",
+    "peak_gib"}."""
     from vit_cpp_tpu_torch.cli import finetune as cli_finetune
     from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
 
@@ -4880,13 +4922,13 @@ def extras_finetune(what: str, argv: list, updates: int) -> dict:
     timing = re.search(r"([\d.]+) ms per update after the first", err.getvalue())
     if rc != 0 or not losses or not np.isfinite(losses).all() or timing is None:
         raise AssertionError(f"{what}: rc {rc}, losses {losses}")
-    if (k1, k2) != (12 * updates, 12 * updates):
+    if (k1, k2) != (per_update * updates, per_update * updates):
         raise AssertionError(f"{what}: launches {k1} attention_qkv + {k2} attention_qkv_grad "
-                             f"for {updates} updates (want 12 each per update)")
+                             f"for {updates} updates (want {per_update} each per update)")
     ms = float(timing.group(1))
     log(f"{what}: {updates} updates, losses {losses}, {ms} ms per update after the first, "
         f"peak device memory {peak / 2**30:.2f} GiB, run {seconds:.1f} s; launches {k1} "
-        f"attention_qkv + {k2} attention_qkv_grad = 12 + 12 per update")
+        f"attention_qkv + {k2} attention_qkv_grad = {per_update} + {per_update} per update")
     return {"k1": k1, "k2": k2, "ms": ms, "peak_gib": peak / 2**30}
 
 
@@ -6079,6 +6121,163 @@ def remat_kernels(card: str) -> dict:
     return out
 
 
+# ViT-g/14's training shapes (16 heads of d=88, T=257) at which K1 f32 safe
+# and K2 f32 are timed: B=8 (and T=256 beside it: what the fifth 64-row
+# tile's one real row costs) and B=64. (key, B, T)
+G14_TIMED = (("g14_f32_b8", 8, 257), ("g14_f32_b8_t256", 8, 256), ("g14_f32_b64", 64, 257))
+
+
+def g14_kernels(card: str) -> tuple:
+    """K1 (f32, safe) and K2 (f32) at ViT-g/14's training shapes
+    (G14_TIMED, 16 heads of d=88): each shape's input held first
+    (hold_timed: within TOL[f32], K2 within GRAD_TOL[f32] x max|plain|, of
+    the plain version and of the check-only mma.sync entry, two calls
+    bit-equal), then timed in turns with the mma.sync body it replaced,
+    scaled_dot_product_attention f32 (its backward) and the plain version,
+    beside its bound. ({(kernel name, key): times in the kernels line's
+    order}, {kernel name: worst error to plain})."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out, held = {}, {}
+    for key, b, t in G14_TIMED:
+        out[("attention_qkv", key)] = time_k1_f32(card, gen, "vit-g14", b, t, 88, 16, False,
+                                                  held=held)
+        out[("attention_qkv_grad", key)] = time_k2_bodies(card, gen, ((b, t, 16),), 88,
+                                                          held=held)[(b, t, 16)]
+    for name in ("attention_qkv", "attention_qkv_grad"):
+        t256, t257 = out[(name, "g14_f32_b8_t256")][0], out[(name, "g14_f32_b8")][0]
+        log(f"{name} f32 d=88 B=8: T=257 takes {t257 / t256 - 1:+.1%} over T=256 (the fifth "
+            "64-row tile holds one real row)")
+    return out, held
+
+
+def assets_tree(root: str) -> str:
+    """A two-class tree of the ten assets, each twice (20 images): the
+    first five in class "a", the last five in "b"."""
+    paths, _ = asset_bodies()
+    for i, path in enumerate(paths):
+        cls = os.path.join(root, "a" if i < 5 else "b")
+        os.makedirs(cls, exist_ok=True)
+        for copy in range(2):
+            shutil.copy(path, os.path.join(cls, f"{copy}-{os.path.basename(path)}"))
+    return root
+
+
+def g14_paths(tmp: str, card: str) -> tuple:
+    """ViT-g/14 (VIT_G14) f32 training and serving on the card, every
+    attention on K1's and K2's f32 bodies at d=88:
+    (a) at full width and depth (G14_LAYERS): its ~1.0 B parameters made on
+        the card by params_from_state_dict(random_state_dict(hp, 0)), two
+        B=32 train_step updates under "dots+attn" (TRAIN_REMAT), the first
+        under torch.profiler (device ms, idle share, K1's and K2's device ms
+        and shares), the second timed by the host clock and by CUDA events;
+        each with finite losses, G14_LAYERS attention_qkv and
+        attention_qkv_grad launches and a peak under H14_PEAK_GIB;
+    (b) cli.finetune on wide_paths' f16 file (4 of the 40 layers) over the
+        assets (assets_tree, one epoch at -b 8: 2 updates, 4 + 4 launches
+        each), its output served by the f32 engine;
+    (c) serve_files --dtype f32 (mm=xla, K1 f32 fast, 4 launches per batch)
+        on that file, within CLI_PROB_TOL of the f32 engine.
+    Returns ({path: {kernel name: launches}}, {path: attention_qkv_grad
+    launches})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_cpp_tpu_torch.engine import VitEngine
+    from vit_cpp_tpu_torch.hparams import VitHParams
+    from vit_cpp_tpu_torch.io.image import load_images_rgb_batch
+    from vit_cpp_tpu_torch.models.params import params_from_state_dict
+    from vit_cpp_tpu_torch.ops.flash_attention import GRAD_KERNEL, KERNEL
+    from vit_cpp_tpu_torch.parallel import train as T
+    from vit_cpp_tpu_torch.testing.synthetic import random_state_dict
+
+    t_phase = time.perf_counter()
+    launches, grads = {}, {}
+    hp = VitHParams(**{**VIT_G14, "num_hidden_layers": G14_LAYERS})
+    t0 = time.perf_counter()
+    params = params_from_state_dict(random_state_dict(hp, seed=0), hp, device="cuda")
+    n = sum(p.numel() for p in T.tree_leaves(params))
+    log(f"ViT-g/14 f32 ({G14_LAYERS} layers, hidden {hp.hidden_size}, 16 heads of d=88): "
+        f"{n / 1e6:.1f} M parameters made by params_from_state_dict on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn((32, 3, 224, 224), generator=gen, device="cuda")
+    y = torch.randint(0, hp.num_classes, (32,), generator=gen, device="cuda")
+    T.TRAIN_REMAT = "dots+attn"
+    state = T.create_train_state(params)
+    del params
+    fixed = 4 * 4 * n / 2**30  # parameters, gradients, AdamW's two moments
+    for i in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL.reset()
+        GRAD_KERNEL.reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if i == 0
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            start.record()
+            loss = float(T.train_step(state, x, y, hp))
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        got = (KERNEL.launches, GRAD_KERNEL.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        what = f"ViT-g/14 f32 B=32 train_step remat=dots+attn, update {i + 1}"
+        log(f"{what}: loss {loss:.5f}, {got[0]} attention_qkv + {got[1]} attention_qkv_grad "
+            f"launches, peak {peak:.2f} GiB (limit {H14_PEAK_GIB}; parameters, gradients and "
+            f"moments {fixed:.2f}), {wall_ms:.1f} ms wall (host clock, synchronized), "
+            f"{start.elapsed_time(end):.1f} ms stream elapsed (events) on {card}")
+        if (not np.isfinite(loss) or got != (G14_LAYERS, G14_LAYERS)
+                or not peak < H14_PEAK_GIB):
+            raise AssertionError(f"{what}: loss {loss}, launches {got}, peak {peak}")
+        if i == 0:
+            dev_us, (fwd_us, bwd_us) = device_us(prof, KERNEL, GRAD_KERNEL)
+            if dev_us <= 0:
+                log("profiled ViT-g/14 update: torch.profiler saw no device time (shares not "
+                    "measured)")
+            elif fwd_us <= 0 or bwd_us <= 0:
+                raise AssertionError(f"profiled ViT-g/14 update: no device time under "
+                                     f"attention_qkv ({fwd_us} us) or attention_qkv_grad "
+                                     f"({bwd_us} us)")
+            else:
+                log(f"profiled update (ViT-g/14 f32 B=32 remat=dots+attn, the first, "
+                    f"torch.profiler) on {card}: {dev_us / 1e3:.2f} ms of device time in "
+                    f"{wall_ms:.2f} ms wall (idle share {1 - dev_us / 1e3 / wall_ms:.3f}); "
+                    f"attention_qkv {fwd_us / 1e3:.2f} ms ({fwd_us / dev_us:.3f} of device "
+                    f"time), attention_qkv_grad {bwd_us / 1e3:.2f} ms ({bwd_us / dev_us:.3f})")
+    path = f"vit-g14 {G14_LAYERS} layers B=32 train_step remat=dots+attn"
+    launches[path] = {KERNEL.name: got[0], GRAD_KERNEL.name: got[1]}
+    grads[path] = got[1]
+    del state, x, y
+    torch.cuda.empty_cache()
+
+    g14 = os.path.join(tmp, "ViT-g14-synthetic-f16.gguf")  # wide_paths' file
+    layers = VIT_G14["num_hidden_layers"]
+    out = os.path.join(tmp, "ft-g14.gguf")
+    data = assets_tree(os.path.join(tmp, "assets-tree"))
+    what = f"cli.finetune ViT-g/14 ({layers} of {G14_LAYERS} layers) -b 8"
+    st = extras_finetune(what, ["-m", g14, "-d", data, "-o", out, "-b", "8", "--epochs", "1"],
+                         2, per_update=layers)
+    launches[what] = {KERNEL.name: st["k1"], GRAD_KERNEL.name: st["k2"]}
+    grads[what] = st["k2"]
+    paths, _ = asset_bodies()
+    engine = VitEngine(out, dtype="f32", device="cuda", verbose=False)
+    probs = engine.predict_probs_batch(engine.preprocess_images(load_images_rgb_batch(paths)))
+    torch.cuda.synchronize()
+    if engine.id2label != {0: "a", 1: "b"} or tuple(probs.shape) != (10, 2) or not bool(
+            torch.isfinite(probs).all()):
+        raise AssertionError(f"ft-g14.gguf: labels {engine.id2label}, probabilities "
+                             f"{tuple(probs.shape)}")
+    log(f"ft-g14.gguf served by the f32 VitEngine on the card: labels {engine.id2label}, "
+        f"finite (10, 2) probabilities, top-1 {probs.argmax(1).tolist()}")
+    del engine
+    what = f"ViT-g/14 ({layers} of {G14_LAYERS} layers) serve_files --dtype f32"
+    launches[what] = served_check(what, g14, {"dtype": "f32", "mm": "xla"}, {KERNEL: layers},
+                                  CLI_PROB_TOL)
+    os.remove(g14)
+    log(f"g14_paths: {time.perf_counter() - t_phase:.1f} s")
+    return launches, grads
+
+
 def profile_h14_update(state, x, y, hp, card: str) -> None:
     """One ViT-H/14 f32 update (train_step, the remat mode in force) under
     torch.profiler: K1's and K2's device ms and their shares of the
@@ -6328,6 +6527,9 @@ def run_paths(card: str):
         grad_launches = finetune_path(f16, tmp)
         remat_launches, remat_grad_launches = remat_paths(f32, card)
         serve_launches.update(remat_launches)
+        g14_launches, g14_grad_launches = g14_paths(tmp, card)
+        serve_launches.update(g14_launches)
+        remat_grad_launches.update(g14_grad_launches)
         tome_launches, tome_grad_launches = tome_paths(f16, q8, tmp, card, images)
         serve_launches.update(tome_launches)
         moe_launches, moe_grad_launches = moe_paths(f16, tmp, card, images)
@@ -6434,9 +6636,33 @@ def main() -> int:
         # with those bodies, SDPA (its backward) and plain
         gen = torch.Generator(device="cuda").manual_seed(22)
         check_k1_f32(gen)
-        check_k2_wgmma(gen, 80, K2_D80_EDGES)
+        check_k2_wgmma(gen, 80, K2_WIDE_EDGES)
+        check_k2_wgmma(gen, 88, K2_WIDE_EDGES)
         time_k1_f32_bodies(card, gen)
         time_k2_bodies(card, gen, K2_D80_TIMED, 80)
+        log(smi)
+        return 0
+    if sys.argv[1:] == ["--g14"]:
+        # f32 at d=88 (ViT-g/14's heads) alone: K1's and K3's edges and
+        # K2's against plain and the mma.sync bodies, then the training
+        # shapes held and timed in turns with those bodies, SDPA (its
+        # backward) and plain
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        check_k1_f32(gen, (88,))
+        check_k2_wgmma(gen, 88, K2_WIDE_EDGES)
+        g14_kernels(card)
+        log(smi)
+        return 0
+    if sys.argv[1:] == ["--g14-train"]:
+        # ViT-g/14's training and serving paths alone (g14_paths), on the
+        # 4-layer f16 file that wide_paths writes, written here the same way
+        from vit_cpp_tpu_torch.hparams import VitHParams
+        from vit_cpp_tpu_torch.testing.synthetic import write_synthetic_model
+
+        with tempfile.TemporaryDirectory() as tmp:
+            write_synthetic_model(os.path.join(tmp, "ViT-g14-synthetic-f16.gguf"),
+                                  VitHParams(**VIT_G14), ftype=1, seed=0)
+            g14_paths(tmp, card)
         log(smi)
         return 0
     if sys.argv[1:] == ["--k4-f32"]:
@@ -6465,10 +6691,13 @@ def main() -> int:
         raise AssertionError(f"the check-only mma.sync entries launched {MMA_KERNEL.launches} "
                              f"(attention) and {GRAD_MMA_KERNEL.launches} (backward) times on "
                              "the paths")
-    log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 d=64, "
-        "80 and 88 and f32 d=64 / 80 attention went through a wgmma body, every f32 d=64 / 80 "
-        "and bf16 d=64 backward through its wgmma body)")
+    log("paths: the mma.sync bodies' check-only entries launched 0 times (every bf16 and f32 "
+        "d=64, 80 and 88 attention went through a wgmma body, every f32 d=64 / 80 / 88 and "
+        "bf16 d=64 backward through its wgmma body)")
     remat_times = remat_kernels(card)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    g14_err = (check_k1_f32(gen, (88,)), check_k2_wgmma(gen, 88, K2_WIDE_EDGES))
+    g14_times, g14_held = g14_kernels(card)
     diag = check_diagnostics(card)
     tool_launches = diagnostics_path()
     for name in ("jax", "vit_cpp_tpu"):
@@ -6508,8 +6737,8 @@ def main() -> int:
         # K1: bf16 fast at ViT-B/16 B=8; B=64, T=577 / 785 at B=8, ViT-H/14
         # (d=80) at B=8 (T=256 too) and 64 and ViT-g/14 (d=88) at B=8 and
         # 32, and the training forward (f32 safe, B=32; ViT-H/14 B=8 and
-        # 128), each with the mma.sync body's time in turns, beside it, and
-        # both at tensor-parallel shards
+        # 128; ViT-g/14 B=8, T=256 too, and 64), each with the mma.sync
+        # body's time in turns, beside it, and both at tensor-parallel shards
         {**entry(KERNEL, q8_launches[KERNEL.name], k1_err, k1_times[(8, 197)],
                  by_path={"Q8_0 --mm pallas daemon": q8_launches[KERNEL.name],
                           **{p: n[KERNEL.name] for p, n in serve_launches.items()}},
@@ -6518,10 +6747,13 @@ def main() -> int:
                  h14_bf16_b64=k1_times["h14_bf16_b64"], g14_bf16_b8=k1_times["g14_bf16_b8"],
                  g14_bf16_b32=k1_times["g14_bf16_b32"],
                  f32_b32=k1_times["f32 B=32"], h14_f32_b8=remat_times[KERNEL.name],
-                 h14_f32_b128=remat_times[KERNEL.name + " B=128"]),
+                 h14_f32_b128=remat_times[KERNEL.name + " B=128"],
+                 **{key: g14_times[(KERNEL.name, key)] for key, _, _ in G14_TIMED}),
          **by_shard(KERNEL.name), "wide_edges_max_abs_err": k1_times["wide"][0],
          "wide_edges_apart_from_mma_sync": dict(k1_times["wide"][1]),
-         "wide_timed_max_abs_err": k1_times["wide"][2]},
+         "wide_timed_max_abs_err": k1_times["wide"][2],
+         "g14_f32_edges_max_abs_err": g14_err[0],
+         "g14_f32_timed_max_abs_err": g14_held[KERNEL.name]},
         # K4: its f32-output instantiation (a bf16 rank's row-parallel
         # partials) at the row shards of tp = 2, 4 under "f32_out"
         {**entry(QMM_KERNEL, q8_launches[QMM_KERNEL.name], k4_err, k4_times["qkv"],
@@ -6535,17 +6767,18 @@ def main() -> int:
                      for case, t in shards["dequant_matmul f32_out"].items()},
          "f32_out_max_rel_err": shard_errs["dequant_matmul f32_out"],
          "f32_x_row_shards_max_rel_err": shard_errs["dequant_matmul f32 x"]},
-        # K3: bf16 (8, 12, 197, 64); f32 at (8, 12, 197, 64) and ViT-H/14's
-        # (1, 16, 257, 80), bf16 at (8, 16, 257, 80) and (8, 16, 257, 88)
-        # beside it
+        # K3: bf16 (8, 12, 197, 64); f32 at (8, 12, 197, 64), ViT-H/14's
+        # (1, 16, 257, 80) and ViT-g/14's (1, 16, 257, 88), bf16 at (8, 16,
+        # 257, 80) and (8, 16, 257, 88) beside it
         entry(FLASH_KERNEL, flash_launches, k3_err, (*k3_times, k1_times["K3"][1]),
               f32=k3_f32_times[(8, 12, 197, 64)], f32_h14=k3_f32_times[(1, 16, 257, 80)],
+              f32_g14=k3_f32_times[(1, 16, 257, 88)],
               h14_bf16=k1_times["K3 d=80"], g14_bf16=k1_times["K3 d=88"]),
         # K2: f32 at ViT-B/16 B=32 (the training path's, the wgmma body,
         # with the mma.sync body's time in turns); bf16 (its wgmma body) at
-        # B=32 and 64 T=197 and B=8 T=785, T=785 at B=4 and 8 and ViT-H/14
-        # B=8 and 128 (d=80, mma.sync in turns) beside it, and f32 at
-        # tensor-parallel shards
+        # B=32 and 64 T=197 and B=8 T=785, T=785 at B=4 and 8, ViT-H/14 B=8
+        # and 128 (d=80) and ViT-g/14 B=8 (T=256 too) and 64 (d=88;
+        # mma.sync in turns) beside it, and f32 at tensor-parallel shards
         {**entry(GRAD_KERNEL, grad_launches["cli.finetune"], k2_err,
                  k2_times[(torch.float32, 197, 32)], by_path=grad_launches,
                  bf16=k2_times[(torch.bfloat16, 197, 32)],
@@ -6553,8 +6786,11 @@ def main() -> int:
                  t785=k2_times[(torch.float32, 785, 4)],
                  t785_b8=k2_times[(torch.float32, 785, 8)],
                  h14_f32_b8=remat_times[GRAD_KERNEL.name],
-                 h14_f32_b128=remat_times[GRAD_KERNEL.name + " B=128"]),
-         **by_shard(GRAD_KERNEL.name), "bf16_edges_max_rel_err": k2_bf16_err},
+                 h14_f32_b128=remat_times[GRAD_KERNEL.name + " B=128"],
+                 **{key: g14_times[(GRAD_KERNEL.name, key)] for key, _, _ in G14_TIMED}),
+         **by_shard(GRAD_KERNEL.name), "bf16_edges_max_rel_err": k2_bf16_err,
+         "g14_f32_edges_max_rel_err": g14_err[1],
+         "g14_f32_timed_max_rel_err": g14_held[GRAD_KERNEL.name]},
         *(entry(k, tool_launches[k.name], diag[k.name][0], diag[k.name][1:])
           for k in (ta.PAIR_KERNEL, ta.LANE_KERNEL, tg.KERNEL)),
         # T3: int8 at 1024^3; bf16 beside it, and both (int8 also with B

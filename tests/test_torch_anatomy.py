@@ -276,6 +276,7 @@ def test_cpu_tensors_launch_no_kernel():
     ("probe_int8_dot", []),
     ("grad_variants", ["no-such-csrc-copy"]),
     ("grad_variants", ["--entry", "k1", "no-such-csrc-copy"]),
+    ("grad_variants", ["--entry", "k1", "--dtype", "f32", "no-such-csrc-copy"]),
 ])
 def test_tools_exit_nonzero_without_a_card(tool, argv):
     if torch.cuda.is_available():

@@ -410,11 +410,13 @@ def _k1_wgmma_emulated(qkv, nh, *, fast, sizes=None, drain=True, chunk=16):
 
 @pytest.mark.parametrize("t,d,fast,sized", [
     (197, 64, False, False), (197, 64, True, True), (257, 80, False, False),
-    (257, 80, True, False), (257, 80, False, True),
+    (257, 80, True, False), (257, 80, False, True), (257, 88, False, False),
+    (257, 88, True, False), (257, 88, False, True),
 ], ids=["d64-T197-safe", "d64-T197-fast-sizes", "d80-T257-safe", "d80-T257-fast",
-        "d80-T257-safe-sizes"])
+        "d80-T257-safe-sizes", "d88-T257-safe", "d88-T257-fast", "d88-T257-safe-sizes"])
 def test_f32_wgmma_body_arithmetic_holds_the_f32_tolerance(t, d, fast, sized):
-    # ViT-B/16 (d=64, T=197) and ViT-H/14 (d=80, T=257) head pairs, B=1
+    # ViT-B/16 (d=64, T=197), ViT-H/14 (d=80, T=257) and ViT-g/14 (d=88,
+    # T=257) head pairs, B=1
     qkv = _qkv(1, t, 2, d, seed=t + d)
     sizes = (np.random.default_rng(t).integers(1, 5, (1, t)).astype(np.float32)
              if sized else None)
@@ -561,14 +563,19 @@ def test_wide_wgmma_body_matches_plain_and_mma_body_on_card(t, d, nh, kw):
     assert torch.equal(got, port.flash_attention_mma(q, k, v)) and torch.equal(got, again)
 
 
-# The f32 body at d = 64 and 80 (wgmma + TMA): 64-query tiles, 16-key
+# The f32 body at d = 64, 80 and 88 (wgmma + TMA): 64-query tiles, 16-key
 # chunks taken by two warpgroups in turn, the 257 = 4 x 64 + 1 tail; held
 # to the plain version and to the 3xTF32 mma.sync body it replaced (the
-# check-only entry), and bit-equal from one call to the next.
+# check-only entry), and bit-equal from one call to the next. d = 88
+# (ViT-g/14) lands in eleven 32-byte boxes a row.
 F32_WGMMA_EDGES = [(t, d, {"fast": fast}) for d in (64, 80)
                    for t in (1, 8, 65, 197, 256, 257, 785) for fast in (True, False)] + [
     (197, 64, {"fast": False, "sizes": True}), (257, 80, {"fast": True, "sizes": True}),
     (200, 64, {"fast": True, "kv": 197}), (257, 80, {"fast": False, "kv": 256}),
+] + [(t, 88, {"fast": fast}) for t in (1, 8, 63, 64, 65, 129, 256, 257, 258)
+     for fast in (True, False)] + [
+    (257, 88, {"fast": False, "sizes": True}), (65, 88, {"fast": True, "sizes": True}),
+    (257, 88, {"fast": False, "kv": 256}), (70, 88, {"fast": True, "kv": 64}),
 ]
 
 
@@ -604,8 +611,8 @@ def test_f32_wgmma_body_matches_plain_and_mma_body_on_card(t, d, kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [72, 128])
 def test_f32_other_d_keep_the_mma_body_on_card(d):
-    # f32 at d other than 64 and 80 still runs the 3xTF32 mma.sync body:
-    # equal to the check-only entry bit for bit
+    # f32 at d other than 64, 80 and 88 still runs the 3xTF32 mma.sync
+    # body: equal to the check-only entry bit for bit
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     qkv = torch.from_numpy(_qkv(2, 197, 4, d, seed=d)).cuda()

@@ -16,10 +16,10 @@ The kernel's f32 bodies compute their products as 3xTF32 on the tensor
 cores; a test below emulates TF32 rounding on the CPU and holds 3xTF32
 products, and not single TF32 ones, within the card's tolerance (1e-4 of
 max|plain|) of the plain version. Another emulates the arithmetic of the
-f32 body at d = 64 (csrc/attention_grad_wgmma.cuh): its split, its three
-TF32 terms per 8-deep step with each wgmma's sum truncated toward zero,
-and its per-chunk drains and two warpgroups' partial sums, against the
-plain version and the JAX kernel. A third emulates the bf16 body at d = 64
+f32 body at d = 64, 80 and 88 (csrc/attention_grad_wgmma.cuh): its split,
+its three TF32 terms per 8-deep step with each wgmma's sum truncated toward
+zero, and its per-chunk drains and two warpgroups' partial sums, against
+the plain version and the JAX kernel. A third emulates the bf16 body at d = 64
 (csrc/attention_grad_bf16_wgmma.cuh): its rounding points (qs, pn, ds and
 the packed bf16 A operands) and its chains of 16-deep wgmma sums, against
 the plain version and the JAX kernel in bf16 (2e-2 of the largest value,
@@ -40,7 +40,7 @@ from vit_cpp_tpu.ops import flash_attention as jfa
 from vit_cpp_tpu_torch.ops import flash_attention as port
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-GEOMETRIES = [(2, 64, 29), (3, 64, 29), (2, 32, 37), (2, 80, 23)]  # (nh, d, T)
+GEOMETRIES = [(2, 64, 29), (3, 64, 29), (2, 32, 37), (2, 80, 23), (2, 88, 23)]  # (nh, d, T)
 
 
 def _inputs(b, t, nh, d, seed, sizes=False):
@@ -337,11 +337,11 @@ def _token_chain(a, b, chunk=32, warpgroups=2, drain=True):
 
 
 def _wgmma_body_emulated(qkv, do, nh, drain=True):
-    """attention_qkv_grad's f32 body (d = 64 and 80) on the CPU: its
+    """attention_qkv_grad's f32 body (d = 64, 80 and 88) on the CPU: its
     operands and products as above, the token products in each launch's
-    chunks (d = 64: 32 tokens; d = 80: launch A's dQ 32, launch B's dK and
-    dV 16), the softmax and dsoftmax chains as the plain version's f32
-    math."""
+    chunks (d = 64: 32 tokens; d = 80 and 88: launch A's dQ 32, launch B's
+    dK and dV 16), the softmax and dsoftmax chains as the plain version's
+    f32 math."""
     b, t, three_h = qkv.shape
     h = three_h // 3
     d = h // nh
@@ -363,10 +363,10 @@ def _wgmma_body_emulated(qkv, do, nh, drain=True):
     return out.permute(1, 3, 0, 2, 4).reshape(b, t, 3 * h)
 
 
-@pytest.mark.parametrize("t,d", [(197, 64), (785, 64), (257, 80)])
+@pytest.mark.parametrize("t,d", [(197, 64), (785, 64), (257, 80), (257, 88)])
 def test_wgmma_body_arithmetic_holds_the_f32_tolerance(t, d):
-    # ViT-B/16 (T=197), ViT-B/8 (T=785) and ViT-H/14 (T=257, d=80) head
-    # pairs: nh=2, B=1
+    # ViT-B/16 (T=197), ViT-B/8 (T=785), ViT-H/14 (T=257, d=80) and
+    # ViT-g/14 (T=257, d=88) head pairs: nh=2, B=1
     qkv, do, _ = _inputs(1, t, 2, d, seed=t)
     x, g = torch.from_numpy(qkv), torch.from_numpy(do)
     plain = port.attention_qkv_grad_plain(x, g, 2)
@@ -397,6 +397,10 @@ def test_wgmma_body_matches_plain_and_mma_body_on_card():
     cases += [(2, t, 3, False, 80) for t in (1, 8, 63, 64, 65, 129, 256, 257, 258, 785)]
     cases += [(2, t, 3, True, 80) for t in (65, 257)]
     cases += [(2, 257, nh, False, 80) for nh in (1, 16)]
+    # d = 88 (ViT-g/14): d = 80's plan on rows of eleven 32-byte boxes
+    cases += [(2, t, 3, False, 88) for t in (1, 8, 63, 64, 65, 129, 256, 257, 258, 785)]
+    cases += [(2, t, 3, True, 88) for t in (65, 257)]
+    cases += [(2, 257, nh, False, 88) for nh in (1, 16)]
     before = (port.GRAD_KERNEL.launches, port.GRAD_MMA_KERNEL.launches)
     for b, t, nh, sized, d in cases:
         qkv, do, sz = _inputs(b, t, nh, d, seed=t + nh, sizes=sized)
@@ -420,8 +424,8 @@ def test_wgmma_body_matches_plain_and_mma_body_on_card():
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 72), ("bfloat16", 80), ("float32", 72),
                                      ("float32", 128)])
 def test_other_calls_keep_the_mma_body_on_card(dtype, d):
-    # everything but f32 at d = 64 and 80 and bf16 at d = 64 still runs the
-    # mma.sync bodies: equal to the check-only entry bit for bit
+    # everything but f32 at d = 64, 80 and 88 and bf16 at d = 64 still runs
+    # the mma.sync bodies: equal to the check-only entry bit for bit
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)

@@ -35,6 +35,8 @@ HP = VitHParams(
     num_classes=5, patch_size=8, img_size=32,
 )
 PORT_HP = PortHParams(**dataclasses.asdict(HP))  # the port's own, same fields
+# heads of 88, ViT-g/14's: the JAX attention takes its _qkv_kernel there
+HP88 = dataclasses.replace(HP, hidden_size=176)
 
 
 def _flat(tree, prefix=""):
@@ -62,14 +64,20 @@ def _port_params(jparams, requires_grad=True):
     return params
 
 
-@pytest.mark.parametrize("smooth", [0.0, 0.1])
-def test_loss_and_grads_match_jax(setup, smooth):
+@pytest.mark.parametrize("hp,smooth", [
+    pytest.param(HP, 0.0, id="0.0"), pytest.param(HP, 0.1, id="0.1"),
+    pytest.param(HP88, 0.0, id="d88-0.0"),
+])
+def test_loss_and_grads_match_jax(setup, hp, smooth):
     jparams, x, y = setup
+    if hp is not HP:
+        jparams = params_from_state_dict(random_state_dict(hp, seed=2), hp)
     l_ref, g_ref = jax.value_and_grad(jtrain.cross_entropy_loss)(
-        jparams, jnp.asarray(x), jnp.asarray(y), HP, smooth
+        jparams, jnp.asarray(x), jnp.asarray(y), hp, smooth
     )
     params = _port_params(jparams)
-    loss = ttrain.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y), PORT_HP, smooth)
+    port_hp = PortHParams(**dataclasses.asdict(hp))
+    loss = ttrain.cross_entropy_loss(params, torch.from_numpy(x), torch.from_numpy(y), port_hp, smooth)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(l_ref), rtol=1e-5)
     ref, got = _flat(g_ref), {k: v.grad for k, v in _flat(params).items()}

@@ -1,16 +1,17 @@
-// K2's f32 body at d = 64 and 80 for Hopper (sm_90a): the attention
+// K2's f32 body at d = 64, 80 and 88 for Hopper (sm_90a): the attention
 // backward in 3xTF32 on wgmma, fed by TMA. attention_qkv_grad.cu
 // instantiates it (grad_rows_wgmma, grad_cols_wgmma at d = 64;
-// grad_rows_wgmma80, grad_cols_wgmma80 at d = 80) and sends it every f32
-// call with d = 64 or 80: any B, T and nh, with or without ToMe sizes.
+// grad_rows_wgmma80, grad_cols_wgmma80 at d = 80; grad_rows_wgmma88,
+// grad_cols_wgmma88 at d = 88) and sends it every f32 call with d = 64,
+// 80 or 88: any B, T and nh, with or without ToMe sizes.
 //
 // Replaces, for those calls, the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::_attention_qkv_grad (:1214; the d = 64 pair kernel
-// _qkv_grad_pair_kernel, _qkv_grad_kernel + _qkv_grad_head at d = 80) and
-// _attention_qkv_grad_lane (:1113; large T x h), as the mma.sync body of
-// attention_grad_body.cuh did before it (that body still serves bf16 and
-// every other d, and the checks reach it at d = 64 and 80 through
-// vit_attention_qkv_grad_mma).
+// _qkv_grad_pair_kernel, _qkv_grad_kernel + _qkv_grad_head at d = 80 and
+// 88) and _attention_qkv_grad_lane (:1113; large T x h), as the mma.sync
+// body of attention_grad_body.cuh did before it (that body still serves
+// bf16 and every other d, and the checks reach it at d = 64, 80 and 88
+// through vit_attention_qkv_grad_mma).
 //
 // What bounds it on this card. Five T x T x d products per head at the
 // 3xTF32 rate (a third of TF32's, ~165 TFLOP/s) against ~2 MB of qkv, dO
@@ -36,14 +37,15 @@
 //   softmax, the other's wgmmas run: the two share the SM as two blocks
 //   would, but the resident tiles are loaded and split once. One block
 //   per SM (launch A 193 KB of shared memory, B 225 KB).
-// - d = 80 takes its own plan (GA, GB below): its tiles are 1.25x d = 64's,
-//   and the plan above would need 241 and 281 KB. Launch A streams
-//   32-token chunks through a ring of one slot per warpgroup (201 KB: a
-//   chunk's TMA waits for the slot's S and dP, and the other warpgroup's
-//   work covers it); launch B 16-token chunks through a ring of two (181
-//   KB), whose transposed copies are rows of 64 bytes. 16-token chunks in
-//   launch A as well ran slower on an H100: twice the wgmmas per token,
-//   each half as wide.
+// - d = 80 and 88 take their own plan (GA, GB below): their tiles are
+//   1.25x and 1.375x d = 64's, and the plan above would need 241 and 281
+//   KB at d = 80. Launch A streams 32-token chunks through a ring of one
+//   slot per warpgroup (201 KB at d = 80, 221 KB at d = 88: a chunk's TMA
+//   waits for the slot's S and dP, and the other warpgroup's work covers
+//   it); launch B 16-token chunks through a ring of two (181 and 199 KB),
+//   whose transposed copies are rows of 64 bytes. 16-token chunks in
+//   launch A as well ran slower on an H100 at d = 80: twice the wgmmas
+//   per token, each half as wide.
 // - Launch A (dq and the row statistics): pass 1 over the warpgroup's
 //   chunks keeps the online max, sum p and sum dp p per row; the two
 //   warpgroups' partial statistics meet in shared memory; pass 2 streams
@@ -56,8 +58,10 @@
 //   whose token extent is T: rows past the sequence load as zeros and a
 //   box never reaches the next image. A d = 64 row is two boxes of 32
 //   floats in the 128-byte swizzle, a d = 80 row (2.5 rows of that
-//   swizzle) five boxes of 16 floats in the 64-byte swizzle, whose k steps
-//   read that layout's descriptors (tf32_wgmma.cuh).
+//   swizzle) five boxes of 16 floats in the 64-byte swizzle, a d = 88 row
+//   (88 = 5 x 16 + 8) eleven boxes of 8 floats in the 32-byte swizzle, one
+//   k step each; each k step reads its layout's descriptors
+//   (tf32_wgmma.cuh).
 // - S and dP (S^T, dP^T) contract over d and read both operands as they
 //   land (K-major): wgmma.m64nNk8 with N = 8 to 32 (a chunk's last 8-token
 //   columns with a real token), 3 d / 8 per product (d / 8 k steps, three
@@ -68,10 +72,10 @@
 //   per warpgroup, 245 as two), so S and dP (and dV and dK) alternate
 //   instruction by instruction, two chains in flight. (Each product split
 //   into a hi hi chain and a cross chain, four in flight, ran no faster at
-//   d = 80.) At d = 80 the descriptors of a product's eight tiles are made
-//   once per step and moved by one addition per k step: launch A's ring
-//   of one slot makes every address loop-invariant, and the 80 hoisted
-//   descriptors spilled registers.
+//   d = 80.) At d = 80 and 88 the descriptors of a product's eight tiles
+//   are made once per step and moved by one addition per k step: launch
+//   A's ring of one slot makes every address loop-invariant, and the 80
+//   hoisted descriptors spilled registers.
 // - dQ = dS K, dV = Pn^T dO and dK = dS^T q contract over tokens. The tf32
 //   forms have no transpose, so their B operands (K; dO and q) need
 //   token-contiguous copies: the split pass writes them, transposed, hi
@@ -112,12 +116,13 @@ namespace gradwg {
 using namespace tf32wg;
 
 // K2's tilings, launch A's (GA) and launch B's (GB): at d = 64 32-token
-// chunks in rings of two, in the 128-byte swizzle; at d = 80 in the 64-byte
-// swizzle, launch A 32-token chunks in rings of one and launch B 16-token
-// chunks in rings of two (at 32 tokens in rings of two they would need 241
-// and 281 KB of shared memory). With 16-token chunks in both launches an
-// H100 ran it at ViT-H/14 B = 8 (B = 128) in 0.524 (7.657) ms, slower
-// than the mma.sync body at B = 128.
+// chunks in rings of two, in the 128-byte swizzle; at d = 80 (in the
+// 64-byte swizzle) and 88 (in the 32-byte one), launch A 32-token chunks
+// in rings of one and launch B 16-token chunks in rings of two (at d = 80
+// with 32 tokens in rings of two they would need 241 and 281 KB of shared
+// memory). With 16-token chunks in both launches an H100 ran d = 80 at
+// ViT-H/14 B = 8 (B = 128) in 0.524 (7.657) ms, slower than the mma.sync
+// body at B = 128.
 template <int D>
 using GA = Geo<D, 32, D == 64 ? 2 : 1>;
 template <int D>
@@ -140,7 +145,9 @@ __host__ __device__ constexpr int wg_cols_bytes() {
 
 // Dynamic shared memory: the four resident tiles (hi and lo of two), then
 // each warpgroup's, from a 1024-aligned base (+ 1024 for the alignment):
-// at d = 64 193 and 225 KB, at d = 80 201 and 181 KB.
+// at d = 64 193 and 225 KB, at d = 80 201 and 181 KB, at d = 88 221 and 199
+// KB (226,304 and 203,776 bytes; a block may take 232,448 with its static
+// barriers and statistics).
 template <int D>
 __host__ __device__ constexpr size_t rows_smem_bytes() {
   return 1024 + 4 * GA<D>::kRes + GA<D>::kWgs * wg_rows_bytes<D>();
@@ -166,13 +173,15 @@ struct Params {
 template <int D>
 __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv_res,
                                                const CUtensorMap& qkv_str,
-                                               const CUtensorMap& do_res, const Params& a) {
+                                               const CUtensorMap& do_res, const Params& a,
+                                               const CUtensorMap* tails = nullptr) {
   using g_ = GA<D>;
   constexpr int kRing = g_::kRing, kWgs = g_::kWgs, kRes = g_::kRes, kStr = g_::kStr;
   constexpr int kTr = g_::kTr, kChunk = g_::kChunk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t bars[1 + kWgs * kRing];  // resident tiles; each warpgroup's slots
   __shared__ float xst[kWgs][kRows][3];        // each warpgroup's row max, sum p, sum dp p
+  static_assert(rows_smem_bytes<D>() + sizeof(bars) + sizeof(xst) <= 232448, "shared memory");
   unsigned char* sm = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sQ = sm;  // qs (its own hi part), its lo part; dO, its lo part
   unsigned char* sQlo = sm + kRes;
@@ -201,8 +210,8 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv_res,
     const int c0 = chunk0(s), r = s % kRing;
     unsigned char* k = slot(r);
     tc::mbar_arrive_expect_tx(&rbar[r], 2 * kStr);
-    load_tile<g_, g_::kStrBox>(k, &qkv_str, h + hc, c0, b, &rbar[r]);
-    load_tile<g_, g_::kStrBox>(k + kStr, &qkv_str, 2 * h + hc, c0, b, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(k, &qkv_str, h + hc, c0, b, &rbar[r], tails + 1);
+    load_tile<g_, g_::kStrBox>(k + kStr, &qkv_str, 2 * h + hc, c0, b, &rbar[r], tails + 1);
   };
 
   if (tid == 0) {
@@ -212,8 +221,8 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv_res,
   __syncthreads();
   if (tid == 0) {
     tc::mbar_arrive_expect_tx(&bars[0], 2 * kRes);
-    load_tile<g_, g_::kResBox>(sQ, &qkv_res, hc, q0, b, &bars[0]);
-    load_tile<g_, g_::kResBox>(sO, &do_res, hc, q0, b, &bars[0]);
+    load_tile<g_, g_::kResBox>(sQ, &qkv_res, hc, q0, b, &bars[0], tails);
+    load_tile<g_, g_::kResBox>(sO, &do_res, hc, q0, b, &bars[0], tails + 2);
   }
   if (wt == 0)
     for (int s = 0; s < kRing && s < nsteps; ++s) issue(s);
@@ -399,7 +408,8 @@ __device__ __forceinline__ void grad_rows_body(const CUtensorMap& qkv_res,
 template <int D>
 __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv_res,
                                                const CUtensorMap& qkv_str,
-                                               const CUtensorMap& do_str, const Params& a) {
+                                               const CUtensorMap& do_str, const Params& a,
+                                               const CUtensorMap* tails = nullptr) {
   using g_ = GB<D>;
   constexpr int kRing = g_::kRing, kWgs = g_::kWgs, kRes = g_::kRes, kStr = g_::kStr;
   constexpr int kTr = g_::kTr, kChunk = g_::kChunk;
@@ -432,8 +442,8 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv_res,
     const int c0 = kChunk * (wg + 2 * s), r = s % kRing;
     unsigned char* x = slot(r);
     tc::mbar_arrive_expect_tx(&rbar[r], 2 * kStr);
-    load_tile<g_, g_::kStrBox>(x, &qkv_str, hc, c0, b, &rbar[r]);
-    load_tile<g_, g_::kStrBox>(x + kStr, &do_str, hc, c0, b, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(x, &qkv_str, hc, c0, b, &rbar[r], tails + 1);
+    load_tile<g_, g_::kStrBox>(x + kStr, &do_str, hc, c0, b, &rbar[r], tails + 2);
   };
 
   if (tid == 0) {
@@ -443,8 +453,8 @@ __device__ __forceinline__ void grad_cols_body(const CUtensorMap& qkv_res,
   __syncthreads();
   if (tid == 0) {
     tc::mbar_arrive_expect_tx(&bars[0], 2 * kRes);
-    load_tile<g_, g_::kResBox>(sK, &qkv_res, h + hc, k0, b, &bars[0]);
-    load_tile<g_, g_::kResBox>(sV, &qkv_res, 2 * h + hc, k0, b, &bars[0]);
+    load_tile<g_, g_::kResBox>(sK, &qkv_res, h + hc, k0, b, &bars[0], tails);
+    load_tile<g_, g_::kResBox>(sV, &qkv_res, 2 * h + hc, k0, b, &bars[0], tails);
   }
   if (wt == 0)
     for (int s = 0; s < kRing && s < nwc; ++s) issue(s);

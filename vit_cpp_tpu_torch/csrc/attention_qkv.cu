@@ -13,11 +13,14 @@
 //                         3xTF32 on wgmma fed by TMA; every training
 //                         forward, ViT-Ti/S/B/L and ViT-H/14, and f32
 //                         serving)
+//   f32, d = 88           attention_tf32_wgmma88 (the same body, each tile
+//                         five 64-byte boxes and a 32-byte tail box;
+//                         ViT-g/14's training forward and f32 serving)
 //   f32, any other d      attention_tf32 (below: 3xTF32 on mma.sync;
-//                         d = 72, 88, 128, ...)
+//                         d = 72, 128, ...)
 // vit_attention_mma runs the mma.sync bodies at any d (bf16:
 // attention_mma; f32: attention_tf32), bf16 d = 64, 80, 88 and f32 d = 64,
-// 80 included, so that the checks can hold T1's `full` and the wgmma
+// 80, 88 included, so that the checks can hold T1's `full` and the wgmma
 // bodies to the bf16 one bit for bit and time each beside the wgmma body
 // that replaced it; no path of the port calls it.
 //
@@ -53,7 +56,7 @@
 // still not bound by HBM but by issue on the SM: the mma.sync products
 // (three per f32 product), then the exp2 of every score, while their K/V
 // copies hide behind the products. The wgmma bodies' notes say what they
-// do about that: bf16 at d = 64, 80 and 88, f32 at d = 64 and 80.
+// do about that: bf16 and f32 at d = 64, 80 and 88.
 //
 // bf16 body (attention_mma: K1 and K3 at d other than 64, 80 and 88; its
 // code is attention_body.cuh, which the forward anatomy attn_anatomy.cu
@@ -77,9 +80,9 @@
 // output is staged through shared memory and written in 16-byte stores.
 //
 // f32 body (attention_tf32: training's forward, where the loss must agree
-// with the CPU to 1e-5 relative, and f32 serving, at every d but 64 and
-// 80, which attention_tf32_wgmma takes; and through vit_attention_mma at
-// any d for the checks), the bf16 body's
+// with the CPU to 1e-5 relative, and f32 serving, at every d but 64, 80
+// and 88, which attention_tf32_wgmma takes; and through vit_attention_mma
+// at any d for the checks), the bf16 body's
 // structure in 3xTF32 (tensor_core.cuh): each f32 operand is split into
 // TF32 hi and lo parts and each product is hi*hi + hi*lo + lo*hi on
 // mma.sync.m16n8k8 with f32 accumulators, which drops ~2^-22 of |x y|, the
@@ -409,10 +412,10 @@ __global__ void __launch_bounds__(attn::kWgThreads, 3)
                                                maps.tail);
 }
 
-// --------------------------------------------------- f32 body, d = 64, 80
+// ----------------------------------------------- f32 body, d = 64, 80, 88
 
 // attention_tf32_wgmma.cuh's body, one kernel per head dimension, per
-// softmax (kFast) and per presence of ToMe sizes. One block of two
+// softmax (kFast) and per presence of ToMe sizes. Two blocks of two
 // warpgroups per SM.
 template <int D, bool kFast, bool kSizes>
 __global__ void __launch_bounds__(fwdwg::kThreads, fwdwg::kBlocksPerSm)
@@ -420,6 +423,16 @@ __global__ void __launch_bounds__(fwdwg::kThreads, fwdwg::kBlocksPerSm)
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap, fwdwg::Params p) {
   fwdwg::attention_tf32_wgmma_body<D, kFast, kSizes>(qmap, kmap, vmap, p);
+}
+
+// At d = 88, with the maps of Q's, K's and V's tail boxes.
+template <bool kFast, bool kSizes>
+__global__ void __launch_bounds__(fwdwg::kThreads, fwdwg::kBlocksPerSm)
+    attention_tf32_wgmma88(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ tf32wg::Tails tails, fwdwg::Params p) {
+  fwdwg::attention_tf32_wgmma_body<88, kFast, kSizes>(qmap, kmap, vmap, p, tails.m);
 }
 
 // ------------------------------------------------------------- launches
@@ -541,9 +554,11 @@ cudaError_t encode_wide(CUtensorMap* main, CUtensorMap* tail, const void* base, 
 }
 
 // The operands of an f32 wgmma launch: tensor maps of Q (64-row boxes), K
-// and V (32-row boxes; for fused qkv, one map), and the rest.
+// and V (16-row boxes; for fused qkv, one map), at d = 88 their tail
+// boxes' maps, and the rest.
 struct Tf32WgArgs {
   CUtensorMap q, k, v;
+  tf32wg::Tails tails;
   fwdwg::Params p;
   int batch, nh, d, fast;
 };
@@ -552,11 +567,18 @@ template <int D, bool kFast, bool kSizes>
 cudaError_t launch_tf32_wgmma(const Tf32WgArgs& a, cudaStream_t stream) {
   static bool configured = false;
   constexpr size_t bytes = fwdwg::smem_bytes<D>();
-  cudaError_t err = allow_smem(attention_tf32_wgmma<D, kFast, kSizes>, bytes, configured);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.p.seq + fwdwg::kRows - 1) / fwdwg::kRows, a.nh, a.batch);
-  attention_tf32_wgmma<D, kFast, kSizes><<<grid, fwdwg::kThreads, bytes, stream>>>(a.q, a.k, a.v,
-                                                                                   a.p);
+  if constexpr (D == 88) {
+    cudaError_t err = allow_smem(attention_tf32_wgmma88<kFast, kSizes>, bytes, configured);
+    if (err != cudaSuccess) return err;
+    attention_tf32_wgmma88<kFast, kSizes><<<grid, fwdwg::kThreads, bytes, stream>>>(
+        a.q, a.k, a.v, a.tails, a.p);
+  } else {
+    cudaError_t err = allow_smem(attention_tf32_wgmma<D, kFast, kSizes>, bytes, configured);
+    if (err != cudaSuccess) return err;
+    attention_tf32_wgmma<D, kFast, kSizes><<<grid, fwdwg::kThreads, bytes, stream>>>(
+        a.q, a.k, a.v, a.p);
+  }
   return cudaGetLastError();
 }
 
@@ -570,26 +592,51 @@ cudaError_t launch_tf32_wgmma(const Tf32WgArgs& a, cudaStream_t stream) {
                : launch_tf32_wgmma<D, false, false>(a, stream);
 }
 
-// Encodes the three maps of an f32 wgmma launch over `planes` planes of
-// `rows` rows (the token extent) of `cols` floats, rows `row_bytes` and
-// planes `plane_bytes` apart: boxes of one swizzle row (d = 64: 32 floats
-// in the 128-byte swizzle; d = 80: 16 in the 64-byte one), then launches.
+// The maps of Q, K and V (x; V's is K's when they are one tensor) over
+// `planes` planes of `rows` rows (the token extent) of `cols` floats, rows
+// `row_bytes` and planes `plane_bytes` apart, in boxes of `box_cols`
+// floats in the (4 box_cols)-byte swizzle by 64 rows (Q) or kChunkK1 (K,
+// V).
+cudaError_t encode_tf32(CUtensorMap* m, const void* const (&x)[3], uint64_t cols,
+                        uint64_t rows, uint64_t planes, uint64_t row_bytes, uint64_t plane_bytes,
+                        uint32_t box_cols) {
+  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const uint32_t box_rows[3] = {fwdwg::kRows, fwdwg::kChunkK1, fwdwg::kChunkK1};
+  for (int i = 0; i < 3; ++i) {
+    if (i == 2 && x[2] == x[1]) {
+      m[2] = m[1];
+      break;
+    }
+    cudaError_t err = tc::encode_sw_3d(&m[i], t, x[i], cols, rows, planes, row_bytes,
+                                       plane_bytes, box_cols, box_rows[i], 4 * box_cols);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Encodes an f32 wgmma launch's maps, boxes of one swizzle row (d = 64: 32
+// floats in the 128-byte swizzle; d = 80 and 88: 16 in the 64-byte one;
+// d = 88's tail boxes: 8 in the 32-byte one), then launches.
 cudaError_t run_tf32_wgmma(Tf32WgArgs& a, const void* q, const void* k, const void* v,
                            uint64_t cols, uint64_t rows, uint64_t planes, uint64_t row_bytes,
                            uint64_t plane_bytes, cudaStream_t stream) {
-  const uint32_t bc = a.d == 64 ? 32 : 16, sw = 4 * bc;
-  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  cudaError_t err = tc::encode_sw_3d(&a.q, t, q, cols, rows, planes, row_bytes, plane_bytes, bc,
-                                     fwdwg::kRows, sw);
-  if (err == cudaSuccess)
-    err = tc::encode_sw_3d(&a.k, t, k, cols, rows, planes, row_bytes, plane_bytes, bc,
-                           fwdwg::kChunkK1, sw);
-  if (err == cudaSuccess && v != k)
-    err = tc::encode_sw_3d(&a.v, t, v, cols, rows, planes, row_bytes, plane_bytes, bc,
-                           fwdwg::kChunkK1, sw);
+  const void* const x[3] = {q, k, v};
+  CUtensorMap m[3];
+  cudaError_t err = encode_tf32(m, x, cols, rows, planes, row_bytes, plane_bytes,
+                                a.d == 64 ? 32 : 16);
   if (err != cudaSuccess) return err;
-  if (v == k) a.v = a.k;
-  return a.d == 64 ? launch_tf32_wgmma<64>(a, stream) : launch_tf32_wgmma<80>(a, stream);
+  a.q = m[0], a.k = m[1], a.v = m[2];
+  if (a.d == 88) {
+    err = encode_tf32(a.tails.m, x, cols, rows, planes, row_bytes, plane_bytes,
+                      fwdwg::G<88>::kTail);
+    if (err != cudaSuccess) return err;
+  }
+  switch (a.d) {
+    case 64: return launch_tf32_wgmma<64>(a, stream);
+    case 80: return launch_tf32_wgmma<80>(a, stream);
+    case 88: return launch_tf32_wgmma<88>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // NK = ceil(d / 16): 16-wide slices of the head dimension.
@@ -614,15 +661,14 @@ bool bad_geometry(int batch, int seq, int nh, int d) {
 }
 
 // Fused QKV: q | k | v thirds of (B, T, 3h) rows; output (B, T, h). bf16
-// at d = 64, 80 and 88 and f32 at d = 64 and 80 take the wgmma bodies
-// unless `mma`.
+// and f32 at d = 64, 80 and 88 take the wgmma bodies unless `mma`.
 template <typename T>
 cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
                     int seq, int nh, int d, int kv, float qscale, int fast,
                     bool mma, cudaStream_t stream) {
   const long long h = (long long)nh * d;
   if constexpr (sizeof(T) == 4) {
-    if ((d == 64 || d == 80) && !mma) {
+    if (fwdwg::takes(d) && !mma) {
       // planes are images: rows of 3h (tokens past kv load as zeros); a
       // head's Q, K and V are column offsets
       Tf32WgArgs w;
@@ -673,14 +719,13 @@ cudaError_t run_qkv(const void* qkv, const void* sizes, void* out, int batch,
 }
 
 // Split heads: q, k, v and output each (B, H, T, D); safe softmax. bf16
-// at d = 64, 80 and 88 and f32 at d = 64 and 80 take the wgmma bodies
-// unless `mma`.
+// and f32 at d = 64, 80 and 88 take the wgmma bodies unless `mma`.
 template <typename T>
 cudaError_t run_bhtd(const void* q, const void* k, const void* v, void* out,
                      int batch, int nh, int seq, int d, float qscale, bool mma,
                      cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
-    if ((d == 64 || d == 80) && !mma) {
+    if (fwdwg::takes(d) && !mma) {
       // planes are (image, head) pairs of seq rows of d
       if ((long long)batch * nh > 0x7fffffff) return cudaErrorInvalidValue;
       Tf32WgArgs w;
@@ -761,11 +806,10 @@ extern "C" int vit_flash_attention(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The bodies the wgmma ones replaced, at any d, bf16's 64, 80 and 88 and
-// f32's 64 and 80 included, for the checks only: bf16 through the mma.sync
-// body
-// (attention_mma; T1's `full` is that body bit for bit), f32 through the
-// 3xTF32 mma.sync body (attention_tf32); chip_smoke.py times each beside
+// The bodies the wgmma ones replaced, at any d, 64, 80 and 88 included,
+// for the checks only: bf16 through the mma.sync body (attention_mma;
+// T1's `full` is that body bit for bit), f32 through the 3xTF32 mma.sync
+// body (attention_tf32); chip_smoke.py times each beside
 // the wgmma body that replaced it. No path of the port calls it. dtype as
 // above; split 0: q is the fused (B, T, 3h) qkv (k and v unused), out (B,
 // T, h), kv, sizes and fast as vit_attention_qkv's; split 1: q, k, v and

@@ -18,14 +18,17 @@
 //                   path's head at ViT-Ti/S/B/L, ToMe, the mesh's shards)
 //   f32, d = 80     grad_rows_wgmma80 / grad_cols_wgmma80 (the same body
 //                   on d = 80's plan; ViT-H/14's training path)
+//   f32, d = 88     grad_rows_wgmma88 / grad_cols_wgmma88 (d = 80's plan,
+//                   each tile five 64-byte boxes and a 32-byte tail box;
+//                   ViT-g/14's training path)
 //   bf16, d = 64    grad_rows_bf16_wgmma / grad_cols_bf16_wgmma
 //                   (attention_grad_bf16_wgmma.cuh: bf16 wgmma fed by TMA)
 //   any other call  grad_rows_mma / grad_cols_mma (attention_grad_body.cuh:
-//                   mma.sync fed by cp.async; bf16 and f32 at d = 72, 88,
-//                   128, ...)
+//                   mma.sync fed by cp.async; bf16 at d = 72, 80, 88,
+//                   128, ..., f32 at d = 72, 128, ...)
 // vit_attention_qkv_grad_mma runs the mma.sync bodies at any (dtype, d),
-// f32 d = 64 and 80 and bf16 d = 64 included, so that the checks can time
-// them beside the wgmma bodies; no path of the port calls it. The
+// f32 d = 64, 80 and 88 and bf16 d = 64 included, so that the checks can
+// time them beside the wgmma bodies; no path of the port calls it. The
 // mma.sync bodies' code is attention_grad_body.cuh, which the backward
 // anatomy (attn_grad_anatomy.cu) instantiates with stages changed at d !=
 // 64 (at d = 64 it instantiates the bf16 wgmma body); what follows is their
@@ -181,8 +184,8 @@ cudaError_t dispatch(const Args<T>& a, cudaStream_t stream) {
   }
 }
 
-// The f32 body at d = 64 and 80 (attention_grad_wgmma.cuh): launch A, then
-// launch B, one block of two warpgroups per SM.
+// The f32 body at d = 64, 80 and 88 (attention_grad_wgmma.cuh): launch A,
+// then launch B, one block of two warpgroups per SM.
 __global__ void __launch_bounds__(gradwg::kThreads, 1)
     grad_rows_wgmma(const __grid_constant__ CUtensorMap qkv64,
                     const __grid_constant__ CUtensorMap qkv32,
@@ -211,56 +214,102 @@ __global__ void __launch_bounds__(gradwg::kThreads, 1)
   gradwg::grad_cols_body<80>(qkv64, qkv16, do16, p);
 }
 
+// d = 88, with the maps of the three operands' tail boxes.
+__global__ void __launch_bounds__(gradwg::kThreads, 1)
+    grad_rows_wgmma88(const __grid_constant__ CUtensorMap qkv64,
+                      const __grid_constant__ CUtensorMap qkv32,
+                      const __grid_constant__ CUtensorMap do64,
+                      const __grid_constant__ tf32wg::Tails tails, gradwg::Params p) {
+  gradwg::grad_rows_body<88>(qkv64, qkv32, do64, p, tails.m);
+}
+
+__global__ void __launch_bounds__(gradwg::kThreads, 1)
+    grad_cols_wgmma88(const __grid_constant__ CUtensorMap qkv64,
+                      const __grid_constant__ CUtensorMap qkv16,
+                      const __grid_constant__ CUtensorMap do16,
+                      const __grid_constant__ tf32wg::Tails tails, gradwg::Params p) {
+  gradwg::grad_cols_body<88>(qkv64, qkv16, do16, p, tails.m);
+}
+
 // Tensor maps over the images: qkv (rows of 3h) and dO (rows of h) f32, in
-// boxes of one swizzle row (d = 64: 32 columns, 128 bytes; d = 80: 16, 64
-// bytes) by 64 rows (the resident tiles) or each launch's kChunk (the
-// streamed chunks); the token extent is seq.
+// boxes of `bc` columns in the (4 bc)-byte swizzle by 64 rows (the
+// resident tiles) or each launch's kChunk (the streamed chunks); the token
+// extent is seq. m: qkv's resident, launch A's and launch B's, then dO's
+// resident and launch B's.
+cudaError_t encode_grad(CUtensorMap (&m)[5], const void* qkv, const void* dout, uint64_t h,
+                        int seq, int batch, int chunk_a, int chunk_b, uint32_t bc) {
+  const uint64_t f = sizeof(float);
+  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int rows[5] = {64, chunk_a, chunk_b, 64, chunk_b};
+  for (int i = 0; i < 5; ++i) {
+    if (i == 2 && chunk_b == chunk_a) {
+      m[2] = m[1];
+      continue;
+    }
+    const bool q = i < 3;
+    cudaError_t err = tc::encode_sw_3d(&m[i], t, q ? qkv : dout, (q ? 3 : 1) * h, seq, batch,
+                                       (q ? 3 : 1) * h * f, seq * (q ? 3 : 1) * h * f, bc,
+                                       rows[i], 4 * bc);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Launch A, then launch B, each with its maps (and at d = 88 its tail
+// boxes' maps).
 template <int D>
 cudaError_t run_wgmma(const void* qkv, const void* dout, const void* sizes, void* dqkv,
                       void* stats, int batch, int seq, int nh, float qscale, float nat,
                       cudaStream_t stream) {
   using ga = gradwg::GA<D>;
   using gb = gradwg::GB<D>;
-  auto* rows = D == 64 ? grad_rows_wgmma : grad_rows_wgmma80;
-  auto* cols = D == 64 ? grad_cols_wgmma : grad_cols_wgmma80;
-  const uint64_t h = (uint64_t)nh * D, f = sizeof(float);
-  const uint32_t bc = ga::kBoxCols, sw = ga::kSw;
-  CUtensorMap qkv_res, qkv_a, do_res, qkv_b, do_b;
-  const CUtensorMapDataType t = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  cudaError_t err = tc::encode_sw_3d(&qkv_res, t, qkv, 3 * h, seq, batch, 3 * h * f,
-                                     seq * 3 * h * f, bc, 64, sw);
-  if (err == cudaSuccess)
-    err = tc::encode_sw_3d(&qkv_a, t, qkv, 3 * h, seq, batch, 3 * h * f, seq * 3 * h * f, bc,
-                           ga::kChunk, sw);
-  if constexpr (ga::kChunk == gb::kChunk)
-    qkv_b = qkv_a;
-  else if (err == cudaSuccess)
-    err = tc::encode_sw_3d(&qkv_b, t, qkv, 3 * h, seq, batch, 3 * h * f, seq * 3 * h * f, bc,
-                           gb::kChunk, sw);
-  if (err == cudaSuccess)
-    err = tc::encode_sw_3d(&do_res, t, dout, h, seq, batch, h * f, seq * h * f, bc, 64, sw);
-  if (err == cudaSuccess)
-    err = tc::encode_sw_3d(&do_b, t, dout, h, seq, batch, h * f, seq * h * f, bc, gb::kChunk, sw);
+  const uint64_t h = (uint64_t)nh * D;
+  CUtensorMap m[5];
+  cudaError_t err = encode_grad(m, qkv, dout, h, seq, batch, ga::kChunk, gb::kChunk,
+                                ga::kBoxCols);
   if (err != cudaSuccess) return err;
-  static bool configured = false;
-  if (!configured) {
-    err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)gradwg::rows_smem_bytes<D>());
+  // the tail maps as each launch's body takes them: qkv resident, qkv
+  // streamed, then dO resident (A) or streamed (B)
+  tf32wg::Tails ta, tb;
+  if constexpr (ga::kTail > 0) {
+    CUtensorMap t[5];
+    err = encode_grad(t, qkv, dout, h, seq, batch, ga::kChunk, gb::kChunk, ga::kTail);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)gradwg::cols_smem_bytes<D>());
-    if (err != cudaSuccess) return err;
-    configured = true;
+    ta.m[0] = tb.m[0] = t[0], ta.m[1] = t[1], ta.m[2] = t[3], tb.m[1] = t[2], tb.m[2] = t[4];
   }
   const gradwg::Params p{static_cast<const float*>(sizes), static_cast<float*>(dqkv),
                          static_cast<float*>(stats), seq, nh, qscale, nat};
   const dim3 grid((seq + gradwg::kRows - 1) / gradwg::kRows, nh, batch);
-  rows<<<grid, gradwg::kThreads, gradwg::rows_smem_bytes<D>(), stream>>>(qkv_res, qkv_a,
-                                                                         do_res, p);
+  constexpr int kRowsBytes = gradwg::rows_smem_bytes<D>();
+  constexpr int kColsBytes = gradwg::cols_smem_bytes<D>();
+  auto* rows = D == 64 ? grad_rows_wgmma : D == 80 ? grad_rows_wgmma80 : nullptr;
+  auto* cols = D == 64 ? grad_cols_wgmma : D == 80 ? grad_cols_wgmma80 : nullptr;
+  static bool configured = false;
+  if (!configured) {
+    if constexpr (D == 88) {
+      err = cudaFuncSetAttribute(grad_rows_wgmma88, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kRowsBytes);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(grad_cols_wgmma88,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, kColsBytes);
+    } else {
+      err = cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowsBytes);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize, kColsBytes);
+    }
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  if constexpr (D == 88)
+    grad_rows_wgmma88<<<grid, gradwg::kThreads, kRowsBytes, stream>>>(m[0], m[1], m[3], ta, p);
+  else
+    rows<<<grid, gradwg::kThreads, kRowsBytes, stream>>>(m[0], m[1], m[3], p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cols<<<grid, gradwg::kThreads, gradwg::cols_smem_bytes<D>(), stream>>>(qkv_res, qkv_b,
-                                                                         do_b, p);
+  if constexpr (D == 88)
+    grad_cols_wgmma88<<<grid, gradwg::kThreads, kColsBytes, stream>>>(m[0], m[2], m[4], tb, p);
+  else
+    cols<<<grid, gradwg::kThreads, kColsBytes, stream>>>(m[0], m[2], m[4], p);
   return cudaGetLastError();
 }
 
@@ -311,8 +360,8 @@ bool bad_call(const void* qkv, const void* dout, const void* dqkv, int batch, in
 // and dqkv 16-byte aligned (16-byte copies, TMA); sizes: (B, T) float32
 // or null; stats: an f32 workspace of B * nh * T * 3 floats. dtype: 0 =
 // float32, 1 = bfloat16. qscale = log2(e)/sqrt(d), nat = 1/sqrt(d).
-// Returns cudaGetLastError() after the launches. f32 at d = 64 and 80 and
-// bf16 at d = 64 take the wgmma bodies, every other call the mma.sync
+// Returns cudaGetLastError() after the launches. f32 at d = 64, 80 and 88
+// and bf16 at d = 64 take the wgmma bodies, every other call the mma.sync
 // bodies.
 extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const void* sizes,
                                       void* dqkv, void* stats, int batch, int seq, int nh,
@@ -323,6 +372,8 @@ extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const v
     return (int)run_wgmma<64>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
   if (dtype == 0 && d == 80)
     return (int)run_wgmma<80>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
+  if (dtype == 0 && d == 88)
+    return (int)run_wgmma<88>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, qscale, nat, s);
   if (dtype == 0)
     return (int)run<float>(qkv, dout, sizes, dqkv, stats, batch, seq, nh, d, qscale, nat, s);
   if (dtype == 1 && d == 64)
@@ -333,7 +384,7 @@ extern "C" int vit_attention_qkv_grad(const void* qkv, const void* dout, const v
 }
 
 // vit_attention_qkv_grad through the mma.sync bodies at any (dtype, d),
-// f32 d = 64 and 80 and bf16 d = 64 included, for the checks only:
+// f32 d = 64, 80 and 88 and bf16 d = 64 included, for the checks only:
 // chip_smoke.py times them beside the wgmma bodies. No path of the port
 // calls it.
 extern "C" int vit_attention_qkv_grad_mma(const void* qkv, const void* dout, const void* sizes,

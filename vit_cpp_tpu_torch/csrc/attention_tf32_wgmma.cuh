@@ -1,16 +1,16 @@
-// K1's and K3's f32 body at d = 64 and 80 for Hopper (sm_90a): the
+// K1's and K3's f32 body at d = 64, 80 and 88 for Hopper (sm_90a): the
 // attention forward in 3xTF32 on wgmma, fed by TMA. attention_qkv.cu
 // instantiates it (attention_tf32_wgmma) and sends it every f32 call with
-// d = 64 or 80 from both C entry points: any B, T and nh, fast and safe,
-// with or without the key mask `kv` and ToMe sizes.
+// d = 64, 80 or 88 from both C entry points: any B, T and nh, fast and
+// safe, with or without the key mask `kv` and ToMe sizes.
 //
 // Replaces, for those calls, the TPU kernels behind vit_cpp_tpu/ops/
 // flash_attention.py::attention_qkv (the d = 64 pair kernel
-// _qkv_pair_kernel, and _qkv_kernel + _sdpa at d = 80),
+// _qkv_pair_kernel, and _qkv_kernel + _sdpa at d = 80 and 88),
 // _attention_qkv_lane (large T x h) and flash_attention (split heads,
 // safe mode), as attention_qkv.cu's attention_tf32 body (3xTF32 on
 // mma.sync) did before it. That body still serves f32 at every other d,
-// and the checks reach it at d = 64 and 80 through vit_attention_mma.
+// and the checks reach it at d = 64, 80 and 88 through vit_attention_mma.
 //
 // What bounds it on this card. Two T x T x d products per head at the
 // 3xTF32 rate (a third of TF32's, ~165 TFLOP/s) against the (B, T, 3h)
@@ -52,9 +52,14 @@
 // - A d = 80 row is 2.5 rows of the 128-byte swizzle: tiles at d = 80 land
 //   in five 64-byte boxes (the 64-byte swizzle), and their k steps read
 //   that layout's descriptors; V^T's rows of 16 keys are 64 bytes, in the
-//   same swizzle. Shared memory: 89 KB at d = 64, 111 KB at d = 80, two
-//   blocks per SM, so that one block's loads, splits and epilogue overlap
-//   the other's products.
+//   same swizzle. A d = 88 row (88 = 5 x 16 + 8) lands in five 64-byte
+//   boxes and a 32-byte tail box (the 32-byte swizzle, a map of its own),
+//   the last k step. Shared memory: 89 KB at
+//   d = 64, 111 KB at d = 80, two blocks per SM, so that one block's
+//   loads, splits and epilogue overlap the other's products; at d = 88 a
+//   ring of one chunk slot per warpgroup keeps two blocks (100 KB; a ring
+//   of two takes 122 KB, one block): a chunk's TMA is issued once the
+//   slot's S is done and waits behind the softmax and P V.
 // - The output is written from the accumulators of warpgroup 0 in 8-byte
 //   stores, o / l by a correctly rounded division; rows at or past kv are
 //   zeros, rows past seq are not written, and a tile wholly past kv
@@ -88,15 +93,22 @@ using namespace tf32wg;
 // KB at d = 80, at most 128 registers a thread). On an H100 this ran
 // faster than 32-key chunks at one block per SM (145 / 181 KB) at
 // ViT-B/16 B = 32 and ViT-H/14 B = 128, a little slower at ViT-H/14 B = 8
-// and --patch-size 8 B = 8.
+// and --patch-size 8 B = 8. At d = 88 a ring of one slot per warpgroup
+// keeps two blocks per SM (100 KB); a ring of two (122 KB, one block per
+// SM) ran 1.21x (B = 8) and 1.47x (B = 64) slower at ViT-g/14's T = 257.
 constexpr int kChunkK1 = 16;
 constexpr int kBlocksPerSm = 2;
+template <int D>
+constexpr int kRingK1 = D == 88 ? 1 : 2;
 
 template <int D>
-using G = Geo<D, kChunkK1>;
+using G = Geo<D, kChunkK1, kRingK1<D>>;
 
 constexpr int kRows = 64;     // query rows per block: wgmma's M
 constexpr int kThreads = 256;  // two warpgroups
+
+// The head dimensions the body takes.
+__host__ __device__ constexpr bool takes(int d) { return d == 64 || d == 80 || d == 88; }
 
 // Per warpgroup: its ring of (K, V) chunks, K's lo part, V^T hi and lo.
 template <int D>
@@ -171,14 +183,16 @@ __device__ __forceinline__ void online_softmax(float (&sa)[4 * NT], float (&m)[2
 }
 
 // One block per (batch, head, 64-query tile). The maps: Q in 64-row boxes,
-// K and V in 32-row ones (for fused qkv, one tensor at three column
+// K and V in 16-row ones (for fused qkv, one tensor at three column
 // offsets); their token extent is kv, so keys and query rows at or past
-// kv land as zeros.
+// kv land as zeros. With a tail box (d = 88), `tails` holds Q's, K's and
+// V's tail maps.
 template <int D, bool kFast, bool kSizes>
 __device__ __forceinline__ void attention_tf32_wgmma_body(const CUtensorMap& qmap,
                                                           const CUtensorMap& kmap,
                                                           const CUtensorMap& vmap,
-                                                          const Params& a) {
+                                                          const Params& a,
+                                                          const CUtensorMap* tails = nullptr) {
   using g_ = G<D>;
   constexpr int kRing = g_::kRing, kWgs = g_::kWgs, kRes = g_::kRes, kStr = g_::kStr;
   constexpr int kTr = g_::kTr, kChunk = g_::kChunk;
@@ -221,8 +235,8 @@ __device__ __forceinline__ void attention_tf32_wgmma_body(const CUtensorMap& qma
     const int c0 = kChunk * (wg + 2 * s), r = s % kRing;
     unsigned char* k = slot(r);
     tc::mbar_arrive_expect_tx(&rbar[r], 2 * kStr);
-    load_tile<g_, g_::kStrBox>(k, &kmap, a.co.k + hc, c0, z, &rbar[r]);
-    load_tile<g_, g_::kStrBox>(k + kStr, &vmap, a.co.v + hc, c0, z, &rbar[r]);
+    load_tile<g_, g_::kStrBox>(k, &kmap, a.co.k + hc, c0, z, &rbar[r], tails + 1);
+    load_tile<g_, g_::kStrBox>(k + kStr, &vmap, a.co.v + hc, c0, z, &rbar[r], tails + 2);
   };
 
   if (tid == 0) {
@@ -232,7 +246,7 @@ __device__ __forceinline__ void attention_tf32_wgmma_body(const CUtensorMap& qma
   __syncthreads();
   if (tid == 0) {
     tc::mbar_arrive_expect_tx(&bars[0], kRes);
-    load_tile<g_, g_::kResBox>(sQ, &qmap, a.co.q + hc, q0, z, &bars[0]);
+    load_tile<g_, g_::kResBox>(sQ, &qmap, a.co.q + hc, q0, z, &bars[0], tails);
   }
   if (wt == 0)
     for (int s = 0; s < kRing && s < nwc; ++s) issue(s);

@@ -11,11 +11,11 @@
 // bf16 m64n64k16 with A from shared memory or from registers, m64n16k16,
 // m64n24k16 and m64n32k16 with A from registers, in the 128-, 64- and
 // 32-byte swizzles), attention_grad_wgmma.cuh and
-// attention_tf32_wgmma.cuh (K2, and K1 and K3, in f32 at d = 64 and 80,
-// through tf32_wgmma.cuh: tf32 m64nNk8 with both operands from shared
-// memory, N = 8 to 32, and m64n64k8 / m64n80k8 with A from registers, in
-// the 128- and 64-byte swizzles). Every floating-point product accumulates
-// in f32, the s8 product in s32.
+// attention_tf32_wgmma.cuh (K2, and K1 and K3, in f32 at d = 64, 80 and
+// 88, through tf32_wgmma.cuh: tf32 m64nNk8 with both operands from shared
+// memory, N = 8 to 32, and m64n64k8 / m64n80k8 / m64n88k8 with A from
+// registers, in the 128-, 64- and 32-byte swizzles). Every floating-point
+// product accumulates in f32, the s8 product in s32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, q = lane % 4):
 //   A (16 x 16, row-major), four 32-bit registers of two bf16 each:
@@ -206,7 +206,8 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo, uint3
 // The same in the 32-byte swizzle: rows of 32 bytes in atoms of 8 rows
 // (256 bytes, 256-aligned) in which the 16-byte chunk j of row r is stored
 // at chunk j ^ ((r / 4) % 2) (attention_wgmma.cuh at d = 80: the 16
-// columns of a row past its first 64).
+// columns of a row past its first 64; tf32_wgmma.cuh at d = 88: a 352-byte
+// f32 row is eleven 32-byte boxes).
 __device__ __forceinline__ uint64_t sw32_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
          (uint64_t)((sbo & 0x3FFFF) >> 4) << 32 | (uint64_t)3 << 62;
@@ -583,6 +584,28 @@ __device__ __forceinline__ void wgmma_m64n80k8_tf32_rs(float (&d)[40], const uin
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// The same at N = 88: d (64 x 88 f32), B 8 x 88 (a d = 88 head's columns).
+__device__ __forceinline__ void wgmma_m64n88k8_tf32_rs(float (&d)[44], const uint32_t (&a)[4],
+                                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43"
+      "}, {%44, %45, %46, %47}, %48, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

@@ -63,11 +63,12 @@ inline cudaError_t encode_sw128(CUtensorMap* map, CUtensorMapDataType type, cons
 // `map` of a 3-D tensor of `type` at `base`: `depth` planes of `rows` rows
 // of `cols` elements, rows `row_bytes` and planes `plane_bytes` apart, as
 // TMA moves it in boxes of one plane's `box_rows` rows x `box_cols`
-// elements (at most `swizzle` bytes) in the 128-byte (or 64-byte) swizzle.
+// elements (at most `swizzle` bytes) in the 128-, 64- or 32-byte swizzle.
 // A box past `rows` loads zeros there and does not store there, and never
 // reaches the next plane (attention_wgmma.cuh: planes are images or (image,
 // head) pairs; attention_grad_wgmma.cuh and attention_tf32_wgmma.cuh:
-// images or (image, head) pairs, f32; a d = 80 row in 64-byte boxes).
+// images or (image, head) pairs, f32; a d = 80 row in 64-byte boxes, a
+// d = 88 row in 32-byte ones).
 inline cudaError_t encode_sw_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                                 uint64_t cols, uint64_t rows, uint64_t depth, uint64_t row_bytes,
                                 uint64_t plane_bytes, uint32_t box_cols, uint32_t box_rows,
@@ -78,7 +79,9 @@ inline cudaError_t encode_sw_3d(CUtensorMap* map, CUtensorMapDataType type, cons
   const cuuint64_t strides[2] = {row_bytes, plane_bytes};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle sw = swizzle == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_128B;
   if (encode(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)

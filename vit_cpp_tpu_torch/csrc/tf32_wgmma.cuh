@@ -1,6 +1,6 @@
 // 3xTF32 on wgmma, fed by TMA: the tiling and building blocks that K2's f32
 // body (attention_grad_wgmma.cuh) and K1's f32 body (attention_tf32_
-// wgmma.cuh) share, at a head dimension of 64 or 80.
+// wgmma.cuh) share, at a head dimension of 64, 80 or 88.
 //
 // - A block is two warpgroups (256 threads) over 64 resident rows of one
 //   (image, head), wgmma's M. The resident tiles land once by TMA and are
@@ -11,8 +11,13 @@
 //   swizzle of the box's row bytes: at d = 64 two boxes of 32 floats in
 //   the 128-byte swizzle, at d = 80 five of 16 in the 64-byte swizzle (a
 //   320-byte row is 2.5 rows of the 128-byte swizzle; 64-byte boxes tile
-//   it with no padding, so a tile holds exactly its bytes). A k step (8
-//   floats, 32 bytes) lies within one box.
+//   it with no padding, so a tile holds exactly its bytes). At d = 88 (88
+//   = 5 x 16 + 8) the five 64-byte boxes take a tail box of 8 floats in
+//   the 32-byte swizzle, from a map of its own, so the tile again holds
+//   exactly its bytes (a row padded to 96 floats would put K2's launch A
+//   past a block's 227 KB; eleven 32-byte boxes ran 10-28% slower on an
+//   H100). A k step (8 floats, 32 bytes) lies within one box: the tail
+//   box is d = 88's last.
 // - Products that contract over d (S = Q K^T and the like) read both
 //   operands as they land (K-major): wgmma.m64nNk8 with N = 8 to 8 kChunk
 //   / 8, three TF32 terms per k step (lo hi, hi lo, hi hi).
@@ -41,8 +46,8 @@
 
 namespace tf32wg {
 
-// The tiling at head dimension D (64 or 80), C streamed tokens per step
-// (32 or 16) and R chunk slots per warpgroup.
+// The tiling at head dimension D (64, 80 or 88), C streamed tokens per
+// step (32 or 16) and R chunk slots per warpgroup.
 template <int D, int C, int R = 2>
 struct Geo {
   static constexpr int kD = D;
@@ -51,16 +56,24 @@ struct Geo {
   static constexpr int kWgs = 2;    // warpgroups per block
   static constexpr int kThreads = 128 * kWgs;
   static constexpr int kRing = R;   // chunk slots per warpgroup
-  static constexpr int kBoxCols = D % 32 == 0 ? 32 : 16;  // floats per box row
-  static constexpr int kSw = 4 * kBoxCols;                 // its bytes: the swizzle
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxCols = D % 32 == 0 ? 32 : 16;  // floats a box row
+  static constexpr int kSw = 4 * kBoxCols;      // its bytes: the swizzle
+  static constexpr int kBoxes = D / kBoxCols;   // whole boxes
+  static constexpr int kTail = D % kBoxCols;    // columns past them: a 32-byte box
+  static constexpr int kMainSteps = kBoxes * kBoxCols / 8;  // k steps in the whole boxes
   static constexpr int kResBox = kRows * kSw;   // a box of a resident tile
-  static constexpr int kRes = kBoxes * kResBox;  // a resident 64 x D tile
+  static constexpr int kRes = kBoxes * kResBox + kRows * 4 * kTail;  // a resident 64 x D tile
   static constexpr int kStrBox = C * kSw;       // a box of a streamed chunk
-  static constexpr int kStr = kBoxes * kStrBox;  // a streamed C x D tile
+  static constexpr int kStr = kBoxes * kStrBox + C * 4 * kTail;  // a streamed C x D tile
   static constexpr int kSwT = 4 * C;            // a transposed row's bytes: its swizzle
   static constexpr int kTr = D * kSwT;          // a transposed D x C tile
-  static_assert((D == 64 || D == 80) && (C == 32 || C == 16), "tiling");
+  static_assert((D == 64 || D == 80 || D == 88) && (C == 32 || C == 16), "tiling");
+  static_assert(kTail == 0 || kTail == 8, "a tail box is one k step");
+};
+
+// The maps of the tail boxes of a launch's three operands (d = 88).
+struct Tails {
+  CUtensorMap m[3];
 };
 
 template <int N>
@@ -92,7 +105,8 @@ __device__ __forceinline__ void wg_sync(int wg) {
 template <int kSw>
 __device__ __forceinline__ uint64_t desc(const void* p) {
   if constexpr (kSw == 128) return tc::sw128_desc(p, 16, 1024);
-  else return tc::sw64_desc(p, 16, 512);
+  else if constexpr (kSw == 64) return tc::sw64_desc(p, 16, 512);
+  else return tc::sw32_desc(p, 16, 256);
 }
 
 // desc<kSw>(p), opaque to the compiler: descriptors derived from it are
@@ -117,7 +131,8 @@ __device__ __forceinline__ uint64_t desc_at(uint64_t d, int off) {
 template <int kSw>
 __device__ __forceinline__ int sw_chunk(int r, int c) {
   if constexpr (kSw == 128) return c ^ (r & 7);
-  else return c ^ ((r >> 1) & 3);
+  else if constexpr (kSw == 64) return c ^ ((r >> 1) & 3);
+  else return c ^ ((r >> 2) & 1);
 }
 
 // The boxes of a tile (kBox bytes apart in shared memory) whose first
@@ -125,14 +140,18 @@ __device__ __forceinline__ int sw_chunk(int r, int c) {
 // (The first two written out: as one loop they changed the SASS of K2's
 // d = 64 launch A, 8704 -> 11376 instructions, and ran it slower on an
 // H100.)
+// With a tail (G::kTail columns), its box follows from `tail`'s map.
 template <class G, int kBox>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, int col,
-                                          int row, int z, uint64_t* bar) {
+                                          int row, int z, uint64_t* bar,
+                                          const CUtensorMap* tail = nullptr) {
   tc::tma_load_3d(dst, map, col, row, z, bar);
   tc::tma_load_3d(dst + kBox, map, col + G::kBoxCols, row, z, bar);
 #pragma unroll
   for (int x = 2; x < G::kBoxes; ++x)
     tc::tma_load_3d(dst + x * kBox, map, col + x * G::kBoxCols, row, z, bar);
+  if constexpr (G::kTail > 0)
+    tc::tma_load_3d(dst + G::kBoxes * kBox, tail, col + G::kBoxes * G::kBoxCols, row, z, bar);
 }
 
 // x as the tensor cores' TF32 hi and lo parts: hi is x itself (they read
@@ -177,7 +196,9 @@ __device__ __forceinline__ void split_resident(unsigned char* t, unsigned char* 
 // C = 32, D / 16 or 20 / 4 = 5 neighbouring ones, so that a warp's 16-byte
 // accesses fall 8 (or 4) to a box row and its transposed 4-byte stores
 // (one dim, 32 tokens) on 32 distinct banks; at d = 80 with C = 16, every
-// eighth one from wt / 16 (20 chunks over 8 threads).
+// eighth one from wt / 16 (20 chunks over 8 threads); at d = 88 every
+// fourth (C = 32: 22 chunks over 4 threads) or eighth (C = 16) one, the
+// last two of a row in the tail box's 32-byte rows.
 template <class G, bool kT, bool kScale, bool kLo = true>
 __device__ __forceinline__ void split_stream(unsigned char* x, unsigned char* lo,
                                              unsigned char* th, unsigned char* tl, float scale,
@@ -195,8 +216,11 @@ __device__ __forceinline__ void split_stream(unsigned char* x, unsigned char* lo
   for (int k = 0; k < kPer; ++k) {
     const int c = kWhole ? kPer * (wt >> kCShift) + k : (wt >> kCShift) + kGroups * k;
     if (!kWhole && c >= kCols) break;
-    const int off = (c >> kCpbShift) * G::kStrBox + t * G::kSw +
-                    (sw_chunk<G::kSw>(t, c & (kCpb - 1)) << 4);
+    int off = (c >> kCpbShift) * G::kStrBox + t * G::kSw +
+              (sw_chunk<G::kSw>(t, c & (kCpb - 1)) << 4);
+    if constexpr (G::kTail > 0)  // the tail box's 32-byte rows
+      if (c >= G::kBoxes * kCpb)
+        off = G::kBoxes * G::kStrBox + t * 32 + (sw_chunk<32>(t, c - G::kBoxes * kCpb) << 4);
     const float4 v = *reinterpret_cast<const float4*>(x + off);
     const float f[4] = {v.x, v.y, v.z, v.w};
     tc::Split s[4];
@@ -219,11 +243,21 @@ __device__ __forceinline__ void split_stream(unsigned char* x, unsigned char* lo
 }
 
 // The byte offset of k step kk (8 floats) in a landed tile of kBox-byte
-// boxes.
+// boxes (past them, the tail box).
 template <class G, int kBox>
 __device__ __forceinline__ int step_offset(int kk) {
   constexpr int kSteps = G::kBoxCols / 8;  // k steps of a box row
-  return (kk / kSteps) * kBox + 32 * (kk % kSteps);
+  return kk < G::kMainSteps ? (kk / kSteps) * kBox + 32 * (kk % kSteps) : G::kBoxes * kBox;
+}
+
+// The descriptor of k step kk of the tile at p, `off` bytes in: from d0,
+// p's own, by one addition, or the tail box's in the 32-byte swizzle (kk
+// is a constant of an unrolled loop).
+template <class G>
+__device__ __forceinline__ uint64_t step_desc(uint64_t d0, const unsigned char* p, int kk,
+                                              int off) {
+  if (kk < G::kMainSteps) return desc_at(d0, off);
+  return desc<32>(p + off);
 }
 
 // acc (64 x 8 NT) = A B^T and acc2 = A2 B2^T over d in 3xTF32, the two
@@ -261,16 +295,20 @@ __device__ __forceinline__ void scores(float (&acc)[4 * NT], float (&acc2)[4 * N
                                {desc_opaque<G::kSw>(ah2), desc_opaque<G::kSw>(al2)}};
     const uint64_t b0[2][2] = {{desc_opaque<G::kSw>(bh), desc_opaque<G::kSw>(bl)},
                                {desc_opaque<G::kSw>(bh2), desc_opaque<G::kSw>(bl2)}};
+    const unsigned char* const pa[2][2] = {{ah, al}, {ah2, al2}};
+    const unsigned char* const pb[2][2] = {{bh, bl}, {bh2, bl2}};
+    auto da = [&](int i, int j, int kk, int o) { return step_desc<G>(a0[i][j], pa[i][j], kk, o); };
+    auto db = [&](int i, int j, int kk, int o) { return step_desc<G>(b0[i][j], pb[i][j], kk, o); };
 #pragma unroll
     for (int kk = 0; kk < G::kD / 8; ++kk) {
       const int oa = step_offset<G, G::kResBox>(kk);
       const int ob = step_offset<G, G::kStrBox>(kk);
-      tc::wgmma_tf32_ss<NT>(acc, desc_at(a0[0][x], oa), desc_at(b0[0][1 - x], ob), kk > 0);
-      tc::wgmma_tf32_ss<NT>(acc2, desc_at(a0[1][x], oa), desc_at(b0[1][1 - x], ob), kk > 0);
-      tc::wgmma_tf32_ss<NT>(acc, desc_at(a0[0][1 - x], oa), desc_at(b0[0][x], ob), 1);
-      tc::wgmma_tf32_ss<NT>(acc2, desc_at(a0[1][1 - x], oa), desc_at(b0[1][x], ob), 1);
-      tc::wgmma_tf32_ss<NT>(acc, desc_at(a0[0][0], oa), desc_at(b0[0][0], ob), 1);
-      tc::wgmma_tf32_ss<NT>(acc2, desc_at(a0[1][0], oa), desc_at(b0[1][0], ob), 1);
+      tc::wgmma_tf32_ss<NT>(acc, da(0, x, kk, oa), db(0, 1 - x, kk, ob), kk > 0);
+      tc::wgmma_tf32_ss<NT>(acc2, da(1, x, kk, oa), db(1, 1 - x, kk, ob), kk > 0);
+      tc::wgmma_tf32_ss<NT>(acc, da(0, 1 - x, kk, oa), db(0, x, kk, ob), 1);
+      tc::wgmma_tf32_ss<NT>(acc2, da(1, 1 - x, kk, oa), db(1, x, kk, ob), 1);
+      tc::wgmma_tf32_ss<NT>(acc, da(0, 0, kk, oa), db(0, 0, kk, ob), 1);
+      tc::wgmma_tf32_ss<NT>(acc2, da(1, 0, kk, oa), db(1, 0, kk, ob), 1);
     }
   }
 }
@@ -292,9 +330,11 @@ __device__ __forceinline__ void score(float (&hh)[4 * NT], float (&x)[4 * NT],
   for (int kk = 0; kk < G::kD / 8; ++kk) {
     const int oa = step_offset<G, G::kResBox>(kk);
     const int ob = step_offset<G, G::kStrBox>(kk);
-    tc::wgmma_tf32_ss<NT>(x, desc_at(a[1], oa), desc_at(b[0], ob), kk > 0);
-    tc::wgmma_tf32_ss<NT>(hh, desc_at(a[0], oa), desc_at(b[0], ob), kk > 0);
-    tc::wgmma_tf32_ss<NT>(x, desc_at(a[0], oa), desc_at(b[1], ob), 1);
+    tc::wgmma_tf32_ss<NT>(x, step_desc<G>(a[1], al, kk, oa), step_desc<G>(b[0], bh, kk, ob),
+                          kk > 0);
+    tc::wgmma_tf32_ss<NT>(hh, step_desc<G>(a[0], ah, kk, oa), step_desc<G>(b[0], bh, kk, ob),
+                          kk > 0);
+    tc::wgmma_tf32_ss<NT>(x, step_desc<G>(a[0], ah, kk, oa), step_desc<G>(b[1], bl, kk, ob), 1);
   }
 }
 
@@ -316,12 +356,13 @@ __device__ __forceinline__ void fragments(uint32_t (&fa)[NT][8], const float (&v
   }
 }
 
-// One m64nDk8 tf32 wgmma with A from registers (D = 64 or 80).
+// One m64nDk8 tf32 wgmma with A from registers (D = 64, 80 or 88).
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
   if constexpr (D == 64) tc::wgmma_m64n64k8_tf32_rs(d, a, b, accumulate);
-  else tc::wgmma_m64n80k8_tf32_rs(d, a, b, accumulate);
+  else if constexpr (D == 80) tc::wgmma_m64n80k8_tf32_rs(d, a, b, accumulate);
+  else tc::wgmma_m64n88k8_tf32_rs(d, a, b, accumulate);
 }
 
 // part[i] (64 x D) = A_i B_i over the chunk's NT live 8-token steps in

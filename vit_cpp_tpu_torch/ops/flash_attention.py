@@ -19,12 +19,14 @@ Which body of the kernel a call runs, at both entry points:
                           88, ViT-H/14's and ViT-g/14's heads, each tile a
                           64-column box and a tail box)
     bf16, any other d     mma.sync (csrc/attention_body.cuh)
-    f32, d = 64 and 80    3xTF32 on wgmma + TMA (csrc/attention_tf32_wgmma.cuh)
+    f32, d = 64, 80, 88   3xTF32 on wgmma + TMA (csrc/attention_tf32_wgmma.cuh;
+                          at 88, ViT-g/14's heads, each tile five 64-byte
+                          boxes and a 32-byte tail box)
     f32, any other d      3xTF32 on mma.sync (attention_tf32, attention_qkv.cu)
 
 `attention_qkv_mma` and `flash_attention_mma` (MMA_KERNEL) run the
-mma.sync bodies at any d, in bf16 and in f32, bf16 d = 64, 80, 88 and f32
-d = 64, 80 included: for the checks only (the forward anatomy's `full`
+mma.sync bodies at any d, in bf16 and in f32, d = 64, 80 and 88
+included: for the checks only (the forward anatomy's `full`
 and the wgmma body are the bf16 body bit for bit; chip_smoke.py times
 each beside the wgmma body that replaced it). No path of the port calls
 them.
@@ -40,14 +42,14 @@ and of the backward kernel, csrc/attention_qkv_grad.cu:
 
 Which body of the backward kernel a call runs:
 
-    f32, d = 64 and 80   3xTF32 on wgmma + TMA (csrc/attention_grad_wgmma.cuh;
+    f32, d = 64, 80, 88  3xTF32 on wgmma + TMA (csrc/attention_grad_wgmma.cuh;
                          every training path's head: ViT-Ti/S/B/L at 64,
-                         ViT-H/14 at 80)
+                         ViT-H/14 at 80, ViT-g/14 at 88)
     bf16, d = 64         bf16 wgmma + TMA (csrc/attention_grad_bf16_wgmma.cuh)
     any other call       mma.sync (csrc/attention_grad_body.cuh)
 
 `attention_qkv_grad_mma` (GRAD_MMA_KERNEL) runs the mma.sync bodies at
-any d, f32 d = 64 and 80 and bf16 d = 64 included: for the checks only
+any d, f32 d = 64, 80 and 88 and bf16 d = 64 included: for the checks only
 (chip_smoke.py times them beside the wgmma bodies). No path of the port
 calls it.
 

@@ -18,8 +18,9 @@ measurement tools that run a kernel of their own.
   the sharded engine, with the forward's times beside one card's.
 - grad_variants: no JAX counterpart; copies of csrc/ with a change each,
   K2's C entry (bf16 at d = 64) or with --entry k1 K1's (bf16 at d = 80
-  and 88) built from every copy and the copies timed in turns, with
-  ptxas's registers, spills and wgmma notes.
+  and 88), with --dtype f32 either entry's f32 body at d = 88, built from
+  every copy and the copies timed in turns, with ptxas's registers,
+  spills and wgmma notes.
 
 Each runs as `python -m vit_cpp_tpu_torch.tools.<name>` with the JAX
 tool's flags, the first three and grad_variants on the card only: a

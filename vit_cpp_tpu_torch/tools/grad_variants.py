@@ -2,6 +2,7 @@
 
     python -m vit_cpp_tpu_torch.tools.grad_variants DIR [DIR ...] [--shapes 32x197 64x197 8x785]
     python -m vit_cpp_tpu_torch.tools.grad_variants --entry k1 DIR [DIR ...] [--shapes 80x8x257]
+    python -m vit_cpp_tpu_torch.tools.grad_variants [--entry k1] --dtype f32 DIR [DIR ...]
 
 Each DIR is a copy of vit_cpp_tpu_torch/csrc with a change to try (other
 constants in a header, another schedule). The tool compiles each DIR's
@@ -16,9 +17,13 @@ version at bf16 edges and says whether its output equals the first
 variant's bit for bit. K2: five d=64 shapes (T = 1, 65 with ToMe sizes,
 197, 257 with sizes, 785; within 2e-2 x max|plain|). K1: d = 80 and 88 at
 T = 1, 65 with ToMe sizes, 257, 257 with kv = 256 and pad rows of 1e4,
-577 safe (within 2e-2). Then it times the variants in turns at each
-shape (K2: B x T, ViT-B/16's 12 heads of 64, bf16; K1: d x B x T, 16
-heads, bf16 fast): device ms per call of a CUDA graph of a chain of calls
+577 safe (within 2e-2). With --dtype f32 both take the f32 bodies at
+d = 88 (ViT-g/14's heads; kernels whose name holds "tf32_wgmma" (K1) or
+"wgmma88" (K2)): K1 the same cases in f32 (within 2e-5), K2 the five
+shapes with heads of 88 (within 1e-4 x max|plain|). Then it times the
+variants in turns at each shape (K2: B x T, ViT-B/16's 12 heads of 64,
+bf16; K1, and K2 in f32: d x B x T, 16 heads, K1 fast in bf16 and safe
+in f32): device ms per call of a CUDA graph of a chain of calls
 (tools.time_ms), in the order given and then in reverse, the mean of the
 two; and, at the first shape, each launch's device us per call from
 torch.profiler.
@@ -53,10 +58,14 @@ K1_HEADS = 16
 K1_CASES = [(d, t, fast, sized, kv) for d in (80, 88) for t, fast, sized, kv in (
     (1, True, False, None), (65, False, True, None), (257, True, False, None),
     (257, False, False, 256), (577, False, False, None))]
-# (C entry's source, key of its kernels' names, default timed shapes)
-ENTRIES = {"k2": ("attention_qkv_grad.cu", "wgmma", ["32x197", "64x197", "8x785"]),
-           "k1": ("attention_qkv.cu", "wgmma_d",
-                  ["80x8x257", "80x64x257", "88x8x257", "88x32x257"])}
+# (C entry's source, key of its kernels' names, default timed shapes) by
+# (entry, dtype)
+ENTRIES = {("k2", "bf16"): ("attention_qkv_grad.cu", "wgmma", ["32x197", "64x197", "8x785"]),
+           ("k1", "bf16"): ("attention_qkv.cu", "wgmma_d",
+                            ["80x8x257", "80x64x257", "88x8x257", "88x32x257"]),
+           ("k2", "f32"): ("attention_qkv_grad.cu", "wgmma88", ["88x8x257", "88x64x257"]),
+           ("k1", "f32"): ("attention_qkv.cu", "tf32_wgmma", ["88x8x257", "88x64x257"])}
+F32_D = 88
 
 
 def parse_report(log: str) -> tuple:
@@ -114,42 +123,49 @@ def entry(path: str, k1: bool = False):
     return fn
 
 
+def _dtype_code(x: torch.Tensor) -> int:
+    return 0 if x.dtype == torch.float32 else 1
+
+
 def call(fn, qkv: torch.Tensor, do: torch.Tensor, nh: int, sizes=None) -> torch.Tensor:
-    """One bf16 call of a variant's K2 entry: (B, T, 3h) -> (B, T, 3h)."""
+    """One call of a variant's K2 entry: (B, T, 3h) -> (B, T, 3h)."""
     b, t, three_h = qkv.shape
     d = three_h // 3 // nh
     out = torch.empty_like(qkv)
     stats = torch.empty((b, nh, t, 3), dtype=torch.float32, device=qkv.device)
     rc = fn(qkv.data_ptr(), do.data_ptr(), None if sizes is None else sizes.data_ptr(),
             out.data_ptr(), stats.data_ptr(), b, t, nh, d, _LOG2E / math.sqrt(d),
-            1.0 / math.sqrt(d), 1, torch.cuda.current_stream().cuda_stream)
+            1.0 / math.sqrt(d), _dtype_code(qkv), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"variant launch failed: CUDA error {rc}")
     return out
 
 
 def call_k1(fn, qkv: torch.Tensor, nh: int, fast: bool, sizes=None, kv=None) -> torch.Tensor:
-    """One bf16 call of a variant's K1 entry: (B, T, 3h) -> (B, T, h)."""
+    """One call of a variant's K1 entry: (B, T, 3h) -> (B, T, h)."""
     b, t, three_h = qkv.shape
     d = three_h // 3 // nh
     out = torch.empty((b, t, three_h // 3), dtype=qkv.dtype, device=qkv.device)
     rc = fn(qkv.data_ptr(), None if sizes is None else sizes.data_ptr(), out.data_ptr(), b, t,
-            nh, d, t if kv is None else kv, _LOG2E / math.sqrt(d), int(fast), 1,
+            nh, d, t if kv is None else kv, _LOG2E / math.sqrt(d), int(fast), _dtype_code(qkv),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"variant launch failed: CUDA error {rc}")
     return out
 
 
-def edges(gen, k1: bool):
+def edges(gen, k1: bool, f32: bool):
     """The checked cases: (label, call of a variant's entry, plain output,
-    the scale its error is divided by)."""
+    the scale its error is divided by, the tolerance)."""
     from vit_cpp_tpu_torch.ops.flash_attention import (attention_qkv_grad_plain,
                                                        attention_qkv_plain)
 
+    dtype = torch.float32 if f32 else torch.bfloat16
     if k1:
         for d, t, fast, sized, kv in K1_CASES:
-            qkv = torch.randn((2, t, 3 * K1_HEADS * d), generator=gen, device="cuda").bfloat16()
+            if f32 and d != F32_D:
+                continue
+            qkv = torch.randn((2, t, 3 * K1_HEADS * d), generator=gen, device="cuda").to(dtype)
             if kv is not None:
                 qkv[:, kv:] = 1e4
             sizes = (torch.randint(1, 5, (2, t), generator=gen, device="cuda").float()
@@ -158,21 +174,29 @@ def edges(gen, k1: bool):
             yield (f"d={d} T={t} {'fast' if fast else 'safe'}{' sizes' if sized else ''}"
                    f"{f' kv={kv}' if kv else ''}: max|variant - plain|",
                    lambda f, qkv=qkv, fast=fast, sizes=sizes, kv=kv:
-                   call_k1(f, qkv, K1_HEADS, fast, sizes, kv), ref, 1.0)
+                   call_k1(f, qkv, K1_HEADS, fast, sizes, kv), ref, 1.0, 2e-5 if f32 else 2e-2)
         return
+    d = F32_D if f32 else 64
     for b, t, nh, sized in CASES:
-        qkv = torch.randn((b, t, 192 * nh), generator=gen, device="cuda").bfloat16()
-        do = torch.randn((b, t, 64 * nh), generator=gen, device="cuda").bfloat16()
+        qkv = torch.randn((b, t, 3 * d * nh), generator=gen, device="cuda").to(dtype)
+        do = torch.randn((b, t, d * nh), generator=gen, device="cuda").to(dtype)
         sizes = (torch.randint(1, 5, (b, t), generator=gen, device="cuda").float()
                  if sized else None)
         ref = attention_qkv_grad_plain(qkv, do, nh, sizes=sizes).float()
         yield (f"B={b} T={t} nh={nh}{' sizes' if sized else ''}: max|variant - plain| / "
                "max|plain|", lambda f, qkv=qkv, do=do, nh=nh, sizes=sizes:
-               call(f, qkv, do, nh, sizes), ref, ref.abs().max().item())
+               call(f, qkv, do, nh, sizes), ref, ref.abs().max().item(), 1e-4 if f32 else 2e-2)
 
 
-def timed(shape: str, gen, k1: bool) -> tuple:
+def timed(shape: str, gen, k1: bool, f32: bool) -> tuple:
     """A timed shape's (label, call of a variant's entry)."""
+    if f32:
+        d, b, t = (int(x) for x in shape.split("x"))
+        qkv = torch.randn((b, t, 3 * K1_HEADS * d), generator=gen, device="cuda")
+        if k1:
+            return f"d={d} B={b} T={t} f32 safe", lambda f: call_k1(f, qkv, K1_HEADS, False)
+        do = torch.randn((b, t, K1_HEADS * d), generator=gen, device="cuda")
+        return f"d={d} B={b} T={t} f32", lambda f: call(f, qkv, do, K1_HEADS)
     if k1:
         d, b, t = (int(x) for x in shape.split("x"))
         qkv = torch.randn((b, t, 3 * K1_HEADS * d), generator=gen, device="cuda").bfloat16()
@@ -186,15 +210,18 @@ def timed(shape: str, gen, k1: bool) -> tuple:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dirs", nargs="+", help="copies of csrc/, one per variant")
-    ap.add_argument("--entry", choices=sorted(ENTRIES), default="k2",
+    ap.add_argument("--entry", choices=("k1", "k2"), default="k2",
                     help="the C entry built and timed: K2's (bf16 d=64) or K1's (bf16 d=80, 88)")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16",
+                    help="f32: the entry's f32 body at d=88")
     ap.add_argument("--shapes", nargs="*",
                     help="timed calls: B x T (k2; default 32x197 64x197 8x785) or d x B x T "
-                         "(k1; default 80x8x257 80x64x257 88x8x257 88x32x257)")
+                         "(k1; default 80x8x257 80x64x257 88x8x257 88x32x257; f32: "
+                         "88x8x257 88x64x257)")
     args = ap.parse_args(argv)
     require_card("grad_variants")
-    source, key, shapes = ENTRIES[args.entry]
-    k1 = args.entry == "k1"
+    source, key, shapes = ENTRIES[(args.entry, args.dtype)]
+    k1, f32 = args.entry == "k1", args.dtype == "f32"
     names = [os.path.basename(os.path.normpath(d)) for d in args.dirs]
     with ThreadPoolExecutor(len(args.dirs)) as pool:
         built = list(pool.map(lambda d: build(d, source), args.dirs))
@@ -206,19 +233,19 @@ def main(argv=None) -> int:
         print(describe(name, log, key), flush=True)
         fns[name] = entry(path, k1)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, run, ref, scale in edges(gen, k1):
+    for label, run, ref, scale, tol in edges(gen, k1, f32):
         outs = {n: run(f) for n, f in fns.items()}
         errs = {n: (o.float() - ref).abs().max().item() / scale for n, o in outs.items()}
         same = [n for n, o in outs.items() if torch.equal(o, outs[names[0]])]
         print(f"case {label} " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
               + f"; equal to {names[0]} bit for bit: {same}", flush=True)
-        if not all(e <= 2e-2 for e in errs.values()):
+        if not all(e <= tol for e in errs.values()):
             return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     card = f"{torch.cuda.get_device_name(0)} ({smi.splitlines()[0] if smi else 'no nvidia-smi'})"
     for i, shape in enumerate(args.shapes or shapes):
-        label, run = timed(shape, gen, k1)
+        label, run = timed(shape, gen, k1, f32)
         first = {n: time_ms(lambda f=f: run(f), ITERS) for n, f in fns.items()}
         second = {n: time_ms(lambda f=fns[n]: run(f), ITERS) for n in reversed(names)}
         print(f"time {label} on {card} (device ms per call, in turns): "
